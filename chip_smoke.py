@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (kgwas_tpu_torch) end to end on the card and
-holds every CUDA kernel of that path against its plain PyTorch version:
+Drives the port's serving and training paths (kgwas_tpu_torch) end to end
+on the card and holds every CUDA kernel of those paths against its plain
+PyTorch version:
 
   1. card and kernel: nvidia-smi name and power limit, build the kernels
      from ops/csrc with nvcc (build/kernels/)
@@ -12,21 +13,33 @@ holds every CUDA kernel of that path against its plain PyTorch version:
   3. the serving slice at full width: the 200k-SNP synthetic KG (20k
      genes, 12k GO terms per GO type, degree 6), hidden 128, 2 layers,
      random weights from seed 0 -> save_model -> load_pretrained ->
-     predict_all (the kernel must launch once per group and layer) ->
-     the same forward through the plain layer op -> finalize_predictions
+     predict_all (the kernel must launch once per group and layer that
+     reaches the head) -> the same forward through the plain layer op ->
+     finalize_predictions
   4. timing with CUDA events: predict_all, and every kernel launch of one
      forward against its plain version and its bound
+  5. the training slice on the same KG: prepare_split, batch 512, lr 1e-4;
+     (a) every backward launch of one step (merged_gat_bwd and
+     csc_segment_sum) against the plain versions, two runs bitwise equal;
+     (b) three steps through the kernels against three through the plain
+     layer op; (d) train step ms, training edge-traversals/s, each
+     backward kernel's ms per step against its bound, its plain version
+     and, for the CSC sum, index_add_; (c) KGWAS.train(epoch=1), which
+     must launch every kernel per step, ending in KGWAS_P in [0, 1]
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line. Exits non-zero, printing no result, without a
 CUDA device or without the package beside this file.
 """
+import contextlib
+import copy
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -45,6 +58,20 @@ RTOL, ATOL, TRASH_RTOL = 1e-5, 1e-5, 1e-4
 # predict_all through the kernel vs through the plain op: two layers and a
 # head of float32 sums in another order
 PRED_RTOL, PRED_ATOL = 1e-4, 1e-5
+# backward kernels vs their plain versions, both against the plain version
+# evaluated in float64: the kernel's max abs error may be at most
+# GRAD_ERR_RATIO times the float32 plain version's plus GRAD_FLOOR of the
+# largest value. Unit-free, because some gradients cancel to float noise:
+# a_dst shifts every logit of a softmax row alike, so d_a_dst and the sums
+# of dz_e are differences of nearly equal terms (about 1e-13 against terms
+# near 1e-7 in the last layer), and no tolerance fixed in advance fits them
+GRAD_ERR_RATIO, GRAD_FLOOR = 8.0, 1e-6
+# training: batch 512, lr 1e-4 (the engine defaults); three steps through the
+# kernels against three through the plain layer op. Adam moves a parameter
+# by about lr whatever its gradient's size, so a gradient near 0 whose sign
+# differs in the last bits can move it by up to 2 lr per step
+BATCH, LR, CMP_STEPS = 512, 1e-4, 3
+LOSS_RTOL, PARAM_ATOL = 1e-4, 2 * LR * CMP_STEPS
 # published H100 SXM peaks (dense): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -159,10 +186,10 @@ def phase_kernel_vs_plain(device, gat_layer, kgwas_pkg, tmp):
     return worst
 
 
-def profile_forward(fn, fwd_ms, reps=3):
-    """torch.profiler over reps calls: device time per forward by kernel
+def profile_device(fn, fn_ms, what, reps=3):
+    """torch.profiler over reps calls: device time per call by kernel
     (device events only: an operator's row would count its kernels twice),
-    and their sum against the forward's CUDA-event time fwd_ms."""
+    and their sum against the call's CUDA-event time fn_ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -172,14 +199,18 @@ def profile_forward(fn, fwd_ms, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # user annotations (Optimizer.step#Adam.step) span kernels listed
+    # on their own rows
     rows = sorted(((ev.self_device_time_total / 1e3 / reps, ev.key,
                     ev.count // reps) for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
+                   and "#" not in ev.key), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"  profile: device busy {busy:.4f} ms per forward, "
-        f"{busy / fwd_ms:.1%} of the forward's {fwd_ms:.3f} ms (idle "
-        f"{1 - busy / fwd_ms:.1%})")
-    for ms, key, count in rows[:12]:
+    log(f"  profile: device busy {busy:.4f} ms per {what}, "
+        f"{busy / fn_ms:.1%} of the {what}'s {fn_ms:.3f} ms (idle "
+        f"{1 - busy / fn_ms:.1%})")
+    for ms, key, count in rows[:16]:
         log(f"    {ms:8.4f} ms  x{count:<4d} {key[:90]}")
 
 
@@ -196,6 +227,115 @@ def without_trash_rows(L, n_real):
             torch.from_numpy(ro.astype(np.int32)))
 
 
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """Module attributes replaced for the duration of a with block."""
+    old = {k: getattr(module, k) for k in fns}
+    for k, f in fns.items():
+        setattr(module, k, f)
+    try:
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(module, k, f)
+
+
+def group_of(layouts, src):
+    """The destination group whose edge stream a launch read."""
+    for t, L in layouts.items():
+        if L.src is src:
+            return t
+    raise KeyError("a launch on an unknown edge stream")
+
+
+def grad_compare(got, plain, exact, what):
+    """Max abs err of got against the float32 plain version; raises unless
+    got's error against the float64 one is within GRAD_ERR_RATIO of the
+    float32 plain version's plus GRAD_FLOOR of the largest value."""
+    if not got.numel():
+        return 0.0
+    k_err = float((got.double() - exact).abs().max())
+    p_err = float((plain.double() - exact).abs().max())
+    scale = float(exact.abs().max())
+    if k_err > GRAD_ERR_RATIO * p_err + GRAD_FLOOR * scale:
+        raise AssertionError(
+            f"{what}: max abs err against float64 {k_err:.3e}, the float32 "
+            f"plain version's {p_err:.3e}, largest value {scale:.3e}")
+    return float((got - plain).abs().max())
+
+
+def detached(args):
+    return tuple(a.detach() if torch.is_tensor(a) and a.requires_grad else a
+                 for a in args)
+
+
+def as_double(args):
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def bound_ms(words, flops):
+    """(bytes ms, operations ms) at the card's published peaks."""
+    return 4 * words / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+
+
+def bwd_bound(args):
+    """merged_gat_bwd: reads xs, src, row_offsets, att, a_dst, row_max,
+    row_sum, g once, writes w, dz [E] and d_a_dst; two D-wide dot products
+    per edge."""
+    xs, src, ro, att, a_dst, row_max, row_sum, g = args[:8]
+    e = int(ro[-1])
+    words = (sum(t.numel() for t in (xs, src, ro, att, a_dst, row_max,
+                                     row_sum, g)) + 2 * e + a_dst.numel())
+    return bound_ms(words, 4 * xs.shape[1] * e)
+
+
+def csc_bound(g, w, dz, xs, att, layout):
+    """csc_segment_sum: reads g, w, dz, xs, att, dst, csc_perm, csc_offsets
+    once, writes d_xs and d_att; an fma per column per edge, and c_s att and
+    c_s xs per source row."""
+    words = (sum(t.numel() for t in (g, w, dz, xs, att, layout.dst,
+                                     layout.csc_perm, layout.csc_offsets))
+             + xs.numel() + att.numel())
+    d = xs.shape[1]
+    return bound_ms(words, 2 * d * w.numel() + 4 * d * xs.shape[0])
+
+
+def layout_without_trash(L, n_real, device):
+    """Layout L with every trash row's (pad) edges taken out, its CSC
+    rebuilt: a diagnostic stream, not the layer's input. Returns the
+    layout and the kept edges' mask."""
+    deg = np.diff(L.row_offsets.astype(np.int64))
+    keep = np.repeat(np.arange(len(deg)), deg) % L.n_rows_per_rel != n_real
+    src_nt, ro_nt = without_trash_rows(L, n_real)
+    src = L.src[keep]
+    perm = np.argsort(src, kind="stable")
+    off = np.zeros(L.n_src_total + 1, dtype=np.int64)
+    np.cumsum(np.bincount(src, minlength=L.n_src_total), out=off[1:])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    lay = SimpleNamespace(
+        src=src_nt.to(device), row_offsets=ro_nt.to(device),
+        dst=t(L.dst[keep]), csc_perm=t(perm.astype(np.int32)),
+        csc_offsets=t(off.astype(np.int32)),
+        src_base=tuple(int(b) for b in L.src_base),
+        n_rows_per_rel=L.n_rows_per_rel)
+    return lay, t(keep)
+
+
+class HostTimer:
+    """Wraps a host function to add up the seconds its calls take."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, 0.0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
 class Recorder:
     """Wraps the model's layer op to keep each launch's inputs."""
 
@@ -205,6 +345,241 @@ class Recorder:
     def __call__(self, *args, **kwargs):
         self.calls.append((args, kwargs))
         return self.fn(*args, **kwargs)
+
+
+def phase_train(kt, data, cg, device, card):
+    """Phase 5: the training slice at full width. Returns the kernel table
+    rows of merged_gat_bwd and csc_segment_sum, and every kernel's launch
+    count in one KGWAS.train epoch."""
+    from kgwas_tpu_torch import kgwas
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.ops import gat_layer, segment
+
+    t0 = time.perf_counter()
+    data.prepare_split()
+    trainer = kt.KGWAS(data, exp_name="chip_smoke_train", seed=SEED)
+    trainer.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN)
+    model = trainer.model
+    _, x, layouts = trainer._device_state()
+    y_node, w_node = trainer._labels(cg)
+    batches = [torch.from_numpy(b).to(device) for b in
+               epoch_batches(data.train_mask, BATCH, False, None)]
+    live, _ = model.live_groups(layouts)
+    per_step = sum(len(g) for g in live)
+    init = copy.deepcopy(model.state_dict())
+    log(f"phase 5: training set-up {time.perf_counter() - t0:.1f} s: "
+        f"{len(data.train_mask)} train SNPs, {len(batches)} steps of {BATCH} "
+        f"per epoch; {per_step} launches of each layer kernel per step "
+        f"(groups per layer: {live})")
+
+    # (a) every backward launch of one step against the plain versions
+    rec_bwd = Recorder(gat_layer.merged_gat_bwd)
+    rec_csc = Recorder(segment.csc_segment_sum)
+    opt = build_optimizer(model.parameters(), LR, 5e-4)
+    with swapped(gat_layer, merged_gat_bwd=rec_bwd), \
+            swapped(segment, csc_segment_sum=rec_csc):
+        train_step(model, opt, x, layouts, batches[0], y_node, w_node)
+    torch.cuda.synchronize()
+    if len(rec_bwd.calls) != per_step or len(rec_csc.calls) != per_step:
+        raise AssertionError(
+            f"one step launched the backward kernels {len(rec_bwd.calls)} and "
+            f"{len(rec_csc.calls)} times, expected {per_step}")
+    launches = [(detached(b[0]), detached(c[0]))
+                for b, c in zip(rec_bwd.calls, rec_csc.calls)]
+    worst = {"merged_gat_bwd": 0.0, "csc_segment_sum": 0.0, "layer": 0.0}
+    for i, (bargs, cargs) in enumerate(launches):
+        dst_t = group_of(layouts, bargs[1])
+        xs, _, _, att, a_dst, rmax, rsum, g, _, fold, mode, slope, temp = bargs
+        largs = (xs, att, a_dst, rmax, rsum, g, layouts[dst_t], fold, mode,
+                 slope, temp)
+        checks = (
+            ("merged_gat_bwd", ("w", "dz", "d_a_dst"), bargs,
+             gat_layer.merged_gat_bwd, gat_layer.merged_gat_bwd_plain),
+            ("csc_segment_sum", ("d_xs_all", "d_att"), cargs,
+             segment.csc_segment_sum, segment.csc_segment_sum_plain),
+            ("layer", ("d_xs_all", "d_att", "d_a_dst"), largs,
+             gat_layer.merged_gat_backward,
+             gat_layer.merged_gat_backward_plain),
+        )
+        for kernel, names, args, fn, plain_fn in checks:
+            got, again = fn(*args), fn(*args)
+            want, exact = plain_fn(*args), plain_fn(*as_double(args))
+            torch.cuda.synchronize()
+            for name, a, b, c, e in zip(names, got, again, want, exact):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{kernel} {dst_t}: two runs of {name} differ")
+                err = grad_compare(a, c, e, f"{kernel} {dst_t} {name}")
+                worst[kernel] = max(worst[kernel], err)
+            del want, exact
+        log(f"  backward launch {i} {dst_t:18s} {mode} fold={fold}: kernels "
+            f"vs plain within tolerance, bitwise repeatable")
+    log(f"  phase 5a ok: worst abs err merged_gat_bwd "
+        f"{worst['merged_gat_bwd']:.3e}, csc_segment_sum "
+        f"{worst['csc_segment_sum']:.3e}, layer gradient {worst['layer']:.3e}")
+
+    # (b) CMP_STEPS steps through the kernels against the plain layer op
+    def run_steps(ctx):
+        model.load_state_dict(init)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        with ctx:
+            losses = [train_step(model, opt, x, layouts, b, y_node, w_node)
+                      for b in batches[:CMP_STEPS]]
+        return (torch.stack(losses).cpu().numpy(),
+                {k: v.detach().clone() for k, v in model.state_dict().items()})
+
+    loss_k, par_k = run_steps(contextlib.nullcontext())
+    loss_p, par_p = run_steps(swapped(
+        gat_layer, merged_gat_forward=gat_layer.merged_gat_forward_plain,
+        merged_gat_backward=gat_layer.merged_gat_backward_plain))
+    np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL)
+    par_err = max(float((par_k[k] - par_p[k]).abs().max()) for k in par_k)
+    moved = max(float((par_k[k] - init[k]).abs().max()) for k in par_k)
+    if par_err > PARAM_ATOL:
+        raise AssertionError(f"parameters after {CMP_STEPS} steps differ by "
+                             f"{par_err:.3e} > {PARAM_ATOL:.1e}")
+    log(f"  phase 5b ok: {CMP_STEPS} steps, losses kernel {loss_k.tolist()} "
+        f"plain {loss_p.tolist()}; parameters differ by at most "
+        f"{par_err:.3e} (moved by up to {moved:.3e})")
+
+    # (d) timing: steps, then each backward launch of one step
+    model.load_state_dict(init)
+    opt = build_optimizer(model.parameters(), LR, 5e-4)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for b in batches[:25]:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(model, opt, x, layouts, b, y_node, w_node)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+    step_ms = statistics.median(step_ms[5:])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_device(lambda: train_step(model, opt, x, layouts, batches[0],
+                                      y_node, w_node), step_ms,
+                   "training step")
+    tot = {k: dict.fromkeys(("ms", "ms_no_trash", "plain_ms", "bound_ms",
+                             "bytes", "operations", "library_ms"), 0.0)
+           for k in ("merged_gat_bwd", "csc_segment_sum")}
+    for i, (bargs, cargs) in enumerate(launches):
+        dst_t = group_of(layouts, bargs[1])
+        g, w, dz, xs, att, lay, fold = cargs
+        lay_nt, keep = layout_without_trash(
+            trainer.layouts[dst_t], cg.num_nodes[dst_t], device)
+        bargs_nt = (xs, lay_nt.src, lay_nt.row_offsets) + bargs[3:]
+        cargs_nt = (g, w[keep], dz[keep], xs, att, lay_nt, fold)
+        # the library yardstick of the CSC sum: index_add_ of the
+        # materialised [E, D] message cotangent
+        n = lay.n_rows_per_rel
+        dst = lay.dst.long()
+        d_msgs = (w[:, None] * g[dst % n if fold else dst]
+                  + dz[:, None] * att[dst // n])
+        src = lay.src.long()
+        times = {
+            "merged_gat_bwd": (
+                cuda_ms(lambda: gat_layer.merged_gat_bwd(*bargs), 20),  # noqa: B023
+                cuda_ms(lambda: gat_layer.merged_gat_bwd(*bargs_nt), 20),  # noqa: B023
+                cuda_ms(lambda: gat_layer.merged_gat_bwd_plain(*bargs), 3),  # noqa: B023
+                None, bwd_bound(bargs)),
+            "csc_segment_sum": (
+                cuda_ms(lambda: segment.csc_segment_sum(*cargs), 20),  # noqa: B023
+                cuda_ms(lambda: segment.csc_segment_sum(*cargs_nt), 20),  # noqa: B023
+                cuda_ms(lambda: segment.csc_segment_sum_plain(*cargs), 3),  # noqa: B023
+                cuda_ms(lambda: torch.zeros_like(xs).index_add_(  # noqa: B023
+                    0, src, d_msgs), 5),  # noqa: B023
+                csc_bound(g, w, dz, xs, att, lay)),
+        }
+        del d_msgs
+        parts = []
+        for kernel, (ms, ms_nt, plain_ms, lib_ms, (t_b, t_o)) in times.items():
+            t = tot[kernel]
+            t["ms"] += ms
+            t["ms_no_trash"] += ms_nt
+            t["plain_ms"] += plain_ms
+            t["library_ms"] += lib_ms or 0.0
+            t["bytes"] += t_b
+            t["operations"] += t_o
+            t["bound_ms"] += max(t_b, t_o)
+            parts.append(
+                f"{kernel} {ms:.4f} ms (without trash rows {ms_nt:.4f}) | "
+                f"plain {plain_ms:.4f} | "
+                + (f"index_add_ {lib_ms:.4f} | " if lib_ms else "")
+                + f"bound {max(t_b, t_o):.4f} "
+                f"({'bytes' if t_b >= t_o else 'operations'})")
+        log(f"  backward launch {i} {dst_t:18s} " + " || ".join(parts))
+    edges = cg.total_real_edges()
+    rate = edges * LAYERS / (step_ms / 1e3)
+    log(f"phase 5d [{card}]: train step {step_ms:.3f} ms median of 20; "
+        f"training edge-traversals/s {rate:.4g} ({edges} real edges x "
+        f"{LAYERS} layers); peak memory {peak_gb:.2f} GB; per step: "
+        + "; ".join(f"{k} {t['ms']:.4f} ms (without trash rows "
+                    f"{t['ms_no_trash']:.4f}) / plain {t['plain_ms']:.4f} / "
+                    f"bound {t['bound_ms']:.4f}" for k, t in tot.items()))
+
+    # (c) the public entry point, counts set to 0 just before
+    model.load_state_dict(init)
+    tail = {name: HostTimer(getattr(kgwas, name))
+            for name in ("save_model", "finalize_predictions", "write_table")}
+    gat_layer.launches = gat_layer.bwd_launches = segment.launches = 0
+    t0 = time.perf_counter()
+    with swapped(kgwas, **tail):
+        table = trainer.train(batch_size=BATCH, epoch=1, lr=LR)
+    train_s = time.perf_counter() - t0
+    counts = {"merged_gat_fwd": gat_layer.launches,
+              "merged_gat_bwd": gat_layer.bwd_launches,
+              "csc_segment_sum": segment.launches}
+    steps = len(trainer.epoch_losses[0])
+    # each step's forward and backward, and two full-graph forwards: the
+    # epoch's validation and the best state's test and KGWAS_P
+    want = {"merged_gat_fwd": per_step * (steps + 2),
+            "merged_gat_bwd": per_step * steps,
+            "csc_segment_sum": per_step * steps}
+    if steps != len(batches) or counts != want:
+        raise AssertionError(f"KGWAS.train: {steps} steps, launches {counts}, "
+                             f"expected {len(batches)} steps, {want}")
+    kp = table["KGWAS_P"]
+    if not (np.isfinite(kp).all() and (kp >= 0).all() and (kp <= 1).all()):
+        raise AssertionError("KGWAS_P after training not finite in [0, 1]")
+    losses = np.asarray(trainer.epoch_losses[0])
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+    rec = trainer.train_history[0]
+    log(f"phase 5 ok: KGWAS.train(batch_size={BATCH}, epoch=1) in "
+        f"{train_s:.1f} s ({rec['epoch_time_s']:.2f} s epoch, {steps} steps, "
+        f"host tail: "
+        + ", ".join(f"{k} {v.seconds:.2f} s" for k, v in tail.items())
+        + "; "
+        f"{rec['edges_per_sec']:.4g} edge-traversals/s with the epoch's "
+        f"evaluation); launches {counts}; loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}; val pearson {rec['val_pearsonr']:.4f}; test "
+        f"{trainer.test_metrics}; {len(kp)} KGWAS_P finite in [0, 1]")
+
+    rows = []
+    for name, src, replaces in (
+            ("merged_gat_bwd", "merged_gat_bwd.cu",
+             "kgwas_tpu/ops/pallas_gat_layer.py:387"),
+            ("csc_segment_sum", "csc_segment_sum.cu",
+             "kgwas_tpu/ops/pallas_segment.py:659")):
+        t = tot[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"kgwas_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": counts[name],
+            "max_abs_err": worst[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes"] >= t["operations"]
+                         else "operations"),
+            "library_ms": t["library_ms"] if name == "csc_segment_sum"
+            else None,
+        })
+    return rows, counts
 
 
 def main():
@@ -218,7 +593,6 @@ def main():
     sys.path.insert(0, str(HERE))
     import kgwas_tpu_torch as kt
     from kgwas_tpu_torch.engine.checkpoint import save_model
-    from kgwas_tpu_torch.models import hetero_gnn
     from kgwas_tpu_torch.ops import build, gat_layer
     from kgwas_tpu_torch.stats.calibration import finalize_predictions
     from kgwas_tpu_torch.utils import write_table
@@ -268,26 +642,25 @@ def main():
     for t, L in served.layouts.items():
         log(f"  group {t:18s} R={len(L.rel_keys)} E_tot={len(L.src)} "
             f"rows={L.n_rows_total} src_rows={L.n_src_total}")
-    n_groups = len(served.layouts)
+    live, _ = served.model.live_groups(served.layouts)
+    per_forward = sum(len(g) for g in live)
+    log(f"  groups per layer that reach the head: {live}")
 
     served.predict_all()   # first call: device state, allocator warm-up
     torch.cuda.synchronize()
     gat_layer.launches = 0
     pred = served.predict_all()
     launches = gat_layer.launches
-    if launches != LAYERS * n_groups:
+    if launches != per_forward:
         raise AssertionError(
             f"predict_all launched the kernel {launches} times, expected "
-            f"{LAYERS * n_groups}")
-    log(f"  predict_all launched merged_gat_fwd {launches} times "
-        f"({LAYERS} layers x {n_groups} groups)")
+            f"{per_forward}")
+    log(f"  predict_all launched merged_gat_fwd {launches} times")
     if pred.shape != (cg.num_nodes["SNP"],) or not np.isfinite(pred).all():
         raise AssertionError(f"bad predictions: shape {pred.shape}")
-    hetero_gnn.merged_gat_forward = gat_layer.merged_gat_forward_plain
-    try:
+    with swapped(gat_layer,
+                 merged_gat_forward=gat_layer.merged_gat_forward_plain):
         pred_plain = served.predict_all()
-    finally:
-        hetero_gnn.merged_gat_forward = gat_layer.merged_gat_forward
     np.testing.assert_allclose(pred, pred_plain, rtol=PRED_RTOL,
                                atol=PRED_ATOL)
     pred_err = float(np.abs(pred - pred_plain).max())
@@ -318,21 +691,18 @@ def main():
         fwd_ms.append(start.elapsed_time(stop))
     fwd_ms = statistics.median(fwd_ms[2:])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile_forward(served.predict_all, fwd_ms)
+    profile_device(served.predict_all, fwd_ms, "forward")
     edges = cg.total_real_edges()
     rec = Recorder(gat_layer.merged_gat_forward)
-    hetero_gnn.merged_gat_forward = rec
-    try:
+    with swapped(gat_layer, merged_gat_forward=rec):
         served.predict_all()
-    finally:
-        hetero_gnn.merged_gat_forward = gat_layer.merged_gat_forward
-    groups = list(served.layouts)
+    dev_layouts = served._device_state()[2]
     tot = {"ms": 0.0, "ms_no_trash": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bytes": 0.0, "operations": 0.0}
     worst_full = 0.0
     for i, (args, kwargs) in enumerate(rec.calls):
-        dst_t = groups[i % n_groups]
-        xs, src, ro, att, a_dst, n_per_rel = args
+        xs, src, ro, att, a_dst, n_per_rel = args[:6]
+        dst_t = group_of(dev_layouts, src)
         call = lambda: gat_layer.merged_gat_forward(*args, **kwargs)  # noqa: E731
         plain = lambda: gat_layer.merged_gat_forward_plain(*args, **kwargs)  # noqa: E731
         ms = cuda_ms(call, 20)
@@ -342,7 +712,7 @@ def main():
         for j, name in enumerate(("out", "row_max", "row_sum")):
             a, _ = compare(got[j], want[j],
                            trash_mask(got[j].shape[0], n_per_rel, n_real),
-                           f"full-width {dst_t} layer {i // n_groups} {name}")
+                           f"full-width {dst_t} launch {i} {name}")
             worst_full = max(worst_full, a)
         t_bytes, t_ops = layer_bound(xs, src, ro, att, a_dst, got[0])
         bound = max(t_bytes, t_ops)
@@ -361,7 +731,7 @@ def main():
         tot["ms_no_trash"] += ms_nt
         deg = np.diff(served.layouts[dst_t].row_offsets)
         per_warp = deg.reshape(-1, n_per_rel).sum(0)
-        log(f"  layer {i // n_groups} {dst_t:18s} kernel {ms:.4f} ms "
+        log(f"  launch {i} {dst_t:18s} kernel {ms:.4f} ms "
             f"(without trash rows {ms_nt:.4f}) | plain {plain_ms:.4f} ms | "
             f"bound {bound:.4f} ms ({by}) | E_tot {src.numel()} | edges per "
             f"node: mean {per_warp.mean():.1f}, max {per_warp.max()} "
@@ -374,12 +744,15 @@ def main():
         f"{tot['plain_ms']:.4f} ms / bound {tot['bound_ms']:.4f} ms per "
         f"forward ({len(rec.calls)} launches); peak memory {peak_gb:.2f} GB")
 
+    # ---- phase 5: the training slice at full width
+    train_rows, train_counts = phase_train(kt, data, cg, device, card)
+
     kernels = [{
         "name": "merged_gat_fwd",
         "route": "cuda",
         "source": "kgwas_tpu_torch/ops/csrc/merged_gat_fwd.cu",
         "replaces": "kgwas_tpu/ops/pallas_gat_layer.py:210",
-        "launches": launches,
+        "launches": train_counts["merged_gat_fwd"],
         "max_abs_err": max(worst_small, worst_full),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
@@ -387,7 +760,7 @@ def main():
         "bound_by": ("bytes" if tot["bytes"] >= tot["operations"]
                      else "operations"),
         "library_ms": None,
-    }]
+    }] + train_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,3 +7,5 @@ from .checkpoint import (
     save_model,
     unflatten_params,
 )
+from .loop import batch_loss, epoch_batches, forward, train_step
+from .optim import build_optimizer

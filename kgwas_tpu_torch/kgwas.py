@@ -1,30 +1,38 @@
-"""KGWAS: the serving engine (user API) of the port.
+"""KGWAS: the training and serving engine (user API) of the port.
 
-Counterpart of ``kgwas_tpu/kgwas.py`` for the serving slice:
-``initialize_model``, ``load_pretrained``, ``load_pretrained_torch`` and
-``predict_all``. It runs on CUDA unless the caller passes ``device="cpu"``;
-with no card and no explicit device it raises. The KGWAS_P tail is
+Counterpart of ``kgwas_tpu/kgwas.py``: ``initialize_model``, ``train``,
+``load_pretrained``, ``load_pretrained_torch`` and ``predict_all``. It runs
+on CUDA unless the caller passes ``device="cpu"``; with no card and no
+explicit device it raises. The KGWAS_P tail is
 ``stats.calibration.finalize_predictions(data.lr_uni, pred[data.all_ids])``.
 """
 from __future__ import annotations
 
+import copy
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .config import ModelConfig
-from .engine.checkpoint import load_model, load_pretrained_torch, params_from_jax
+from .engine.checkpoint import (load_model, load_pretrained_torch,
+                                params_from_jax, save_model)
+from .engine.loop import epoch_batches, forward, train_step
+from .engine.optim import build_optimizer
 from .graph.merged_layout import build_merged_layouts
 from .models.hetero_gnn import HeteroGNN, check_supported, device_layouts
-from .utils import read_table
+from .stats.calibration import finalize_predictions
+from .utils import compute_metrics, print_sys, read_table, write_table
 
 TILE_ROWS = 512
 _SEMANTIC_KEYS = ("negative_slope", "dropout", "sigmoid_gat", "temperature",
                   "out_channels", "edge_dim", "pheno_condition")
-_TRAINING = "ROADMAP.md Queue 1 item 2 (training)"
 _VARIANTS = "ROADMAP.md Queue 1 item 3 (model variants)"
+_PROFILING = "ROADMAP.md Queue 1 item 5 (bench and profiling)"
+_LONG_RUNS = "ROADMAP.md Queue 1 item 8 (long runs)"
+_MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
 
 
 def resolve_device(device) -> torch.device:
@@ -51,7 +59,8 @@ class KGWAS:
         seed: int = 42,
     ):
         if weight_bias_track:
-            raise NotImplementedError(f"wandb tracking belongs to {_TRAINING}")
+            raise NotImplementedError(
+                f"wandb tracking is not ported: {_PROFILING}")
         self.seed = seed
         self.data = data
         self.data_path = data.data_path
@@ -105,7 +114,6 @@ class KGWAS:
             self.data.gene_init_dim_size, self.data.go_init_dim_size,
             seed=self.seed,
         ).to(self.device)
-        self.model.eval()
         return self
 
     def load_pretrained(self, path: str):
@@ -133,7 +141,7 @@ class KGWAS:
         self.model.load_state_dict(load_pretrained_torch(path))
         return self
 
-    # -------------------------------------------------------------- inference
+    # ------------------------------------------------------------ device state
 
     def _device_state(self):
         """Node features and merged streams on the device, built once."""
@@ -144,13 +152,169 @@ class KGWAS:
             self._graph = (cg, x, device_layouts(self.layouts, self.device))
         return self._graph
 
+    def _labels(self, cg):
+        """(y_node, w_node) [N_snp_pad] on the device: the split's labels
+        (0 past them) and the LDSC weights (0 for SNPs without one)."""
+        n_pad = cg.padded_nodes["SNP"]
+        y_node = np.zeros(n_pad, dtype=np.float32)
+        y_lbl = self.data.graph.node_labels.get("SNP")
+        if y_lbl is not None:
+            y_node[: len(y_lbl)] = y_lbl
+        w_node = np.zeros(n_pad, dtype=np.float32)
+        for rs, w in getattr(self.data, "rs_id_to_ldsc_weight", {}).items():
+            w_node[self.data.id2idx["SNP"][rs]] = w
+        return (torch.from_numpy(y_node).to(self.device),
+                torch.from_numpy(w_node).to(self.device))
+
+    # --------------------------------------------------------------- training
+
+    def train(
+        self,
+        batch_size: int = 512,
+        num_workers: int = 0,
+        lr: float = 1e-4,
+        weight_decay: float = 5e-4,
+        epoch: int = 10,
+        save_best_model: bool = True,
+        save_name: Optional[str] = None,
+        data_to_cuda: bool = False,
+        shuffle: bool = False,
+        log_interval: int = 500,
+        profile_dir: Optional[str] = None,
+        metrics_log: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
+        resume: bool = False,
+        max_restarts: int = 0,
+        mesh=None,
+        scan_steps: int = 8,
+        heartbeat_path: Optional[str] = None,
+    ):
+        """Full-graph training with the JAX package's signature and the
+        reference's defaults and quirks: one optimizer step per seed batch
+        (consecutive, drop_last), LDSC-weighted MSE, torch Adam; after each
+        epoch a full-graph forward scores the validation SNPs (the tail past
+        a batch_size multiple dropped, the whole set when that leaves none)
+        and the best state by ascending val Pearson (from -1000) is kept.
+        The best state is saved in the JAX package's checkpoint format,
+        scores the test SNPs and gives KGWAS_P; ``predict_all()`` then
+        serves it. Returns the KGWAS_P table, also written as pred.csv.
+
+        num_workers, data_to_cuda and scan_steps are accepted and do
+        nothing: there are no sampler processes, the graph always lives on
+        the device, and eager PyTorch dispatches one step at a time (the
+        JAX package's lax.scan of scan_steps steps runs the same math)."""
+        unported = {
+            "profile_dir": (profile_dir, None, _PROFILING),
+            "metrics_log": (metrics_log, None, _PROFILING),
+            "checkpoint_every": (checkpoint_every, None, _LONG_RUNS),
+            "resume": (resume, False, _LONG_RUNS),
+            "max_restarts": (max_restarts, 0, _LONG_RUNS),
+            "heartbeat_path": (heartbeat_path, None, _LONG_RUNS),
+            "mesh": (mesh, None, _MULTI_DEVICE),
+        }
+        for name, (value, default, item) in unported.items():
+            if value != default:
+                raise NotImplementedError(f"{name} is not ported yet: {item}")
+        if save_name is None:
+            save_name = self.exp_name
+        self.save_name = save_name
+
+        cg, x, layouts = self._device_state()
+        y_node, w_node = self._labels(cg)
+        y_host = y_node.cpu().numpy()
+        train_ids = np.asarray(self.data.train_mask)
+        val_ids = np.asarray(self.data.val_mask)
+        test_ids = np.asarray(self.data.test_mask)
+
+        model = self.model
+        model.train()
+        optimizer = build_optimizer(model.parameters(), lr, weight_decay)
+        best_state = copy.deepcopy(model.state_dict())
+        min_val = -1000.0
+        best_epoch = 0
+        shuffle_rng = np.random.default_rng(self.seed)
+        edges_per_step = cg.total_real_edges() * self.model_cfg.gnn_num_layers
+
+        print_sys("Start Training...")
+        self.train_history = []
+        self.epoch_losses = []
+        for ep in range(epoch):
+            t0 = time.perf_counter()
+            batches = epoch_batches(train_ids, batch_size, shuffle,
+                                    shuffle_rng)
+            losses = []
+            for st, b in enumerate(batches):
+                losses.append(train_step(
+                    model, optimizer, x, layouts,
+                    torch.from_numpy(b).to(self.device), y_node, w_node))
+                if st % log_interval == 0 and st >= log_interval:
+                    print_sys(f"Epoch {ep + 1} Step {st + 1} Train Loss: "
+                              f"{float(losses[-1]):.4f}")
+            self.epoch_losses.append(
+                torch.stack(losses).cpu().tolist() if losses else [])
+
+            pred_all = forward(model, x, layouts).cpu().numpy()
+            # reference quirk: the val loader drops its tail past a
+            # batch_size multiple; with fewer val SNPs than a batch the
+            # whole set is scored
+            n_val_eval = (len(val_ids) // batch_size) * batch_size
+            val_eval_ids = val_ids[:n_val_eval] if n_val_eval else val_ids
+            val_metrics = compute_metrics({"pred": pred_all[val_eval_ids],
+                                           "truth": y_host[val_eval_ids]})
+            dt = time.perf_counter() - t0
+            rec = {
+                "epoch": ep + 1,
+                "steps": len(batches),
+                "epoch_time_s": dt,
+                "edges_per_sec": edges_per_step * len(batches) / dt,
+                "loss": (self.epoch_losses[-1][-1] if losses
+                         else float("nan")),
+                **{f"val_{k}": v for k, v in val_metrics.items()},
+            }
+            print_sys(
+                f"Epoch {ep + 1}: Validation MSE: {val_metrics['mse']:.4f} "
+                f"Validation Pearson: {val_metrics['pearsonr']:.4f}. "
+                f"({rec['steps']} steps, {dt:.2f}s, "
+                f"{rec['edges_per_sec']:.3g} edge-traversals/s)")
+            self.train_history.append(rec)
+            if val_metrics["pearsonr"] > min_val:
+                min_val = val_metrics["pearsonr"]
+                best_state = copy.deepcopy(model.state_dict())
+                best_epoch = ep
+
+        model.load_state_dict(best_state)
+        self.best_params = best_state
+        self.best_epoch = best_epoch
+        model_dir = os.path.join(self.data_path, "model", save_name)
+        if save_best_model:
+            print_sys("Saving models to " + model_dir)
+            save_model(best_state, self.config, model_dir)
+
+        pred_all = forward(model, x, layouts).cpu().numpy()
+        self.test_metrics = compute_metrics(
+            {"pred": pred_all[test_ids], "truth": y_host[test_ids]})
+        table, self.scale_factor = finalize_predictions(
+            self.data.lr_uni, pred_all[np.asarray(self.data.all_mask)])
+        out_dir = os.path.join(self.data_path, "model_pred", "new_experiments")
+        os.makedirs(out_dir, exist_ok=True)
+        out_csv = os.path.join(out_dir, save_name + "_pred.csv")
+        write_table(table, out_csv)
+        print_sys("KGWAS prediction and p-values saved to " + out_csv)
+        if save_best_model:
+            write_table(table, os.path.join(model_dir, "pred.csv"))
+        self.kgwas_res = table
+        return table
+
+    # -------------------------------------------------------------- inference
+
     def predict_all(self, params=None) -> np.ndarray:
         """Per-SNP predictions [n_snp] for every KG SNP (one full-graph
         forward; the first output channel, as the JAX package returns it).
-        params: an optional state_dict loaded into the model first."""
+        With no params it serves the model's state: the best state after
+        ``train``, the checkpoint after ``load_pretrained``. params: a
+        state_dict loaded into the model first (it stays loaded)."""
         if params is not None:
             self.model.load_state_dict(params)
         cg, x, layouts = self._device_state()
-        with torch.inference_mode():
-            pred = self.model(x, layouts)
-        return pred[: cg.num_nodes["SNP"], 0].cpu().numpy()
+        pred = forward(self.model, x, layouts)
+        return pred[: cg.num_nodes["SNP"]].cpu().numpy()

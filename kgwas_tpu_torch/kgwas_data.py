@@ -1,8 +1,9 @@
 """KGWAS_Data: the KG + GWAS sumstats data layer (host side, numpy only).
 
-Counterpart of ``kgwas_tpu/kgwas_data.py`` for the serving slice:
-``from_synthetic``, ``load_synthetic_gwas``, ``process_gwas_file`` (the
-``label="chi"`` path) and ``compile``. The sumstats table ``lr_uni`` is a
+Counterpart of ``kgwas_tpu/kgwas_data.py`` for the serving and training
+slices: ``from_synthetic``, ``load_synthetic_gwas``, ``process_gwas_file``
+(the ``label="chi"`` path), ``prepare_split`` (scikit-learn's split,
+copied in numpy) and ``compile``. The sumstats table ``lr_uni`` is a
 column table (``dict[str, np.ndarray]``) with the JAX package's column
 names; lookups by SNP id run through sorted numpy keys.
 """
@@ -56,6 +57,23 @@ def lookup(keys, values, query, default=None):
             raise KeyError(query[~hit][0])
         return np.where(hit, uvals[pos] if len(uniq) else default, default)
     return uvals[pos]
+
+
+def train_test_split(ids, y, test_size: float, seed: int):
+    """(train ids, test ids, train y, test y) as scikit-learn's
+    ``train_test_split(ids, y, test_size=test_size, random_state=seed)``
+    gives them: a ShuffleSplit whose test part is the first
+    ceil(test_size * n) of ``RandomState(seed).permutation(n)`` and whose
+    train part is the rest, in permutation order."""
+    n = len(ids)
+    n_test = int(np.ceil(test_size * n))
+    if not 0 < n_test < n:
+        raise ValueError(f"test_size={test_size} leaves an empty split of "
+                         f"{n} samples")
+    perm = np.random.RandomState(seed).permutation(n)
+    test, train = perm[:n_test], perm[n_test:]
+    ids, y = np.asarray(ids), np.asarray(y)
+    return ids[train], ids[test], y[train], y[test]
 
 
 class KGWAS_Data:
@@ -163,6 +181,30 @@ class KGWAS_Data:
         self.all_ids = lookup(snp_keys, snp_idx, ids).astype(np.int64)
         self.y = y
         self.lr_uni = lr_uni
+
+    def prepare_split(self, test_set_fraction_data: float = 0.05):
+        """The JAX package's double split with the run seed: test off all
+        SNPs, then val off the remaining train ids, each as scikit-learn's
+        ``train_test_split(..., random_state=self.seed)`` draws it."""
+        train_val_ids, test_ids, y_train_val, y_test = train_test_split(
+            self.all_ids, self.y, test_set_fraction_data, self.seed)
+        train_ids, val_ids, y_train, y_val = train_test_split(
+            train_val_ids, y_train_val, 0.05, self.seed)
+
+        self.train_input_nodes = ("SNP", train_ids)
+        self.val_input_nodes = ("SNP", val_ids)
+        self.test_input_nodes = ("SNP", test_ids)
+
+        y_snp = np.zeros(self.graph.num_nodes("SNP"), dtype=np.float32) - 1
+        y_snp[train_ids] = y_train
+        y_snp[val_ids] = y_val
+        y_snp[test_ids] = y_test
+        self.graph.node_labels["SNP"] = y_snp
+
+        self.train_mask = train_ids
+        self.val_mask = val_ids
+        self.test_mask = test_ids
+        self.all_mask = self.all_ids
 
     def compile(self, edge_pad_multiple: int = 512,
                 node_pad_multiple: int = 512, force: bool = False):

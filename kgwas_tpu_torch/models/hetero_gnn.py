@@ -5,10 +5,12 @@ Counterpart of ``kgwas_tpu/models/hetero_gnn.py`` (``init_hetero_gnn`` and
 
   1. per-type SimpleMLP encoders -> hidden (one GO MLP shared by the three
      GO types)
-  2. per layer, for each destination type, ONE merged GAT layer over every
-     relation targeting it (``ops/gat_layer.merged_gat_forward``), the
-     cross-relation sum (or mean) folded into it, then the summed biases,
-     then ReLU on every destination type
+  2. per layer, for each destination type whose output reaches the head
+     (``HeteroGNN.live_groups``), ONE merged GAT layer over every
+     relation targeting it (``ops/gat_layer.MergedGATLayer``: the forward
+     kernel, and the backward and CSC segment-sum kernels for its
+     gradient), the cross-relation sum (or mean) folded into it, then the
+     summed biases, then ReLU on every destination type
   3. the scalar head ReLU(Linear(h_SNP)) (or no ReLU)
 
 Module and parameter names are the reference ``model.py``'s, so the
@@ -20,7 +22,7 @@ same) and ``lin.*``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +30,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
-from ..ops.gat_layer import merged_gat_forward
+from ..ops.gat_layer import MergedGATLayer
 from .init import glorot_att, glorot_weight, torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
 
@@ -99,19 +101,29 @@ class DeviceLayout:
     rel_keys: List[str]
     src_types: List[str]
     n_rows_per_rel: int
-    src: torch.Tensor          # int32 [E_tot]
+    src_base: Tuple[int, ...]  # slot r: source rows src_base[r]..[r+1]
+    src: torch.Tensor          # int32 [E_tot], dst-sorted
     row_offsets: torch.Tensor  # int32 [R*N + 1]
+    dst: torch.Tensor          # int32 [E_tot]: each edge's row
+    csc_perm: torch.Tensor     # int32 [E_tot]: edges in source order
+    csc_offsets: torch.Tensor  # int32 [S + 1]
 
 
 def device_layouts(layouts, device) -> Dict[str, DeviceLayout]:
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
     return {
         t: DeviceLayout(
             rel_keys=list(L.rel_keys),
             src_types=list(L.src_types),
             n_rows_per_rel=int(L.n_rows_per_rel),
-            src=torch.from_numpy(np.ascontiguousarray(L.src)).to(device),
-            row_offsets=torch.from_numpy(
-                np.ascontiguousarray(L.row_offsets)).to(device),
+            src_base=tuple(int(b) for b in L.src_base),
+            src=put(L.src),
+            row_offsets=put(L.row_offsets),
+            dst=put(L.dst),
+            csc_perm=put(L.csc_perm),
+            csc_offsets=put(L.csc_offsets),
         )
         for t, L in layouts.items()
     }
@@ -155,11 +167,9 @@ class HeteroGNN(nn.Module):
             a_dst_all = (h[dst_t] @ v).T.reshape(-1)
             xs_all = torch.cat([h[L.src_types[s]] @ convs[s].lin_src.weight.T
                                 for s in range(n_rel)])
-            agg, _, _ = merged_gat_forward(
-                xs_all, L.src, L.row_offsets, att.contiguous(),
-                a_dst_all.contiguous(), L.n_rows_per_rel, fold=n_rel,
-                mode=mode, negative_slope=cfg.negative_slope,
-                temperature=cfg.temperature)
+            agg = MergedGATLayer.apply(
+                xs_all, att.contiguous(), a_dst_all.contiguous(), L, n_rel,
+                mode, cfg.negative_slope, cfg.temperature)
             bias = convs[0].bias
             for c in convs[1:]:
                 bias = bias + c.bias
@@ -169,12 +179,27 @@ class HeteroGNN(nn.Module):
             out[dst_t] = agg + bias
         return out
 
+    def live_groups(self, layouts: Dict[str, DeviceLayout]):
+        """(per layer, the destination groups whose output reaches the
+        head; the node types whose encoder output does). The last layer
+        needs the SNP group alone, each layer before it the groups that the
+        next layer reads: their source types and, for a_dst, their own.
+        The JAX package's jit drops the other groups as dead code."""
+        need = {"SNP"}
+        per_layer = []
+        for _ in self.convs:
+            per_layer.append([t for t in layouts if t in need])
+            need = need.union(*(layouts[t].src_types for t in need))
+        return per_layer[::-1], need
+
     def forward(self, x: Dict[str, torch.Tensor],
                 layouts: Dict[str, DeviceLayout]) -> torch.Tensor:
         """Full-graph forward. Returns pred [N_snp_pad, out_channels]."""
-        h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()}
-        for layer in self.convs:
-            h = {t: torch.relu(v)
-                 for t, v in self.merged_layer(layer, h, layouts).items()}
+        groups, encoded = self.live_groups(layouts)
+        h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()
+             if t in encoded}
+        for layer, live in zip(self.convs, groups):
+            out = self.merged_layer(layer, h, {t: layouts[t] for t in live})
+            h = {t: torch.relu(v) for t, v in out.items()}
         logits = self.lin(h["SNP"])
         return logits if self.cfg.no_relu else torch.relu(logits)

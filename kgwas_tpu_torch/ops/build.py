@@ -2,9 +2,10 @@
 
 Each source under ``ops/csrc/`` is compiled on first use into its own
 shared library with a plain C interface, named by a content hash of the
-source and the flags, under ``build/kernels/`` at the repository root (or
-``$KGWAS_TORCH_BUILD_DIR``). A library whose hash is already there is
-reused. ``build_all`` starts one nvcc per source, all at once.
+source, the shared headers (``*.cuh``) and the flags, under
+``build/kernels/`` at the repository root (or ``$KGWAS_TORCH_BUILD_DIR``).
+A library whose hash is already there is reused. ``build_all`` starts one
+nvcc per source, all at once.
 """
 from __future__ import annotations
 
@@ -33,6 +34,17 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _F32,
          _F32, _P],
     ),
+    "merged_gat_bwd": (
+        "merged_gat_bwd.cu",
+        "kgwas_merged_gat_bwd",
+        [_P] * 11 + [_I64, _I64, _I32, _I32, _I32, _F32, _F32, _P],
+    ),
+    "csc_segment_sum": (
+        "csc_segment_sum.cu",
+        "kgwas_csc_segment_sum",
+        [_P] * 8 + [ctypes.POINTER(_I64)] + [_P] * 3
+        + [_I32, _I64, _I32, _I32, _P],
+    ),
 }
 
 _loaded: dict = {}
@@ -60,6 +72,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     source = KERNELS[name][0]
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # included by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -47,14 +47,18 @@
 
 #include <cstdint>
 
+#include "warp_rows.cuh"
+
 namespace {
+
+using kgwas::fast_exp;
+using kgwas::kFull;
+using kgwas::kMaxCols;
 
 constexpr float kNegBig = -1e9f;
 constexpr float kExpClamp = 60.0f;
 constexpr float kEps = 1e-16f;
 constexpr int kWarps = 8;     // warps per block
-constexpr int kMaxCols = 16;  // generic path: columns per lane (D <= 512)
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kSoftmax = 0, kSigmoid = 1, kRaw = 2 };
 
@@ -84,62 +88,10 @@ __device__ __forceinline__ float edge_logit(float a_src, float a_dst,
   return z >= 0.0f ? z * inv_t : z * slope_t;
 }
 
-// exp(x) as exp2(x * log2 e): the MUFU.EX2 path, a shorter chain than expf
-__device__ __forceinline__ float fast_exp(float x) {
-  return exp2f(x * 1.4426950408889634f);
-}
-
-// Columns per lane: NV float4s (D = 128 * NV) or, for VEC = false, up to
-// kMaxCols scalars at columns lane + 32 * k.
-template <int MODE, bool VEC, int NV>
-struct Row {
-  static constexpr int C = VEC ? 4 * NV : kMaxCols;
-  float v[C];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = 0.0f;
-  }
-  __device__ __forceinline__ void load(const float* row, int lane, int d) {
-    if (VEC) {
-      const float4* p = reinterpret_cast<const float4*>(row);
-#pragma unroll
-      for (int k = 0; k < NV; ++k) {
-        const float4 q = __ldg(p + k * 32 + lane);
-        v[4 * k] = q.x;
-        v[4 * k + 1] = q.y;
-        v[4 * k + 2] = q.z;
-        v[4 * k + 3] = q.w;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int col = lane + 32 * k;
-        v[k] = col < d ? __ldg(row + col) : 0.0f;
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* row, int lane, int d) const {
-    if (VEC) {
-      float4* p = reinterpret_cast<float4*>(row);
-#pragma unroll
-      for (int k = 0; k < NV; ++k)
-        p[k * 32 + lane] =
-            make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int col = lane + 32 * k;
-        if (col < d) row[col] = v[k];
-      }
-    }
-  }
-};
-
 template <int MODE, bool VEC, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 merged_gat_fwd_kernel(const Args a) {
-  using R = Row<MODE, VEC, NV>;
+  using R = kgwas::Row<VEC, NV>;
   // edges per step: as many rows in flight as the registers allow
   constexpr int U = !VEC || NV > 2 ? 2 : 4;
   const int lane = threadIdx.x & 31;

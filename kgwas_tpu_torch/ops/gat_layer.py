@@ -1,19 +1,27 @@
-"""Merged-relation GAT layer forward: CUDA kernel wrapper and plain version.
+"""Merged-relation GAT layer: CUDA kernel wrappers, plain versions, autograd.
 
-Counterpart of ``kgwas_tpu/ops/pallas_gat_layer.py`` (``_merged_forward``
-and the ops that call it, ``fused_gat_layer`` / ``fused_gat_layer_unnorm``)
-fused with the source-row gather before it. The edge stream is one
-destination group's merged CSR (``graph/merged_layout.py``): ``src`` indexes
-the concatenated projected source table ``xs_all``, ``row_offsets`` bounds
-each row's edges, and a row's relation slot is ``row // n_rows_per_rel``.
+Counterpart of ``kgwas_tpu/ops/pallas_gat_layer.py`` (``_merged_forward``,
+``_merged_backward`` and the ops that call them, ``fused_gat_layer`` /
+``fused_gat_layer_unnorm``) fused with the source-row gather before them
+(``gather_rows_csc``, whose backward is ``ops/segment.py``). The edge stream
+is one destination group's merged CSR (``graph/merged_layout.py``): ``src``
+indexes the concatenated projected source table ``xs_all``, ``row_offsets``
+bounds each row's edges, and a row's relation slot is
+``row // n_rows_per_rel``.
 
-``merged_gat_forward`` launches ``csrc/merged_gat_fwd.cu`` for CUDA tensors
-and runs ``merged_gat_forward_plain`` for CPU tensors; there is no other
-route. ``launches`` counts kernel launches.
+``merged_gat_forward`` launches ``csrc/merged_gat_fwd.cu`` and
+``merged_gat_bwd`` launches ``csrc/merged_gat_bwd.cu`` for CUDA tensors;
+for CPU tensors they run ``merged_gat_forward_plain`` and
+``merged_gat_bwd_plain``. There is no other route. ``launches`` and
+``bwd_launches`` count kernel launches. ``MergedGATLayer`` is the layer as
+an autograd function: its backward is ``merged_gat_bwd`` followed by
+``segment.csc_segment_sum``.
 """
 from __future__ import annotations
 
 import torch
+
+from . import segment
 
 NEG_BIG = -1e9
 EXP_CLAMP = 60.0
@@ -21,6 +29,7 @@ EPS = 1e-16
 MODES = ("softmax", "sigmoid", "raw")
 
 launches = 0
+bwd_launches = 0
 
 
 def _check(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
@@ -46,6 +55,30 @@ def _check(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
     return n_rows, n_rel
 
 
+_INT_ARGS = ("src", "row_offsets", "dst", "csc_perm", "csc_offsets")
+
+
+def check_cuda_args(device, **tensors):
+    """What every kernel of the port takes: tensors on ``device``,
+    contiguous, int32 for the layout's index arrays and float32 for the
+    rest, feature rows at most 512 wide and 16-byte aligned when their
+    width is a multiple of 128 (float4 rows)."""
+    for name, t in tensors.items():
+        dtype = torch.int32 if name in _INT_ARGS else torch.float32
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() == 2:
+            if t.shape[1] > 512:
+                raise ValueError(
+                    f"feature width {t.shape[1]} > 512 is not supported")
+            if t.shape[1] % 128 == 0 and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def merged_gat_forward_plain(xs_all, src, row_offsets, att, a_dst_all,
                              n_rows_per_rel, fold=0, mode="softmax",
                              negative_slope=0.2, temperature=1.0):
@@ -56,13 +89,8 @@ def merged_gat_forward_plain(xs_all, src, row_offsets, att, a_dst_all,
                            n_rows_per_rel, fold, mode)
     dev = xs_all.device
     d = xs_all.shape[1]
-    row_offsets = row_offsets.long()
-    deg = row_offsets[1:] - row_offsets[:-1]
-    dst = torch.repeat_interleave(torch.arange(n_rows, device=dev), deg)
-    e = dst.shape[0]
-    msgs = xs_all[src[:e].long()]                            # [E, D]
-    z = (msgs * att[dst // n_rows_per_rel]).sum(-1) + a_dst_all[dst]
-    l = torch.where(z >= 0, z, negative_slope * z) / temperature
+    dst, msgs, _, l = _edge_terms(xs_all, src, row_offsets, att, a_dst_all,
+                                  n_rows_per_rel, negative_slope, temperature)
     row_max = torch.full((n_rows,), NEG_BIG, dtype=torch.float32, device=dev)
     row_sum = torch.zeros(n_rows, dtype=torch.float32, device=dev)
     out = torch.zeros(n_rows, d, dtype=torch.float32, device=dev)
@@ -99,25 +127,11 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
         raise ValueError(f"unsupported device {xs_all.device}")
     n_rows, n_rel = _check(xs_all, src, row_offsets, att, a_dst_all,
                            n_rows_per_rel, fold, mode)
-    for name, t, dtype in (("xs_all", xs_all, torch.float32),
-                           ("src", src, torch.int32),
-                           ("row_offsets", row_offsets, torch.int32),
-                           ("att", att, torch.float32),
-                           ("a_dst_all", a_dst_all, torch.float32)):
-        if t.device != xs_all.device:
-            raise ValueError(f"{name} is on {t.device}, xs_all on "
-                             f"{xs_all.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_cuda_args(xs_all.device, xs_all=xs_all, src=src,
+                    row_offsets=row_offsets, att=att, a_dst_all=a_dst_all)
     d = xs_all.shape[1]
-    if d > 512:
-        raise ValueError(f"feature width {d} > 512 is not supported")
     if fold and n_rel > 32:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
-    if d % 128 == 0 and (xs_all.data_ptr() % 16 or att.data_ptr() % 16):
-        raise ValueError("xs_all and att must be 16-byte aligned")
     from .build import library
 
     n_out = n_rows_per_rel if fold else n_rows
@@ -136,3 +150,153 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     global launches
     launches += 1
     return out, row_max, row_sum
+
+
+def _edge_terms(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel,
+                negative_slope, temperature):
+    """Per edge: destination row, gathered source row, pre-activation logit
+    z and scaled logit l = leaky_relu(z) / temperature."""
+    n_rows = row_offsets.shape[0] - 1
+    row_offsets = row_offsets.long()
+    dst = torch.repeat_interleave(torch.arange(n_rows, device=xs_all.device),
+                                  row_offsets[1:] - row_offsets[:-1])
+    x = xs_all[src[:dst.shape[0]].long()]
+    z = (x * att[dst // n_rows_per_rel]).sum(-1) + a_dst_all[dst]
+    l = torch.where(z >= 0, z, negative_slope * z) / temperature
+    return dst, x, z, l
+
+
+def merged_gat_bwd_plain(xs_all, src, row_offsets, att, a_dst_all, row_max,
+                         row_sum, g, n_rows_per_rel, fold=0, mode="softmax",
+                         negative_slope=0.2, temperature=1.0):
+    """Plain PyTorch version of the merged_gat_bwd kernel, in the TPU
+    backward kernel's formulas and constants. Same arguments and results
+    as merged_gat_bwd."""
+    n_rows, _ = _check(xs_all, src, row_offsets, att, a_dst_all,
+                       n_rows_per_rel, fold, mode)
+    dst, x, z, l = _edge_terms(xs_all, src, row_offsets, att, a_dst_all,
+                               n_rows_per_rel, negative_slope, temperature)
+    m = (g[dst % n_rows_per_rel if fold else dst] * x).sum(-1)   # g_row . x_e
+    leaky_d = torch.where(z >= 0, 1.0, negative_slope)
+    if mode == "softmax":
+        lse = row_max + torch.log(row_sum + EPS)
+        w = torch.exp(torch.clamp(l - lse[dst], max=EXP_CLAMP))
+        # dot_r = out_row . g_row, from the row's own edges
+        dot_r = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
+        dot_r.index_add_(0, dst, w * m)
+        dz = w * (m - dot_r[dst]) * leaky_d / temperature
+    elif mode == "sigmoid":
+        w = torch.sigmoid(l)
+        dz = m * w * (1.0 - w) * leaky_d / temperature
+    else:
+        w = l * temperature
+        dz = m * leaky_d
+    d_a_dst = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
+    d_a_dst.index_add_(0, dst, dz)
+    return w, dz, d_a_dst
+
+
+def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
+                   row_sum, g, n_rows_per_rel, fold=0, mode="softmax",
+                   negative_slope=0.2, temperature=1.0):
+    """Edge-level backward of merged_gat_forward over one destination group.
+
+    The arguments are merged_gat_forward's, plus its row_max / row_sum and
+    the cotangent g of its output ([N, D] with fold=R, else [R*N, D]).
+    Returns (w, dz, d_a_dst): per edge of the stream the aggregation weight
+    w_e and the cotangent dz_e of the pre-activation logit z_e, both [E],
+    and d_a_dst [R*N] = the sum of dz_e over each row. The [E, D] message
+    cotangent w_e g_row + dz_e att[slot] is never formed:
+    segment.csc_segment_sum reduces it per source row."""
+    if xs_all.device.type == "cpu":
+        return merged_gat_bwd_plain(
+            xs_all, src, row_offsets, att, a_dst_all, row_max, row_sum, g,
+            n_rows_per_rel, fold, mode, negative_slope, temperature)
+    if xs_all.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs_all.device}")
+    n_rows, n_rel = _check(xs_all, src, row_offsets, att, a_dst_all,
+                           n_rows_per_rel, fold, mode)
+    n_out = n_rows_per_rel if fold else n_rows
+    if g.shape != (n_out, xs_all.shape[1]):
+        raise ValueError(f"g {tuple(g.shape)} != ({n_out}, {xs_all.shape[1]})")
+    if row_max.shape != (n_rows,) or row_sum.shape != (n_rows,):
+        raise ValueError(f"row_max / row_sum must be ({n_rows},)")
+    check_cuda_args(xs_all.device, xs_all=xs_all, src=src,
+                    row_offsets=row_offsets, att=att, a_dst_all=a_dst_all,
+                    row_max=row_max, row_sum=row_sum, g=g)
+    if fold and n_rel > 32:
+        raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
+    from .build import library
+
+    e = src.shape[0]
+    w = torch.empty(e, dtype=torch.float32, device=xs_all.device)
+    dz = torch.empty(e, dtype=torch.float32, device=xs_all.device)
+    d_a_dst = torch.empty(n_rows, dtype=torch.float32, device=xs_all.device)
+    stream = torch.cuda.current_stream(xs_all.device).cuda_stream
+    err = library("merged_gat_bwd")(
+        xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
+        att.data_ptr(), a_dst_all.data_ptr(), row_max.data_ptr(),
+        row_sum.data_ptr(), g.data_ptr(), w.data_ptr(), dz.data_ptr(),
+        d_a_dst.data_ptr(), n_out, n_rows_per_rel, n_rel if fold else 1,
+        xs_all.shape[1], MODES.index(mode), negative_slope, temperature,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"merged_gat_bwd launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return w, dz, d_a_dst
+
+
+def merged_gat_backward_plain(xs_all, att, a_dst_all, row_max, row_sum, g,
+                              layout, fold=0, mode="softmax",
+                              negative_slope=0.2, temperature=1.0):
+    """Plain version of merged_gat_backward: the two plain halves."""
+    w, dz, d_a_dst = merged_gat_bwd_plain(
+        xs_all, layout.src, layout.row_offsets, att, a_dst_all, row_max,
+        row_sum, g, layout.n_rows_per_rel, fold, mode, negative_slope,
+        temperature)
+    d_xs_all, d_att = segment.csc_segment_sum_plain(
+        g, w, dz, xs_all, att, layout, fold)
+    return d_xs_all, d_att, d_a_dst
+
+
+def merged_gat_backward(xs_all, att, a_dst_all, row_max, row_sum, g, layout,
+                        fold=0, mode="softmax", negative_slope=0.2,
+                        temperature=1.0):
+    """VJP of merged_gat_forward with respect to (xs_all, att, a_dst_all):
+    merged_gat_bwd, then the CSC segment sum over source rows. layout is
+    the group's DeviceLayout (models/hetero_gnn.py)."""
+    w, dz, d_a_dst = merged_gat_bwd(
+        xs_all, layout.src, layout.row_offsets, att, a_dst_all, row_max,
+        row_sum, g, layout.n_rows_per_rel, fold, mode, negative_slope,
+        temperature)
+    d_xs_all, d_att = segment.csc_segment_sum(g, w, dz, xs_all, att, layout,
+                                              fold)
+    return d_xs_all, d_att, d_a_dst
+
+
+class MergedGATLayer(torch.autograd.Function):
+    """The merged GAT layer with its gradient:
+    ``MergedGATLayer.apply(xs_all, att, a_dst_all, layout, fold, mode,
+    negative_slope, temperature)`` -> out ([N, D] with fold=R, else
+    [R*N, D]). The forward saves row_max / row_sum; the backward
+    recomputes every edge's logit from xs_all, att and a_dst_all."""
+
+    @staticmethod
+    def forward(ctx, xs_all, att, a_dst_all, layout, fold, mode,
+                negative_slope, temperature):
+        out, row_max, row_sum = merged_gat_forward(
+            xs_all, layout.src, layout.row_offsets, att, a_dst_all,
+            layout.n_rows_per_rel, fold, mode, negative_slope, temperature)
+        ctx.save_for_backward(xs_all, att, a_dst_all, row_max, row_sum)
+        ctx.layout = layout
+        ctx.options = (fold, mode, negative_slope, temperature)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xs_all, att, a_dst_all, row_max, row_sum = ctx.saved_tensors
+        d_xs_all, d_att, d_a_dst = merged_gat_backward(
+            xs_all, att, a_dst_all, row_max, row_sum, g.contiguous(),
+            ctx.layout, *ctx.options)
+        return d_xs_all, d_att, d_a_dst, None, None, None, None, None

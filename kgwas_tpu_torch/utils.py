@@ -1,4 +1,4 @@
-"""Host utilities: logging and tab-separated column tables.
+"""Host utilities: logging, metrics and tab-separated column tables.
 
 A table is a ``dict[str, np.ndarray]`` of equal-length columns, the port's
 stand-in for the JAX package's DataFrames.
@@ -13,6 +13,21 @@ import numpy as np
 def print_sys(s):
     """stderr logging."""
     print(s, flush=True, file=sys.stderr)
+
+
+def compute_metrics(results: dict) -> dict:
+    """MSE and Pearson r of ``results["pred"]`` against ``results["truth"]``;
+    r is NaN when either side is constant."""
+    from scipy.stats import pearsonr
+
+    pred = np.asarray(results["pred"], dtype=np.float64)
+    truth = np.asarray(results["truth"], dtype=np.float64)
+    mse = float(np.mean((pred - truth) ** 2))
+    if np.std(pred) == 0 or np.std(truth) == 0:
+        r = float("nan")
+    else:
+        r = float(pearsonr(pred, truth)[0])
+    return {"mse": mse, "pearsonr": r}
 
 
 def _cell_text(col: np.ndarray) -> np.ndarray:

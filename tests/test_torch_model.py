@@ -28,7 +28,7 @@ from kgwas_tpu_torch.engine.checkpoint import (
     params_to_jax,
 )
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
-from kgwas_tpu_torch.models import HeteroGNN, device_layouts
+from kgwas_tpu_torch.models import HeteroGNN, device_layouts, encoder_for
 
 KG = dict(n_snp=300, n_gene=60, n_go=30, snp_dim=20, gene_dim=32, go_dim=16,
           seed=7)
@@ -104,3 +104,33 @@ def test_forward_matches_jax(hidden, use_pallas, extra):
     assert got.shape == want.shape
     assert np.abs(want[:n]).max() > 0
     np.testing.assert_allclose(got[:n], want[:n], rtol=1e-5, atol=1e-5)
+
+
+def test_forward_runs_only_the_groups_that_reach_the_head(monkeypatch):
+    """The head reads the last layer's SNP rows only, so the forward runs
+    the last layer's SNP group and, before it, the groups that group reads
+    (as the JAX package's jit drops the rest as dead code). The
+    predictions equal those of a forward over every group."""
+    from kgwas_tpu_torch.ops import gat_layer
+
+    _, cfg, _, params = _jax_setup(hidden=16)
+    cg, model = _port_model(cfg, params)
+    layouts = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu")
+    x = {t: torch.from_numpy(v) for t, v in cg.node_x.items()}
+    live, encoded = model.live_groups(layouts)
+    assert live == [["Gene", "SNP"], ["SNP"]]
+    assert encoded == set(x)
+    streams = []
+    real = gat_layer.merged_gat_forward
+    monkeypatch.setattr(gat_layer, "merged_gat_forward",
+                        lambda *a, **k: streams.append(a[1]) or real(*a, **k))
+    with torch.inference_mode():
+        got = model(x, layouts)
+        h = {t: getattr(model, encoder_for(t))(v) for t, v in x.items()}
+        for layer in model.convs:
+            h = {t: torch.relu(v)
+                 for t, v in model.merged_layer(layer, h, layouts).items()}
+        want = model.lin(h["SNP"])
+    assert [s is layouts["SNP"].src for s in streams[:3]] == [False, True,
+                                                             True]
+    assert torch.equal(got, torch.relu(want))

@@ -5,7 +5,8 @@
   (an AST scan): the test interpreter may preload jax at start-up, so
   ``sys.modules`` proves nothing.
 * ``KGWAS(data)`` with no device raises when CUDA is absent.
-* A CPU tensor runs the plain version of the layer op and launches nothing.
+* A CPU tensor runs the plain version of the layer op and launches nothing,
+  in the forward and in the backward.
 """
 import ast
 import pathlib
@@ -16,7 +17,9 @@ import torch
 
 import kgwas_tpu_torch
 from kgwas_tpu_torch import KGWAS, KGWAS_Data
-from kgwas_tpu_torch.ops import build, gat_layer
+from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
+from kgwas_tpu_torch.models import device_layouts
+from kgwas_tpu_torch.ops import build, gat_layer, segment
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "kgwas_tpu"}
@@ -96,6 +99,42 @@ def test_cpu_tensor_routes_to_plain_version(monkeypatch):
     assert got[0].shape == (n, d) and got[1].shape == (2 * n,)
     # empty rows: out 0, row_max NEG_BIG, row_sum 0
     assert got[1][1].item() == gat_layer.NEG_BIG and got[2][1].item() == 0
+
+
+def test_cpu_backward_routes_to_plain_versions(monkeypatch):
+    def no_kernel(name):
+        raise AssertionError("a CPU tensor must not reach a CUDA kernel")
+
+    monkeypatch.setattr(build, "library", no_kernel)
+    g = make_synthetic_kg(n_snp=60, n_gene=12, n_go=6, seed=0)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    L = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu")["Gene"]
+    R = len(L.rel_keys)
+    rng = np.random.default_rng(0)
+    leaves = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              .requires_grad_()
+              for s in ((L.src_base[-1], 8), (R, 8),
+                        (L.row_offsets.shape[0] - 1,))]
+    before = (gat_layer.launches, gat_layer.bwd_launches, segment.launches)
+    out = gat_layer.MergedGATLayer.apply(*leaves, L, R, "softmax", 0.2, 1.0)
+    out.square().sum().backward()
+    assert (gat_layer.launches, gat_layer.bwd_launches,
+            segment.launches) == before
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+
+
+def test_train_options_of_later_items_raise(tmp_path):
+    data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
+                                     data_path=str(tmp_path))
+    data.load_synthetic_gwas(seed=0)
+    data.process_gwas_file()
+    data.prepare_split()
+    run = KGWAS(data, device="cpu").initialize_model(gnn_hidden_dim=8)
+    for kw in ({"mesh": 2}, {"checkpoint_every": 10}, {"resume": True},
+               {"max_restarts": 1}, {"heartbeat_path": "hb"},
+               {"profile_dir": "p"}, {"metrics_log": "m"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run.train(batch_size=8, epoch=1, **kw)
 
 
 def test_unported_options_raise(tmp_path):
