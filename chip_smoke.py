@@ -26,6 +26,20 @@ PyTorch version:
      backward kernel's ms per step against its bound, its plain version
      and, for the CSC sum, index_add_; (c) KGWAS.train(epoch=1), which
      must launch every kernel per step, ending in KGWAS_P in [0, 1]
+  6. the model variants: (a) on the 20k-SNP KG, the per-relation GAT
+     kernels (segment_softmax_spmm_fwd / _bwd) on every relation's stream,
+     the CSR segment sum (with and without weights) and the CSC sum without
+     logit term on every merged group, against their plain versions, two
+     runs bitwise equal; (b) GAT with max and min aggregation, SAGE, GCN and
+     SGC at full width on the 200k-SNP KG: predict_all through the kernels
+     against the plain ops, KGWAS_P (GAT-max, GCN), KGWAS.train over three
+     steps (counts zeroed just before each entry point: per forward and
+     per step one launch per relation of each group that reaches the head
+     for GAT-max/min, 10; one CSR sum per such group and one CSC sum in the
+     backward for the others, 3 for SAGE and 2 for GCN and SGC, which read
+     no destination row) against three steps through the plain ops; (c) forward ms, train step ms with a profiler
+     split of each, and each new kernel's ms against its bound, its plain
+     version and, for the CSR sum, torch.sparse.mm
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line. Exits non-zero, printing no result, without a
@@ -33,11 +47,13 @@ CUDA device or without the package beside this file.
 """
 import contextlib
 import copy
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -582,6 +598,419 @@ def phase_train(kt, data, cg, device, card):
     return rows, counts
 
 
+VARIANTS = {
+    "GAT-max": dict(gnn_aggr="max"),
+    "GAT-min": dict(gnn_aggr="min"),
+    "SAGE": dict(gnn_backbone="SAGE"),
+    "GCN": dict(gnn_backbone="GCN"),
+    "SGC": dict(gnn_backbone="SGC"),
+}
+VARIANT_KERNELS = ("segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd",
+                   "csr_segment_sum", "csc_segment_sum")
+
+
+def variant_counts(segment, segment_softmax, zero=False):
+    """The launch counts of the variant paths' kernels (set to 0 first
+    with zero=True)."""
+    if zero:
+        segment_softmax.launches = segment_softmax.bwd_launches = 0
+        segment.csr_launches = segment.launches = 0
+    return dict(zip(VARIANT_KERNELS, (
+        segment_softmax.launches, segment_softmax.bwd_launches,
+        segment.csr_launches, segment.launches)))
+
+
+def as_tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def repeat_equal(fn, args, what):
+    """fn(*args) twice; raises unless both give the same bits."""
+    got, again = map(as_tuple, (fn(*args), fn(*args)))
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{what}: two runs differ")
+    return got
+
+
+def phase_variant_kernels(kt, device, tmp):
+    """Phase 6a: every new kernel against its plain version on the 20k-SNP
+    KG. Returns each kernel's worst abs err against the float32 plain
+    version."""
+    from kgwas_tpu_torch.graph import build_merged_layouts
+    from kgwas_tpu_torch.models import device_layouts
+    from kgwas_tpu_torch.ops import segment, segment_softmax
+
+    data = kt.KGWAS_Data.from_synthetic(
+        seed=SEED + 1, data_path=str(tmp / "small"), **SMALL_KG)
+    cg = data.compile()
+    layouts = build_merged_layouts(cg, tile_rows=512)
+    rel = device_layouts(layouts, device, cg, "relations")
+    mp = device_layouts(layouts, device, cg, "mp")
+    rng = np.random.default_rng(SEED + 6)
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    worst = dict.fromkeys(VARIANT_KERNELS, 0.0)
+    csc_plain = segment.csc_segment_sum_plain
+
+    def held(kernel, got, args, plain_fn, what):
+        want, exact = plain_fn(*args), plain_fn(*as_double(args))
+        for a, p, e in zip(*map(as_tuple, (got, want, exact))):
+            if a is not None:
+                worst[kernel] = max(worst[kernel],
+                                    grad_compare(a, p, e, what))
+
+    for dst_t, L in rel.items():
+        n_real = cg.num_nodes[dst_t]
+        for rk, RL in zip(L.rel_keys, L.relations):
+            xs = t(rng.standard_normal((RL.src_base[-1], HIDDEN)) * 0.1)
+            logits = t(rng.standard_normal(RL.src.shape[0]) * 1.5)
+            g = t(rng.standard_normal((RL.n_rows_per_rel, HIDDEN)))
+            fargs = (xs, RL.src, logits, RL.row_offsets)
+            got = repeat_equal(segment_softmax.segment_softmax_spmm_fwd,
+                               fargs, f"{rk} forward")
+            want = segment_softmax.segment_softmax_spmm_fwd_plain(*fargs)
+            for name, a, b in zip(("out", "row_max", "row_sum"), got, want):
+                err, _ = compare(a, b, trash_mask(a.shape[0],
+                                                  RL.n_rows_per_rel, n_real),
+                                 f"{rk} {name}")
+                worst["segment_softmax_spmm_fwd"] = max(
+                    worst["segment_softmax_spmm_fwd"], err)
+            bargs = fargs + (got[1], got[2], got[0], g)
+            edge = repeat_equal(segment_softmax.segment_softmax_spmm_bwd,
+                                bargs, f"{rk} backward")
+            held("segment_softmax_spmm_bwd", edge, bargs,
+                 segment_softmax.segment_softmax_spmm_bwd_plain,
+                 f"{rk} backward")
+            cargs = (g, edge[0], None, xs, None, RL)
+            held("csc_segment_sum",
+                 repeat_equal(segment.csc_segment_sum, cargs, f"{rk} csc"),
+                 cargs, csc_plain, f"{rk} csc")
+    for dst_t, DL in mp.items():
+        x = t(rng.standard_normal((DL.src_base[-1], HIDDEN)) * 0.1)
+        g = t(rng.standard_normal((DL.row_offsets.shape[0] - 1, HIDDEN)))
+        for w in (None, DL.sym_e):
+            what = f"{dst_t} {'weighted' if w is not None else 'unweighted'}"
+            rargs = (x, DL.src, DL.row_offsets, w)
+            held("csr_segment_sum",
+                 repeat_equal(segment.csr_segment_sum, rargs, f"{what} csr"),
+                 rargs, segment.csr_segment_sum_plain, f"{what} csr")
+            cargs = (g, w, None, x, None, DL)
+            held("csc_segment_sum",
+                 repeat_equal(segment.csc_segment_sum, cargs, f"{what} csc"),
+                 cargs, csc_plain, f"{what} csc")
+    log(f"phase 6a ok: {sum(len(L.rel_keys) for L in rel.values())} "
+        f"relation streams and {len(mp)} merged groups, kernels vs plain "
+        f"within tolerance, bitwise repeatable; worst abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def kernel_bound(name, args, out):
+    """(bytes ms, operations ms) of one launch of a variant kernel: each
+    input read once and each output written once, and its flops."""
+    if name == "csc_segment_sum":      # without logit term
+        g, w, _, xs, _, lay = args
+        e = lay.csc_perm.numel()
+        words = (g.numel() + (e if w is not None else 0) + 2 * e
+                 + lay.csc_offsets.numel() + xs.numel())
+        return bound_ms(words, 2 * xs.shape[1] * e)
+    if name == "csr_segment_sum":      # x, src, row_offsets, w or None
+        x, src, ro, w = args
+        e = int(ro[-1])
+        words = (x.numel() + src.numel() + ro.numel() + out.numel()
+                 + (e if w is not None else 0))
+        return bound_ms(words, 2 * x.shape[1] * e)
+    xs, src, logits, ro = args[:4]
+    d = xs.shape[1]
+    e = int(ro[-1])
+    n_rows = ro.numel() - 1
+    words = xs.numel() + src.numel() + ro.numel() + logits.numel()
+    if name == "segment_softmax_spmm_fwd":   # out, row_max, row_sum
+        return bound_ms(words + n_rows * d + 2 * n_rows, 2 * d * e)
+    # the backward reads row_max, row_sum, out and g, writes w and d_logits
+    return bound_ms(words + 2 * n_rows + 2 * n_rows * d + 2 * e,
+                    2 * d * (e + n_rows))
+
+
+def time_launches(name, calls, fn, plain_fn, library=None):
+    """Sums over the recorded launches: kernel ms (mean of 10), plain ms
+    (mean of 2), bound ms and its parts, library ms; and the worst abs err
+    of the kernel against the plain version."""
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes",
+                         "operations", "library_ms"), 0.0)
+    worst = 0.0
+    for args, _ in calls:
+        args = detached(args)
+        got_t, want_t, exact_t = map(as_tuple, (
+            fn(*args), plain_fn(*args), plain_fn(*as_double(args))))
+        for a, p, x in zip(got_t, want_t, exact_t):
+            if a is not None:
+                worst = max(worst, grad_compare(a, p, x, f"full-width {name}"))
+        del want_t, exact_t
+        t_b, t_o = kernel_bound(name, args, got_t[0])
+        tot["bytes"] += t_b
+        tot["operations"] += t_o
+        tot["bound_ms"] += max(t_b, t_o)
+        tot["ms"] += cuda_ms(lambda: fn(*args), 10)  # noqa: B023
+        tot["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 2)  # noqa: B023
+        if library is not None:
+            tot["library_ms"] += cuda_ms(library(*args), 10)
+    return tot, worst
+
+
+def sparse_mm(x, src, ro, w):
+    """The library yardstick of csr_segment_sum: torch.sparse.mm of the
+    CSR matrix (values w, or 1) against x."""
+    vals = w if w is not None else torch.ones(src.numel(), device=x.device)
+    with warnings.catch_warnings():   # sparse CSR is "beta" in torch
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(ro, src, vals, size=(ro.numel() - 1,
+                                                         x.shape[0]),
+                                    check_invariants=False)
+    return lambda: torch.sparse.mm(a, x)
+
+
+def phase_variants(kt, data, cg, device, card, worst_small):
+    """Phase 6b-c: each model variant at full width. Returns the kernel
+    table rows of the three new kernels; worst_small holds phase 6a's worst
+    errors."""
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.ops import segment, segment_softmax
+    from kgwas_tpu_torch.stats.calibration import finalize_predictions
+
+    # the training entry point over CMP_STEPS batches of the split that
+    # phase 5 prepared: a copy of the data with a shorter train list
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    batches = [torch.from_numpy(b).to(device) for b in
+               epoch_batches(data_v.train_mask, BATCH, False, None)]
+    launches = dict.fromkeys(VARIANT_KERNELS, 0)
+    summary, timed = {}, {}
+    worst = dict.fromkeys(VARIANT_KERNELS, 0.0)
+    for name, kw in VARIANTS.items():
+        t0 = time.perf_counter()
+        gat = name.startswith("GAT")
+        run = kt.KGWAS(data_v, exp_name=f"chip_smoke_{name}", seed=SEED)
+        # no_relu: a dead ReLU head gives constant predictions, a NaN val
+        # Pearson, and KGWAS.train then keeps the initial state
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True, **kw)
+        init = copy.deepcopy(run.model.state_dict())
+        run.predict_all()   # device state, allocator warm-up
+        torch.cuda.synchronize()
+        # launches per forward and per step: one per relation of each group
+        # that reaches the head (GAT), one per such group (the others)
+        live, _ = run.model.live_groups(run.layouts)
+        n = sum(len(run.layouts[t].rel_keys) if gat else 1
+                for groups in live for t in groups)
+        per = ({"segment_softmax_spmm_fwd": n} if gat
+               else {"csr_segment_sum": n})
+        if gat:
+            plain = functools.partial(
+                swapped, segment_softmax,
+                segment_softmax_spmm_fwd=(
+                    segment_softmax.segment_softmax_spmm_fwd_plain),
+                segment_softmax_spmm_backward=(
+                    segment_softmax.segment_softmax_spmm_backward_plain))
+        else:
+            plain = functools.partial(
+                swapped, segment,
+                csr_segment_sum=segment.csr_segment_sum_plain,
+                csc_segment_sum=segment.csc_segment_sum_plain)
+
+        # (b) serving: counts set to 0 just before the entry point
+        variant_counts(segment, segment_softmax, zero=True)
+        pred = run.predict_all()
+        counts = variant_counts(segment, segment_softmax)
+        if counts != {k: per.get(k, 0) for k in VARIANT_KERNELS}:
+            raise AssertionError(f"{name}: predict_all launched {counts}, "
+                                 f"expected {per}")
+        for k, v in counts.items():
+            launches[k] += v
+        if pred.shape != (cg.num_nodes["SNP"],) or not np.isfinite(
+                pred).all():
+            raise AssertionError(f"{name}: bad predictions")
+        with plain():
+            pred_plain = run.predict_all()
+        np.testing.assert_allclose(pred, pred_plain, rtol=PRED_RTOL,
+                                   atol=PRED_ATOL)
+        pred_err = float(np.abs(pred - pred_plain).max())
+        kp_note = ""
+        if name in ("GAT-max", "GCN"):
+            table, _ = finalize_predictions(data.lr_uni, pred[data.all_ids])
+            kp = table["KGWAS_P"]
+            if not (np.isfinite(kp).all() and (kp >= 0).all()
+                    and (kp <= 1).all()):
+                raise AssertionError(f"{name}: KGWAS_P not finite in [0, 1]")
+            kp_note = f"; {len(kp)} KGWAS_P finite in [0, 1]"
+
+        # (b) training: KGWAS.train over CMP_STEPS steps, counts set to 0
+        # just before, against CMP_STEPS steps through the plain ops
+        variant_counts(segment, segment_softmax, zero=True)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        counts = variant_counts(segment, segment_softmax)
+        steps = len(run.epoch_losses[0])
+        want = ({"segment_softmax_spmm_fwd": n * (steps + 2),
+                 "segment_softmax_spmm_bwd": n * steps} if gat
+                else {"csr_segment_sum": n * (steps + 2)})
+        want["csc_segment_sum"] = n * steps
+        want = {k: want.get(k, 0) for k in VARIANT_KERNELS}
+        if steps != CMP_STEPS or counts != want:
+            raise AssertionError(f"{name}: KGWAS.train took {steps} steps "
+                                 f"with launches {counts}, expected "
+                                 f"{CMP_STEPS} and {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        loss_k = np.asarray(run.epoch_losses[0])
+        # the parameters after the same steps (KGWAS.train keeps its best
+        # state, which is the initial one when the val Pearson is NaN),
+        # through the kernels and through the plain ops
+        model = run.model
+        _, x, layouts = run._device_state()
+        y_node, w_node = run._labels(cg)
+
+        def steps_from_init(ctx):
+            model.load_state_dict(init)
+            opt = build_optimizer(model.parameters(), LR, 5e-4)
+            with ctx:
+                losses = [train_step(model, opt, x, layouts, b, y_node,
+                                     w_node) for b in batches]
+            return (torch.stack(losses).cpu().numpy(),
+                    {k: v.detach().clone()
+                     for k, v in model.state_dict().items()})
+
+        _, par_k = steps_from_init(contextlib.nullcontext())
+        loss_p, par_p = steps_from_init(plain())
+        np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL)
+        par_err = max(float((par_k[k] - par_p[k]).abs().max())
+                      for k in par_k)
+        moved = max(float((par_k[k] - init[k]).abs().max()) for k in par_k)
+        if par_err > PARAM_ATOL or moved == 0:
+            raise AssertionError(f"{name}: parameters after {CMP_STEPS} "
+                                 f"steps differ by {par_err:.3e}, moved by "
+                                 f"{moved:.3e}")
+        log(f"  phase 6b {name}: groups per layer {live}; predict_all "
+            f"launches {per}, vs plain ops "
+            f"max abs err {pred_err:.3e}{kp_note}; KGWAS.train "
+            f"{CMP_STEPS} steps launches "
+            + str({k: v for k, v in counts.items() if v})
+            + f", losses kernel {loss_k.tolist()} plain {loss_p.tolist()}, "
+            f"parameters differ by {par_err:.3e} (moved {moved:.3e})")
+
+        # (c) timing: forward and step, then each new kernel's launches
+        model.load_state_dict(init)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        fwd_ms, step_ms = [], []
+        for i in range(12):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run.predict_all()
+            stop.record()
+            torch.cuda.synchronize()
+            fwd_ms.append(start.elapsed_time(stop))
+        for i in range(13):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            train_step(model, opt, x, layouts, batches[i % len(batches)],
+                       y_node, w_node)
+            stop.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+        fwd_ms = statistics.median(fwd_ms[2:])
+        step_ms = statistics.median(step_ms[3:])
+        profile_device(run.predict_all, fwd_ms, f"{name} forward")
+        profile_device(lambda: train_step(model, opt, x, layouts,  # noqa: B023
+                                          batches[0], y_node, w_node),
+                       step_ms, f"{name} training step")
+        fwd_name = "segment_softmax_spmm_fwd" if gat else "csr_segment_sum"
+        fwd_mod = segment_softmax if gat else segment
+        rec_f = Recorder(getattr(fwd_mod, fwd_name))
+        with swapped(fwd_mod, **{fwd_name: rec_f}):
+            run.predict_all()
+        rec_b = Recorder(segment_softmax.segment_softmax_spmm_bwd)
+        rec_c = Recorder(segment.csc_segment_sum)
+        with swapped(segment_softmax, segment_softmax_spmm_bwd=rec_b), \
+                swapped(segment, csc_segment_sum=rec_c):
+            train_step(model, opt, x, layouts, batches[0], y_node, w_node)
+        torch.cuda.synchronize()
+        plain_of = {
+            "segment_softmax_spmm_fwd": (
+                segment_softmax.segment_softmax_spmm_fwd,
+                segment_softmax.segment_softmax_spmm_fwd_plain, None),
+            "segment_softmax_spmm_bwd": (
+                segment_softmax.segment_softmax_spmm_bwd,
+                segment_softmax.segment_softmax_spmm_bwd_plain, None),
+            "csr_segment_sum": (segment.csr_segment_sum,
+                                segment.csr_segment_sum_plain, sparse_mm),
+            "csc_segment_sum": (segment.csc_segment_sum,
+                                segment.csc_segment_sum_plain, None),
+        }
+        recs = {fwd_name: rec_f, "csc_segment_sum": rec_c}
+        if gat:
+            recs["segment_softmax_spmm_bwd"] = rec_b
+        parts = []
+        for k, rec in recs.items():
+            fn, plain_fn, lib = plain_of[k]
+            tot, err = time_launches(k, rec.calls, fn, plain_fn, lib)
+            tot["launches"] = len(rec.calls)
+            timed[(name, k)] = tot
+            worst[k] = max(worst[k], err)
+            parts.append(
+                f"{k} x{len(rec.calls)} {tot['ms']:.4f} ms | plain "
+                f"{tot['plain_ms']:.4f} | "
+                + (f"sparse.mm {tot['library_ms']:.4f} | " if lib else "")
+                + f"bound {tot['bound_ms']:.4f} ("
+                + ("bytes" if tot["bytes"] >= tot["operations"]
+                   else "operations") + ")")
+        summary[name] = {"forward_ms": fwd_ms, "step_ms": step_ms}
+        edges = cg.total_real_edges()
+        log(f"  phase 6c {name} [{card}]: forward {fwd_ms:.3f} ms median of "
+            f"10 ({edges * LAYERS / (fwd_ms / 1e3):.4g} edge-traversals/s), "
+            f"train step {step_ms:.3f} ms median of 10 "
+            f"({edges * LAYERS / (step_ms / 1e3):.4g}); per forward or "
+            f"step: " + " || ".join(parts)
+            + f"; {time.perf_counter() - t0:.1f} s")
+        del run, model, opt, x, layouts, init, par_k, par_p, rec_f, rec_b, rec_c
+        torch.cuda.empty_cache()
+    log(f"phase 6 ok [{card}]: {len(VARIANTS)} variants served and trained "
+        f"through the kernels; launches {launches}; "
+        + "; ".join(f"{k} forward {v['forward_ms']:.3f} ms, step "
+                    f"{v['step_ms']:.3f} ms" for k, v in summary.items()))
+
+    rows = []
+    for k, cfg_name, src, replaces in (
+            ("segment_softmax_spmm_fwd", "GAT-max",
+             "segment_softmax_spmm_fwd.cu",
+             "kgwas_tpu/ops/pallas_segment.py:220"),
+            ("segment_softmax_spmm_bwd", "GAT-max",
+             "segment_softmax_spmm_bwd.cu",
+             "kgwas_tpu/ops/pallas_segment.py:370"),
+            ("csr_segment_sum", "GCN", "csr_segment_sum.cu",
+             "kgwas_tpu/ops/pallas_segment.py:1150")):
+        tot = timed[(cfg_name, k)]
+        rows.append({
+            "name": k,
+            "route": "cuda",
+            "source": f"kgwas_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches[k],
+            "max_abs_err": max(worst[k], worst_small[k]),
+            "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("bytes" if tot["bytes"] >= tot["operations"]
+                         else "operations"),
+            "library_ms": tot["library_ms"] if k == "csr_segment_sum"
+            else None,
+        })
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -747,6 +1176,10 @@ def main():
     # ---- phase 5: the training slice at full width
     train_rows, train_counts = phase_train(kt, data, cg, device, card)
 
+    # ---- phase 6: the model variants
+    worst_variants = phase_variant_kernels(kt, device, tmp)
+    variant_rows = phase_variants(kt, data, cg, device, card, worst_variants)
+
     kernels = [{
         "name": "merged_gat_fwd",
         "route": "cuda",
@@ -760,7 +1193,7 @@ def main():
         "bound_by": ("bytes" if tot["bytes"] >= tot["operations"]
                      else "operations"),
         "library_ms": None,
-    }] + train_rows
+    }] + train_rows + variant_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

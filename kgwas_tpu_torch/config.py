@@ -14,8 +14,10 @@ from dataclasses import dataclass
 class ModelConfig:
     gnn_num_layers: int = 2
     gnn_hidden_dim: int = 128
-    gnn_backbone: str = "GAT"  # GAT (SAGE | GCN | SGC: ROADMAP Queue 1)
-    gnn_aggr: str = "sum"      # cross-relation aggregation: sum | mean
+    # GAT (1 head; sum and mean merged, max and min per relation; sigmoid
+    # with sum and mean only) | SAGE | GCN | SGC (sum and mean)
+    gnn_backbone: str = "GAT"
+    gnn_aggr: str = "sum"      # cross-relation aggregation: sum|mean|max|min
     gat_num_head: int = 1
     no_relu: bool = False
     negative_slope: float = 0.2

@@ -6,8 +6,10 @@ Counterpart of ``kgwas_tpu/engine/checkpoint.py``. A model directory holds
 the other's checkpoints. ``params_from_jax`` / ``params_to_jax`` carry
 weights between the JAX tree ([in, out] weights, att [H, C]) and the
 port's state_dict ([out, in] weights, att [1, H, C], reference
-``model.py`` key names). ``load_pretrained_torch`` reads a reference
-``model.pt``, which loads straight into ``HeteroGNN``.
+``model.py`` key names), for every backbone (GAT ``lin_src``, ``lin_dst``,
+``att_src``, ``att_dst``, ``bias``; SAGE ``lin_l``, ``lin_r``; GCN ``lin``,
+``bias``; SGC ``lin``). ``load_pretrained_torch`` reads a reference
+``model.pt`` of any backbone, which loads straight into ``HeteroGNN``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,10 @@ SEP = "/"
 _MLPS = ("snp_feat_mlp", "go_feat_mlp", "gene_feat_mlp")
 _MLP_MAP = {"FC_hidden": "fc1", "FC_hidden2": "fc2", "FC_output": "fc3"}
 _MLP_INV = {v: k for k, v in _MLP_MAP.items()}
+# a conv's linear maps: GAT lin_src / lin_dst, SAGE lin_l / lin_r, GCN and
+# SGC lin ({"w": [in, out], "b": [out]} in the JAX tree, "b" where there is
+# a bias)
+_LINEARS = ("lin_src", "lin_dst", "lin_l", "lin_r", "lin")
 
 
 def flatten_params(params, prefix="") -> Dict[str, np.ndarray]:
@@ -83,8 +89,10 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
         for rk, rp in layer.items():
             pre = f"convs.{li}.convs.{rk}"
             for k, v in rp.items():
-                if k in ("lin_src", "lin_dst"):
+                if k in _LINEARS:
                     sd[f"{pre}.{k}.weight"] = _np(v["w"]).T
+                    if "b" in v:
+                        sd[f"{pre}.{k}.bias"] = _np(v["b"])
                 elif k in ("att_src", "att_dst"):
                     a = _np(v)
                     sd[f"{pre}.{k}"] = a.reshape(1, *a.shape)
@@ -117,8 +125,12 @@ def params_to_jax(state_dict) -> dict:
                 raise KeyError(f"unmapped conv param {key}")
             rp = params["convs"][int(parts[1])].setdefault(parts[3], {})
             tail = parts[4:]
-            if tail[0] in ("lin_src", "lin_dst") and tail[1] == "weight":
-                rp[tail[0]] = {"w": val.T}
+            if tail[0] in _LINEARS:
+                lin = rp.setdefault(tail[0], {})
+                if tail[1] == "weight":
+                    lin["w"] = val.T
+                else:
+                    lin["b"] = val
             elif tail[0] in ("att_src", "att_dst"):
                 rp[tail[0]] = val.reshape(val.shape[-2], val.shape[-1])
             elif tail[0] == "bias":

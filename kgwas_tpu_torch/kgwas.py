@@ -22,7 +22,8 @@ from .engine.checkpoint import (load_model, load_pretrained_torch,
 from .engine.loop import epoch_batches, forward, train_step
 from .engine.optim import build_optimizer
 from .graph.merged_layout import build_merged_layouts
-from .models.hetero_gnn import HeteroGNN, check_supported, device_layouts
+from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
+                                 layer_path)
 from .stats.calibration import finalize_predictions
 from .utils import compute_metrics, print_sys, read_table, write_table
 
@@ -80,7 +81,9 @@ class KGWAS:
         no_relu: bool = False,
         **kwargs,
     ):
-        """Defaults mirror the reference's. kwargs: the other model-semantic
+        """Defaults mirror the reference's. Served: GAT with 1 head and
+        gnn_aggr sum, mean, max or min (sigmoid_gat with sum and mean);
+        SAGE, GCN and SGC with sum or mean. kwargs: the other model-semantic
         config keys (negative_slope, temperature, sigmoid_gat,
         out_channels; dropout, edge_dim and pheno_condition only at their
         defaults)."""
@@ -114,6 +117,7 @@ class KGWAS:
             self.data.gene_init_dim_size, self.data.go_init_dim_size,
             seed=self.seed,
         ).to(self.device)
+        self._graph = None   # the device layouts follow the layer path
         return self
 
     def load_pretrained(self, path: str):
@@ -144,12 +148,15 @@ class KGWAS:
     # ------------------------------------------------------------ device state
 
     def _device_state(self):
-        """Node features and merged streams on the device, built once."""
+        """Node features and merged streams on the device, with the degree
+        norms (SAGE, GCN, SGC) or the per-relation streams (GAT max and
+        min) when the layer path needs them; built once per model."""
         if self._graph is None:
             cg = self.data.compile()
             x = {t: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                  for t, v in cg.node_x.items()}
-            self._graph = (cg, x, device_layouts(self.layouts, self.device))
+            self._graph = (cg, x, device_layouts(
+                self.layouts, self.device, cg, layer_path(self.model_cfg)))
         return self._graph
 
     def _labels(self, cg):

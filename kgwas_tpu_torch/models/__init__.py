@@ -1,10 +1,13 @@
 from .mlp import SimpleMLP
+from .convs import GATConv, GCNConv, SAGEConv, SGConv, gat_relation
 from .hetero_gnn import (
     GO_TYPES,
     DeviceLayout,
-    GATConv,
     HeteroConv,
     HeteroGNN,
+    aggregate,
+    check_supported,
     device_layouts,
     encoder_for,
+    layer_path,
 )

@@ -1,28 +1,36 @@
 """HeteroGNN: the KGWAS model as an ``nn.Module``.
 
-Counterpart of ``kgwas_tpu/models/hetero_gnn.py`` (``init_hetero_gnn`` and
-``_apply_hetero_gnn`` on the merged GAT path, ``apply_merged_gat_layer``):
+Counterpart of ``kgwas_tpu/models/hetero_gnn.py`` (``init_hetero_gnn``,
+``_apply_hetero_gnn`` and the three layer paths of ``apply_hetero_layer``):
 
   1. per-type SimpleMLP encoders -> hidden (one GO MLP shared by the three
      GO types)
   2. per layer, for each destination type whose output reaches the head
-     (``HeteroGNN.live_groups``), ONE merged GAT layer over every
-     relation targeting it (``ops/gat_layer.MergedGATLayer``: the forward
-     kernel, and the backward and CSC segment-sum kernels for its
-     gradient), the cross-relation sum (or mean) folded into it, then the
-     summed biases, then ReLU on every destination type
+     (``HeteroGNN.live_groups``), one of three paths (``layer_path``):
+       * ``merged`` (GAT, sum or mean; ``apply_merged_gat_layer``): ONE
+         merged GAT layer over every relation targeting the type
+         (``ops/gat_layer.MergedGATLayer``), the cross-relation sum (or
+         mean) folded into it, then the summed biases
+       * ``relations`` (GAT, max or min; the per-relation loop of
+         ``apply_hetero_layer``): one GAT layer per relation
+         (``convs.gat_relation``, kernels #6 and #7), its bias added per
+         relation, then the max (or min) over relations
+       * ``mp`` (SAGE, GCN, SGC with sum or mean;
+         ``apply_merged_mp_layer``): ONE CSR segment sum over the merged
+         stream (``ops/segment.CSRSegmentSum``, kernel #10) with the static
+         degree norms, then each relation's linear maps, then the sum (or
+         mean) over relations
+     then ReLU on every destination type
   3. the scalar head ReLU(Linear(h_SNP)) (or no ReLU)
 
 Module and parameter names are the reference ``model.py``'s, so the
-state_dict loads a reference ``model.pt`` as it is:
-``snp_feat_mlp.*``, ``convs.{l}.convs.{src__rel__dst}.{lin_src, lin_dst,
-att_src, att_dst, bias}`` (no ``lin_dst`` when src and dst types are the
-same) and ``lin.*``.
+state_dict loads a reference ``model.pt`` as it is: ``snp_feat_mlp.*``,
+``convs.{l}.convs.{src__rel__dst}.*`` (``models/convs.py``) and ``lin.*``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +39,14 @@ from torch import nn
 from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
 from ..ops.gat_layer import MergedGATLayer
-from .init import glorot_att, glorot_weight, torch_linear_bias, torch_linear_weight
+from ..ops.segment import CSRSegmentSum
+from .convs import gat_relation, make_conv
+from .init import torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
 
 _VARIANTS = "ROADMAP.md Queue 1 item 3 (model variants)"
+BACKBONES = ("GAT", "SAGE", "GCN", "SGC")
+AGGRS = ("sum", "mean", "max", "min")
 
 
 def encoder_for(ntype: str) -> str:
@@ -48,73 +60,133 @@ def encoder_for(ntype: str) -> str:
 
 
 def check_supported(cfg: ModelConfig):
+    if cfg.gnn_backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {cfg.gnn_backbone!r}")
+    if cfg.gnn_aggr not in AGGRS:
+        raise ValueError(f"unknown hetero aggr {cfg.gnn_aggr!r}")
+    max_min = cfg.gnn_aggr in ("max", "min")
     if cfg.gnn_backbone != "GAT":
-        raise NotImplementedError(
-            f"backbone {cfg.gnn_backbone!r} is not ported yet: {_VARIANTS}")
+        if max_min:
+            raise NotImplementedError(
+                f"{cfg.gnn_backbone} with aggr={cfg.gnn_aggr!r} is not ported "
+                f"yet (sum and mean are): {_VARIANTS}")
+        return
     if cfg.gat_num_head != 1:
         raise NotImplementedError(
             f"multi-head GAT ({cfg.gat_num_head} heads) is not ported yet: "
             f"{_VARIANTS}")
-    if cfg.gnn_aggr not in ("sum", "mean"):
+    if cfg.sigmoid_gat and max_min:
         raise NotImplementedError(
-            f"aggr={cfg.gnn_aggr!r} is not ported yet (sum and mean are): "
+            f"sigmoid_gat with aggr={cfg.gnn_aggr!r} is not ported yet: "
             f"{_VARIANTS}")
 
 
-class GATConv(nn.Module):
-    """One relation's GAT parameters (PyG GATConv names). Homogeneous
-    relations have no lin_dst: lin_src projects both ends."""
+def layer_path(cfg: ModelConfig) -> str:
+    """'merged' (GAT, sum or mean), 'relations' (GAT, max or min) or 'mp'
+    (SAGE, GCN, SGC), as apply_hetero_layer routes them."""
+    if cfg.gnn_backbone != "GAT":
+        return "mp"
+    return "relations" if cfg.gnn_aggr in ("max", "min") else "merged"
 
-    def __init__(self, in_dim: int, out: int, heads: int, share_dst: bool,
-                 gen: torch.Generator):
-        super().__init__()
-        self.lin_src = nn.Linear(in_dim, heads * out, bias=False)
-        self.lin_dst = (None if share_dst
-                        else nn.Linear(in_dim, heads * out, bias=False))
-        with torch.no_grad():
-            self.lin_src.weight.copy_(glorot_weight(gen, in_dim, heads * out))
-            if self.lin_dst is not None:
-                self.lin_dst.weight.copy_(
-                    glorot_weight(gen, in_dim, heads * out))
-        self.att_src = nn.Parameter(glorot_att(gen, heads, out))
-        self.att_dst = nn.Parameter(glorot_att(gen, heads, out))
-        self.bias = nn.Parameter(torch.zeros(heads * out))
 
-    def dst_weight(self):
-        return (self.lin_src if self.lin_dst is None else self.lin_dst).weight
+def aggregate(outs, aggr: str):
+    """The cross-relation aggregation (the JAX package's _aggregate). amax
+    and amin split the gradient evenly among tied relations, as
+    jax.grad of jnp.max / jnp.min does."""
+    if len(outs) == 1:
+        return outs[0]
+    stacked = torch.stack(outs)
+    if aggr == "sum":
+        return stacked.sum(0)
+    if aggr == "mean":
+        return stacked.mean(0)
+    if aggr == "max":
+        return torch.amax(stacked, 0)
+    if aggr == "min":
+        return torch.amin(stacked, 0)
+    raise ValueError(f"unknown hetero aggr {aggr!r}")
 
 
 class HeteroConv(nn.Module):
-    def __init__(self, rel_types: Dict[str, tuple], hidden: int, heads: int,
-                 gen: torch.Generator):
+    def __init__(self, rel_types: Dict[str, tuple], hidden: int,
+                 cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         self.convs = nn.ModuleDict({
-            rk: GATConv(hidden, hidden, heads, src_t == dst_t, gen)
+            rk: make_conv(cfg.gnn_backbone, hidden, cfg.gat_num_head,
+                          src_t == dst_t, gen)
             for rk, (src_t, _, dst_t) in rel_types.items()
         })
 
 
 @dataclass
 class DeviceLayout:
-    """One merged destination group's stream, on the device."""
+    """One edge stream on the device: a merged destination group's (R
+    slots), or one relation's (one slot)."""
 
     rel_keys: List[str]
     src_types: List[str]
     n_rows_per_rel: int
     src_base: Tuple[int, ...]  # slot r: source rows src_base[r]..[r+1]
-    src: torch.Tensor          # int32 [E_tot], dst-sorted
+    src: torch.Tensor          # int32 [E_tot], dst-sorted: the gather index
     row_offsets: torch.Tensor  # int32 [R*N + 1]
     dst: torch.Tensor          # int32 [E_tot]: each edge's row
     csc_perm: torch.Tensor     # int32 [E_tot]: edges in source order
     csc_offsets: torch.Tensor  # int32 [S + 1]
+    # the 'mp' path: 1/deg per row [R*N] and the symmetric norm per edge [E]
+    inv_deg: Optional[torch.Tensor] = None
+    sym_e: Optional[torch.Tensor] = None
+    # the 'relations' path: one one-slot layout per slot, in slot order
+    relations: Optional[List["DeviceLayout"]] = None
 
 
-def device_layouts(layouts, device) -> Dict[str, DeviceLayout]:
+def merged_mp_norms(L):
+    """(inv_deg [R*N], sym_e [E]) float32 of a merged layout: the static,
+    degree-only norms of the SAGE mean and the GCN/SGC symmetric norm
+    (the JAX package's _merged_mp_norms). Pad edges sit on trash rows and
+    trash source rows, so plain bincounts over the stream give the real
+    rows' degrees."""
+    deg_dst = np.bincount(L.dst, minlength=L.n_rows_total).astype(np.float32)
+    inv_deg = np.where(deg_dst > 0, 1.0 / np.maximum(deg_dst, 1.0), 0.0)
+    deg_src = np.bincount(L.src, minlength=L.n_src_total).astype(np.float32)
+    dinv_dst = np.where(deg_dst > 0,
+                        1.0 / np.sqrt(np.maximum(deg_dst, 1.0)), 0.0)
+    dinv_src = np.where(deg_src > 0,
+                        1.0 / np.sqrt(np.maximum(deg_src, 1.0)), 0.0)
+    sym_e = dinv_src[L.src] * dinv_dst[L.dst]
+    return inv_deg.astype(np.float32), sym_e.astype(np.float32)
+
+
+def device_layouts(layouts, device, cg=None, path: str = "merged"
+                   ) -> Dict[str, DeviceLayout]:
+    """The merged layouts on the device, with what the layer path needs:
+    the degree norms for 'mp', and for 'relations' each slot's relation
+    stream from the compiled graph cg (graph/shard_compile.RelationShard:
+    its CSR, whose pad edges read source row 0, and its CSC, which sends
+    their cotangents to the source trash row, as the JAX package does)."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return {
-        t: DeviceLayout(
+    if path == "relations" and cg is None:
+        raise ValueError("the per-relation path needs the compiled graph")
+
+    def relation(rk):
+        r = cg.relations[rk]
+        return DeviceLayout(
+            rel_keys=[rk], src_types=[r.src_type],
+            n_rows_per_rel=int(cg.padded_nodes[r.dst_type]),
+            src_base=(0, int(cg.padded_nodes[r.src_type])),
+            src=put(r.src), row_offsets=put(r.row_offsets), dst=put(r.dst),
+            csc_perm=put(r.csc_perm), csc_offsets=put(r.csc_offsets))
+
+    out = {}
+    for t, L in layouts.items():
+        extra = {}
+        if path == "mp":
+            inv_deg, sym_e = merged_mp_norms(L)
+            extra = {"inv_deg": put(inv_deg), "sym_e": put(sym_e)}
+        elif path == "relations":
+            extra = {"relations": [relation(rk) for rk in L.rel_keys]}
+        out[t] = DeviceLayout(
             rel_keys=list(L.rel_keys),
             src_types=list(L.src_types),
             n_rows_per_rel=int(L.n_rows_per_rel),
@@ -124,9 +196,9 @@ def device_layouts(layouts, device) -> Dict[str, DeviceLayout]:
             dst=put(L.dst),
             csc_perm=put(L.csc_perm),
             csc_offsets=put(L.csc_offsets),
+            **extra,
         )
-        for t, L in layouts.items()
-    }
+    return out
 
 
 class HeteroGNN(nn.Module):
@@ -142,7 +214,7 @@ class HeteroGNN(nn.Module):
         self.go_feat_mlp = SimpleMLP(go_init_dim, h, h, gen)
         self.gene_feat_mlp = SimpleMLP(gene_init_dim, h, h, gen)
         self.convs = nn.ModuleList([
-            HeteroConv(rel_types, h, cfg.gat_num_head, gen)
+            HeteroConv(rel_types, h, cfg, gen)
             for _ in range(cfg.gnn_num_layers)
         ])
         self.lin = nn.Linear(h, cfg.out_channels)
@@ -179,17 +251,87 @@ class HeteroGNN(nn.Module):
             out[dst_t] = agg + bias
         return out
 
+    def relation_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
+                       layouts: Dict[str, DeviceLayout]):
+        """One hetero GAT layer per relation (gnn_aggr max or min): one
+        launch of each per-relation kernel per relation of a group, each
+        relation's bias added before the max (or min) over relations."""
+        cfg = self.cfg
+        out = {}
+        for dst_t, L in layouts.items():
+            if L.relations is None:
+                raise ValueError(
+                    f"layout {dst_t!r} has no per-relation streams: build it "
+                    "with device_layouts(..., cg, path='relations')")
+            outs = [gat_relation(layer.convs[rk], h[RL.src_types[0]],
+                                 h[dst_t], RL, cfg.negative_slope,
+                                 cfg.temperature)
+                    for rk, RL in zip(L.rel_keys, L.relations)]
+            out[dst_t] = aggregate(outs, cfg.gnn_aggr)
+        return out
+
+    def mp_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
+                 layouts: Dict[str, DeviceLayout]):
+        """One SAGE / GCN / SGC hetero layer, one launch of the CSR segment
+        sum per destination group over its merged stream (the JAX
+        package's apply_merged_mp_layer)."""
+        cfg = self.cfg
+        bb = cfg.gnn_backbone
+        out = {}
+        for dst_t, L in layouts.items():
+            if L.inv_deg is None:
+                raise ValueError(
+                    f"layout {dst_t!r} has no degree norms: build it with "
+                    "device_layouts(..., path='mp')")
+            convs = [layer.convs[rk] for rk in L.rel_keys]
+            if bb == "GCN":
+                # GCN projects before the aggregation: one table per slot
+                xs_all = torch.cat([h[t] @ c.lin.weight.T
+                                    for t, c in zip(L.src_types, convs)])
+            else:
+                # SAGE and SGC aggregate the hidden rows themselves
+                xs_all = torch.cat([h[t] for t in L.src_types])
+            summed = CSRSegmentSum.apply(
+                xs_all, None if bb == "SAGE" else L.sym_e, L)
+            if bb == "SAGE":
+                summed = summed * L.inv_deg[:, None]                # mean
+            rel = summed.reshape(len(convs), L.n_rows_per_rel, -1)
+            if bb == "SAGE":
+                outs = [c.lin_l(rel[r]) + c.lin_r(h[dst_t])
+                        for r, c in enumerate(convs)]
+            elif bb == "GCN":
+                outs = [rel[r] + c.bias for r, c in enumerate(convs)]
+            else:
+                outs = [c.lin(rel[r]) for r, c in enumerate(convs)]
+            out[dst_t] = aggregate(outs, cfg.gnn_aggr)
+        return out
+
+    def layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
+              layouts: Dict[str, DeviceLayout]):
+        """One hetero layer on the configuration's path (layer_path)."""
+        path = layer_path(self.cfg)
+        if path == "merged":
+            return self.merged_layer(layer, h, layouts)
+        if path == "relations":
+            return self.relation_layer(layer, h, layouts)
+        return self.mp_layer(layer, h, layouts)
+
     def live_groups(self, layouts: Dict[str, DeviceLayout]):
         """(per layer, the destination groups whose output reaches the
         head; the node types whose encoder output does). The last layer
         needs the SNP group alone, each layer before it the groups that the
-        next layer reads: their source types and, for a_dst, their own.
-        The JAX package's jit drops the other groups as dead code."""
+        next layer reads: their source types and, where the layer reads the
+        destination's own row (GAT's a_dst, SAGE's lin_r; not GCN or SGC),
+        their own. The JAX package's jit drops the other groups as dead
+        code."""
+        reads_dst = self.cfg.gnn_backbone in ("GAT", "SAGE")
         need = {"SNP"}
         per_layer = []
         for _ in self.convs:
-            per_layer.append([t for t in layouts if t in need])
-            need = need.union(*(layouts[t].src_types for t in need))
+            live = [t for t in layouts if t in need]
+            per_layer.append(live)
+            need = set(live) if reads_dst else set()
+            need = need.union(*(layouts[t].src_types for t in live))
         return per_layer[::-1], need
 
     def forward(self, x: Dict[str, torch.Tensor],
@@ -199,7 +341,7 @@ class HeteroGNN(nn.Module):
         h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()
              if t in encoded}
         for layer, live in zip(self.convs, groups):
-            out = self.merged_layer(layer, h, {t: layouts[t] for t in live})
+            out = self.layer(layer, h, {t: layouts[t] for t in live})
             h = {t: torch.relu(v) for t, v in out.items()}
         logits = self.lin(h["SNP"])
         return logits if self.cfg.no_relu else torch.relu(logits)

@@ -45,6 +45,21 @@ KERNELS = {
         [_P] * 8 + [ctypes.POINTER(_I64)] + [_P] * 3
         + [_I32, _I64, _I32, _I32, _P],
     ),
+    "csr_segment_sum": (
+        "csr_segment_sum.cu",
+        "kgwas_csr_segment_sum",
+        [_P] * 5 + [_I64, _I32, _P],
+    ),
+    "segment_softmax_spmm_fwd": (
+        "segment_softmax_spmm_fwd.cu",
+        "kgwas_segment_softmax_spmm_fwd",
+        [_P] * 7 + [_I64, _I32, _P],
+    ),
+    "segment_softmax_spmm_bwd": (
+        "segment_softmax_spmm_bwd.cu",
+        "kgwas_segment_softmax_spmm_bwd",
+        [_P] * 10 + [_I64, _I32, _P],
+    ),
 }
 
 _loaded: dict = {}

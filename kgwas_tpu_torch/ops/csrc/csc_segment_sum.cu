@@ -34,6 +34,12 @@
 // [S + 1], d_xs [S, D]; the partials are S / 64 rows), against 2 D flops per
 // edge. As in the layer kernels, each slot's trash source row holds all of
 // the relation's pad edges (up to 511) and one warp walks them in sequence.
+//
+// Without logit cotangents (dz == nullptr: the per-relation GAT backward
+// after segment_softmax_spmm_bwd.cu, and the message-passing backward of
+// csr_segment_sum.cu) the same kernel runs with LOGITS = false, a
+// compile-time flag: d_xs[s] = sum_i w_e g[row_e], no att, no d_att and no
+// slot sums. With w == nullptr every weight is 1 (the SAGE mean's sum).
 
 #include <cuda_runtime.h>
 
@@ -71,7 +77,7 @@ struct Args {
   int d;
 };
 
-template <bool VEC, int NV>
+template <bool VEC, int NV, bool LOGITS>
 __global__ void __launch_bounds__(kWarps * 32)
 csc_rows_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -82,12 +88,14 @@ csc_rows_kernel(const Args a) {
   const long long block_row0 = static_cast<long long>(blockIdx.x) * kBlockRows;
   const int n_per_rel = static_cast<int>(a.n_rows_per_rel);
 
-  int slot = 0;  // the block's rows all lie in one slot
-  while (slot + 1 < a.n_rel && a.src_base[slot + 1] <= block_row0) ++slot;
   R att;
-  att.load(a.att + static_cast<long long>(slot) * a.d, lane, a.d);
   R part;  // this warp's sum of c_s xs[s]
-  part.zero();
+  if (LOGITS) {
+    int slot = 0;  // the block's rows all lie in one slot
+    while (slot + 1 < a.n_rel && a.src_base[slot + 1] <= block_row0) ++slot;
+    att.load(a.att + static_cast<long long>(slot) * a.d, lane, a.d);
+    part.zero();
+  }
 
   for (int k = 0; k < kRowsPerWarp; ++k) {
     const long long s = block_row0 + warp * kRowsPerWarp + k;
@@ -104,8 +112,8 @@ csc_rows_kernel(const Args a) {
         const int e = a.csc_perm[base + lane];
         const int row = a.dst[e];
         my_row = a.fold ? row % n_per_rel : row;
-        my_w = a.w[e];
-        c += a.dz[e];
+        my_w = a.w != nullptr ? a.w[e] : 1.0f;  // warp-uniform
+        if (LOGITS) c += a.dz[e];
       }
       for (int j = 0; j < cnt; j += U) {
         // a step past the end re-reads the last edge's row, masked below
@@ -128,6 +136,10 @@ csc_rows_kernel(const Args a) {
         }
       }
     }
+    if (!LOGITS) {
+      acc.store(a.d_xs + s * a.d, lane, a.d);
+      continue;
+    }
     // xor butterfly: every lane ends with the same c_s
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
@@ -142,6 +154,7 @@ csc_rows_kernel(const Args a) {
     }
   }
 
+  if (!LOGITS) return;
   // the block's d_att partial: its warps' sums in warp order
   part.store(&red[warp][0], lane, a.d);
   __syncthreads();
@@ -182,13 +195,19 @@ template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long n_src = a.src_base[a.n_rel];
   const long long blocks = n_src / kBlockRows;
+  const bool logits = a.dz != nullptr;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (blocks > 0) {
-    csc_rows_kernel<VEC, NV>
-        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    if (logits)
+      csc_rows_kernel<VEC, NV, true>
+          <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    else
+      csc_rows_kernel<VEC, NV, false>
+          <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
+  if (!logits) return cudaSuccess;
   slot_sum_kernel<<<dim3(a.n_rel, (a.d + 31) / 32), kWarps * 32, 0, stream>>>(
       a);
   return cudaGetLastError();
@@ -200,7 +219,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // src_base, a host array of n_rel + 1 source-row boundaries, each a
 // multiple of 64 (the wrapper checks, as it checks 16-byte alignment of the
 // float4 rows when D % 128 == 0). fold: 1 when g is the folded [N, D]
-// cotangent.
+// cotangent. w may be null (weight 1); dz null (no logit term) leaves att,
+// d_att and partial unread and unwritten.
 extern "C" int kgwas_csc_segment_sum(
     const void* g, const void* w, const void* dz, const void* xs,
     const void* att, const void* dst, const void* csc_perm,

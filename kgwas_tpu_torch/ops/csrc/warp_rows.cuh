@@ -1,5 +1,6 @@
 // Feature rows held across the 32 lanes of a warp, shared by the port's
-// kernels (merged_gat_fwd.cu, merged_gat_bwd.cu, csc_segment_sum.cu).
+// kernels (merged_gat_fwd.cu, merged_gat_bwd.cu, csc_segment_sum.cu,
+// csr_segment_sum.cu, segment_softmax_spmm_fwd.cu, segment_softmax_spmm_bwd.cu).
 //
 // A row of D float32 values is NV float4s per lane (D = 128 * NV, lane l
 // holding columns 4 (32 k + l) .. + 3), so a warp reads or writes a row as

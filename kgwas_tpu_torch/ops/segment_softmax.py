@@ -1,0 +1,192 @@
+"""Per-relation segment softmax fused with the SpMM: kernels #6 and #7.
+
+Counterpart of ``kgwas_tpu/ops/pallas_segment.py``'s
+``fused_segment_softmax_spmm`` (``_fused_forward`` / ``_fwd_kernel`` and its
+VJP ``_fused_backward`` / ``_bwd_kernel``) with ``gather_rows_csc`` fused in
+front, as ``kgwas_tpu/models/convs.py``'s ``apply_gat`` runs it on the
+per-relation GAT path (gnn_aggr max and min). Over one relation's
+dst-sorted CSR (``src`` into the projected source table ``xs``,
+``row_offsets``) and given per-edge logits:
+
+    out[r] = sum_{e in row r} softmax_r(logits)_e xs[src_e]
+
+``segment_softmax_spmm_fwd`` launches ``csrc/segment_softmax_spmm_fwd.cu``
+and ``segment_softmax_spmm_bwd`` launches ``csrc/segment_softmax_spmm_bwd.
+cu`` for CUDA tensors; for CPU tensors they run their ``_plain`` versions.
+There is no other route. ``launches`` and ``bwd_launches`` count kernel
+launches. ``SegmentSoftmaxSpmm`` is the op as an autograd function: its
+backward is ``segment_softmax_spmm_bwd`` (per-edge ``p_e`` and
+``d_logit_e``), then ``segment.csc_segment_sum(g, p, None)`` over the
+relation's CSC for ``d_xs``: the ``[E, D]`` message cotangent is never
+formed.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import segment
+from .segment_ref import EPS, NEG_BIG, csr_rows, gather_rows, segment_max, segment_sum
+
+EXP_CLAMP = 60.0
+
+launches = 0
+bwd_launches = 0
+
+
+def _check(xs, src, logits, row_offsets):
+    if xs.dim() != 2 or src.dim() != 1 or row_offsets.dim() != 1:
+        raise ValueError("xs must be 2-D, src and row_offsets 1-D")
+    if logits.shape != src.shape:
+        raise ValueError(f"logits {tuple(logits.shape)} != src "
+                         f"{tuple(src.shape)}")
+    return row_offsets.shape[0] - 1
+
+
+def segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets):
+    """Plain PyTorch version in the TPU kernel's formulas and constants
+    (NEG_BIG, exp(min(l - m, 60)), +1e-16). Same arguments and results as
+    segment_softmax_spmm_fwd."""
+    n_rows = _check(xs, src, logits, row_offsets)
+    dst = csr_rows(row_offsets)
+    e = dst.shape[0]
+    l = logits[:e]
+    row_max = segment_max(l, dst, n_rows)
+    p = torch.exp(torch.clamp(l - row_max[dst], max=EXP_CLAMP))
+    row_sum = segment_sum(p, dst, n_rows)
+    out = segment_sum(p[:, None] * gather_rows(xs, src[:e]), dst, n_rows)
+    return out / (row_sum + EPS)[:, None], row_max, row_sum
+
+
+def segment_softmax_spmm_fwd(xs, src, logits, row_offsets):
+    """(out [n_rows, D], row_max [n_rows], row_sum [n_rows]).
+
+    xs [S, D] f32 projected source rows; src [E] int32 into xs
+    (dst-sorted); logits [E] f32; row_offsets [n_rows + 1] int32, every
+    edge in a row. Empty rows give 0, NEG_BIG and 0."""
+    if xs.device.type == "cpu":
+        return segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets)
+    if xs.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs.device}")
+    n_rows = _check(xs, src, logits, row_offsets)
+    from .gat_layer import check_cuda_args
+
+    check_cuda_args(xs.device, xs=xs, src=src, logits=logits,
+                    row_offsets=row_offsets)
+    from .build import library
+
+    d = xs.shape[1]
+    out = torch.empty(n_rows, d, dtype=torch.float32, device=xs.device)
+    row_max = torch.empty(n_rows, dtype=torch.float32, device=xs.device)
+    row_sum = torch.empty(n_rows, dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    err = library("segment_softmax_spmm_fwd")(
+        xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
+        row_offsets.data_ptr(), out.data_ptr(), row_max.data_ptr(),
+        row_sum.data_ptr(), n_rows, d, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"segment_softmax_spmm_fwd launch failed: cudaError {err}")
+    global launches
+    launches += 1
+    return out, row_max, row_sum
+
+
+def segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets, row_max,
+                                   row_sum, out, g):
+    """Plain PyTorch version of the backward kernel, in the TPU backward
+    kernel's formulas (dot_r from the saved output). Same arguments and
+    results as segment_softmax_spmm_bwd."""
+    _check(xs, src, logits, row_offsets)
+    dst = csr_rows(row_offsets)
+    e = dst.shape[0]
+    lse = row_max + torch.log(row_sum + EPS)
+    p = torch.exp(torch.clamp(logits[:e] - lse[dst], max=EXP_CLAMP))
+    dot = (out * g).sum(-1)
+    m = (gather_rows(xs, src[:e]) * gather_rows(g, dst)).sum(-1)
+    return p, p * (m - dot[dst])
+
+
+def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
+                             out, g):
+    """Edge-level VJP of segment_softmax_spmm_fwd: (w [E], d_logits [E]).
+
+    The arguments are the forward's, its out / row_max / row_sum and the
+    cotangent g [n_rows, D] of out. w_e = p_e is the softmax weight of edge
+    e, d_logits the logits' cotangent. The message cotangent p_e g_row is
+    never formed: segment.csc_segment_sum(g, w, None) sums it per source
+    row."""
+    if xs.device.type == "cpu":
+        return segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets,
+                                              row_max, row_sum, out, g)
+    if xs.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs.device}")
+    n_rows = _check(xs, src, logits, row_offsets)
+    d = xs.shape[1]
+    if out.shape != (n_rows, d) or g.shape != (n_rows, d):
+        raise ValueError(f"out and g must be ({n_rows}, {d})")
+    if row_max.shape != (n_rows,) or row_sum.shape != (n_rows,):
+        raise ValueError(f"row_max / row_sum must be ({n_rows},)")
+    from .gat_layer import check_cuda_args
+
+    check_cuda_args(xs.device, xs=xs, src=src, logits=logits,
+                    row_offsets=row_offsets, row_max=row_max,
+                    row_sum=row_sum, out=out, g=g)
+    from .build import library
+
+    e = src.shape[0]
+    w = torch.empty(e, dtype=torch.float32, device=xs.device)
+    d_logits = torch.empty(e, dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    err = library("segment_softmax_spmm_bwd")(
+        xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
+        row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+        out.data_ptr(), g.data_ptr(), w.data_ptr(), d_logits.data_ptr(),
+        n_rows, d, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"segment_softmax_spmm_bwd launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return w, d_logits
+
+
+def segment_softmax_spmm_backward(xs, logits, row_max, row_sum, out, g,
+                                  layout):
+    """VJP of segment_softmax_spmm_fwd with respect to (xs, logits): the
+    edge kernel, then the CSC segment sum. layout is the relation's
+    one-slot DeviceLayout (models/hetero_gnn.py)."""
+    w, d_logits = segment_softmax_spmm_bwd(
+        xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g)
+    d_xs, _ = segment.csc_segment_sum(g, w, None, xs, None, layout)
+    return d_xs, d_logits
+
+
+def segment_softmax_spmm_backward_plain(xs, logits, row_max, row_sum, out, g,
+                                        layout):
+    """Plain version of segment_softmax_spmm_backward: the two plain
+    halves."""
+    w, d_logits = segment_softmax_spmm_bwd_plain(
+        xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g)
+    d_xs, _ = segment.csc_segment_sum_plain(g, w, None, xs, None, layout)
+    return d_xs, d_logits
+
+
+class SegmentSoftmaxSpmm(torch.autograd.Function):
+    """``SegmentSoftmaxSpmm.apply(xs, logits, layout)`` -> out [N, D] over
+    the relation's stream (layout.src, layout.row_offsets). The forward
+    saves out, row_max and row_sum; the backward recomputes each edge's
+    softmax weight from them."""
+
+    @staticmethod
+    def forward(ctx, xs, logits, layout):
+        out, row_max, row_sum = segment_softmax_spmm_fwd(
+            xs, layout.src, logits, layout.row_offsets)
+        ctx.save_for_backward(xs, logits, row_max, row_sum, out)
+        ctx.layout = layout
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        d_xs, d_logits = segment_softmax_spmm_backward(
+            *ctx.saved_tensors, g.contiguous(), ctx.layout)
+        return d_xs, d_logits, None

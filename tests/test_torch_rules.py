@@ -5,8 +5,10 @@
   (an AST scan): the test interpreter may preload jax at start-up, so
   ``sys.modules`` proves nothing.
 * ``KGWAS(data)`` with no device raises when CUDA is absent.
-* A CPU tensor runs the plain version of the layer op and launches nothing,
-  in the forward and in the backward.
+* A CPU tensor runs the plain version of each kernel wrapper and launches
+  nothing, in the forward and in the backward.
+* Options still unported raise NotImplementedError naming their ROADMAP
+  item.
 """
 import ast
 import pathlib
@@ -19,7 +21,7 @@ import kgwas_tpu_torch
 from kgwas_tpu_torch import KGWAS, KGWAS_Data
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models import device_layouts
-from kgwas_tpu_torch.ops import build, gat_layer, segment
+from kgwas_tpu_torch.ops import build, gat_layer, segment, segment_softmax
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "kgwas_tpu"}
@@ -123,6 +125,42 @@ def test_cpu_backward_routes_to_plain_versions(monkeypatch):
     assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
 
 
+@pytest.mark.parametrize("kernel", ["segment_softmax_spmm", "csr_segment_sum",
+                                    "csc_segment_sum_without_logits"])
+def test_cpu_tensors_route_variant_kernels_to_plain(monkeypatch, kernel):
+    def no_kernel(name):
+        raise AssertionError("a CPU tensor must not reach a CUDA kernel")
+
+    monkeypatch.setattr(build, "library", no_kernel)
+    g = make_synthetic_kg(n_snp=60, n_gene=12, n_go=6, seed=0)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    L = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu", cg,
+                       "relations")["Gene"]
+    RL = L.relations[0]
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32))  # noqa: E731
+    xs = t(rng.standard_normal((RL.src_base[-1], 8))).requires_grad_()
+    before = (segment_softmax.launches, segment_softmax.bwd_launches,
+              segment.launches, segment.csr_launches)
+    if kernel == "segment_softmax_spmm":
+        logits = t(rng.standard_normal(RL.src.shape[0])).requires_grad_()
+        out = segment_softmax.SegmentSoftmaxSpmm.apply(xs, logits, RL)
+        leaves = [xs, logits]
+    elif kernel == "csr_segment_sum":
+        w = t(rng.random(RL.src.shape[0]))
+        out = segment.CSRSegmentSum.apply(xs, w, RL)
+        leaves = [xs]
+    else:
+        g_ = t(rng.standard_normal((RL.n_rows_per_rel, 8))).requires_grad_()
+        out, d_att = segment.csc_segment_sum(g_, None, None, xs, None, RL)
+        assert d_att is None
+        leaves = [g_]
+    out.square().sum().backward()
+    assert (segment_softmax.launches, segment_softmax.bwd_launches,
+            segment.launches, segment.csr_launches) == before
+    assert all(v.grad is not None and v.grad.abs().sum() > 0 for v in leaves)
+
+
 def test_train_options_of_later_items_raise(tmp_path):
     data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                      data_path=str(tmp_path))
@@ -141,7 +179,9 @@ def test_unported_options_raise(tmp_path):
     data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                      data_path=str(tmp_path))
     run = KGWAS(data, device="cpu")
-    for kw in ({"gat_num_head": 2}, {"gnn_backbone": "SAGE"},
-               {"gnn_aggr": "max"}, {"dropout": 0.1}, {"edge_dim": 4}):
+    for kw in ({"gat_num_head": 2},
+               {"gnn_backbone": "SAGE", "gnn_aggr": "max"},
+               {"gnn_aggr": "max", "sigmoid_gat": True}, {"dropout": 0.1},
+               {"edge_dim": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run.initialize_model(gnn_hidden_dim=16, **kw)

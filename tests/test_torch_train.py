@@ -48,7 +48,7 @@ from kgwas_tpu_torch.engine import (batch_loss, build_optimizer,
                                     params_to_jax)
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.kgwas_data import train_test_split
-from kgwas_tpu_torch.models import HeteroGNN, device_layouts
+from kgwas_tpu_torch.models import HeteroGNN, device_layouts, layer_path
 from kgwas_tpu_torch.ops import gat_layer, segment
 
 D = 128
@@ -292,10 +292,11 @@ def port_step_grads(step_world, cfg, params):
     _, cg, y, w, batch = step_world
     rel_types = {k: (r.src_type, r.rel, r.dst_type)
                  for k, r in cg.relations.items()}
-    model = HeteroGNN(ModelConfig.from_dict(cfg.to_dict()), rel_types, 20, 32,
-                      16, seed=1)
+    port_cfg = ModelConfig.from_dict(cfg.to_dict())
+    model = HeteroGNN(port_cfg, rel_types, 20, 32, 16, seed=1)
     model.load_state_dict(params_from_jax(params))
-    layouts = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu")
+    layouts = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu",
+                             cg, layer_path(port_cfg))
     x = {t: _t(v) for t, v in cg.node_x.items()}
     loss = batch_loss(model(x, layouts), torch.from_numpy(batch), _t(y), _t(w))
     loss.backward()
