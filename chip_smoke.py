@@ -7,9 +7,13 @@ on the card and holds every CUDA kernel of those paths against its plain
 PyTorch version:
 
   1. card and kernel: nvidia-smi name and power limit, build the kernels
-     from ops/csrc with nvcc (build/kernels/)
-  2. kernel vs plain on a 20k-SNP synthetic KG, every merged group, the
-     softmax/sigmoid/raw modes, fold off and on; two runs bitwise equal
+     from ops/csrc with nvcc (build/kernels/); what ptxas did (registers,
+     shared memory, spills) and the resident warps per SM it allows
+  2. the merged GAT forward and backward kernels vs plain on a 20k-SNP
+     synthetic KG, every merged group, the softmax/sigmoid/raw modes, fold
+     off and on, on the default schedule and with max_edges 8 (real rows
+     cut into chunks), and on a stream with a hub node of thousands of
+     edges per slot; two runs bitwise equal
   3. the serving slice at full width: the 200k-SNP synthetic KG (20k
      genes, 12k GO terms per GO type, degree 6), hidden 128, 2 layers,
      random weights from seed 0 -> save_model -> load_pretrained ->
@@ -17,7 +21,9 @@ PyTorch version:
      reaches the head) -> the same forward through the plain layer op ->
      finalize_predictions
   4. timing with CUDA events: predict_all, and every kernel launch of one
-     forward against its plain version and its bound
+     forward against its plain version and its bound, without the trash
+     rows' pad edges, and with other max_edges (schedules built before the
+     timing)
   5. the training slice on the same KG: prepare_split, batch 512, lr 1e-4;
      (a) every backward launch of one step (merged_gat_bwd and
      csc_segment_sum) against the plain versions, two runs bitwise equal;
@@ -41,14 +47,20 @@ PyTorch version:
      split of each, and each new kernel's ms against its bound, its plain
      version and, for the CSR sum, torch.sparse.mm
 
+With KGWAS_PARENT_CSRC set to an earlier checkout's
+kgwas_tpu_torch/ops/csrc, phases 1, 4 and 5d also build that checkout's
+merged GAT kernels and time them on the same launches.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line. Exits non-zero, printing no result, without a
 CUDA device or without the package beside this file.
 """
 import contextlib
 import copy
+import ctypes
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -87,6 +99,8 @@ GRAD_ERR_RATIO, GRAD_FLOOR = 8.0, 1e-6
 # by about lr whatever its gradient's size, so a gradient near 0 whose sign
 # differs in the last bits can move it by up to 2 lr per step
 BATCH, LR, CMP_STEPS = 512, 1e-4, 3
+# max_edges of the merged GAT schedule timed beside the default (phase 4)
+SWEEP_MAX_EDGES = (32, 64, 256)
 LOSS_RTOL, PARAM_ATOL = 1e-4, 2 * LR * CMP_STEPS
 # published H100 SXM peaks (dense): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores
@@ -95,6 +109,125 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+# Hopper's limits per SM (H100): 64 warps, 32 blocks, 64K registers
+# allocated per warp in units of 256, 228 KB of shared memory with 1 KB
+# reserved per block
+SM_WARPS, SM_BLOCKS, SM_REGS, SM_SMEM = 64, 32, 65536, 233472
+
+
+def warps_per_sm(regs, threads, smem):
+    """Resident warps per SM of a kernel using regs registers a thread,
+    threads a block and smem bytes of shared memory a block."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min((SM_REGS // per_warp) // warps, SM_BLOCKS, SM_WARPS // warps)
+    if smem:
+        blocks = min(blocks, SM_SMEM // (smem + 1024))
+    return blocks * warps
+
+
+# block size and dynamic shared memory at D = 128 of the merged GAT
+# kernels' entry functions (csrc/gat_items.cuh warp_smem_floats: 4 warps,
+# a ring of 2 x 8 rows, the staging arrays; the backward's 8 cotangent rows
+# and per-edge z and m)
+MERGED_LAUNCH = {
+    "merged_gat_fwd_kernel": (128, 4 * 4 * (16 * 128 + 704)),
+    "merged_gat_combine_kernel": (128, 0),
+    "merged_gat_bwd_kernel": (128, 4 * 4 * (24 * 128 + 960)),
+    "merged_gat_bwd_combine_kernel": (128, 0),
+}
+
+
+def report_ptxas(build, name, text, launch=None):
+    """Logs what ptxas did for one library: the most registers and spills
+    over its entry functions, and for the softmax entries at D = 128 (and
+    the D-free combines) registers, shared memory, spills and, given
+    launch {entry: (threads, dynamic smem)}, the resident warps per SM."""
+    entries = build.ptxas_entries(text)
+    if not entries:
+        log(f"  {name}: no ptxas output")
+        return
+    top = max(entries, key=lambda e: e[1])
+    log(f"  {name}: {len(entries)} entry functions; most registers {top[1]} "
+        f"({top[0]}); most spill bytes {max(e[3] for e in entries)}")
+    for kern, regs, smem, spill in entries:
+        if not (kern.endswith("<0, true, 1>") or kern.endswith("<0>")):
+            continue
+        occ = ""
+        base = kern.split("<")[0].replace("void ", "")
+        if launch and base in launch:
+            threads, dyn = launch[base]
+            w = warps_per_sm(regs, threads, smem + dyn)
+            occ = (f", {threads} threads and {smem + dyn} B smem a block: "
+                   f"{w} warps per SM ({w / SM_WARPS:.0%} occupancy)")
+        log(f"    {kern}: {regs} registers, {smem} B static smem, {spill} B "
+            f"spills{occ}")
+
+
+MODES = ("softmax", "sigmoid", "raw")   # the C entry points' mode order
+
+
+class ParentKernels:
+    """The merged GAT kernels of an earlier checkout (KGWAS_PARENT_CSRC: its
+    kgwas_tpu_torch/ops/csrc), built from its sources: one warp per output
+    row, no schedule. fwd and bwd take the wrappers' arguments."""
+
+    FWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2
+                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
+                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                + [ctypes.c_void_p])
+
+    def __init__(self, build, csrc):
+        self.csrc = Path(csrc)
+        self._fwd = build.build_source(
+            self.csrc / "merged_gat_fwd.cu", "parent_merged_gat_fwd",
+            "kgwas_merged_gat_fwd", self.FWD_ARGS)
+        self._bwd = build.build_source(
+            self.csrc / "merged_gat_bwd.cu", "parent_merged_gat_bwd",
+            "kgwas_merged_gat_bwd", self.BWD_ARGS)
+
+    def fwd(self, xs, src, ro, att, a_dst, n, fold=0, mode="softmax",
+            slope=0.2, temperature=1.0):
+        n_rows = ro.numel() - 1
+        n_out = n if fold else n_rows
+        out = torch.empty(n_out, xs.shape[1], device=xs.device)
+        rmax = torch.empty(n_rows, device=xs.device)
+        rsum = torch.empty(n_rows, device=xs.device)
+        err = self._fwd(
+            xs.data_ptr(), src.data_ptr(), ro.data_ptr(), att.data_ptr(),
+            a_dst.data_ptr(), out.data_ptr(), rmax.data_ptr(),
+            rsum.data_ptr(), n_out, n, fold or 1, xs.shape[1],
+            MODES.index(mode), slope, temperature,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent merged_gat_fwd: cudaError {err}")
+        return out, rmax, rsum
+
+    def bwd(self, xs, src, ro, att, a_dst, rmax, rsum, g, n, fold=0,
+            mode="softmax", slope=0.2, temperature=1.0):
+        n_rows = ro.numel() - 1
+        e = src.numel()
+        w = torch.empty(e, device=xs.device)
+        dz = torch.empty(e, device=xs.device)
+        da = torch.empty(n_rows, device=xs.device)
+        err = self._bwd(
+            *(t.data_ptr() for t in (xs, src, ro, att, a_dst, rmax, rsum, g,
+                                     w, dz, da)),
+            n if fold else n_rows, n, fold or 1, xs.shape[1],
+            MODES.index(mode), slope, temperature,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent merged_gat_bwd: cudaError {err}")
+        return w, dz, da
+
+
+def parent_kernels(build):
+    """ParentKernels of KGWAS_PARENT_CSRC, or None when it is not set."""
+    csrc = os.environ.get("KGWAS_PARENT_CSRC")
+    return ParentKernels(build, csrc) if csrc else None
 
 
 def card_line():
@@ -157,6 +290,9 @@ def layer_bound(xs_all, src, row_offsets, att, a_dst, out):
 
 
 def phase_kernel_vs_plain(device, gat_layer, kgwas_pkg, tmp):
+    """Phase 2: the merged GAT kernels against their plain versions on the
+    20k-SNP KG and on a stream with a hub node. Returns the worst abs errors
+    of the forward and the backward."""
     from kgwas_tpu_torch.graph import build_merged_layouts
 
     data = kgwas_pkg.KGWAS_Data.from_synthetic(
@@ -164,41 +300,123 @@ def phase_kernel_vs_plain(device, gat_layer, kgwas_pkg, tmp):
     cg = data.compile()
     layouts = build_merged_layouts(cg, tile_rows=512)
     rng = np.random.default_rng(SEED)
-    worst = 0.0
+    worst = worst_bwd = 0.0
     cases = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     for dst_t, L in layouts.items():
         R = len(L.rel_keys)
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
         xs = t((rng.standard_normal((L.n_src_total, HIDDEN)) * 0.1
                 ).astype(np.float32))
         att = t((rng.standard_normal((R, HIDDEN)) * 0.2).astype(np.float32))
         a_dst = t((rng.standard_normal(L.n_rows_total) * 0.5
                    ).astype(np.float32))
         src, ro = t(L.src), t(L.row_offsets)
+        g_rows = t(rng.standard_normal((L.n_rows_total, HIDDEN)).astype(
+            np.float32))
         n_real = cg.num_nodes[dst_t]
         for mode in gat_layer.MODES:
             for fold in (0, R):
                 args = (xs, src, ro, att, a_dst, L.n_rows_per_rel, fold, mode,
                         0.2, 1.0)
-                got = gat_layer.merged_gat_forward(*args)
-                again = gat_layer.merged_gat_forward(*args)
-                want = gat_layer.merged_gat_forward_plain(*args)
-                torch.cuda.synchronize()
-                for i, name in enumerate(("out", "row_max", "row_sum")):
-                    if not torch.equal(got[i], again[i]):
-                        raise AssertionError(
-                            f"{dst_t} {mode} fold={fold}: two runs of {name} "
-                            "differ")
-                    n = got[i].shape[0]
-                    mask = trash_mask(n, L.n_rows_per_rel, n_real)
-                    a, r = compare(got[i], want[i], mask,
-                                   f"{dst_t} {mode} fold={fold} {name}")
+                # the default schedule, and max_edges = 8: real rows cut too
+                for k in (gat_layer.MAX_EDGES, 8):
+                    sched = gat_layer.schedule(L.row_offsets,
+                                               L.n_rows_per_rel, fold,
+                                               k).to(device)
+                    what = f"{dst_t} R={R} {mode} fold={fold} K={k}"
+                    a, stats = check_forward(gat_layer, args, sched, n_real,
+                                             what)
                     worst = max(worst, a)
-                    log(f"  {dst_t:18s} R={R} {mode:7s} fold={fold} {name:7s}"
-                        f" max_abs_err={a:.3e} max_rel_err={r:.3e}")
-                cases += 1
-    log(f"phase 2 ok: {cases} cases over {len(layouts)} groups, bitwise "
-        f"repeatable, worst abs err {worst:.3e}")
+                    g = g_rows[:L.n_rows_per_rel] if fold else g_rows
+                    # the backward's chunks: at most max_edges edges
+                    sched = gat_layer.schedule(L.row_offsets,
+                                               L.n_rows_per_rel, fold, k,
+                                               k).to(device)
+                    b = check_backward(gat_layer, args, stats, g, sched, what)
+                    worst_bwd = max(worst_bwd, b)
+                    log(f"  {what}: forward max_abs_err={a:.3e}, backward "
+                        f"{b:.3e}")
+                    cases += 1
+    # a hub node of several thousand edges in each slot, chunk borders
+    # mid-row, held as the trash rows are
+    src_h, ro_h, n_h, hub = hub_stream(rng)
+    xs_h = t((rng.standard_normal((4096, HIDDEN)) * 0.1).astype(np.float32))
+    att_h = t((rng.standard_normal((3, HIDDEN)) * 0.2).astype(np.float32))
+    ad_h = t((rng.standard_normal(3 * n_h) * 0.5).astype(np.float32))
+    g_h = t(rng.standard_normal((3 * n_h, HIDDEN)).astype(np.float32))
+    for mode in gat_layer.MODES:
+        for fold in (0, 3):
+            sched = gat_layer.schedule(ro_h, n_h, fold).to(device)
+            if hub not in sched.split_units.tolist():
+                raise AssertionError("the hub node was not cut into chunks")
+            args = (xs_h, t(src_h), t(ro_h), att_h, ad_h, n_h, fold, mode,
+                    0.2, 1.0)
+            what = f"hub {mode} fold={fold}"
+            a, stats = check_forward(gat_layer, args, sched, hub, what)
+            sched = gat_layer.schedule(
+                ro_h, n_h, fold,
+                chunk_edges=gat_layer.BWD_CHUNK_EDGES).to(device)
+            b = check_backward(gat_layer, args, stats,
+                               g_h[:n_h] if fold else g_h, sched, what)
+            worst, worst_bwd = max(worst, a), max(worst_bwd, b)
+            log(f"  {what}: {int(ro_h[-1])} edges, hub {hub} with "
+                f"{int(np.diff(ro_h)[hub::n_h].sum())}: forward "
+                f"max_abs_err={a:.3e}, backward {b:.3e}")
+            cases += 1
+    log(f"phase 2 ok: {cases} cases (forward and backward) over "
+        f"{len(layouts)} groups and the hub stream, max_edges "
+        f"{gat_layer.MAX_EDGES} and 8, bitwise repeatable, worst abs err "
+        f"forward {worst:.3e}, backward {worst_bwd:.3e}")
+    return worst, worst_bwd
+
+
+def hub_stream(rng, n=2048, n_rel=3, n_src=4096, hub=100,
+               hub_edges=(3001, 2503, 1709)):
+    """(src, row_offsets, N, hub) int32 of a merged stream whose node hub
+    has thousands of edges in each slot (lengths no chunk size divides),
+    the other rows ~6."""
+    deg = rng.poisson(6, n_rel * n)
+    for r, e in enumerate(hub_edges):
+        deg[r * n + hub] = e
+    ro = np.zeros(n_rel * n + 1, dtype=np.int64)
+    np.cumsum(deg, out=ro[1:])
+    src = rng.integers(0, n_src, ro[-1])
+    return src.astype(np.int32), ro.astype(np.int32), n, hub
+
+
+def check_forward(gat_layer, args, sched, long_row, what):
+    """The forward kernel twice on sched (the same bits) against the plain
+    version; rows long_row + r*N (the trash rows, or a hub) at TRASH_RTOL.
+    Returns (max abs err, the kernel's row_max and row_sum)."""
+    got = gat_layer.merged_gat_forward(*args, sched=sched)
+    again = gat_layer.merged_gat_forward(*args, sched=sched)
+    want = gat_layer.merged_gat_forward_plain(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, name in enumerate(("out", "row_max", "row_sum")):
+        if not torch.equal(got[i], again[i]):
+            raise AssertionError(f"{what}: two runs of {name} differ")
+        mask = trash_mask(got[i].shape[0], args[5], long_row)
+        worst = max(worst, compare(got[i], want[i], mask,
+                                   f"{what} {name}")[0])
+    return worst, got[1:]
+
+
+def check_backward(gat_layer, args, stats, g, sched, what):
+    """The backward kernel twice on sched (the same bits) against the plain
+    version by grad_compare. Returns the max abs err."""
+    bargs = args[:5] + tuple(stats) + (g,) + args[5:]
+    got = gat_layer.merged_gat_bwd(*bargs, sched=sched)
+    again = gat_layer.merged_gat_bwd(*bargs, sched=sched)
+    want = gat_layer.merged_gat_bwd_plain(*bargs)
+    exact = gat_layer.merged_gat_bwd_plain(*as_double(bargs))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b, p, e in zip(("w", "dz", "d_a_dst"), got, again, want,
+                                exact):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two runs of {name} differ")
+        worst = max(worst, grad_compare(a, p, e, f"{what} {name}"))
     return worst
 
 
@@ -254,6 +472,14 @@ def swapped(module, **fns):
     finally:
         for k, f in old.items():
             setattr(module, k, f)
+
+
+def plain_forward(gat_layer):
+    """merged_gat_forward_plain in the layer op's place: the op passes the
+    kernels' schedule, which the plain version does not take."""
+    def fwd(*args, sched=None):
+        return gat_layer.merged_gat_forward_plain(*args)
+    return fwd
 
 
 def group_of(layouts, src):
@@ -321,6 +547,8 @@ def layout_without_trash(L, n_real, device):
     """Layout L with every trash row's (pad) edges taken out, its CSC
     rebuilt: a diagnostic stream, not the layer's input. Returns the
     layout and the kept edges' mask."""
+    from kgwas_tpu_torch.ops import gat_layer
+
     deg = np.diff(L.row_offsets.astype(np.int64))
     keep = np.repeat(np.arange(len(deg)), deg) % L.n_rows_per_rel != n_real
     src_nt, ro_nt = without_trash_rows(L, n_real)
@@ -334,7 +562,10 @@ def layout_without_trash(L, n_real, device):
         dst=t(L.dst[keep]), csc_perm=t(perm.astype(np.int32)),
         csc_offsets=t(off.astype(np.int32)),
         src_base=tuple(int(b) for b in L.src_base),
-        n_rows_per_rel=L.n_rows_per_rel)
+        n_rows_per_rel=L.n_rows_per_rel,
+        gat_bwd_schedule=gat_layer.schedule(
+            ro_nt, L.n_rows_per_rel, len(L.rel_keys),
+            chunk_edges=gat_layer.BWD_CHUNK_EDGES).to(device))
     return lay, t(keep)
 
 
@@ -363,10 +594,11 @@ class Recorder:
         return self.fn(*args, **kwargs)
 
 
-def phase_train(kt, data, cg, device, card):
+def phase_train(kt, data, cg, device, card, parent=None):
     """Phase 5: the training slice at full width. Returns the kernel table
     rows of merged_gat_bwd and csc_segment_sum, and every kernel's launch
-    count in one KGWAS.train epoch."""
+    count in one KGWAS.train epoch. parent: the earlier merged GAT kernels,
+    timed beside merged_gat_bwd, or None."""
     from kgwas_tpu_torch import kgwas
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
@@ -401,17 +633,20 @@ def phase_train(kt, data, cg, device, card):
         raise AssertionError(
             f"one step launched the backward kernels {len(rec_bwd.calls)} and "
             f"{len(rec_csc.calls)} times, expected {per_step}")
-    launches = [(detached(b[0]), detached(c[0]))
+    launches = [(detached(b[0]), detached(c[0]), b[1]["sched"])
                 for b, c in zip(rec_bwd.calls, rec_csc.calls)]
     worst = {"merged_gat_bwd": 0.0, "csc_segment_sum": 0.0, "layer": 0.0}
-    for i, (bargs, cargs) in enumerate(launches):
+    for i, (bargs, cargs, sched) in enumerate(launches):
+        if sched is None:
+            raise AssertionError("the layer op launched without a schedule")
         dst_t = group_of(layouts, bargs[1])
         xs, _, _, att, a_dst, rmax, rsum, g, _, fold, mode, slope, temp = bargs
         largs = (xs, att, a_dst, rmax, rsum, g, layouts[dst_t], fold, mode,
                  slope, temp)
         checks = (
             ("merged_gat_bwd", ("w", "dz", "d_a_dst"), bargs,
-             gat_layer.merged_gat_bwd, gat_layer.merged_gat_bwd_plain),
+             functools.partial(gat_layer.merged_gat_bwd, sched=sched),
+             gat_layer.merged_gat_bwd_plain),
             ("csc_segment_sum", ("d_xs_all", "d_att"), cargs,
              segment.csc_segment_sum, segment.csc_segment_sum_plain),
             ("layer", ("d_xs_all", "d_att", "d_a_dst"), largs,
@@ -447,7 +682,7 @@ def phase_train(kt, data, cg, device, card):
 
     loss_k, par_k = run_steps(contextlib.nullcontext())
     loss_p, par_p = run_steps(swapped(
-        gat_layer, merged_gat_forward=gat_layer.merged_gat_forward_plain,
+        gat_layer, merged_gat_forward=plain_forward(gat_layer),
         merged_gat_backward=gat_layer.merged_gat_backward_plain))
     np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL)
     par_err = max(float((par_k[k] - par_p[k]).abs().max()) for k in par_k)
@@ -480,7 +715,8 @@ def phase_train(kt, data, cg, device, card):
     tot = {k: dict.fromkeys(("ms", "ms_no_trash", "plain_ms", "bound_ms",
                              "bytes", "operations", "library_ms"), 0.0)
            for k in ("merged_gat_bwd", "csc_segment_sum")}
-    for i, (bargs, cargs) in enumerate(launches):
+    parent_tot = {"ms": 0.0, "ms_no_trash": 0.0}
+    for i, (bargs, cargs, sched) in enumerate(launches):
         dst_t = group_of(layouts, bargs[1])
         g, w, dz, xs, att, lay, fold = cargs
         lay_nt, keep = layout_without_trash(
@@ -496,8 +732,10 @@ def phase_train(kt, data, cg, device, card):
         src = lay.src.long()
         times = {
             "merged_gat_bwd": (
-                cuda_ms(lambda: gat_layer.merged_gat_bwd(*bargs), 20),  # noqa: B023
-                cuda_ms(lambda: gat_layer.merged_gat_bwd(*bargs_nt), 20),  # noqa: B023
+                cuda_ms(lambda: gat_layer.merged_gat_bwd(  # noqa: B023
+                    *bargs, sched=sched), 20),  # noqa: B023
+                cuda_ms(lambda: gat_layer.merged_gat_bwd(  # noqa: B023
+                    *bargs_nt, sched=lay_nt.gat_bwd_schedule), 20),  # noqa: B023
                 cuda_ms(lambda: gat_layer.merged_gat_bwd_plain(*bargs), 3),  # noqa: B023
                 None, bwd_bound(bargs)),
             "csc_segment_sum": (
@@ -510,6 +748,13 @@ def phase_train(kt, data, cg, device, card):
         }
         del d_msgs
         parts = []
+        if parent:   # the earlier kernel on the same launch, this call
+            p_ms = cuda_ms(lambda: parent.bwd(*bargs), 20)  # noqa: B023
+            p_nt = cuda_ms(lambda: parent.bwd(*bargs_nt), 20)  # noqa: B023
+            parent_tot["ms"] += p_ms
+            parent_tot["ms_no_trash"] += p_nt
+            parts.append(f"earlier merged_gat_bwd {p_ms:.4f} ms (without "
+                         f"trash rows {p_nt:.4f})")
         for kernel, (ms, ms_nt, plain_ms, lib_ms, (t_b, t_o)) in times.items():
             t = tot[kernel]
             t["ms"] += ms
@@ -533,7 +778,9 @@ def phase_train(kt, data, cg, device, card):
         f"{LAYERS} layers); peak memory {peak_gb:.2f} GB; per step: "
         + "; ".join(f"{k} {t['ms']:.4f} ms (without trash rows "
                     f"{t['ms_no_trash']:.4f}) / plain {t['plain_ms']:.4f} / "
-                    f"bound {t['bound_ms']:.4f}" for k, t in tot.items()))
+                    f"bound {t['bound_ms']:.4f}" for k, t in tot.items())
+        + (f"; earlier merged_gat_bwd {parent_tot['ms']:.4f} ms (without "
+           f"trash rows {parent_tot['ms_no_trash']:.4f})" if parent else ""))
 
     # (c) the public entry point, counts set to 0 just before
     model.load_state_dict(init)
@@ -1038,16 +1285,21 @@ def main():
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     built = build.build_all()
+    parent = parent_kernels(build)
     for name, info in build.build_log.items():
-        regs = [ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"  built {name} in {info['seconds']:.1f} s; ptxas: "
-            + " | ".join(regs[:8]))
+        log(f"  built {name} in {info['seconds']:.1f} s")
+        launch = MERGED_LAUNCH if name.startswith("merged_gat") else None
+        if name.startswith("parent_"):   # one warp per row, 8 a block
+            launch = {"merged_gat_fwd_kernel": (256, 0),
+                      "merged_gat_bwd_kernel": (256, 0)}
+        report_ptxas(build, name, info["ptxas"], launch)
     log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({sorted(built) or 'cached'})")
+        f"({sorted(built) or 'cached'})"
+        + (f"; earlier kernels from {parent.csrc}" if parent else ""))
 
     # ---- phase 2: kernel vs plain on the card, small KG
-    worst_small = phase_kernel_vs_plain(device, gat_layer, kt, tmp)
+    worst_small, worst_small_bwd = phase_kernel_vs_plain(
+        device, gat_layer, kt, tmp)
 
     # ---- phase 3: the serving slice at full width
     t0 = time.perf_counter()
@@ -1088,7 +1340,7 @@ def main():
     if pred.shape != (cg.num_nodes["SNP"],) or not np.isfinite(pred).all():
         raise AssertionError(f"bad predictions: shape {pred.shape}")
     with swapped(gat_layer,
-                 merged_gat_forward=gat_layer.merged_gat_forward_plain):
+                 merged_gat_forward=plain_forward(gat_layer)):
         pred_plain = served.predict_all()
     np.testing.assert_allclose(pred, pred_plain, rtol=PRED_RTOL,
                                atol=PRED_ATOL)
@@ -1126,14 +1378,19 @@ def main():
     with swapped(gat_layer, merged_gat_forward=rec):
         served.predict_all()
     dev_layouts = served._device_state()[2]
-    tot = {"ms": 0.0, "ms_no_trash": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "bytes": 0.0, "operations": 0.0}
+    tot = dict.fromkeys(("ms", "ms_no_trash", "plain_ms", "bound_ms", "bytes",
+                         "operations", "parent_ms", "parent_no_trash"), 0.0)
     worst_full = 0.0
+    sweep = {k: 0.0 for k in SWEEP_MAX_EDGES}
     for i, (args, kwargs) in enumerate(rec.calls):
-        xs, src, ro, att, a_dst, n_per_rel = args[:6]
+        xs, src, ro, att, a_dst, n_per_rel, fold = args[:7]
         dst_t = group_of(dev_layouts, src)
+        # the layout's schedule, built when the layout was: no host work in
+        # the timed window
+        if kwargs.get("sched") is None:
+            raise AssertionError("the layer op launched without a schedule")
         call = lambda: gat_layer.merged_gat_forward(*args, **kwargs)  # noqa: E731
-        plain = lambda: gat_layer.merged_gat_forward_plain(*args, **kwargs)  # noqa: E731
+        plain = lambda: gat_layer.merged_gat_forward_plain(*args)  # noqa: E731
         ms = cuda_ms(call, 20)
         plain_ms = cuda_ms(plain, 5)
         got, want = call(), plain()
@@ -1151,30 +1408,58 @@ def main():
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
-        # the same launch without the trash rows' (pad) edges: how much of
-        # the kernel time the longest rows take
+        # the same launch without the trash rows' (pad) edges, its schedule
+        # built beforehand: how much of the kernel time the longest rows take
         src_nt, ro_nt = without_trash_rows(served.layouts[dst_t], n_real)
+        sched_nt = gat_layer.schedule(ro_nt, n_per_rel, fold).to(device)
         args_nt = (xs, src_nt.to(device), ro_nt.to(device)) + args[3:]
         ms_nt = cuda_ms(lambda: gat_layer.merged_gat_forward(  # noqa: B023
-            *args_nt, **kwargs), 20)
+            *args_nt, sched=sched_nt), 20)  # noqa: B023
         tot["ms_no_trash"] += ms_nt
+        # other max_edges, schedules built beforehand
+        scheds = {k: gat_layer.schedule(served.layouts[dst_t].row_offsets,
+                                        n_per_rel, fold, k).to(device)
+                  for k in SWEEP_MAX_EDGES}
+        k_ms = {k: cuda_ms(lambda: gat_layer.merged_gat_forward(  # noqa: B023
+            *args, sched=sc), 20) for k, sc in scheds.items()}  # noqa: B023
+        for k, v in k_ms.items():
+            sweep[k] += v
+        old = ""
+        if parent:   # the earlier kernel on the same launch, this call
+            p_ms = cuda_ms(lambda: parent.fwd(*args), 20)  # noqa: B023
+            p_nt = cuda_ms(lambda: parent.fwd(*args_nt), 20)  # noqa: B023
+            tot["parent_ms"] += p_ms
+            tot["parent_no_trash"] += p_nt
+            old = f" | earlier kernel {p_ms:.4f} ms (without trash rows {p_nt:.4f})"
         deg = np.diff(served.layouts[dst_t].row_offsets)
-        per_warp = deg.reshape(-1, n_per_rel).sum(0)
+        per_node = deg.reshape(-1, n_per_rel).sum(0)
+        sc = kwargs["sched"]
         log(f"  launch {i} {dst_t:18s} kernel {ms:.4f} ms "
-            f"(without trash rows {ms_nt:.4f}) | plain {plain_ms:.4f} ms | "
-            f"bound {bound:.4f} ms ({by}) | E_tot {src.numel()} | edges per "
-            f"node: mean {per_warp.mean():.1f}, max {per_warp.max()} "
-            f"(the trash node {n_real}: {per_warp[n_real]})")
+            f"(without trash rows {ms_nt:.4f}){old} | plain {plain_ms:.4f} "
+            f"ms | bound {bound:.4f} ms ({by}) | E_tot {src.numel()} | edges "
+            f"per node: mean {per_node.mean():.1f}, max {per_node.max()} "
+            f"(the trash node {n_real}: {per_node[n_real]}) | schedule "
+            f"max_edges {sc.max_edges}: {sc.items.shape[0]} items, "
+            f"{sc.split_units.numel()} units in {sc.n_parts} chunks | "
+            "other max_edges: " + ", ".join(f"{k}: {v:.4f} ms"
+                                            for k, v in k_ms.items()))
     rate = edges * LAYERS / (fwd_ms / 1e3)
+    old = (f"; earlier kernel {tot['parent_ms']:.4f} ms (without trash rows "
+           f"{tot['parent_no_trash']:.4f})" if parent else "")
     log(f"phase 4 [{card}]: forward (predict_all) {fwd_ms:.3f} ms median of "
         f"10; forward edge-traversals/s {rate:.4g} ({edges} real edges x "
         f"{LAYERS} layers); kernel {tot['ms']:.4f} ms (without trash rows "
-        f"{tot['ms_no_trash']:.4f}) / plain "
+        f"{tot['ms_no_trash']:.4f}){old} / plain "
         f"{tot['plain_ms']:.4f} ms / bound {tot['bound_ms']:.4f} ms per "
-        f"forward ({len(rec.calls)} launches); peak memory {peak_gb:.2f} GB")
+        f"forward ({len(rec.calls)} launches; with max_edges "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in sweep.items())
+        + f"); peak memory {peak_gb:.2f} GB")
 
     # ---- phase 5: the training slice at full width
-    train_rows, train_counts = phase_train(kt, data, cg, device, card)
+    train_rows, train_counts = phase_train(kt, data, cg, device, card,
+                                           parent)
+    train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
+                                       worst_small_bwd)
 
     # ---- phase 6: the model variants
     worst_variants = phase_variant_kernels(kt, device, tmp)

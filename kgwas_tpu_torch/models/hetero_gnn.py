@@ -29,6 +29,7 @@ state_dict loads a reference ``model.pt`` as it is: ``snp_feat_mlp.*``,
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -38,7 +39,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
-from ..ops.gat_layer import MergedGATLayer
+from ..ops.gat_layer import BWD_CHUNK_EDGES, GATSchedule, MergedGATLayer
+from ..ops.gat_layer import schedule as gat_schedule
 from ..ops.segment import CSRSegmentSum
 from .convs import gat_relation, make_conv
 from .init import torch_linear_bias, torch_linear_weight
@@ -137,6 +139,9 @@ class DeviceLayout:
     sym_e: Optional[torch.Tensor] = None
     # the 'relations' path: one one-slot layout per slot, in slot order
     relations: Optional[List["DeviceLayout"]] = None
+    # the 'merged' path: the GAT kernels' work schedules for fold = R
+    gat_schedule: Optional[GATSchedule] = None       # the forward's
+    gat_bwd_schedule: Optional[GATSchedule] = None   # the backward's
 
 
 def merged_mp_norms(L):
@@ -159,7 +164,8 @@ def merged_mp_norms(L):
 def device_layouts(layouts, device, cg=None, path: str = "merged"
                    ) -> Dict[str, DeviceLayout]:
     """The merged layouts on the device, with what the layer path needs:
-    the degree norms for 'mp', and for 'relations' each slot's relation
+    the GAT kernels' schedules (fold = R) for 'merged', the degree norms for
+    'mp', and for 'relations' each slot's relation
     stream from the compiled graph cg (graph/shard_compile.RelationShard:
     its CSR, whose pad edges read source row 0, and its CSC, which sends
     their cotangents to the source trash row, as the JAX package does)."""
@@ -186,6 +192,13 @@ def device_layouts(layouts, device, cg=None, path: str = "merged"
             extra = {"inv_deg": put(inv_deg), "sym_e": put(sym_e)}
         elif path == "relations":
             extra = {"relations": [relation(rk) for rk in L.rel_keys]}
+        elif path == "merged":
+            # built once: the layout, and so the schedule, never changes
+            sched = functools.partial(gat_schedule, L.row_offsets,
+                                      L.n_rows_per_rel, len(L.rel_keys))
+            extra = {"gat_schedule": sched().to(device),
+                     "gat_bwd_schedule": sched(
+                         chunk_edges=BWD_CHUNK_EDGES).to(device)}
         out[t] = DeviceLayout(
             rel_keys=list(L.rel_keys),
             src_types=list(L.src_types),

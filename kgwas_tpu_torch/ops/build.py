@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,13 +32,14 @@ KERNELS = {
     "merged_gat_fwd": (
         "merged_gat_fwd.cu",
         "kgwas_merged_gat_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _F32,
-         _F32, _P],
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32,
+                    _F32, _F32, _P],
     ),
     "merged_gat_bwd": (
         "merged_gat_bwd.cu",
         "kgwas_merged_gat_bwd",
-        [_P] * 11 + [_I64, _I64, _I32, _I32, _I32, _F32, _F32, _P],
+        [_P] * 12 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32, _F32,
+                     _F32, _P],
     ),
     "csc_segment_sum": (
         "csc_segment_sum.cu",
@@ -64,6 +66,17 @@ KERNELS = {
 
 _loaded: dict = {}
 build_log: dict = {}   # kernel name -> {"seconds": s, "ptxas": text}
+
+
+def _log_build(name, out, seconds, text):
+    """Records a build's ptxas output, and keeps it beside the library for
+    a later process that finds the library built (seconds 0)."""
+    if text is None:
+        ptxas = out.with_suffix(".ptxas.txt")
+        text = ptxas.read_text() if ptxas.exists() else ""
+    else:
+        out.with_suffix(".ptxas.txt").write_text(text)
+    build_log[name] = {"seconds": seconds, "ptxas": text}
 
 
 def build_dir() -> Path:
@@ -103,6 +116,7 @@ def build_all(names=None) -> dict:
     for name in names:
         out = _lib_path(name)
         if out.exists():
+            _log_build(name, out, 0.0, None)
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -117,7 +131,7 @@ def build_all(names=None) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
         os.replace(tmp, out)
         done[name] = time.perf_counter() - t0
-        build_log[name] = {"seconds": done[name], "ptxas": text}
+        _log_build(name, out, done[name], text)
     return done
 
 
@@ -126,9 +140,70 @@ def library(name: str):
     fn = _loaded.get(name)
     if fn is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = KERNELS[name][2]
-        fn.restype = ctypes.c_int
+        fn = _entry(_lib_path(name), KERNELS[name][1], KERNELS[name][2])
         _loaded[name] = fn
     return fn
+
+
+def _entry(lib_path, entry, argtypes):
+    fn = getattr(ctypes.CDLL(str(lib_path)), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_source(source, name, entry, argtypes):
+    """The ctypes entry point of any CUDA source (another checkout's kernel,
+    for a comparison), built with the same flags under its own name and a
+    hash of its directory's sources; its ptxas output goes to build_log."""
+    source = Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        _log_build(name, out, 0.0, None)
+    else:
+        build_dir().mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+        _log_build(name, out, time.perf_counter() - t0,
+                   proc.stdout + proc.stderr)
+    return _entry(out, entry, argtypes)
+
+
+def ptxas_entries(text: str):
+    """[(kernel, registers, static shared bytes, spill bytes)] of each entry
+    function in nvcc -Xptxas -v output, names demangled where c++filt is
+    on the PATH."""
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([name, int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, spill])
+            name = None
+    demangle = shutil.which("c++filt")
+    if demangle and rows:
+        out = subprocess.run([demangle], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout
+        for r, nice in zip(rows, out.splitlines()):
+            r[0] = nice.replace("(anonymous namespace)::", "").split("(")[0]
+    return [tuple(r) for r in rows]

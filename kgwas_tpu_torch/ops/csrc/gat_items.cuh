@@ -1,0 +1,262 @@
+// The static work schedule of the merged GAT layer kernels
+// (merged_gat_fwd.cu, merged_gat_bwd.cu) and what a warp does with one of
+// its items: find the item's slot rows, stage its edges' source indices in
+// shared memory, and gather their source rows into a shared-memory ring
+// with cp.async.
+//
+// A unit is one output row: a destination node when folding (its R slot
+// rows r*N + n), else one slot row. The schedule (ops/gat_layer.py
+// schedule) is a list of items, in unit order, of two kinds (int4 each):
+//
+//   packed (u0, u1, -1, -1): units u0..u1-1, all their slot rows, at most
+//       max_edges edges together, at most kItemMaxRows slot rows and
+//       kItemMaxUnits units;
+//   chunk (row, part, e0, e1): edges e0..e1-1 (at most chunk_edges) of one
+//       slot row of a unit with more than max_edges edges; its partial
+//       result goes to scratch index part, and a second launch combines a
+//       unit's parts in part order.
+//
+// Warps take the items from the last to the first: the pad units, and so
+// each relation's trash row with its long chunks, sit at the end of the
+// stream, and their chunks then start first.
+//
+// Inside an item the edges are taken in a virtual order, unit-major then
+// slot (row k = i * F + r of unit i, slot r), each row's edges in stream
+// order, kGroup at a time: lanes 4q..4q+3 score edge q of a group.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace kgwas {
+
+constexpr int kFwdMaxEdges = 512;   // most edges of a forward item
+constexpr int kBwdMaxEdges = 256;   // most edges of a backward item
+constexpr int kItemMaxRows = 32;    // slot rows of a packed item: a lane each
+constexpr int kItemMaxUnits = 8;    // units of a packed item
+constexpr int kGroup = 8;           // edges per ring stage, 4 lanes each
+constexpr int kStages = 2;          // ring stages: one loads, one is scored
+constexpr float kNegBig = -1e9f;
+constexpr float kEps = 1e-16f;
+constexpr float kExpClamp = 60.0f;
+
+enum Mode { kSoftmax = 0, kSigmoid = 1, kRaw = 2 };
+
+// ---- cp.async: 16 bytes (.cg, L2 only) or 4 bytes (.ca) a lane
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this lane's groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ring row length in floats: D, as float4s when VEC (the launch sizes the
+// shared memory with it too: a __device__-only function called from the
+// host compiles to a stub that exits the process)
+template <bool VEC, int NV>
+__host__ __device__ __forceinline__ int row_len(int d) {
+  return VEC ? 128 * NV : d;
+}
+
+// one feature row from global to shared memory, the warp's lanes together
+template <bool VEC, int NV>
+__device__ __forceinline__ void copy_row(float* dst, const float* src,
+                                         int lane, int d) {
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      cp_async16(dst + 4 * (32 * k + lane), src + 4 * (32 * k + lane));
+  } else {
+    for (int c = lane; c < d; c += 32) cp_async4(dst + c, src + c);
+  }
+}
+
+// Lane part p (0..3) of edge q's dot products of its ring row with a (a
+// global row, read through the read-only cache) and, with TWO, with b (a
+// shared-memory row). With float4 rows part p takes the float4 columns
+// 4t + p, in an order rotated by q, so that the 8 lanes of a quarter warp
+// (2 edges, 4 parts) hit 8 different float4 banks.
+template <bool VEC, int NV, bool TWO>
+__device__ __forceinline__ void part_dots(const float* row, const float* a,
+                                          const float* b, int q, int p,
+                                          int d, float& da, float& db) {
+  da = 0.0f;
+  db = 0.0f;
+  if (VEC) {
+    constexpr int T = 8 * NV;  // float4 columns per part
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      int t = j + q;
+      if (t >= T) t -= T;
+      const int c = 4 * t + p;
+      const float4 x = r4[c];
+      const float4 y = __ldg(a4 + c);
+      da = fmaf(x.x, y.x, da);
+      da = fmaf(x.y, y.y, da);
+      da = fmaf(x.z, y.z, da);
+      da = fmaf(x.w, y.w, da);
+      if (TWO) {
+        const float4 z = b4[c];
+        db = fmaf(x.x, z.x, db);
+        db = fmaf(x.y, z.y, db);
+        db = fmaf(x.z, z.z, db);
+        db = fmaf(x.w, z.w, db);
+      }
+    }
+  } else {
+    for (int c = p; c < d; c += 4) {
+      da = fmaf(row[c], __ldg(a + c), da);
+      if (TWO) db = fmaf(row[c], b[c], db);
+    }
+  }
+}
+
+// The warp's view of its item. Lane k < n_rows holds slot row k's values.
+struct ItemRows {
+  bool chunk;
+  int n_rows;       // slot rows of the item
+  int n_units;      // units of a packed item (1 for a chunk)
+  int part;         // a chunk's scratch index
+  long long unit0;  // the item's first unit
+  int total;        // edges of the item
+  // lane k's row
+  long long row;
+  int beg, cnt, vbeg, slot;
+};
+
+// items[i] of the schedule; fold_slots F is R with the fold, else 1
+__device__ __forceinline__ ItemRows item_rows(const int4 it,
+                                              const int* __restrict__ ro,
+                                              long long n_per_rel, int F,
+                                              int lane) {
+  ItemRows r;
+  r.chunk = it.z >= 0;
+  int end = 0;
+  r.beg = 0;
+  r.row = 0;
+  if (r.chunk) {
+    r.n_rows = 1;
+    r.n_units = 1;
+    r.part = it.y;
+    r.row = it.x;
+    r.unit0 = F > 1 ? r.row % n_per_rel : r.row;
+    if (lane == 0) {
+      r.beg = it.z;
+      end = it.w;
+    }
+  } else {
+    r.part = 0;
+    r.unit0 = it.x;
+    r.n_units = it.y - it.x;
+    r.n_rows = r.n_units * F;
+    if (lane < r.n_rows) {
+      const long long u = r.unit0 + lane / F;
+      r.row = F > 1 ? (lane % F) * n_per_rel + u : u;
+      r.beg = ro[r.row];
+      end = ro[r.row + 1];
+    }
+  }
+  r.slot = static_cast<int>(r.row / n_per_rel);
+  r.cnt = lane < r.n_rows ? end - r.beg : 0;
+  int x = r.cnt;  // inclusive scan of the counts
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  r.vbeg = x - r.cnt;
+  r.total = __shfl_sync(0xffffffffu, x, 31);
+  return r;
+}
+
+// Stages the item's edges: s_src[v] and s_k[v] (its row) for each virtual
+// edge v, from s_beg / s_vbeg (row k's first edge and first virtual edge).
+// A row holding virtual edge v is the last row k with s_vbeg[k] <= v.
+__device__ __forceinline__ void stage_edges(const ItemRows& r,
+                                            const int* __restrict__ src,
+                                            int* s_beg, int* s_vbeg,
+                                            int* s_src, unsigned char* s_k,
+                                            int lane) {
+  if (lane < r.n_rows) {
+    s_beg[lane] = r.beg;
+    s_vbeg[lane] = r.vbeg;
+  }
+  __syncwarp();
+  for (int v = lane; v < r.total; v += 32) {
+    int lo = 0, hi = r.n_rows;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (s_vbeg[mid] <= v) lo = mid; else hi = mid;
+    }
+    s_k[v] = static_cast<unsigned char>(lo);
+    s_src[v] = src[s_beg[lo] + v - s_vbeg[lo]];
+  }
+  __syncwarp();
+}
+
+// cp.async of group g's source rows (edges 8g .. 8g+7 of the item) into
+// ring stage g % kStages; rows past the item's end are not loaded
+template <bool VEC, int NV>
+__device__ __forceinline__ void load_group(float* ring, int rl, int g,
+                                           int total, const int* s_src,
+                                           const float* __restrict__ xs,
+                                           int lane, int d) {
+  float* stage = ring + (g % kStages) * kGroup * rl;
+  const int n = min(kGroup, total - g * kGroup);
+  for (int q = 0; q < n; ++q)
+    copy_row<VEC, NV>(stage + q * rl,
+                      xs + static_cast<size_t>(s_src[g * kGroup + q]) * d,
+                      lane, d);
+}
+
+// Segmented sum over a window of 32 virtual edges (keys k sorted, key 255
+// for lanes past the end): the last lane of each key's run adds the run's
+// sum to acc[k]. Fixed order: two runs give the same bits.
+__device__ __forceinline__ void segmented_add(float val, int k, float* acc,
+                                              int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, val, off);
+    const int ky = __shfl_up_sync(0xffffffffu, k, off);
+    if (lane >= off && ky == k) val += y;
+  }
+  const int kn = __shfl_down_sync(0xffffffffu, k, 1);
+  if (k != 255 && (lane == 31 || kn != k)) acc[k] += val;
+  __syncwarp();
+}
+
+// the item warp w of the launch takes: the last item first
+__device__ __forceinline__ long long item_of_warp(long long w,
+                                                  long long n_items) {
+  return n_items - 1 - w;
+}
+
+// dynamic shared memory of one warp, in floats: the ring, g_rows more
+// rows, the staging arrays of items of at most max_edges edges, and
+// n_extra floats of scratch
+__host__ __device__ inline int warp_smem_floats(int rl, int g_rows,
+                                                int max_edges, int n_extra) {
+  return (kStages * kGroup + g_rows) * rl +
+         max_edges              // s_src
+         + 2 * kItemMaxRows     // s_beg, s_vbeg
+         + max_edges / 4        // s_k (bytes)
+         + n_extra;
+}
+
+}  // namespace kgwas

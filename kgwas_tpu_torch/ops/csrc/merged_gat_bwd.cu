@@ -21,41 +21,51 @@
 // and dot_row is summed from the row's own edges, so the forward keeps only
 // its folded [N, D] output.
 //
-// Design. One warp per output row, as in merged_gat_fwd.cu: per destination
-// node when folding, so the node's cotangent row g[n] is loaded once for
-// its R slot rows. Pass 1 walks the row's edges U at a time: each edge's
-// source row is read from xs (float4 per lane at D % 128 == 0), its two dot
-// products (with att and with g) reduce in one interleaved butterfly, and
-// the warp sums dot_row. The lane whose index is the edge's position in its
-// group of 32 keeps z_e and m_e and stores them into w and dz. Pass 2 reads
-// them back (each lane its own positions, so no fence is needed), turns
-// them into the final w_e and dz_e and sums dz over the row. Every sum is
-// taken in a fixed order with no atomics: two runs give the same bits.
+// Design. A static schedule (gat_items.cuh) as in the forward, with
+// shorter chunks (its sums are trees, not a sequential chain, so a trash
+// row may be cut anywhere): one warp per item, packed short rows or one
+// chunk of a long row. The item's cotangent rows (one per unit) and,
+// through a two-stage ring of 8 rows, its edges' source rows are gathered
+// into shared memory with cp.async; four lanes score each edge (its dots
+// with att[slot] and with g_row, rotated columns) and keep z_e and m_e in
+// shared memory, so no D-wide sum is left. Then each lane takes an edge:
+// dot_row and d_a_dst are segmented warp sums over the item's rows in a
+// fixed order. A chunk writes z_e and m_e into w and dz and its partial
+// dot_row to scratch; a second, small launch, one warp per chunked slot
+// row, sums the row's partials in part order and finishes its edges. No
+// float atomics: two runs give the same bits.
 //
 // What bounds it. Bytes: each input read once and each output written once
 // (xs [S, D], g [N or R*N, D], src [E], w and dz [E], row_offsets, a_dst,
-// row_max, row_sum and d_a_dst [R*N]), a few hundred MB per layer at the
-// bench size. As in the forward, each relation's trash row holds all of its
-// pad edges (up to 511), and one warp walks them in sequence: those rows are
-// bound by the latency of their own per-edge chain, not by bytes.
+// row_max, row_sum and d_a_dst [R*N]), ~0.04-0.08 ms per launch at the
+// bench size. The gathered source rows come from L2 (the SNP group) or
+// from device memory (the Gene group's 234 MB table), as in the forward.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_items.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
 using kgwas::fast_exp;
+using kgwas::kBwdMaxEdges;
+using kgwas::kEps;
+using kgwas::kExpClamp;
 using kgwas::kFull;
+using kgwas::kGroup;
+using kgwas::kItemMaxRows;
+using kgwas::kItemMaxUnits;
 using kgwas::kMaxCols;
+using kgwas::kSigmoid;
+using kgwas::kSoftmax;
+using kgwas::kStages;
 
-constexpr float kExpClamp = 60.0f;
-constexpr float kEps = 1e-16f;
-constexpr int kWarps = 8;     // warps per block
-
-enum Mode { kSoftmax = 0, kSigmoid = 1, kRaw = 2 };
+constexpr int kWarps = 4;  // warps per block
+// per-edge z and m, per-row dot_row and d_a_dst
+constexpr int kExtra = 2 * kBwdMaxEdges + 2 * kItemMaxRows;
 
 struct Args {
   const float* xs;          // [S, D]
@@ -65,148 +75,259 @@ struct Args {
   const float* a_dst;       // [R*N]
   const float* row_max;     // [R*N]
   const float* row_sum;     // [R*N]
-  const float* g;           // [n_out_rows, D]
+  const float* g;           // [N or R*N, D]
   float* w;                 // [E]
   float* dz;                // [E]
   float* d_a_dst;           // [R*N]
-  long long n_out_rows;     // N (fold) or R*N
+  const int4* items;        // [n_items]
+  const int* split_units;   // [n_split]
+  const int* part_offsets;  // [n_split * F + 1]
+  float* part_dot;          // [n_parts]
+  long long n_items;
+  long long n_split;
   long long n_rows_per_rel; // N
-  int fold_slots;           // R (fold) or 1
+  int fold_slots;           // F: R (fold) or 1
   int d;
   float slope;
   float temperature;
 };
 
-template <int MODE, bool VEC, int NV>
-__global__ void __launch_bounds__(kWarps * 32)
-merged_gat_bwd_kernel(const Args a) {
-  using R = kgwas::Row<VEC, NV>;
-  constexpr int U = !VEC || NV > 2 ? 2 : 4;  // edges per step
-  const int lane = threadIdx.x & 31;
-  const long long o =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (o >= a.n_out_rows) return;  // whole warp exits together
-
-  // lane r holds slot r's row bounds, a_dst and log-sum-exp
-  const long long row0 = a.fold_slots > 1 ? o : o % a.n_rows_per_rel;
-  const long long slot0 = a.fold_slots > 1 ? 0 : o / a.n_rows_per_rel;
-  int my_beg = 0, my_end = 0;
-  float my_ad = 0.0f, my_lse = 0.0f;
-  if (lane < a.fold_slots) {
-    const long long row = (slot0 + lane) * a.n_rows_per_rel + row0;
-    my_beg = a.row_offsets[row];
-    my_end = a.row_offsets[row + 1];
-    my_ad = a.a_dst[row];
-    if (MODE == kSoftmax) my_lse = a.row_max[row] + logf(a.row_sum[row] + kEps);
-  }
-
-  const float inv_t = 1.0f / a.temperature;
-  const float slope_t = a.slope / a.temperature;
-  R gr;  // the cotangent row: g[n] with the fold, g[row] without
-  gr.load(a.g + o * a.d, lane, a.d);
-  for (int r = 0; r < a.fold_slots; ++r) {
-    const long long slot = slot0 + r;
-    const long long row = slot * a.n_rows_per_rel + row0;
-    R att;
-    att.load(a.att + slot * a.d, lane, a.d);
-    const float ad = __shfl_sync(kFull, my_ad, r);
-    const float lse = __shfl_sync(kFull, my_lse, r);
-    const int beg = __shfl_sync(kFull, my_beg, r);
-    const int end = __shfl_sync(kFull, my_end, r);
-
-    // pass 1: z_e and m_e of every edge, and dot_row
-    float dot = 0.0f;
-    int next_src = beg + lane < end ? a.src[beg + lane] : 0;
-    for (int base = beg; base < end; base += 32) {
-      const int cnt = min(32, end - base);
-      const int my_src = next_src;
-      next_src = base + 32 + lane < end ? a.src[base + 32 + lane] : 0;
-      float my_z = 0.0f, my_m = 0.0f;
-      for (int j = 0; j < cnt; j += U) {
-        // U source rows in flight; a step past the end re-reads the last
-        // edge's row and is masked below
-        R x[U];
-        float pa[U], pm[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int s = __shfl_sync(kFull, my_src, min(j + u, cnt - 1));
-          x[u].load(a.xs + static_cast<size_t>(s) * a.d, lane, a.d);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          float p = 0.0f, q = 0.0f;
-#pragma unroll
-          for (int c = 0; c < R::C; ++c) {
-            p = fmaf(x[u].v[c], att.v[c], p);
-            q = fmaf(x[u].v[c], gr.v[c], q);
-          }
-          pa[u] = p;
-          pm[u] = q;
-        }
-        // xor butterfly: every lane ends with the same sums
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            pa[u] += __shfl_xor_sync(kFull, pa[u], off);
-            pm[u] += __shfl_xor_sync(kFull, pm[u], off);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float z = pa[u] + ad;
-          if (lane == j + u) {
-            my_z = z;
-            my_m = pm[u];
-          }
-          if (MODE == kSoftmax && j + u < cnt) {  // warp-uniform
-            const float l = z >= 0.0f ? z * inv_t : z * slope_t;
-            dot = fmaf(fast_exp(fminf(l - lse, kExpClamp)), pm[u], dot);
-          }
-        }
-      }
-      if (base + lane < end) {
-        a.w[base + lane] = my_z;
-        a.dz[base + lane] = my_m;
-      }
-    }
-
-    // pass 2: each lane finishes the edges it stored
-    float da = 0.0f;
-    for (int i = beg + lane; i < end; i += 32) {
-      const float z = a.w[i];
-      const float m = a.dz[i];
-      const float l = z >= 0.0f ? z * inv_t : z * slope_t;
-      const float kd = z >= 0.0f ? inv_t : slope_t;  // leaky'(z) / T
-      float wt, dzv;
-      if (MODE == kSoftmax) {
-        wt = fast_exp(fminf(l - lse, kExpClamp));
-        dzv = wt * (m - dot) * kd;
-      } else if (MODE == kSigmoid) {
-        wt = 1.0f / (1.0f + fast_exp(-l));
-        dzv = m * wt * (1.0f - wt) * kd;
-      } else {
-        wt = l * a.temperature;
-        dzv = z >= 0.0f ? m : m * a.slope;
-      }
-      a.w[i] = wt;
-      a.dz[i] = dzv;
-      da += dzv;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) da += __shfl_xor_sync(kFull, da, off);
-    if (lane == 0) a.d_a_dst[row] = da;
+// the final w_e and dz_e of an edge from z_e, m_e and its row's lse and
+// dot_row
+template <int MODE>
+__device__ __forceinline__ void edge_grads(float z, float m, float lse,
+                                           float dot, float slope, float t,
+                                           float& wt, float& dzv) {
+  const float inv_t = 1.0f / t;
+  const float slope_t = slope / t;
+  const float l = z >= 0.0f ? z * inv_t : z * slope_t;
+  const float kd = z >= 0.0f ? inv_t : slope_t;  // leaky'(z) / T
+  if (MODE == kSoftmax) {
+    wt = fast_exp(fminf(l - lse, kExpClamp));
+    dzv = wt * (m - dot) * kd;
+  } else if (MODE == kSigmoid) {
+    wt = 1.0f / (1.0f + fast_exp(-l));
+    dzv = m * wt * (1.0f - wt) * kd;
+  } else {
+    wt = l * t;
+    dzv = z >= 0.0f ? m : m * slope;
   }
 }
 
 template <int MODE, bool VEC, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_bwd_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wi = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (wi >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(wi, a.n_items);
+
+  const int d = a.d;
+  const int F = a.fold_slots;
+  const int rl = kgwas::row_len<VEC, NV>(d);
+  float* ring = smem + static_cast<size_t>(warp) *
+                           kgwas::warp_smem_floats(rl, kItemMaxUnits,
+                                                   kBwdMaxEdges, kExtra);
+  float* s_g = ring + kStages * kGroup * rl;
+  int* s_src = reinterpret_cast<int*>(s_g + kItemMaxUnits * rl);
+  int* s_beg = s_src + kBwdMaxEdges;
+  int* s_vbeg = s_beg + kItemMaxRows;
+  unsigned char* s_k = reinterpret_cast<unsigned char*>(s_vbeg + kItemMaxRows);
+  float* s_z = reinterpret_cast<float*>(s_k + kBwdMaxEdges);
+  float* s_m = s_z + kBwdMaxEdges;
+  float* s_dot = s_m + kBwdMaxEdges;
+  float* s_da = s_dot + kItemMaxRows;
+
+  const kgwas::ItemRows it = kgwas::item_rows(
+      a.items[item], a.row_offsets, a.n_rows_per_rel, F, lane);
+  // the item's cotangent rows: g[unit] (the unit is the node with the
+  // fold, the slot row without)
+  for (int i = 0; i < it.n_units; ++i)
+    kgwas::copy_row<VEC, NV>(s_g + i * rl, a.g + (it.unit0 + i) * d, lane, d);
+  kgwas::cp_async_commit();
+  if (lane < kItemMaxRows) {
+    s_dot[lane] = 0.0f;
+    s_da[lane] = 0.0f;
+  }
+  kgwas::stage_edges(it, a.src, s_beg, s_vbeg, s_src, s_k, lane);
+
+  float ad = 0.0f, lse = 0.0f;
+  if (lane < it.n_rows) {
+    ad = a.a_dst[it.row];
+    if (MODE == kSoftmax)
+      lse = a.row_max[it.row] + logf(a.row_sum[it.row] + kEps);
+  }
+  const int q = lane >> 2, p = lane & 3;  // the edge this lane scores
+  const int n_groups = (it.total + kGroup - 1) / kGroup;
+
+  // pass 1: z_e and m_e of every edge of the item into shared memory
+  if (n_groups > 0)
+    kgwas::load_group<VEC, NV>(ring, rl, 0, it.total, s_src, a.xs, lane, d);
+  kgwas::cp_async_commit();
+  for (int g = 0; g < n_groups; ++g) {
+    if (g + 1 < n_groups)
+      kgwas::load_group<VEC, NV>(ring, rl, g + 1, it.total, s_src, a.xs,
+                                 lane, d);
+    kgwas::cp_async_commit();
+    kgwas::cp_async_wait<1>();  // the g rows and group g have landed
+    __syncwarp();
+    const float* stage = ring + (g % kStages) * kGroup * rl;
+    const int cnt = min(kGroup, it.total - g * kGroup);
+    const int v = g * kGroup + q;
+    const int k = q < cnt ? s_k[v] : 0;
+    const int slot = __shfl_sync(kFull, it.slot, k);
+    const float adk = __shfl_sync(kFull, ad, k);
+    float pa = 0.0f, pm = 0.0f;
+    if (q < cnt)
+      kgwas::part_dots<VEC, NV, true>(
+          stage + q * rl, a.att + static_cast<size_t>(slot) * d,
+          s_g + (it.chunk ? 0 : k / F) * rl, q, p, d, pa, pm);
+    pa += __shfl_xor_sync(kFull, pa, 1);
+    pm += __shfl_xor_sync(kFull, pm, 1);
+    pa += __shfl_xor_sync(kFull, pa, 2);
+    pm += __shfl_xor_sync(kFull, pm, 2);
+    if (q < cnt && p == 0) {
+      s_z[v] = pa + adk;
+      s_m[v] = pm;
+    }
+    __syncwarp();  // the stage is read before it is loaded again
+  }
+  kgwas::cp_async_wait<0>();  // an item without edges loaded its g rows
+  const int n_win = (it.total + 31) / 32;
+
+  // dot_row = sum over the row of w_e m_e (softmax)
+  if (MODE == kSoftmax) {
+    const float inv_t = 1.0f / a.temperature;
+    const float slope_t = a.slope / a.temperature;
+    for (int wn = 0; wn < n_win; ++wn) {
+      const int v = wn * 32 + lane;
+      const bool ok = v < it.total;
+      const int k = ok ? s_k[v] : 255;
+      const float lse_k = __shfl_sync(kFull, lse, ok ? k : 0);
+      float val = 0.0f;
+      if (ok) {
+        const float z = s_z[v];
+        const float l = z >= 0.0f ? z * inv_t : z * slope_t;
+        val = fast_exp(fminf(l - lse_k, kExpClamp)) * s_m[v];
+      }
+      kgwas::segmented_add(val, k, s_dot, lane);
+    }
+  }
+
+  if (it.chunk) {
+    // z_e and m_e go to w and dz, the partial dot_row to scratch; the
+    // combine finishes the row
+    for (int v = lane; v < it.total; v += 32) {
+      a.w[s_beg[0] + v] = s_z[v];
+      a.dz[s_beg[0] + v] = s_m[v];
+    }
+    if (lane == 0) a.part_dot[it.part] = s_dot[0];
+    return;
+  }
+
+  // pass 2: each lane finishes an edge; d_a_dst per row
+  for (int wn = 0; wn < n_win; ++wn) {
+    const int v = wn * 32 + lane;
+    const bool ok = v < it.total;
+    const int k = ok ? s_k[v] : 255;
+    const float lse_k = __shfl_sync(kFull, lse, ok ? k : 0);
+    float dzv = 0.0f;
+    if (ok) {
+      float wt;
+      edge_grads<MODE>(s_z[v], s_m[v], lse_k, s_dot[k], a.slope,
+                       a.temperature, wt, dzv);
+      const int e = s_beg[k] + v - s_vbeg[k];
+      a.w[e] = wt;
+      a.dz[e] = dzv;
+    }
+    kgwas::segmented_add(dzv, k, s_da, lane);
+  }
+  if (lane < it.n_rows) a.d_a_dst[it.row] = s_da[lane];
+}
+
+// One warp per slot row of a unit cut into chunks: dot_row from the row's
+// parts in part order, then every edge's w_e and dz_e from the z_e and m_e
+// the chunks stored (four edges a lane loaded before any is written), and
+// d_a_dst.
+template <int MODE>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_bwd_combine_kernel(const Args a) {
+  constexpr int kBatch = 4;
+  const int lane = threadIdx.x & 31;
+  const long long jr =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int F = a.fold_slots;
+  if (jr >= a.n_split * F) return;
+  const long long j = jr / F;
+  const int r = static_cast<int>(jr % F);
+  const long long u = a.split_units[j];
+  const long long row = F > 1 ? r * a.n_rows_per_rel + u : u;
+  float dot = 0.0f, lse = 0.0f;
+  if (MODE == kSoftmax) {
+    for (int pi = a.part_offsets[jr]; pi < a.part_offsets[jr + 1]; ++pi)
+      dot += a.part_dot[pi];
+    lse = a.row_max[row] + logf(a.row_sum[row] + kEps);
+  }
+  const int beg = a.row_offsets[row], end = a.row_offsets[row + 1];
+  float da = 0.0f;
+  for (int e0 = beg + lane; e0 < end; e0 += 32 * kBatch) {
+    float z[kBatch], m[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = e0 + 32 * b;
+      z[b] = e < end ? a.w[e] : 0.0f;
+      m[b] = e < end ? a.dz[e] : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = e0 + 32 * b;
+      if (e < end) {
+        float wt, dzv;
+        edge_grads<MODE>(z[b], m[b], lse, dot, a.slope, a.temperature, wt,
+                         dzv);
+        a.w[e] = wt;
+        a.dz[e] = dzv;
+        da += dzv;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) da += __shfl_xor_sync(kFull, da, off);
+  if (lane == 0) a.d_a_dst[row] = da;
+}
+
+template <int MODE, bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_out_rows + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks == 0) return cudaSuccess;
-  merged_gat_bwd_kernel<MODE, VEC, NV>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-  return cudaGetLastError();
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  // the combine: one warp per slot row of a chunked unit
+  const long long cblocks =
+      (a.n_split * a.fold_slots + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const int rl = kgwas::row_len<VEC, NV>(a.d);
+  const size_t smem = sizeof(float) * kWarps *
+                      kgwas::warp_smem_floats(rl, kItemMaxUnits,
+                                              kBwdMaxEdges, kExtra);
+  if (blocks > 0) {
+    auto kern = merged_gat_bwd_kernel<MODE, VEC, NV>;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (cblocks > 0) {
+    merged_gat_bwd_combine_kernel<MODE>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 template <int MODE>
@@ -225,14 +346,19 @@ cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; float4 rows need xs, att and g 16-byte aligned when D % 128 ==
-// 0 (the wrapper checks). mode: 0 softmax, 1 sigmoid, 2 raw.
+// pointers; xs, att, g and items must be 16-byte aligned (the wrapper
+// checks). mode: 0 softmax, 1 sigmoid, 2 raw. The schedule's items hold
+// at most 256 edges (the wrapper checks); part_dot is scratch of one float
+// per chunk. Two launches: the
+// items, then the combine of the chunked units.
 extern "C" int kgwas_merged_gat_bwd(
     const void* xs, const void* src, const void* row_offsets, const void* att,
     const void* a_dst, const void* row_max, const void* row_sum,
-    const void* g, void* w, void* dz, void* d_a_dst, long long n_out_rows,
-    long long n_rows_per_rel, int fold_slots, int d, int mode, float slope,
-    float temperature, void* stream) {
+    const void* g, void* w, void* dz, void* d_a_dst, const void* items,
+    long long n_items, const void* split_units, const void* part_offsets,
+    long long n_split, void* part_dot, long long n_rows_per_rel,
+    int fold_slots, int d, int mode, float slope, float temperature,
+    void* stream) {
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
@@ -245,7 +371,12 @@ extern "C" int kgwas_merged_gat_bwd(
   a.w = static_cast<float*>(w);
   a.dz = static_cast<float*>(dz);
   a.d_a_dst = static_cast<float*>(d_a_dst);
-  a.n_out_rows = n_out_rows;
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_dot = static_cast<float*>(part_dot);
+  a.n_items = n_items;
+  a.n_split = n_split;
   a.n_rows_per_rel = n_rows_per_rel;
   a.fold_slots = fold_slots;
   a.d = d;
@@ -255,7 +386,7 @@ extern "C" int kgwas_merged_gat_bwd(
   switch (mode) {
     case kSoftmax: return dispatch_width<kSoftmax>(a, s);
     case kSigmoid: return dispatch_width<kSigmoid>(a, s);
-    case kRaw: return dispatch_width<kRaw>(a, s);
+    case kgwas::kRaw: return dispatch_width<kgwas::kRaw>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,51 +16,54 @@
 // and saves row_max / row_sum for the backward. With fold = R the output is
 // the cross-relation sum over the R slot rows r*N + n of node n.
 //
-// Design. One warp per output row: per destination node when folding, so
-// the R slot rows are summed in registers, with no atomics, and every run
-// gives the same bits. The [E, D] message stream is never written: each
-// edge's source row is read straight from xs (float4 per lane when
-// D % 128 == 0), a_src is a warp-shuffle reduction against att[slot], and
-// the softmax state lives in registers. Edge indices are loaded 32 at a
-// time, one per lane, broadcast by shuffle, and the next 32 prefetched. A
-// row's edges are taken U at a time (4 at D = 128): their U row loads are
-// issued together, their U dot products reduce in one interleaved
-// butterfly, and the softmax state is rescaled once per U edges.
+// Design. A static schedule (gat_items.cuh, built once per layout on the
+// host) balances the work: one warp per item, where an item packs the
+// slot rows of several consecutive units (output rows) up to max_edges
+// edges, or is one chunk (a slot row, or at most 512 edges of a longer
+// one) of a unit with more edges. A trash node (up to 511 pad edges in
+// each slot row) and any hub node are spread over many warps, whose chunks
+// start first; a second, small launch merges each long unit's chunk
+// partials (m, s, acc[D]) in part order by log-sum-exp and writes its
+// output. A whole slot row per chunk keeps a trash row's sum of identical
+// pad terms in the plain version's sequential order (shorter chunks round
+// it differently, by more than rtol 1e-4 where a fold's slots cancel).
+// The item's source indices are staged in shared memory, and its source
+// rows reach the arithmetic through a two-stage ring of 8 rows each,
+// filled with cp.async while the previous 8 are scored: 16 rows in flight
+// per warp. Four lanes score each edge of a group (its dot with att[slot],
+// columns in a rotated order free of bank conflicts), then the warp
+// aggregates the group column-parallel (a float4 per lane at D = 128), the
+// softmax state rescaled per edge. No float atomics: every sum has a fixed
+// order and two runs give the same bits.
 //
-// What bounds it. Each relation's trash row holds all of its pad edges (up
-// to 511), and with the fold one warp walks them for every slot. Such a
-// long row is bound by the latency of its own per-edge instruction chain
-// (load, dot, 5 shuffles, logit, exp), not by bytes, so the chain avoids
-// divisions and expf. Splitting long rows over several warps is the next
-// step.
-//
-// Bound on this card. The least traffic is each input read once and each
-// output written once: xs_all [S, D], src [E], row_offsets [R*N+1],
-// a_dst [R*N], att [R, D], out [N or R*N, D], row_max and row_sum [R*N],
-// all 4-byte words. At the 200k-SNP synthetic KG and D = 128 that is a few
-// hundred MB per layer (~0.1 ms at 3.35 TB/s), against 4*D flops per edge
-// (~1.7 GFLOP per layer, ~26 us at 67 TFLOP/s f32). The gather reads each
-// source row once per edge; the tables (21 MB for the SNP group) mostly fit
-// the 50 MB L2, so gathered bytes beyond the bound come from L2.
+// What bounds it. Bytes at the bound: xs_all [S, D], src [E], row_offsets,
+// a_dst, att, out, row_max and row_sum, each once (~0.04-0.08 ms per launch
+// at the 200k-SNP synthetic KG, D = 128). The gather reads each edge's
+// source row (0.7-0.9 GB per launch) from the 50 MB L2, which holds the
+// tables; the ring keeps enough of them in flight, and what is left is the
+// per-edge instruction stream of the warps (scoring, exp, D-wide FMAs).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_items.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
 using kgwas::fast_exp;
 using kgwas::kFull;
+using kgwas::kGroup;
 using kgwas::kMaxCols;
+using kgwas::kNegBig;
+using kgwas::kEps;
+using kgwas::kExpClamp;
+using kgwas::kSoftmax;
+using kgwas::kSigmoid;
+using kgwas::kStages;
 
-constexpr float kNegBig = -1e9f;
-constexpr float kExpClamp = 60.0f;
-constexpr float kEps = 1e-16f;
-constexpr int kWarps = 8;     // warps per block
-
-enum Mode { kSoftmax = 0, kSigmoid = 1, kRaw = 2 };
+constexpr int kWarps = 4;  // warps per block
 
 struct Args {
   const float* xs;          // [S, D]
@@ -68,157 +71,275 @@ struct Args {
   const int* row_offsets;   // [R*N + 1]
   const float* att;         // [R, D]
   const float* a_dst;       // [R*N]
-  float* out;               // [n_out_rows, D]
+  float* out;               // [N or R*N, D]
   float* row_max;           // [R*N]
   float* row_sum;           // [R*N]
-  long long n_out_rows;     // N (fold) or R*N
+  const int4* items;        // [n_items]
+  const int* split_units;   // [n_split]
+  const int* part_offsets;  // [n_split * F + 1]
+  float* part_m;            // [n_parts]
+  float* part_s;            // [n_parts]
+  float* part_acc;          // [n_parts, D]
+  long long n_items;
+  long long n_split;
   long long n_rows_per_rel; // N
-  int fold_slots;           // R (fold) or 1
+  int fold_slots;           // F: R (fold) or 1
   int d;
   float slope;
   float temperature;
 };
 
-// leaky_relu(a_src + a_dst) / temperature, with the division folded into
-// two multipliers (inv_t = 1/t, slope_t = slope/t): a long row is bound by
-// its instruction chain, and a division is the longest link
+// leaky_relu(a_src + a_dst) / temperature, the division folded into two
+// multipliers (inv_t = 1/t, slope_t = slope/t)
 __device__ __forceinline__ float edge_logit(float a_src, float a_dst,
                                             float slope_t, float inv_t) {
   const float z = a_src + a_dst;
   return z >= 0.0f ? z * inv_t : z * slope_t;
 }
 
+// a lane's columns of a shared-memory row
+template <bool VEC, int NV>
+__device__ __forceinline__ void load_shared(kgwas::Row<VEC, NV>& x,
+                                            const float* row, int lane,
+                                            int d) {
+  if (VEC) {
+    const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const float4 q = p[k * 32 + lane];
+      x.v[4 * k] = q.x;
+      x.v[4 * k + 1] = q.y;
+      x.v[4 * k + 2] = q.z;
+      x.v[4 * k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      const int c = lane + 32 * k;
+      x.v[k] = c < d ? row[c] : 0.0f;
+    }
+  }
+}
+
 template <int MODE, bool VEC, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 merged_gat_fwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  // edges per step: as many rows in flight as the registers allow
-  constexpr int U = !VEC || NV > 2 ? 2 : 4;
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
-  const long long o =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (o >= a.n_out_rows) return;  // whole warp exits together
+  const int warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (w >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(w, a.n_items);
 
-  // one round trip for every slot's row bounds and a_dst: lane r holds
-  // slot r's (fold_slots <= 32)
-  const long long row0 = a.fold_slots > 1 ? o : o % a.n_rows_per_rel;
-  const long long slot0 = a.fold_slots > 1 ? 0 : o / a.n_rows_per_rel;
-  int my_beg = 0, my_end = 0;
-  float my_ad = 0.0f;
-  if (lane < a.fold_slots) {
-    const long long row = (slot0 + lane) * a.n_rows_per_rel + row0;
-    my_beg = a.row_offsets[row];
-    my_end = a.row_offsets[row + 1];
-    my_ad = a.a_dst[row];
+  const int d = a.d;
+  const int F = a.fold_slots;
+  const int rl = kgwas::row_len<VEC, NV>(d);
+  float* ring = smem + static_cast<size_t>(warp) *
+                           kgwas::warp_smem_floats(rl, 0, kgwas::kFwdMaxEdges, 0);
+  int* s_src = reinterpret_cast<int*>(ring + kStages * kGroup * rl);
+  int* s_beg = s_src + kgwas::kFwdMaxEdges;
+  int* s_vbeg = s_beg + kgwas::kItemMaxRows;
+  unsigned char* s_k = reinterpret_cast<unsigned char*>(
+      s_vbeg + kgwas::kItemMaxRows);
+
+  const kgwas::ItemRows it = kgwas::item_rows(
+      a.items[item], a.row_offsets, a.n_rows_per_rel, F, lane);
+  // a packed item's rows without edges: the plain version's NEG_BIG and 0
+  if (!it.chunk && lane < it.n_rows && it.cnt == 0) {
+    a.row_max[it.row] = kNegBig;
+    a.row_sum[it.row] = 0.0f;
   }
+  kgwas::stage_edges(it, a.src, s_beg, s_vbeg, s_src, s_k, lane);
 
+  const float ad = lane < it.n_rows ? a.a_dst[it.row] : 0.0f;
   const float inv_t = 1.0f / a.temperature;
   const float slope_t = a.slope / a.temperature;
-  R res;
-  res.zero();
-  for (int r = 0; r < a.fold_slots; ++r) {
-    const long long slot = slot0 + r;
-    const long long row = slot * a.n_rows_per_rel + row0;
-    R att;
-    att.load(a.att + slot * a.d, lane, a.d);
-    const float ad = __shfl_sync(kFull, my_ad, r);
-    const int beg = __shfl_sync(kFull, my_beg, r);
-    const int end = __shfl_sync(kFull, my_end, r);
+  const int q = lane >> 2, p = lane & 3;  // the edge this lane scores
+  const int n_groups = (it.total + kGroup - 1) / kGroup;
 
-    float m = kNegBig;
-    float ssum = 0.0f;
-    R acc;
-    acc.zero();
-    int next_src = beg + lane < end ? a.src[beg + lane] : 0;
-    for (int base = beg; base < end; base += 32) {
-      const int cnt = min(32, end - base);
-      const int my_src = next_src;
-      // the next 32 edge indices load while these 32 edges are scored
-      next_src = base + 32 + lane < end ? a.src[base + 32 + lane] : 0;
-      for (int j = 0; j < cnt; j += U) {
-        // U source rows in flight: the loads are unconditional (a step
-        // past the row's end re-reads its last edge's row and is masked
-        // below), so the compiler issues all U before the first use
-        R x[U];
-        float l[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int s = __shfl_sync(kFull, my_src, min(j + u, cnt - 1));
-          x[u].load(a.xs + static_cast<size_t>(s) * a.d, lane, a.d);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          float p = 0.0f;
-#pragma unroll
-          for (int c = 0; c < R::C; ++c) p = fmaf(x[u].v[c], att.v[c], p);
-          l[u] = p;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int u = 0; u < U; ++u) l[u] += __shfl_xor_sync(kFull, l[u], off);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          l[u] = edge_logit(l[u], ad, slope_t, inv_t);
-        if (MODE == kSoftmax) {
-          // one rescale per U edges, as the TPU kernel rescales once per
-          // edge window
-          float m_new = m;
-#pragma unroll
-          for (int u = 0; u < U; ++u)
-            if (j + u < cnt) m_new = fmaxf(m_new, l[u]);
-          const float scale = fast_exp(fminf(m - m_new, 0.0f));
-          ssum *= scale;
-#pragma unroll
-          for (int c = 0; c < R::C; ++c) acc.v[c] *= scale;
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            if (j + u < cnt) {  // cnt is warp-uniform
-              const float w = fast_exp(fminf(l[u] - m_new, kExpClamp));
-              ssum += w;
-#pragma unroll
-              for (int c = 0; c < R::C; ++c)
-                acc.v[c] = fmaf(w, x[u].v[c], acc.v[c]);
-            }
-          }
-          m = m_new;
-        } else {
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            if (j + u < cnt) {
-              const float w = MODE == kSigmoid ? 1.0f / (1.0f + fast_exp(-l[u]))
-                                               : l[u] * a.temperature;
-#pragma unroll
-              for (int c = 0; c < R::C; ++c)
-                acc.v[c] = fmaf(w, x[u].v[c], acc.v[c]);
-            }
-          }
-        }
+  int cur = -1;              // the row being aggregated
+  int next_unit = 0;         // units before it are stored
+  float m = kNegBig, s = 0.0f;
+  R acc, res;
+  acc.zero();
+  res.zero();
+
+  // the row's state: its stats, and its share of the unit's output
+  auto finish_row = [&](int k) {
+    const long long row = __shfl_sync(kFull, it.row, k);
+    if (it.chunk) {
+      if (lane == 0) {
+        a.part_m[it.part] = m;
+        a.part_s[it.part] = s;
       }
-    }
-#pragma unroll
-    for (int c = 0; c < R::C; ++c) {
-      // division, not a multiply by the reciprocal: the same rounding as
-      // the plain version's acc / (sum + eps)
-      res.v[c] += MODE == kSoftmax ? acc.v[c] / (ssum + kEps) : acc.v[c];
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+      return;
     }
     if (lane == 0) {
-      a.row_max[row] = m;
-      a.row_sum[row] = ssum;
+      a.row_max[row] = MODE == kSoftmax ? m : kNegBig;
+      a.row_sum[row] = MODE == kSoftmax ? s : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < R::C; ++c)
+      // division, not a multiply by the reciprocal: the same rounding as
+      // the plain version's acc / (sum + eps)
+      res.v[c] += MODE == kSoftmax ? acc.v[c] / (s + kEps) : acc.v[c];
+  };
+  // stores units next_unit..i-1 as zeros (no edges) and unit i as res
+  auto store_unit = [&](int i) {
+    R zero;
+    zero.zero();
+    for (; next_unit < i; ++next_unit)
+      zero.store(a.out + (it.unit0 + next_unit) * d, lane, d);
+    res.store(a.out + (it.unit0 + i) * d, lane, d);
+    next_unit = i + 1;
+    res.zero();
+  };
+
+  if (n_groups > 0)
+    kgwas::load_group<VEC, NV>(ring, rl, 0, it.total, s_src, a.xs, lane, d);
+  kgwas::cp_async_commit();
+  for (int g = 0; g < n_groups; ++g) {
+    if (g + 1 < n_groups)
+      kgwas::load_group<VEC, NV>(ring, rl, g + 1, it.total, s_src, a.xs,
+                                 lane, d);
+    kgwas::cp_async_commit();
+    kgwas::cp_async_wait<1>();  // group g has landed
+    __syncwarp();
+    const float* stage = ring + (g % kStages) * kGroup * rl;
+    const int cnt = min(kGroup, it.total - g * kGroup);
+
+    // score: lanes 4q..4q+3 take edge q of the group
+    const int k = q < cnt ? s_k[g * kGroup + q] : 0;
+    const int slot = __shfl_sync(kFull, it.slot, k);
+    const float adk = __shfl_sync(kFull, ad, k);
+    float dot = 0.0f, unused;
+    if (q < cnt)
+      kgwas::part_dots<VEC, NV, false>(stage + q * rl,
+                                       a.att + static_cast<size_t>(slot) * d,
+                                       nullptr, q, p, d, dot, unused);
+    dot += __shfl_xor_sync(kFull, dot, 1);
+    dot += __shfl_xor_sync(kFull, dot, 2);
+    const float l_mine = edge_logit(dot, adk, slope_t, inv_t);
+
+    // aggregate the group in edge order, column-parallel
+    for (int e = 0; e < cnt; ++e) {
+      const int ke = s_k[g * kGroup + e];  // warp-uniform
+      if (ke != cur) {
+        if (cur >= 0) {
+          finish_row(cur);
+          if (!it.chunk && ke / F != cur / F) store_unit(cur / F);
+        }
+        cur = ke;
+        m = kNegBig;
+        s = 0.0f;
+        acc.zero();
+      }
+      const float l = __shfl_sync(kFull, l_mine, 4 * e);
+      R x;
+      load_shared<VEC, NV>(x, stage + e * rl, lane, d);
+      if (MODE == kSoftmax) {
+        const float m_new = fmaxf(m, l);
+        const float scale = fast_exp(m - m_new);
+        const float w = fast_exp(fminf(l - m_new, kExpClamp));
+        s = fmaf(s, scale, w);
+#pragma unroll
+        for (int c = 0; c < R::C; ++c)
+          acc.v[c] = fmaf(w, x.v[c], acc.v[c] * scale);
+        m = m_new;
+      } else {
+        const float w = MODE == kSigmoid ? 1.0f / (1.0f + fast_exp(-l))
+                                         : l * a.temperature;
+#pragma unroll
+        for (int c = 0; c < R::C; ++c) acc.v[c] = fmaf(w, x.v[c], acc.v[c]);
+      }
+    }
+    __syncwarp();  // the stage is read before it is loaded again
+  }
+  if (cur >= 0) {
+    finish_row(cur);
+    if (!it.chunk) store_unit(cur / F);
+  }
+  if (!it.chunk) {
+    R zero;
+    zero.zero();
+    for (; next_unit < it.n_units; ++next_unit)
+      zero.store(a.out + (it.unit0 + next_unit) * d, lane, d);
+  }
+}
+
+// One warp per unit cut into chunks: per slot row the log-sum-exp merge of
+// its parts in part order (or their plain sum), then the row's division and
+// the fold's sum over the unit's slot rows.
+template <int MODE, bool VEC, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_combine_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  const int lane = threadIdx.x & 31;
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (j >= a.n_split) return;
+  const int d = a.d;
+  const int F = a.fold_slots;
+  const long long u = a.split_units[j];
+  R res;
+  res.zero();
+  for (int r = 0; r < F; ++r) {
+    const long long row = F > 1 ? r * a.n_rows_per_rel + u : u;
+    const int p0 = a.part_offsets[j * F + r];
+    const int p1 = a.part_offsets[j * F + r + 1];
+    float mx = kNegBig, sum = 0.0f;
+    R acc;
+    acc.zero();
+    if (MODE == kSoftmax)
+      for (int pi = p0; pi < p1; ++pi) mx = fmaxf(mx, a.part_m[pi]);
+    for (int pi = p0; pi < p1; ++pi) {
+      R x;
+      x.load(a.part_acc + static_cast<size_t>(pi) * d, lane, d);
+      const float sc = MODE == kSoftmax ? fast_exp(a.part_m[pi] - mx) : 1.0f;
+      if (MODE == kSoftmax) sum = fmaf(a.part_s[pi], sc, sum);
+#pragma unroll
+      for (int c = 0; c < R::C; ++c) acc.v[c] = fmaf(sc, x.v[c], acc.v[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < R::C; ++c)
+      res.v[c] += MODE == kSoftmax ? acc.v[c] / (sum + kEps) : acc.v[c];
+    if (lane == 0) {
+      a.row_max[row] = mx;
+      a.row_sum[row] = sum;
     }
   }
-  res.store(a.out + o * a.d, lane, a.d);
+  res.store(a.out + u * d, lane, d);
 }
 
 template <int MODE, bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_out_rows + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks == 0) return cudaSuccess;
-  merged_gat_fwd_kernel<MODE, VEC, NV>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-  return cudaGetLastError();
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const int rl = kgwas::row_len<VEC, NV>(a.d);
+  const size_t smem =
+      sizeof(float) * kWarps * kgwas::warp_smem_floats(rl, 0, kgwas::kFwdMaxEdges, 0);
+  if (blocks > 0) {
+    auto kern = merged_gat_fwd_kernel<MODE, VEC, NV>;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (cblocks > 0) {
+    merged_gat_combine_kernel<MODE, VEC, NV>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 template <int MODE>
@@ -237,13 +358,17 @@ cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; float4 rows need xs, att and out 16-byte aligned when D % 128
-// == 0 (the wrapper checks). mode: 0 softmax, 1 sigmoid, 2 raw.
+// pointers; xs, att, out, part_acc and items must be 16-byte aligned (the
+// wrapper checks). mode: 0 softmax, 1 sigmoid, 2 raw. The schedule (items,
+// split_units, part_offsets) and the scratch part_* come from the wrapper;
+// two launches: the items, then the combine of the chunked units.
 extern "C" int kgwas_merged_gat_fwd(
     const void* xs, const void* src, const void* row_offsets, const void* att,
     const void* a_dst, void* out, void* row_max, void* row_sum,
-    long long n_out_rows, long long n_rows_per_rel, int fold_slots, int d,
-    int mode, float slope, float temperature, void* stream) {
+    const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_m, void* part_s,
+    void* part_acc, long long n_rows_per_rel, int fold_slots, int d, int mode,
+    float slope, float temperature, void* stream) {
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
@@ -253,7 +378,14 @@ extern "C" int kgwas_merged_gat_fwd(
   a.out = static_cast<float*>(out);
   a.row_max = static_cast<float*>(row_max);
   a.row_sum = static_cast<float*>(row_sum);
-  a.n_out_rows = n_out_rows;
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_s = static_cast<float*>(part_s);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.n_items = n_items;
+  a.n_split = n_split;
   a.n_rows_per_rel = n_rows_per_rel;
   a.fold_slots = fold_slots;
   a.d = d;
@@ -261,9 +393,9 @@ extern "C" int kgwas_merged_gat_fwd(
   a.temperature = temperature;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kSoftmax: return dispatch_width<kSoftmax>(a, s);
-    case kSigmoid: return dispatch_width<kSigmoid>(a, s);
-    case kRaw: return dispatch_width<kRaw>(a, s);
+    case kgwas::kSoftmax: return dispatch_width<kgwas::kSoftmax>(a, s);
+    case kgwas::kSigmoid: return dispatch_width<kgwas::kSigmoid>(a, s);
+    case kgwas::kRaw: return dispatch_width<kgwas::kRaw>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

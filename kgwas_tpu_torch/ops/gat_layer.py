@@ -13,12 +13,23 @@ bounds each row's edges, and a row's relation slot is
 ``merged_gat_bwd`` launches ``csrc/merged_gat_bwd.cu`` for CUDA tensors;
 for CPU tensors they run ``merged_gat_forward_plain`` and
 ``merged_gat_bwd_plain``. There is no other route. ``launches`` and
-``bwd_launches`` count kernel launches. ``MergedGATLayer`` is the layer as
-an autograd function: its backward is ``merged_gat_bwd`` followed by
-``segment.csc_segment_sum``.
+``bwd_launches`` count calls of the two wrappers that reach the card; each
+such call is two device launches when the schedule cuts a unit into
+chunks (the items, then the combine), else one. ``MergedGATLayer`` is the
+layer as an autograd function: its backward is ``merged_gat_bwd`` followed
+by ``segment.csc_segment_sum``.
+
+Both kernels take their work from a static schedule (``schedule``, built
+once per layout on the host, ``GATSchedule``): items that pack the slot
+rows of consecutive units (output rows) up to ``max_edges`` edges, and
+chunks of at most ``chunk_edges`` edges of the slot rows of a longer unit,
+whose partials a second launch combines in a fixed order.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from . import segment
@@ -27,9 +38,103 @@ NEG_BIG = -1e9
 EXP_CLAMP = 60.0
 EPS = 1e-16
 MODES = ("softmax", "sigmoid", "raw")
+# the kernels' item limits (csrc/gat_items.cuh): edges of a forward and of
+# a backward item, slot rows and units of one item
+ITEM_MAX_EDGES, BWD_ITEM_MAX_EDGES = 512, 256
+ITEM_MAX_ROWS, ITEM_MAX_UNITS = 32, 8
+MAX_EDGES = 128   # the default max_edges (PERF.md: tuned on the card)
+# the default chunk_edges: a whole slot row of up to 511 pad edges is one
+# chunk, so a trash row's sum of identical terms keeps the plain version's
+# sequential order (shorter chunks round it differently; PERF.md)
+CHUNK_EDGES = 512
+# the backward's chunk_edges: its sums are trees, so a trash row may be cut
+# shorter, and its warps then end with the others'
+BWD_CHUNK_EDGES = 128
 
 launches = 0
 bwd_launches = 0
+
+
+@dataclasses.dataclass
+class GATSchedule:
+    """The static work schedule of one edge stream and fold (see
+    csrc/gat_items.cuh). items int32 [n_items, 4], in unit order: a packed
+    item (u0, u1, -1, -1) takes units u0..u1-1, a chunk (row, part, e0, e1)
+    edges e0..e1-1 of one slot row and writes scratch part. The units cut
+    into chunks are split_units [n_split]; their parts for slot r are
+    part_offsets[j*F + r] .. part_offsets[j*F + r + 1]."""
+
+    n_rows: int
+    fold_slots: int
+    max_edges: int
+    chunk_edges: int
+    items: torch.Tensor
+    split_units: torch.Tensor
+    part_offsets: torch.Tensor
+    n_parts: int
+
+    def to(self, device):
+        return dataclasses.replace(
+            self, items=self.items.to(device),
+            split_units=self.split_units.to(device),
+            part_offsets=self.part_offsets.to(device))
+
+
+def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=MAX_EDGES,
+             chunk_edges=CHUNK_EDGES):
+    """The schedule of a merged stream (numpy, on the host). A unit is a
+    node (fold = R: its R slot rows r*N + n) or a slot row (fold = 0).
+    Consecutive units are packed into one item while their edges add up to
+    at most max_edges (and at most ITEM_MAX_ROWS slot rows and
+    ITEM_MAX_UNITS units); a unit with more edges is cut into chunks of at
+    most chunk_edges edges of one slot row each."""
+    for name, k in (("max_edges", max_edges), ("chunk_edges", chunk_edges)):
+        if not 1 <= k <= ITEM_MAX_EDGES:
+            raise ValueError(f"{name} must be in 1..{ITEM_MAX_EDGES}, got "
+                             f"{k}")
+    if torch.is_tensor(row_offsets):
+        row_offsets = row_offsets.cpu().numpy()
+    ro = np.asarray(row_offsets, dtype=np.int64)
+    n_rows = len(ro) - 1
+    n = int(n_rows_per_rel)
+    f = int(fold) if fold else 1
+    if f > ITEM_MAX_ROWS:
+        raise ValueError(f"fold over R={f} > {ITEM_MAX_ROWS} relations is "
+                         "not supported")
+    deg = np.diff(ro)
+    unit_deg = deg.reshape(f, n).sum(0) if fold else deg
+    max_units = min(ITEM_MAX_UNITS, ITEM_MAX_ROWS // f)
+    ro_l = ro.tolist()
+    items, split_units, part_offsets = [], [], [0]
+    n_parts = 0
+    start, edges = -1, 0        # the open packed item
+    for u, e in enumerate(unit_deg.tolist()):
+        if start >= 0 and (e > max_edges or edges + e > max_edges
+                           or u - start == max_units):
+            items.append((start, u, -1, -1))
+            start = -1
+        if e > max_edges:
+            split_units.append(u)
+            for r in range(f):
+                row = r * n + u if fold else u
+                end = ro_l[row + 1]
+                for b in range(ro_l[row], end, chunk_edges):
+                    items.append((row, n_parts, b, min(b + chunk_edges, end)))
+                    n_parts += 1
+                part_offsets.append(n_parts)
+            continue
+        if start < 0:
+            start, edges = u, 0
+        edges += e
+    if start >= 0:
+        items.append((start, len(unit_deg), -1, -1))
+    return GATSchedule(
+        n_rows=n_rows, fold_slots=f, max_edges=int(max_edges),
+        chunk_edges=int(chunk_edges),
+        items=torch.tensor(items, dtype=torch.int32).reshape(-1, 4),
+        split_units=torch.tensor(split_units, dtype=torch.int32),
+        part_offsets=torch.tensor(part_offsets, dtype=torch.int32),
+        n_parts=n_parts)
 
 
 def _check(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
@@ -108,9 +213,35 @@ def merged_gat_forward_plain(xs_all, src, row_offsets, att, a_dst_all,
     return out, row_max, row_sum
 
 
+def _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel, fold,
+                     device, backward=False):
+    """The schedule a launch uses: the caller's, checked against the
+    stream, or (tests and ad-hoc calls) one built now from row_offsets."""
+    f = fold if fold else 1
+    if sched is None:
+        sched = schedule(row_offsets, n_rows_per_rel, fold,
+                         chunk_edges=BWD_CHUNK_EDGES if backward
+                         else CHUNK_EDGES).to(device)
+    if sched.n_rows != n_rows or sched.fold_slots != f:
+        raise ValueError(
+            f"schedule of {sched.n_rows} rows and fold {sched.fold_slots} "
+            f"given for {n_rows} rows and fold {f}")
+    most = BWD_ITEM_MAX_EDGES if backward else ITEM_MAX_EDGES
+    if max(sched.max_edges, sched.chunk_edges) > most:
+        raise ValueError(f"the {'backward' if backward else 'forward'} "
+                         f"takes items of at most {most} edges")
+    for name in ("items", "split_units", "part_offsets"):
+        t = getattr(sched, name)
+        if t.device != device or t.dtype != torch.int32:
+            raise ValueError(f"schedule {name} must be int32 on {device}")
+    if sched.items.data_ptr() % 16 or not sched.items.is_contiguous():
+        raise ValueError("schedule items must be contiguous, 16-byte aligned")
+    return sched
+
+
 def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
                        n_rows_per_rel, fold=0, mode="softmax",
-                       negative_slope=0.2, temperature=1.0):
+                       negative_slope=0.2, temperature=1.0, sched=None):
     """Merged GAT layer forward over one destination group.
 
     xs_all [S, D] f32 concatenated projected source rows; src [E] int32 into
@@ -118,7 +249,9 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     attention vectors; a_dst_all [R*N] per-row destination logits;
     n_rows_per_rel = N. Returns (out, row_max, row_sum): out is [R*N, D],
     or with fold=R the cross-relation sum [N, D]; row_max and row_sum are
-    [R*N] (NEG_BIG and 0 for empty rows and for the sigmoid/raw modes)."""
+    [R*N] (NEG_BIG and 0 for empty rows and for the sigmoid/raw modes).
+    sched: the stream's GATSchedule for this fold on the device (built
+    from row_offsets when not given); the plain version needs none."""
     if xs_all.device.type == "cpu":
         return merged_gat_forward_plain(
             xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
@@ -130,21 +263,31 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     check_cuda_args(xs_all.device, xs_all=xs_all, src=src,
                     row_offsets=row_offsets, att=att, a_dst_all=a_dst_all)
     d = xs_all.shape[1]
-    if fold and n_rel > 32:
+    if fold and n_rel > ITEM_MAX_ROWS:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
+    sched = _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel,
+                             fold, xs_all.device)
     from .build import library
 
+    dev = xs_all.device
     n_out = n_rows_per_rel if fold else n_rows
-    out = torch.empty(n_out, d, dtype=torch.float32, device=xs_all.device)
-    row_max = torch.empty(n_rows, dtype=torch.float32, device=xs_all.device)
-    row_sum = torch.empty(n_rows, dtype=torch.float32, device=xs_all.device)
-    stream = torch.cuda.current_stream(xs_all.device).cuda_stream
+    out = torch.empty(n_out, d, dtype=torch.float32, device=dev)
+    row_max = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    row_sum = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    # the chunks' partials (m, s, acc) for the combine
+    part_m = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
+    part_s = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(sched.n_parts, d, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("merged_gat_fwd")(
         xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
         att.data_ptr(), a_dst_all.data_ptr(), out.data_ptr(),
-        row_max.data_ptr(), row_sum.data_ptr(), n_out, n_rows_per_rel,
-        n_rel if fold else 1, d, MODES.index(mode), negative_slope,
-        temperature, stream)
+        row_max.data_ptr(), row_sum.data_ptr(), sched.items.data_ptr(),
+        sched.items.shape[0], sched.split_units.data_ptr(),
+        sched.part_offsets.data_ptr(), sched.split_units.shape[0],
+        part_m.data_ptr(), part_s.data_ptr(), part_acc.data_ptr(),
+        n_rows_per_rel, sched.fold_slots, d, MODES.index(mode),
+        negative_slope, temperature, stream)
     if err != 0:
         raise RuntimeError(f"merged_gat_fwd launch failed: cudaError {err}")
     global launches
@@ -198,7 +341,7 @@ def merged_gat_bwd_plain(xs_all, src, row_offsets, att, a_dst_all, row_max,
 
 def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
                    row_sum, g, n_rows_per_rel, fold=0, mode="softmax",
-                   negative_slope=0.2, temperature=1.0):
+                   negative_slope=0.2, temperature=1.0, sched=None):
     """Edge-level backward of merged_gat_forward over one destination group.
 
     The arguments are merged_gat_forward's, plus its row_max / row_sum and
@@ -207,7 +350,9 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     w_e and the cotangent dz_e of the pre-activation logit z_e, both [E],
     and d_a_dst [R*N] = the sum of dz_e over each row. The [E, D] message
     cotangent w_e g_row + dz_e att[slot] is never formed:
-    segment.csc_segment_sum reduces it per source row."""
+    segment.csc_segment_sum reduces it per source row. sched as in
+    merged_gat_forward, of items of at most BWD_ITEM_MAX_EDGES edges
+    (built with BWD_CHUNK_EDGES when not given)."""
     if xs_all.device.type == "cpu":
         return merged_gat_bwd_plain(
             xs_all, src, row_offsets, att, a_dst_all, row_max, row_sum, g,
@@ -224,27 +369,44 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     check_cuda_args(xs_all.device, xs_all=xs_all, src=src,
                     row_offsets=row_offsets, att=att, a_dst_all=a_dst_all,
                     row_max=row_max, row_sum=row_sum, g=g)
-    if fold and n_rel > 32:
+    if fold and n_rel > ITEM_MAX_ROWS:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
+    sched = _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel,
+                             fold, xs_all.device, backward=True)
     from .build import library
 
+    dev = xs_all.device
     e = src.shape[0]
-    w = torch.empty(e, dtype=torch.float32, device=xs_all.device)
-    dz = torch.empty(e, dtype=torch.float32, device=xs_all.device)
-    d_a_dst = torch.empty(n_rows, dtype=torch.float32, device=xs_all.device)
-    stream = torch.cuda.current_stream(xs_all.device).cuda_stream
+    w = torch.empty(e, dtype=torch.float32, device=dev)
+    dz = torch.empty(e, dtype=torch.float32, device=dev)
+    d_a_dst = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    part_dot = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("merged_gat_bwd")(
         xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
         att.data_ptr(), a_dst_all.data_ptr(), row_max.data_ptr(),
         row_sum.data_ptr(), g.data_ptr(), w.data_ptr(), dz.data_ptr(),
-        d_a_dst.data_ptr(), n_out, n_rows_per_rel, n_rel if fold else 1,
-        xs_all.shape[1], MODES.index(mode), negative_slope, temperature,
-        stream)
+        d_a_dst.data_ptr(), sched.items.data_ptr(), sched.items.shape[0],
+        sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
+        sched.split_units.shape[0], part_dot.data_ptr(), n_rows_per_rel,
+        sched.fold_slots, xs_all.shape[1], MODES.index(mode),
+        negative_slope, temperature, stream)
     if err != 0:
         raise RuntimeError(f"merged_gat_bwd launch failed: cudaError {err}")
     global bwd_launches
     bwd_launches += 1
     return w, dz, d_a_dst
+
+
+def layout_schedule(layout, fold, backward=False):
+    """The forward's or the backward's schedule the layout carries
+    (DeviceLayout.gat_schedule, .gat_bwd_schedule), if it is this fold's;
+    else None, and the wrapper builds one."""
+    sched = getattr(layout, "gat_bwd_schedule" if backward
+                    else "gat_schedule", None)
+    if sched is not None and sched.fold_slots == (fold if fold else 1):
+        return sched
+    return None
 
 
 def merged_gat_backward_plain(xs_all, att, a_dst_all, row_max, row_sum, g,
@@ -269,7 +431,7 @@ def merged_gat_backward(xs_all, att, a_dst_all, row_max, row_sum, g, layout,
     w, dz, d_a_dst = merged_gat_bwd(
         xs_all, layout.src, layout.row_offsets, att, a_dst_all, row_max,
         row_sum, g, layout.n_rows_per_rel, fold, mode, negative_slope,
-        temperature)
+        temperature, sched=layout_schedule(layout, fold, backward=True))
     d_xs_all, d_att = segment.csc_segment_sum(g, w, dz, xs_all, att, layout,
                                               fold)
     return d_xs_all, d_att, d_a_dst
@@ -287,7 +449,8 @@ class MergedGATLayer(torch.autograd.Function):
                 negative_slope, temperature):
         out, row_max, row_sum = merged_gat_forward(
             xs_all, layout.src, layout.row_offsets, att, a_dst_all,
-            layout.n_rows_per_rel, fold, mode, negative_slope, temperature)
+            layout.n_rows_per_rel, fold, mode, negative_slope, temperature,
+            sched=layout_schedule(layout, fold))
         ctx.save_for_backward(xs_all, att, a_dst_all, row_max, row_sum)
         ctx.layout = layout
         ctx.options = (fold, mode, negative_slope, temperature)

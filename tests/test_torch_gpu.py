@@ -16,13 +16,17 @@ cancels.
 The model-variant kernels (segment_softmax_spmm_fwd / _bwd on one
 relation's stream, csr_segment_sum and the CSC sum without logit term on a
 merged group's) are held the same way, and two launches give the same
-bits. With KGWAS_PARENT_CSRC set to an earlier checkout's
+bits. The merged GAT kernels run on their static schedule with the default
+max_edges and with max_edges = 8, where real rows are cut into chunks too,
+and on a stream with a hub node of several thousand edges across its slots.
+With KGWAS_PARENT_CSRC set to an earlier checkout's
 ``kgwas_tpu_torch/ops/csrc``, the merged GAT layer's CSC sum (with logit
-term) is also held bitwise against that source's kernel.
+term) is also held bitwise against that source's kernel, and the merged GAT
+forward and backward within the tolerances above (the redesigned kernels
+sum in another order).
 """
 import ctypes
 import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -61,10 +65,20 @@ def _close(got, want, n_per_rel, trash):
     np.testing.assert_allclose(got[mask], want[mask], rtol=1e-4, atol=1e-5)
 
 
+def _sched(L, fold, max_edges, device, chunk_edges=gat_layer.CHUNK_EDGES):
+    """None (the wrapper builds the default schedule) or the schedule of
+    max_edges."""
+    if max_edges is None:
+        return None
+    return gat_layer.schedule(L.row_offsets, L.n_rows_per_rel, fold,
+                              max_edges, chunk_edges).to(device)
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
 @pytest.mark.parametrize("d", [D, 48])
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
-def test_kernel_matches_plain(mode, fold, d, cuda_device, group):
+def test_kernel_matches_plain(mode, fold, d, max_edges, cuda_device, group):
     L, trash = group
     rng = np.random.default_rng(2)
     R = len(L.rel_keys)
@@ -74,14 +88,15 @@ def test_kernel_matches_plain(mode, fold, d, cuda_device, group):
             t((rng.standard_normal((R, d)) * 0.2).astype(np.float32)),
             t((rng.standard_normal(L.n_rows_total) * 0.5).astype(np.float32)),
             L.n_rows_per_rel, R if fold else 0, mode, 0.2, 0.7)
+    sched = _sched(L, args[6], max_edges, cuda_device)
     before = gat_layer.launches
-    got = gat_layer.merged_gat_forward(*args)
-    again = gat_layer.merged_gat_forward(*args)
+    got = gat_layer.merged_gat_forward(*args, sched=sched)
+    again = gat_layer.merged_gat_forward(*args, sched=sched)
     torch.cuda.synchronize()
     assert gat_layer.launches == before + 2
     want = gat_layer.merged_gat_forward_plain(*args)
     for g_, a_, w_ in zip(got, again, want):
-        assert torch.equal(g_, a_)   # one warp per row: the same bits
+        assert torch.equal(g_, a_)   # no atomics, a fixed order: the same bits
         _close(g_, w_, L.n_rows_per_rel, trash)
 
 
@@ -122,22 +137,27 @@ def _bwd_inputs(L, fold, d, device, seed=4):
     return xs, att, a_dst, g
 
 
+@pytest.mark.parametrize("max_edges", [None, 8])
 @pytest.mark.parametrize("d", [D, 48])
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
-def test_backward_kernels_match_plain(mode, fold, d, cuda_device, group):
+def test_backward_kernels_match_plain(mode, fold, d, max_edges, cuda_device,
+                                      group):
     L, _ = group
     DL = device_layouts({"Gene": L}, cuda_device)["Gene"]
     fold = len(L.rel_keys) if fold else 0
+    sched = _sched(L, fold, max_edges, cuda_device)
+    # the backward's: max_edges = 8 cuts real rows mid-row too
+    bsched = _sched(L, fold, max_edges, cuda_device, max_edges)
     xs, att, a_dst, g = _bwd_inputs(L, fold, d, cuda_device)
     _, row_max, row_sum = gat_layer.merged_gat_forward(
         xs, DL.src, DL.row_offsets, att, a_dst, DL.n_rows_per_rel, fold, mode,
-        0.2, 0.7)
+        0.2, 0.7, sched=sched)
     args = (xs, DL.src, DL.row_offsets, att, a_dst, row_max, row_sum, g,
             DL.n_rows_per_rel, fold, mode, 0.2, 0.7)
     before = (gat_layer.bwd_launches, segment.launches)
-    edge = gat_layer.merged_gat_bwd(*args)
-    again = gat_layer.merged_gat_bwd(*args)
+    edge = gat_layer.merged_gat_bwd(*args, sched=bsched)
+    again = gat_layer.merged_gat_bwd(*args, sched=bsched)
     sums = segment.csc_segment_sum(g, edge[0], edge[1], xs, att, DL, fold)
     sums2 = segment.csc_segment_sum(g, edge[0], edge[1], xs, att, DL, fold)
     torch.cuda.synchronize()
@@ -156,6 +176,58 @@ def test_backward_kernels_match_plain(mode, fold, d, cuda_device, group):
                                                 0.2, 0.7)
     for got, want in zip(full, plain):
         _close_grad(got, want)
+
+
+def _hub_stream(seed=6, n=2048, n_rel=3, n_src=4096, hub=100,
+                hub_edges=(3001, 2503, 1709)):
+    """A merged stream whose node `hub` has thousands of edges in each slot
+    (row lengths that no chunk size divides), the other rows ~6."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(6, n_rel * n)
+    for r, e in enumerate(hub_edges):
+        deg[r * n + hub] = e
+    ro = np.zeros(n_rel * n + 1, dtype=np.int64)
+    np.cumsum(deg, out=ro[1:])
+    src = rng.integers(0, n_src, ro[-1])
+    return src.astype(np.int32), ro.astype(np.int32), n, hub, rng
+
+
+@pytest.mark.parametrize("max_edges", [None, 64])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
+def test_hub_node_split_across_slots(mode, fold, max_edges, cuda_device):
+    src, ro, n, hub, rng = _hub_stream()
+    n_rel = (len(ro) - 1) // n
+    fold = n_rel if fold else 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    xs = t((rng.standard_normal((4096, D)) * 0.1).astype(np.float32))
+    att = t((rng.standard_normal((n_rel, D)) * 0.2).astype(np.float32))
+    a_dst = t((rng.standard_normal(n_rel * n) * 0.5).astype(np.float32))
+    sched = gat_layer.schedule(ro, n, fold, max_edges or gat_layer.MAX_EDGES)
+    assert hub in sched.split_units.tolist()
+    sched = sched.to(cuda_device)
+    args = (xs, t(src), t(ro), att, a_dst, n, fold, mode, 0.2, 0.7)
+    got = gat_layer.merged_gat_forward(*args, sched=sched)
+    again = gat_layer.merged_gat_forward(*args, sched=sched)
+    want = gat_layer.merged_gat_forward_plain(*args)
+    torch.cuda.synchronize()
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        # the hub's rows sum thousands of terms: held as trash rows are
+        _close(g_, w_, n, hub)
+    g = t(rng.standard_normal((n if fold else n_rel * n, D)).astype(
+        np.float32))
+    bargs = (xs, t(src), t(ro), att, a_dst, got[1], got[2], g, n, fold, mode,
+             0.2, 0.7)
+    bsched = gat_layer.schedule(ro, n, fold, max_edges or gat_layer.MAX_EDGES,
+                                gat_layer.BWD_CHUNK_EDGES).to(cuda_device)
+    edge = gat_layer.merged_gat_bwd(*bargs, sched=bsched)
+    again = gat_layer.merged_gat_bwd(*bargs, sched=bsched)
+    torch.cuda.synchronize()
+    for got_, rep, want_ in zip(edge, again,
+                                gat_layer.merged_gat_bwd_plain(*bargs)):
+        assert torch.equal(got_, rep)
+        _close_grad(got_, want_)
 
 
 def test_csc_segment_sum_rejects_bad_inputs(cuda_device, group):
@@ -269,7 +341,7 @@ def parent_csrc():
 @pytest.mark.parametrize("fold", [False, True])
 def test_csc_segment_sum_logit_path_bitwise_as_parent(fold, parent_csrc,
                                                       cuda_device, group,
-                                                      tmp_path, monkeypatch):
+                                                      monkeypatch):
     """The merged GAT layer's call (w, dz, att) gives the same bits as the
     kernel built from the earlier source."""
     L, _ = group
@@ -283,14 +355,67 @@ def test_csc_segment_sum_logit_path_bitwise_as_parent(fold, parent_csrc,
     dz = torch.from_numpy(rng.standard_normal(e).astype(np.float32)).to(
         cuda_device)
     new = segment.csc_segment_sum(g, w, dz, xs, att, DL, fold)
-    lib = tmp_path / "libparent_csc_segment_sum.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(parent_csrc / "csc_segment_sum.cu")], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(str(lib)).kgwas_csc_segment_sum
-    fn.argtypes = build.KERNELS["csc_segment_sum"][2]
-    fn.restype = ctypes.c_int
+    fn = build.build_source(parent_csrc / "csc_segment_sum.cu",
+                            "parent_csc_segment_sum", "kgwas_csc_segment_sum",
+                            build.KERNELS["csc_segment_sum"][2])
     monkeypatch.setitem(build._loaded, "csc_segment_sum", fn)
     old = segment.csc_segment_sum(g, w, dz, xs, att, DL, fold)
     torch.cuda.synchronize()
     assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+
+
+# the merged GAT kernels of an earlier checkout: its C entry points (one
+# warp per output row, no schedule)
+_PARENT_FWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                    + [ctypes.c_void_p])
+_PARENT_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                    + [ctypes.c_void_p])
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
+def test_merged_gat_kernels_match_parent(mode, fold, parent_csrc,
+                                         cuda_device, group):
+    """The redesigned kernels against the earlier source's on the same
+    inputs, within the kernel-vs-plain tolerances: the sums run in another
+    order, so not bitwise."""
+    L, trash = group
+    R = len(L.rel_keys)
+    fold = R if fold else 0
+    n = L.n_rows_per_rel
+    xs, att, a_dst, g = _bwd_inputs(L, fold, D, cuda_device)
+    src = torch.from_numpy(L.src).to(cuda_device)
+    ro = torch.from_numpy(L.row_offsets).to(cuda_device)
+    fwd = build.build_source(parent_csrc / "merged_gat_fwd.cu",
+                             "parent_merged_gat_fwd", "kgwas_merged_gat_fwd",
+                             _PARENT_FWD_ARGS)
+    bwd = build.build_source(parent_csrc / "merged_gat_bwd.cu",
+                             "parent_merged_gat_bwd", "kgwas_merged_gat_bwd",
+                             _PARENT_BWD_ARGS)
+    n_out = n if fold else L.n_rows_total
+    mode_i = gat_layer.MODES.index(mode)
+    f = R if fold else 1
+    stream = torch.cuda.current_stream().cuda_stream
+    new = gat_layer.merged_gat_forward(xs, src, ro, att, a_dst, n, fold, mode,
+                                       0.2, 0.7)
+    old = (torch.empty(n_out, D, device=cuda_device),
+           torch.empty(L.n_rows_total, device=cuda_device),
+           torch.empty(L.n_rows_total, device=cuda_device))
+    assert fwd(xs.data_ptr(), src.data_ptr(), ro.data_ptr(), att.data_ptr(),
+               a_dst.data_ptr(), *(o.data_ptr() for o in old), n_out, n, f,
+               D, mode_i, 0.2, 0.7, stream) == 0
+    for a, b in zip(new, old):
+        _close(a, b, n, trash)
+    e = src.shape[0]
+    bargs = (xs, src, ro, att, a_dst, new[1], new[2], g)
+    new_b = gat_layer.merged_gat_bwd(*bargs, n, fold, mode, 0.2, 0.7)
+    old_b = (torch.empty(e, device=cuda_device),
+             torch.empty(e, device=cuda_device),
+             torch.empty(L.n_rows_total, device=cuda_device))
+    assert bwd(*(a.data_ptr() for a in bargs), *(o.data_ptr() for o in old_b),
+               n_out, n, f, D, mode_i, 0.2, 0.7, stream) == 0
+    torch.cuda.synchronize()
+    for a, b in zip(new_b, old_b):
+        _close_grad(a, b)
