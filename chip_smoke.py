@@ -8,7 +8,12 @@ PyTorch version:
 
   1. card and kernel: nvidia-smi name and power limit, build the kernels
      from ops/csrc with nvcc (build/kernels/); what ptxas did (registers,
-     shared memory, spills) and the resident warps per SM it allows
+     shared memory, spills) and the resident warps per SM it allows;
+     (b) the gather ceiling: gather_probe.cu reads random 512-byte rows in
+     the order of the full-width layouts' index streams (and shuffled),
+     from a table that L2 holds and from one it does not, at 1-16 rows in
+     flight a warp, and each layer kernel's gather floor (its gathered
+     rows over that rate)
   2. the merged GAT forward and backward kernels vs plain on a 20k-SNP
      synthetic KG, every merged group, the softmax/sigmoid/raw modes, fold
      off and on, on the default schedule and with max_edges 8 (real rows
@@ -43,22 +48,42 @@ PyTorch version:
      per step one launch per relation of each group that reaches the head
      for GAT-max/min, 10; one CSR sum per such group and one CSC sum in the
      backward for the others, 3 for SAGE and 2 for GCN and SGC, which read
-     no destination row) against three steps through the plain ops; (c) forward ms, train step ms with a profiler
-     split of each, and each new kernel's ms against its bound, its plain
-     version and, for the CSR sum, torch.sparse.mm
+     no destination row) against three steps through the plain ops; (c)
+     forward ms, train step ms with a profiler split of each, and each
+     new kernel's ms against its bound, its plain version and, for the
+     CSR sum, torch.sparse.mm
+
+  Phases 5d (GAT sum) and 6c (GAT-max) also time csc_segment_sum and
+  segment_softmax_spmm_fwd launch by launch (6c also the CSC sum of SAGE
+  and GCN): each as it runs, without its trash rows' pad edges, on
+  schedules with other max_edges, and the CSC sum with w and dz dropped
+  (its gather alone).
+
+Kernel ms is host-paced: the launches issued one by one from Python with
+CUDA events around them, so a wrapper's host time counts where it is
+longer than its launch; device ms beside it replays the same launches from
+a CUDA graph.
 
 With KGWAS_PARENT_CSRC set to an earlier checkout's
-kgwas_tpu_torch/ops/csrc, phases 1, 4 and 5d also build that checkout's
-merged GAT kernels and time them on the same launches.
+kgwas_tpu_torch/ops/csrc, phases 1, 4, 5d and 6c also build that
+checkout's kernels and time them on the same launches: its merged GAT
+kernels (this checkout's C interface), its segment_softmax_spmm_fwd and
+csc_segment_sum through its own wrappers, and that csc_segment_sum
+reading dst in CSC order; 5d (GAT sum) and 6c (GAT-max) also time the
+train step with those two kernels in place of this checkout's,
+alternating.
 
 Prints the kernel table as one JSON line, then the card's name and power
-limit, then the result line. Exits non-zero, printing no result, without a
-CUDA device or without the package beside this file.
+limit, then the result line. Exits non-zero, printing no
+result, without a CUDA device or without the package beside this file.
 """
 import contextlib
 import copy
-import ctypes
+import dataclasses
 import functools
+import importlib
+import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -128,32 +153,49 @@ def warps_per_sm(regs, threads, smem):
     return blocks * warps
 
 
-# block size and dynamic shared memory at D = 128 of the merged GAT
-# kernels' entry functions (csrc/gat_items.cuh warp_smem_floats: 4 warps,
-# a ring of 2 x 8 rows, the staging arrays; the backward's 8 cotangent rows
-# and per-edge z and m)
-MERGED_LAUNCH = {
+# block size and dynamic shared memory at D = 128 of the scheduled kernels'
+# entry functions (the merged GAT kernels: csrc/gat_items.cuh
+# warp_smem_floats, 4 warps, a ring of 2 x 8 rows, the staging arrays, the
+# backward's 8 cotangent rows and per-edge z and m; the segment kernels
+# stage in static shared memory), and of the gather probe
+KERNEL_LAUNCH = {
     "merged_gat_fwd_kernel": (128, 4 * 4 * (16 * 128 + 704)),
     "merged_gat_combine_kernel": (128, 0),
     "merged_gat_bwd_kernel": (128, 4 * 4 * (24 * 128 + 960)),
     "merged_gat_bwd_combine_kernel": (128, 0),
+    "segment_softmax_spmm_fwd_kernel": (256, 0),
+    "segment_softmax_combine_kernel": (256, 0),
+    "csc_items_kernel": (256, 0),
+    "csc_combine_kernel": (256, 0),
+    "group_sum_kernel": (256, 0),
+    "slot_sum_kernel": (256, 0),
+    "gather_probe_kernel": (256, 0),
 }
+# the earlier checkout's one-warp-per-row kernels: 8 warps a block
+PARENT_LAUNCH = {k: (256, 0) for k in (
+    "segment_softmax_spmm_fwd_kernel", "csc_rows_kernel",
+    "slot_sum_kernel")}
+# template arguments of the entries reported: D = 128 (softmax mode, with
+# and without the logit term), and the probe's rows in flight
+D128 = ("<0, true, 1>", "<0>", "<true, 1>", "<true, 1, true>",
+        "<true, 1, false>", "<8>", "<16>")
 
 
 def report_ptxas(build, name, text, launch=None):
     """Logs what ptxas did for one library: the most registers and spills
-    over its entry functions, and for the softmax entries at D = 128 (and
-    the D-free combines) registers, shared memory, spills and, given
-    launch {entry: (threads, dynamic smem)}, the resident warps per SM."""
+    over its entry functions, and for the entries at D = 128 (D128, and the
+    D-free ones) registers, shared memory, spills and, given launch
+    {entry: (threads, dynamic smem)}, the resident warps per SM."""
     entries = build.ptxas_entries(text)
     if not entries:
         log(f"  {name}: no ptxas output")
         return
     top = max(entries, key=lambda e: e[1])
     log(f"  {name}: {len(entries)} entry functions; most registers {top[1]} "
-        f"({top[0]}); most spill bytes {max(e[3] for e in entries)}")
+        f"({top[0]}); most local bytes (stack frame and spills) "
+        f"{max(e[3] for e in entries)}")
     for kern, regs, smem, spill in entries:
-        if not (kern.endswith("<0, true, 1>") or kern.endswith("<0>")):
+        if "<" in kern and not kern.endswith(D128):
             continue
         occ = ""
         base = kern.split("<")[0].replace("void ", "")
@@ -163,65 +205,119 @@ def report_ptxas(build, name, text, launch=None):
             occ = (f", {threads} threads and {smem + dyn} B smem a block: "
                    f"{w} warps per SM ({w / SM_WARPS:.0%} occupancy)")
         log(f"    {kern}: {regs} registers, {smem} B static smem, {spill} B "
-            f"spills{occ}")
-
-
-MODES = ("softmax", "sigmoid", "raw")   # the C entry points' mode order
+            f"stack and spills{occ}")
 
 
 class ParentKernels:
-    """The merged GAT kernels of an earlier checkout (KGWAS_PARENT_CSRC: its
-    kgwas_tpu_torch/ops/csrc), built from its sources: one warp per output
-    row, no schedule. fwd and bwd take the wrappers' arguments."""
+    """The kernels of an earlier checkout (KGWAS_PARENT_CSRC: its
+    kgwas_tpu_torch/ops/csrc), built from its sources, for timing beside
+    this checkout's on the same launches. The merged GAT kernels have this
+    checkout's C interface and run through its wrappers with the earlier
+    library swapped in (fwd, bwd take the wrappers' arguments and sched).
+    segment_softmax_spmm_fwd and csc_segment_sum run through the earlier
+    checkout's own wrappers (its package imported as
+    parent_kgwas_tpu_torch, its kernels built by its own ops/build.py), so
+    their host-paced times carry that checkout's wrapper cost; seg_fwd and
+    csc take this checkout's wrapper arguments. csc with dst_csc runs the
+    earlier csc_segment_sum with one line changed: it reads each CSC
+    entry's row from an array in CSC order (dst[csc_perm], unfolded)
+    instead of dst[csc_perm[i]]."""
 
-    FWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2
-                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
-                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                + [ctypes.c_void_p])
+    DST_LINE = "const int row = a.dst[e];"
+    SEGMENT = ("segment_softmax_spmm_fwd", "csc_segment_sum")
 
     def __init__(self, build, csrc):
+        self.build = build
         self.csrc = Path(csrc)
-        self._fwd = build.build_source(
-            self.csrc / "merged_gat_fwd.cu", "parent_merged_gat_fwd",
-            "kgwas_merged_gat_fwd", self.FWD_ARGS)
-        self._bwd = build.build_source(
-            self.csrc / "merged_gat_bwd.cu", "parent_merged_gat_bwd",
-            "kgwas_merged_gat_bwd", self.BWD_ARGS)
+        self.libs = {
+            name: build.build_source(self.csrc / build.KERNELS[name][0],
+                                     f"parent_{name}", build.KERNELS[name][1],
+                                     build.KERNELS[name][2])
+            for name in ("merged_gat_fwd", "merged_gat_bwd")}
+        pkg = import_parent(self.csrc.parents[2])
+        self.pbuild = importlib.import_module(f"{pkg}.ops.build")
+        self.psegment = importlib.import_module(f"{pkg}.ops.segment")
+        self.psoftmax = importlib.import_module(f"{pkg}.ops.segment_softmax")
+        self.pbuild.build_all(self.SEGMENT)
+        # lever (a) alone: the earlier CSC sum reading dst in CSC order
+        text = (self.csrc / "csc_segment_sum.cu").read_text()
+        if text.count(self.DST_LINE) != 1:
+            raise RuntimeError("the earlier csc_segment_sum.cu has no single "
+                               f"line {self.DST_LINE!r}")
+        patched = build.build_dir() / "parent_csc_dst_csc" / "csc_dst_csc.cu"
+        patched.parent.mkdir(parents=True, exist_ok=True)
+        for header in self.csrc.glob("*.cuh"):
+            (patched.parent / header.name).write_text(header.read_text())
+        patched.write_text(text.replace(
+            self.DST_LINE, "const int row = a.dst[base + lane];"))
+        entry = self.pbuild.KERNELS["csc_segment_sum"]
+        self._csc_dst_csc = build.build_source(
+            patched, "parent_csc_dst_csc", entry[1], entry[2])
 
-    def fwd(self, xs, src, ro, att, a_dst, n, fold=0, mode="softmax",
-            slope=0.2, temperature=1.0):
-        n_rows = ro.numel() - 1
-        n_out = n if fold else n_rows
-        out = torch.empty(n_out, xs.shape[1], device=xs.device)
-        rmax = torch.empty(n_rows, device=xs.device)
-        rsum = torch.empty(n_rows, device=xs.device)
-        err = self._fwd(
-            xs.data_ptr(), src.data_ptr(), ro.data_ptr(), att.data_ptr(),
-            a_dst.data_ptr(), out.data_ptr(), rmax.data_ptr(),
-            rsum.data_ptr(), n_out, n, fold or 1, xs.shape[1],
-            MODES.index(mode), slope, temperature,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent merged_gat_fwd: cudaError {err}")
-        return out, rmax, rsum
+    def build_logs(self):
+        """{name: build record} of the earlier segment kernels."""
+        return {f"parent_{k}": v for k, v in self.pbuild.build_log.items()
+                if k in self.SEGMENT}
 
-    def bwd(self, xs, src, ro, att, a_dst, rmax, rsum, g, n, fold=0,
-            mode="softmax", slope=0.2, temperature=1.0):
-        n_rows = ro.numel() - 1
-        e = src.numel()
-        w = torch.empty(e, device=xs.device)
-        dz = torch.empty(e, device=xs.device)
-        da = torch.empty(n_rows, device=xs.device)
-        err = self._bwd(
-            *(t.data_ptr() for t in (xs, src, ro, att, a_dst, rmax, rsum, g,
-                                     w, dz, da)),
-            n if fold else n_rows, n, fold or 1, xs.shape[1],
-            MODES.index(mode), slope, temperature,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent merged_gat_bwd: cudaError {err}")
-        return w, dz, da
+    def _swapped(self, name, fn, *args, **kwargs):
+        old = self.build._loaded.get(name)
+        self.build._loaded[name] = self.libs[name]
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.build._loaded[name] = old
+
+    def fwd(self, *args, **kwargs):
+        from kgwas_tpu_torch.ops import gat_layer
+        return self._swapped("merged_gat_fwd", gat_layer.merged_gat_forward,
+                             *args, **kwargs)
+
+    def bwd(self, *args, **kwargs):
+        from kgwas_tpu_torch.ops import gat_layer
+        return self._swapped("merged_gat_bwd", gat_layer.merged_gat_bwd,
+                             *args, **kwargs)
+
+    def seg_fwd(self, xs, src, logits, ro, sched=None):
+        return self.psoftmax.segment_softmax_spmm_fwd(xs, src, logits, ro)
+
+    def csc(self, g, w, dz, xs, att, layout, fold=0, dst_csc=None):
+        if dst_csc is None:
+            return self.psegment.csc_segment_sum(g, w, dz, xs, att, layout,
+                                                 fold)
+        loaded = self.pbuild._loaded
+        old = loaded.get("csc_segment_sum")
+        loaded["csc_segment_sum"] = self._csc_dst_csc
+        try:
+            return self.psegment.csc_segment_sum(
+                g, w, dz, xs, att, SimpleNamespace(**{
+                    **vars(layout), "dst": dst_csc}), fold)
+        finally:
+            loaded["csc_segment_sum"] = old
+
+    def model_kernels(self):
+        """A context in which the model's layer ops run the earlier #6 and
+        #8 through the earlier wrappers."""
+        from kgwas_tpu_torch.ops import segment, segment_softmax
+        stack = contextlib.ExitStack()
+        stack.enter_context(swapped(segment, csc_segment_sum=self.csc))
+        stack.enter_context(swapped(segment_softmax,
+                                    segment_softmax_spmm_fwd=self.seg_fwd))
+        return stack
+
+
+def import_parent(root):
+    """The package kgwas_tpu_torch of the checkout at root, imported under
+    the name parent_kgwas_tpu_torch (its modules import each other
+    relatively). Returns that name."""
+    name = "parent_kgwas_tpu_torch"
+    if name not in sys.modules:
+        pkg = Path(root) / "kgwas_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return name
 
 
 def parent_kernels(build):
@@ -249,6 +345,33 @@ def cuda_ms(fn, reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device ms of fn over reps calls captured in one CUDA graph and
+    replayed, timed with CUDA events: the launches run back to back, with
+    no host time between them (a kernel wrapper's Python checks and
+    allocations can take longer than a short launch). After one warm-up
+    call on a side stream, as graph capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(stop) / reps
 
 
@@ -474,12 +597,12 @@ def swapped(module, **fns):
             setattr(module, k, f)
 
 
-def plain_forward(gat_layer):
-    """merged_gat_forward_plain in the layer op's place: the op passes the
-    kernels' schedule, which the plain version does not take."""
-    def fwd(*args, sched=None):
-        return gat_layer.merged_gat_forward_plain(*args)
-    return fwd
+def without_sched(plain):
+    """A plain version in its kernel wrapper's place: the layer ops pass
+    the kernels' schedule, which the plain version does not take."""
+    def fn(*args, sched=None):
+        return plain(*args)
+    return fn
 
 
 def group_of(layouts, src):
@@ -543,30 +666,50 @@ def csc_bound(g, w, dz, xs, att, layout):
     return bound_ms(words, 2 * d * w.numel() + 4 * d * xs.shape[0])
 
 
-def layout_without_trash(L, n_real, device):
-    """Layout L with every trash row's (pad) edges taken out, its CSC
-    rebuilt: a diagnostic stream, not the layer's input. Returns the
-    layout and the kept edges' mask."""
-    from kgwas_tpu_torch.ops import gat_layer
+def stream_without_trash(src, dst, row_offsets, csc_perm, csc_offsets,
+                         n_per_rel, n_real, src_base, fold, device):
+    """An edge stream (a merged group's, or one relation's) with every trash
+    row's (pad) edges taken out, its CSC rebuilt over the kept edges' CSC
+    source rows and its schedules built: a diagnostic stream, not a layer's
+    input. Returns the layout and the kept edges' mask on the device."""
+    from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
 
-    deg = np.diff(L.row_offsets.astype(np.int64))
-    keep = np.repeat(np.arange(len(deg)), deg) % L.n_rows_per_rel != n_real
-    src_nt, ro_nt = without_trash_rows(L, n_real)
-    src = L.src[keep]
-    perm = np.argsort(src, kind="stable")
-    off = np.zeros(L.n_src_total + 1, dtype=np.int64)
-    np.cumsum(np.bincount(src, minlength=L.n_src_total), out=off[1:])
+    deg = np.diff(row_offsets.astype(np.int64))
+    keep = np.repeat(np.arange(len(deg)), deg) % n_per_rel != n_real
+    deg[n_real::n_per_rel] = 0
+    ro = np.zeros(len(deg) + 1, dtype=np.int64)
+    np.cumsum(deg, out=ro[1:])
+    ro = ro.astype(np.int32)
+    n_src = int(src_base[-1])
+    csc_src = np.empty(len(src), dtype=np.int64)   # each edge's CSC row
+    csc_src[csc_perm] = np.repeat(np.arange(n_src),
+                                  np.diff(csc_offsets.astype(np.int64)))
+    kept_src = csc_src[keep]
+    perm = np.argsort(kept_src, kind="stable").astype(np.int32)
+    off = np.zeros(n_src + 1, dtype=np.int64)
+    np.cumsum(np.bincount(kept_src, minlength=n_src), out=off[1:])
+    off = off.astype(np.int32)
+    kept_dst = dst[keep]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     lay = SimpleNamespace(
-        src=src_nt.to(device), row_offsets=ro_nt.to(device),
-        dst=t(L.dst[keep]), csc_perm=t(perm.astype(np.int32)),
-        csc_offsets=t(off.astype(np.int32)),
-        src_base=tuple(int(b) for b in L.src_base),
-        n_rows_per_rel=L.n_rows_per_rel,
+        src=t(src[keep]), row_offsets=t(ro), dst=t(kept_dst),
+        csc_perm=t(perm), csc_offsets=t(off),
+        src_base=tuple(int(b) for b in src_base), n_rows_per_rel=n_per_rel,
+        row_schedule=segment_softmax.row_schedule(ro).to(device),
+        **segment.csc_fields(kept_dst, perm, off, n_per_rel, src_base, fold,
+                             device),
         gat_bwd_schedule=gat_layer.schedule(
-            ro_nt, L.n_rows_per_rel, len(L.rel_keys),
-            chunk_edges=gat_layer.BWD_CHUNK_EDGES).to(device))
+            ro, n_per_rel, fold,
+            chunk_edges=gat_layer.BWD_CHUNK_EDGES).to(device)
+        if fold else None)
     return lay, t(keep)
+
+
+def layout_without_trash(L, n_real, device):
+    """stream_without_trash of a merged layout L, with the fold."""
+    return stream_without_trash(L.src, L.dst, L.row_offsets, L.csc_perm,
+                                L.csc_offsets, L.n_rows_per_rel, n_real,
+                                L.src_base, len(L.rel_keys), device)
 
 
 class HostTimer:
@@ -682,7 +825,8 @@ def phase_train(kt, data, cg, device, card, parent=None):
 
     loss_k, par_k = run_steps(contextlib.nullcontext())
     loss_p, par_p = run_steps(swapped(
-        gat_layer, merged_gat_forward=plain_forward(gat_layer),
+        gat_layer, merged_gat_forward=without_sched(
+            gat_layer.merged_gat_forward_plain),
         merged_gat_backward=gat_layer.merged_gat_backward_plain))
     np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL)
     par_err = max(float((par_k[k] - par_p[k]).abs().max()) for k in par_k)
@@ -709,11 +853,16 @@ def phase_train(kt, data, cg, device, card, parent=None):
         step_ms.append(start.elapsed_time(stop))
     step_ms = statistics.median(step_ms[5:])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if parent:
+        cycle = itertools.cycle(batches[:25])
+        step_vs_parent("GAT-sum", lambda: train_step(
+            model, opt, x, layouts, next(cycle), y_node, w_node), parent)
     profile_device(lambda: train_step(model, opt, x, layouts, batches[0],
                                       y_node, w_node), step_ms,
                    "training step")
-    tot = {k: dict.fromkeys(("ms", "ms_no_trash", "plain_ms", "bound_ms",
-                             "bytes", "operations", "library_ms"), 0.0)
+    tot = {k: dict.fromkeys(("ms", "device_ms", "ms_no_trash", "plain_ms",
+                             "bound_ms", "bytes", "operations",
+                             "library_ms"), 0.0)
            for k in ("merged_gat_bwd", "csc_segment_sum")}
     parent_tot = {"ms": 0.0, "ms_no_trash": 0.0}
     for i, (bargs, cargs, sched) in enumerate(launches):
@@ -730,16 +879,17 @@ def phase_train(kt, data, cg, device, card, parent=None):
         d_msgs = (w[:, None] * g[dst % n if fold else dst]
                   + dz[:, None] * att[dst // n])
         src = lay.src.long()
+        bwd = lambda: gat_layer.merged_gat_bwd(*bargs, sched=sched)  # noqa: B023, E731
+        csc = lambda: segment.csc_segment_sum(*cargs)  # noqa: B023, E731
         times = {
             "merged_gat_bwd": (
-                cuda_ms(lambda: gat_layer.merged_gat_bwd(  # noqa: B023
-                    *bargs, sched=sched), 20),  # noqa: B023
+                cuda_ms(bwd, 20), graph_ms(bwd, 20),
                 cuda_ms(lambda: gat_layer.merged_gat_bwd(  # noqa: B023
                     *bargs_nt, sched=lay_nt.gat_bwd_schedule), 20),  # noqa: B023
                 cuda_ms(lambda: gat_layer.merged_gat_bwd_plain(*bargs), 3),  # noqa: B023
                 None, bwd_bound(bargs)),
             "csc_segment_sum": (
-                cuda_ms(lambda: segment.csc_segment_sum(*cargs), 20),  # noqa: B023
+                cuda_ms(csc, 20), graph_ms(csc, 20),
                 cuda_ms(lambda: segment.csc_segment_sum(*cargs_nt), 20),  # noqa: B023
                 cuda_ms(lambda: segment.csc_segment_sum_plain(*cargs), 3),  # noqa: B023
                 cuda_ms(lambda: torch.zeros_like(xs).index_add_(  # noqa: B023
@@ -749,15 +899,19 @@ def phase_train(kt, data, cg, device, card, parent=None):
         del d_msgs
         parts = []
         if parent:   # the earlier kernel on the same launch, this call
-            p_ms = cuda_ms(lambda: parent.bwd(*bargs), 20)  # noqa: B023
-            p_nt = cuda_ms(lambda: parent.bwd(*bargs_nt), 20)  # noqa: B023
+            p_ms = cuda_ms(lambda: parent.bwd(  # noqa: B023
+                *bargs, sched=sched), 20)  # noqa: B023
+            p_nt = cuda_ms(lambda: parent.bwd(  # noqa: B023
+                *bargs_nt, sched=lay_nt.gat_bwd_schedule), 20)  # noqa: B023
             parent_tot["ms"] += p_ms
             parent_tot["ms_no_trash"] += p_nt
             parts.append(f"earlier merged_gat_bwd {p_ms:.4f} ms (without "
                          f"trash rows {p_nt:.4f})")
-        for kernel, (ms, ms_nt, plain_ms, lib_ms, (t_b, t_o)) in times.items():
+        for kernel, (ms, dev_ms, ms_nt, plain_ms, lib_ms,
+                     (t_b, t_o)) in times.items():
             t = tot[kernel]
             t["ms"] += ms
+            t["device_ms"] += dev_ms
             t["ms_no_trash"] += ms_nt
             t["plain_ms"] += plain_ms
             t["library_ms"] += lib_ms or 0.0
@@ -765,7 +919,8 @@ def phase_train(kt, data, cg, device, card, parent=None):
             t["operations"] += t_o
             t["bound_ms"] += max(t_b, t_o)
             parts.append(
-                f"{kernel} {ms:.4f} ms (without trash rows {ms_nt:.4f}) | "
+                f"{kernel} {ms:.4f} ms (device {dev_ms:.4f}; without trash "
+                f"rows {ms_nt:.4f}) | "
                 f"plain {plain_ms:.4f} | "
                 + (f"index_add_ {lib_ms:.4f} | " if lib_ms else "")
                 + f"bound {max(t_b, t_o):.4f} "
@@ -776,11 +931,15 @@ def phase_train(kt, data, cg, device, card, parent=None):
     log(f"phase 5d [{card}]: train step {step_ms:.3f} ms median of 20; "
         f"training edge-traversals/s {rate:.4g} ({edges} real edges x "
         f"{LAYERS} layers); peak memory {peak_gb:.2f} GB; per step: "
-        + "; ".join(f"{k} {t['ms']:.4f} ms (without trash rows "
-                    f"{t['ms_no_trash']:.4f}) / plain {t['plain_ms']:.4f} / "
+        + "; ".join(f"{k} {t['ms']:.4f} ms (device {t['device_ms']:.4f}; "
+                    f"without trash rows {t['ms_no_trash']:.4f}) / plain "
+                    f"{t['plain_ms']:.4f} / "
                     f"bound {t['bound_ms']:.4f}" for k, t in tot.items())
         + (f"; earlier merged_gat_bwd {parent_tot['ms']:.4f} ms (without "
            f"trash rows {parent_tot['ms_no_trash']:.4f})" if parent else ""))
+    segment_launches("GAT-sum", "csc_segment_sum",
+                     [(c, {}) for _, c, _ in launches], trainer.layouts,
+                     layouts, cg, device, parent)
 
     # (c) the public entry point, counts set to 0 just before
     model.load_state_dict(init)
@@ -835,6 +994,7 @@ def phase_train(kt, data, cg, device, card, parent=None):
             "launches": counts[name],
             "max_abs_err": worst[name],
             "ms": t["ms"],
+            "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": ("bytes" if t["bytes"] >= t["operations"]
@@ -982,16 +1142,19 @@ def kernel_bound(name, args, out):
 
 
 def time_launches(name, calls, fn, plain_fn, library=None):
-    """Sums over the recorded launches: kernel ms (mean of 10), plain ms
-    (mean of 2), bound ms and its parts, library ms; and the worst abs err
-    of the kernel against the plain version."""
-    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes",
+    """Sums over the recorded launches (args, kwargs; the kernel takes both,
+    the plain version the args): kernel ms (host-paced, mean of 10) and
+    device ms (graph_ms), plain ms (mean of 2), bound ms and its parts,
+    library ms; and the worst abs err of the kernel against the plain
+    version."""
+    tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms", "bytes",
                          "operations", "library_ms"), 0.0)
     worst = 0.0
-    for args, _ in calls:
+    for args, kwargs in calls:
         args = detached(args)
         got_t, want_t, exact_t = map(as_tuple, (
-            fn(*args), plain_fn(*args), plain_fn(*as_double(args))))
+            fn(*args, **kwargs), plain_fn(*args),
+            plain_fn(*as_double(args))))
         for a, p, x in zip(got_t, want_t, exact_t):
             if a is not None:
                 worst = max(worst, grad_compare(a, p, x, f"full-width {name}"))
@@ -1000,7 +1163,8 @@ def time_launches(name, calls, fn, plain_fn, library=None):
         tot["bytes"] += t_b
         tot["operations"] += t_o
         tot["bound_ms"] += max(t_b, t_o)
-        tot["ms"] += cuda_ms(lambda: fn(*args), 10)  # noqa: B023
+        tot["ms"] += cuda_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
+        tot["device_ms"] += graph_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
         tot["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 2)  # noqa: B023
         if library is not None:
             tot["library_ms"] += cuda_ms(library(*args), 10)
@@ -1019,10 +1183,11 @@ def sparse_mm(x, src, ro, w):
     return lambda: torch.sparse.mm(a, x)
 
 
-def phase_variants(kt, data, cg, device, card, worst_small):
+def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
     """Phase 6b-c: each model variant at full width. Returns the kernel
     table rows of the three new kernels; worst_small holds phase 6a's worst
-    errors."""
+    errors. parent: the earlier kernels, timed beside #6 and #8 on the
+    GAT-max launches, or None."""
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
     from kgwas_tpu_torch.ops import segment, segment_softmax
@@ -1058,7 +1223,7 @@ def phase_variants(kt, data, cg, device, card, worst_small):
         if gat:
             plain = functools.partial(
                 swapped, segment_softmax,
-                segment_softmax_spmm_fwd=(
+                segment_softmax_spmm_fwd=without_sched(
                     segment_softmax.segment_softmax_spmm_fwd_plain),
                 segment_softmax_spmm_backward=(
                     segment_softmax.segment_softmax_spmm_backward_plain))
@@ -1170,6 +1335,11 @@ def phase_variants(kt, data, cg, device, card, worst_small):
             step_ms.append(start.elapsed_time(stop))
         fwd_ms = statistics.median(fwd_ms[2:])
         step_ms = statistics.median(step_ms[3:])
+        if parent and name == "GAT-max":
+            cycle = itertools.cycle(batches)
+            step_vs_parent(name, lambda: train_step(  # noqa: B023
+                model, opt, x, layouts, next(cycle), y_node,  # noqa: B023
+                w_node), parent)  # noqa: B023
         profile_device(run.predict_all, fwd_ms, f"{name} forward")
         profile_device(lambda: train_step(model, opt, x, layouts,  # noqa: B023
                                           batches[0], y_node, w_node),
@@ -1200,6 +1370,13 @@ def phase_variants(kt, data, cg, device, card, worst_small):
         recs = {fwd_name: rec_f, "csc_segment_sum": rec_c}
         if gat:
             recs["segment_softmax_spmm_bwd"] = rec_b
+        if name == "GAT-max":   # #6 and #8 launch by launch
+            for k in ("segment_softmax_spmm_fwd", "csc_segment_sum"):
+                segment_launches(name, k, recs[k].calls, run.layouts,
+                                 layouts, cg, device, parent)
+        if name in ("SAGE", "GCN"):   # #8 without w, and with it
+            segment_launches(name, "csc_segment_sum", rec_c.calls,
+                             run.layouts, layouts, cg, device, parent)
         parts = []
         for k, rec in recs.items():
             fn, plain_fn, lib = plain_of[k]
@@ -1208,7 +1385,8 @@ def phase_variants(kt, data, cg, device, card, worst_small):
             timed[(name, k)] = tot
             worst[k] = max(worst[k], err)
             parts.append(
-                f"{k} x{len(rec.calls)} {tot['ms']:.4f} ms | plain "
+                f"{k} x{len(rec.calls)} {tot['ms']:.4f} ms (device "
+                f"{tot['device_ms']:.4f}) | plain "
                 f"{tot['plain_ms']:.4f} | "
                 + (f"sparse.mm {tot['library_ms']:.4f} | " if lib else "")
                 + f"bound {tot['bound_ms']:.4f} ("
@@ -1248,6 +1426,7 @@ def phase_variants(kt, data, cg, device, card, worst_small):
             "launches": launches[k],
             "max_abs_err": max(worst[k], worst_small[k]),
             "ms": tot["ms"],
+            "device_ms": tot["device_ms"],
             "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": ("bytes" if tot["bytes"] >= tot["operations"]
@@ -1258,59 +1437,279 @@ def phase_variants(kt, data, cg, device, card, worst_small):
     return rows
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    if not (HERE / "kgwas_tpu_torch" / "__init__.py").exists():
-        print("chip_smoke: kgwas_tpu_torch is not beside this script",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(HERE))
-    import kgwas_tpu_torch as kt
+# rows in flight per warp of the gather probe, and a table that L2 holds
+# (the card's L2 is 50 MB; above this a table is read from device memory)
+PROBE_U = (1, 2, 4, 8, 16)
+L2_TABLE_BYTES = 25e6
+
+
+def probe_streams(layouts, cg):
+    """{name: (table rows, index stream int32)}: the gathers of the CSC sum
+    on the merged GAT layer's Gene and SNP groups (g rows, dst[csc_perm] %
+    N), and of segment_softmax_spmm_fwd on a SNP -> Gene relation and the
+    merged SNP group's source table (xs rows, src)."""
+    from kgwas_tpu_torch.ops.segment import csc_rows_of
+
+    out = {}
+    for t in ("Gene", "SNP"):
+        L = layouts[t]
+        out[f"CSC {t} (g {L.n_rows_per_rel} rows)"] = (
+            L.n_rows_per_rel,
+            csc_rows_of(L.dst, L.csc_perm, L.n_rows_per_rel, True))
+    rk = next(k for k, r in cg.relations.items()
+              if r.src_type == "SNP" and r.dst_type == "Gene")
+    r = cg.relations[rk]
+    out[f"{rk} (xs {cg.padded_nodes['SNP']} rows)"] = (
+        cg.padded_nodes["SNP"], r.src)
+    L = layouts["SNP"]
+    out[f"merged SNP src (xs_all {L.n_src_total} rows)"] = (L.n_src_total,
+                                                            L.src)
+    return {k: (int(n), np.ascontiguousarray(i, dtype=np.int32))
+            for k, (n, i) in out.items()}
+
+
+def phase_probe(build, layouts, cg, device, card):
+    """Phase 1b: the gather ceiling. gather_probe.cu sums random 512-byte
+    rows (float4 a lane, a warp a row, U rows in flight a warp) from a
+    random table, in the order of the real layouts' index streams and of a
+    shuffled copy of each. Returns {"l2": TB/s, "hbm": TB/s}: the best rate
+    over U on the real orders from a table that L2 holds and from one it
+    does not."""
+    fn = build.library("gather_probe")
+    rng = np.random.default_rng(SEED + 9)
+    per_warp = 256
+    best = {"l2": 0.0, "hbm": 0.0}
+    for name, (n_rows, idx) in probe_streams(layouts, cg).items():
+        table = torch.randn(n_rows, HIDDEN, device=device)
+        kind = "l2" if table.numel() * 4 <= L2_TABLE_BYTES else "hbm"
+        for order in ("real", "shuffled"):
+            i = idx if order == "real" else rng.permutation(idx)
+            i = torch.from_numpy(i).to(device)
+            n = i.numel()
+            out = torch.empty(-(-n // per_warp), HIDDEN, device=device)
+            rates = {}
+            for u in PROBE_U:
+                def go():
+                    err = fn(table.data_ptr(), i.data_ptr(), n,  # noqa: B023
+                             per_warp, out.data_ptr(), u,  # noqa: B023
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"gather_probe: cudaError {err}")
+                ms = cuda_ms(go, 20)
+                rates[u] = n * HIDDEN * 4 / (ms * 1e-3) / 1e12
+            want = table[i.long()].sum(0)
+            got = out.sum(0)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=1e-3, atol=1e-2 * n ** 0.5):
+                raise AssertionError(f"gather_probe {name}: wrong sums")
+            top = max(rates, key=rates.get)
+            if order == "real":
+                best[kind] = max(best[kind], rates[top])
+            log(f"  probe {name}, {order} order, {n} rows of "
+                f"{HIDDEN * 4} B from a {table.numel() * 4 / 1e6:.1f} MB "
+                f"table ({kind}): "
+                + ", ".join(f"U={u} {r:.3f} TB/s" for u, r in rates.items())
+                + f"; best U={top}")
+        del table
+    log(f"phase 1b ok [{card}]: gather ceiling {best['l2']:.3f} TB/s from a "
+        f"table L2 holds, {best['hbm']:.3f} TB/s from device memory")
+    return best
+
+
+def gather_floors(cg, layouts, rates):
+    """The gather floor of each layer kernel over one forward or step: its
+    gathered rows (one 512-byte row per edge, pad edges included) over the
+    probe's rate for its table (L2 or device memory). Logs and returns
+    {kernel: ms}."""
+    def ms(edges, table_rows):
+        kind = ("l2" if table_rows * HIDDEN * 4 <= L2_TABLE_BYTES
+                else "hbm")
+        return edges * HIDDEN * 4 / (rates[kind] * 1e12) * 1e3
+
+    # the groups that reach the head: Gene once and SNP twice (GCN: once)
+    live = {"Gene": 1, "SNP": 2}
+    merged = sum(k * ms(len(layouts[t].src), layouts[t].n_src_total)
+                 for t, k in live.items())
+    csc = sum(k * ms(len(layouts[t].src), layouts[t].n_rows_per_rel)
+              for t, k in live.items())
+    rel_fwd = rel_csc = 0.0
+    for t, k in live.items():
+        for rk in layouts[t].rel_keys:
+            r = cg.relations[rk]
+            rel_fwd += k * ms(len(r.src), cg.padded_nodes[r.src_type])
+            rel_csc += k * ms(len(r.src), cg.padded_nodes[r.dst_type])
+    gcn = sum(ms(len(layouts[t].src), layouts[t].n_src_total)
+              for t in live)
+    floors = {"merged_gat_fwd": merged, "merged_gat_bwd": merged,
+              "csc_segment_sum (GAT sum)": csc,
+              "segment_softmax_spmm_fwd": rel_fwd,
+              "segment_softmax_spmm_bwd": rel_fwd,
+              "csc_segment_sum (GAT max)": rel_csc,
+              "csr_segment_sum (GCN)": gcn}
+    log("  gather floors per forward or step: "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
+    return floors
+
+
+def stream_of(host_layouts, dev_layouts, cg, layout):
+    """(host arrays, label) of a DeviceLayout: a merged group's, or one
+    relation's; the host arrays are stream_without_trash's arguments."""
+    for t, DL in dev_layouts.items():
+        if DL is layout:
+            L = host_layouts[t]
+            return ((L.src, L.dst, L.row_offsets, L.csc_perm, L.csc_offsets,
+                     L.n_rows_per_rel, cg.num_nodes[t], L.src_base,
+                     len(L.rel_keys)), t)
+        for rk, RL in zip(DL.rel_keys, DL.relations or ()):
+            if RL is layout:
+                r = cg.relations[rk]
+                return ((r.src, r.dst, r.row_offsets, r.csc_perm,
+                         r.csc_offsets, cg.padded_nodes[r.dst_type],
+                         cg.num_nodes[r.dst_type],
+                         (0, cg.padded_nodes[r.src_type]), 0), rk)
+    raise KeyError("a launch on an unknown layout")
+
+
+# max_edges of the segment kernels' schedules timed beside each layout's
+# own (the CSC sum stages at most 256 entries an item: kBwdMaxEdges)
+SEGMENT_SWEEP = (64, 128, 256)
+
+
+def segment_launches(cfg_name, kernel, calls, host_layouts, dev_layouts, cg,
+                     device, parent, reps=10):
+    """segment_softmax_spmm_fwd or csc_segment_sum launch by launch, on the
+    recorded calls [(args, kwargs)] of one forward or step. Host-paced
+    (cuda_ms: the launches issued one by one from Python, as a step issues
+    them) and device time (graph_ms) of the kernel as it runs, and with
+    KGWAS_PARENT_CSRC of the earlier kernel through its own wrapper; device
+    time of each without its trash rows' pad edges, of the CSC sum with w
+    and dz dropped (its gather alone), of the earlier CSC sum reading dst
+    in CSC order (dst_csc), and of the kernel on schedules with the other
+    max_edges of SEGMENT_SWEEP. Logs each launch and returns the totals
+    (ms, mean of reps)."""
+    from kgwas_tpu_torch.ops import segment, segment_softmax
+
+    rel_layout = {id(RL.src): RL for DL in dev_layouts.values()
+                  for RL in (DL.relations or ())}
+    tot = {}
+    for i, (args, kwargs) in enumerate(calls):
+        args = detached(args)
+        if kernel == "segment_softmax_spmm_fwd":
+            xs, src, logits, ro = args
+            layout = rel_layout[id(src)]
+        else:
+            g, w, dz, xs, att, layout = args[:6]
+            fold = args[6] if len(args) > 6 else 0
+        host, label = stream_of(host_layouts, dev_layouts, cg, layout)
+        if kernel == "csc_segment_sum":   # the call's fold: 0 on 'mp'
+            host = host[:-1] + (fold,)
+        lay_nt, keep = stream_without_trash(*host, device)
+        if kernel == "segment_softmax_spmm_fwd":
+            nt_args = (xs, lay_nt.src, logits[keep], lay_nt.row_offsets)
+            own = kwargs["sched"].max_edges
+            run = lambda a, s: (  # noqa: E731
+                lambda: segment_softmax.segment_softmax_spmm_fwd(*a, sched=s))
+            new = run(args, kwargs["sched"])
+            device_only = {"no_trash": run(nt_args, lay_nt.row_schedule)}
+            for k in SEGMENT_SWEEP:
+                if k != own:
+                    device_only[f"max_edges {k}"] = run(
+                        args, segment_softmax.row_schedule(host[2], k).to(
+                            device))
+            if parent:
+                old = lambda a=args: parent.seg_fwd(*a)  # noqa: E731
+                device_only["parent_no_trash"] = (
+                    lambda a=nt_args: parent.seg_fwd(*a))  # noqa: E731
+        else:
+            nt_args = (g, None if w is None else w[keep],
+                       None if dz is None else dz[keep], xs, att, lay_nt,
+                       fold)
+            own = layout.csc_schedule.max_edges
+            new = lambda a=args: segment.csc_segment_sum(*a)  # noqa: E731
+            device_only = {
+                "no_trash": lambda a=nt_args: segment.csc_segment_sum(*a),  # noqa: E731
+                "gather_only": lambda a=args, f=fold: (  # noqa: E731
+                    segment.csc_segment_sum(a[0], None, None, a[3], None,
+                                            a[5], f))}
+            for k in SEGMENT_SWEEP:
+                if k != own:
+                    lay_k = dataclasses.replace(
+                        layout, csc_schedule=segment.csc_schedule(
+                            host[4], host[7], k).to(device))
+                    device_only[f"max_edges {k}"] = (
+                        lambda a=args, lk=lay_k: segment.csc_segment_sum(  # noqa: E731
+                            *a[:5], lk, *a[6:]))
+            if parent:
+                dst_csc = layout.dst[layout.csc_perm.long()]
+                old = lambda a=args: parent.csc(*a)  # noqa: E731
+                device_only["parent_no_trash"] = (
+                    lambda a=nt_args: parent.csc(*a))  # noqa: E731
+                device_only["parent_dst_csc"] = (
+                    lambda a=args, dc=dst_csc: parent.csc(  # noqa: E731
+                        *a, dst_csc=dc))
+        ms = {"ms": cuda_ms(new, reps), "device": graph_ms(new, reps)}
+        if parent:
+            ms["parent"] = cuda_ms(old, reps)
+            ms["parent_device"] = graph_ms(old, reps)
+        for k, f in device_only.items():
+            ms[k] = graph_ms(f, reps)
+        for k, v in ms.items():
+            tot[k] = tot.get(k, 0.0) + v
+        log(f"  {cfg_name} {kernel} launch {i} {label}: "
+            f"{int(layout.csc_perm.numel())} edges, {int(keep.sum())} "
+            f"without trash rows, max_edges {own}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    log(f"  {cfg_name} {kernel} x{len(calls)} per "
+        f"{'forward' if kernel.startswith('seg') else 'step'} (ms, parent: "
+        "host-paced; the others device time): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in tot.items()))
+    return tot
+
+
+def step_times(step, n=10, warm=2):
+    """Median ms of n calls of step after warm ones, CUDA events around
+    each call."""
+    times = []
+    for _ in range(warm + n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times[warm:])
+
+
+def step_vs_parent(cfg_name, step, parent, rounds=3):
+    """The train step with this checkout's #6 and #8 and with the earlier
+    ones (parent.model_kernels), in one call, alternating new, earlier,
+    earlier, new, rounds times: step_times of each run. Logs both lists
+    and returns (new medians, earlier medians)."""
+    new, old = [], []
+    for _ in range(rounds):
+        new.append(step_times(step))
+        for _ in range(2):
+            with parent.model_kernels():
+                old.append(step_times(step))
+        new.append(step_times(step))
+    log(f"  {cfg_name} train step, this checkout's segment kernels vs the "
+        f"earlier ones alternating: new "
+        + " ".join(f"{t:.3f}" for t in new) + " ms (median "
+        f"{statistics.median(new):.3f}), earlier "
+        + " ".join(f"{t:.3f}" for t in old) + " ms (median "
+        f"{statistics.median(old):.3f})")
+    return new, old
+
+
+def phase_serve(kt, data, cg, device, card, parent, tmp):
+    """Phases 3 and 4: the serving slice at full width, then its timing.
+    Returns phase 4's merged_gat_fwd totals and its worst abs err."""
     from kgwas_tpu_torch.engine.checkpoint import save_model
-    from kgwas_tpu_torch.ops import build, gat_layer
+    from kgwas_tpu_torch.ops import gat_layer
     from kgwas_tpu_torch.stats.calibration import finalize_predictions
     from kgwas_tpu_torch.utils import write_table
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(DEVICE)
-    tmp = HERE / "build" / "chip_smoke"
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-
-    # ---- phase 1: card and kernel build
-    log(f"phase 1: card {card} | torch {kind} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    built = build.build_all()
-    parent = parent_kernels(build)
-    for name, info in build.build_log.items():
-        log(f"  built {name} in {info['seconds']:.1f} s")
-        launch = MERGED_LAUNCH if name.startswith("merged_gat") else None
-        if name.startswith("parent_"):   # one warp per row, 8 a block
-            launch = {"merged_gat_fwd_kernel": (256, 0),
-                      "merged_gat_bwd_kernel": (256, 0)}
-        report_ptxas(build, name, info["ptxas"], launch)
-    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({sorted(built) or 'cached'})"
-        + (f"; earlier kernels from {parent.csrc}" if parent else ""))
-
-    # ---- phase 2: kernel vs plain on the card, small KG
-    worst_small, worst_small_bwd = phase_kernel_vs_plain(
-        device, gat_layer, kt, tmp)
-
-    # ---- phase 3: the serving slice at full width
-    t0 = time.perf_counter()
-    data = kt.KGWAS_Data.from_synthetic(seed=SEED, data_path=str(tmp / "full"),
-                                        **FULL_KG)
-    data.load_synthetic_gwas(seed=SEED)
-    data.process_gwas_file()
-    cg = data.compile()
-    log(f"phase 3: data built in {time.perf_counter() - t0:.1f} s: "
-        f"{cg.total_real_edges()} real edges in {len(cg.relations)} "
-        f"relations")
     run = kt.KGWAS(data, exp_name="chip_smoke", seed=SEED)
     run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN)
     ckpt = tmp / "full" / "model" / "chip_smoke"
@@ -1340,7 +1739,8 @@ def main():
     if pred.shape != (cg.num_nodes["SNP"],) or not np.isfinite(pred).all():
         raise AssertionError(f"bad predictions: shape {pred.shape}")
     with swapped(gat_layer,
-                 merged_gat_forward=plain_forward(gat_layer)):
+                 merged_gat_forward=without_sched(
+                     gat_layer.merged_gat_forward_plain)):
         pred_plain = served.predict_all()
     np.testing.assert_allclose(pred, pred_plain, rtol=PRED_RTOL,
                                atol=PRED_ATOL)
@@ -1378,8 +1778,9 @@ def main():
     with swapped(gat_layer, merged_gat_forward=rec):
         served.predict_all()
     dev_layouts = served._device_state()[2]
-    tot = dict.fromkeys(("ms", "ms_no_trash", "plain_ms", "bound_ms", "bytes",
-                         "operations", "parent_ms", "parent_no_trash"), 0.0)
+    tot = dict.fromkeys(("ms", "device_ms", "ms_no_trash", "plain_ms",
+                         "bound_ms", "bytes", "operations", "parent_ms",
+                         "parent_no_trash"), 0.0)
     worst_full = 0.0
     sweep = {k: 0.0 for k in SWEEP_MAX_EDGES}
     for i, (args, kwargs) in enumerate(rec.calls):
@@ -1392,6 +1793,7 @@ def main():
         call = lambda: gat_layer.merged_gat_forward(*args, **kwargs)  # noqa: E731
         plain = lambda: gat_layer.merged_gat_forward_plain(*args)  # noqa: E731
         ms = cuda_ms(call, 20)
+        dev_ms = graph_ms(call, 20)
         plain_ms = cuda_ms(plain, 5)
         got, want = call(), plain()
         n_real = cg.num_nodes[dst_t]
@@ -1406,6 +1808,7 @@ def main():
         tot["bytes"] += t_bytes
         tot["operations"] += t_ops
         tot["ms"] += ms
+        tot["device_ms"] += dev_ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
         # the same launch without the trash rows' (pad) edges, its schedule
@@ -1426,16 +1829,18 @@ def main():
             sweep[k] += v
         old = ""
         if parent:   # the earlier kernel on the same launch, this call
-            p_ms = cuda_ms(lambda: parent.fwd(*args), 20)  # noqa: B023
-            p_nt = cuda_ms(lambda: parent.fwd(*args_nt), 20)  # noqa: B023
+            p_ms = cuda_ms(lambda: parent.fwd(*args, **kwargs), 20)  # noqa: B023
+            p_nt = cuda_ms(lambda: parent.fwd(  # noqa: B023
+                *args_nt, sched=sched_nt), 20)  # noqa: B023
             tot["parent_ms"] += p_ms
             tot["parent_no_trash"] += p_nt
             old = f" | earlier kernel {p_ms:.4f} ms (without trash rows {p_nt:.4f})"
         deg = np.diff(served.layouts[dst_t].row_offsets)
         per_node = deg.reshape(-1, n_per_rel).sum(0)
         sc = kwargs["sched"]
-        log(f"  launch {i} {dst_t:18s} kernel {ms:.4f} ms "
-            f"(without trash rows {ms_nt:.4f}){old} | plain {plain_ms:.4f} "
+        log(f"  launch {i} {dst_t:18s} kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}; without trash rows {ms_nt:.4f}){old} | plain "
+            f"{plain_ms:.4f} "
             f"ms | bound {bound:.4f} ms ({by}) | E_tot {src.numel()} | edges "
             f"per node: mean {per_node.mean():.1f}, max {per_node.max()} "
             f"(the trash node {n_real}: {per_node[n_real]}) | schedule "
@@ -1448,23 +1853,89 @@ def main():
            f"{tot['parent_no_trash']:.4f})" if parent else "")
     log(f"phase 4 [{card}]: forward (predict_all) {fwd_ms:.3f} ms median of "
         f"10; forward edge-traversals/s {rate:.4g} ({edges} real edges x "
-        f"{LAYERS} layers); kernel {tot['ms']:.4f} ms (without trash rows "
+        f"{LAYERS} layers); kernel {tot['ms']:.4f} ms (device "
+        f"{tot['device_ms']:.4f}; without trash rows "
         f"{tot['ms_no_trash']:.4f}){old} / plain "
         f"{tot['plain_ms']:.4f} ms / bound {tot['bound_ms']:.4f} ms per "
         f"forward ({len(rec.calls)} launches; with max_edges "
         + ", ".join(f"{k}: {v:.4f}" for k, v in sweep.items())
         + f"); peak memory {peak_gb:.2f} GB")
+    return tot, worst_full
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (HERE / "kgwas_tpu_torch" / "__init__.py").exists():
+        print("chip_smoke: kgwas_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    import kgwas_tpu_torch as kt
+    from kgwas_tpu_torch.ops import build, gat_layer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(DEVICE)
+    tmp = HERE / "build" / "chip_smoke"
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+
+    # ---- phase 1: card and kernel build
+    log(f"phase 1: card {card} | torch {kind} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    parent = parent_kernels(build)
+    logs = dict(build.build_log, **(parent.build_logs() if parent else {}))
+    for name, info in logs.items():
+        log(f"  built {name} in {info['seconds']:.1f} s")
+        launch = KERNEL_LAUNCH
+        if name in ("parent_segment_softmax_spmm_fwd",
+                    "parent_csc_segment_sum", "parent_csc_dst_csc"):
+            launch = PARENT_LAUNCH
+        report_ptxas(build, name, info["ptxas"], launch)
+    log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({sorted(built) or 'cached'})"
+        + (f"; earlier kernels from {parent.csrc}" if parent else ""))
+
+    # ---- phase 1b: the gather ceiling on the full-width data's streams
+    t0 = time.perf_counter()
+    data = kt.KGWAS_Data.from_synthetic(seed=SEED, data_path=str(tmp / "full"),
+                                        **FULL_KG)
+    data.load_synthetic_gwas(seed=SEED)
+    data.process_gwas_file()
+    cg = data.compile()
+    log(f"phase 3: data built in {time.perf_counter() - t0:.1f} s: "
+        f"{cg.total_real_edges()} real edges in {len(cg.relations)} "
+        f"relations")
+    from kgwas_tpu_torch.graph import build_merged_layouts
+    from kgwas_tpu_torch.kgwas import TILE_ROWS
+
+    layouts = build_merged_layouts(cg, tile_rows=TILE_ROWS)
+    rates = phase_probe(build, layouts, cg, device, card)
+    gather_floors(cg, layouts, rates)
+    del layouts
+
+    # ---- phase 2: kernel vs plain on the card, small KG
+    worst_small, worst_small_bwd = phase_kernel_vs_plain(
+        device, gat_layer, kt, tmp)
+
+    # ---- phases 3 and 4: the serving slice at full width, its timing
+    tot, worst_full = phase_serve(kt, data, cg, device, card, parent, tmp)
 
     # ---- phase 5: the training slice at full width
     train_rows, train_counts = phase_train(kt, data, cg, device, card,
                                            parent)
-    train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
-                                       worst_small_bwd)
 
     # ---- phase 6: the model variants
     worst_variants = phase_variant_kernels(kt, device, tmp)
-    variant_rows = phase_variants(kt, data, cg, device, card, worst_variants)
+    variant_rows = phase_variants(kt, data, cg, device, card,
+                                  worst_variants, parent)
 
+    train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
+                                       worst_small_bwd)
     kernels = [{
         "name": "merged_gat_fwd",
         "route": "cuda",
@@ -1473,6 +1944,7 @@ def main():
         "launches": train_counts["merged_gat_fwd"],
         "max_abs_err": max(worst_small, worst_full),
         "ms": tot["ms"],
+        "device_ms": tot["device_ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": ("bytes" if tot["bytes"] >= tot["operations"]

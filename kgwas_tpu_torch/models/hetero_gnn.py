@@ -39,9 +39,11 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
-from ..ops.gat_layer import BWD_CHUNK_EDGES, GATSchedule, MergedGATLayer
+from ..ops.gat_layer import BWD_CHUNK_EDGES, MergedGATLayer
 from ..ops.gat_layer import schedule as gat_schedule
-from ..ops.segment import CSRSegmentSum
+from ..ops.schedule import Schedule
+from ..ops.segment import CSRSegmentSum, csc_fields
+from ..ops.segment_softmax import row_schedule
 from .convs import gat_relation, make_conv
 from .init import torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
@@ -140,8 +142,16 @@ class DeviceLayout:
     # the 'relations' path: one one-slot layout per slot, in slot order
     relations: Optional[List["DeviceLayout"]] = None
     # the 'merged' path: the GAT kernels' work schedules for fold = R
-    gat_schedule: Optional[GATSchedule] = None       # the forward's
-    gat_bwd_schedule: Optional[GATSchedule] = None   # the backward's
+    gat_schedule: Optional[Schedule] = None       # the forward's
+    gat_bwd_schedule: Optional[Schedule] = None   # the backward's
+    # a relation's stream: the segment softmax kernel's schedule of its rows
+    row_schedule: Optional[Schedule] = None
+    # the CSC segment sum's fields (ops/segment.py csc_fields): its
+    # schedule of the source rows, and each CSC entry's cotangent row
+    # dst[csc_perm] (% N when csc_fold: the merged GAT layer's fold)
+    csc_schedule: Optional[Schedule] = None
+    csc_rows: Optional[torch.Tensor] = None
+    csc_fold: bool = False
 
 
 def merged_mp_norms(L):
@@ -168,7 +178,11 @@ def device_layouts(layouts, device, cg=None, path: str = "merged"
     'mp', and for 'relations' each slot's relation
     stream from the compiled graph cg (graph/shard_compile.RelationShard:
     its CSR, whose pad edges read source row 0, and its CSC, which sends
-    their cotangents to the source trash row, as the JAX package does)."""
+    their cotangents to the source trash row, as the JAX package does)
+    with its rows' schedule. Every stream whose backward runs the CSC
+    segment sum carries its fields (segment.csc_fields): the merged ones
+    on 'merged' (with the fold) and 'mp', the relation streams on
+    'relations'. All are built once: a layout never changes."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -177,28 +191,37 @@ def device_layouts(layouts, device, cg=None, path: str = "merged"
 
     def relation(rk):
         r = cg.relations[rk]
+        n = int(cg.padded_nodes[r.dst_type])
+        src_base = (0, int(cg.padded_nodes[r.src_type]))
         return DeviceLayout(
-            rel_keys=[rk], src_types=[r.src_type],
-            n_rows_per_rel=int(cg.padded_nodes[r.dst_type]),
-            src_base=(0, int(cg.padded_nodes[r.src_type])),
-            src=put(r.src), row_offsets=put(r.row_offsets), dst=put(r.dst),
-            csc_perm=put(r.csc_perm), csc_offsets=put(r.csc_offsets))
+            rel_keys=[rk], src_types=[r.src_type], n_rows_per_rel=n,
+            src_base=src_base, src=put(r.src),
+            row_offsets=put(r.row_offsets), dst=put(r.dst),
+            csc_perm=put(r.csc_perm), csc_offsets=put(r.csc_offsets),
+            row_schedule=row_schedule(r.row_offsets).to(device),
+            **csc_fields(r.dst, r.csc_perm, r.csc_offsets, n, src_base, 0,
+                         device))
 
     out = {}
     for t, L in layouts.items():
         extra = {}
+        if path != "relations":   # that path's CSC sums run per relation
+            extra = csc_fields(L.dst, L.csc_perm, L.csc_offsets,
+                               L.n_rows_per_rel, L.src_base,
+                               len(L.rel_keys) if path == "merged" else 0,
+                               device)
         if path == "mp":
             inv_deg, sym_e = merged_mp_norms(L)
-            extra = {"inv_deg": put(inv_deg), "sym_e": put(sym_e)}
+            extra.update(inv_deg=put(inv_deg), sym_e=put(sym_e))
         elif path == "relations":
-            extra = {"relations": [relation(rk) for rk in L.rel_keys]}
+            extra["relations"] = [relation(rk) for rk in L.rel_keys]
         elif path == "merged":
             # built once: the layout, and so the schedule, never changes
             sched = functools.partial(gat_schedule, L.row_offsets,
                                       L.n_rows_per_rel, len(L.rel_keys))
-            extra = {"gat_schedule": sched().to(device),
-                     "gat_bwd_schedule": sched(
-                         chunk_edges=BWD_CHUNK_EDGES).to(device)}
+            extra.update(gat_schedule=sched().to(device),
+                         gat_bwd_schedule=sched(
+                             chunk_edges=BWD_CHUNK_EDGES).to(device))
         out[t] = DeviceLayout(
             rel_keys=list(L.rel_keys),
             src_types=list(L.src_types),

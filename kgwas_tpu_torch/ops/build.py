@@ -44,8 +44,8 @@ KERNELS = {
     "csc_segment_sum": (
         "csc_segment_sum.cu",
         "kgwas_csc_segment_sum",
-        [_P] * 8 + [ctypes.POINTER(_I64)] + [_P] * 3
-        + [_I32, _I64, _I32, _I32, _P],
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, ctypes.POINTER(_I64),
+                    ctypes.POINTER(_I64), _P, _P, _P, _I32, _I32, _P],
     ),
     "csr_segment_sum": (
         "csr_segment_sum.cu",
@@ -55,12 +55,18 @@ KERNELS = {
     "segment_softmax_spmm_fwd": (
         "segment_softmax_spmm_fwd.cu",
         "kgwas_segment_softmax_spmm_fwd",
-        [_P] * 7 + [_I64, _I32, _P],
+        [_P] * 8 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _P],
     ),
     "segment_softmax_spmm_bwd": (
         "segment_softmax_spmm_bwd.cu",
         "kgwas_segment_softmax_spmm_bwd",
         [_P] * 10 + [_I64, _I32, _P],
+    ),
+    # a measuring tool on no path of the package (chip_smoke.py)
+    "gather_probe": (
+        "gather_probe.cu",
+        "kgwas_gather_probe",
+        [_P, _P, _I64, _I64, _P, _I32, _P],
     ),
 }
 
@@ -180,19 +186,19 @@ def build_source(source, name, entry, argtypes):
 
 
 def ptxas_entries(text: str):
-    """[(kernel, registers, static shared bytes, spill bytes)] of each entry
-    function in nvcc -Xptxas -v output, names demangled where c++filt is
-    on the PATH."""
+    """[(kernel, registers, static shared bytes, local bytes: stack frame
+    and spills)] of each entry function in nvcc -Xptxas -v output, names
+    demangled where c++filt is on the PATH."""
     rows, name, spill = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name, spill = m.group(1), 0
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spill = int(m.group(1)) + int(m.group(2))
+            spill = sum(int(g) for g in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:

@@ -1,232 +1,445 @@
-// CSC segment sum of the merged GAT layer's message cotangent, for Hopper
-// (sm_90a), plain C entry point.
+// CSC segment sum of a layer's message cotangent, for Hopper (sm_90a),
+// plain C entry point.
 //
 // Replaces the TPU kernel kgwas_tpu/ops/pallas_segment.py::_segsum_kernel as
 // pallas_segment_sum launches it for gather_rows_csc's backward: there the
 // [E, D] message cotangent d_msgs (written by the backward layer kernel) is
 // permuted to source order and summed per source row. Here d_msgs is never
-// written. Walking the layout's CSC (csc_perm, csc_offsets), each source row
-// s of the concatenated table xs gets
+// written. Walking the layout's CSC (entry i of source row s is edge e =
+// csc_perm[i]), each source row s of the concatenated table xs gets
 //
-//   d_xs[s] = sum_i (w_e g[row_e] + dz_e att[slot(s)]),   e = csc_perm[i]
-//           = sum_i w_e g[row_e] + c_s att[slot(s)],     c_s = sum_i dz_e
+//   d_xs[s] = sum_i (w_e g[row_i] + dz_e att[slot(s)])
+//           = sum_i w_e g[row_i] + c_s att[slot(s)],     c_s = sum_i dz_e
 //
-// with w and dz from merged_gat_bwd.cu and g the layer output's cotangent
-// (row row_e % N of it with the fold). The same pass reduces the attention
-// vector's gradient d_att[slot] = sum_{s in slot} c_s xs[s], which the TPU
-// backward layer kernel accumulates per tile (its d_att partials are summed
-// outside it, _tile_grads_to_rel).
-//
-// Design. One warp per source row, kRowsPerWarp rows per warp in order, 8
-// warps per block: a block covers kBlockRows = 64 consecutive source rows.
-// The CSC entries of a row load 32 at a time, one per lane (csc_perm, then
-// dst, w and dz of that edge), are broadcast by shuffle, and the cotangent
-// rows g[row_e] are read U at a time (float4 per lane at D % 128 == 0) and
-// summed in registers in CSC order. Every row is written, rows without
-// edges and padded rows included. Source rows are padded to multiples of
-// 512 per slot, so a block never spans two slots: each block sums its
-// rows' c_s xs[s] (its warps in order) into one partial row, and a second
-// small kernel sums each slot's partials in a fixed order. No atomics: two
-// runs give the same bits.
-//
-// What bounds it. Bytes: each input read once and each output written once
-// (g [N or R*N, D], xs [S, D], w, dz, dst and csc_perm [E], csc_offsets
-// [S + 1], d_xs [S, D]; the partials are S / 64 rows), against 2 D flops per
-// edge. As in the layer kernels, each slot's trash source row holds all of
-// the relation's pad edges (up to 511) and one warp walks them in sequence.
+// with w and dz from the layer's edge backward (merged_gat_bwd.cu), g the
+// layer output's cotangent and row_i = csc_rows[i] its row for entry i
+// (dst[csc_perm[i]], % N with the merged layer's fold, laid out in CSC order
+// once per layout). The same pass reduces the attention vector's gradient
+// d_att[slot] = sum_{s in slot} c_s xs[s], which the TPU backward layer
+// kernel accumulates per tile (its d_att partials are summed outside it,
+// _tile_grads_to_rel).
 //
 // Without logit cotangents (dz == nullptr: the per-relation GAT backward
 // after segment_softmax_spmm_bwd.cu, and the message-passing backward of
-// csr_segment_sum.cu) the same kernel runs with LOGITS = false, a
-// compile-time flag: d_xs[s] = sum_i w_e g[row_e], no att, no d_att and no
-// slot sums. With w == nullptr every weight is 1 (the SAGE mean's sum).
+// csr_segment_sum.cu) the kernel runs with LOGITS = false, a compile-time
+// flag: d_xs[s] = sum_i w_e g[row_i], no att, no d_att. With w == nullptr
+// every weight is 1 (the SAGE mean's sum) and csc_perm is not read.
+//
+// Design. A static schedule over source rows (gat_items.cuh,
+// ops/schedule.py; built once per layout and kept on its DeviceLayout with
+// csc_rows) gives each warp one item: up to 32 consecutive source rows of
+// one slot with at most max_edges entries together, or one chunk of a
+// longer row (a slot's trash source row, which holds the relation's pad
+// edges, or a hub). The warp stages the item's entries in shared memory,
+// their loads issued four 32-entry batches at a time: first each entry's
+// cotangent row and edge (csc_offsets -> csc_rows and csc_perm, two
+// dependent loads where reading dst through csc_perm took three); it then
+// puts its first cotangent rows in flight and stages w and dz by edge
+// meanwhile.
+// It gathers the cotangent rows into registers, two batches of 4 at
+// D = 128 in flight, one summed while the other arrives, each row's sum in
+// CSC order, one FMA per column and entry, as the one-warp-per-row kernel
+// before it did; a row's c_s is summed when the row ends, in that kernel's
+// order (lane partials of every 32nd entry, then a butterfly), so a row
+// that is not chunked gets the same bits. Shared memory is a few KB a
+// warp, so 8-warp blocks (at most 64 registers a thread at D = 128: 32
+// warps on each SM) keep many warps on each SM, and their staging
+// overlaps the others' gathers. Chunks write partial sums (acc, c) to
+// scratch, and a second launch adds each chunked row's parts in part
+// order. Every item writes its share of d_att (the sum of c xs[s] over its
+// rows in order, or its chunk's; the item's xs rows are consecutive and
+// are read once its cotangent rows are summed, two batches of U in flight)
+// to a partial row; two small launches sum them per slot in item order,
+// first in groups of 64 items over many blocks, then the groups. No
+// atomics: two runs give the same bits.
+//
+// What bounds it. Bytes: each input read once and each output written once
+// (g [N or R*N, D], xs [S, D], w, dz, csc_rows and csc_perm [E],
+// csc_offsets [S + 1], d_xs [S, D]), against 2 D flops per entry. The
+// gather reads a cotangent row per entry (512 bytes at D = 128): from L2
+// when g fits (the Gene group's 10.5 MB), else mostly from device memory
+// (the SNP group's 102.5 MB); that gather's rate, measured alone by
+// gather_probe.cu, is the floor the design aims at.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_items.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
+using kgwas::kBwdMaxEdges;
 using kgwas::kFull;
 using kgwas::kMaxCols;
 
 constexpr int kWarps = 8;          // warps per block
-constexpr int kRowsPerWarp = 8;    // source rows per warp
-constexpr int kBlockRows = kWarps * kRowsPerWarp;  // ops/segment.py BLOCK_ROWS
 constexpr int kMaxSlots = 32;      // ops/segment.py MAX_SLOTS
 constexpr int kMaxD = 32 * kMaxCols;
 
 struct Args {
   const float* g;            // [N or R*N, D]
-  const float* w;            // [E]
-  const float* dz;           // [E]
+  const float* w;            // [E], edge order
+  const float* dz;           // [E], edge order
   const float* xs;           // [S, D]
   const float* att;          // [R, D]
-  const int* dst;            // [E]
-  const int* csc_perm;       // [E]
+  const int* csc_rows;       // [E]: entry i's row of g
+  const int* csc_perm;       // [E]: entry i's edge
   const int* csc_offsets;    // [S + 1]
+  const int4* items;         // [n_items]
+  const int* split_units;    // [n_split]
+  const int* part_offsets;   // [n_split + 1]
+  float* part_acc;           // [n_parts, D]
+  float* part_c;             // [n_parts]
   float* d_xs;               // [S, D]
   float* d_att;              // [R, D]
-  float* partial;            // [S / kBlockRows, D]
+  float* partial;            // [n_items, D]
   long long src_base[kMaxSlots + 1];
-  long long n_rows_per_rel;  // N
+  long long slot_items[kMaxSlots + 1];  // slot r's items
+  long long slot_groups[kMaxSlots + 1]; // slot r's groups of kGroupItems
+  long long n_items;
+  long long n_split;
+  long long n_src;           // S
   int n_rel;
-  int fold;
   int d;
 };
 
-template <bool VEC, int NV, bool LOGITS>
-__global__ void __launch_bounds__(kWarps * 32)
-csc_rows_kernel(const Args a) {
-  using R = kgwas::Row<VEC, NV>;
-  constexpr int U = !VEC || NV > 2 ? 2 : 4;  // cotangent rows in flight
-  __shared__ __align__(16) float red[kWarps][kMaxD];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long block_row0 = static_cast<long long>(blockIdx.x) * kBlockRows;
-  const int n_per_rel = static_cast<int>(a.n_rows_per_rel);
-
-  R att;
-  R part;  // this warp's sum of c_s xs[s]
-  if (LOGITS) {
-    int slot = 0;  // the block's rows all lie in one slot
-    while (slot + 1 < a.n_rel && a.src_base[slot + 1] <= block_row0) ++slot;
-    att.load(a.att + static_cast<long long>(slot) * a.d, lane, a.d);
-    part.zero();
-  }
-
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    const long long s = block_row0 + warp * kRowsPerWarp + k;
-    const int beg = a.csc_offsets[s];
-    const int end = a.csc_offsets[s + 1];
-    R acc;
-    acc.zero();
-    float c = 0.0f;  // lane partial of c_s
-    for (int base = beg; base < end; base += 32) {
-      const int cnt = min(32, end - base);
-      int my_row = 0;
-      float my_w = 0.0f;
-      if (base + lane < end) {
-        const int e = a.csc_perm[base + lane];
-        const int row = a.dst[e];
-        my_row = a.fold ? row % n_per_rel : row;
-        my_w = a.w != nullptr ? a.w[e] : 1.0f;  // warp-uniform
-        if (LOGITS) c += a.dz[e];
-      }
-      for (int j = 0; j < cnt; j += U) {
-        // a step past the end re-reads the last edge's row, masked below
-        R gx[U];
-        float wu[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int src_lane = min(j + u, cnt - 1);
-          const int r = __shfl_sync(kFull, my_row, src_lane);
-          wu[u] = __shfl_sync(kFull, my_w, src_lane);
-          gx[u].load(a.g + static_cast<size_t>(r) * a.d, lane, a.d);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (j + u < cnt) {  // warp-uniform
-#pragma unroll
-            for (int q = 0; q < R::C; ++q)
-              acc.v[q] = fmaf(wu[u], gx[u].v[q], acc.v[q]);
-          }
-        }
-      }
-    }
-    if (!LOGITS) {
-      acc.store(a.d_xs + s * a.d, lane, a.d);
-      continue;
-    }
-    // xor butterfly: every lane ends with the same c_s
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
-#pragma unroll
-    for (int q = 0; q < R::C; ++q) acc.v[q] = fmaf(c, att.v[q], acc.v[q]);
-    acc.store(a.d_xs + s * a.d, lane, a.d);
-    if (c != 0.0f) {  // c * xs[s] adds nothing otherwise
-      R x;
-      x.load(a.xs + s * a.d, lane, a.d);
-#pragma unroll
-      for (int q = 0; q < R::C; ++q) part.v[q] = fmaf(c, x.v[q], part.v[q]);
-    }
-  }
-
-  if (!LOGITS) return;
-  // the block's d_att partial: its warps' sums in warp order
-  part.store(&red[warp][0], lane, a.d);
-  __syncthreads();
-  for (int col = threadIdx.x; col < a.d; col += kWarps * 32) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) sum += red[k][col];
-    a.partial[static_cast<long long>(blockIdx.x) * a.d + col] = sum;
-  }
+// the slot whose source rows hold row s
+__device__ __forceinline__ int slot_of(const Args& a, long long s) {
+  int slot = 0;
+  while (slot + 1 < a.n_rel && a.src_base[slot + 1] <= s) ++slot;
+  return slot;
 }
 
-// d_att[slot] = the sum of the slot's block partials. Grid (R, D / 32):
-// lane = column, warp k sums partials k, k + 8, ... in order, then warp 0
-// sums the 8 warps' sums in order.
-__global__ void __launch_bounds__(kWarps * 32) slot_sum_kernel(const Args a) {
-  __shared__ float red[kWarps][32];
+// at D = 128, at most 64 registers a thread: 4 blocks, 32 warps, on each
+// SM (wider rows need more)
+template <bool VEC, int NV, bool LOGITS>
+__global__ void __launch_bounds__(kWarps * 32, VEC && NV == 1 ? 4 : 1)
+csc_items_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  __shared__ int s_row_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_w_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_dz_w[kWarps][LOGITS ? kBwdMaxEdges : 1];
+  __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int slot = blockIdx.x;
+  const long long wi = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (wi >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(wi, a.n_items);
+  int* s_row = s_row_w[warp];
+  float* s_w = s_w_w[warp];
+  float* s_dz = s_dz_w[warp];
+  unsigned char* s_k = s_k_w[warp];
+  const int d = a.d;
+  const bool weighted = a.w != nullptr;
+
+  const kgwas::ItemRows it =
+      kgwas::item_rows(a.items[item], a.csc_offsets, a.n_src, 1, lane);
+  // each virtual entry's source row, then its cotangent row and its edge
+  // (the item's entries follow each other in the CSC), both loads issued
+  // together; the edge waits in s_w's place for w and dz
+  const bool by_edge = LOGITS || weighted;
+  int* s_e = reinterpret_cast<int*>(s_w);
+  const int first = kgwas::stage_row_keys(it, s_k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int row[4] = {0, 0, 0, 0};
+    int e[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        row[q] = a.csc_rows[first + v];
+        if (by_edge) e[q] = a.csc_perm[first + v];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        s_row[v] = row[q];
+        if (by_edge) s_e[v] = e[q];
+      }
+    }
+  }
+  __syncwarp();
+  // the first cotangent rows in flight while w and dz arrive, by each
+  // entry's edge (each lane rewrites its own entries)
+  R xa[U], xb[U];
+  if (it.total > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.g, s_row, 0, it.total, lane, d);
+  if (by_edge) {
+    for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+      float wq[4], dzq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = v0 + 32 * q + lane;
+        if (v < it.total) {
+          const int e = s_e[v];
+          wq[q] = weighted ? a.w[e] : 1.0f;
+          if (LOGITS) dzq[q] = a.dz[e];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = v0 + 32 * q + lane;
+        if (v < it.total) {
+          s_w[v] = wq[q];
+          if (LOGITS) s_dz[v] = dzq[q];
+        }
+      }
+    }
+    __syncwarp();
+  }
+  R att;  // the slot's attention row
+  if (LOGITS)
+    att.load(a.att + static_cast<size_t>(slot_of(a, it.unit0)) * d, lane, d);
+
+  int cur = -1;  // the row being summed
+  R acc;
+  acc.zero();
+  float my_c = 0.0f;  // lane k: c of the item's row k
+  auto finish_row = [&](int k) {
+    const long long s = it.unit0 + (it.chunk ? 0 : k);
+    // c of row k in the one-warp-per-row kernel's order: lane partials of
+    // every 32nd entry, then a butterfly
+    float c = 0.0f;
+    if (LOGITS) {
+      const int beg = __shfl_sync(kFull, it.vbeg, k);
+      const int cnt = __shfl_sync(kFull, it.cnt, k);
+      for (int j = lane; j < cnt; j += 32) c += s_dz[beg + j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        c += __shfl_xor_sync(kFull, c, off);
+      if (lane == k) my_c = c;
+    }
+    if (it.chunk) {
+      if (LOGITS && lane == 0) a.part_c[it.part] = c;
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+      return;
+    }
+    if (LOGITS) {
+#pragma unroll
+      for (int q = 0; q < R::C; ++q) acc.v[q] = fmaf(c, att.v[q], acc.v[q]);
+    }
+    acc.store(a.d_xs + s * d, lane, d);
+  };
+
+  // sums batch x of U rows, entries v..v+U-1
+  auto take = [&](const R (&x)[U], int v) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vu = v + u;
+      if (vu < it.total) {  // warp-uniform
+        const int k = s_k[vu];
+        if (k != cur) {
+          if (cur >= 0) finish_row(cur);
+          cur = k;
+          acc.zero();
+        }
+        const float wv = weighted ? s_w[vu] : 1.0f;
+#pragma unroll
+        for (int q = 0; q < R::C; ++q)
+          acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
+      }
+    }
+  };
+  // two batches in flight: one is summed while the other arrives
+  for (int v = 0; v < it.total; v += 2 * U) {
+    if (v + U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.g, s_row, v + U, it.total, lane,
+                                     d);
+    take(xa, v);
+    if (v + 2 * U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.g, s_row, v + 2 * U, it.total,
+                                     lane, d);
+    if (v + U < it.total) take(xb, v + U);
+  }
+  if (cur >= 0) finish_row(cur);
+  if (!it.chunk) {  // the item's rows without edges: zeros
+    unsigned empty = __ballot_sync(kFull, lane < it.n_rows && it.cnt == 0);
+    R zero;
+    zero.zero();
+    for (; empty; empty &= empty - 1)
+      zero.store(a.d_xs + (it.unit0 + __ffs(empty) - 1) * d, lane, d);
+  }
+  if (!LOGITS) return;
+  // the item's share of d_att, the sum of c xs[s] over its rows in order
+  // (a row with c = 0 adds nothing): the xs rows, consecutive, gathered two
+  // batches of U at a time once the item's cotangent rows are summed
+  const unsigned nz = __ballot_sync(kFull, lane < it.n_rows && my_c != 0.0f);
+  __syncwarp();  // s_row and s_k are free again
+  if (nz >> lane & 1) {
+    const int j = __popc(nz & ((1u << lane) - 1));
+    s_row[j] = static_cast<int>(it.unit0) + lane;
+    s_k[j] = static_cast<unsigned char>(lane);
+  }
+  __syncwarp();
+  const int n_nz = __popc(nz);
+  R part;
+  part.zero();
+  auto add = [&](const R (&x)[U], int v) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (v + u < n_nz) {  // warp-uniform
+        const float c = __shfl_sync(kFull, my_c, s_k[v + u]);
+#pragma unroll
+        for (int q = 0; q < R::C; ++q)
+          part.v[q] = fmaf(c, x[u].v[q], part.v[q]);
+      }
+    }
+  };
+  if (n_nz > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_row, 0, n_nz, lane, d);
+  for (int v = 0; v < n_nz; v += 2 * U) {
+    if (v + U < n_nz)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.xs, s_row, v + U, n_nz, lane, d);
+    add(xa, v);
+    if (v + 2 * U < n_nz)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_row, v + 2 * U, n_nz, lane,
+                                     d);
+    if (v + U < n_nz) add(xb, v + U);
+  }
+  part.store(a.partial + item * d, lane, d);
+}
+
+// One warp per source row cut into chunks: its parts added in part order,
+// then c_s att[slot].
+template <bool VEC, int NV, bool LOGITS>
+__global__ void __launch_bounds__(kWarps * 32)
+csc_combine_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  const int lane = threadIdx.x & 31;
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (j >= a.n_split) return;
+  const int d = a.d;
+  const long long s = a.split_units[j];
+  R acc;
+  acc.zero();
+  float c = 0.0f;
+  for (int pi = a.part_offsets[j]; pi < a.part_offsets[j + 1]; ++pi) {
+    R x;
+    x.load(a.part_acc + static_cast<size_t>(pi) * d, lane, d);
+#pragma unroll
+    for (int q = 0; q < R::C; ++q) acc.v[q] += x.v[q];
+    if (LOGITS) c += a.part_c[pi];
+  }
+  if (LOGITS) {
+    R att;
+    att.load(a.att + static_cast<size_t>(slot_of(a, s)) * d, lane, d);
+#pragma unroll
+    for (int q = 0; q < R::C; ++q) acc.v[q] = fmaf(c, att.v[q], acc.v[q]);
+  }
+  acc.store(a.d_xs + s * d, lane, d);
+}
+
+// d_att[slot] = the sum of the slot's item partials, in two passes so
+// that many blocks share the work. Each slot's items form groups of
+// kGroupItems consecutive items; group_sum_kernel (grid (groups, D / 32))
+// sums a group's partials into its first row, and slot_sum_kernel (grid
+// (R, D / 32)) sums each slot's group rows. In both, lane = column, warp k
+// sums rows k, k + 8, ... in order, then warp 0 sums the 8 warps' sums in
+// order: a fixed order, no atomics.
+constexpr int kSumWarps = 8;
+constexpr int kGroupItems = 64;
+
+__device__ __forceinline__ void sum_rows(const Args& a, long long b0,
+                                         long long b1, long long stride,
+                                         float* dst) {
+  __shared__ float red[kSumWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int col = blockIdx.y * 32 + lane;
-  const long long b0 = a.src_base[slot] / kBlockRows;
-  const long long b1 = a.src_base[slot + 1] / kBlockRows;
   float s = 0.0f;
   if (col < a.d)
-    for (long long b = b0 + warp; b < b1; b += kWarps)
+    for (long long b = b0 + warp * stride; b < b1; b += kSumWarps * stride)
       s += a.partial[b * a.d + col];
   red[warp][lane] = s;
-  __syncthreads();
+  __syncthreads();  // every read of the rows is done before the write
   if (warp == 0 && col < a.d) {
     float t = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) t += red[k][lane];
-    a.d_att[static_cast<long long>(slot) * a.d + col] = t;
+    for (int k = 0; k < kSumWarps; ++k) t += red[k][lane];
+    dst[col] = t;
   }
+}
+
+__global__ void __launch_bounds__(kSumWarps * 32)
+group_sum_kernel(const Args a) {
+  const long long g = blockIdx.x;
+  int slot = 0;
+  while (slot + 1 < a.n_rel && a.slot_groups[slot + 1] <= g) ++slot;
+  const long long b0 =
+      a.slot_items[slot] + (g - a.slot_groups[slot]) * kGroupItems;
+  const long long b1 = min(b0 + kGroupItems, a.slot_items[slot + 1]);
+  sum_rows(a, b0, b1, 1, a.partial + b0 * a.d);
+}
+
+__global__ void __launch_bounds__(kSumWarps * 32)
+slot_sum_kernel(const Args a) {
+  const int slot = blockIdx.x;
+  sum_rows(a, a.slot_items[slot], a.slot_items[slot + 1], kGroupItems,
+           a.d_att + static_cast<long long>(slot) * a.d);
+}
+
+template <bool VEC, int NV, bool LOGITS>
+cudaError_t launch_items(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  if (blocks > 0) {
+    csc_items_kernel<VEC, NV, LOGITS>
+        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (cblocks > 0) {
+    csc_combine_kernel<VEC, NV, LOGITS>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (!LOGITS) return cudaSuccess;
+  const long long groups = a.slot_groups[a.n_rel];
+  if (groups > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (groups > 0) {
+    group_sum_kernel<<<dim3(static_cast<unsigned>(groups), (a.d + 31) / 32),
+                       kSumWarps * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  slot_sum_kernel<<<dim3(a.n_rel, (a.d + 31) / 32), kSumWarps * 32, 0,
+                    stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long n_src = a.src_base[a.n_rel];
-  const long long blocks = n_src / kBlockRows;
-  const bool logits = a.dz != nullptr;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks > 0) {
-    if (logits)
-      csc_rows_kernel<VEC, NV, true>
-          <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-    else
-      csc_rows_kernel<VEC, NV, false>
-          <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (!logits) return cudaSuccess;
-  slot_sum_kernel<<<dim3(a.n_rel, (a.d + 31) / 32), kWarps * 32, 0, stream>>>(
-      a);
-  return cudaGetLastError();
+  return a.dz != nullptr ? launch_items<VEC, NV, true>(a, stream)
+                         : launch_items<VEC, NV, false>(a, stream);
 }
 
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Device pointers except
-// src_base, a host array of n_rel + 1 source-row boundaries, each a
-// multiple of 64 (the wrapper checks, as it checks 16-byte alignment of the
-// float4 rows when D % 128 == 0). fold: 1 when g is the folded [N, D]
-// cotangent. w may be null (weight 1); dz null (no logit term) leaves att,
-// d_att and partial unread and unwritten.
+// src_base and slot_items, host arrays of n_rel + 1 source-row and item
+// boundaries of the slots (the wrapper checks them against the schedule,
+// and 16-byte alignment of the float4 rows and the items). w may be null
+// (weight 1); dz null (no logit term) leaves att, part_c, d_att and
+// partial unread and unwritten. csc_perm is read only for w or dz. Up to
+// four launches: the items, the combine of the chunked rows, the group and
+// slot sums of d_att.
 extern "C" int kgwas_csc_segment_sum(
     const void* g, const void* w, const void* dz, const void* xs,
-    const void* att, const void* dst, const void* csc_perm,
-    const void* csc_offsets, const long long* src_base, void* d_xs,
-    void* d_att, void* partial, int n_rel, long long n_rows_per_rel, int fold,
-    int d, void* stream) {
+    const void* att, const void* csc_rows, const void* csc_perm,
+    const void* csc_offsets, const void* items, long long n_items,
+    const void* split_units, const void* part_offsets, long long n_split,
+    void* part_acc, void* part_c, const long long* src_base,
+    const long long* slot_items, void* d_xs, void* d_att, void* partial,
+    int n_rel, int d, void* stream) {
   if (n_rel < 1 || n_rel > kMaxSlots || d < 1 || d > kMaxD)
     return cudaErrorInvalidValue;
   Args a;
@@ -235,19 +448,30 @@ extern "C" int kgwas_csc_segment_sum(
   a.dz = static_cast<const float*>(dz);
   a.xs = static_cast<const float*>(xs);
   a.att = static_cast<const float*>(att);
-  a.dst = static_cast<const int*>(dst);
+  a.csc_rows = static_cast<const int*>(csc_rows);
   a.csc_perm = static_cast<const int*>(csc_perm);
   a.csc_offsets = static_cast<const int*>(csc_offsets);
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_c = static_cast<float*>(part_c);
   a.d_xs = static_cast<float*>(d_xs);
   a.d_att = static_cast<float*>(d_att);
   a.partial = static_cast<float*>(partial);
   for (int r = 0; r <= n_rel; ++r) {
-    if (src_base[r] % kBlockRows) return cudaErrorInvalidValue;
     a.src_base[r] = src_base[r];
+    a.slot_items[r] = slot_items[r];
   }
-  a.n_rows_per_rel = n_rows_per_rel;
+  a.slot_groups[0] = 0;
+  for (int r = 0; r < n_rel; ++r)
+    a.slot_groups[r + 1] =
+        a.slot_groups[r] +
+        (slot_items[r + 1] - slot_items[r] + kGroupItems - 1) / kGroupItems;
+  a.n_items = n_items;
+  a.n_split = n_split;
+  a.n_src = src_base[n_rel];
   a.n_rel = n_rel;
-  a.fold = fold;
   a.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {

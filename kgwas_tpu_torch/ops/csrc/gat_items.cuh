@@ -1,20 +1,20 @@
-// The static work schedule of the merged GAT layer kernels
-// (merged_gat_fwd.cu, merged_gat_bwd.cu) and what a warp does with one of
-// its items: find the item's slot rows, stage its edges' source indices in
-// shared memory, and gather their source rows into a shared-memory ring
-// with cp.async.
+// The static work schedule of the port's edge-stream kernels
+// (merged_gat_fwd.cu, merged_gat_bwd.cu, segment_softmax_spmm_fwd.cu,
+// csc_segment_sum.cu) and what a warp does with one of its items: find the
+// item's rows, stage its edges' indices in shared memory, and gather their
+// feature rows into a shared-memory ring with cp.async.
 //
 // A unit is one output row: a destination node when folding (its R slot
-// rows r*N + n), else one slot row. The schedule (ops/gat_layer.py
-// schedule) is a list of items, in unit order, of two kinds (int4 each):
+// rows r*N + n), else one row. The schedule (ops/schedule.py) is a list
+// of items, in unit order, of two kinds (int4 each):
 //
-//   packed (u0, u1, -1, -1): units u0..u1-1, all their slot rows, at most
-//       max_edges edges together, at most kItemMaxRows slot rows and
-//       kItemMaxUnits units;
+//   packed (u0, u1, -1, -1): units u0..u1-1, all their rows, at most
+//       max_edges edges together and at most kItemMaxRows rows (the
+//       merged GAT layer: at most kItemMaxUnits units);
 //   chunk (row, part, e0, e1): edges e0..e1-1 (at most chunk_edges) of one
-//       slot row of a unit with more than max_edges edges; its partial
-//       result goes to scratch index part, and a second launch combines a
-//       unit's parts in part order.
+//       row of a unit with more than max_edges edges; its partial result
+//       goes to scratch index part, and a second launch combines a unit's
+//       parts in part order.
 //
 // Warps take the items from the last to the first: the pad units, and so
 // each relation's trash row with its long chunks, sit at the end of the
@@ -22,15 +22,19 @@
 //
 // Inside an item the edges are taken in a virtual order, unit-major then
 // slot (row k = i * F + r of unit i, slot r), each row's edges in stream
-// order, kGroup at a time: lanes 4q..4q+3 score edge q of a group.
+// order: the merged GAT kernels through a cp.async ring of kStages stages
+// of kGroup rows in shared memory, the segment kernels gathering
+// rows_in_flight rows into registers at a time.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "warp_rows.cuh"
+
 namespace kgwas {
 
-constexpr int kFwdMaxEdges = 512;   // most edges of a forward item
-constexpr int kBwdMaxEdges = 256;   // most edges of a backward item
+constexpr int kFwdMaxEdges = 512;   // most edges of a merged forward item
+constexpr int kBwdMaxEdges = 256;   // most edges of the other kernels' items
 constexpr int kItemMaxRows = 32;    // slot rows of a packed item: a lane each
 constexpr int kItemMaxUnits = 8;    // units of a packed item
 constexpr int kGroup = 8;           // edges per ring stage, 4 lanes each
@@ -210,6 +214,21 @@ __device__ __forceinline__ void stage_edges(const ItemRows& r,
   __syncwarp();
 }
 
+// The row k of each virtual edge v, s_k[v], of an item whose rows' edges
+// follow each other in the stream (F = 1: consecutive rows, or a chunk), so
+// that virtual edge v is stream edge first + v. Returns first.
+__device__ __forceinline__ int stage_row_keys(const ItemRows& r,
+                                              unsigned char* s_k, int lane) {
+  if (r.chunk) {
+    for (int v = lane; v < r.total; v += 32) s_k[v] = 0;
+  } else {
+    for (int j = 0; j < r.cnt; ++j)  // lane k over row k's edges
+      s_k[r.vbeg + j] = static_cast<unsigned char>(lane);
+  }
+  __syncwarp();
+  return __shfl_sync(0xffffffffu, r.beg, 0);
+}
+
 // cp.async of group g's source rows (edges 8g .. 8g+7 of the item) into
 // ring stage g % kStages; rows past the item's end are not loaded
 template <bool VEC, int NV>
@@ -223,6 +242,28 @@ __device__ __forceinline__ void load_group(float* ring, int rl, int g,
     copy_row<VEC, NV>(stage + q * rl,
                       xs + static_cast<size_t>(s_src[g * kGroup + q]) * d,
                       lane, d);
+}
+
+// Rows of one register batch when a warp gathers feature rows into
+// registers (gather_rows): 4 at D = 128, fewer for wider rows. The segment
+// kernels keep two batches in flight, one summed while the next arrives.
+template <bool VEC, int NV>
+__host__ __device__ constexpr int rows_in_flight() {
+  return VEC ? (NV == 1 ? 4 : NV == 2 ? 2 : 1) : 1;
+}
+
+// U feature rows of table into registers, all loads issued before any is
+// used: rows idx[v .. v+U-1] of a shared-memory index array of n entries
+// (a step past its end re-reads the last row).
+template <bool VEC, int NV, int U>
+__device__ __forceinline__ void gather_rows(Row<VEC, NV> (&x)[U],
+                                            const float* __restrict__ table,
+                                            const int* idx, int v, int n,
+                                            int lane, int d) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    x[u].load(table + static_cast<size_t>(idx[min(v + u, n - 1)]) * d, lane,
+              d);
 }
 
 // Segmented sum over a window of 32 virtual edges (keys k sorted, key 255
@@ -239,6 +280,47 @@ __device__ __forceinline__ void segmented_add(float val, int k, float* acc,
   const int kn = __shfl_down_sync(0xffffffffu, k, 1);
   if (k != 255 && (lane == 31 || kn != k)) acc[k] += val;
   __syncwarp();
+}
+
+// The same with max: acc[k] = max(acc[k], the run's max).
+__device__ __forceinline__ void segmented_max(float val, int k, float* acc,
+                                              int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, val, off);
+    const int ky = __shfl_up_sync(0xffffffffu, k, off);
+    if (lane >= off && ky == k) val = fmaxf(val, y);
+  }
+  const int kn = __shfl_down_sync(0xffffffffu, k, 1);
+  if (k != 255 && (lane == 31 || kn != k)) acc[k] = fmaxf(acc[k], val);
+  __syncwarp();
+}
+
+// The combine of one chunked row: its parts p0..p1-1 merged in part order,
+// by log-sum-exp of the softmax state (m, s, acc) when SOFTMAX, else a
+// plain sum of acc. Gives the row's max mx (NEG_BIG without SOFTMAX), sum
+// and acc.
+template <bool VEC, int NV, bool SOFTMAX>
+__device__ __forceinline__ void merge_parts(const float* __restrict__ part_m,
+                                            const float* __restrict__ part_s,
+                                            const float* __restrict__ part_acc,
+                                            int p0, int p1, int lane, int d,
+                                            float& mx, float& sum,
+                                            Row<VEC, NV>& acc) {
+  mx = kNegBig;
+  sum = 0.0f;
+  acc.zero();
+  if (SOFTMAX)
+    for (int pi = p0; pi < p1; ++pi) mx = fmaxf(mx, part_m[pi]);
+  for (int pi = p0; pi < p1; ++pi) {
+    Row<VEC, NV> x;
+    x.load(part_acc + static_cast<size_t>(pi) * d, lane, d);
+    const float sc = SOFTMAX ? fast_exp(part_m[pi] - mx) : 1.0f;
+    if (SOFTMAX) sum = fmaf(part_s[pi], sc, sum);
+#pragma unroll
+    for (int c = 0; c < Row<VEC, NV>::C; ++c)
+      acc.v[c] = fmaf(sc, x.v[c], acc.v[c]);
+  }
 }
 
 // the item warp w of the launch takes: the last item first

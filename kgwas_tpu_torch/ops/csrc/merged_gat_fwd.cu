@@ -289,19 +289,10 @@ merged_gat_combine_kernel(const Args a) {
     const long long row = F > 1 ? r * a.n_rows_per_rel + u : u;
     const int p0 = a.part_offsets[j * F + r];
     const int p1 = a.part_offsets[j * F + r + 1];
-    float mx = kNegBig, sum = 0.0f;
+    float mx, sum;
     R acc;
-    acc.zero();
-    if (MODE == kSoftmax)
-      for (int pi = p0; pi < p1; ++pi) mx = fmaxf(mx, a.part_m[pi]);
-    for (int pi = p0; pi < p1; ++pi) {
-      R x;
-      x.load(a.part_acc + static_cast<size_t>(pi) * d, lane, d);
-      const float sc = MODE == kSoftmax ? fast_exp(a.part_m[pi] - mx) : 1.0f;
-      if (MODE == kSoftmax) sum = fmaf(a.part_s[pi], sc, sum);
-#pragma unroll
-      for (int c = 0; c < R::C; ++c) acc.v[c] = fmaf(sc, x.v[c], acc.v[c]);
-    }
+    kgwas::merge_parts<VEC, NV, MODE == kSoftmax>(
+        a.part_m, a.part_s, a.part_acc, p0, p1, lane, d, mx, sum, acc);
 #pragma unroll
     for (int c = 0; c < R::C; ++c)
       res.v[c] += MODE == kSoftmax ? acc.v[c] / (sum + kEps) : acc.v[c];

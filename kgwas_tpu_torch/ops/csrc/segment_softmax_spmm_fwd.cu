@@ -18,48 +18,71 @@
 // sum_e p_e per row ([n_rows], not the TPU's [n_tiles * 8, BN] tiling) for
 // segment_softmax_spmm_bwd.cu. Empty rows give 0, NEG_BIG and 0.
 //
-// Design. One warp per row, as in merged_gat_fwd.cu. The row's edges load
-// 32 at a time, one per lane (src and logit), with the next 32 prefetched;
-// the warp takes the 32 logits' max by butterfly and rescales its running
-// sum and accumulator once per 32 edges (the online softmax of the TPU
-// kernel, which rescales once per edge window), then each lane's weight is
-// broadcast by shuffle and the source rows are read U at a time (float4 per
-// lane at D % 128 == 0) and summed in registers in edge order. The [E, D]
-// message stream is never written. No atomics: two runs give the same bits.
+// Design. A static schedule (gat_items.cuh, ops/schedule.py; built once per
+// relation stream and kept on its DeviceLayout) gives each warp one item:
+// up to 32 consecutive rows with at most max_edges edges together, or one
+// chunk of a longer row (a relation's trash row with up to 511 pad edges, a
+// hub). The warp stages the item's source indices and logits in shared
+// memory (their loads issued four 32-edge batches at a time), puts its
+// first source rows in flight, takes each row's max over its logits (a
+// segmented max across the lanes) and turns every logit into its weight
+// p_e once, and then gathers the source rows into registers, two batches
+// of 4 at D = 128 in flight, one summed while the other arrives: with the
+// weights known the per-edge chain is one FMA per column, and the row sum
+// one add. Shared memory is a few KB a warp, so 8-warp blocks keep many
+// warps on each SM, and their staging overlaps the others' gathers. A
+// chunk writes its partial (m, s, acc) to scratch and a second, small
+// launch merges each chunked row's parts in part order by log-sum-exp
+// (gat_items.cuh merge_parts) and writes it. A relation's trash row sums
+// identical pad terms (all read source row 0, from L1): cut into chunks,
+// it rounds otherwise than the plain version's sequential sum, within the
+// trash rows' rtol 1e-4 (no fold adds it to another row here). Warps take
+// items from the last: the trash row's chunks start first. No atomics: two
+// runs give the same bits.
 //
 // What bounds it. Bytes: each input read once and each output written once
 // (xs [S, D], src and logits [E], row_offsets [n_rows + 1], out [n_rows,
 // D], row_max and row_sum [n_rows]), against 2 D flops per edge. The
-// gather reads each source row once per edge, mostly from L2. Each
-// relation's trash row holds all of its pad edges (up to 511) and one warp
-// walks them in sequence; with the logits given, the per-edge chain is a
-// load and an FMA, with one max and one exp per lane per 32 edges.
+// gather reads each source row once per edge (512 bytes at D = 128), from
+// the 50 MB L2 when the table fits, else from device memory: that gather's
+// rate, measured alone by gather_probe.cu, is the floor the design aims at.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_items.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
 using kgwas::fast_exp;
+using kgwas::kEps;
+using kgwas::kExpClamp;
 using kgwas::kFull;
+using kgwas::kBwdMaxEdges;
+using kgwas::kItemMaxRows;
 using kgwas::kMaxCols;
+using kgwas::kNegBig;
 
-constexpr float kNegBig = -1e9f;
-constexpr float kExpClamp = 60.0f;
-constexpr float kEps = 1e-16f;
-constexpr int kWarps = 8;  // warps per block
+constexpr int kWarps = 8;   // warps per block
 
 struct Args {
-  const float* xs;         // [S, D]
-  const int* src;          // [E]
-  const float* logits;     // [E]
-  const int* row_offsets;  // [n_rows + 1]
-  float* out;              // [n_rows, D]
-  float* row_max;          // [n_rows]
-  float* row_sum;          // [n_rows]
+  const float* xs;          // [S, D]
+  const int* src;           // [E]
+  const float* logits;      // [E]
+  const int* row_offsets;   // [n_rows + 1]
+  float* out;               // [n_rows, D]
+  float* row_max;           // [n_rows]
+  float* row_sum;           // [n_rows]
+  const int4* items;        // [n_items]
+  const int* split_units;   // [n_split]
+  const int* part_offsets;  // [n_split + 1]
+  float* part_m;            // [n_parts]
+  float* part_s;            // [n_parts]
+  float* part_acc;          // [n_parts, D]
+  long long n_items;
+  long long n_split;
   long long n_rows;
   int d;
 };
@@ -68,94 +91,194 @@ template <bool VEC, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_fwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  constexpr int U = !VEC || NV > 2 ? 2 : 4;  // source rows in flight
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  __shared__ int s_src_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_p_w[kWarps][kBwdMaxEdges];  // logits, then weights
+  __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_m_w[kWarps][kItemMaxRows];  // each row's max
   const int lane = threadIdx.x & 31;
-  const long long o =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (o >= a.n_rows) return;  // whole warp exits together
+  const int warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (w >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(w, a.n_items);
+  int* s_src = s_src_w[warp];
+  float* s_p = s_p_w[warp];
+  unsigned char* s_k = s_k_w[warp];
+  float* s_m = s_m_w[warp];
+  const int d = a.d;
 
-  const int beg = a.row_offsets[o];
-  const int end = a.row_offsets[o + 1];
-  float m = kNegBig;
-  float ssum = 0.0f;
-  R acc;
-  acc.zero();
-  int next_src = beg + lane < end ? a.src[beg + lane] : 0;
-  float next_l = beg + lane < end ? a.logits[beg + lane] : kNegBig;
-  for (int base = beg; base < end; base += 32) {
-    const int cnt = min(32, end - base);
-    const bool mine = base + lane < end;
-    const int my_src = next_src;
-    const float my_l = next_l;
-    const bool more = base + 32 + lane < end;
-    next_src = more ? a.src[base + 32 + lane] : 0;
-    next_l = more ? a.logits[base + 32 + lane] : kNegBig;
-
-    // the 32 logits' max, then one rescale of the running state
-    float m_new = my_l;
+  const kgwas::ItemRows it =
+      kgwas::item_rows(a.items[item], a.row_offsets, a.n_rows, 1, lane);
+  // a packed item's rows without edges: the plain version's NEG_BIG and 0
+  if (!it.chunk && lane < it.n_rows && it.cnt == 0) {
+    a.row_max[it.row] = kNegBig;
+    a.row_sum[it.row] = 0.0f;
+  }
+  if (lane < it.n_rows) s_m[lane] = kNegBig;
+  // each virtual edge's row, then its source row and logit (the item's
+  // edges follow each other in the stream)
+  const int first = kgwas::stage_row_keys(it, s_k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int src[4] = {0, 0, 0, 0};
+    float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m_new = fmaxf(m_new, __shfl_xor_sync(kFull, m_new, off));
-    m_new = fmaxf(m, m_new);
-    const float scale = fast_exp(fminf(m - m_new, 0.0f));
-    ssum *= scale;
-#pragma unroll
-    for (int c = 0; c < R::C; ++c) acc.v[c] *= scale;
-    m = m_new;
-    const float my_p = mine ? fast_exp(fminf(my_l - m_new, kExpClamp)) : 0.0f;
-
-    for (int j = 0; j < cnt; j += U) {
-      // a step past the row's end re-reads its last edge's row, masked below
-      R x[U];
-      float pu[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int src_lane = min(j + u, cnt - 1);
-        const int s = __shfl_sync(kFull, my_src, src_lane);
-        pu[u] = __shfl_sync(kFull, my_p, src_lane);
-        x[u].load(a.xs + static_cast<size_t>(s) * a.d, lane, a.d);
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        src[q] = a.src[first + v];
+        l[q] = a.logits[first + v];
       }
+    }
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (j + u < cnt) {  // warp-uniform
-          ssum += pu[u];
-#pragma unroll
-          for (int c = 0; c < R::C; ++c)
-            acc.v[c] = fmaf(pu[u], x[u].v[c], acc.v[c]);
-        }
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        s_src[v] = src[q];
+        s_p[v] = l[q];
       }
     }
   }
-  // division, not a multiply by the reciprocal: the same rounding as the
-  // plain version's acc / (sum + eps)
+  __syncwarp();
+  // the first rows in flight while each row's max, then each edge's weight
+  // are formed
+  R xa[U], xb[U];
+  if (it.total > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_src, 0, it.total, lane, d);
+  for (int base = 0; base < it.total; base += 32) {
+    const int v = base + lane;
+    const bool ok = v < it.total;
+    kgwas::segmented_max(ok ? s_p[v] : kNegBig, ok ? s_k[v] : 255, s_m, lane);
+  }
+  for (int v = lane; v < it.total; v += 32)
+    s_p[v] = fast_exp(fminf(s_p[v] - s_m[s_k[v]], kExpClamp));
+  __syncwarp();
+
+  int cur = -1;  // the row being summed
+  float s = 0.0f;
+  R acc;
+  acc.zero();
+  auto finish_row = [&](int k) {
+    const float m = s_m[k];
+    if (it.chunk) {
+      if (lane == 0) {
+        a.part_m[it.part] = m;
+        a.part_s[it.part] = s;
+      }
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+      return;
+    }
+    const long long row = it.unit0 + k;
+    if (lane == 0) {
+      a.row_max[row] = m;
+      a.row_sum[row] = s;
+    }
+    // division, not a multiply by the reciprocal: the same rounding as the
+    // plain version's acc / (sum + eps)
 #pragma unroll
-  for (int c = 0; c < R::C; ++c) acc.v[c] = acc.v[c] / (ssum + kEps);
-  acc.store(a.out + o * a.d, lane, a.d);
+    for (int c = 0; c < R::C; ++c) acc.v[c] = acc.v[c] / (s + kEps);
+    acc.store(a.out + row * d, lane, d);
+  };
+
+  // sums batch x of U rows, edges v..v+U-1
+  auto take = [&](const R (&x)[U], int v) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vu = v + u;
+      if (vu < it.total) {  // warp-uniform
+        const int k = s_k[vu];
+        if (k != cur) {
+          if (cur >= 0) finish_row(cur);
+          cur = k;
+          s = 0.0f;
+          acc.zero();
+        }
+        const float p = s_p[vu];
+        s += p;
+#pragma unroll
+        for (int c = 0; c < R::C; ++c)
+          acc.v[c] = fmaf(p, x[u].v[c], acc.v[c]);
+      }
+    }
+  };
+  // two batches in flight: one is summed while the other arrives
+  for (int v = 0; v < it.total; v += 2 * U) {
+    if (v + U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.xs, s_src, v + U, it.total, lane,
+                                     d);
+    take(xa, v);
+    if (v + 2 * U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_src, v + 2 * U, it.total,
+                                     lane, d);
+    if (v + U < it.total) take(xb, v + U);
+  }
+  if (cur >= 0) finish_row(cur);
+  if (!it.chunk) {  // the item's rows without edges: zeros
+    unsigned empty = __ballot_sync(kFull, lane < it.n_rows && it.cnt == 0);
+    R zero;
+    zero.zero();
+    for (; empty; empty &= empty - 1)
+      zero.store(a.out + (it.unit0 + __ffs(empty) - 1) * d, lane, d);
+  }
+}
+
+// One warp per row cut into chunks: its parts merged in part order, then
+// the division.
+template <bool VEC, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+segment_softmax_combine_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  const int lane = threadIdx.x & 31;
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (j >= a.n_split) return;
+  const long long row = a.split_units[j];
+  float mx, sum;
+  R acc;
+  kgwas::merge_parts<VEC, NV, true>(a.part_m, a.part_s, a.part_acc,
+                                    a.part_offsets[j], a.part_offsets[j + 1],
+                                    lane, a.d, mx, sum, acc);
+#pragma unroll
+  for (int c = 0; c < R::C; ++c) acc.v[c] = acc.v[c] / (sum + kEps);
+  acc.store(a.out + row * a.d, lane, a.d);
   if (lane == 0) {
-    a.row_max[o] = m;
-    a.row_sum[o] = ssum;
+    a.row_max[row] = mx;
+    a.row_sum[row] = sum;
   }
 }
 
 template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_rows + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks == 0) return cudaSuccess;
-  segment_softmax_spmm_fwd_kernel<VEC, NV>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-  return cudaGetLastError();
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  if (blocks > 0) {
+    segment_softmax_spmm_fwd_kernel<VEC, NV>
+        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (cblocks > 0) {
+    segment_softmax_combine_kernel<VEC, NV>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; float4 rows need xs and out 16-byte aligned when D % 128 == 0
-// (the wrapper checks).
+// pointers; xs, out, part_acc and items must be 16-byte aligned (the
+// wrapper checks). The schedule (items, split_units, part_offsets) and the
+// scratch part_* come from the wrapper; two launches: the items, then the
+// combine of the chunked rows.
 extern "C" int kgwas_segment_softmax_spmm_fwd(
     const void* xs, const void* src, const void* logits,
     const void* row_offsets, void* out, void* row_max, void* row_sum,
-    long long n_rows, int d, void* stream) {
+    const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_m, void* part_s,
+    void* part_acc, long long n_rows, int d, void* stream) {
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
@@ -164,6 +287,14 @@ extern "C" int kgwas_segment_softmax_spmm_fwd(
   a.out = static_cast<float*>(out);
   a.row_max = static_cast<float*>(row_max);
   a.row_sum = static_cast<float*>(row_sum);
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_s = static_cast<float*>(part_s);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.n_items = n_items;
+  a.n_split = n_split;
   a.n_rows = n_rows;
   a.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -20,28 +20,24 @@ layer as an autograd function: its backward is ``merged_gat_bwd`` followed
 by ``segment.csc_segment_sum``.
 
 Both kernels take their work from a static schedule (``schedule``, built
-once per layout on the host, ``GATSchedule``): items that pack the slot
+once per layout on the host, ``ops/schedule.py``): items that pack the slot
 rows of consecutive units (output rows) up to ``max_edges`` edges, and
 chunks of at most ``chunk_edges`` edges of the slot rows of a longer unit,
 whose partials a second launch combines in a fixed order.
 """
 from __future__ import annotations
 
-import dataclasses
-
-import numpy as np
 import torch
 
 from . import segment
+from .schedule import (BWD_ITEM_MAX_EDGES, ITEM_MAX_EDGES, ITEM_MAX_ROWS,
+                       ITEM_MAX_UNITS, check_device_schedule)
+from .schedule import schedule as _schedule
 
 NEG_BIG = -1e9
 EXP_CLAMP = 60.0
 EPS = 1e-16
 MODES = ("softmax", "sigmoid", "raw")
-# the kernels' item limits (csrc/gat_items.cuh): edges of a forward and of
-# a backward item, slot rows and units of one item
-ITEM_MAX_EDGES, BWD_ITEM_MAX_EDGES = 512, 256
-ITEM_MAX_ROWS, ITEM_MAX_UNITS = 32, 8
 MAX_EDGES = 128   # the default max_edges (PERF.md: tuned on the card)
 # the default chunk_edges: a whole slot row of up to 511 pad edges is one
 # chunk, so a trash row's sum of identical terms keeps the plain version's
@@ -55,86 +51,13 @@ launches = 0
 bwd_launches = 0
 
 
-@dataclasses.dataclass
-class GATSchedule:
-    """The static work schedule of one edge stream and fold (see
-    csrc/gat_items.cuh). items int32 [n_items, 4], in unit order: a packed
-    item (u0, u1, -1, -1) takes units u0..u1-1, a chunk (row, part, e0, e1)
-    edges e0..e1-1 of one slot row and writes scratch part. The units cut
-    into chunks are split_units [n_split]; their parts for slot r are
-    part_offsets[j*F + r] .. part_offsets[j*F + r + 1]."""
-
-    n_rows: int
-    fold_slots: int
-    max_edges: int
-    chunk_edges: int
-    items: torch.Tensor
-    split_units: torch.Tensor
-    part_offsets: torch.Tensor
-    n_parts: int
-
-    def to(self, device):
-        return dataclasses.replace(
-            self, items=self.items.to(device),
-            split_units=self.split_units.to(device),
-            part_offsets=self.part_offsets.to(device))
-
-
 def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=MAX_EDGES,
              chunk_edges=CHUNK_EDGES):
-    """The schedule of a merged stream (numpy, on the host). A unit is a
-    node (fold = R: its R slot rows r*N + n) or a slot row (fold = 0).
-    Consecutive units are packed into one item while their edges add up to
-    at most max_edges (and at most ITEM_MAX_ROWS slot rows and
-    ITEM_MAX_UNITS units); a unit with more edges is cut into chunks of at
-    most chunk_edges edges of one slot row each."""
-    for name, k in (("max_edges", max_edges), ("chunk_edges", chunk_edges)):
-        if not 1 <= k <= ITEM_MAX_EDGES:
-            raise ValueError(f"{name} must be in 1..{ITEM_MAX_EDGES}, got "
-                             f"{k}")
-    if torch.is_tensor(row_offsets):
-        row_offsets = row_offsets.cpu().numpy()
-    ro = np.asarray(row_offsets, dtype=np.int64)
-    n_rows = len(ro) - 1
-    n = int(n_rows_per_rel)
-    f = int(fold) if fold else 1
-    if f > ITEM_MAX_ROWS:
-        raise ValueError(f"fold over R={f} > {ITEM_MAX_ROWS} relations is "
-                         "not supported")
-    deg = np.diff(ro)
-    unit_deg = deg.reshape(f, n).sum(0) if fold else deg
-    max_units = min(ITEM_MAX_UNITS, ITEM_MAX_ROWS // f)
-    ro_l = ro.tolist()
-    items, split_units, part_offsets = [], [], [0]
-    n_parts = 0
-    start, edges = -1, 0        # the open packed item
-    for u, e in enumerate(unit_deg.tolist()):
-        if start >= 0 and (e > max_edges or edges + e > max_edges
-                           or u - start == max_units):
-            items.append((start, u, -1, -1))
-            start = -1
-        if e > max_edges:
-            split_units.append(u)
-            for r in range(f):
-                row = r * n + u if fold else u
-                end = ro_l[row + 1]
-                for b in range(ro_l[row], end, chunk_edges):
-                    items.append((row, n_parts, b, min(b + chunk_edges, end)))
-                    n_parts += 1
-                part_offsets.append(n_parts)
-            continue
-        if start < 0:
-            start, edges = u, 0
-        edges += e
-    if start >= 0:
-        items.append((start, len(unit_deg), -1, -1))
-    return GATSchedule(
-        n_rows=n_rows, fold_slots=f, max_edges=int(max_edges),
-        chunk_edges=int(chunk_edges),
-        items=torch.tensor(items, dtype=torch.int32).reshape(-1, 4),
-        split_units=torch.tensor(split_units, dtype=torch.int32),
-        part_offsets=torch.tensor(part_offsets, dtype=torch.int32),
-        n_parts=n_parts)
+    """The merged GAT kernels' schedule of a stream (ops/schedule.py): a
+    unit is a node (fold = R: its R slot rows r*N + n) or a slot row
+    (fold = 0), at most ITEM_MAX_UNITS units a packed item."""
+    return _schedule(row_offsets, n_rows_per_rel, fold, max_edges,
+                     chunk_edges)
 
 
 def _check(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
@@ -160,7 +83,8 @@ def _check(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
     return n_rows, n_rel
 
 
-_INT_ARGS = ("src", "row_offsets", "dst", "csc_perm", "csc_offsets")
+_INT_ARGS = ("src", "row_offsets", "dst", "csc_rows", "csc_perm",
+             "csc_offsets")
 
 
 def check_cuda_args(device, **tensors):
@@ -217,26 +141,13 @@ def _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel, fold,
                      device, backward=False):
     """The schedule a launch uses: the caller's, checked against the
     stream, or (tests and ad-hoc calls) one built now from row_offsets."""
-    f = fold if fold else 1
     if sched is None:
         sched = schedule(row_offsets, n_rows_per_rel, fold,
                          chunk_edges=BWD_CHUNK_EDGES if backward
                          else CHUNK_EDGES).to(device)
-    if sched.n_rows != n_rows or sched.fold_slots != f:
-        raise ValueError(
-            f"schedule of {sched.n_rows} rows and fold {sched.fold_slots} "
-            f"given for {n_rows} rows and fold {f}")
-    most = BWD_ITEM_MAX_EDGES if backward else ITEM_MAX_EDGES
-    if max(sched.max_edges, sched.chunk_edges) > most:
-        raise ValueError(f"the {'backward' if backward else 'forward'} "
-                         f"takes items of at most {most} edges")
-    for name in ("items", "split_units", "part_offsets"):
-        t = getattr(sched, name)
-        if t.device != device or t.dtype != torch.int32:
-            raise ValueError(f"schedule {name} must be int32 on {device}")
-    if sched.items.data_ptr() % 16 or not sched.items.is_contiguous():
-        raise ValueError("schedule items must be contiguous, 16-byte aligned")
-    return sched
+    return check_device_schedule(
+        sched, n_rows, fold if fold else 1,
+        BWD_ITEM_MAX_EDGES if backward else ITEM_MAX_EDGES, device)
 
 
 def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
@@ -250,7 +161,7 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     n_rows_per_rel = N. Returns (out, row_max, row_sum): out is [R*N, D],
     or with fold=R the cross-relation sum [N, D]; row_max and row_sum are
     [R*N] (NEG_BIG and 0 for empty rows and for the sigmoid/raw modes).
-    sched: the stream's GATSchedule for this fold on the device (built
+    sched: the stream's schedule for this fold on the device (built
     from row_offsets when not given); the plain version needs none."""
     if xs_all.device.type == "cpu":
         return merged_gat_forward_plain(

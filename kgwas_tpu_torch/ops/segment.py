@@ -17,6 +17,12 @@ it with the fold), and ``slot(s)`` the relation whose block
 logit term and no ``d_att`` (the per-relation GAT and message-passing
 backwards), and with ``w=None`` every weight is 1. ``src_e`` is the source
 row the CSC gives the edge: pad edges sit at their slot's trash source row.
+The kernel takes its work from a static schedule over source rows
+(``csc_schedule``: packed short rows of one slot, chunks of long ones) and
+reads each CSC entry's cotangent row from ``csc_rows`` (``row_e`` in CSC
+order, with the fold's ``% N``), both built once per layout by
+``csc_fields`` and kept on its ``DeviceLayout``; the wrapper keeps its
+scratch on the schedule from the first launch.
 
 **CSR segment sum** (``csr_segment_sum``, ``csrc/csr_segment_sum.cu``).
 Counterpart of ``segment_sum_edges`` (``_pallas_segment_sum_ts``) with the
@@ -32,16 +38,24 @@ version for CPU tensors; there is no other route. ``launches`` (CSC) and
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
+from .schedule import (BWD_ITEM_MAX_EDGES, ITEM_MAX_ROWS,
+                       check_device_schedule, schedule)
 from .segment_ref import csr_rows, gather_rows, segment_sum
 
-# source rows per block of the CSC kernel (csc_segment_sum.cu kBlockRows): a
-# block's d_att partial belongs to one slot, so every slot boundary
-# src_base[r] must be a multiple of it
-BLOCK_ROWS = 64
 MAX_SLOTS = 32
+# the CSC kernel's schedule: items of up to 32 source rows and
+# CSC_MAX_EDGES entries of one slot, longer rows cut into chunks of
+# CSC_CHUNK_EDGES (their sums are added in part order). With the logit
+# term (the merged GAT layer) an item's fixed cost is larger (w and dz
+# through csc_perm, c per row, its d_att partial): its items take up to
+# CSC_LOGIT_MAX_EDGES entries, the most the kernel stages
+# (BWD_ITEM_MAX_EDGES; PERF.md)
+CSC_MAX_EDGES, CSC_LOGIT_MAX_EDGES, CSC_CHUNK_EDGES = 64, 256, 128
 
 launches = 0
 csr_launches = 0
@@ -67,6 +81,40 @@ def csc_sources(layout):
     return src
 
 
+def csc_schedule(csc_offsets, src_base, max_edges=CSC_MAX_EDGES,
+                 chunk_edges=CSC_CHUNK_EDGES):
+    """The CSC kernel's schedule of a layout's source rows (host, numpy):
+    no item holds rows of two slots, and its item_breaks are each slot's
+    first item."""
+    src_base = [int(b) for b in src_base]
+    return schedule(csc_offsets, src_base[-1], 0, max_edges, chunk_edges,
+                    max_units=ITEM_MAX_ROWS, breaks=src_base[1:-1])
+
+
+def csc_rows_of(dst, csc_perm, n_rows_per_rel, fold):
+    """Each CSC entry's cotangent row (numpy or torch): dst[csc_perm],
+    % N with the fold."""
+    rows = dst[csc_perm.long() if torch.is_tensor(csc_perm) else csc_perm]
+    return rows % n_rows_per_rel if fold else rows
+
+
+def csc_fields(dst, csc_perm, csc_offsets, n_rows_per_rel, src_base, fold,
+               device):
+    """What a DeviceLayout (models/hetero_gnn.py) keeps for the CSC
+    segment sum, from the stream's host arrays (numpy): its schedule on
+    device (csc_schedule), each CSC entry's cotangent row (csc_rows, int32)
+    and csc_fold. fold: the merged GAT layer's R (its backward has the
+    logit term, so larger items), else 0."""
+    rows = csc_rows_of(np.asarray(dst), np.asarray(csc_perm),
+                       n_rows_per_rel, fold)
+    sched = csc_schedule(csc_offsets, src_base, CSC_LOGIT_MAX_EDGES if fold
+                         else CSC_MAX_EDGES)
+    return {"csc_schedule": sched.to(device),
+            "csc_rows": torch.from_numpy(
+                np.ascontiguousarray(rows, dtype=np.int32)).to(device),
+            "csc_fold": bool(fold)}
+
+
 def csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold=0):
     """Plain PyTorch version: the [E, D] message cotangent formed in full
     and summed per source row with index_add_. Same arguments and results
@@ -90,14 +138,49 @@ def csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold=0):
     return d_xs, d_att
 
 
+def _csc_plan(layout, sched, n_rel, d, logits, dev):
+    """What csc_segment_sum keeps on the layout's schedule from its first
+    launch at feature width d: the layout's arrays checked, the slots'
+    source-row and item boundaries as C arrays, and the scratch of the
+    chunk partials (and of the d_att partials with the logit term)."""
+    from .gat_layer import check_cuda_args
+
+    key = (dev, d, logits)
+    plan = sched.cache.get(key)
+    if plan is not None:
+        return plan
+    src_base = list(layout.src_base)
+    if n_rel > MAX_SLOTS:
+        raise ValueError(f"src_base {src_base}: at most {MAX_SLOTS} slots")
+    check_device_schedule(sched, src_base[-1], 1, BWD_ITEM_MAX_EDGES, dev)
+    if len(sched.item_breaks) != n_rel + 1:
+        raise ValueError(f"a schedule of {len(sched.item_breaks) - 1} slots "
+                         f"given for {n_rel}")
+    e = layout.csc_perm.shape[0]
+    if layout.csc_rows.shape != (e,):
+        raise ValueError(f"csc_rows must be ({e},)")
+    check_cuda_args(dev, csc_rows=layout.csc_rows, csc_perm=layout.csc_perm,
+                    csc_offsets=layout.csc_offsets)
+    f32 = dict(dtype=torch.float32, device=dev)
+    plan = sched.cache[key] = SimpleNamespace(
+        bases=(ctypes.c_longlong * (n_rel + 1))(*src_base),
+        item_bases=(ctypes.c_longlong * (n_rel + 1))(*sched.item_breaks),
+        part_acc=torch.empty(sched.n_parts, d, **f32),
+        part_c=torch.empty(sched.n_parts, **f32) if logits else None,
+        partial=(torch.empty(sched.items.shape[0], d, **f32) if logits
+                 else None))
+    return plan
+
+
 def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0):
     """(d_xs_all [S, D], d_att [R, D] or None) of one layer's source rows.
 
     g [N, D] with fold=R (else [R*N, D]) is the layer output's cotangent;
     w, dz [E] the per-edge weights and logit cotangents (w=None: weight 1;
     dz=None: no logit term, and att, d_att are None); xs_all [S, D] and att
-    [R, D] the layer's inputs; layout a DeviceLayout (models/hetero_gnn.py),
-    whose dst, csc_perm, csc_offsets and src_base this reads."""
+    [R, D] the layer's inputs; layout a DeviceLayout (models/hetero_gnn.py)
+    with csc_fields for this fold, whose csc_schedule, csc_rows, csc_perm,
+    csc_offsets and src_base this reads."""
     if xs_all.device.type == "cpu":
         return csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold)
     if xs_all.device.type != "cuda":
@@ -109,35 +192,34 @@ def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0):
     d = xs_all.shape[1]
     if g.shape != ((n if fold else n * n_rel), d):
         raise ValueError(f"g {tuple(g.shape)} does not match the layout")
-    if n_rel > MAX_SLOTS or any(b % BLOCK_ROWS for b in src_base):
-        raise ValueError(f"src_base {src_base}: at most {MAX_SLOTS} slots, "
-                         f"each a multiple of {BLOCK_ROWS} rows")
     e = layout.csc_perm.shape[0]
     edge = {k: v for k, v in (("w", w), ("dz", dz)) if v is not None}
     if any(v.shape != (e,) for v in edge.values()):
         raise ValueError(f"w and dz must be ({e},)")
+    sched = getattr(layout, "csc_schedule", None)
+    if sched is None or layout.csc_fold != bool(fold):
+        raise ValueError(f"the layout has no CSC fields for fold {fold} "
+                         "(segment.csc_fields)")
     from .gat_layer import check_cuda_args
 
-    check_cuda_args(xs_all.device, g=g, xs_all=xs_all, dst=layout.dst,
-                    csc_perm=layout.csc_perm, csc_offsets=layout.csc_offsets,
-                    **edge, **({} if att is None else {"att": att}))
+    dev = xs_all.device
+    plan = _csc_plan(layout, sched, n_rel, d, dz is not None, dev)
+    check_cuda_args(dev, g=g, xs_all=xs_all, **edge,
+                    **({} if att is None else {"att": att}))
     from .build import library
 
-    n_src = src_base[-1]
     d_xs = torch.empty_like(xs_all)
-    d_att = partial = None
-    if dz is not None:
-        d_att = torch.empty_like(att)
-        partial = torch.empty(n_src // BLOCK_ROWS, d, dtype=torch.float32,
-                              device=xs_all.device)
+    d_att = None if att is None else torch.empty_like(att)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    bases = (ctypes.c_longlong * (n_rel + 1))(*src_base)
-    stream = torch.cuda.current_stream(xs_all.device).cuda_stream
     err = library("csc_segment_sum")(
         g.data_ptr(), ptr(w), ptr(dz), xs_all.data_ptr(), ptr(att),
-        layout.dst.data_ptr(), layout.csc_perm.data_ptr(),
-        layout.csc_offsets.data_ptr(), bases, d_xs.data_ptr(), ptr(d_att),
-        ptr(partial), n_rel, n, int(bool(fold)), d, stream)
+        layout.csc_rows.data_ptr(), layout.csc_perm.data_ptr(),
+        layout.csc_offsets.data_ptr(), sched.items.data_ptr(),
+        sched.items.shape[0], sched.split_units.data_ptr(),
+        sched.part_offsets.data_ptr(), sched.split_units.shape[0],
+        plan.part_acc.data_ptr(), ptr(plan.part_c), plan.bases,
+        plan.item_bases, d_xs.data_ptr(), ptr(d_att), ptr(plan.partial),
+        n_rel, d, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csc_segment_sum launch failed: cudaError {err}")
     global launches

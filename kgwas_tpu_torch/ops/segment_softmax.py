@@ -13,8 +13,13 @@ dst-sorted CSR (``src`` into the projected source table ``xs``,
 ``segment_softmax_spmm_fwd`` launches ``csrc/segment_softmax_spmm_fwd.cu``
 and ``segment_softmax_spmm_bwd`` launches ``csrc/segment_softmax_spmm_bwd.
 cu`` for CUDA tensors; for CPU tensors they run their ``_plain`` versions.
-There is no other route. ``launches`` and ``bwd_launches`` count kernel
-launches. ``SegmentSoftmaxSpmm`` is the op as an autograd function: its
+There is no other route. ``launches`` and ``bwd_launches`` count calls of
+the two wrappers that reach the card (a forward call is two device launches
+when its schedule cuts a row into chunks). The forward kernel takes its
+work from a static schedule of the relation's rows (``row_schedule``, built
+once per relation stream and kept on its ``DeviceLayout``: packed short
+rows, chunks of long ones, combined in a fixed order by a second launch).
+``SegmentSoftmaxSpmm`` is the op as an autograd function: its
 backward is ``segment_softmax_spmm_bwd`` (per-edge ``p_e`` and
 ``d_logit_e``), then ``segment.csc_segment_sum(g, p, None)`` over the
 relation's CSC for ``d_xs``: the ``[E, D]`` message cotangent is never
@@ -25,9 +30,16 @@ from __future__ import annotations
 import torch
 
 from . import segment
+from .schedule import (BWD_ITEM_MAX_EDGES, ITEM_MAX_ROWS,
+                       check_device_schedule, schedule)
 from .segment_ref import EPS, NEG_BIG, csr_rows, gather_rows, segment_max, segment_sum
 
 EXP_CLAMP = 60.0
+# the forward's schedule: items of up to 32 rows and MAX_EDGES edges, a
+# longer row cut into chunks of CHUNK_EDGES (a relation's trash row sums up
+# to 511 identical pad terms: its chunks round otherwise than the plain
+# version's sequential sum, within the trash rows' rtol 1e-4)
+MAX_EDGES, CHUNK_EDGES = 128, 128
 
 launches = 0
 bwd_launches = 0
@@ -57,12 +69,22 @@ def segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets):
     return out / (row_sum + EPS)[:, None], row_max, row_sum
 
 
-def segment_softmax_spmm_fwd(xs, src, logits, row_offsets):
+def row_schedule(row_offsets, max_edges=MAX_EDGES, chunk_edges=CHUNK_EDGES):
+    """The forward kernel's schedule of one relation's rows (host, numpy):
+    a unit is a row, up to ITEM_MAX_ROWS of them an item."""
+    n_rows = len(row_offsets) - 1
+    return schedule(row_offsets, n_rows, 0, max_edges, chunk_edges,
+                    max_units=ITEM_MAX_ROWS)
+
+
+def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None):
     """(out [n_rows, D], row_max [n_rows], row_sum [n_rows]).
 
     xs [S, D] f32 projected source rows; src [E] int32 into xs
     (dst-sorted); logits [E] f32; row_offsets [n_rows + 1] int32, every
-    edge in a row. Empty rows give 0, NEG_BIG and 0."""
+    edge in a row. Empty rows give 0, NEG_BIG and 0. sched: the stream's
+    row_schedule on the device (built from row_offsets when not given);
+    the plain version needs none."""
     if xs.device.type == "cpu":
         return segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets)
     if xs.device.type != "cuda":
@@ -70,19 +92,39 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets):
     n_rows = _check(xs, src, logits, row_offsets)
     from .gat_layer import check_cuda_args
 
-    check_cuda_args(xs.device, xs=xs, src=src, logits=logits,
+    dev = xs.device
+    check_cuda_args(dev, xs=xs, src=src, logits=logits,
                     row_offsets=row_offsets)
+    if sched is None:
+        sched = row_schedule(row_offsets).to(dev)
+    d = xs.shape[1]
+    # the chunks' partials (m, s, acc) for the combine, kept on the
+    # schedule from its first launch (checked then) at this width
+    part = sched.cache.get((dev, d))
+    if part is None:
+        check_device_schedule(sched, n_rows, 1, BWD_ITEM_MAX_EDGES, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        part = sched.cache[(dev, d)] = (
+            torch.empty(sched.n_parts, **f32),
+            torch.empty(sched.n_parts, **f32),
+            torch.empty(sched.n_parts, d, **f32))
+    elif sched.n_rows != n_rows:
+        raise ValueError(f"schedule of {sched.n_rows} rows given for "
+                         f"{n_rows}")
+    part_m, part_s, part_acc = part
     from .build import library
 
-    d = xs.shape[1]
-    out = torch.empty(n_rows, d, dtype=torch.float32, device=xs.device)
-    row_max = torch.empty(n_rows, dtype=torch.float32, device=xs.device)
-    row_sum = torch.empty(n_rows, dtype=torch.float32, device=xs.device)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    out = torch.empty(n_rows, d, dtype=torch.float32, device=dev)
+    row_max = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    row_sum = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("segment_softmax_spmm_fwd")(
         xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
         row_offsets.data_ptr(), out.data_ptr(), row_max.data_ptr(),
-        row_sum.data_ptr(), n_rows, d, stream)
+        row_sum.data_ptr(), sched.items.data_ptr(), sched.items.shape[0],
+        sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
+        sched.split_units.shape[0], part_m.data_ptr(), part_s.data_ptr(),
+        part_acc.data_ptr(), n_rows, d, stream)
     if err != 0:
         raise RuntimeError(
             f"segment_softmax_spmm_fwd launch failed: cudaError {err}")
@@ -180,7 +222,8 @@ class SegmentSoftmaxSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, logits, layout):
         out, row_max, row_sum = segment_softmax_spmm_fwd(
-            xs, layout.src, logits, layout.row_offsets)
+            xs, layout.src, logits, layout.row_offsets,
+            sched=getattr(layout, "row_schedule", None))
         ctx.save_for_backward(xs, logits, row_max, row_sum, out)
         ctx.layout = layout
         return out
