@@ -40,8 +40,10 @@ PyTorch version:
   6. the model variants: (a) on the 20k-SNP KG, the per-relation GAT
      kernels (segment_softmax_spmm_fwd / _bwd) on every relation's stream,
      the CSR segment sum (with and without weights) and the CSC sum without
-     logit term on every merged group, against their plain versions, two
-     runs bitwise equal; (b) GAT with max and min aggregation, SAGE, GCN and
+     logit term on every merged group, the backward and the CSR sum also on
+     schedules with max_edges 8 and on a stream with a hub row of 3001
+     edges and empty rows, against their plain versions, two runs bitwise
+     equal; (b) GAT with max and min aggregation, SAGE, GCN and
      SGC at full width on the 200k-SNP KG: predict_all through the kernels
      against the plain ops, KGWAS_P (GAT-max, GCN), KGWAS.train over three
      steps (counts zeroed just before each entry point: per forward and
@@ -53,11 +55,13 @@ PyTorch version:
      new kernel's ms against its bound, its plain version and, for the
      CSR sum, torch.sparse.mm
 
-  Phases 5d (GAT sum) and 6c (GAT-max) also time csc_segment_sum and
-  segment_softmax_spmm_fwd launch by launch (6c also the CSC sum of SAGE
+  Phases 5d (GAT sum) and 6c (GAT-max, SAGE, GCN) also time the segment
+  kernels launch by launch (segment_launches: the CSC sum in each;
+  segment_softmax_spmm_fwd and _bwd on GAT-max; csr_segment_sum on SAGE
   and GCN): each as it runs, without its trash rows' pad edges, on
-  schedules with other max_edges, and the CSC sum with w and dz dropped
-  (its gather alone).
+  schedules with other max_edges, the CSC sum with w and dz dropped (its
+  gather alone), and the CSR sum beside gather_probe.cu on its own index
+  stream.
 
 Kernel ms is host-paced: the launches issued one by one from Python with
 CUDA events around them, so a wrapper's host time counts where it is
@@ -67,11 +71,11 @@ a CUDA graph.
 With KGWAS_PARENT_CSRC set to an earlier checkout's
 kgwas_tpu_torch/ops/csrc, phases 1, 4, 5d and 6c also build that
 checkout's kernels and time them on the same launches: its merged GAT
-kernels (this checkout's C interface), its segment_softmax_spmm_fwd and
-csc_segment_sum through its own wrappers, and that csc_segment_sum
-reading dst in CSC order; 5d (GAT sum) and 6c (GAT-max) also time the
-train step with those two kernels in place of this checkout's,
-alternating.
+kernels (this checkout's C interface), and its segment kernels through its
+own wrappers, its segment_softmax_spmm_bwd also without its read of the
+saved output; 5d (GAT sum) and 6c (GAT-max, SAGE) also time the train
+step, and 6c (SAGE, GCN) the forward, with its segment kernels in place
+of this checkout's, alternating.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line. Exits non-zero, printing no
@@ -83,6 +87,7 @@ import dataclasses
 import functools
 import importlib
 import importlib.util
+import inspect
 import itertools
 import json
 import os
@@ -165,16 +170,15 @@ KERNEL_LAUNCH = {
     "merged_gat_bwd_combine_kernel": (128, 0),
     "segment_softmax_spmm_fwd_kernel": (256, 0),
     "segment_softmax_combine_kernel": (256, 0),
+    "segment_softmax_spmm_bwd_kernel": (256, 0),
     "csc_items_kernel": (256, 0),
     "csc_combine_kernel": (256, 0),
     "group_sum_kernel": (256, 0),
     "slot_sum_kernel": (256, 0),
+    "csr_segment_sum_kernel": (256, 0),
+    "csr_combine_kernel": (256, 0),
     "gather_probe_kernel": (256, 0),
 }
-# the earlier checkout's one-warp-per-row kernels: 8 warps a block
-PARENT_LAUNCH = {k: (256, 0) for k in (
-    "segment_softmax_spmm_fwd_kernel", "csc_rows_kernel",
-    "slot_sum_kernel")}
 # template arguments of the entries reported: D = 128 (softmax mode, with
 # and without the logit term), and the probe's rows in flight
 D128 = ("<0, true, 1>", "<0>", "<true, 1>", "<true, 1, true>",
@@ -214,17 +218,19 @@ class ParentKernels:
     this checkout's on the same launches. The merged GAT kernels have this
     checkout's C interface and run through its wrappers with the earlier
     library swapped in (fwd, bwd take the wrappers' arguments and sched).
-    segment_softmax_spmm_fwd and csc_segment_sum run through the earlier
-    checkout's own wrappers (its package imported as
-    parent_kgwas_tpu_torch, its kernels built by its own ops/build.py), so
-    their host-paced times carry that checkout's wrapper cost; seg_fwd and
-    csc take this checkout's wrapper arguments. csc with dst_csc runs the
-    earlier csc_segment_sum with one line changed: it reads each CSC
-    entry's row from an array in CSC order (dst[csc_perm], unfolded)
-    instead of dst[csc_perm[i]]."""
+    The segment kernels (SEGMENT) run through the earlier checkout's own
+    wrappers (its package imported as parent_kgwas_tpu_torch, its kernels
+    built by its own ops/build.py), so their host-paced times carry that
+    checkout's wrapper cost; seg_fwd, seg_bwd, csc and csr take this
+    checkout's wrapper arguments, and pass sched on where the earlier
+    wrapper takes one. seg_bwd_no_out runs the earlier
+    segment_softmax_spmm_bwd with its read of the saved output dropped
+    (dot_r = 0: a timing, not a result), where its source has the one line
+    OUT_LINE that reads it."""
 
-    DST_LINE = "const int row = a.dst[e];"
-    SEGMENT = ("segment_softmax_spmm_fwd", "csc_segment_sum")
+    OUT_LINE = "ov.load(a.out + o * a.d, lane, a.d);"
+    SEGMENT = ("segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd",
+               "csc_segment_sum", "csr_segment_sum")
 
     def __init__(self, build, csrc):
         self.build = build
@@ -239,20 +245,19 @@ class ParentKernels:
         self.psegment = importlib.import_module(f"{pkg}.ops.segment")
         self.psoftmax = importlib.import_module(f"{pkg}.ops.segment_softmax")
         self.pbuild.build_all(self.SEGMENT)
-        # lever (a) alone: the earlier CSC sum reading dst in CSC order
-        text = (self.csrc / "csc_segment_sum.cu").read_text()
-        if text.count(self.DST_LINE) != 1:
-            raise RuntimeError("the earlier csc_segment_sum.cu has no single "
-                               f"line {self.DST_LINE!r}")
-        patched = build.build_dir() / "parent_csc_dst_csc" / "csc_dst_csc.cu"
-        patched.parent.mkdir(parents=True, exist_ok=True)
-        for header in self.csrc.glob("*.cuh"):
-            (patched.parent / header.name).write_text(header.read_text())
-        patched.write_text(text.replace(
-            self.DST_LINE, "const int row = a.dst[base + lane];"))
-        entry = self.pbuild.KERNELS["csc_segment_sum"]
-        self._csc_dst_csc = build.build_source(
-            patched, "parent_csc_dst_csc", entry[1], entry[2])
+        # the earlier backward without its read of the saved output
+        text = (self.csrc / "segment_softmax_spmm_bwd.cu").read_text()
+        self._bwd_no_out = None
+        if text.count(self.OUT_LINE) == 1:
+            patched = (build.build_dir() / "parent_bwd_no_out"
+                       / "segment_softmax_spmm_bwd_no_out.cu")
+            patched.parent.mkdir(parents=True, exist_ok=True)
+            for header in self.csrc.glob("*.cuh"):
+                (patched.parent / header.name).write_text(header.read_text())
+            patched.write_text(text.replace(self.OUT_LINE, "ov.zero();"))
+            entry = self.pbuild.KERNELS["segment_softmax_spmm_bwd"]
+            self._bwd_no_out = build.build_source(
+                patched, "parent_bwd_no_out", entry[1], entry[2])
 
     def build_logs(self):
         """{name: build record} of the earlier segment kernels."""
@@ -277,31 +282,55 @@ class ParentKernels:
         return self._swapped("merged_gat_bwd", gat_layer.merged_gat_bwd,
                              *args, **kwargs)
 
-    def seg_fwd(self, xs, src, logits, ro, sched=None):
-        return self.psoftmax.segment_softmax_spmm_fwd(xs, src, logits, ro)
+    @staticmethod
+    @functools.lru_cache(maxsize=None)
+    def _takes_sched(fn):
+        return "sched" in inspect.signature(fn).parameters
 
-    def csc(self, g, w, dz, xs, att, layout, fold=0, dst_csc=None):
-        if dst_csc is None:
-            return self.psegment.csc_segment_sum(g, w, dz, xs, att, layout,
-                                                 fold)
+    def _call(self, fn, args, sched):
+        """fn(*args), with sched when fn takes one."""
+        if sched is not None and self._takes_sched(fn):
+            return fn(*args, sched=sched)
+        return fn(*args)
+
+    def seg_fwd(self, xs, src, logits, ro, sched=None):
+        return self._call(self.psoftmax.segment_softmax_spmm_fwd,
+                          (xs, src, logits, ro), sched)
+
+    def seg_bwd(self, *args, sched=None):
+        return self._call(self.psoftmax.segment_softmax_spmm_bwd, args[:8],
+                          sched)
+
+    def seg_bwd_no_out(self, *args, sched=None):
+        """seg_bwd with the earlier kernel's out read dropped, or None when
+        its source has no such line."""
+        if self._bwd_no_out is None:
+            return None
         loaded = self.pbuild._loaded
-        old = loaded.get("csc_segment_sum")
-        loaded["csc_segment_sum"] = self._csc_dst_csc
+        old = loaded.get("segment_softmax_spmm_bwd")
+        loaded["segment_softmax_spmm_bwd"] = self._bwd_no_out
         try:
-            return self.psegment.csc_segment_sum(
-                g, w, dz, xs, att, SimpleNamespace(**{
-                    **vars(layout), "dst": dst_csc}), fold)
+            return self.seg_bwd(*args, sched=sched)
         finally:
-            loaded["csc_segment_sum"] = old
+            loaded["segment_softmax_spmm_bwd"] = old
+
+    def csc(self, g, w, dz, xs, att, layout, fold=0):
+        return self.psegment.csc_segment_sum(g, w, dz, xs, att, layout, fold)
+
+    def csr(self, x, src, ro, w=None, sched=None):
+        return self._call(self.psegment.csr_segment_sum, (x, src, ro, w),
+                          sched)
 
     def model_kernels(self):
-        """A context in which the model's layer ops run the earlier #6 and
-        #8 through the earlier wrappers."""
+        """A context in which the model's layer ops run the earlier segment
+        kernels (#6, #7, #8, #10) through the earlier wrappers."""
         from kgwas_tpu_torch.ops import segment, segment_softmax
         stack = contextlib.ExitStack()
-        stack.enter_context(swapped(segment, csc_segment_sum=self.csc))
+        stack.enter_context(swapped(segment, csc_segment_sum=self.csc,
+                                    csr_segment_sum=self.csr))
         stack.enter_context(swapped(segment_softmax,
-                                    segment_softmax_spmm_fwd=self.seg_fwd))
+                                    segment_softmax_spmm_fwd=self.seg_fwd,
+                                    segment_softmax_spmm_bwd=self.seg_bwd))
         return stack
 
 
@@ -667,12 +696,15 @@ def csc_bound(g, w, dz, xs, att, layout):
 
 
 def stream_without_trash(src, dst, row_offsets, csc_perm, csc_offsets,
-                         n_per_rel, n_real, src_base, fold, device):
+                         n_per_rel, n_real, src_base, fold, device,
+                         row_edges=()):
     """An edge stream (a merged group's, or one relation's) with every trash
     row's (pad) edges taken out, its CSC rebuilt over the kept edges' CSC
-    source rows and its schedules built: a diagnostic stream, not a layer's
-    input. Returns the layout and the kept edges' mask on the device."""
-    from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
+    source rows and its schedules built (row_schedule with the item sizes
+    row_edges, the relation streams' by default): a diagnostic stream, not
+    a layer's input. Returns the layout and the kept edges' mask on the
+    device."""
+    from kgwas_tpu_torch.ops import gat_layer, schedule, segment
 
     deg = np.diff(row_offsets.astype(np.int64))
     keep = np.repeat(np.arange(len(deg)), deg) % n_per_rel != n_real
@@ -695,7 +727,7 @@ def stream_without_trash(src, dst, row_offsets, csc_perm, csc_offsets,
         src=t(src[keep]), row_offsets=t(ro), dst=t(kept_dst),
         csc_perm=t(perm), csc_offsets=t(off),
         src_base=tuple(int(b) for b in src_base), n_rows_per_rel=n_per_rel,
-        row_schedule=segment_softmax.row_schedule(ro).to(device),
+        row_schedule=schedule.row_schedule(ro, *row_edges).to(device),
         **segment.csc_fields(kept_dst, perm, off, n_per_rel, src_base, fold,
                              device),
         gat_bwd_schedule=gat_layer.schedule(
@@ -1047,7 +1079,7 @@ def phase_variant_kernels(kt, device, tmp):
     version."""
     from kgwas_tpu_torch.graph import build_merged_layouts
     from kgwas_tpu_torch.models import device_layouts
-    from kgwas_tpu_torch.ops import segment, segment_softmax
+    from kgwas_tpu_torch.ops import schedule, segment, segment_softmax
 
     data = kt.KGWAS_Data.from_synthetic(
         seed=SEED + 1, data_path=str(tmp / "small"), **SMALL_KG)
@@ -1085,11 +1117,15 @@ def phase_variant_kernels(kt, device, tmp):
                 worst["segment_softmax_spmm_fwd"] = max(
                     worst["segment_softmax_spmm_fwd"], err)
             bargs = fargs + (got[1], got[2], got[0], g)
-            edge = repeat_equal(segment_softmax.segment_softmax_spmm_bwd,
-                                bargs, f"{rk} backward")
-            held("segment_softmax_spmm_bwd", edge, bargs,
-                 segment_softmax.segment_softmax_spmm_bwd_plain,
-                 f"{rk} backward")
+            # the layout's schedule, and max_edges 8: real rows cut too
+            for sched in (RL.row_schedule, schedule.row_schedule(
+                    cg.relations[rk].row_offsets, 8, 8).to(device)):
+                what = f"{rk} backward max_edges {sched.max_edges}"
+                edge = repeat_equal(functools.partial(
+                    segment_softmax.segment_softmax_spmm_bwd, sched=sched),
+                    bargs, what)
+                held("segment_softmax_spmm_bwd", edge, bargs,
+                     segment_softmax.segment_softmax_spmm_bwd_plain, what)
             cargs = (g, edge[0], None, xs, None, RL)
             held("csc_segment_sum",
                  repeat_equal(segment.csc_segment_sum, cargs, f"{rk} csc"),
@@ -1097,19 +1133,57 @@ def phase_variant_kernels(kt, device, tmp):
     for dst_t, DL in mp.items():
         x = t(rng.standard_normal((DL.src_base[-1], HIDDEN)) * 0.1)
         g = t(rng.standard_normal((DL.row_offsets.shape[0] - 1, HIDDEN)))
+        scheds = (DL.row_schedule, schedule.row_schedule(
+            layouts[dst_t].row_offsets, 8, 8).to(device))
         for w in (None, DL.sym_e):
             what = f"{dst_t} {'weighted' if w is not None else 'unweighted'}"
             rargs = (x, DL.src, DL.row_offsets, w)
-            held("csr_segment_sum",
-                 repeat_equal(segment.csr_segment_sum, rargs, f"{what} csr"),
-                 rargs, segment.csr_segment_sum_plain, f"{what} csr")
+            for sched in scheds:
+                held("csr_segment_sum", repeat_equal(
+                    functools.partial(segment.csr_segment_sum, sched=sched),
+                    rargs, f"{what} csr"),
+                    rargs, segment.csr_segment_sum_plain,
+                    f"{what} csr max_edges {sched.max_edges}")
             cargs = (g, w, None, x, None, DL)
             held("csc_segment_sum",
                  repeat_equal(segment.csc_segment_sum, cargs, f"{what} csc"),
                  cargs, csc_plain, f"{what} csc")
+    # a stream with a hub row of 3001 edges, cut into chunks, and empty
+    # rows, for the backward and the CSR sum
+    n_h, hub = 2048, 100
+    deg = rng.poisson(4, n_h)
+    deg[rng.choice(n_h, 40, replace=False)] = 0
+    deg[hub] = 3001
+    ro_np = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    ro_h = torch.from_numpy(ro_np).to(device)
+    src_h = torch.from_numpy(rng.integers(0, 4096, ro_np[-1]).astype(
+        np.int32)).to(device)
+    xs = t(rng.standard_normal((4096, HIDDEN)) * 0.1)
+    logits = t(rng.standard_normal(src_h.shape[0]) * 1.5)
+    g = t(rng.standard_normal((n_h, HIDDEN)))
+    w = t(rng.random(src_h.shape[0]))
+    for k in (schedule.ROW_MAX_EDGES, 8):
+        sched = schedule.row_schedule(ro_np, k, k).to(device)
+        if hub not in sched.split_units.tolist():
+            raise AssertionError("the hub row was not cut into chunks")
+        out, row_max, row_sum = segment_softmax.segment_softmax_spmm_fwd(
+            xs, src_h, logits, ro_h)
+        bargs = (xs, src_h, logits, ro_h, row_max, row_sum, out, g)
+        what = f"hub stream backward max_edges {k}"
+        held("segment_softmax_spmm_bwd", repeat_equal(functools.partial(
+            segment_softmax.segment_softmax_spmm_bwd, sched=sched), bargs,
+            what), bargs, segment_softmax.segment_softmax_spmm_bwd_plain,
+            what)
+        for wh in (None, w):
+            what = f"hub stream csr max_edges {k}"
+            rargs = (xs, src_h, ro_h, wh)
+            held("csr_segment_sum", repeat_equal(functools.partial(
+                segment.csr_segment_sum, sched=sched), rargs, what), rargs,
+                segment.csr_segment_sum_plain, what)
     log(f"phase 6a ok: {sum(len(L.rel_keys) for L in rel.values())} "
-        f"relation streams and {len(mp)} merged groups, kernels vs plain "
-        f"within tolerance, bitwise repeatable; worst abs err "
+        f"relation streams, {len(mp)} merged groups and a hub stream, "
+        f"kernels vs plain within tolerance (#7 and #10 also at max_edges "
+        f"8), bitwise repeatable; worst abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
 
@@ -1230,7 +1304,7 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
         else:
             plain = functools.partial(
                 swapped, segment,
-                csr_segment_sum=segment.csr_segment_sum_plain,
+                csr_segment_sum=without_sched(segment.csr_segment_sum_plain),
                 csc_segment_sum=segment.csc_segment_sum_plain)
 
         # (b) serving: counts set to 0 just before the entry point
@@ -1335,11 +1409,13 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
             step_ms.append(start.elapsed_time(stop))
         fwd_ms = statistics.median(fwd_ms[2:])
         step_ms = statistics.median(step_ms[3:])
-        if parent and name == "GAT-max":
+        if parent and name in ("GAT-max", "SAGE"):
             cycle = itertools.cycle(batches)
             step_vs_parent(name, lambda: train_step(  # noqa: B023
                 model, opt, x, layouts, next(cycle), y_node,  # noqa: B023
                 w_node), parent)  # noqa: B023
+        if parent and name in ("SAGE", "GCN"):
+            step_vs_parent(name, run.predict_all, parent, "forward")
         profile_device(run.predict_all, fwd_ms, f"{name} forward")
         profile_device(lambda: train_step(model, opt, x, layouts,  # noqa: B023
                                           batches[0], y_node, w_node),
@@ -1370,13 +1446,12 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
         recs = {fwd_name: rec_f, "csc_segment_sum": rec_c}
         if gat:
             recs["segment_softmax_spmm_bwd"] = rec_b
-        if name == "GAT-max":   # #6 and #8 launch by launch
-            for k in ("segment_softmax_spmm_fwd", "csc_segment_sum"):
-                segment_launches(name, k, recs[k].calls, run.layouts,
-                                 layouts, cg, device, parent)
-        if name in ("SAGE", "GCN"):   # #8 without w, and with it
-            segment_launches(name, "csc_segment_sum", rec_c.calls,
-                             run.layouts, layouts, cg, device, parent)
+        # the segment kernels launch by launch: #6, #7 and #8 on GAT-max,
+        # #10 and #8 (without w, and with it) on SAGE and GCN
+        if name in ("GAT-max", "SAGE", "GCN"):
+            for k, rec in recs.items():
+                segment_launches(name, k, rec.calls, run.layouts, layouts,
+                                 cg, device, parent)
         parts = []
         for k, rec in recs.items():
             fn, plain_fn, lib = plain_of[k]
@@ -1468,6 +1543,21 @@ def probe_streams(layouts, cg):
             for k, (n, i) in out.items()}
 
 
+def probe_call(fn, table, idx, u, per_warp=256):
+    """(a gather_probe launch over the int32 indices idx into table [S,
+    128], u rows in flight a warp and per_warp indices a warp, its output
+    [warps, 128])."""
+    n = idx.numel()
+    out = torch.empty(-(-n // per_warp), HIDDEN, device=table.device)
+
+    def go():
+        err = fn(table.data_ptr(), idx.data_ptr(), n, per_warp,
+                 out.data_ptr(), u, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"gather_probe: cudaError {err}")
+    return go, out
+
+
 def phase_probe(build, layouts, cg, device, card):
     """Phase 1b: the gather ceiling. gather_probe.cu sums random 512-byte
     rows (float4 a lane, a warp a row, U rows in flight a warp) from a
@@ -1477,7 +1567,6 @@ def phase_probe(build, layouts, cg, device, card):
     does not."""
     fn = build.library("gather_probe")
     rng = np.random.default_rng(SEED + 9)
-    per_warp = 256
     best = {"l2": 0.0, "hbm": 0.0}
     for name, (n_rows, idx) in probe_streams(layouts, cg).items():
         table = torch.randn(n_rows, HIDDEN, device=device)
@@ -1486,15 +1575,9 @@ def phase_probe(build, layouts, cg, device, card):
             i = idx if order == "real" else rng.permutation(idx)
             i = torch.from_numpy(i).to(device)
             n = i.numel()
-            out = torch.empty(-(-n // per_warp), HIDDEN, device=device)
             rates = {}
             for u in PROBE_U:
-                def go():
-                    err = fn(table.data_ptr(), i.data_ptr(), n,  # noqa: B023
-                             per_warp, out.data_ptr(), u,  # noqa: B023
-                             torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"gather_probe: cudaError {err}")
+                go, out = probe_call(fn, table, i, u)
                 ms = cuda_ms(go, 20)
                 rates[u] = n * HIDDEN * 4 / (ms * 1e-3) / 1e12
             want = table[i.long()].sum(0)
@@ -1538,14 +1621,24 @@ def gather_floors(cg, layouts, rates):
             r = cg.relations[rk]
             rel_fwd += k * ms(len(r.src), cg.padded_nodes[r.src_type])
             rel_csc += k * ms(len(r.src), cg.padded_nodes[r.dst_type])
-    gcn = sum(ms(len(layouts[t].src), layouts[t].n_src_total)
-              for t in live)
+    # the 'mp' path: the CSR sum gathers x rows of the merged source table,
+    # the CSC sum g rows of the unfolded [R*N, D] cotangent; SAGE runs
+    # Gene once and SNP twice, GCN each once
+    def mp(kind, counts):
+        return sum(k * ms(len(layouts[t].src), layouts[t].n_src_total
+                          if kind == "csr" else layouts[t].n_rows_total)
+                   for t, k in counts.items())
+
+    gcn = dict.fromkeys(live, 1)
     floors = {"merged_gat_fwd": merged, "merged_gat_bwd": merged,
               "csc_segment_sum (GAT sum)": csc,
               "segment_softmax_spmm_fwd": rel_fwd,
               "segment_softmax_spmm_bwd": rel_fwd,
               "csc_segment_sum (GAT max)": rel_csc,
-              "csr_segment_sum (GCN)": gcn}
+              "csr_segment_sum (SAGE)": mp("csr", live),
+              "csr_segment_sum (GCN)": mp("csr", gcn),
+              "csc_segment_sum (SAGE)": mp("csc", live),
+              "csc_segment_sum (GCN)": mp("csc", gcn)}
     log("  gather floors per forward or step: "
         + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
     return floors
@@ -1571,98 +1664,139 @@ def stream_of(host_layouts, dev_layouts, cg, layout):
 
 
 # max_edges of the segment kernels' schedules timed beside each layout's
-# own (the CSC sum stages at most 256 entries an item: kBwdMaxEdges)
+# own (the kernels stage at most 256 edges an item: kBwdMaxEdges)
 SEGMENT_SWEEP = (64, 128, 256)
+
+
+def launch_stream(kernel, args, host_layouts, dev_layouts, cg, device):
+    """(label, the layout a segment kernel's launch read, the launch's stream
+    without trash rows and its kept edges' mask) of one recorded call."""
+    from kgwas_tpu_torch.ops import schedule
+
+    if kernel == "csc_segment_sum":
+        layout, fold = args[5], (args[6] if len(args) > 6 else 0)
+    elif kernel == "csr_segment_sum":
+        layout, fold = next(DL for DL in dev_layouts.values()
+                            if DL.src is args[1]), 0
+    else:
+        layout, fold = next(RL for DL in dev_layouts.values()
+                            for RL in (DL.relations or ())
+                            if RL.src is args[1]), 0
+    host, label = stream_of(host_layouts, dev_layouts, cg, layout)
+    row_edges = ((schedule.CSR_MAX_EDGES, schedule.CSR_CHUNK_EDGES)
+                 if kernel == "csr_segment_sum" else ())
+    lay_nt, keep = stream_without_trash(*host[:-1], fold, device, row_edges)
+    return label, layout, host, lay_nt, keep
 
 
 def segment_launches(cfg_name, kernel, calls, host_layouts, dev_layouts, cg,
                      device, parent, reps=10):
-    """segment_softmax_spmm_fwd or csc_segment_sum launch by launch, on the
-    recorded calls [(args, kwargs)] of one forward or step. Host-paced
-    (cuda_ms: the launches issued one by one from Python, as a step issues
-    them) and device time (graph_ms) of the kernel as it runs, and with
-    KGWAS_PARENT_CSRC of the earlier kernel through its own wrapper; device
-    time of each without its trash rows' pad edges, of the CSC sum with w
-    and dz dropped (its gather alone), of the earlier CSC sum reading dst
-    in CSC order (dst_csc), and of the kernel on schedules with the other
-    max_edges of SEGMENT_SWEEP. Logs each launch and returns the totals
-    (ms, mean of reps)."""
-    from kgwas_tpu_torch.ops import segment, segment_softmax
+    """One segment kernel (#6 segment_softmax_spmm_fwd, #7 _bwd, #8
+    csc_segment_sum, #10 csr_segment_sum) launch by launch, on the recorded
+    calls [(args, kwargs)] of one forward or step: host-paced (cuda_ms, the
+    launches issued one by one from Python, as a step issues them) and
+    device time (graph_ms) of each form:
 
-    rel_layout = {id(RL.src): RL for DL in dev_layouts.values()
-                  for RL in (DL.relations or ())}
+      ms: the kernel as it runs;
+      no_trash: without its trash rows' pad edges;
+      max_edges K: on a schedule of another max_edges of SEGMENT_SWEEP;
+      gather_only (#8): w and dz dropped, its gather alone;
+      probe (#10): gather_probe.cu over the launch's index stream from its
+        table, its best rows in flight: the gather without the writes;
+      with KGWAS_PARENT_CSRC, parent and parent_no_trash: the earlier
+        kernel through its own wrapper, and for #7 parent_no_out: without
+        its read of the saved output (dot_r = 0, a timing only).
+
+    Logs each launch and returns the totals {form: [ms, device ms]}."""
+    from kgwas_tpu_torch.ops import build, schedule, segment, segment_softmax
+
+    fns = {"segment_softmax_spmm_fwd": (
+               segment_softmax.segment_softmax_spmm_fwd,
+               parent.seg_fwd if parent else None),
+           "segment_softmax_spmm_bwd": (
+               segment_softmax.segment_softmax_spmm_bwd,
+               parent.seg_bwd if parent else None),
+           "csc_segment_sum": (segment.csc_segment_sum,
+                               parent.csc if parent else None),
+           "csr_segment_sum": (segment.csr_segment_sum,
+                               parent.csr if parent else None)}
+    fn, pfn = fns[kernel]
     tot = {}
     for i, (args, kwargs) in enumerate(calls):
         args = detached(args)
-        if kernel == "segment_softmax_spmm_fwd":
-            xs, src, logits, ro = args
-            layout = rel_layout[id(src)]
-        else:
-            g, w, dz, xs, att, layout = args[:6]
+        label, layout, host, lay_nt, keep = launch_stream(
+            kernel, args, host_layouts, dev_layouts, cg, device)
+        forms = {"ms": lambda a=args, k=kwargs: fn(*a, **k)}  # noqa: E731
+        if kernel == "csc_segment_sum":
+            g, w, dz, xs, att, _ = args[:6]
             fold = args[6] if len(args) > 6 else 0
-        host, label = stream_of(host_layouts, dev_layouts, cg, layout)
-        if kernel == "csc_segment_sum":   # the call's fold: 0 on 'mp'
-            host = host[:-1] + (fold,)
-        lay_nt, keep = stream_without_trash(*host, device)
-        if kernel == "segment_softmax_spmm_fwd":
-            nt_args = (xs, lay_nt.src, logits[keep], lay_nt.row_offsets)
-            own = kwargs["sched"].max_edges
-            run = lambda a, s: (  # noqa: E731
-                lambda: segment_softmax.segment_softmax_spmm_fwd(*a, sched=s))
-            new = run(args, kwargs["sched"])
-            device_only = {"no_trash": run(nt_args, lay_nt.row_schedule)}
-            for k in SEGMENT_SWEEP:
-                if k != own:
-                    device_only[f"max_edges {k}"] = run(
-                        args, segment_softmax.row_schedule(host[2], k).to(
-                            device))
-            if parent:
-                old = lambda a=args: parent.seg_fwd(*a)  # noqa: E731
-                device_only["parent_no_trash"] = (
-                    lambda a=nt_args: parent.seg_fwd(*a))  # noqa: E731
-        else:
             nt_args = (g, None if w is None else w[keep],
                        None if dz is None else dz[keep], xs, att, lay_nt,
                        fold)
+            nt_kw = {}
             own = layout.csc_schedule.max_edges
-            new = lambda a=args: segment.csc_segment_sum(*a)  # noqa: E731
-            device_only = {
-                "no_trash": lambda a=nt_args: segment.csc_segment_sum(*a),  # noqa: E731
-                "gather_only": lambda a=args, f=fold: (  # noqa: E731
-                    segment.csc_segment_sum(a[0], None, None, a[3], None,
-                                            a[5], f))}
+            forms["no_trash"] = lambda: fn(*nt_args)  # noqa: B023, E731
+            forms["gather_only"] = lambda a=args, f=fold: fn(  # noqa: E731
+                a[0], None, None, a[3], None, a[5], f)
             for k in SEGMENT_SWEEP:
                 if k != own:
                     lay_k = dataclasses.replace(
                         layout, csc_schedule=segment.csc_schedule(
                             host[4], host[7], k).to(device))
-                    device_only[f"max_edges {k}"] = (
-                        lambda a=args, lk=lay_k: segment.csc_segment_sum(  # noqa: E731
-                            *a[:5], lk, *a[6:]))
-            if parent:
-                dst_csc = layout.dst[layout.csc_perm.long()]
-                old = lambda a=args: parent.csc(*a)  # noqa: E731
-                device_only["parent_no_trash"] = (
-                    lambda a=nt_args: parent.csc(*a))  # noqa: E731
-                device_only["parent_dst_csc"] = (
-                    lambda a=args, dc=dst_csc: parent.csc(  # noqa: E731
-                        *a, dst_csc=dc))
-        ms = {"ms": cuda_ms(new, reps), "device": graph_ms(new, reps)}
+                    forms[f"max_edges {k}"] = (
+                        lambda a=args, lk=lay_k: fn(*a[:5], lk, *a[6:]))  # noqa: E731
+        else:
+            # the row kernels: (table, src, [logits,] row_offsets, ...)
+            nt_args = list(args)
+            nt_args[1] = lay_nt.src
+            if kernel == "csr_segment_sum":
+                nt_args[2] = lay_nt.row_offsets
+                if args[3] is not None:
+                    nt_args[3] = args[3][keep]
+                edges = (schedule.CSR_CHUNK_EDGES,)
+            else:
+                nt_args[2] = args[2][keep]
+                nt_args[3] = lay_nt.row_offsets
+                edges = ()
+            nt_kw = {"sched": lay_nt.row_schedule}
+            own = kwargs["sched"].max_edges
+            forms["no_trash"] = lambda: fn(*nt_args, **nt_kw)  # noqa: B023, E731
+            for k in SEGMENT_SWEEP:
+                if k != own:
+                    sk = schedule.row_schedule(host[2], k, *edges).to(device)
+                    forms[f"max_edges {k}"] = (
+                        lambda a=args, sk=sk: fn(*a, sched=sk))  # noqa: E731
+            if kernel == "csr_segment_sum":
+                probe = build.library("gather_probe")
+                best = None
+                for u in PROBE_U:
+                    go, _ = probe_call(probe, args[0], args[1], u)
+                    t = graph_ms(go, reps)
+                    if best is None or t < best[0]:
+                        best = (t, go)
+                forms["probe"] = best[1]
         if parent:
-            ms["parent"] = cuda_ms(old, reps)
-            ms["parent_device"] = graph_ms(old, reps)
-        for k, f in device_only.items():
-            ms[k] = graph_ms(f, reps)
-        for k, v in ms.items():
-            tot[k] = tot.get(k, 0.0) + v
+            forms["parent"] = lambda a=args, k=kwargs: pfn(*a, **k)  # noqa: E731
+            forms["parent_no_trash"] = lambda: pfn(*nt_args, **nt_kw)  # noqa: B023, E731
+            if (kernel == "segment_softmax_spmm_bwd"
+                    and parent.seg_bwd_no_out(*args, **kwargs) is not None):
+                forms["parent_no_out"] = (
+                    lambda a=args, k=kwargs: parent.seg_bwd_no_out(*a, **k))  # noqa: E731
+        ms = {k: (cuda_ms(f, reps), graph_ms(f, reps))
+              for k, f in forms.items()}
+        for k, (h, d) in ms.items():
+            t = tot.setdefault(k, [0.0, 0.0])
+            t[0] += h
+            t[1] += d
         log(f"  {cfg_name} {kernel} launch {i} {label}: "
             f"{int(layout.csc_perm.numel())} edges, {int(keep.sum())} "
             f"without trash rows, max_edges {own}: "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+            + ", ".join(f"{k} {h:.4f} ms [{d:.4f}]"
+                        for k, (h, d) in ms.items()))
     log(f"  {cfg_name} {kernel} x{len(calls)} per "
-        f"{'forward' if kernel.startswith('seg') else 'step'} (ms, parent: "
-        "host-paced; the others device time): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in tot.items()))
+        f"{'step' if kernel.endswith(('bwd', 'csc_segment_sum')) else 'forward'}"
+        " (host-paced ms [device ms]): "
+        + ", ".join(f"{k} {h:.4f} [{d:.4f}]" for k, (h, d) in tot.items()))
     return tot
 
 
@@ -1681,11 +1815,12 @@ def step_times(step, n=10, warm=2):
     return statistics.median(times[warm:])
 
 
-def step_vs_parent(cfg_name, step, parent, rounds=3):
-    """The train step with this checkout's #6 and #8 and with the earlier
-    ones (parent.model_kernels), in one call, alternating new, earlier,
-    earlier, new, rounds times: step_times of each run. Logs both lists
-    and returns (new medians, earlier medians)."""
+def step_vs_parent(cfg_name, step, parent, what="train step", rounds=3):
+    """The train step (or another call: what) with this checkout's segment
+    kernels and with the earlier ones (parent.model_kernels), in one call,
+    alternating new, earlier, earlier, new, rounds times: step_times of
+    each run. Logs both lists and returns (new medians, earlier
+    medians)."""
     new, old = [], []
     for _ in range(rounds):
         new.append(step_times(step))
@@ -1693,7 +1828,7 @@ def step_vs_parent(cfg_name, step, parent, rounds=3):
             with parent.model_kernels():
                 old.append(step_times(step))
         new.append(step_times(step))
-    log(f"  {cfg_name} train step, this checkout's segment kernels vs the "
+    log(f"  {cfg_name} {what}, this checkout's segment kernels vs the "
         f"earlier ones alternating: new "
         + " ".join(f"{t:.3f}" for t in new) + " ms (median "
         f"{statistics.median(new):.3f}), earlier "
@@ -1891,11 +2026,7 @@ def main():
     logs = dict(build.build_log, **(parent.build_logs() if parent else {}))
     for name, info in logs.items():
         log(f"  built {name} in {info['seconds']:.1f} s")
-        launch = KERNEL_LAUNCH
-        if name in ("parent_segment_softmax_spmm_fwd",
-                    "parent_csc_segment_sum", "parent_csc_dst_csc"):
-            launch = PARENT_LAUNCH
-        report_ptxas(build, name, info["ptxas"], launch)
+        report_ptxas(build, name, info["ptxas"], KERNEL_LAUNCH)
     log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({sorted(built) or 'cached'})"
         + (f"; earlier kernels from {parent.csrc}" if parent else ""))

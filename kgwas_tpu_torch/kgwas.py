@@ -30,7 +30,17 @@ from .utils import compute_metrics, print_sys, read_table, write_table
 TILE_ROWS = 512
 _SEMANTIC_KEYS = ("negative_slope", "dropout", "sigmoid_gat", "temperature",
                   "out_channels", "edge_dim", "pheno_condition")
+# the JAX package's execution knobs (kgwas_tpu/config.py ModelConfig): how
+# the TPU runs the model, not what it computes. Accepted and ignored, and
+# not persisted, as the JAX package persists only the model-semantic keys
+_TPU_KNOBS = ("use_pallas", "pallas_mode", "rel_fold", "matmul_precision",
+              "gather_chunk_rows", "bwd_window_edges", "pad_fragments",
+              "layout_operands")
+# the JAX package's dtype options, with the default that the port runs
+_DTYPE_DEFAULTS = {"param_dtype": "float32", "compute_dtype": "float32",
+                   "stream_dtype": None, "stream_f32_logits": False}
 _VARIANTS = "ROADMAP.md Queue 1 item 3 (model variants)"
+_DTYPES = "ROADMAP.md Queue 1 item 7 (giant features and dtypes)"
 _PROFILING = "ROADMAP.md Queue 1 item 5 (bench and profiling)"
 _LONG_RUNS = "ROADMAP.md Queue 1 item 8 (long runs)"
 _MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
@@ -79,17 +89,32 @@ class KGWAS:
         gnn_aggr: str = "sum",
         gat_num_head: int = 1,
         no_relu: bool = False,
+        stream_features: Optional[list] = None,
         **kwargs,
     ):
-        """Defaults mirror the reference's. Served: GAT with 1 head and
-        gnn_aggr sum, mean, max or min (sigmoid_gat with sum and mean);
-        SAGE, GCN and SGC with sum or mean. kwargs: the other model-semantic
-        config keys (negative_slope, temperature, sigmoid_gat,
-        out_channels; dropout, edge_dim and pheno_condition only at their
-        defaults)."""
-        unknown = set(kwargs) - set(_SEMANTIC_KEYS)
+        """Defaults mirror the reference's, the signature the JAX package's.
+        Served: GAT with 1 head and gnn_aggr sum, mean, max or min
+        (sigmoid_gat with sum and mean); SAGE, GCN and SGC with sum or mean.
+        kwargs: the other model-semantic config keys (negative_slope,
+        temperature, sigmoid_gat, out_channels; dropout, edge_dim and
+        pheno_condition only at their defaults); remat, the dtype options
+        and stream_features only at their defaults; the JAX package's TPU
+        execution knobs (_TPU_KNOBS), ignored."""
+        unknown = (set(kwargs) - set(_SEMANTIC_KEYS) - set(_TPU_KNOBS)
+                   - set(_DTYPE_DEFAULTS) - {"remat"})
         if unknown:
             raise TypeError(f"unknown model options {sorted(unknown)}")
+        if kwargs.pop("remat", False):
+            raise NotImplementedError(f"remat is not ported yet: {_VARIANTS}")
+        for k, default in _DTYPE_DEFAULTS.items():
+            if kwargs.pop(k, default) != default:
+                raise NotImplementedError(
+                    f"{k} other than {default!r} is not ported yet: {_DTYPES}")
+        if stream_features:
+            raise NotImplementedError(
+                f"stream_features is not ported yet: {_DTYPES}")
+        for k in _TPU_KNOBS:
+            kwargs.pop(k, None)
         if kwargs.get("dropout", 0.0):
             raise NotImplementedError(f"dropout is not ported yet: {_VARIANTS}")
         if kwargs.get("edge_dim") is not None:

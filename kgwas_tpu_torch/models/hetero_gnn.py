@@ -41,9 +41,9 @@ from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
 from ..ops.gat_layer import BWD_CHUNK_EDGES, MergedGATLayer
 from ..ops.gat_layer import schedule as gat_schedule
-from ..ops.schedule import Schedule
+from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
+                            row_schedule)
 from ..ops.segment import CSRSegmentSum, csc_fields
-from ..ops.segment_softmax import row_schedule
 from .convs import gat_relation, make_conv
 from .init import torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
@@ -144,7 +144,9 @@ class DeviceLayout:
     # the 'merged' path: the GAT kernels' work schedules for fold = R
     gat_schedule: Optional[Schedule] = None       # the forward's
     gat_bwd_schedule: Optional[Schedule] = None   # the backward's
-    # a relation's stream: the segment softmax kernel's schedule of its rows
+    # the schedule of the stream's rows (ops/schedule.py row_schedule): a
+    # relation's, for the segment softmax forward and backward ('relations'),
+    # or a merged layout's R*N rows, for the CSR segment sum ('mp')
     row_schedule: Optional[Schedule] = None
     # the CSC segment sum's fields (ops/segment.py csc_fields): its
     # schedule of the source rows, and each CSC entry's cotangent row
@@ -174,8 +176,9 @@ def merged_mp_norms(L):
 def device_layouts(layouts, device, cg=None, path: str = "merged"
                    ) -> Dict[str, DeviceLayout]:
     """The merged layouts on the device, with what the layer path needs:
-    the GAT kernels' schedules (fold = R) for 'merged', the degree norms for
-    'mp', and for 'relations' each slot's relation
+    the GAT kernels' schedules (fold = R) for 'merged', the degree norms and
+    the CSR segment sum's row schedule for 'mp', and for 'relations' each
+    slot's relation
     stream from the compiled graph cg (graph/shard_compile.RelationShard:
     its CSR, whose pad edges read source row 0, and its CSC, which sends
     their cotangents to the source trash row, as the JAX package does)
@@ -212,7 +215,10 @@ def device_layouts(layouts, device, cg=None, path: str = "merged"
                                device)
         if path == "mp":
             inv_deg, sym_e = merged_mp_norms(L)
-            extra.update(inv_deg=put(inv_deg), sym_e=put(sym_e))
+            extra.update(inv_deg=put(inv_deg), sym_e=put(sym_e),
+                         row_schedule=row_schedule(
+                             L.row_offsets, CSR_MAX_EDGES,
+                             CSR_CHUNK_EDGES).to(device))
         elif path == "relations":
             extra["relations"] = [relation(rk) for rk in L.rel_keys]
         elif path == "merged":

@@ -50,7 +50,7 @@ KERNELS = {
     "csr_segment_sum": (
         "csr_segment_sum.cu",
         "kgwas_csr_segment_sum",
-        [_P] * 5 + [_I64, _I32, _P],
+        [_P] * 6 + [_I64, _P, _P, _I64, _P, _I64, _I32, _P],
     ),
     "segment_softmax_spmm_fwd": (
         "segment_softmax_spmm_fwd.cu",
@@ -60,7 +60,7 @@ KERNELS = {
     "segment_softmax_spmm_bwd": (
         "segment_softmax_spmm_bwd.cu",
         "kgwas_segment_softmax_spmm_bwd",
-        [_P] * 10 + [_I64, _I32, _P],
+        [_P] * 11 + [_I64, _I64, _I32, _P],
     ),
     # a measuring tool on no path of the package (chip_smoke.py)
     "gather_probe": (

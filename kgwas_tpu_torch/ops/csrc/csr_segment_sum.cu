@@ -15,41 +15,59 @@
 // with w the GCN/SGC symmetric norm, or no weight (the SAGE sum, which the
 // caller scales by 1/deg afterwards).
 //
-// Design. One warp per row, as in merged_gat_fwd.cu: the row's edge indices
-// (and weights) load 32 at a time, one per lane, and are broadcast by
-// shuffle; the next 32 are prefetched; source rows are read U at a time
-// (float4 per lane at D % 128 == 0) and summed in registers in edge order.
-// Every row is written, empty rows with 0. No atomics: two runs give the
-// same bits.
+// Design: segment_softmax_spmm_fwd.cu's without the softmax. A static
+// schedule of the merged layout's R*N rows (gat_items.cuh, ops/schedule.py
+// row_schedule, built once and kept on the layout's DeviceLayout) gives each
+// warp one item: up to 32 consecutive rows with at most max_edges edges
+// together, or one chunk of a longer row (each relation's trash row with up
+// to 511 pad edges, a hub). The warp stages the item's source indices (and
+// weights, WEIGHTED a compile-time flag) in shared memory, their loads
+// issued four 32-edge batches at a time, then gathers the source rows into
+// registers, two batches of 4 at D = 128 in flight, one summed while the
+// other arrives: the per-edge chain is one FMA (or add) per column, each
+// row's edges in stream order, as the earlier one-warp-per-row kernel took
+// them (the same bits on every row that is not cut). Rows without edges are
+// written as 0. A chunk writes its partial sum to scratch, and a second,
+// small launch adds each chunked row's parts in part order (gat_items.cuh
+// merge_parts) and writes it. Warps take items from the last: the trash
+// rows' chunks start first. No atomics: two runs give the same bits.
 //
 // What bounds it. Bytes: each input read once and each output written once
 // (x [S, D], src and w [E], row_offsets [n_rows + 1], out [n_rows, D]),
 // against 2 D flops per edge: far below the card's float32 rate. The gather
-// reads each source row once per edge, mostly from L2 (the SNP group's
-// table is 21 MB at the 200k-SNP bench size). Each relation's trash row
-// holds all of its pad edges (up to 511) and one warp walks them in
-// sequence; the chain per edge is a load and an FMA, so that row costs
-// little more than its bytes (as in csc_segment_sum.cu).
+// reads each source row once per edge (512 bytes at D = 128), from the 50 MB
+// L2 when the table fits (the SNP group's, 21 MB at the 200k-SNP bench
+// size), else from device memory (the Gene group's, 234 MB): gather_probe.cu
+// measures that gather alone on the same index stream, the floor the design
+// aims at.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_items.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
+using kgwas::kBwdMaxEdges;
 using kgwas::kFull;
 using kgwas::kMaxCols;
 
 constexpr int kWarps = 8;  // warps per block
 
 struct Args {
-  const float* x;          // [S, D]
-  const int* src;          // [E]
-  const int* row_offsets;  // [n_rows + 1]
-  const float* w;          // [E] or null
-  float* out;              // [n_rows, D]
+  const float* x;           // [S, D]
+  const int* src;           // [E]
+  const int* row_offsets;   // [n_rows + 1]
+  const float* w;           // [E] or null
+  float* out;               // [n_rows, D]
+  const int4* items;        // [n_items]
+  const int* split_units;   // [n_split]
+  const int* part_offsets;  // [n_split + 1]
+  float* part_acc;          // [n_parts, D]
+  long long n_items;
+  long long n_split;
   long long n_rows;
   int d;
 };
@@ -58,59 +76,136 @@ template <bool VEC, int NV, bool WEIGHTED>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_segment_sum_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  constexpr int U = !VEC || NV > 2 ? 2 : 4;  // source rows in flight
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  __shared__ int s_src_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_w_w[kWarps][WEIGHTED ? kBwdMaxEdges : 1];
+  __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
   const int lane = threadIdx.x & 31;
-  const long long o =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (o >= a.n_rows) return;  // whole warp exits together
+  const int warp = threadIdx.x >> 5;
+  const long long wi = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (wi >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(wi, a.n_items);
+  int* s_src = s_src_w[warp];
+  float* s_w = s_w_w[warp];
+  unsigned char* s_k = s_k_w[warp];
+  const int d = a.d;
 
-  const int beg = a.row_offsets[o];
-  const int end = a.row_offsets[o + 1];
-  R acc;
-  acc.zero();
-  int next_src = beg + lane < end ? a.src[beg + lane] : 0;
-  float next_w = WEIGHTED && beg + lane < end ? a.w[beg + lane] : 1.0f;
-  for (int base = beg; base < end; base += 32) {
-    const int cnt = min(32, end - base);
-    const int my_src = next_src;
-    const float my_w = next_w;
-    // the next 32 edge indices load while these 32 are summed
-    const bool more = base + 32 + lane < end;
-    next_src = more ? a.src[base + 32 + lane] : 0;
-    if (WEIGHTED) next_w = more ? a.w[base + 32 + lane] : 1.0f;
-    for (int j = 0; j < cnt; j += U) {
-      // a step past the row's end re-reads its last edge's row, masked below
-      R x[U];
-      float wu[U];
+  const kgwas::ItemRows it =
+      kgwas::item_rows(a.items[item], a.row_offsets, a.n_rows, 1, lane);
+  // each virtual edge's row, then its source row and weight (the item's
+  // edges follow each other in the stream)
+  const int first = kgwas::stage_row_keys(it, s_k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int src[4] = {0, 0, 0, 0};
+    float wv[4] = {1.0f, 1.0f, 1.0f, 1.0f};
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int src_lane = min(j + u, cnt - 1);
-        const int s = __shfl_sync(kFull, my_src, src_lane);
-        wu[u] = WEIGHTED ? __shfl_sync(kFull, my_w, src_lane) : 1.0f;
-        x[u].load(a.x + static_cast<size_t>(s) * a.d, lane, a.d);
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        src[q] = a.src[first + v];
+        if (WEIGHTED) wv[q] = a.w[first + v];
       }
+    }
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (j + u < cnt) {  // warp-uniform
-#pragma unroll
-          for (int c = 0; c < R::C; ++c)
-            acc.v[c] = WEIGHTED ? fmaf(wu[u], x[u].v[c], acc.v[c])
-                                : acc.v[c] + x[u].v[c];
-        }
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        s_src[v] = src[q];
+        if (WEIGHTED) s_w[v] = wv[q];
       }
     }
   }
-  acc.store(a.out + o * a.d, lane, a.d);
+  __syncwarp();
+
+  int cur = -1;  // the row being summed
+  R acc;
+  acc.zero();
+  auto finish_row = [&](int k) {
+    if (it.chunk)
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+    else
+      acc.store(a.out + (it.unit0 + k) * d, lane, d);
+  };
+  // sums batch x of U rows, edges v..v+U-1
+  auto take = [&](const R (&x)[U], int v) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vu = v + u;
+      if (vu < it.total) {  // warp-uniform
+        const int k = s_k[vu];
+        if (k != cur) {
+          if (cur >= 0) finish_row(cur);
+          cur = k;
+          acc.zero();
+        }
+        const float wu = WEIGHTED ? s_w[vu] : 1.0f;
+#pragma unroll
+        for (int c = 0; c < R::C; ++c)
+          acc.v[c] = WEIGHTED ? fmaf(wu, x[u].v[c], acc.v[c])
+                              : acc.v[c] + x[u].v[c];
+      }
+    }
+  };
+  // two batches in flight: one is summed while the other arrives
+  R xa[U], xb[U];
+  if (it.total > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.x, s_src, 0, it.total, lane, d);
+  for (int v = 0; v < it.total; v += 2 * U) {
+    if (v + U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.x, s_src, v + U, it.total, lane,
+                                     d);
+    take(xa, v);
+    if (v + 2 * U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.x, s_src, v + 2 * U, it.total,
+                                     lane, d);
+    if (v + U < it.total) take(xb, v + U);
+  }
+  if (cur >= 0) finish_row(cur);
+  if (!it.chunk) {  // the item's rows without edges: zeros
+    unsigned empty = __ballot_sync(kFull, lane < it.n_rows && it.cnt == 0);
+    R zero;
+    zero.zero();
+    for (; empty; empty &= empty - 1)
+      zero.store(a.out + (it.unit0 + __ffs(empty) - 1) * d, lane, d);
+  }
+}
+
+// One warp per row cut into chunks: its parts added in part order.
+template <bool VEC, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+csr_combine_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  const int lane = threadIdx.x & 31;
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (j >= a.n_split) return;
+  float mx, sum;
+  R acc;
+  kgwas::merge_parts<VEC, NV, false>(nullptr, nullptr, a.part_acc,
+                                     a.part_offsets[j], a.part_offsets[j + 1],
+                                     lane, a.d, mx, sum, acc);
+  acc.store(a.out + static_cast<long long>(a.split_units[j]) * a.d, lane,
+            a.d);
 }
 
 template <bool VEC, int NV, bool WEIGHTED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_rows + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks == 0) return cudaSuccess;
-  csr_segment_sum_kernel<VEC, NV, WEIGHTED>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-  return cudaGetLastError();
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  if (blocks > 0) {
+    csr_segment_sum_kernel<VEC, NV, WEIGHTED>
+        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (cblocks > 0) {
+    csr_combine_kernel<VEC, NV>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 template <bool WEIGHTED>
@@ -130,18 +225,27 @@ cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; float4 rows need x and out 16-byte aligned when D % 128 == 0
-// (the wrapper checks). w may be null: every weight 1.
-extern "C" int kgwas_csr_segment_sum(const void* x, const void* src,
-                                     const void* row_offsets, const void* w,
-                                     void* out, long long n_rows, int d,
-                                     void* stream) {
+// pointers; x, out, part_acc and items must be 16-byte aligned (the wrapper
+// checks). w may be null: every weight 1. The schedule (items, split_units,
+// part_offsets) and the scratch part_acc come from the wrapper; two
+// launches: the items, then the combine of the chunked rows.
+extern "C" int kgwas_csr_segment_sum(
+    const void* x, const void* src, const void* row_offsets, const void* w,
+    void* out, const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_acc,
+    long long n_rows, int d, void* stream) {
   Args a;
   a.x = static_cast<const float*>(x);
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.w = static_cast<const float*>(w);
   a.out = static_cast<float*>(out);
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.n_items = n_items;
+  a.n_split = n_split;
   a.n_rows = n_rows;
   a.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -7,46 +7,73 @@
 // row_max and row_sum, per edge e of row r:
 //
 //   p_e       = exp(min(l_e - lse_r, 60)),  lse_r = row_max_r + log(row_sum_r + 1e-16)
-//   dot_r     = out_r . g_r                  (from the saved output, as the TPU)
-//   d_logit_e = p_e (xs[src_e] . g_r - dot_r)
+//   m_e       = xs[src_e] . g_r
+//   dot_r     = out_r . g_r  (the TPU's formula)  =  sum_e p_e m_e
+//   d_logit_e = p_e (m_e - dot_r)
 //
 // and writes two scalars per edge, w_e = p_e and d_logit_e. The TPU kernel
 // also writes the [E, D] message cotangent d_msgs_e = p_e g_r; this kernel
 // does not: csc_segment_sum.cu (without logit term) forms p_e g_r in
 // registers while it walks the relation's CSC and sums d_xs per source row.
 //
-// Design. One warp per row, as in the forward: g_r and out_r are loaded
-// once (float4 per lane at D % 128 == 0) and dot_r reduced by butterfly.
-// The row's edges load 32 at a time, one per lane (src and logit), with the
-// next 32 prefetched; source rows are read U at a time, their U dot products
-// with g_r reduce in one interleaved butterfly, and the lane whose index is
-// the edge's position in its group of 32 keeps the product; then every lane
-// finishes and stores its own edge. Every sum is taken in a fixed order with
-// no atomics: two runs give the same bits.
+// Design. The forward's static schedule of the relation's rows
+// (gat_items.cuh, ops/schedule.py row_schedule, kept on the relation's
+// DeviceLayout) gives each warp one item: up to 32 consecutive rows with at
+// most max_edges edges together, or one chunk of a longer row (a relation's
+// trash row with up to 511 pad edges, a hub). Every output is per edge, so
+// a chunk writes its own edges: no partials and no second launch. The warp
+// stages the item's source indices and logits in shared memory, forms each
+// row's log-sum-exp once (a lane a row) and each edge's p_e once, then
+// gathers the source rows into registers in batches of U edges of one row
+// (4 at D = 128) together with that row's g_r, two batches in flight, one
+// reduced while the other arrives: a row's g_r is read once per batch, not
+// once per edge. The U products x_u . g_r of a batch reduce across the warp
+// in one transposing butterfly (log2 U halving exchanges, then the rest:
+// 6 shuffles for 4 edges where a butterfly each would take 20), and m_e
+// goes to shared memory. Last, each row's dot_r, then w_e and d_logit_e for
+// every edge of the item, written by consecutive lanes.
+//
+// dot_r. Inside a packed item the row is whole, so dot_r = sum_e p_e m_e
+// comes from the m_e already in shared memory (a segmented sum in a fixed
+// order), and the saved output is not read there: one 512-byte row per row,
+// from device memory, beside the row's g_r (the SNP rows hold about 3.5
+// edges each, from an L2-held table). A chunk sees part of its row and
+// takes the TPU's formula, out_r . g_r. Both are the same value in exact
+// arithmetic (out_r = sum_e p_e xs[src_e]); the plain version keeps the
+// TPU's formula. Measured at full width (PERF.md), the edge-formed dot_r
+// saved 7.7% of the earlier one-warp-per-row kernel's device time per
+// GAT-max step (its out read dropped) and 10.9-11.4% of this design's
+// (against out_r . g_r on every row).
 //
 // What bounds it. Bytes: each input read once and each output written once
 // (xs [S, D], out and g [n_rows, D], src and logits [E], row_offsets,
-// row_max and row_sum [n_rows], w and d_logits [E]), against 2 D flops per
-// edge and per row. The gather reads each source row once per edge, mostly
-// from L2. A relation's trash row holds all of its pad edges (up to 511):
-// one warp walks them, each edge a load, a dot product and a 5-step
-// butterfly (shared by U edges).
+// row_max and row_sum [n_rows], w and d_logits [E]; of out, only the
+// chunked rows), against 2 D flops per edge and per row. The gather reads
+// each source row once per edge (512 bytes at D = 128), from the 50 MB L2
+// when the table fits, else from device memory: gather_probe.cu's rate for
+// that gather is the floor the design aims at. No atomics: two runs give
+// the same bits.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_items.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
 using kgwas::fast_exp;
+using kgwas::kBwdMaxEdges;
+using kgwas::kEps;
+using kgwas::kExpClamp;
 using kgwas::kFull;
+using kgwas::kItemMaxRows;
 using kgwas::kMaxCols;
 
-constexpr float kExpClamp = 60.0f;
-constexpr float kEps = 1e-16f;
 constexpr int kWarps = 8;  // warps per block
+// a batch's entry: its first virtual edge, its row (item slot) and edges
+constexpr int kRowShift = 9, kCountShift = 14;
 
 struct Args {
   const float* xs;         // [S, D]
@@ -59,80 +86,184 @@ struct Args {
   const float* g;          // [n_rows, D]
   float* w;                // [E]
   float* d_logits;         // [E]
+  const int4* items;       // [n_items]
+  long long n_items;
   long long n_rows;
   int d;
 };
+
+// U per-lane partial sums p[0..U-1] summed over the warp, transposed: lane
+// l returns the total of p[l / (32 / U)]. Each halving exchange sends the
+// half of the values that the lane gives up and keeps the other half; the
+// last 5 - log2 U steps are a plain butterfly. A fixed order: the same bits
+// every run.
+template <int U>
+__device__ __forceinline__ float multi_sum(float (&p)[U], int lane) {
+#pragma unroll
+  for (int n = U, off = 16; n > 1; n >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? p[i] : p[i + n / 2];
+      const float keep = upper ? p[i + n / 2] : p[i];
+      p[i] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+#pragma unroll
+  for (int off = 16 / U; off > 0; off >>= 1)
+    p[0] += __shfl_xor_sync(kFull, p[0], off);
+  return p[0];
+}
+
+template <bool VEC, int NV>
+__device__ __forceinline__ float row_dot(const kgwas::Row<VEC, NV>& x,
+                                         const kgwas::Row<VEC, NV>& y) {
+  float q = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kgwas::Row<VEC, NV>::C; ++c) q = fmaf(x.v[c], y.v[c], q);
+  return q;
+}
 
 template <bool VEC, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_bwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  constexpr int U = !VEC || NV > 2 ? 2 : 4;  // source rows in flight
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  constexpr int kMaxBatches = kBwdMaxEdges / U + kItemMaxRows;
+  __shared__ int s_src_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_p_w[kWarps][kBwdMaxEdges];  // logits, then p_e
+  __shared__ float s_m_w[kWarps][kBwdMaxEdges];  // m_e
+  __shared__ unsigned s_b_w[kWarps][kMaxBatches];
+  __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
+  __shared__ float s_lse_w[kWarps][kItemMaxRows];
+  __shared__ float s_dot_w[kWarps][kItemMaxRows];
   const int lane = threadIdx.x & 31;
-  const long long o =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (o >= a.n_rows) return;  // whole warp exits together
+  const int warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (w >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(w, a.n_items);
+  int* s_src = s_src_w[warp];
+  float* s_p = s_p_w[warp];
+  float* s_m = s_m_w[warp];
+  unsigned* s_b = s_b_w[warp];
+  unsigned char* s_k = s_k_w[warp];
+  float* s_lse = s_lse_w[warp];
+  float* s_dot = s_dot_w[warp];
+  const int d = a.d;
 
-  const int beg = a.row_offsets[o];
-  const int end = a.row_offsets[o + 1];
-  if (beg >= end) return;  // an empty row has no edge to write
-  R gr, ov;
-  gr.load(a.g + o * a.d, lane, a.d);
-  ov.load(a.out + o * a.d, lane, a.d);
-  float dot = 0.0f;
+  const kgwas::ItemRows it =
+      kgwas::item_rows(a.items[item], a.row_offsets, a.n_rows, 1, lane);
+  if (it.total == 0) return;  // rows without edges: nothing to write
+  if (lane < it.n_rows) {
+    s_lse[lane] = a.row_max[it.row] + logf(a.row_sum[it.row] + kEps);
+    s_dot[lane] = 0.0f;
+  }
+  // the batches: lane k's row in ceil(cnt / U) runs of up to U edges
+  int n_batches;
+  {
+    const int nb = (it.cnt + U - 1) / U;
+    int x = nb;  // inclusive scan of the batch counts
 #pragma unroll
-  for (int c = 0; c < R::C; ++c) dot = fmaf(ov.v[c], gr.v[c], dot);
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
+    }
+    for (int j = 0; j < nb; ++j) {
+      const int v = it.vbeg + j * U;
+      s_b[x - nb + j] =
+          v | (lane << kRowShift) | (min(U, it.cnt - j * U) << kCountShift);
+    }
+    n_batches = __shfl_sync(kFull, x, 31);
+  }
+  // each virtual edge's row, then its source row and logit (the item's
+  // edges follow each other in the stream)
+  const int first = kgwas::stage_row_keys(it, s_k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int src[4] = {0, 0, 0, 0};
+    float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
-  const float lse = a.row_max[o] + logf(a.row_sum[o] + kEps);
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        src[q] = a.src[first + v];
+        l[q] = a.logits[first + v];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        s_src[v] = src[q];
+        s_p[v] = l[q];
+      }
+    }
+  }
+  __syncwarp();
 
-  int next_src = beg + lane < end ? a.src[beg + lane] : 0;
-  float next_l = beg + lane < end ? a.logits[beg + lane] : 0.0f;
-  for (int base = beg; base < end; base += 32) {
-    const int cnt = min(32, end - base);
-    const int my_src = next_src;
-    const float my_l = next_l;
-    const bool more = base + 32 + lane < end;
-    next_src = more ? a.src[base + 32 + lane] : 0;
-    next_l = more ? a.logits[base + 32 + lane] : 0.0f;
-    float my_m = 0.0f;  // xs[src_e] . g_r of this lane's edge
-    for (int j = 0; j < cnt; j += U) {
-      // a step past the row's end re-reads its last edge's row; no lane
-      // keeps its product
-      R x[U];
-      float pm[U];
+  // batch b: U source rows of row k (a step past the row's end re-reads its
+  // last edge, masked below) and g_k
+  auto load = [&](R (&x)[U], R& gr, int b) {
+    const unsigned e = s_b[b];
+    const int v = e & ((1 << kRowShift) - 1);
+    const int k = (e >> kRowShift) & 31;
+    const int n = (e >> kCountShift) & 63;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int s = __shfl_sync(kFull, my_src, min(j + u, cnt - 1));
-        x[u].load(a.xs + static_cast<size_t>(s) * a.d, lane, a.d);
-      }
+    for (int u = 0; u < U; ++u)
+      x[u].load(a.xs + static_cast<size_t>(s_src[v + min(u, n - 1)]) * d,
+                lane, d);
+    gr.load(a.g + (it.unit0 + k) * d, lane, d);
+  };
+  auto take = [&](const R (&x)[U], const R& gr, int b) {
+    const unsigned e = s_b[b];
+    const int v = e & ((1 << kRowShift) - 1);
+    const int n = (e >> kCountShift) & 63;
+    float p[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float q = 0.0f;
+    for (int u = 0; u < U; ++u) p[u] = row_dot(x[u], gr);
+    const float m = multi_sum<U>(p, lane);
+    const int j = lane / (32 / U);
+    if (lane % (32 / U) == 0 && j < n) s_m[v + j] = m;
+  };
+  R xa[U], xb[U], ga, gb;
+  load(xa, ga, 0);
+  if (it.chunk) {  // warp-uniform: a chunk's dot_r = out_r . g_r
+    R ov, gr;
+    ov.load(a.out + it.row * d, lane, d);
+    gr.load(a.g + it.row * d, lane, d);
+    float q = row_dot(ov, gr);
 #pragma unroll
-        for (int c = 0; c < R::C; ++c) q = fmaf(x[u].v[c], gr.v[c], q);
-        pm[u] = q;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) pm[u] += __shfl_xor_sync(kFull, pm[u], off);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (lane == j + u) my_m = pm[u];
+    for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(kFull, q, off);
+    if (lane == 0) s_dot[0] = q;
+  }
+  // each edge's weight while the first batch arrives
+  for (int v = lane; v < it.total; v += 32)
+    s_p[v] = fast_exp(fminf(s_p[v] - s_lse[s_k[v]], kExpClamp));
+  // two batches in flight: one is reduced while the other arrives
+  for (int b = 0; b < n_batches; b += 2) {
+    if (b + 1 < n_batches) load(xb, gb, b + 1);
+    take(xa, ga, b);
+    if (b + 2 < n_batches) load(xa, ga, b + 2);
+    if (b + 1 < n_batches) take(xb, gb, b + 1);
+  }
+  __syncwarp();
+  if (!it.chunk) {  // dot_r = sum_e p_e m_e over each whole row
+    for (int base = 0; base < it.total; base += 32) {
+      const int v = base + lane;
+      const bool ok = v < it.total;
+      kgwas::segmented_add(ok ? s_p[v] * s_m[v] : 0.0f, ok ? s_k[v] : 255,
+                           s_dot, lane);
     }
-    if (lane < cnt) {
-      const float p = fast_exp(fminf(my_l - lse, kExpClamp));
-      a.w[base + lane] = p;
-      a.d_logits[base + lane] = p * (my_m - dot);
-    }
+  }
+  for (int v = lane; v < it.total; v += 32) {
+    const float p = s_p[v];
+    a.w[first + v] = p;
+    a.d_logits[first + v] = p * (s_m[v] - s_dot[s_k[v]]);
   }
 }
 
 template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_rows + kWarps - 1) / kWarps;
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (blocks == 0) return cudaSuccess;
   segment_softmax_spmm_bwd_kernel<VEC, NV>
@@ -143,13 +274,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; float4 rows need xs, out and g 16-byte aligned when D % 128 ==
-// 0 (the wrapper checks).
+// pointers; xs, out, g and items must be 16-byte aligned (the wrapper
+// checks). items is the relation's row schedule (ops/schedule.py
+// row_schedule), at most kBwdMaxEdges edges an item.
 extern "C" int kgwas_segment_softmax_spmm_bwd(
     const void* xs, const void* src, const void* logits,
     const void* row_offsets, const void* row_max, const void* row_sum,
-    const void* out, const void* g, void* w, void* d_logits, long long n_rows,
-    int d, void* stream) {
+    const void* out, const void* g, void* w, void* d_logits,
+    const void* items, long long n_items, long long n_rows, int d,
+    void* stream) {
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
@@ -161,6 +294,8 @@ extern "C" int kgwas_segment_softmax_spmm_bwd(
   a.g = static_cast<const float*>(g);
   a.w = static_cast<float*>(w);
   a.d_logits = static_cast<float*>(d_logits);
+  a.items = static_cast<const int4*>(items);
+  a.n_items = n_items;
   a.n_rows = n_rows;
   a.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -19,9 +19,12 @@ in unit order:
       parts in part order.
 
 Users: the merged GAT layer (``gat_layer``: rows of a destination group,
-fold R), the per-relation segment softmax (``segment_softmax``: one
-relation's rows) and the CSC segment sum (``segment``: source rows of a
-layout's CSC, whose items never straddle a slot boundary).
+fold R), the per-relation segment softmax forward and backward
+(``segment_softmax``: one relation's rows, ``row_schedule``), the CSR
+segment sum (``segment``: a merged layout's R*N rows, ``row_schedule``)
+and the CSC segment sum (``segment``: source rows of a layout's CSC, whose
+items never straddle a slot boundary). The segment kernels' item sizes are
+set here, beside the function that builds their schedules.
 """
 from __future__ import annotations
 
@@ -35,6 +38,20 @@ import torch
 # layer) units of one packed item
 ITEM_MAX_EDGES, BWD_ITEM_MAX_EDGES = 512, 256
 ITEM_MAX_ROWS, ITEM_MAX_UNITS = 32, 8
+# The segment kernels' item sizes (each at most BWD_ITEM_MAX_EDGES, the
+# most they stage; PERF.md holds the max_edges sweeps that chose them).
+# A relation's rows for segment_softmax_spmm_fwd and _bwd (one schedule
+# serves both): items of up to 32 rows and ROW_MAX_EDGES edges, a longer
+# row cut into chunks of ROW_CHUNK_EDGES (a relation's trash row sums up to
+# 511 identical pad terms: its chunks round otherwise than the plain
+# version's sequential sum, within the trash rows' rtol 1e-4).
+ROW_MAX_EDGES, ROW_CHUNK_EDGES = 128, 128
+# A merged layout's R*N rows for csr_segment_sum, the same way.
+CSR_MAX_EDGES, CSR_CHUNK_EDGES = 64, 128
+# The CSC segment sum's source rows: items of one slot. With the logit term
+# (the merged GAT layer) an item's fixed cost is larger (w and dz through
+# csc_perm, c per row, its d_att partial), so its items are larger.
+CSC_MAX_EDGES, CSC_LOGIT_MAX_EDGES, CSC_CHUNK_EDGES = 64, 256, 128
 
 
 @dataclasses.dataclass
@@ -138,6 +155,16 @@ def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=128,
         n_parts=n_parts, item_breaks=tuple(int(i) for i in item_breaks))
 
 
+def row_schedule(row_offsets, max_edges=ROW_MAX_EDGES,
+                 chunk_edges=ROW_CHUNK_EDGES):
+    """The schedule of a stream's rows, fold 0 (host, numpy): a unit is a
+    row, up to ITEM_MAX_ROWS of them an item. A relation's stream takes the
+    defaults; a merged layout's takes CSR_MAX_EDGES, CSR_CHUNK_EDGES."""
+    n_rows = len(row_offsets) - 1
+    return schedule(row_offsets, n_rows, 0, max_edges, chunk_edges,
+                    max_units=ITEM_MAX_ROWS)
+
+
 def check_device_schedule(sched, n_rows, fold_slots, most_edges, device):
     """Raises unless sched is a schedule of n_rows rows and fold_slots on
     device whose items hold at most most_edges entries."""
@@ -155,3 +182,21 @@ def check_device_schedule(sched, n_rows, fold_slots, most_edges, device):
     if sched.items.data_ptr() % 16 or not sched.items.is_contiguous():
         raise ValueError("schedule items must be contiguous, 16-byte aligned")
     return sched
+
+
+def check_stream(sched, key, src, row_offsets, n_rows):
+    """Checks a row kernel's stream arrays (src, row_offsets) and its
+    schedule of n_rows rows on device key[-1], unless they are the ones
+    checked at the last launch under key on this schedule (a layout's
+    arrays and schedule never change)."""
+    stream = (src.data_ptr(), src.dtype, row_offsets.data_ptr(),
+              row_offsets.dtype)
+    if sched.cache.get(key) != stream:
+        from .gat_layer import check_cuda_args
+
+        check_cuda_args(key[-1], src=src, row_offsets=row_offsets)
+        check_device_schedule(sched, n_rows, 1, BWD_ITEM_MAX_EDGES, key[-1])
+        sched.cache[key] = stream
+    elif sched.n_rows != n_rows:
+        raise ValueError(f"schedule of {sched.n_rows} rows given for "
+                         f"{n_rows}")

@@ -27,13 +27,20 @@ scratch on the schedule from the first launch.
 **CSR segment sum** (``csr_segment_sum``, ``csrc/csr_segment_sum.cu``).
 Counterpart of ``segment_sum_edges`` (``_pallas_segment_sum_ts``) with the
 source-row gather before it fused in: ``out[r] = sum_{e in row r} w_e
-x[src_e]`` over a dst-sorted CSR, ``w`` optional. ``CSRSegmentSum`` is it
-as an autograd function; its backward is ``csc_segment_sum`` with ``w`` and
-no logit term (the weights are static degree norms and get no gradient).
+x[src_e]`` over a dst-sorted CSR, ``w`` optional. The kernel takes its work
+from a static schedule of the rows (``schedule.row_schedule`` with
+``CSR_MAX_EDGES``, ``CSR_CHUNK_EDGES``: packed short rows, chunks of long
+ones added in part order by a second launch), which ``device_layouts``
+builds once per 'mp' layout and keeps on its ``DeviceLayout``; the wrapper
+keeps the chunks' scratch on the schedule from the first launch.
+``CSRSegmentSum`` is it as an autograd function; its backward is
+``csc_segment_sum`` with ``w`` and no logit term (the weights are static
+degree norms and get no gradient).
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version for CPU tensors; there is no other route. ``launches`` (CSC) and
-``csr_launches`` count kernel launches.
+``csr_launches`` count calls of the wrappers that reach the card (a call
+is two device launches when its schedule cuts a row into chunks).
 """
 from __future__ import annotations
 
@@ -43,19 +50,13 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .schedule import (BWD_ITEM_MAX_EDGES, ITEM_MAX_ROWS,
-                       check_device_schedule, schedule)
+from .schedule import (BWD_ITEM_MAX_EDGES, CSC_CHUNK_EDGES,
+                       CSC_LOGIT_MAX_EDGES, CSC_MAX_EDGES, CSR_CHUNK_EDGES,
+                       CSR_MAX_EDGES, ITEM_MAX_ROWS, check_device_schedule,
+                       check_stream, row_schedule, schedule)
 from .segment_ref import csr_rows, gather_rows, segment_sum
 
 MAX_SLOTS = 32
-# the CSC kernel's schedule: items of up to 32 source rows and
-# CSC_MAX_EDGES entries of one slot, longer rows cut into chunks of
-# CSC_CHUNK_EDGES (their sums are added in part order). With the logit
-# term (the merged GAT layer) an item's fixed cost is larger (w and dz
-# through csc_perm, c per row, its d_att partial): its items take up to
-# CSC_LOGIT_MAX_EDGES entries, the most the kernel stages
-# (BWD_ITEM_MAX_EDGES; PERF.md)
-CSC_MAX_EDGES, CSC_LOGIT_MAX_EDGES, CSC_CHUNK_EDGES = 64, 256, 128
 
 launches = 0
 csr_launches = 0
@@ -245,12 +246,14 @@ def csr_segment_sum_plain(x, src, row_offsets, w=None):
     return segment_sum(msgs, rows, row_offsets.shape[0] - 1)
 
 
-def csr_segment_sum(x, src, row_offsets, w=None):
+def csr_segment_sum(x, src, row_offsets, w=None, sched=None):
     """out [n_rows, D], out[r] = sum over row r's edges e of w_e x[src_e].
 
     x [S, D] f32 source rows; src [E] int32 into x (dst-sorted);
     row_offsets [n_rows + 1] int32; w [E] f32 per-edge weights or None (1).
-    Empty rows give 0."""
+    Empty rows give 0. sched: the stream's row_schedule on the device with
+    CSR_MAX_EDGES and CSR_CHUNK_EDGES (DeviceLayout.row_schedule on 'mp';
+    built from row_offsets when not given); the plain version needs none."""
     if x.device.type == "cpu":
         return csr_segment_sum_plain(x, src, row_offsets, w)
     if x.device.type != "cuda":
@@ -258,17 +261,30 @@ def csr_segment_sum(x, src, row_offsets, w=None):
     _check_csr(x, src, row_offsets, w)
     from .gat_layer import check_cuda_args
 
-    check_cuda_args(x.device, x=x, src=src, row_offsets=row_offsets,
-                    **({} if w is None else {"w": w}))
+    dev = x.device
+    check_cuda_args(dev, x=x, **({} if w is None else {"w": w}))
+    n_rows = row_offsets.shape[0] - 1
+    if sched is None:
+        sched = row_schedule(row_offsets, CSR_MAX_EDGES,
+                             CSR_CHUNK_EDGES).to(dev)
+    check_stream(sched, ("csr", dev), src, row_offsets, n_rows)
+    d = x.shape[1]
+    # the chunks' partial sums for the combine, kept on the schedule from
+    # its first launch at this width
+    part_acc = sched.cache.get(("csr", dev, d))
+    if part_acc is None:
+        part_acc = sched.cache[("csr", dev, d)] = torch.empty(
+            sched.n_parts, d, dtype=torch.float32, device=dev)
     from .build import library
 
-    n_rows = row_offsets.shape[0] - 1
-    out = torch.empty(n_rows, x.shape[1], dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty(n_rows, d, dtype=torch.float32, device=dev)
     err = library("csr_segment_sum")(
         x.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
-        None if w is None else w.data_ptr(), out.data_ptr(), n_rows,
-        x.shape[1], stream)
+        None if w is None else w.data_ptr(), out.data_ptr(),
+        sched.items.data_ptr(), sched.items.shape[0],
+        sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
+        sched.split_units.shape[0], part_acc.data_ptr(), n_rows, d,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csr_segment_sum launch failed: cudaError {err}")
     global csr_launches
@@ -286,7 +302,8 @@ class CSRSegmentSum(torch.autograd.Function):
     def forward(ctx, x, w, layout):
         ctx.save_for_backward(x, w)
         ctx.layout = layout
-        return csr_segment_sum(x, layout.src, layout.row_offsets, w)
+        return csr_segment_sum(x, layout.src, layout.row_offsets, w,
+                               sched=getattr(layout, "row_schedule", None))
 
     @staticmethod
     def backward(ctx, g):

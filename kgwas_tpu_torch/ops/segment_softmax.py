@@ -15,10 +15,11 @@ and ``segment_softmax_spmm_bwd`` launches ``csrc/segment_softmax_spmm_bwd.
 cu`` for CUDA tensors; for CPU tensors they run their ``_plain`` versions.
 There is no other route. ``launches`` and ``bwd_launches`` count calls of
 the two wrappers that reach the card (a forward call is two device launches
-when its schedule cuts a row into chunks). The forward kernel takes its
-work from a static schedule of the relation's rows (``row_schedule``, built
-once per relation stream and kept on its ``DeviceLayout``: packed short
-rows, chunks of long ones, combined in a fixed order by a second launch).
+when its schedule cuts a row into chunks). Both kernels take their work
+from one static schedule of the relation's rows (``schedule.row_schedule``,
+built once per relation stream and kept on its ``DeviceLayout``: packed
+short rows, chunks of long ones; the forward combines a row's chunks in a
+fixed order by a second launch, the backward writes each chunk's edges).
 ``SegmentSoftmaxSpmm`` is the op as an autograd function: its
 backward is ``segment_softmax_spmm_bwd`` (per-edge ``p_e`` and
 ``d_logit_e``), then ``segment.csc_segment_sum(g, p, None)`` over the
@@ -30,16 +31,11 @@ from __future__ import annotations
 import torch
 
 from . import segment
-from .schedule import (BWD_ITEM_MAX_EDGES, ITEM_MAX_ROWS,
-                       check_device_schedule, schedule)
+from .schedule import (BWD_ITEM_MAX_EDGES, check_device_schedule,
+                       check_stream, row_schedule)
 from .segment_ref import EPS, NEG_BIG, csr_rows, gather_rows, segment_max, segment_sum
 
 EXP_CLAMP = 60.0
-# the forward's schedule: items of up to 32 rows and MAX_EDGES edges, a
-# longer row cut into chunks of CHUNK_EDGES (a relation's trash row sums up
-# to 511 identical pad terms: its chunks round otherwise than the plain
-# version's sequential sum, within the trash rows' rtol 1e-4)
-MAX_EDGES, CHUNK_EDGES = 128, 128
 
 launches = 0
 bwd_launches = 0
@@ -67,14 +63,6 @@ def segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets):
     row_sum = segment_sum(p, dst, n_rows)
     out = segment_sum(p[:, None] * gather_rows(xs, src[:e]), dst, n_rows)
     return out / (row_sum + EPS)[:, None], row_max, row_sum
-
-
-def row_schedule(row_offsets, max_edges=MAX_EDGES, chunk_edges=CHUNK_EDGES):
-    """The forward kernel's schedule of one relation's rows (host, numpy):
-    a unit is a row, up to ITEM_MAX_ROWS of them an item."""
-    n_rows = len(row_offsets) - 1
-    return schedule(row_offsets, n_rows, 0, max_edges, chunk_edges,
-                    max_units=ITEM_MAX_ROWS)
 
 
 def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None):
@@ -149,14 +137,18 @@ def segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets, row_max,
 
 
 def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
-                             out, g):
+                             out, g, sched=None):
     """Edge-level VJP of segment_softmax_spmm_fwd: (w [E], d_logits [E]).
 
     The arguments are the forward's, its out / row_max / row_sum and the
     cotangent g [n_rows, D] of out. w_e = p_e is the softmax weight of edge
     e, d_logits the logits' cotangent. The message cotangent p_e g_row is
     never formed: segment.csc_segment_sum(g, w, None) sums it per source
-    row."""
+    row. sched: the stream's row_schedule on the device, the forward's
+    (built from row_offsets when not given). The kernel forms dot_r =
+    out_r . g_r from the row's own edges where an item holds the whole row
+    (sum_e p_e xs[src_e] . g_r), and from out on chunked rows. The plain
+    version needs no schedule."""
     if xs.device.type == "cpu":
         return segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets,
                                               row_max, row_sum, out, g)
@@ -170,20 +162,23 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
         raise ValueError(f"row_max / row_sum must be ({n_rows},)")
     from .gat_layer import check_cuda_args
 
-    check_cuda_args(xs.device, xs=xs, src=src, logits=logits,
-                    row_offsets=row_offsets, row_max=row_max,
+    dev = xs.device
+    check_cuda_args(dev, xs=xs, logits=logits, row_max=row_max,
                     row_sum=row_sum, out=out, g=g)
+    if sched is None:
+        sched = row_schedule(row_offsets).to(dev)
+    check_stream(sched, ("bwd", dev), src, row_offsets, n_rows)
     from .build import library
 
-    e = src.shape[0]
-    w = torch.empty(e, dtype=torch.float32, device=xs.device)
-    d_logits = torch.empty(e, dtype=torch.float32, device=xs.device)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    # w and d_logits, one allocation
+    w, d_logits = torch.empty(2, src.shape[0], dtype=torch.float32,
+                              device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("segment_softmax_spmm_bwd")(
         xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
         row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
         out.data_ptr(), g.data_ptr(), w.data_ptr(), d_logits.data_ptr(),
-        n_rows, d, stream)
+        sched.items.data_ptr(), sched.items.shape[0], n_rows, d, stream)
     if err != 0:
         raise RuntimeError(
             f"segment_softmax_spmm_bwd launch failed: cudaError {err}")
@@ -198,7 +193,8 @@ def segment_softmax_spmm_backward(xs, logits, row_max, row_sum, out, g,
     edge kernel, then the CSC segment sum. layout is the relation's
     one-slot DeviceLayout (models/hetero_gnn.py)."""
     w, d_logits = segment_softmax_spmm_bwd(
-        xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g)
+        xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g,
+        sched=getattr(layout, "row_schedule", None))
     d_xs, _ = segment.csc_segment_sum(g, w, None, xs, None, layout)
     return d_xs, d_logits
 

@@ -16,24 +16,32 @@ cancels.
 The model-variant kernels (segment_softmax_spmm_fwd / _bwd on one
 relation's stream, csr_segment_sum and the CSC sum without logit term on a
 merged group's) are held the same way, and two launches give the same
-bits. The merged GAT kernels run on their static schedule with the default
+bits; the backward on every relation stream and the CSR sum on every
+merged group, on their row schedules and with max_edges 8, by
+chip_smoke.py's float64 rule (max abs error against the float64 plain
+version at most 8 times the float32 plain version's plus 1e-6 of the
+largest value). The merged GAT kernels run on their static schedule with the default
 max_edges and with max_edges = 8, where real rows are cut into chunks too,
 and on a stream with a hub node of several thousand edges across its slots.
-The segment softmax forward and the CSC sum run on their schedules too, on
-a stream with long rows, a hub row, empty rows and a trash row of identical
-pad edges, at the default max_edges and at 8, and the CSC sum in each of
+The segment softmax forward and backward, the CSR sum and the CSC sum run
+on their schedules too, on a stream with long rows, a hub row, empty rows
+and a trash row of identical pad edges, at the default max_edges and at 8, and the CSC sum in each of
 its four call forms (the merged GAT layer's, the per-relation GAT's, and
 the message-passing backward with and without weights). With
 KGWAS_PARENT_CSRC set to an earlier checkout's ``kgwas_tpu_torch/ops/csrc``,
-the CSC sum (with logit term) is also held bitwise against that source's
-kernel on every source row it does not cut into chunks (the chunked rows
-and d_att, whose partials now follow the items, by the float64 rule of
-chip_smoke.py), and the merged GAT and segment softmax forward kernels
-within the tolerances above.
+the segment kernels are also held against that checkout's through its own
+wrappers (its package imported as parent_kgwas_tpu_torch): the CSC sum
+(with logit term) and the CSR sum bitwise on every row their schedules do
+not cut into chunks (the chunked rows and d_att by the float64 rule, or
+as trash rows), the segment softmax forward and backward within the
+tolerances above; and the merged GAT kernels, built from that source with
+this checkout's C interface, within the same tolerances.
 """
-import ctypes
 import dataclasses
+import importlib
+import importlib.util
 import os
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -43,7 +51,8 @@ import torch
 
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models.hetero_gnn import device_layouts
-from kgwas_tpu_torch.ops import build, gat_layer, segment, segment_softmax
+from kgwas_tpu_torch.ops import (build, gat_layer, schedule, segment,
+                                 segment_softmax)
 
 pytestmark = pytest.mark.gpu
 
@@ -355,6 +364,85 @@ def test_csr_and_csc_sums_without_logits_match_plain(weighted, d,
                                                         before[1] + 2)
 
 
+def _relation_bwd_args(RL, d, device, seed):
+    """segment_softmax_spmm_bwd's arguments on one relation's stream: random
+    xs, logits and g, and the forward kernel's out, row_max and row_sum."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)  # noqa: E731
+    xs = t(rng.standard_normal((RL.src_base[-1], d)) * 0.1)
+    logits = t(rng.standard_normal(RL.src.shape[0]) * 1.5)
+    g = t(rng.standard_normal((RL.row_offsets.shape[0] - 1, d)))
+    out, row_max, row_sum = segment_softmax.segment_softmax_spmm_fwd(
+        xs, RL.src, logits, RL.row_offsets, sched=RL.row_schedule)
+    return xs, RL.src, logits, RL.row_offsets, row_max, row_sum, out, g
+
+
+def _as_double(args):
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+@pytest.mark.parametrize("d", [D, 48])
+@pytest.mark.parametrize("max_edges", [None, 8])
+def test_segment_softmax_bwd_on_every_relation_stream(max_edges, d,
+                                                      cuda_device,
+                                                      variant_world):
+    """The backward kernel on every relation's stream, on the layout's row
+    schedule and with max_edges 8 (real rows cut into chunks too, whose
+    dot_r comes from out): two runs the same bits, and within the float64
+    rule of the plain version."""
+    cg, rel, _ = variant_world
+    n = 0
+    for L in rel.values():
+        for rk, RL in zip(L.rel_keys, L.relations):
+            args = _relation_bwd_args(RL, d, cuda_device, seed=17 + n)
+            sched = RL.row_schedule
+            if max_edges:
+                sched = schedule.row_schedule(cg.relations[rk].row_offsets,
+                                              max_edges, max_edges)
+                assert sched.n_parts > len(sched.split_units)
+                sched = sched.to(cuda_device)
+            before = segment_softmax.bwd_launches
+            got = _repeat_equal(
+                lambda *a: segment_softmax.segment_softmax_spmm_bwd(
+                    *a, sched=sched), *args)
+            assert segment_softmax.bwd_launches == before + 2
+            plain = segment_softmax.segment_softmax_spmm_bwd_plain(*args)
+            exact = segment_softmax.segment_softmax_spmm_bwd_plain(
+                *_as_double(args))
+            for a, p, x in zip(got, plain, exact):
+                _grad_rule(a, p, x)
+            n += 1
+    assert n == len(cg.relations)
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csr_segment_sum_on_every_merged_group(weighted, max_edges,
+                                               cuda_device, variant_world):
+    """The CSR sum on every merged group's stream, on the layout's row
+    schedule and with max_edges 8: two runs the same bits, and within the
+    float64 rule of the plain version."""
+    cg, _, mp = variant_world
+    rng = np.random.default_rng(18)
+    for dst_t, DL in mp.items():
+        x = torch.from_numpy((rng.standard_normal((DL.src_base[-1], D)) * 0.1
+                              ).astype(np.float32)).to(cuda_device)
+        sched = DL.row_schedule
+        if max_edges:
+            sched = schedule.row_schedule(DL.row_offsets.cpu().numpy(),
+                                          max_edges, max_edges)
+            sched = sched.to(cuda_device)
+        assert sched.n_parts > 0
+        args = (x, DL.src, DL.row_offsets, DL.sym_e if weighted else None)
+        before = segment.csr_launches
+        (got,) = _repeat_equal(lambda *a: (segment.csr_segment_sum(
+            *a, sched=sched),), *args)
+        assert segment.csr_launches == before + 2
+        _grad_rule(got, segment.csr_segment_sum_plain(*args),
+                   segment.csr_segment_sum_plain(*_as_double(args)))
+
+
 # ------------------------------- the segment softmax and CSC schedules
 
 
@@ -398,11 +486,11 @@ def test_segment_softmax_fwd_long_hub_and_empty_rows(d, max_edges,
     args = (t(xs), t(src), t(logits), t(ro))
     sched = None
     if max_edges:   # real rows cut into chunks of 8 too
-        sched = segment_softmax.row_schedule(ro, max_edges, max_edges)
+        sched = schedule.row_schedule(ro, max_edges, max_edges)
         assert sched.n_parts > 100
         sched = sched.to(cuda_device)
     else:
-        split = segment_softmax.row_schedule(ro).split_units.tolist()
+        split = schedule.row_schedule(ro).split_units.tolist()
         assert split == long_rows
     before = segment_softmax.launches
     got = segment_softmax.segment_softmax_spmm_fwd(*args, sched=sched)
@@ -417,6 +505,44 @@ def test_segment_softmax_fwd_long_hub_and_empty_rows(d, max_edges,
     for g_, a_, w_ in zip(got, again, want):
         assert torch.equal(g_, a_)
         _close_rows(g_, w_, long_rows)
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
+@pytest.mark.parametrize("d", [D, 48])
+def test_segment_bwd_and_csr_long_hub_and_empty_rows(d, max_edges,
+                                                     cuda_device):
+    """The backward kernel and the CSR sum on the stream with long rows, a
+    hub, empty rows and a trash row of identical pad edges, at the default
+    item sizes and at max_edges 8: two runs the same bits; the backward by
+    the float64 rule, the CSR sum as trash rows are on its long rows."""
+    src, ro, logits, xs, long_rows = _long_row_stream(d=d)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    fargs = (t(xs), t(src), t(logits), t(ro))
+    out, row_max, row_sum = segment_softmax.segment_softmax_spmm_fwd(*fargs)
+    rng = np.random.default_rng(19)
+    g = t(rng.standard_normal((len(ro) - 1, d)).astype(np.float32))
+    bsched = schedule.row_schedule(ro, max_edges or schedule.ROW_MAX_EDGES,
+                                   max_edges or schedule.ROW_CHUNK_EDGES)
+    csched = schedule.row_schedule(ro, max_edges or schedule.CSR_MAX_EDGES,
+                                   max_edges or schedule.CSR_CHUNK_EDGES)
+    assert set(long_rows) <= set(bsched.split_units.tolist())
+    assert set(long_rows) <= set(csched.split_units.tolist())
+    bsched, csched = bsched.to(cuda_device), csched.to(cuda_device)
+    bargs = fargs + (row_max, row_sum, out, g)
+    got = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_bwd(
+        *a, sched=bsched), *bargs)
+    for a, p, x in zip(got, segment_softmax.segment_softmax_spmm_bwd_plain(
+            *bargs), segment_softmax.segment_softmax_spmm_bwd_plain(
+            *_as_double(bargs))):
+        _grad_rule(a, p, x)
+    w = t(rng.random(len(src)).astype(np.float32))
+    empty = t(np.flatnonzero(np.diff(ro) == 0)).long()
+    for wt in (None, w):
+        args = (fargs[0], fargs[1], fargs[3], wt)
+        (got,) = _repeat_equal(lambda *a: (segment.csr_segment_sum(
+            *a, sched=csched),), *args)
+        assert (got[empty] == 0).all()
+        _close_rows(got, segment.csr_segment_sum_plain(*args), long_rows)
 
 
 def _hub_csc_layout(device, seed=11, n=512, n_rel=2, hub=70):
@@ -499,15 +625,22 @@ def parent_csrc():
     return Path(d)
 
 
-# the earlier checkout's one-warp-per-row segment kernels: their C entry
-# points (the merged GAT kernels have this checkout's)
-_PARENT_CSC_ARGS = ([ctypes.c_void_p] * 8
-                    + [ctypes.POINTER(ctypes.c_longlong)]
-                    + [ctypes.c_void_p] * 3
-                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p])
-_PARENT_SEG_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong,
-                                                ctypes.c_int, ctypes.c_void_p]
+@pytest.fixture
+def parent_ops(parent_csrc):
+    """The earlier checkout's segment wrappers: its package imported as
+    parent_kgwas_tpu_torch (its kernels built by its own ops/build.py)."""
+    name = "parent_kgwas_tpu_torch"
+    if name not in sys.modules:
+        pkg = parent_csrc.resolve().parents[1]
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return SimpleNamespace(
+        segment=importlib.import_module(f"{name}.ops.segment"),
+        segment_softmax=importlib.import_module(
+            f"{name}.ops.segment_softmax"))
 
 
 def _grad_rule(got, plain, exact):
@@ -520,13 +653,13 @@ def _grad_rule(got, plain, exact):
 
 
 @pytest.mark.parametrize("fold", [False, True])
-def test_csc_segment_sum_logit_path_bitwise_as_parent(fold, parent_csrc,
+def test_csc_segment_sum_logit_path_bitwise_as_parent(fold, parent_ops,
                                                       cuda_device, group):
     """The merged GAT layer's call (w, dz, att) gives the same bits as the
-    kernel built from the earlier source on every source row that the
-    schedule does not cut into chunks; the chunked rows (each slot's trash
-    source row) and d_att, whose partials now follow the items, are held
-    to the float64 plain version by the backward rule."""
+    earlier checkout's kernel through its own wrapper on every source row
+    that the schedule does not cut into chunks; the chunked rows (each
+    slot's trash source row) and d_att are held to the float64 plain
+    version by the backward rule."""
     L, _ = group
     R = len(L.rel_keys)
     fold = R if fold else 0
@@ -537,26 +670,15 @@ def test_csc_segment_sum_logit_path_bitwise_as_parent(fold, parent_csrc,
     w = torch.from_numpy(rng.random(e, dtype=np.float32)).to(cuda_device)
     dz = torch.from_numpy(rng.standard_normal(e).astype(np.float32)).to(
         cuda_device)
-    new = segment.csc_segment_sum(g, w, dz, xs, att, DL, fold)
-    fn = build.build_source(parent_csrc / "csc_segment_sum.cu",
-                            "parent_csc_segment_sum", "kgwas_csc_segment_sum",
-                            _PARENT_CSC_ARGS)
-    old = torch.empty_like(xs)
-    old_att = torch.empty_like(att)
-    partial = torch.empty(DL.src_base[-1] // 64, D, device=cuda_device)
-    bases = (ctypes.c_longlong * (R + 1))(*DL.src_base)
-    assert fn(g.data_ptr(), w.data_ptr(), dz.data_ptr(), xs.data_ptr(),
-              att.data_ptr(), DL.dst.data_ptr(), DL.csc_perm.data_ptr(),
-              DL.csc_offsets.data_ptr(), bases, old.data_ptr(),
-              old_att.data_ptr(), partial.data_ptr(), R, DL.n_rows_per_rel,
-              int(bool(fold)), D, torch.cuda.current_stream().cuda_stream) == 0
+    args = (g, w, dz, xs, att, DL, fold)
+    new = segment.csc_segment_sum(*args)
+    old = parent_ops.segment.csc_segment_sum(*args)
     torch.cuda.synchronize()
     chunked = DL.csc_schedule.split_units.long()
     assert chunked.numel() > 0
     whole = torch.ones(xs.shape[0], dtype=torch.bool, device=cuda_device)
     whole[chunked] = False
-    assert torch.equal(new[0][whole], old[whole])
-    args = (g, w, dz, xs, att, DL, fold)
+    assert torch.equal(new[0][whole], old[0][whole])
     plain = segment.csc_segment_sum_plain(*args)
     exact = segment.csc_segment_sum_plain(
         g.double(), w.double(), dz.double(), xs.double(), att.double(), DL,
@@ -600,10 +722,11 @@ def test_merged_gat_kernels_match_parent(mode, fold, parent_csrc,
 
 @pytest.mark.parametrize("rk", ["Gene__Gene-PPI-Gene__Gene",
                                 "Gene__rev_TSS__SNP"])
-def test_segment_softmax_fwd_matches_parent(rk, parent_csrc, cuda_device,
+def test_segment_softmax_fwd_matches_parent(rk, parent_ops, cuda_device,
                                             variant_world):
-    """The scheduled forward against the earlier one-warp-per-row kernel on
-    one relation's stream, within the kernel-vs-plain tolerances."""
+    """The scheduled forward against the earlier checkout's kernel through
+    its own wrapper on one relation's stream, within the kernel-vs-plain
+    tolerances."""
     cg, rel, _ = variant_world
     r = cg.relations[rk]
     L = rel[r.dst_type]
@@ -612,19 +735,59 @@ def test_segment_softmax_fwd_matches_parent(rk, parent_csrc, cuda_device,
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(cuda_device)  # noqa: E731
     xs = t(rng.standard_normal((RL.src_base[-1], D)) * 0.1)
     logits = t(rng.standard_normal(RL.src.shape[0]) * 1.5)
-    new = segment_softmax.segment_softmax_spmm_fwd(
-        xs, RL.src, logits, RL.row_offsets, sched=RL.row_schedule)
-    fn = build.build_source(parent_csrc / "segment_softmax_spmm_fwd.cu",
-                            "parent_segment_softmax_spmm_fwd",
-                            "kgwas_segment_softmax_spmm_fwd",
-                            _PARENT_SEG_FWD_ARGS)
-    n_rows = RL.row_offsets.shape[0] - 1
-    old = (torch.empty(n_rows, D, device=cuda_device),
-           torch.empty(n_rows, device=cuda_device),
-           torch.empty(n_rows, device=cuda_device))
-    assert fn(xs.data_ptr(), RL.src.data_ptr(), logits.data_ptr(),
-              RL.row_offsets.data_ptr(), *(o.data_ptr() for o in old),
-              n_rows, D, torch.cuda.current_stream().cuda_stream) == 0
+    args = (xs, RL.src, logits, RL.row_offsets)
+    new = segment_softmax.segment_softmax_spmm_fwd(*args,
+                                                   sched=RL.row_schedule)
+    old = parent_ops.segment_softmax.segment_softmax_spmm_fwd(*args)
     torch.cuda.synchronize()
     for a, b in zip(new, old):
         _close(a, b, RL.n_rows_per_rel, cg.num_nodes[r.dst_type])
+
+
+@pytest.mark.parametrize("rk", ["Gene__Gene-PPI-Gene__Gene",
+                                "Gene__rev_TSS__SNP",
+                                "SNP__Enhancer-eQTL-Gene__Gene"])
+def test_segment_softmax_bwd_matches_parent(rk, parent_ops, cuda_device,
+                                            variant_world):
+    """The scheduled backward against the earlier checkout's kernel through
+    its own wrapper on one relation's stream, within the backward
+    kernels' tolerances (dot_r comes from the edges here, from out
+    there)."""
+    cg, rel, _ = variant_world
+    r = cg.relations[rk]
+    L = rel[r.dst_type]
+    RL = L.relations[L.rel_keys.index(rk)]
+    args = _relation_bwd_args(RL, D, cuda_device, seed=15)
+    new = segment_softmax.segment_softmax_spmm_bwd(*args,
+                                                   sched=RL.row_schedule)
+    old = parent_ops.segment_softmax.segment_softmax_spmm_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        _close_grad(a, b)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dst_t", ["Gene", "SNP"])
+def test_csr_segment_sum_bitwise_as_parent(dst_t, weighted, parent_ops,
+                                           cuda_device, variant_world):
+    """The scheduled CSR sum gives the same bits as the earlier checkout's
+    kernel (through its own wrapper) on every row its schedule does not cut
+    into chunks: each row's edges in stream order; the chunked rows within
+    the trash rows' tolerance."""
+    cg, _, mp = variant_world
+    DL = mp[dst_t]
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy((rng.standard_normal((DL.src_base[-1], D)) * 0.1
+                          ).astype(np.float32)).to(cuda_device)
+    args = (x, DL.src, DL.row_offsets, DL.sym_e if weighted else None)
+    new = segment.csr_segment_sum(*args, sched=DL.row_schedule)
+    old = parent_ops.segment.csr_segment_sum(*args)
+    torch.cuda.synchronize()
+    chunked = DL.row_schedule.split_units.long()
+    assert chunked.numel() > 0
+    whole = torch.ones(new.shape[0], dtype=torch.bool, device=cuda_device)
+    whole[chunked] = False
+    assert torch.equal(new[whole], old[whole])
+    np.testing.assert_allclose(new[chunked].cpu().numpy(),
+                               old[chunked].cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)

@@ -8,7 +8,9 @@
 * A CPU tensor runs the plain version of each kernel wrapper and launches
   nothing, in the forward and in the backward.
 * Options still unported raise NotImplementedError naming their ROADMAP
-  item.
+  item; ``initialize_model`` takes the JAX method's arguments: the TPU
+  execution knobs are accepted and leave the same ``config`` as the JAX
+  package's, and a name that is no ``ModelConfig`` field raises TypeError.
 """
 import ast
 import pathlib
@@ -185,3 +187,43 @@ def test_unported_options_raise(tmp_path):
                {"edge_dim": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run.initialize_model(gnn_hidden_dim=16, **kw)
+    # remat is a model variant (item 3); the dtypes and host-streamed
+    # features are item 7
+    for kw, item in (({"remat": True}, 3),
+                     ({"compute_dtype": "bfloat16"}, 7),
+                     ({"stream_dtype": "bfloat16"}, 7),
+                     ({"stream_features": ["SNP"]}, 7),
+                     ({"param_dtype": "bfloat16"}, 7)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 item {item} "):
+            run.initialize_model(gnn_hidden_dim=16, **kw)
+
+
+def test_tpu_knobs_are_accepted_and_not_persisted(tmp_path):
+    """The JAX package's execution knobs (and remat, the dtypes and
+    stream_features at their defaults) are accepted; config holds the
+    model-semantic keys only, as the JAX package's does."""
+    from kgwas_tpu import KGWAS as JaxKGWAS
+    from kgwas_tpu import KGWAS_Data as JaxData
+
+    kw = dict(gnn_hidden_dim=16, gnn_aggr="mean", temperature=0.5,
+              use_pallas=False, rel_fold=False, matmul_precision="default",
+              pallas_mode="relation", remat=False, compute_dtype="float32",
+              stream_dtype=None, param_dtype="float32", stream_features=[])
+    data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
+                                     data_path=str(tmp_path / "port"))
+    run = KGWAS(data, device="cpu").initialize_model(**kw)
+    jdata = JaxData.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
+                                   data_path=str(tmp_path / "jax"))
+    jrun = JaxKGWAS(jdata)
+    jrun.initialize_model(**kw)
+    assert run.config == jrun.config
+    assert run.model_cfg.temperature == 0.5
+
+
+def test_unknown_model_option_raises_type_error(tmp_path):
+    data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
+                                     data_path=str(tmp_path))
+    run = KGWAS(data, device="cpu")
+    with pytest.raises(TypeError, match="unknown model options"):
+        run.initialize_model(gnn_hidden_dim=16, no_such_option=1)

@@ -1,27 +1,35 @@
 """The segment kernels' static schedules, and their split-and-combine
 arithmetic against the JAX package's Pallas ops.
 
-``segment_softmax.row_schedule`` packs one relation's short rows into items
-and cuts long ones (each relation's trash row, with up to 511 pad edges;
-hubs) into chunks; ``segment.csc_schedule`` does the same over a layout's
-CSC source rows and never lets an item hold rows of two slots. The CUDA
-kernels (segment_softmax_spmm_fwd.cu, csc_segment_sum.cu) run only on the
-card (tests/test_torch_gpu.py), so this file holds (i) the schedules'
-properties and what ``device_layouts`` keeps of them, and (ii) PyTorch
-emulations of the kernels' arithmetic: the forward's chunk partials and
-their log-sum-exp combine in part order against
-``fused_segment_softmax_spmm`` (Pallas interpret mode on the CPU), and the
-CSC sum over each entry's row in CSC order (``csc_rows``), its chunks added
-in part order and d_att from per-item partials, against
+``schedule.row_schedule`` packs a stream's short rows into items and cuts
+long ones (each relation's trash row, with up to 511 pad edges; hubs) into
+chunks: one relation's rows for #6 and #7, a merged layout's R*N rows for
+#10 (``CSR_MAX_EDGES``); ``segment.csc_schedule`` does the same over a
+layout's CSC source rows and never lets an item hold rows of two slots.
+The CUDA kernels (segment_softmax_spmm_fwd.cu, segment_softmax_spmm_bwd.cu,
+csc_segment_sum.cu, csr_segment_sum.cu) run only on the card
+(tests/test_torch_gpu.py), so this file holds (i) the schedules' properties
+and what ``device_layouts`` keeps of them, and (ii) PyTorch emulations of
+the kernels' arithmetic: the forward's chunk partials and their
+log-sum-exp combine in part order against ``fused_segment_softmax_spmm``
+(Pallas interpret mode on the CPU); the backward's items (packed rows with
+dot_r from their own edges, chunks that each recompute the log-sum-exp and
+dot_r = out_r . g_r) against that op's VJP; the CSR sum's packed rows and
+chunks added in part order against ``segment_sum_edges`` (interpret mode);
+and the CSC sum over each entry's row in CSC order (``csc_rows``), its
+chunks added in part order and d_att from per-item partials, against
 ``csc_segment_sum_plain`` and ``gather_rows_csc``'s backward (interpret
 mode). max_edges = chunk_edges = 8 cuts real rows into chunks too.
 
 Tolerances: the forward's real rows rtol 1e-5, atol 1e-6, trash rows rtol
 1e-4 (float32 sums of up to 511 terms in another order; atol the Pallas
-op's own error against float64 there); the CSC sum by chip_smoke.py's
-backward rule (max abs error against the float64 plain version at most 8
-times the float32 plain version's plus 1e-6 of the largest value) and
-rtol 1e-5, atol 1e-5 against the Pallas op.
+op's own error against float64 there); the CSR sum's real rows rtol 1e-5,
+atol 1e-5 and trash rows rtol 1e-4 against the Pallas op; the backward, the
+CSR sum and the CSC sum by chip_smoke.py's backward rule (max abs error
+against the float64 plain version at most 8 times the float32 plain
+version's plus 1e-6 of the largest value); the CSC sum rtol 1e-5, atol
+1e-5 against the Pallas op, and the backward rtol 1e-3, atol 1e-4, as
+tests/test_torch_variant_ops.py holds the plain backward against it.
 """
 import dataclasses
 
@@ -34,7 +42,7 @@ import torch
 from kgwas_tpu.graph import compile_graph as jax_compile_graph
 from kgwas_tpu.graph import make_synthetic_kg as jax_make_kg
 from kgwas_tpu.ops.pallas_segment import (fused_segment_softmax_spmm,
-                                          gather_rows_csc)
+                                          gather_rows_csc, segment_sum_edges)
 
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models import device_layouts
@@ -114,8 +122,7 @@ def test_row_schedule_covers_every_edge_once_in_row_order(world, rk,
                                                           chunk_edges):
     _, cg, _ = world
     r = cg.relations[rk]
-    sched = segment_softmax.row_schedule(r.row_offsets, max_edges,
-                                         chunk_edges)
+    sched = S.row_schedule(r.row_offsets, max_edges, chunk_edges)
     _check_cover(sched, r.row_offsets, max_edges, chunk_edges)
     # the trash row (all of the relation's pad edges) is cut
     trash = cg.num_nodes[r.dst_type]
@@ -166,10 +173,23 @@ def test_device_layouts_carry_the_segment_schedules(world, path):
             r = cg.relations[rk]
             streams.append((RL, r.dst, r.csc_perm, r.csc_offsets,
                             RL.n_rows_per_rel, RL.src_base, 0))
-            want = segment_softmax.row_schedule(r.row_offsets)
+            want = S.row_schedule(r.row_offsets)
             assert torch.equal(RL.row_schedule.items, want.items)
             assert RL.row_schedule.n_parts == want.n_parts
-        if path != "relations":
+        if path == "mp":   # the CSR sum's, over the merged layout's rows
+            want = S.row_schedule(L.row_offsets, S.CSR_MAX_EDGES,
+                                  S.CSR_CHUNK_EDGES)
+            got = DL.row_schedule
+            assert torch.equal(got.items, want.items)
+            assert torch.equal(got.part_offsets, want.part_offsets)
+            _check_cover(got, L.row_offsets, S.CSR_MAX_EDGES,
+                         S.CSR_CHUNK_EDGES)
+            trash = cg.num_nodes[t]   # each slot's trash row is cut
+            for r0 in range(0, len(L.row_offsets) - 1, L.n_rows_per_rel):
+                row = r0 + trash
+                if np.diff(L.row_offsets)[row] > S.CSR_MAX_EDGES:
+                    assert row in got.split_units.tolist()
+        elif path != "relations":
             assert DL.row_schedule is None
         for lay, dst, perm, off, n, base, fold in streams:
             rows = dst[perm] % n if fold else dst[perm]
@@ -193,7 +213,7 @@ def test_schedule_scratch_is_not_carried_to_a_copy():
     """A wrapper's scratch lives on the schedule it was made for: to() and
     a copy start with none."""
     ro = np.array([0, 2, 3, 3, 700], dtype=np.int32)
-    sched = segment_softmax.row_schedule(ro)
+    sched = S.row_schedule(ro)
     sched.cache["k"] = torch.zeros(3)
     assert sched.to("cpu").cache == {}
     assert dataclasses.replace(sched, max_edges=64).cache == {}
@@ -256,7 +276,7 @@ def _assert_rows(got, want, trash, exact):
                                atol=max(ATOL, ref_err))
 
 
-@pytest.mark.parametrize("max_edges", [8, segment_softmax.MAX_EDGES])
+@pytest.mark.parametrize("max_edges", [8, S.ROW_MAX_EDGES])
 @pytest.mark.parametrize("rk", RELATIONS)
 def test_segment_softmax_split_and_combine_matches_pallas(world, rk,
                                                           max_edges):
@@ -267,8 +287,8 @@ def test_segment_softmax_split_and_combine_matches_pallas(world, rk,
           ).astype(np.float32)
     logits = (rng.standard_normal(len(r.src)) * 1.5).astype(np.float32)
     n_rows = cg.padded_nodes[r.dst_type]
-    chunk = max_edges if max_edges == 8 else segment_softmax.CHUNK_EDGES
-    sched = segment_softmax.row_schedule(r.row_offsets, max_edges, chunk)
+    chunk = max_edges if max_edges == 8 else S.ROW_CHUNK_EDGES
+    sched = S.row_schedule(r.row_offsets, max_edges, chunk)
     trash = cg.num_nodes[r.dst_type]
     assert trash in sched.split_units.tolist()
     out, row_max, row_sum = _emulate_segment_softmax(
@@ -405,4 +425,135 @@ def test_csc_split_and_combine_matches_gather_rows_csc_backward(world, rk):
     _, vjp = jax.vjp(f, jnp.asarray(xs))
     (want,) = vjp(jnp.asarray(w[:, None] * g[r.dst]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _emulate_segment_softmax_bwd(xs, src, logits, ro, row_max, row_sum, out,
+                                 g, sched):
+    """segment_softmax_spmm_bwd.cu's item arithmetic: per edge p_e from its
+    row's log-sum-exp and m_e = xs[src_e] . g_r; in a packed item dot_r =
+    sum_e p_e m_e over the row's own edges, in a chunk dot_r = out_r . g_r,
+    recomputed by each chunk (its segment n_rows + part); w_e = p_e,
+    d_logit_e = p_e (m_e - dot)."""
+    n_rows = len(ro) - 1
+    seg, part_row = _chunk_segments(n_rows, ro, sched)
+    row = csr_rows(_t(ro))
+    e = len(row)
+    lse = row_max + torch.log(row_sum + EPS)
+    p = torch.exp(torch.clamp(logits[:e] - lse[row],
+                              max=segment_softmax.EXP_CLAMP))
+    m = (xs[_t(src[:e]).long()] * g[row]).sum(-1)
+    dot = torch.zeros(n_rows + sched.n_parts, dtype=xs.dtype).index_add_(
+        0, seg, p * m)
+    dot[n_rows:] = (out[part_row] * g[part_row]).sum(-1)
+    return p, p * (m - dot[seg])
+
+
+@pytest.mark.parametrize("max_edges", [8, S.ROW_MAX_EDGES])
+@pytest.mark.parametrize("rk", RELATIONS)
+def test_segment_softmax_bwd_items_match_pallas_vjp(world, rk, max_edges):
+    """The backward's item walk over the relation's row schedule (real rows
+    cut into chunks too at max_edges 8) against jax.vjp of
+    fused_segment_softmax_spmm (Pallas interpret mode): d_logits, and d_xs
+    as the CSC sum of its weights against the op's d_msgs summed per
+    source row as the CSC routes each edge; and against the plain version
+    by the float64 rule."""
+    cg_j, cg, layouts = world
+    r, rj = cg.relations[rk], cg_j.relations[rk]
+    dl = device_layouts(layouts, "cpu", cg, "relations")[r.dst_type]
+    RL = dl.relations[dl.rel_keys.index(rk)]
+    rng = np.random.default_rng(20 + RELATIONS.index(rk))
+    xs = (rng.standard_normal((cg.padded_nodes[r.src_type], D)) * 0.1
+          ).astype(np.float32)
+    logits = (rng.standard_normal(len(r.src)) * 1.5).astype(np.float32)
+    n_rows = cg.padded_nodes[r.dst_type]
+    g = rng.standard_normal((n_rows, D)).astype(np.float32)
+    sched = S.row_schedule(r.row_offsets, max_edges,
+                           8 if max_edges == 8 else S.ROW_CHUNK_EDGES)
+    assert cg.num_nodes[r.dst_type] in sched.split_units.tolist()
+    out, row_max, row_sum = segment_softmax.segment_softmax_spmm_fwd_plain(
+        _t(xs), _t(r.src), _t(logits), _t(r.row_offsets))
+    args = (_t(xs), _t(r.src), _t(logits), _t(r.row_offsets), row_max,
+            row_sum, out, _t(g))
+    w, d_logits = _emulate_segment_softmax_bwd(*args[:3], r.row_offsets,
+                                               *args[4:], sched)
+    plain = segment_softmax.segment_softmax_spmm_bwd_plain(*args)
+    exact = segment_softmax.segment_softmax_spmm_bwd_plain(
+        *(a.double() if a.is_floating_point() else a for a in args))
+    for a, p, x in zip((w, d_logits), plain, exact):
+        _grad_rule(a, p, x)
+
+    def f(msgs, lg):
+        return fused_segment_softmax_spmm(msgs, lg, jnp.asarray(rj.dst),
+                                          rj.row_offsets, n_rows, True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(xs)[jnp.asarray(rj.src)],
+                     jnp.asarray(logits))
+    d_msgs, want_dl = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(d_logits.numpy(), np.asarray(want_dl),
+                               rtol=1e-3, atol=1e-4)
+    want_dxs = torch.zeros(len(xs), D).index_add_(
+        0, segment.csc_sources(RL), _t(np.array(d_msgs)))
+    got_dxs, _ = segment.csc_segment_sum_plain(_t(g), w, None, _t(xs), None,
+                                               RL)
+    np.testing.assert_allclose(got_dxs.numpy(), want_dxs.numpy(), rtol=1e-3,
+                               atol=1e-4)
+
+
+def _emulate_csr(x, src, ro, w, sched):
+    """csr_segment_sum.cu's arithmetic: per packed row and per chunk the sum
+    of w_e x[src_e]; each chunked row's parts added in part order."""
+    n_rows = len(ro) - 1
+    seg, part_row = _chunk_segments(n_rows, ro, sched)
+    msgs = x[_t(src[:len(seg)]).long()]
+    if w is not None:
+        msgs = w[:len(seg), None] * msgs
+    acc = torch.zeros(n_rows + sched.n_parts, x.shape[1],
+                      dtype=x.dtype).index_add_(0, seg, msgs)
+    out = acc[:n_rows].clone()
+    for row in sched.split_units.tolist():
+        parts = n_rows + torch.nonzero(part_row == row)[:, 0]
+        out[row] = acc[parts[0]]
+        for q in parts[1:]:
+            out[row] = out[row] + acc[q]
+    return out
+
+
+@pytest.mark.parametrize("max_edges", [8, S.CSR_MAX_EDGES])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dst_t", ["Gene", "SNP", "BiologicalProcess",
+                                   "CellularComponent",
+                                   "MolecularFunction"])
+def test_csr_split_and_combine_matches_segment_sum_edges(world, dst_t,
+                                                         weighted,
+                                                         max_edges):
+    """The CSR sum's packed rows and chunks over a merged group's rows,
+    with and without the symmetric norm, against segment_sum_edges
+    (Pallas interpret mode) and the plain version by the float64 rule."""
+    _, cg, layouts = world
+    L = layouts[dst_t]
+    DL = device_layouts({dst_t: L}, "cpu", path="mp")[dst_t]
+    rng = np.random.default_rng(30)
+    x = (rng.standard_normal((L.n_src_total, D)) * 0.1).astype(np.float32)
+    w = DL.sym_e if weighted else None
+    sched = (DL.row_schedule if max_edges == S.CSR_MAX_EDGES
+             else S.row_schedule(L.row_offsets, 8, 8))
+    assert sched.n_parts > 0
+    got = _emulate_csr(_t(x), L.src, L.row_offsets, w, sched)
+    args = (_t(x), DL.src, DL.row_offsets, w)
+    _grad_rule(got, segment.csr_segment_sum_plain(*args),
+               segment.csr_segment_sum_plain(
+                   _t(x).double(), DL.src, DL.row_offsets,
+                   None if w is None else w.double()))
+    msgs = jnp.asarray(x)[jnp.asarray(L.src)]
+    if weighted:
+        msgs = msgs * jnp.asarray(w.numpy())[:, None]
+    want = np.asarray(segment_sum_edges(msgs, jnp.asarray(L.dst),
+                                        jnp.asarray(L.row_offsets),
+                                        L.n_rows_total, True))
+    trash = np.zeros(L.n_rows_total, dtype=bool)
+    trash[cg.num_nodes[dst_t]::L.n_rows_per_rel] = True
+    np.testing.assert_allclose(got.numpy()[~trash], want[~trash], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy()[trash], want[trash], rtol=1e-4,
                                atol=1e-5)
