@@ -30,7 +30,9 @@
 // once per edge. The U products x_u . g_r of a batch reduce across the warp
 // in one transposing butterfly (log2 U halving exchanges, then the rest:
 // 6 shuffles for 4 edges where a butterfly each would take 20), and m_e
-// goes to shared memory. Last, each row's dot_r, then w_e and d_logit_e for
+// goes to shared memory. (Lane groups, 8 lanes x 16 floats an edge and 3
+// shuffles, hold 16 floats of g_r per batch instead of 4: 94 registers, 16
+// warps per SM, and 4-8% slower per GAT-max step, PERF.md.) Last, each row's dot_r, then w_e and d_logit_e for
 // every edge of the item, written by consecutive lanes.
 //
 // dot_r. Inside a packed item the row is whole, so dot_r = sum_e p_e m_e

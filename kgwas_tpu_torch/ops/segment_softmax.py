@@ -170,9 +170,9 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
     check_stream(sched, ("bwd", dev), src, row_offsets, n_rows)
     from .build import library
 
-    # w and d_logits, one allocation
-    w, d_logits = torch.empty(2, src.shape[0], dtype=torch.float32,
-                              device=dev)
+    e = src.shape[0]
+    w = torch.empty(e, dtype=torch.float32, device=dev)
+    d_logits = torch.empty(e, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("segment_softmax_spmm_bwd")(
         xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
