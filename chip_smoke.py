@@ -55,6 +55,25 @@ PyTorch version:
      new kernel's ms against its bound, its plain version and, for the
      CSR sum, torch.sparse.mm
 
+  7. interpretation: KGWAS.get_disease_critical_network on phase 5's
+     trained model and KGWAS_P table (the default variant_threshold 5e-8
+     where it leaves 100-2000 hit SNPs, else the P below which 1000 lie),
+     then on a GAT-max model of the 20k-SNP KG: the merged GAT forward in
+     its raw mode (fold R, then fold 0) must launch once per group and
+     layer (10), each launch held against its plain version, α (layer 1
+     bitwise, layer 2 at rtol/atol) and the three tables against a run
+     with the plain version on the same card (equal rows up to counted
+     near-ties); each stage's host seconds
+  8. the bench entry (python3 -m kgwas_tpu_torch.bench_lib at its
+     defaults, edges padded to 8192; its JSON line printed) beside phase
+     5d's train step, then KGWAS.train(epoch=1) over three batches with
+     profile_dir and metrics_log: the trace parses and names the three
+     kernels of the step, the log holds one record with the JAX package's
+     keys; the device idle share of the traced window
+
+  Phase 5 also writes its KGWAS_P table with write_table and with the row
+  writer it replaced, and checks that the bytes are equal.
+
   Phases 5d (GAT sum) and 6c (GAT-max, SAGE, GCN) also time the segment
   kernels launch by launch (segment_launches: the CSC sum in each;
   segment_softmax_spmm_fwd and _bwd on GAT-max; csr_segment_sum on SAGE
@@ -77,8 +96,9 @@ saved output; 5d (GAT sum) and 6c (GAT-max, SAGE) also time the train
 step, and 6c (SAGE, GCN) the forward, with its segment kernels in place
 of this checkout's, alternating.
 
-Prints the kernel table as one JSON line, then the card's name and power
-limit, then the result line. Exits non-zero, printing no
+Prints the bench's JSON line (phase 8) on an earlier line, and at the end
+the kernel table as one JSON line, then the card's name and power limit,
+then the result line. Exits non-zero, printing no
 result, without a CUDA device or without the package beside this file.
 """
 import contextlib
@@ -745,34 +765,57 @@ def layout_without_trash(L, n_real, device):
 
 
 class HostTimer:
-    """Wraps a host function to add up the seconds its calls take."""
+    """Wraps a host function to add up the seconds its calls take (with
+    sync, each call ends in a synchronise: its launches' device time)."""
 
-    def __init__(self, fn):
-        self.fn, self.seconds = fn, 0.0
+    def __init__(self, fn, sync=False):
+        self.fn, self.seconds, self.sync = fn, 0.0, sync
 
     def __call__(self, *args, **kwargs):
         t0 = time.perf_counter()
         try:
-            return self.fn(*args, **kwargs)
+            out = self.fn(*args, **kwargs)
+            if self.sync:
+                torch.cuda.synchronize()
+            return out
         finally:
             self.seconds += time.perf_counter() - t0
 
 
 class Recorder:
-    """Wraps the model's layer op to keep each launch's inputs."""
+    """Wraps the model's layer op to keep each launch's inputs (and, with
+    keep_outputs, its results)."""
 
-    def __init__(self, fn):
-        self.fn, self.calls = fn, []
+    def __init__(self, fn, keep_outputs=False):
+        self.fn, self.calls, self.outputs = fn, [], []
+        self.keep_outputs = keep_outputs
 
     def __call__(self, *args, **kwargs):
         self.calls.append((args, kwargs))
-        return self.fn(*args, **kwargs)
+        out = self.fn(*args, **kwargs)
+        if self.keep_outputs:
+            self.outputs.append(out)
+        return out
+
+
+def write_table_by_rows(table, path, sep="\t"):
+    """The row-by-row pred.csv writer that utils.write_table replaced,
+    timed beside it on the same table."""
+    from kgwas_tpu_torch.utils import _cell_text
+
+    names = list(table)
+    cols = [_cell_text(table[k]) for k in names]
+    with open(path, "w") as f:
+        f.write(sep.join(names) + "\n")
+        for row in zip(*cols):
+            f.write(sep.join(row) + "\n")
 
 
 def phase_train(kt, data, cg, device, card, parent=None):
     """Phase 5: the training slice at full width. Returns the kernel table
-    rows of merged_gat_bwd and csc_segment_sum, and every kernel's launch
-    count in one KGWAS.train epoch. parent: the earlier merged GAT kernels,
+    rows of merged_gat_bwd and csc_segment_sum, every kernel's launch
+    count in one KGWAS.train epoch, the trained KGWAS (phase 7 interprets
+    it) and 5d's train step ms. parent: the earlier merged GAT kernels,
     timed beside merged_gat_bwd, or None."""
     from kgwas_tpu_torch import kgwas
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
@@ -1010,6 +1053,22 @@ def phase_train(kt, data, cg, device, card, parent=None):
         f"evaluation); launches {counts}; loss first {losses[0]:.4f} last "
         f"{losses[-1]:.4f}; val pearson {rec['val_pearsonr']:.4f}; test "
         f"{trainer.test_metrics}; {len(kp)} KGWAS_P finite in [0, 1]")
+    # the pred.csv writer: whole columns at once, against the row writer it
+    # replaced, on the same table
+    paths = [os.path.join(data.data_path, f"pred_{k}.csv")
+             for k in ("columns", "rows")]
+    write_s = []
+    for writer, path in zip((kgwas.write_table, write_table_by_rows), paths):
+        t0 = time.perf_counter()
+        writer(table, path)
+        write_s.append(time.perf_counter() - t0)
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("write_table's bytes differ from the row "
+                                 "writer's")
+    log(f"  phase 5 pred.csv writer ({len(kp)} rows): write_table "
+        f"{write_s[0]:.2f} s, the row writer it replaced {write_s[1]:.2f} s, "
+        f"bytes equal")
 
     rows = []
     for name, src, replaces in (
@@ -1034,7 +1093,7 @@ def phase_train(kt, data, cg, device, card, parent=None):
             "library_ms": t["library_ms"] if name == "csc_segment_sum"
             else None,
         })
-    return rows, counts
+    return rows, counts, trainer, step_ms
 
 
 VARIANTS = {
@@ -1998,6 +2057,297 @@ def phase_serve(kt, data, cg, device, card, parent, tmp):
     return tot, worst_full
 
 
+# ---- phases 7 and 8: interpretation, the bench and the training trace
+
+# hit SNPs phase 7 wants under its variant_threshold
+INTERP_HITS = (100, 2000)
+# the JAX package's ThroughputMeter record keys, metrics_log's lines
+METRICS_KEYS = ["epoch", "steps", "epoch_time_s", "edges_per_sec", "loss",
+                "val_mse", "val_pearsonr"]
+# the device entry that names each kernel of the training step in a trace
+TRACE_KERNELS = {"merged_gat_fwd": "merged_gat_fwd_kernel",
+                 "merged_gat_bwd": "merged_gat_bwd_kernel",
+                 "csc_segment_sum": "csc_items_kernel"}
+
+
+def hit_threshold(kgwas_res):
+    """The default variant_threshold 5e-8 where it leaves 100-2000 hit
+    SNPs, else the P value below which at most 1000 SNPs lie."""
+    p = np.asarray(kgwas_res["P"], dtype=np.float64)
+    if INTERP_HITS[0] <= int((p < 5e-8).sum()) <= INTERP_HITS[1]:
+        return 5e-8
+    return float(np.sort(p)[1000])
+
+
+def interpret(run, thr, plain):
+    """KGWAS.get_disease_critical_network(thr) with the merged GAT forward
+    (or, plain, its plain version) recorded. Returns (tables, alphas per
+    layer, the forward's recorded calls and results, launches, stage host
+    seconds)."""
+    from kgwas_tpu_torch.interpret import attention, network
+    from kgwas_tpu_torch.ops import gat_layer
+
+    fwd = Recorder(without_sched(gat_layer.merged_gat_forward_plain) if plain
+                   else gat_layer.merged_gat_forward, keep_outputs=True)
+    alphas = Recorder(run.model.collect_attention, keep_outputs=True)
+    forward = HostTimer(alphas, sync=True)
+    tables = HostTimer(attention.attention_tables)
+    zmax = [HostTimer(network._zscore), HostTimer(network._max_over_parallel)]
+    local = HostTimer(network.get_local_interpretation)
+    run.model.collect_attention = forward
+    gat_layer.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with swapped(gat_layer, merged_gat_forward=fwd), \
+                swapped(attention, attention_tables=tables), \
+                swapped(network, _zscore=zmax[0], _max_over_parallel=zmax[1],
+                        get_local_interpretation=local):
+            out = run.get_disease_critical_network(variant_threshold=thr)
+    finally:
+        del run.model.collect_attention
+    stages = {"forward": forward.seconds,
+              "attention_tables": tables.seconds - forward.seconds,
+              "z/max tables": sum(z.seconds for z in zmax),
+              "local interpretation": local.seconds}
+    total = time.perf_counter() - t0
+    # generate_viz's filters, id columns and row index
+    stages["other"] = total - sum(stages.values())
+    stages["total"] = total
+    return out, alphas.outputs[0], fwd, gat_layer.launches, stages
+
+
+def same_rows(a, b, float_col, rtol=PRED_RTOL, atol=PRED_ATOL):
+    """Two column tables hold the same rows in the same order, floats
+    within tolerance (NaN and inf in the same places)."""
+    if list(a) != list(b) or len(a[float_col]) != len(b[float_col]):
+        return False
+    for c in a:
+        x, y = np.asarray(a[c]), np.asarray(b[c])
+        if c != float_col:
+            if not np.array_equal(x, y):
+                return False
+            continue
+        fin = np.isfinite(y)
+        if not (np.array_equal(np.isfinite(x), fin)
+                and np.array_equal(x[~fin], y[~fin], equal_nan=True)
+                and np.all(np.abs(x[fin] - y[fin])
+                           <= atol + rtol * np.abs(y[fin]))):
+            return False
+    return True
+
+
+def near_ties(a, b, group, float_col, what):
+    """0 when the tables hold the same rows in order; else the number of
+    groups (rows sharing the group columns) whose rows differ, each only
+    at a near-tie: the same largest float_col value within tolerance (a
+    pair whose kept relation differs, a neighbourhood whose genes
+    differ). Raises beyond that, or past 1% of the groups."""
+    if same_rows(a, b, float_col):
+        return 0
+
+    def grouped(t):
+        rows = {}
+        for i, k in enumerate(zip(*(np.asarray(t[c]).tolist()
+                                    for c in group))):
+            rows.setdefault(k, []).append(i)
+        return rows
+
+    ga, gb = grouped(a), grouped(b)
+    if ga.keys() != gb.keys():
+        raise AssertionError(f"{what}: the groups differ")
+    ties = 0
+    for k, ra in ga.items():
+        ta = {c: np.asarray(v)[ra] for c, v in a.items()}
+        tb = {c: np.asarray(v)[gb[k]] for c, v in b.items()}
+        if same_rows(ta, tb, float_col):
+            continue
+        if not same_rows({"m": [np.nanmax(ta[float_col])]},
+                         {"m": [np.nanmax(tb[float_col])]}, "m"):
+            raise AssertionError(f"{what}: group {k} differs beyond a "
+                                 "near-tie")
+        ties += 1
+    if ties > max(1, 0.01 * len(ga)):
+        raise AssertionError(f"{what}: {ties} near-ties of {len(ga)} groups")
+    return ties
+
+
+def interpret_vs_plain(run, cg, thr, folded, what):
+    """Phase 7 on one model: get_disease_critical_network through the
+    kernel, counts set to 0 just before, then with the plain version on the
+    same card. Holds each forward launch against the plain version on its
+    inputs, α (layer 1 bitwise: the same tensor code on the same inputs;
+    layer 2 on layer 1's outputs at RTOL/ATOL) and the three tables.
+    folded: each launch folds its group's R slot rows (sum, mean), else
+    fold 0 (max, min). Returns the launches."""
+    from kgwas_tpu_torch.ops import gat_layer
+
+    _, _, layouts = run._device_state()
+    got, alpha_k, rec, launches, stages = interpret(run, thr, plain=False)
+    want, alpha_p, _, plain_launches, _ = interpret(run, thr, plain=True)
+    torch.cuda.synchronize()
+    n_groups = len(layouts) * LAYERS
+    if launches != n_groups or plain_launches != 0:
+        raise AssertionError(f"{what}: merged_gat_fwd launched {launches} "
+                             f"times (plain run {plain_launches}), expected "
+                             f"{n_groups}")
+    worst = 0.0
+    for (args, kwargs), outs in zip(rec.calls, rec.outputs):
+        dst_t = group_of(layouts, args[1])
+        n, n_real = args[5], cg.num_nodes[dst_t]
+        sched = kwargs["sched"]
+        fold = len(layouts[dst_t].rel_keys) if folded else 0
+        if args[6] != fold or args[7] != "raw" or sched is None or (
+                sched.fold_slots != (fold or 1)):
+            raise AssertionError(f"{what} {dst_t}: launched with fold "
+                                 f"{args[6]}, mode {args[7]}, schedule "
+                                 f"{sched and sched.fold_slots}")
+        plain = gat_layer.merged_gat_forward_plain(*args)
+        for name, a, b in zip(("out", "row_max", "row_sum"), outs, plain):
+            err, _ = compare(a, b, trash_mask(a.shape[0], n, n_real),
+                             f"{what} {dst_t} {name}")
+            worst = max(worst, err)
+    for li, (ak, ap) in enumerate(zip(alpha_k, alpha_p)):
+        if list(ak) != list(ap):
+            raise AssertionError(f"{what}: layer {li + 1} relations differ")
+        for rk in ak:
+            if li == 0 and not torch.equal(ak[rk], ap[rk]):
+                raise AssertionError(f"{what} l1 {rk}: α differs")
+            err, _ = compare(ak[rk], ap[rk], np.zeros(len(ak[rk]), bool),
+                             f"{what} l{li + 1} {rk} α")
+            worst = max(worst, err)
+    nw, vi, dcn = got
+    if not same_rows(nw, want[0], "weight", RTOL, ATOL):
+        raise AssertionError(f"{what}: the network weight tables differ")
+    if set(nw["layer"]) != {"l1", "l2"} or len(set(nw["t_type"])) != 5:
+        raise AssertionError(f"{what}: layers {set(nw['layer'])}, t_types "
+                             f"{set(nw['t_type'])}")
+    if not len(dcn["h_idx"]) or not len(vi["h_idx"]) or not np.isfinite(
+            nw["weight"]).all():
+        raise AssertionError(f"{what}: empty tables or a non-finite weight")
+    if not set(dcn["Category"]) <= {"V2G", "G2G", "G2P"} or any(
+            r.startswith("rev_") for r in dcn["rel_type"]):
+        raise AssertionError(f"{what}: bad Category or rel_type")
+    ties = (near_ties(dcn, want[2], ("Category", "h_idx", "t_idx"),
+                      "importance", f"{what} disease-critical network"),
+            near_ties(vi, want[1], ("QUERY_SNP",), "importance",
+                      f"{what} variant interpretation"))
+    hits = len(set(vi["QUERY_SNP"]))
+    log(f"  phase 7 {what}: variant_threshold {thr:.3g}; merged_gat_fwd "
+        f"raw {'fold R' if folded else 'fold 0'} x{launches} vs plain "
+        f"within tolerance (worst abs err {worst:.3e}), α layer 1 bitwise; "
+        f"tables: network weight "
+        f"{len(nw['h_idx'])} rows, disease-critical network "
+        f"{len(dcn['h_idx'])}, variant interpretation {len(vi['h_idx'])} "
+        f"rows over {hits} hit SNPs, equal to the plain run's up to near-ties "
+        f"{ties}; host s: " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in stages.items()))
+    return launches
+
+
+def phase_interpret(kt, trainer, cg, card, tmp):
+    """Phase 7: KGWAS.get_disease_critical_network on phase 5's trained
+    full-width model and its KGWAS_P table (GAT sum: fold R), then on a
+    GAT-max model of the 20k-SNP KG (fold 0), each against the plain
+    version on the same card."""
+    t0 = time.perf_counter()
+    thr = hit_threshold(trainer.kgwas_res)
+    n_hits = int((np.asarray(trainer.kgwas_res["P"]) < thr).sum())
+    log(f"phase 7: {n_hits} hit SNPs under variant_threshold {thr:.3g}")
+    fold_r = interpret_vs_plain(trainer, cg, thr, True, "GAT-sum full width")
+    data = kt.KGWAS_Data.from_synthetic(
+        seed=SEED + 1, data_path=str(tmp / "interpret"), **SMALL_KG)
+    data.load_synthetic_gwas(seed=SEED)
+    data.process_gwas_file()
+    run = kt.KGWAS(data, exp_name="chip_smoke_interpret", seed=SEED)
+    run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                         gnn_aggr="max", no_relu=True)
+    run.kgwas_res = {"ID": data.lr_uni["ID"], "P": data.lr_uni["P"]}
+    fold_0 = interpret_vs_plain(run, data.compile(),
+                                hit_threshold(run.kgwas_res), False,
+                                "GAT-max 20k SNPs")
+    log(f"phase 7 ok [{card}]: interpretation through merged_gat_fwd raw "
+        f"(fold R: {fold_r} launches, fold 0: {fold_0}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def trace_idle_share(events):
+    """1 - (the union of the device kernels' intervals / the trace's span
+    from its first event to its last)."""
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if "ts" in e and e.get("ph") == "X"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    busy, end = 0.0, -np.inf
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    return 1.0 - busy / window, busy / 1e3, window / 1e3
+
+
+def phase_bench(kt, data, card, step_ms_5d, tmp):
+    """Phase 8: the port's bench entry at its defaults (its JSON line
+    printed here, on an earlier line), then KGWAS.train(epoch=1) over
+    CMP_STEPS batches with profile_dir and metrics_log: the trace parses
+    and names the three kernels of the step, the log holds one record with
+    the JAX package's keys."""
+    import io
+    import shutil
+
+    from kgwas_tpu_torch import bench_lib
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench_lib.main()
+    lines = out.getvalue().strip().split("\n")
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines")
+    bench = json.loads(lines[0])
+    print(lines[0], flush=True)
+    if not (np.isfinite(bench["value"]) and bench["value"] > 0):
+        raise AssertionError(f"bench value {bench['value']}")
+    cfg = bench["config"]
+    log(f"  phase 8 bench [{card}]: {bench['value']:.6g} training "
+        f"edge-traversals/s, step_ms {cfg['step_ms']} (edge_pad "
+        f"{cfg['edge_pad']}, {cfg['edges']} real edges) beside phase 5d's "
+        f"train step {step_ms_5d:.3f} ms (edge padding 512); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    run = kt.KGWAS(data_v, exp_name="chip_smoke_profile", seed=SEED)
+    run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN)
+    out_dir = tmp / "profile"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    metrics = out_dir / "metrics.jsonl"
+    run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+              profile_dir=str(out_dir / "trace"), metrics_log=str(metrics))
+    traces = sorted((out_dir / "trace").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} trace files")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(entry in n for n in names)
+             for k, entry in TRACE_KERNELS.items()}
+    if not all(found.values()):
+        raise AssertionError(f"the trace lacks kernels: {found}")
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 1 or list(recs[0]) != METRICS_KEYS:
+        raise AssertionError(f"metrics log {recs}")
+    idle, busy_ms, window_ms = trace_idle_share(events)
+    log(f"phase 8 ok [{card}]: KGWAS.train(epoch=1, {recs[0]['steps']} "
+        f"steps) with profile_dir and metrics_log: trace "
+        f"{traces[0].stat().st_size / 1e6:.1f} MB, {len(names)} kernel "
+        f"events, entries {found}; device busy {busy_ms:.3f} ms of the "
+        f"traced {window_ms:.3f} ms (idle {idle:.1%}); metrics record "
+        f"{recs[0]}; {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2057,13 +2407,21 @@ def main():
     tot, worst_full = phase_serve(kt, data, cg, device, card, parent, tmp)
 
     # ---- phase 5: the training slice at full width
-    train_rows, train_counts = phase_train(kt, data, cg, device, card,
-                                           parent)
+    train_rows, train_counts, trainer, step_ms = phase_train(
+        kt, data, cg, device, card, parent)
 
     # ---- phase 6: the model variants
     worst_variants = phase_variant_kernels(kt, device, tmp)
     variant_rows = phase_variants(kt, data, cg, device, card,
                                   worst_variants, parent)
+
+    # ---- phase 7: interpretation on phase 5's model, and on GAT-max
+    phase_interpret(kt, trainer, cg, card, tmp)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the bench entry, and a traced, logged epoch
+    phase_bench(kt, data, card, step_ms, tmp)
 
     train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
                                        worst_small_bwd)

@@ -49,8 +49,11 @@ class MergedDstLayout:
     csc_perm: np.ndarray           # int32 [E_tot]
     csc_ids: np.ndarray            # int32 [E_tot]
     csc_offsets: np.ndarray        # int32 [n_src_total + 1]
-    # per-relation edge slices in the merged stream
+    # per-relation edge slices in the merged stream: slot r's edges are
+    # edge_base[r] .. edge_base[r+1], its real ones the first
+    # rel_num_edges[r] of them, in the relation's own order
     edge_base: np.ndarray          # int32 [R + 1]
+    rel_num_edges: np.ndarray      # int32 [R]
 
 
 def build_merged_layouts(cg: CompiledGraph, tile_rows: int
@@ -126,5 +129,7 @@ def build_merged_layouts(cg: CompiledGraph, tile_rows: int
             csc_ids=csc_ids,
             csc_offsets=csc_offsets.astype(np.int32),
             edge_base=edge_base.astype(np.int32),
+            rel_num_edges=np.asarray([r.num_edges for r in rels],
+                                     dtype=np.int32),
         )
     return layouts

@@ -1,7 +1,8 @@
 """KGWAS: the training and serving engine (user API) of the port.
 
 Counterpart of ``kgwas_tpu/kgwas.py``: ``initialize_model``, ``train``,
-``load_pretrained``, ``load_pretrained_torch`` and ``predict_all``. It runs
+``load_pretrained``, ``load_pretrained_torch``, ``predict_all`` and
+``get_disease_critical_network``. It runs
 on CUDA unless the caller passes ``device="cpu"``; with no card and no
 explicit device it raises. The KGWAS_P tail is
 ``stats.calibration.finalize_predictions(data.lr_uni, pred[data.all_ids])``.
@@ -10,7 +11,6 @@ from __future__ import annotations
 
 import copy
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -21,6 +21,7 @@ from .engine.checkpoint import (load_model, load_pretrained_torch,
                                 params_from_jax, save_model)
 from .engine.loop import epoch_batches, forward, train_step
 from .engine.optim import build_optimizer
+from .engine.profiling import ThroughputMeter, profile_trace
 from .graph.merged_layout import build_merged_layouts
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
                                  layer_path)
@@ -41,7 +42,6 @@ _DTYPE_DEFAULTS = {"param_dtype": "float32", "compute_dtype": "float32",
                    "stream_dtype": None, "stream_f32_logits": False}
 _VARIANTS = "ROADMAP.md Queue 1 item 3 (model variants)"
 _DTYPES = "ROADMAP.md Queue 1 item 7 (giant features and dtypes)"
-_PROFILING = "ROADMAP.md Queue 1 item 5 (bench and profiling)"
 _LONG_RUNS = "ROADMAP.md Queue 1 item 8 (long runs)"
 _MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
 
@@ -69,15 +69,20 @@ class KGWAS:
         exp_name: str = "KGWAS",
         seed: int = 42,
     ):
-        if weight_bias_track:
-            raise NotImplementedError(
-                f"wandb tracking is not ported: {_PROFILING}")
         self.seed = seed
         self.data = data
         self.data_path = data.data_path
         self.exp_name = exp_name
         self.device = resolve_device(device)
         self._graph = None
+
+        if weight_bias_track:
+            import wandb
+
+            wandb.init(project=proj_name, name=exp_name)
+            self.wandb = wandb
+        else:
+            self.wandb = False
 
     # ------------------------------------------------------------------ model
 
@@ -231,13 +236,14 @@ class KGWAS:
         scores the test SNPs and gives KGWAS_P; ``predict_all()`` then
         serves it. Returns the KGWAS_P table, also written as pred.csv.
 
+        profile_dir: a torch.profiler trace of epoch 1's steps, written
+        there (engine/profiling.profile_trace). metrics_log: one JSON line
+        per epoch appended there (engine/profiling.ThroughputMeter).
         num_workers, data_to_cuda and scan_steps are accepted and do
         nothing: there are no sampler processes, the graph always lives on
         the device, and eager PyTorch dispatches one step at a time (the
         JAX package's lax.scan of scan_steps steps runs the same math)."""
         unported = {
-            "profile_dir": (profile_dir, None, _PROFILING),
-            "metrics_log": (metrics_log, None, _PROFILING),
             "checkpoint_every": (checkpoint_every, None, _LONG_RUNS),
             "resume": (resume, False, _LONG_RUNS),
             "max_restarts": (max_restarts, 0, _LONG_RUNS),
@@ -266,24 +272,29 @@ class KGWAS:
         best_epoch = 0
         shuffle_rng = np.random.default_rng(self.seed)
         edges_per_step = cg.total_real_edges() * self.model_cfg.gnn_num_layers
+        meter = ThroughputMeter(edges_per_step, log_path=metrics_log)
 
         print_sys("Start Training...")
         self.train_history = []
         self.epoch_losses = []
         for ep in range(epoch):
-            t0 = time.perf_counter()
             batches = epoch_batches(train_ids, batch_size, shuffle,
                                     shuffle_rng)
+            meter.start_epoch()
             losses = []
-            for st, b in enumerate(batches):
-                losses.append(train_step(
-                    model, optimizer, x, layouts,
-                    torch.from_numpy(b).to(self.device), y_node, w_node))
-                if st % log_interval == 0 and st >= log_interval:
-                    print_sys(f"Epoch {ep + 1} Step {st + 1} Train Loss: "
-                              f"{float(losses[-1]):.4f}")
-            self.epoch_losses.append(
-                torch.stack(losses).cpu().tolist() if losses else [])
+            with profile_trace(profile_dir if ep == 0 else None):
+                for st, b in enumerate(batches):
+                    losses.append(train_step(
+                        model, optimizer, x, layouts,
+                        torch.from_numpy(b).to(self.device), y_node, w_node))
+                    meter.step()
+                    if self.wandb:
+                        self.wandb.log({"training_loss": float(losses[-1])})
+                    if st % log_interval == 0 and st >= log_interval:
+                        print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
+                                  f"Loss: {float(losses[-1]):.4f}")
+                self.epoch_losses.append(
+                    torch.stack(losses).cpu().tolist() if losses else [])
 
             pred_all = forward(model, x, layouts).cpu().numpy()
             # reference quirk: the val loader drops its tail past a
@@ -293,22 +304,20 @@ class KGWAS:
             val_eval_ids = val_ids[:n_val_eval] if n_val_eval else val_ids
             val_metrics = compute_metrics({"pred": pred_all[val_eval_ids],
                                            "truth": y_host[val_eval_ids]})
-            dt = time.perf_counter() - t0
-            rec = {
-                "epoch": ep + 1,
-                "steps": len(batches),
-                "epoch_time_s": dt,
-                "edges_per_sec": edges_per_step * len(batches) / dt,
+            rec = meter.end_epoch(ep + 1, extra={
                 "loss": (self.epoch_losses[-1][-1] if losses
                          else float("nan")),
                 **{f"val_{k}": v for k, v in val_metrics.items()},
-            }
+            })
             print_sys(
                 f"Epoch {ep + 1}: Validation MSE: {val_metrics['mse']:.4f} "
                 f"Validation Pearson: {val_metrics['pearsonr']:.4f}. "
-                f"({rec['steps']} steps, {dt:.2f}s, "
+                f"({rec['steps']} steps, {rec['epoch_time_s']:.2f}s, "
                 f"{rec['edges_per_sec']:.3g} edge-traversals/s)")
             self.train_history.append(rec)
+            if self.wandb:
+                for k, v in val_metrics.items():
+                    self.wandb.log({"val_" + k: v})
             if val_metrics["pearsonr"] > min_val:
                 min_val = val_metrics["pearsonr"]
                 best_state = copy.deepcopy(model.state_dict())
@@ -325,6 +334,9 @@ class KGWAS:
         pred_all = forward(model, x, layouts).cpu().numpy()
         self.test_metrics = compute_metrics(
             {"pred": pred_all[test_ids], "truth": y_host[test_ids]})
+        if self.wandb:
+            for k, v in self.test_metrics.items():
+                self.wandb.log({"test_" + k: v})
         table, self.scale_factor = finalize_predictions(
             self.data.lr_uni, pred_all[np.asarray(self.data.all_mask)])
         out_dir = os.path.join(self.data_path, "model_pred", "new_experiments")
@@ -350,3 +362,38 @@ class KGWAS:
         cg, x, layouts = self._device_state()
         pred = forward(self.model, x, layouts)
         return pred[: cg.num_nodes["SNP"]].cpu().numpy()
+
+    # --------------------------------------------------------- interpretation
+
+    def get_disease_critical_network(
+        self,
+        variant_threshold: float = 5e-8,
+        magma_path: Optional[str] = None,
+        magma_threshold: float = 0.05,
+        program_threshold: float = 0.05,
+        K_neighbors: int = 3,
+        num_cpus: int = 1,
+    ):
+        """(network weight, variant interpretation, disease-critical
+        network) column tables from the model's state, as predict_all
+        serves it, and ``kgwas_res`` (the SNPs with P below
+        variant_threshold are the hits). The interpretation forward runs
+        the merged GAT forward kernel in its raw mode
+        (interpret/attention.py); the tables are interpret/network.py's."""
+        from .interpret.attention import get_network_weight
+        from .interpret.network import generate_viz
+
+        df_network_weight = get_network_weight(self, self.data)
+        df_variant_interpretation, disease_critical_network = generate_viz(
+            self,
+            df_network_weight,
+            self.data_path,
+            variant_threshold,
+            magma_path,
+            magma_threshold,
+            program_threshold,
+            K_neighbors,
+            num_cpus,
+        )
+        return (df_network_weight, df_variant_interpretation,
+                disease_critical_network)

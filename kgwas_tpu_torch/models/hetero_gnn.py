@@ -23,6 +23,11 @@ Counterpart of ``kgwas_tpu/models/hetero_gnn.py`` (``init_hetero_gnn``,
      then ReLU on every destination type
   3. the scalar head ReLU(Linear(h_SNP)) (or no ReLU)
 
+``HeteroGNN.collect_attention`` is the interpretation forward (the JAX
+package's ``apply_collect_attention``): every destination group of every
+layer through the merged GAT forward in its raw mode, no ReLU between
+layers, no head, each relation's per-edge attention logit kept.
+
 Module and parameter names are the reference ``model.py``'s, so the
 state_dict loads a reference ``model.pt`` as it is: ``snp_feat_mlp.*``,
 ``convs.{l}.convs.{src__rel__dst}.*`` (``models/convs.py``) and ``lin.*``.
@@ -39,8 +44,9 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
-from ..ops.gat_layer import BWD_CHUNK_EDGES, MergedGATLayer
+from ..ops.gat_layer import BWD_CHUNK_EDGES, MergedGATLayer, layout_schedule
 from ..ops.gat_layer import schedule as gat_schedule
+from ..ops.segment_ref import leaky_relu
 from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
                             row_schedule)
 from ..ops.segment import CSRSegmentSum, csc_fields
@@ -136,6 +142,10 @@ class DeviceLayout:
     dst: torch.Tensor          # int32 [E_tot]: each edge's row
     csc_perm: torch.Tensor     # int32 [E_tot]: edges in source order
     csc_offsets: torch.Tensor  # int32 [S + 1]
+    # merged layouts: slot r's edges are edge_base[r] .. edge_base[r+1],
+    # the first rel_num_edges[r] of them real, in the relation's own order
+    edge_base: Tuple[int, ...] = ()
+    rel_num_edges: Tuple[int, ...] = ()
     # the 'mp' path: 1/deg per row [R*N] and the symmetric norm per edge [E]
     inv_deg: Optional[torch.Tensor] = None
     sym_e: Optional[torch.Tensor] = None
@@ -148,6 +158,9 @@ class DeviceLayout:
     # relation's, for the segment softmax forward and backward ('relations'),
     # or a merged layout's R*N rows, for the CSR segment sum ('mp')
     row_schedule: Optional[Schedule] = None
+    # the merged GAT forward's schedule for fold = 0 (one output row per
+    # slot row: the interpretation of GAT max / min), built at its first use
+    gat_fold0_schedule: Optional[Schedule] = None
     # the CSC segment sum's fields (ops/segment.py csc_fields): its
     # schedule of the source rows, and each CSC entry's cotangent row
     # dst[csc_perm] (% N when csc_fold: the merged GAT layer's fold)
@@ -238,9 +251,21 @@ def device_layouts(layouts, device, cg=None, path: str = "merged"
             dst=put(L.dst),
             csc_perm=put(L.csc_perm),
             csc_offsets=put(L.csc_offsets),
+            edge_base=tuple(int(b) for b in L.edge_base),
+            rel_num_edges=tuple(int(e) for e in L.rel_num_edges),
             **extra,
         )
     return out
+
+
+def fold0_schedule(L: DeviceLayout):
+    """Keeps the merged GAT forward's fold-0 schedule on a layout on the
+    card, built at its first use (a layout never changes). A layout on the
+    CPU needs none: its plain version takes no schedule."""
+    if L.src.device.type != "cuda" or layout_schedule(L, 0) is not None:
+        return
+    L.gat_fold0_schedule = gat_schedule(
+        L.row_offsets.cpu().numpy(), L.n_rows_per_rel, 0).to(L.src.device)
 
 
 class HeteroGNN(nn.Module):
@@ -265,10 +290,20 @@ class HeteroGNN(nn.Module):
             self.lin.bias.copy_(torch_linear_bias(gen, h, cfg.out_channels))
 
     def merged_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
-                     layouts: Dict[str, DeviceLayout]):
-        """One hetero GAT layer, one kernel launch per destination group."""
+                     layouts: Dict[str, DeviceLayout], mode=None,
+                     alphas: Optional[dict] = None):
+        """One hetero GAT layer, one kernel launch per destination group.
+        mode: the kernel's weights, by default the model's ('softmax', or
+        'sigmoid' with sigmoid_gat); the interpretation runs 'raw'. With
+        aggr sum or mean the kernel folds the R slot rows of a node into
+        one and the summed biases follow; with max or min (interpretation
+        only: training takes relation_layer) it writes each slot's rows
+        (fold 0), and each relation's bias is added before the max or min.
+        alphas: a dict that receives each relation's per-edge weight [E]
+        over its real edges, in the relation's own order."""
         cfg = self.cfg
-        mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
+        if mode is None:
+            mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
         out = {}
         for dst_t, L in layouts.items():
             convs = [layer.convs[rk] for rk in L.rel_keys]
@@ -281,9 +316,19 @@ class HeteroGNN(nn.Module):
             a_dst_all = (h[dst_t] @ v).T.reshape(-1)
             xs_all = torch.cat([h[L.src_types[s]] @ convs[s].lin_src.weight.T
                                 for s in range(n_rel)])
+            if alphas is not None:
+                alphas.update(self.edge_weights(L, xs_all, att, a_dst_all,
+                                                mode))
+            fold = n_rel if cfg.gnn_aggr in ("sum", "mean") else 0
             agg = MergedGATLayer.apply(
-                xs_all, att.contiguous(), a_dst_all.contiguous(), L, n_rel,
+                xs_all, att.contiguous(), a_dst_all.contiguous(), L, fold,
                 mode, cfg.negative_slope, cfg.temperature)
+            if not fold:
+                rel = agg.reshape(n_rel, L.n_rows_per_rel, -1)
+                out[dst_t] = aggregate([rel[r] + c.bias
+                                        for r, c in enumerate(convs)],
+                                       cfg.gnn_aggr)
+                continue
             bias = convs[0].bias
             for c in convs[1:]:
                 bias = bias + c.bias
@@ -291,6 +336,26 @@ class HeteroGNN(nn.Module):
                 agg = agg / n_rel
                 bias = bias / n_rel
             out[dst_t] = agg + bias
+        return out
+
+    def edge_weights(self, L: DeviceLayout, xs_all, att, a_dst_all, mode):
+        """relkey -> the weight of each real edge of the relation, in its
+        own order: the logit leaky_relu(a_src[src] + a_dst[dst]) in the raw
+        mode, sigmoid(logit / temperature) in the sigmoid mode (the JAX
+        package's apply_gat alpha with raw_attention)."""
+        cfg = self.cfg
+        a_src_all = torch.cat([
+            (xs_all[L.src_base[s]:L.src_base[s + 1]] * att[s]).sum(-1)
+            for s in range(len(L.rel_keys))])
+        out = {}
+        for s, rk in enumerate(L.rel_keys):
+            e0, e1 = L.edge_base[s], L.edge_base[s] + L.rel_num_edges[s]
+            z = (a_src_all[L.src[e0:e1].long()]
+                 + a_dst_all[L.dst[e0:e1].long()])
+            alpha = leaky_relu(z, cfg.negative_slope)
+            if mode == "sigmoid":
+                alpha = torch.sigmoid(alpha / cfg.temperature)
+            out[rk] = alpha
         return out
 
     def relation_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
@@ -375,6 +440,36 @@ class HeteroGNN(nn.Module):
             need = set(live) if reads_dst else set()
             need = need.union(*(layouts[t].src_types for t in live))
         return per_layer[::-1], need
+
+    def collect_attention(self, x: Dict[str, torch.Tensor],
+                          layouts: Dict[str, DeviceLayout]) -> List[dict]:
+        """The interpretation forward (the JAX package's
+        apply_collect_attention with raw=True, after the reference): the
+        encoders of every node type, then in every layer every destination
+        group through merged_layer in the raw mode (sigmoid with
+        sigmoid_gat), with NO ReLU between layers and no head. Returns, per
+        layer, relkey -> the weight of each real edge [E] in the relation's
+        own order (edge_weights), the keys in sorted order. SAGE, GCN and
+        SGC have no attention: one empty dict per layer, as the JAX package
+        returns."""
+        cfg = self.cfg
+        if cfg.gnn_backbone != "GAT":
+            return [{} for _ in self.convs]
+        mode = "sigmoid" if cfg.sigmoid_gat else "raw"
+        if cfg.gnn_aggr in ("max", "min"):
+            for L in layouts.values():
+                fold0_schedule(L)
+        per_layer = []
+        with torch.no_grad():
+            h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()}
+            for layer in self.convs:
+                alphas = {}
+                h = self.merged_layer(layer, h, layouts, mode, alphas)
+                # in relation key order: the JAX package's layer collects
+                # them in its parameters' order, sorted as jit returns
+                # them (a table's first occurrences follow it)
+                per_layer.append({rk: alphas[rk] for rk in sorted(alphas)})
+        return per_layer
 
     def forward(self, x: Dict[str, torch.Tensor],
                 layouts: Dict[str, DeviceLayout]) -> torch.Tensor:

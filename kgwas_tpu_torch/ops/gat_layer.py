@@ -311,12 +311,14 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
 
 def layout_schedule(layout, fold, backward=False):
     """The forward's or the backward's schedule the layout carries
-    (DeviceLayout.gat_schedule, .gat_bwd_schedule), if it is this fold's;
-    else None, and the wrapper builds one."""
-    sched = getattr(layout, "gat_bwd_schedule" if backward
-                    else "gat_schedule", None)
-    if sched is not None and sched.fold_slots == (fold if fold else 1):
-        return sched
+    (DeviceLayout.gat_schedule or .gat_fold0_schedule, .gat_bwd_schedule),
+    if it is this fold's; else None, and the wrapper builds one."""
+    names = (("gat_bwd_schedule",) if backward
+             else ("gat_schedule", "gat_fold0_schedule"))
+    for name in names:
+        sched = getattr(layout, name, None)
+        if sched is not None and sched.fold_slots == (fold if fold else 1):
+            return sched
     return None
 
 

@@ -5,6 +5,7 @@ stand-in for the JAX package's DataFrames.
 """
 from __future__ import annotations
 
+import pickle
 import sys
 
 import numpy as np
@@ -13,6 +14,12 @@ import numpy as np
 def print_sys(s):
     """stderr logging."""
     print(s, flush=True, file=sys.stderr)
+
+
+def load_dict(path):
+    """A pickled object (the KG's id maps, GO names, gene sets)."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def compute_metrics(results: dict) -> dict:
@@ -40,13 +47,14 @@ def _cell_text(col: np.ndarray) -> np.ndarray:
 
 
 def write_table(table: dict, path: str, sep: str = "\t"):
-    """Write a column table as text with a header line, columns in order."""
+    """Write a column table as text with a header line, columns in order:
+    each column converted to text at once, the file written in one call."""
     names = list(table)
-    cols = [_cell_text(table[k]) for k in names]
+    cols = [_cell_text(table[k]).tolist() for k in names]
+    lines = [sep.join(names)]
+    lines.extend(map(sep.join, zip(*cols)))
     with open(path, "w") as f:
-        f.write(sep.join(names) + "\n")
-        for row in zip(*cols):
-            f.write(sep.join(row) + "\n")
+        f.write("\n".join(lines) + "\n")
 
 
 def _parse(values):

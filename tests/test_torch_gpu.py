@@ -6,6 +6,13 @@ card's machine that has no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
+The interpretation forward (``HeteroGNN.collect_attention``: the merged
+GAT forward in its raw mode, fold R for GAT sum and fold 0 for GAT max,
+on the 20k-SNP synthetic KG at hidden 128) through the kernel against the
+same forward with the plain version swapped in: layer 1's weights bitwise
+(the same tensor code on the same inputs), layer 2's at rtol 1e-5, atol
+1e-5.
+
 Tolerance rtol 1e-5, atol 1e-5 (float32, another summation order); each
 relation's trash row, which sums up to 511 pad edges, at rtol 1e-4. The
 backward kernels' gradients at rtol 1e-4 with an absolute floor of 1e-5 of
@@ -50,7 +57,9 @@ import pytest
 import torch
 
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
-from kgwas_tpu_torch.models.hetero_gnn import device_layouts
+from kgwas_tpu_torch.config import ModelConfig
+from kgwas_tpu_torch.models.hetero_gnn import (HeteroGNN, device_layouts,
+                                               layer_path)
 from kgwas_tpu_torch.ops import (build, gat_layer, schedule, segment,
                                  segment_softmax)
 
@@ -791,3 +800,41 @@ def test_csr_segment_sum_bitwise_as_parent(dst_t, weighted, parent_ops,
     np.testing.assert_allclose(new[chunked].cpu().numpy(),
                                old[chunked].cpu().numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("aggr", ["sum", "max"])
+def test_collect_attention_kernel_matches_plain(aggr, cuda_device,
+                                                monkeypatch):
+    g = make_synthetic_kg(n_snp=20_000, n_gene=2_000, n_go=1_200,
+                          snp_dim=20, gene_dim=128, go_dim=128,
+                          avg_degree=6, seed=1)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    cfg = ModelConfig(gnn_hidden_dim=D, gnn_num_layers=2, gnn_aggr=aggr)
+    rel_types = {k: (r.src_type, r.rel, r.dst_type)
+                 for k, r in cg.relations.items()}
+    model = HeteroGNN(cfg, rel_types, 20, 128, 128, seed=0).to(cuda_device)
+    layouts = device_layouts(build_merged_layouts(cg, tile_rows=512),
+                             cuda_device, cg, layer_path(cfg))
+    x = {t: torch.from_numpy(v).to(cuda_device)
+         for t, v in cg.node_x.items()}
+    before = gat_layer.launches
+    got = model.collect_attention(x, layouts)
+    torch.cuda.synchronize()
+    # every group of both layers, one launch each
+    assert gat_layer.launches == before + 2 * len(layouts)
+    if aggr == "max":   # fold 0 on the schedules built once
+        assert all(L.gat_fold0_schedule is not None
+                   for L in layouts.values())
+    monkeypatch.setattr(gat_layer, "merged_gat_forward",
+                        lambda *a, sched=None:
+                        gat_layer.merged_gat_forward_plain(*a))
+    want = model.collect_attention(x, layouts)
+    assert [list(a) for a in got] == [list(b) for b in want]
+    for rk, alpha in got[0].items():
+        assert torch.equal(alpha, want[0][rk]), rk
+    for rk, alpha in got[1].items():
+        assert torch.isfinite(alpha).all(), rk
+        np.testing.assert_allclose(alpha.cpu().numpy(),
+                                   want[1][rk].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=rk)
+

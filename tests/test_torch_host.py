@@ -131,3 +131,38 @@ def test_table_round_trip(tmp_path):
     df = pd.read_csv(path, sep="\t")
     assert list(df.columns) == list(t)
     assert np.array_equal(df.P.values, t["P"])
+
+
+def _write_table_by_rows(table, path, sep="\t"):
+    """The row-by-row writer that write_table replaced: the reference for
+    its bytes."""
+    from kgwas_tpu_torch.utils import _cell_text
+
+    names = list(table)
+    cols = [_cell_text(table[k]) for k in names]
+    with open(path, "w") as f:
+        f.write(sep.join(names) + "\n")
+        for row in zip(*cols):
+            f.write(sep.join(row) + "\n")
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000])
+def test_write_table_bytes_equal_the_row_writer(tmp_path, n):
+    """Floats with NaN, inf, -0.0 and extremes, float32, integers and
+    strings: the column writer's file is byte for byte the row writer's."""
+    rng = np.random.default_rng(n)
+    f = rng.standard_normal(n) * 10.0 ** rng.integers(-30, 30, n)
+    f[::7] = np.nan
+    f[1::11] = np.inf
+    f[2::13] = -0.0
+    f[3::17] = 1e16
+    t = {"ID": np.array([f"rs{i}" for i in range(n)], dtype=object),
+         "CHR": rng.integers(-5, 10**12, n), "x": f,
+         "pred": rng.random(n).astype(np.float32),
+         "flag": rng.random(n) < 0.5}
+    a, b = str(tmp_path / "cols.tsv"), str(tmp_path / "rows.tsv")
+    write_table(t, a)
+    _write_table_by_rows(t, b)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
