@@ -71,6 +71,18 @@ PyTorch version:
      kernels of the step, the log holds one record with the JAX package's
      keys; the device idle share of the traced window
 
+  9. the real-data path at full width through the CLI: a bundle in the
+     real one's layout (every REQUIRED_FILES entry; the 200k-SNP KG's raw
+     relations, enformer rows 20 wide for 99% of the SNPs, esm rows 5120
+     wide for 90% of the genes, LD scores for 98% of the SNPs) and a
+     fastGWA file (98% of the KG's SNPs and 10,000 outside it), written
+     under build/chip_smoke/real/; then kgwas_tpu_torch.cli train (one
+     epoch: merged_gat_fwd, merged_gat_bwd and csc_segment_sum counted
+     from 0 just before), predict (bitwise the trained run's predict_all)
+     and interpret --variant-threshold 5e-8 (a non-empty network CSV);
+     each stage's host seconds, and the train step with Gene rows 5120
+     wide beside phase 5d's 128, with the device idle share of each
+
   Phase 5 also writes its KGWAS_P table with write_table and with the row
   writer it replaced, and checks that the bytes are equal.
 
@@ -618,6 +630,7 @@ def profile_device(fn, fn_ms, what, reps=3):
         f"{1 - busy / fn_ms:.1%})")
     for ms, key, count in rows[:16]:
         log(f"    {ms:8.4f} ms  x{count:<4d} {key[:90]}")
+    return busy
 
 
 def without_trash_rows(L, n_real):
@@ -815,8 +828,8 @@ def phase_train(kt, data, cg, device, card, parent=None):
     """Phase 5: the training slice at full width. Returns the kernel table
     rows of merged_gat_bwd and csc_segment_sum, every kernel's launch
     count in one KGWAS.train epoch, the trained KGWAS (phase 7 interprets
-    it) and 5d's train step ms. parent: the earlier merged GAT kernels,
-    timed beside merged_gat_bwd, or None."""
+    it) and 5d's train step ms and its device busy ms. parent: the earlier
+    merged GAT kernels, timed beside merged_gat_bwd, or None."""
     from kgwas_tpu_torch import kgwas
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
@@ -932,9 +945,9 @@ def phase_train(kt, data, cg, device, card, parent=None):
         cycle = itertools.cycle(batches[:25])
         step_vs_parent("GAT-sum", lambda: train_step(
             model, opt, x, layouts, next(cycle), y_node, w_node), parent)
-    profile_device(lambda: train_step(model, opt, x, layouts, batches[0],
-                                      y_node, w_node), step_ms,
-                   "training step")
+    step_busy = profile_device(lambda: train_step(
+        model, opt, x, layouts, batches[0], y_node, w_node), step_ms,
+        "training step")
     tot = {k: dict.fromkeys(("ms", "device_ms", "ms_no_trash", "plain_ms",
                              "bound_ms", "bytes", "operations",
                              "library_ms"), 0.0)
@@ -1093,7 +1106,7 @@ def phase_train(kt, data, cg, device, card, parent=None):
             "library_ms": t["library_ms"] if name == "csc_segment_sum"
             else None,
         })
-    return rows, counts, trainer, step_ms
+    return rows, counts, trainer, (step_ms, step_busy)
 
 
 VARIANTS = {
@@ -2348,6 +2361,266 @@ def phase_bench(kt, data, card, step_ms_5d, tmp):
         f"{recs[0]}; {time.perf_counter() - t0:.1f} s")
 
 
+# ---- phase 9: the real-data path, a bundle in the real one's layout
+
+# the share of SNPs with an enformer row, of genes with an esm row (5120
+# wide), of SNPs in the LD-score files and of the KG's SNPs in the
+# sumstats; and the sumstats' SNPs outside the KG
+REAL_COVER = {"enformer": 0.99, "esm": 0.90, "ld": 0.98, "gwas": 0.98}
+REAL_EXTRA_SNPS = 10_000
+# KGWAS_Data's stages, timed inside the CLI's commands
+REAL_STAGES = ("load_kg", "load_external_gwas", "process_gwas_file",
+               "prepare_split", "compile")
+
+
+def write_real_bundle(root):
+    """A bundle with every REQUIRED_FILES entry under root: FULL_KG's raw
+    relations (before standard_kg_transforms) under rs / ENSG / GO: ids,
+    enformer (20 wide) and esm (5120 wide) rows for REAL_COVER's shares of
+    the SNPs and genes, the two LD-score CSVs, the .bim and the two LD
+    pickles; and a tab-separated fastGWA file: make_synthetic_sumstats'
+    rows for REAL_COVER["gwas"] of the KG's SNPs and REAL_EXTRA_SNPS rows
+    of SNPs outside it, shuffled. Returns (the sumstats' path, the rows of
+    KG SNPs in it)."""
+    from kgwas_tpu_torch.graph.synthetic import (GO_TYPES, make_synthetic_kg,
+                                                 make_synthetic_sumstats)
+    from kgwas_tpu_torch.kgwas_data import REQUIRED_FILES
+    from kgwas_tpu_torch.utils import save_dict, take, write_table
+
+    rng = np.random.default_rng(SEED + 9)
+    g = make_synthetic_kg(seed=SEED, apply_transforms=False, **FULL_KG)
+    n = {t: g.num_nodes(t) for t in g.node_features}
+    ids = {"SNP": np.array([f"rs{i}" for i in range(n["SNP"])], dtype=object),
+           "Gene": np.array([f"ENSG{i:011d}" for i in range(n["Gene"])],
+                            dtype=object)}
+    for k, t in enumerate(GO_TYPES):
+        ids[t] = np.array([f"GO:{k * n[t] + i:07d}" for i in range(n[t])],
+                          dtype=object)
+    idx2id = {t: dict(enumerate(v.tolist())) for t, v in ids.items()}
+
+    def path(rel):
+        out = root / rel
+        out.parent.mkdir(parents=True, exist_ok=True)
+        return str(out)
+
+    def some(t, share):
+        return np.sort(rng.choice(n[t], int(share * n[t]), replace=False))
+
+    save_dict(path("cell_kg/network/node_idx2id.pkl"), idx2id)
+    save_dict(path("cell_kg/network/node_id2idx.pkl"),
+              {t: {v: k for k, v in m.items()} for t, m in idx2id.items()})
+    save_dict(path("cell_kg/network/edge_index.pkl"), dict(g.edge_index))
+    for t, name, dim in (("SNP", "variant_emb/enformer_feat.pkl", 20),
+                         ("Gene", "gene_emb/esm_feat.pkl", 5120)):
+        keep = some(t, REAL_COVER["enformer" if t == "SNP" else "esm"])
+        rows = rng.standard_normal((len(keep), dim), dtype=np.float32)
+        save_dict(path(f"cell_kg/node_emb/{name}"),
+                  dict(zip(ids[t][keep].tolist(), rows)))
+    for name, lo, hi in (("filter_genotyped_ldscores.csv", 1.0, 100.0),
+                         ("ldscores_from_data.csv", 0.5, 60.0)):
+        keep = some("SNP", REAL_COVER["ld"])
+        write_table({"SNP": ids["SNP"][keep],
+                     "ldscore": rng.uniform(lo, hi, len(keep))},
+                    path(f"ld_score/{name}"), sep=",")
+    for name in ("ukb_white_ld_10MB_no_hla.pkl", "ukb_white_ld_10MB.pkl"):
+        save_dict(path(f"ld_score/{name}"), {})
+    cols = (rng.integers(1, 23, n["SNP"]).astype(str), ids["SNP"],
+            np.linspace(0, 200, n["SNP"]).astype(str),
+            np.arange(1, n["SNP"] + 1).astype(str))
+    with open(path("misc_data/ukb_white_with_cm.bim"), "w") as f:
+        f.write("".join(f"{c}\t{i}\t{m}\t{p}\tA\tG\n"
+                        for c, i, m, p in zip(*cols)))
+    missing = [f for f in REQUIRED_FILES if not (root / f).exists()]
+    if missing:
+        raise AssertionError(f"the bundle lacks {missing}")
+
+    ss = take(make_synthetic_sumstats(n["SNP"], seed=SEED),
+              some("SNP", REAL_COVER["gwas"]))
+    n_kg = len(ss["SNP"])
+    m = REAL_EXTRA_SNPS
+    extra = {"CHR": rng.integers(1, 23, m),
+             "SNP": np.array([f"rs{n['SNP'] + i}" for i in range(m)],
+                             dtype=object),
+             "POS": rng.integers(1, 2_000_000, m),
+             "A1": np.full(m, "A", dtype=object),
+             "A2": np.full(m, "G", dtype=object),
+             "N": ss["N"][:1].repeat(m), "AF1": rng.uniform(0.05, 0.5, m),
+             "BETA": rng.standard_normal(m) * 0.01, "SE": np.full(m, 0.01),
+             "P": rng.uniform(0, 1, m)}
+    order = rng.permutation(n_kg + m)
+    ss = {k: np.concatenate([ss[k], extra[k]])[order] for k in ss}
+    gwas = path("sumstats.fastGWA")
+    write_table(ss, gwas, sep="\t")
+    return gwas, n_kg
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names, seconds):
+    """Methods of cls wrapped for the duration of a with block, each
+    adding the seconds of its calls to seconds[name]."""
+    old = {k: getattr(cls, k) for k in names}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = (seconds.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+        return timed
+
+    for k, fn in old.items():
+        setattr(cls, k, wrap(k, fn))
+    try:
+        yield seconds
+    finally:
+        for k, fn in old.items():
+            setattr(cls, k, fn)
+
+
+def cli_call(cli, argv):
+    """cli.main(argv), its printed lines logged with a prefix (none of them
+    may pass for this script's own JSON lines); returns (what the command
+    returned, its seconds)."""
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"    cli {argv[0]}: {line[:200]}")
+    return result, seconds
+
+
+def phase_real(kt, card, step_5d, tmp):
+    """Phase 9: the real-data path at full width, through the CLI on the
+    card: write the bundle, `train` one epoch (merged_gat_fwd,
+    merged_gat_bwd and csc_segment_sum launched by the step), `predict`
+    (bitwise the trained run's predict_all), `interpret` (a non-empty
+    disease-critical network); each stage's host seconds; the train step
+    on this KG (Gene rows 5120 wide) beside phase 5d's (128 wide), with
+    the device idle share of each."""
+    import shutil
+
+    from kgwas_tpu_torch import cli, kgwas
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.ops import gat_layer, segment
+    from kgwas_tpu_torch.utils import n_rows
+
+    root = tmp / "real"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    gwas, n_kg = write_real_bundle(root)
+    write_s = time.perf_counter() - t0
+    size_mb = sum(f.stat().st_size for f in root.rglob("*")
+                  if f.is_file()) / 1e6
+    log(f"phase 9: bundle written in {write_s:.2f} s ({size_mb:.0f} MB): "
+        f"{FULL_KG['n_snp']} SNPs, {FULL_KG['n_gene']} genes (esm rows "
+        f"5120 wide), sumstats with {n_kg} KG SNPs and {REAL_EXTRA_SNPS} "
+        f"outside the KG")
+    args = ["--data-path", str(root), "--seed", str(SEED), "--name", "real"]
+
+    # train, counts set to 0 just before
+    stages = {}
+    tail = {k: HostTimer(getattr(kgwas, k))
+            for k in ("save_model", "finalize_predictions", "write_table")}
+    gat_layer.launches = gat_layer.bwd_launches = segment.launches = 0
+    with timed_methods(kt.KGWAS_Data, REAL_STAGES, stages), \
+            swapped(kgwas, **tail):
+        run, train_s = cli_call(cli, ["train", *args, "--gwas", gwas,
+                                      "--epochs", "1"])
+    counts = {"merged_gat_fwd": gat_layer.launches,
+              "merged_gat_bwd": gat_layer.bwd_launches,
+              "csc_segment_sum": segment.launches}
+    steps = len(run.epoch_losses[0])
+    live, _ = run.model.live_groups(run._device_state()[2])
+    per_step = sum(len(g) for g in live)
+    want = {"merged_gat_fwd": per_step * (steps + 2),
+            "merged_gat_bwd": per_step * steps,
+            "csc_segment_sum": per_step * steps}
+    if counts != want or not steps:
+        raise AssertionError(f"cli train: {steps} steps, launches {counts}, "
+                             f"expected {want}")
+    kp = run.kgwas_res["KGWAS_P"]
+    if len(kp) != n_kg or not (np.isfinite(kp).all() and (kp >= 0).all()
+                               and (kp <= 1).all()):
+        raise AssertionError(f"KGWAS_P: {len(kp)} rows (the GWAS kept "
+                             f"{n_kg}), not all finite in [0, 1]")
+    if run.data.gene_init_dim_size != 5120:
+        raise AssertionError("the Gene rows are not 5120 wide")
+    rec = run.train_history[0]
+    log(f"  phase 9 train: {steps} steps, launches {counts}; {len(kp)} "
+        f"KGWAS_P finite in [0, 1]; loss first "
+        f"{run.epoch_losses[0][0]:.4f} last {run.epoch_losses[0][-1]:.4f}; "
+        f"val pearson {rec['val_pearsonr']:.4f}; {train_s:.1f} s")
+
+    # predict: the checkpoint served bitwise as the trained state
+    pred_train = run.predict_all()
+    out = root / "predictions.npy"
+    pred_cli, predict_s = cli_call(cli, ["predict", *args, "--out",
+                                         str(out)])
+    if (pred_cli.tobytes() != pred_train.tobytes()
+            or np.load(out).tobytes() != pred_train.tobytes()):
+        raise AssertionError("cli predict differs from the trained run's "
+                             "predict_all()")
+
+    # interpret: the disease-critical network, with commas
+    csv = root / "disease_critical_network.csv"
+    gat_layer.launches = 0
+    tables, interpret_s = cli_call(cli, [
+        "interpret", *args, "--gwas", gwas, "--variant-threshold", "5e-8",
+        "--out", str(csv)])
+    with open(csv) as f:
+        n_lines = sum(1 for _ in f)
+    if n_rows(tables[2]) == 0 or n_lines < 2:
+        raise AssertionError("interpret wrote an empty network")
+    log(f"  phase 9 predict: {len(pred_cli)} predictions, bitwise the "
+        f"trained run's; interpret: {n_rows(tables[2])} rows in {csv.name} "
+        f"({n_lines} lines), {n_rows(tables[1])} variant rows, "
+        f"merged_gat_fwd raw launches {gat_layer.launches}")
+
+    # the train step on this KG (Gene rows 5120 wide) beside 5d's (128)
+    data = run.data
+    cg, x, layouts = run._device_state()
+    y_node, w_node = run._labels(cg)
+    batches = [torch.from_numpy(b).to(x["SNP"].device) for b in
+               epoch_batches(data.train_mask, BATCH, False, None)[:25]]
+    opt = build_optimizer(run.model.parameters(), LR, 5e-4)
+    step_ms = []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(run.model, opt, x, layouts, b, y_node, w_node)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+    step_ms = statistics.median(step_ms[5:])
+    busy = profile_device(lambda: train_step(
+        run.model, opt, x, layouts, batches[0], y_node, w_node), step_ms,
+        "training step (Gene rows 5120 wide)")
+    ms_5d, busy_5d = step_5d
+    log(f"phase 9 [{card}]: train step {step_ms:.3f} ms median of 20 (device "
+        f"busy {busy:.3f} ms, idle {1 - busy / step_ms:.1%}) with Gene rows "
+        f"5120 wide, beside phase 5d's {ms_5d:.3f} ms (busy {busy_5d:.3f} "
+        f"ms, idle {1 - busy_5d / ms_5d:.1%}) with Gene rows 128 wide")
+    host = {"bundle write": write_s, **{k: stages.get(k, 0.0)
+                                        for k in REAL_STAGES},
+            "epoch": rec["epoch_time_s"],
+            "pred.csv writes": tail["write_table"].seconds,
+            "predict": predict_s, "interpret": interpret_s}
+    log(f"phase 9 ok [{card}]: host s (train's stages): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+        + f"; cli train {train_s:.1f} s in all (save_model "
+        f"{tail['save_model'].seconds:.2f}, finalize_predictions "
+        f"{tail['finalize_predictions'].seconds:.2f})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2407,7 +2680,7 @@ def main():
     tot, worst_full = phase_serve(kt, data, cg, device, card, parent, tmp)
 
     # ---- phase 5: the training slice at full width
-    train_rows, train_counts, trainer, step_ms = phase_train(
+    train_rows, train_counts, trainer, step_5d = phase_train(
         kt, data, cg, device, card, parent)
 
     # ---- phase 6: the model variants
@@ -2421,7 +2694,12 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 8: the bench entry, and a traced, logged epoch
-    phase_bench(kt, data, card, step_ms, tmp)
+    phase_bench(kt, data, card, step_5d[0], tmp)
+    del data, cg
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the real-data path through the CLI, full width
+    phase_real(kt, card, step_5d, tmp)
 
     train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
                                        worst_small_bwd)

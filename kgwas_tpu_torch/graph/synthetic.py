@@ -33,7 +33,10 @@ def make_synthetic_kg(
     go_dim: int = 16,
     avg_degree: int = 4,
     seed: int = 0,
+    apply_transforms: bool = True,
 ) -> HeteroGraph:
+    """A seeded KG with the real schema; apply_transforms=False returns the
+    raw relations, before ``standard_kg_transforms``."""
     rng = np.random.default_rng(seed)
     g = HeteroGraph()
     g.node_features["SNP"] = rng.random((n_snp, snp_dim), dtype=np.float32)
@@ -59,7 +62,9 @@ def make_synthetic_kg(
         ("BiologicalProcess", "BP-parentof-BP", "BiologicalProcess")
     ] = _rand_edges(rng, n_go, n_go, n_go * 2)
 
-    return standard_kg_transforms(g).validate()
+    if apply_transforms:
+        g = standard_kg_transforms(g)
+    return g.validate()
 
 
 def make_synthetic_sumstats(
@@ -102,3 +107,56 @@ def make_synthetic_ld_scores(n_snp: int, seed: int = 0):
     ld = {"SNP": ids, "ldscore": rng.uniform(1.0, 100.0, size=n_snp)}
     w_ld = {"SNP": ids, "ldscore": rng.uniform(0.5, 60.0, size=n_snp)}
     return ld, w_ld
+
+
+def make_synthetic_subsample_sumstats(
+    n_snp: int,
+    pheno_seed: int,
+    sample_size: int,
+    seed: int,
+    ref_n: int = 50_000,
+    n_causal: Optional[int] = None,
+    return_causal: bool = False,
+):
+    """Subsampling power-analysis sumstats, a column table with the columns
+    of make_synthetic_sumstats. The trait architecture (map positions,
+    allele frequencies, the causal SNPs and their effects at ref_n) is
+    fixed by pheno_seed alone; the marginal z of a causal SNP scales as
+    sqrt(sample_size / ref_n), and the noise draw follows
+    (pheno_seed, sample_size, seed). return_causal=True also returns the
+    sorted causal indices."""
+    from scipy.stats import norm
+
+    if n_causal is None:
+        n_causal = max(n_snp // 100, 1)
+    rng_t = np.random.default_rng(900_000 + pheno_seed)
+    chrom = rng_t.integers(1, 23, size=n_snp)
+    pos = np.sort(rng_t.integers(1, 2_000_000, size=n_snp))
+    af = rng_t.uniform(0.05, 0.5, size=n_snp)
+    causal_idx = np.sort(rng_t.choice(n_snp, size=n_causal, replace=False))
+    true_z_ref = np.zeros(n_snp)
+    # half discoverable (|z| ~ 7-10), half marginal (|z| ~ 3-6)
+    true_z_ref[causal_idx] = (rng_t.uniform(3.0, 10.0, size=n_causal)
+                              * rng_t.choice([-1.0, 1.0], size=n_causal))
+
+    rng_s = np.random.default_rng(
+        np.random.SeedSequence([7_700_000, pheno_seed, sample_size, seed]))
+    z = (true_z_ref * np.sqrt(sample_size / ref_n)
+         + rng_s.standard_normal(n_snp))
+    se = np.full(n_snp, 0.01)
+    p = np.clip(2.0 * norm.sf(np.abs(z)), 1e-300, 1.0)
+    table = {
+        "CHR": chrom,
+        "SNP": np.array([f"rs{i}" for i in range(n_snp)], dtype=object),
+        "POS": pos,
+        "A1": np.full(n_snp, "A", dtype=object),
+        "A2": np.full(n_snp, "G", dtype=object),
+        "N": np.full(n_snp, sample_size, dtype=np.int64),
+        "AF1": af,
+        "BETA": z * se,
+        "SE": se,
+        "P": p,
+    }
+    if return_causal:
+        return table, causal_idx
+    return table

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 
 from ..stats.labels import bonferroni
-from ..utils import _parse, load_dict, print_sys
+from ..utils import _parse, load_dict, n_rows, print_sys, take
 
 PAIR_COLUMNS = ("h_idx", "t_idx", "importance", "h_type", "t_type",
                 "rel_type")
@@ -44,14 +44,6 @@ LOCAL_COLUMNS = PAIR_COLUMNS + ("h_id", "t_id", "QUERY_SNP")
 
 
 # ------------------------------------------------------------ column tables
-
-def _length(table: dict) -> int:
-    return len(next(iter(table.values()))) if table else 0
-
-
-def _take(table: dict, rows) -> dict:
-    return {k: v[rows] for k, v in table.items()}
-
 
 def _concat(tables, columns) -> dict:
     return {c: np.concatenate([t[c] for t in tables]) if tables
@@ -108,7 +100,7 @@ def _zscore(df: dict, stats_df: dict) -> dict:
         keep |= sel
         row_std[sel] = std[name]
         row_mean[sel] = mean[name]
-    out = _take(df, keep)
+    out = take(df, keep)
     out["rel_type_std"] = row_std[keep]
     out["rel_type_mean"] = row_mean[keep]
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -184,7 +176,7 @@ def get_local_interpretation(query_snp, v2g, g2g, g2p, g2v, id2idx,
         rows = _rows(v2g, "t_idx", id2idx["SNP"][query_snp],
                      index.get("v2g"))
         rows = rows[_descending(v2g["importance"][rows])][:K_neighbors]
-        gene_hit = _take(v2g, rows)
+        gene_hit = take(v2g, rows)
         gene_hit["rel_type"] = _strings(x[4:] for x in gene_hit["rel_type"])
 
         def topk_for(name, table, split_rel=False):
@@ -193,9 +185,9 @@ def get_local_interpretation(query_snp, v2g, g2g, g2p, g2v, id2idx,
                 r = _rows(table, "t_id", gene, index.get(name))
                 parts.append(r[_descending(table["importance"][r])]
                              [:K_neighbors])
-            out = _take(table, np.concatenate(parts) if parts
+            out = take(table, np.concatenate(parts) if parts
                         else np.zeros(0, dtype=np.int64))
-            if split_rel and _length(out):
+            if split_rel and n_rows(out):
                 out["rel_type"] = _strings(x.split("-")[1]
                                            for x in out["rel_type"])
             return out
@@ -203,7 +195,7 @@ def get_local_interpretation(query_snp, v2g, g2g, g2p, g2v, id2idx,
         local = _concat([gene_hit, topk_for("g2g", g2g, split_rel=True),
                          topk_for("g2p", g2p, split_rel=True),
                          topk_for("g2v", g2v)], LOCAL_COLUMNS[:-1])
-        n = _length(local)
+        n = n_rows(local)
         if not n:
             return None
         local["QUERY_SNP"] = np.full(n, query_snp, dtype=object)
@@ -242,14 +234,14 @@ def generate_viz(
 
     # TSS edges are positional, not functional: excluded (utils.py:535)
     rel = df_network["rel_type"]
-    df_network = _take(df_network, ~(_equals(rel, "TSS")
+    df_network = take(df_network, ~(_equals(rel, "TSS")
                                      | _equals(rel, "rev_TSS")))
     h_type, t_type = df_network["h_type"], df_network["t_type"]
-    snp2genes = _take(df_network, _equals(t_type, "SNP")
+    snp2genes = take(df_network, _equals(t_type, "SNP")
                       & _equals(h_type, "Gene"))
-    gene2gene = _take(df_network, _equals(t_type, "Gene")
+    gene2gene = take(df_network, _equals(t_type, "Gene")
                       & _equals(h_type, "Gene"))
-    gene2go = _take(df_network, _equals(t_type, "Gene")
+    gene2go = take(df_network, _equals(t_type, "Gene")
                     & _equals(h_type, "BiologicalProcess"))
 
     snps = gwas["SNP"] if "SNP" in gwas else gwas["ID"]
@@ -267,7 +259,7 @@ def generate_viz(
                                      for x in gwas_gene["GENE"].tolist())
         corrected = bonferroni(gwas_gene["P"], alpha=magma_threshold)
         gwas_gene["corrected_p_value"] = corrected
-        df_gene_hits = _take(gwas_gene, corrected < magma_threshold)
+        df_gene_hits = take(gwas_gene, corrected < magma_threshold)
         gene_hit_idx = [id2idx["Gene"][i] for i in df_gene_hits["GENE"]
                         if i in id2idx["Gene"]]
         go_hits_idx = _gsea_program_filter(
@@ -283,32 +275,32 @@ def generate_viz(
         return go2name[go].capitalize() if go in go2name else go
 
     # ---- disease-critical network: z-score within HIT subsets ----
-    snp2genes_hit = _take(snp2genes, _isin(snp2genes["t_idx"], hit_snps_idx)
+    snp2genes_hit = take(snp2genes, _isin(snp2genes["t_idx"], hit_snps_idx)
                           & _isin(snp2genes["h_idx"], gene_hit_idx))
     snp2genes_hit = _zscore(snp2genes_hit, snp2genes_hit)
     v2g_hit = _max_over_parallel(snp2genes_hit)
     v2g_hit["rel_type"] = _strings(x[4:] for x in v2g_hit["rel_type"])
-    v2g_hit["Category"] = np.full(_length(v2g_hit), "V2G", dtype=object)
+    v2g_hit["Category"] = np.full(n_rows(v2g_hit), "V2G", dtype=object)
     v2g_hit["h_id"] = _ids(idx2id["Gene"], v2g_hit["h_idx"])
     v2g_hit["t_id"] = _ids(idx2id["SNP"], v2g_hit["t_idx"])
 
-    gene2gene_hit = _take(gene2gene, _isin(gene2gene["h_idx"], gene_hit_idx)
+    gene2gene_hit = take(gene2gene, _isin(gene2gene["h_idx"], gene_hit_idx)
                           & _isin(gene2gene["t_idx"], gene_hit_idx))
     gene2gene_hit = _zscore(gene2gene_hit, gene2gene_hit)
     g2g_hit = _max_over_parallel(gene2gene_hit)
     g2g_hit["rel_type"] = _strings(x.split("-")[1]
                                    for x in g2g_hit["rel_type"])
-    g2g_hit["Category"] = np.full(_length(g2g_hit), "G2G", dtype=object)
+    g2g_hit["Category"] = np.full(n_rows(g2g_hit), "G2G", dtype=object)
     g2g_hit["h_id"] = _ids(idx2id["Gene"], g2g_hit["h_idx"])
     g2g_hit["t_id"] = _ids(idx2id["Gene"], g2g_hit["t_idx"])
 
-    gene2program_hit = _take(gene2go, _isin(gene2go["t_idx"], gene_hit_idx)
+    gene2program_hit = take(gene2go, _isin(gene2go["t_idx"], gene_hit_idx)
                              & _isin(gene2go["h_idx"], go_hits_idx))
     gene2program_hit = _zscore(gene2program_hit, gene2program_hit)
     g2p_hit = _max_over_parallel(gene2program_hit)
     g2p_hit["rel_type"] = _strings(x.split("-")[1]
                                    for x in g2p_hit["rel_type"])
-    g2p_hit["Category"] = np.full(_length(g2p_hit), "G2P", dtype=object)
+    g2p_hit["Category"] = np.full(n_rows(g2p_hit), "G2P", dtype=object)
     g2p_hit["h_id"] = _strings(program_name(x) for x in
                                _ids(bp_ids, g2p_hit["h_idx"]))
     g2p_hit["t_id"] = _ids(idx2id["Gene"], g2p_hit["t_idx"])
@@ -327,16 +319,16 @@ def generate_viz(
     g2g = _max_over_parallel(_zscore(gene2gene, gene2gene_hit))
     g2g["h_id"] = _ids(idx2id["Gene"], g2g["h_idx"])
     g2g["t_id"] = _ids(idx2id["Gene"], g2g["t_idx"])
-    g2g = _take(g2g, g2g["h_idx"] != g2g["t_idx"])
+    g2g = take(g2g, g2g["h_idx"] != g2g["t_idx"])
 
     g2p = _max_over_parallel(_zscore(gene2go, gene2program_hit))
     g2p["h_id"] = _strings(program_name(x) for x in
                            _ids(bp_ids, g2p["h_idx"]))
     g2p["t_id"] = _ids(idx2id["Gene"], g2p["t_idx"])
 
-    gene2snp = _take(df_network, _equals(h_type, "SNP")
+    gene2snp = take(df_network, _equals(h_type, "SNP")
                      & _equals(t_type, "Gene"))
-    gene2snp_hit = _take(gene2snp, _isin(gene2snp["h_idx"], hit_snps_idx)
+    gene2snp_hit = take(gene2snp, _isin(gene2snp["h_idx"], hit_snps_idx)
                          & _isin(gene2snp["t_idx"], gene_hit_idx))
     g2v = _max_over_parallel(_zscore(gene2snp, gene2snp_hit))
     g2v["h_id"] = _ids(idx2id["SNP"], g2v["h_idx"])

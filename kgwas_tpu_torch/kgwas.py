@@ -1,8 +1,8 @@
 """KGWAS: the training and serving engine (user API) of the port.
 
 Counterpart of ``kgwas_tpu/kgwas.py``: ``initialize_model``, ``train``,
-``load_pretrained``, ``load_pretrained_torch``, ``predict_all`` and
-``get_disease_critical_network``. It runs
+``load_pretrained``, ``load_pretrained_torch``, ``predict_all``,
+``run_magma`` and ``get_disease_critical_network``. It runs
 on CUDA unless the caller passes ``device="cpu"``; with no card and no
 explicit device it raises. The KGWAS_P tail is
 ``stats.calibration.finalize_predictions(data.lr_uni, pred[data.all_ids])``.
@@ -159,7 +159,7 @@ class KGWAS:
         self.model.load_state_dict(params_from_jax(params))
         pred_path = os.path.join(path, "pred.csv")
         if os.path.exists(pred_path):
-            self.kgwas_res = read_table(pred_path)
+            self.kgwas_res = read_table(pred_path, sep=None)
         self.save_name = path.rstrip("/").split("/")[-1]
         return self
 
@@ -362,6 +362,14 @@ class KGWAS:
         cg, x, layouts = self._device_state()
         pred = forward(self.model, x, layouts)
         return pred[: cg.num_nodes["SNP"]].cpu().numpy()
+
+    # ------------------------------------------------------------------ magma
+
+    def run_magma(self, path_to_magma: str, bfile: str):
+        """MAGMA's gene analysis on ``kgwas_res`` (external/magma.py)."""
+        from .external.magma import run_magma
+
+        return run_magma(self, path_to_magma, bfile)
 
     # --------------------------------------------------------- interpretation
 

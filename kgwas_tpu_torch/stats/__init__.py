@@ -5,3 +5,4 @@ from .calibration import (
     storey_pi_estimator,
     storey_tibshirani_integrate,
 )
+from .gwas_eval import plot_cluster_range
