@@ -83,6 +83,22 @@ PyTorch version:
      each stage's host seconds, and the train step with Gene rows 5120
      wide beside phase 5d's 128, with the device idle share of each
 
+ 10. the JAX package's other model options at full width (after phase 8,
+     on the same data): GAT sum with 4 heads, GAT max with 2, sigmoid GAT
+     max, SAGE max, GCN min, GAT sum with remat, with dropout 0.1 and with
+     edge_dim 4 and pheno_condition 'ATT': the launches of every layer
+     kernel per forward and per step (counts set to 0 just before
+     predict_all and KGWAS.train), predict_all and three steps against the
+     plain ops, two kernel runs bitwise equal, forward and step ms with the
+     device's busy share; dropout: KGWAS.train's losses are the dropout-0
+     run's (no generator), a step with a dropout generator runs #6 / #7
+     with the multiplier against the plain ops on the same mask; remat:
+     one step's gradients bitwise those without, and the peak memory of
+     each; edge_dim: predict_all equal to the merged path's at the same
+     weights; the new forms of #6 / #7 (multiplier) and #8 (d_w): ms,
+     device ms, bound, gather floor, plain version, and the same launches
+     without the flag
+
   Phase 5 also writes its KGWAS_P table with write_table and with the row
   writer it replaced, and checks that the bytes are equal.
 
@@ -212,9 +228,11 @@ KERNEL_LAUNCH = {
     "gather_probe_kernel": (256, 0),
 }
 # template arguments of the entries reported: D = 128 (softmax mode, with
-# and without the logit term), and the probe's rows in flight
+# and without the logit term, the segment kernels' multiplier and d_w), and
+# the probe's rows in flight
 D128 = ("<0, true, 1>", "<0>", "<true, 1>", "<true, 1, true>",
-        "<true, 1, false>", "<8>", "<16>")
+        "<true, 1, false>", "<true, 1, true, false>",
+        "<true, 1, false, false>", "<true, 1, false, true>", "<8>", "<16>")
 
 
 def report_ptxas(build, name, text, launch=None):
@@ -325,15 +343,25 @@ class ParentKernels:
             return fn(*args, sched=sched)
         return fn(*args)
 
-    def seg_fwd(self, xs, src, logits, ro, sched=None):
+    @staticmethod
+    def _without(**flags):
+        """The earlier kernels have no multiplier and no d_w: raises for a
+        launch that asks for either."""
+        if flags.get("mult") is not None or flags.get("edge_grad"):
+            raise ValueError("the earlier kernels take no multiplier and "
+                             "give no d_w")
+
+    def seg_fwd(self, xs, src, logits, ro, sched=None, mult=None):
+        self._without(mult=mult)
         return self._call(self.psoftmax.segment_softmax_spmm_fwd,
                           (xs, src, logits, ro), sched)
 
-    def seg_bwd(self, *args, sched=None):
+    def seg_bwd(self, *args, sched=None, mult=None):
+        self._without(mult=mult)
         return self._call(self.psoftmax.segment_softmax_spmm_bwd, args[:8],
                           sched)
 
-    def seg_bwd_no_out(self, *args, sched=None):
+    def seg_bwd_no_out(self, *args, sched=None, mult=None):
         """seg_bwd with the earlier kernel's out read dropped, or None when
         its source has no such line."""
         if self._bwd_no_out is None:
@@ -342,11 +370,12 @@ class ParentKernels:
         old = loaded.get("segment_softmax_spmm_bwd")
         loaded["segment_softmax_spmm_bwd"] = self._bwd_no_out
         try:
-            return self.seg_bwd(*args, sched=sched)
+            return self.seg_bwd(*args, sched=sched, mult=mult)
         finally:
             loaded["segment_softmax_spmm_bwd"] = old
 
-    def csc(self, g, w, dz, xs, att, layout, fold=0):
+    def csc(self, g, w, dz, xs, att, layout, fold=0, edge_grad=False):
+        self._without(edge_grad=edge_grad)
         return self.psegment.csc_segment_sum(g, w, dz, xs, att, layout, fold)
 
     def csr(self, x, src, ro, w=None, sched=None):
@@ -661,9 +690,10 @@ def swapped(module, **fns):
 
 def without_sched(plain):
     """A plain version in its kernel wrapper's place: the layer ops pass
-    the kernels' schedule, which the plain version does not take."""
-    def fn(*args, sched=None):
-        return plain(*args)
+    the kernels' schedule, which the plain version does not take (its other
+    keywords pass on)."""
+    def fn(*args, sched=None, **kwargs):
+        return plain(*args, **kwargs)
     return fn
 
 
@@ -1120,15 +1150,11 @@ VARIANT_KERNELS = ("segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd",
                    "csr_segment_sum", "csc_segment_sum")
 
 
-def variant_counts(segment, segment_softmax, zero=False):
-    """The launch counts of the variant paths' kernels (set to 0 first
-    with zero=True)."""
-    if zero:
-        segment_softmax.launches = segment_softmax.bwd_launches = 0
-        segment.csr_launches = segment.launches = 0
-    return dict(zip(VARIANT_KERNELS, (
-        segment_softmax.launches, segment_softmax.bwd_launches,
-        segment.csr_launches, segment.launches)))
+def variant_counts(zero=False):
+    """The launch counts of the variant paths' kernels (every count set to
+    0 first with zero=True)."""
+    counts = model_counts(zero)
+    return {k: counts[k] for k in VARIANT_KERNELS}
 
 
 def as_tuple(v):
@@ -1260,15 +1286,22 @@ def phase_variant_kernels(kt, device, tmp):
     return worst
 
 
-def kernel_bound(name, args, out):
+def kernel_bound(name, args, out, kwargs=None):
     """(bytes ms, operations ms) of one launch of a variant kernel: each
-    input read once and each output written once, and its flops."""
+    input read once and each output written once, and its flops. kwargs:
+    the launch's keywords: a multiplier (#6, #7) is one more word an edge
+    read; the weights' gradient (#8, edge_grad) reads xs and writes one
+    word an edge, with a D-wide dot product an edge."""
+    kwargs = kwargs or {}
+    mult = kwargs.get("mult") is not None
     if name == "csc_segment_sum":      # without logit term
-        g, w, _, xs, _, lay = args
+        g, w, _, xs, _, lay = args[:6]
         e = lay.csc_perm.numel()
+        dw = bool(kwargs.get("edge_grad"))
         words = (g.numel() + (e if w is not None else 0) + 2 * e
-                 + lay.csc_offsets.numel() + xs.numel())
-        return bound_ms(words, 2 * xs.shape[1] * e)
+                 + lay.csc_offsets.numel() + xs.numel()
+                 + (xs.numel() + e if dw else 0))
+        return bound_ms(words, 2 * xs.shape[1] * e * (2 if dw else 1))
     if name == "csr_segment_sum":      # x, src, row_offsets, w or None
         x, src, ro, w = args
         e = int(ro[-1])
@@ -1279,7 +1312,8 @@ def kernel_bound(name, args, out):
     d = xs.shape[1]
     e = int(ro[-1])
     n_rows = ro.numel() - 1
-    words = xs.numel() + src.numel() + ro.numel() + logits.numel()
+    words = (xs.numel() + src.numel() + ro.numel() + logits.numel()
+             + (e if mult else 0))
     if name == "segment_softmax_spmm_fwd":   # out, row_max, row_sum
         return bound_ms(words + n_rows * d + 2 * n_rows, 2 * d * e)
     # the backward reads row_max, row_sum, out and g, writes w and d_logits
@@ -1289,29 +1323,31 @@ def kernel_bound(name, args, out):
 
 def time_launches(name, calls, fn, plain_fn, library=None):
     """Sums over the recorded launches (args, kwargs; the kernel takes both,
-    the plain version the args): kernel ms (host-paced, mean of 10) and
-    device ms (graph_ms), plain ms (mean of 2), bound ms and its parts,
-    library ms; and the worst abs err of the kernel against the plain
-    version."""
+    the plain version the args and the keywords but sched): kernel ms
+    (host-paced, mean of 10) and device ms (graph_ms), plain ms (mean of
+    2), bound ms and its parts, library ms; and the worst abs err of the
+    kernel against the plain version."""
     tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms", "bytes",
                          "operations", "library_ms"), 0.0)
     worst = 0.0
     for args, kwargs in calls:
         args = detached(args)
+        pkw = {k: v for k, v in kwargs.items() if k != "sched"}
+        pkw64 = dict(zip(pkw, as_double(tuple(pkw.values()))))
         got_t, want_t, exact_t = map(as_tuple, (
-            fn(*args, **kwargs), plain_fn(*args),
-            plain_fn(*as_double(args))))
+            fn(*args, **kwargs), plain_fn(*args, **pkw),
+            plain_fn(*as_double(args), **pkw64)))
         for a, p, x in zip(got_t, want_t, exact_t):
             if a is not None:
                 worst = max(worst, grad_compare(a, p, x, f"full-width {name}"))
         del want_t, exact_t
-        t_b, t_o = kernel_bound(name, args, got_t[0])
+        t_b, t_o = kernel_bound(name, args, got_t[0], kwargs)
         tot["bytes"] += t_b
         tot["operations"] += t_o
         tot["bound_ms"] += max(t_b, t_o)
         tot["ms"] += cuda_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
         tot["device_ms"] += graph_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
-        tot["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 2)  # noqa: B023
+        tot["plain_ms"] += cuda_ms(lambda: plain_fn(*args, **pkw), 2)  # noqa: B023
         if library is not None:
             tot["library_ms"] += cuda_ms(library(*args), 10)
     return tot, worst
@@ -1380,9 +1416,9 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
                 csc_segment_sum=segment.csc_segment_sum_plain)
 
         # (b) serving: counts set to 0 just before the entry point
-        variant_counts(segment, segment_softmax, zero=True)
+        variant_counts(zero=True)
         pred = run.predict_all()
-        counts = variant_counts(segment, segment_softmax)
+        counts = variant_counts()
         if counts != {k: per.get(k, 0) for k in VARIANT_KERNELS}:
             raise AssertionError(f"{name}: predict_all launched {counts}, "
                                  f"expected {per}")
@@ -1407,9 +1443,9 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
 
         # (b) training: KGWAS.train over CMP_STEPS steps, counts set to 0
         # just before, against CMP_STEPS steps through the plain ops
-        variant_counts(segment, segment_softmax, zero=True)
+        variant_counts(zero=True)
         run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
-        counts = variant_counts(segment, segment_softmax)
+        counts = variant_counts()
         steps = len(run.epoch_losses[0])
         want = ({"segment_softmax_spmm_fwd": n * (steps + 2),
                  "segment_softmax_spmm_bwd": n * steps} if gat
@@ -1639,9 +1675,10 @@ def phase_probe(build, layouts, cg, device, card):
     does not."""
     fn = build.library("gather_probe")
     rng = np.random.default_rng(SEED + 9)
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
     best = {"l2": 0.0, "hbm": 0.0}
     for name, (n_rows, idx) in probe_streams(layouts, cg).items():
-        table = torch.randn(n_rows, HIDDEN, device=device)
+        table = torch.randn(n_rows, HIDDEN, device=device, generator=gen)
         kind = "l2" if table.numel() * 4 <= L2_TABLE_BYTES else "hbm"
         for order in ("real", "shuffled"):
             i = idx if order == "real" else rng.permutation(idx)
@@ -2621,6 +2658,376 @@ def phase_real(kt, card, step_5d, tmp):
         f"{tail['finalize_predictions'].seconds:.2f})")
 
 
+# phase 10: the JAX package's other model options, each on the full-width
+# KG (KGWAS.train over CMP_STEPS batches with no_relu, as phase 6)
+MODEL_VARIANTS = {
+    "GAT-sum H4": dict(gat_num_head=4),
+    "GAT-max H2": dict(gnn_aggr="max", gat_num_head=2),
+    "GAT-max sigmoid": dict(gnn_aggr="max", sigmoid_gat=True),
+    "SAGE-max": dict(gnn_backbone="SAGE", gnn_aggr="max"),
+    "GCN-min": dict(gnn_backbone="GCN", gnn_aggr="min"),
+    # the dropout-0 run of GAT sum: its losses are the dropout run's yardstick
+    "GAT-sum remat": dict(remat=True),
+    "GAT-sum dropout": dict(dropout=0.1),
+    "GAT-sum edge_dim": dict(edge_dim=4, pheno_condition="ATT"),
+}
+MODEL_KERNELS = ("merged_gat_fwd", "merged_gat_bwd",
+                 "segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd",
+                 "csr_segment_sum", "csc_segment_sum")
+
+
+def model_counts(zero=False):
+    """Launch counts of every layer kernel (set to 0 first with zero)."""
+    from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
+
+    if zero:
+        gat_layer.launches = gat_layer.bwd_launches = 0
+        segment_softmax.launches = segment_softmax.bwd_launches = 0
+        segment.csr_launches = segment.launches = 0
+    return dict(zip(MODEL_KERNELS, (
+        gat_layer.launches, gat_layer.bwd_launches, segment_softmax.launches,
+        segment_softmax.bwd_launches, segment.csr_launches, segment.launches)))
+
+
+def path_launches(model, layouts, training):
+    """(per forward, per backward) launches of each layer kernel on the
+    model's layer path: one per head and live group (merged), per head and
+    relation of the live groups (per-relation GAT), per relation (the
+    per-relation message passing), per live group ('mp')."""
+    from kgwas_tpu_torch.models.hetero_gnn import layer_path
+
+    cfg = model.cfg
+    live, _ = model.live_groups(layouts)
+    groups = sum(len(g) for g in live)
+    rels = sum(len(layouts[t].rel_keys) for g in live for t in g)
+    heads = cfg.gat_num_head if cfg.gnn_backbone == "GAT" else 1
+    path = layer_path(cfg, training)
+    if path == "merged":
+        n = heads * groups
+        return {"merged_gat_fwd": n}, {"merged_gat_bwd": n,
+                                       "csc_segment_sum": n}
+    if path == "mp":
+        return {"csr_segment_sum": groups}, {"csc_segment_sum": groups}
+    n = heads * rels
+    if cfg.gnn_backbone == "GAT" and not cfg.sigmoid_gat:
+        return ({"segment_softmax_spmm_fwd": n},
+                {"segment_softmax_spmm_bwd": n, "csc_segment_sum": n})
+    return {"csr_segment_sum": n}, {"csc_segment_sum": n}
+
+
+def add_counts(*parts):
+    out = dict.fromkeys(MODEL_KERNELS, 0)
+    for k, part in parts:
+        for name, v in part.items():
+            out[name] += k * v
+    return out
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Every layer kernel's wrapper replaced by its plain version: the
+    model's layer ops then run plain PyTorch on the card."""
+    from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
+
+    with swapped(gat_layer,
+                 merged_gat_forward=without_sched(
+                     gat_layer.merged_gat_forward_plain),
+                 merged_gat_backward=gat_layer.merged_gat_backward_plain), \
+            swapped(segment_softmax,
+                    segment_softmax_spmm_fwd=without_sched(
+                        segment_softmax.segment_softmax_spmm_fwd_plain),
+                    segment_softmax_spmm_backward=(
+                        segment_softmax.segment_softmax_spmm_backward_plain)), \
+            swapped(segment,
+                    csr_segment_sum=without_sched(
+                        segment.csr_segment_sum_plain),
+                    csc_segment_sum=segment.csc_segment_sum_plain):
+        yield
+
+
+def new_form(name, calls, fn, plain_fn, flag, floor):
+    """A kernel's new form (the multiplier of #6 / #7, the d_w of #8) on
+    the launches recorded in one forward or step: host-paced and device ms,
+    the bound, the plain version (float64 rule) and its gather floor, and
+    the same launches without the flag (flag=None, or edge_grad=False).
+    Returns (totals, worst abs err)."""
+    tot, err = time_launches(name, calls, fn, plain_fn)
+    off = [0.0, 0.0]
+    for args, kwargs in calls:
+        args = detached(args)
+        kw = dict(kwargs)
+        kw[flag] = False if flag == "edge_grad" else None
+        off[0] += cuda_ms(lambda: fn(*args, **kw), 10)  # noqa: B023
+        off[1] += graph_ms(lambda: fn(*args, **kw), 10)  # noqa: B023
+    tot["off_ms"], tot["off_device_ms"] = off
+    tot["floor_ms"] = floor
+    tot["launches"] = len(calls)
+    log(f"    {name} with {flag} x{len(calls)}: {tot['ms']:.4f} ms [device "
+        f"{tot['device_ms']:.4f}], without {off[0]:.4f} [{off[1]:.4f}]; "
+        f"bound {tot['bound_ms']:.4f}, gather floor {floor:.4f}, plain "
+        f"{tot['plain_ms']:.4f}; max abs err {err:.3e}")
+    return tot, err
+
+
+def phase_models(kt, data, cg, device, card, floors):
+    """Phase 10: the JAX package's other model options at full width (the
+    synthetic KG of phases 4-6, 2 layers, hidden 128, f32, TF32 off),
+    through KGWAS.initialize_model -> predict_all -> KGWAS.train over
+    CMP_STEPS batches (no_relu): each configuration's launches per forward
+    and per step (counts set to 0 just before each entry point),
+    predict_all and CMP_STEPS steps through the kernels against the plain
+    ops, two kernel runs bitwise equal, forward and step ms with the
+    device's busy share; (e) dropout: KGWAS.train's losses equal those of
+    the dropout-0 run (no dropout_rng, as the JAX engine), and a direct
+    step with a dropout generator runs #6 / #7 with the multiplier, held
+    against the plain ops on the same mask; (f) remat: one step's gradients
+    bitwise those without, and each step's peak memory; (g) edge_dim:
+    predict_all equal to the merged path's at the same weights. The new
+    forms of #6, #7 (multiplier) and #8 (d_w) on their launches: ms, bound,
+    gather floor, plain version, and the same launches without the flag.
+    Returns ({kernel: launches}, {kernel: worst abs err}, [(kernel, the new
+    form's totals)])."""
+    from kgwas_tpu_torch.engine.loop import (batch_loss, epoch_batches,
+                                             train_step)
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.ops import segment, segment_softmax
+
+    t_phase = time.perf_counter()
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    batches = [torch.from_numpy(b).to(device) for b in
+               epoch_batches(data_v.train_mask, BATCH, False, None)]
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
+    worst = dict.fromkeys(MODEL_KERNELS, 0.0)
+    losses, rows = {}, []
+    for name, kw in MODEL_VARIANTS.items():
+        t0 = time.perf_counter()
+        run = kt.KGWAS(data_v, exp_name="chip_smoke_models", seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True, **kw)
+        model = run.model
+        init = copy.deepcopy(model.state_dict())
+        run.predict_all()          # device state, allocator warm-up
+        _, x, layouts = run._device_state()
+        y_node, w_node = run._labels(cg)
+        f_eval, _ = path_launches(model, layouts, False)
+        f_train, b_train = path_launches(model, layouts, True)
+        remat = 2 if model.cfg.remat else 1
+        per_step = add_counts((remat, f_train), (1, b_train))
+
+        # serving: counts set to 0 just before the entry point
+        model_counts(zero=True)
+        pred = run.predict_all()
+        counts = model_counts()
+        if counts != add_counts((1, f_eval)):
+            raise AssertionError(f"{name}: predict_all launched {counts}, "
+                                 f"expected {f_eval}")
+        for k, v in counts.items():
+            launches[k] += v
+        if pred.shape != (cg.num_nodes["SNP"],) or not np.isfinite(
+                pred).all():
+            raise AssertionError(f"{name}: bad predictions")
+        again = run.predict_all()
+        if not np.array_equal(pred, again):
+            raise AssertionError(f"{name}: two forwards differ")
+        with plain_ops():
+            pred_plain = run.predict_all()
+        np.testing.assert_allclose(pred, pred_plain, rtol=PRED_RTOL,
+                                   atol=PRED_ATOL)
+        pred_err = float(np.abs(pred - pred_plain).max())
+
+        # training: KGWAS.train over CMP_STEPS batches, counts set to 0
+        model_counts(zero=True)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        counts = model_counts()
+        steps = len(run.epoch_losses[0])
+        want = add_counts((steps, per_step), (2, f_eval))
+        if steps != CMP_STEPS or counts != want:
+            raise AssertionError(f"{name}: KGWAS.train took {steps} steps "
+                                 f"with launches {counts}, expected "
+                                 f"{CMP_STEPS} and {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        losses[name] = np.asarray(run.epoch_losses[0])
+
+        def steps_from_init(ctx):
+            model.load_state_dict(init)
+            opt = build_optimizer(model.parameters(), LR, 5e-4)
+            with ctx:
+                ls = [train_step(model, opt, x, layouts, b, y_node, w_node)
+                      for b in batches]
+            return (torch.stack(ls).cpu().numpy(),
+                    {k: v.detach().clone()
+                     for k, v in model.state_dict().items()})
+
+        loss_k, par_k = steps_from_init(contextlib.nullcontext())
+        loss_k2, par_k2 = steps_from_init(contextlib.nullcontext())
+        if not (np.array_equal(loss_k, loss_k2) and all(
+                torch.equal(par_k[k], par_k2[k]) for k in par_k)):
+            raise AssertionError(f"{name}: two kernel runs of "
+                                 f"{CMP_STEPS} steps differ")
+        loss_p, par_p = steps_from_init(plain_ops())
+        np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL)
+        par_err = max(float((par_k[k] - par_p[k]).abs().max())
+                      for k in par_k)
+        moved = max(float((par_k[k] - init[k]).abs().max()) for k in par_k)
+        if par_err > PARAM_ATOL or moved == 0:
+            raise AssertionError(f"{name}: parameters after {CMP_STEPS} "
+                                 f"steps differ by {par_err:.3e}, moved by "
+                                 f"{moved:.3e}")
+        del par_k2, par_p
+        notes = []
+
+        if name == "GAT-sum dropout":
+            # KGWAS.train drops nothing (no generator): the dropout-0 losses
+            np.testing.assert_allclose(losses[name],
+                                       losses["GAT-sum remat"],
+                                       rtol=LOSS_RTOL)
+            # a direct step with a dropout generator: #6 / #7 with the
+            # multiplier, against the plain ops on the same mask
+            def dropout_step(ctx, seed=SEED + 10):
+                model.load_state_dict(init)
+                opt = build_optimizer(model.parameters(), LR, 5e-4)
+                gen = torch.Generator(device=device).manual_seed(seed)
+                with ctx:
+                    loss = train_step(model, opt, x, layouts, batches[0],
+                                      y_node, w_node, dropout_gen=gen)
+                return float(loss), {k: v.detach().clone()
+                                     for k, v in model.state_dict().items()}
+
+            rec_f = Recorder(segment_softmax.segment_softmax_spmm_fwd)
+            rec_b = Recorder(segment_softmax.segment_softmax_spmm_bwd)
+            model_counts(zero=True)
+            with swapped(segment_softmax, segment_softmax_spmm_fwd=rec_f,
+                         segment_softmax_spmm_bwd=rec_b):
+                l_k, p_k = dropout_step(contextlib.nullcontext())
+            counts = model_counts()
+            if counts != per_step:
+                raise AssertionError(f"{name}: a step with a generator "
+                                     f"launched {counts}, expected "
+                                     f"{per_step}")
+            mults = [c[1]["mult"] for c in rec_f.calls]
+            zeros = float(sum((m == 0).sum() for m in mults)
+                          / sum(m.numel() for m in mults))
+            if not 0.05 < zeros < 0.15:
+                raise AssertionError(f"{name}: {zeros:.3f} of the edges "
+                                     "dropped, not about 0.1")
+            l_p, p_p = dropout_step(plain_ops())
+            if abs(l_k - l_p) > LOSS_RTOL * abs(l_p):
+                raise AssertionError(f"{name}: dropout step loss {l_k} "
+                                     f"against plain {l_p}")
+            d_err = max(float((p_k[k] - p_p[k]).abs().max()) for k in p_k)
+            if d_err > 2 * LR:
+                raise AssertionError(f"{name}: a dropout step's parameters "
+                                     f"differ by {d_err:.3e}")
+            notes.append(f"KGWAS.train losses = the dropout-0 run's; a step "
+                         f"with a generator drops {zeros:.4f} of the edges, "
+                         f"its parameters within {d_err:.3e} of the plain "
+                         f"ops'")
+            for k, rec, plain_fn, fl in (
+                    ("segment_softmax_spmm_fwd", rec_f,
+                     segment_softmax.segment_softmax_spmm_fwd_plain,
+                     floors["segment_softmax_spmm_fwd"]),
+                    ("segment_softmax_spmm_bwd", rec_b,
+                     segment_softmax.segment_softmax_spmm_bwd_plain,
+                     floors["segment_softmax_spmm_bwd"])):
+                tot, err = new_form(k, rec.calls, rec.fn, plain_fn, "mult",
+                                    fl)
+                worst[k] = max(worst[k], err)
+                rows.append((k, tot))
+        if name == "GAT-max sigmoid":
+            rec_c = Recorder(segment.csc_segment_sum)
+            with swapped(segment, csc_segment_sum=rec_c):
+                train_step(model, build_optimizer(model.parameters(), LR,
+                                                  5e-4),
+                           x, layouts, batches[0], y_node, w_node)
+            calls = [c for c in rec_c.calls if c[1].get("edge_grad")]
+            if len(calls) != len(rec_c.calls) or not calls:
+                raise AssertionError(f"{name}: the CSC sums of a step were "
+                                     "not all taken with d_w")
+            tot, err = new_form("csc_segment_sum", calls, rec_c.fn,
+                                segment.csc_segment_sum_plain, "edge_grad",
+                                floors["csc_segment_sum (GAT max)"])
+            worst["csc_segment_sum"] = max(worst["csc_segment_sum"], err)
+            rows.append(("csc_segment_sum", tot))
+        if name == "GAT-sum remat":
+            # one step's gradients with and without remat, and each one's
+            # peak memory
+            grads, peak = [], []
+            for cfg in (model.cfg, dataclasses.replace(model.cfg,
+                                                       remat=False)):
+                model.cfg = cfg
+                model.load_state_dict(init)
+                model.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                batch_loss(model(x, layouts, training=True), batches[0],
+                           y_node, w_node).backward()
+                torch.cuda.synchronize()
+                peak.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+                grads.append({k: p.grad.clone() for k, p in
+                              model.named_parameters() if p.grad is not None})
+            model.cfg = dataclasses.replace(model.cfg, remat=True)
+            if sorted(grads[0]) != sorted(grads[1]) or not all(
+                    torch.equal(grads[0][k], grads[1][k]) for k in grads[0]):
+                raise AssertionError(f"{name}: remat gradients differ from "
+                                     "those without")
+            notes.append(f"one step's gradients bitwise those without "
+                         f"remat; peak memory of a step above its start "
+                         f"{peak[0]:.1f} MiB with remat, {peak[1]:.1f} MiB "
+                         f"without")
+            del grads
+        if name == "GAT-sum edge_dim":
+            ref = kt.KGWAS(data_v, exp_name="chip_smoke_models", seed=SEED)
+            ref.initialize_model(gnn_num_layers=LAYERS,
+                                 gnn_hidden_dim=HIDDEN, no_relu=True)
+            keys = ref.model.state_dict().keys()
+            ref.model.load_state_dict({k: v for k, v in
+                                       model.state_dict().items()
+                                       if k in keys})
+            want = ref.predict_all()
+            np.testing.assert_allclose(run.predict_all(), want,
+                                       rtol=PRED_RTOL, atol=PRED_ATOL)
+            notes.append("predict_all (per relation) equals the merged "
+                         "path's at the same weights within rtol 1e-4, "
+                         "atol 1e-5")
+            del ref
+
+        # timing: forward and step, with the device's busy share
+        model.load_state_dict(init)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        fwd_ms = step_times(run.predict_all, n=6)
+        cycle = itertools.cycle(batches)
+        step = lambda: train_step(model, opt, x, layouts,  # noqa: E731
+                                  next(cycle), y_node, w_node)
+        step_ms = step_times(step, n=6)
+        busy_f = profile_device(run.predict_all, fwd_ms, f"{name} forward",
+                                reps=2)
+        busy_s = profile_device(step, step_ms, f"{name} training step",
+                                reps=2)
+        edges = cg.total_real_edges()
+        log(f"  phase 10 {name} [{card}]: launches per forward "
+            f"{ {k: v for k, v in add_counts((1, f_eval)).items() if v} }, "
+            f"per step { {k: v for k, v in per_step.items() if v} }; "
+            f"predict_all vs plain ops max abs err {pred_err:.3e}, bitwise "
+            f"repeatable; KGWAS.train {CMP_STEPS} steps, losses kernel "
+            f"{loss_k.tolist()} plain {loss_p.tolist()}, parameters differ "
+            f"by {par_err:.3e} (moved {moved:.3e}); forward {fwd_ms:.3f} ms "
+            f"({edges * LAYERS / (fwd_ms / 1e3):.4g} edge-traversals/s, busy "
+            f"{busy_f:.3f} ms, idle {1 - busy_f / fwd_ms:.1%}), train step "
+            f"{step_ms:.3f} ms (busy {busy_s:.3f} ms, idle "
+            f"{1 - busy_s / step_ms:.1%})"
+            + "".join(f"; {n}" for n in notes)
+            + f"; {time.perf_counter() - t0:.1f} s")
+        del run, model, opt, x, layouts, init, par_k
+        torch.cuda.empty_cache()
+    log(f"phase 10 ok [{card}]: {len(MODEL_VARIANTS)} configurations served "
+        f"and trained through the kernels in "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches, worst, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2669,7 +3076,7 @@ def main():
 
     layouts = build_merged_layouts(cg, tile_rows=TILE_ROWS)
     rates = phase_probe(build, layouts, cg, device, card)
-    gather_floors(cg, layouts, rates)
+    floors = gather_floors(cg, layouts, rates)
     del layouts
 
     # ---- phase 2: kernel vs plain on the card, small KG
@@ -2695,6 +3102,10 @@ def main():
 
     # ---- phase 8: the bench entry, and a traced, logged epoch
     phase_bench(kt, data, card, step_5d[0], tmp)
+
+    # ---- phase 10: the other model options (heads, dropout, ...), full width
+    model_launches, model_worst, _ = phase_models(kt, data, cg, device, card,
+                                                  floors)
     del data, cg
     torch.cuda.empty_cache()
 
@@ -2718,6 +3129,10 @@ def main():
                      else "operations"),
         "library_ms": None,
     }] + train_rows + variant_rows
+    for row in kernels:   # phase 10's launches and errors join each row
+        row["launches"] += model_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 model_worst.get(row["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

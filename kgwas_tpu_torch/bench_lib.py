@@ -26,10 +26,11 @@ only a test asks for, on ``perf_counter``).
 
 Environment variables (the JAX module's): BENCH_N_SNP, BENCH_N_GENE,
 BENCH_N_GO, BENCH_AVG_DEGREE, BENCH_HIDDEN, BENCH_LAYERS, BENCH_BATCH,
-BENCH_STEPS. Not ported, and raising NotImplementedError: BENCH_DTYPE
+BENCH_STEPS, BENCH_HEADS (GAT heads, each a merged GAT launch per group
+and layer). Not ported, and raising NotImplementedError: BENCH_DTYPE
 other than float32 and BENCH_STREAM_DTYPE (ROADMAP.md Queue 1 item 7),
-BENCH_HEADS > 1 (item 3), BENCH_SCAN > 1 (item 4: the CUDA graph of the
-step is the port's counterpart of dispatching many steps at once). The
+BENCH_SCAN > 1 (item 4: the CUDA graph of the step is the port's
+counterpart of dispatching many steps at once). The
 TPU execution variables BENCH_PALLAS, BENCH_GATHER_CHUNK,
 BENCH_BWD_WINDOW, BENCH_MM_PRECISION, BENCH_REL_FOLD and BENCH_NODE_PAD
 are not read.
@@ -65,10 +66,6 @@ def _unported():
             "BENCH_DTYPE other than float32 and BENCH_STREAM_DTYPE are not "
             "ported yet: ROADMAP.md Queue 1 item 7 (giant features and "
             "dtypes)")
-    if int(os.environ.get("BENCH_HEADS", 1)) > 1:
-        raise NotImplementedError(
-            "BENCH_HEADS > 1 is not ported yet: ROADMAP.md Queue 1 item 3 "
-            "(model variants)")
     if int(os.environ.get("BENCH_SCAN", "0")) > 1:
         raise NotImplementedError(
             "BENCH_SCAN > 1 is not ported yet: ROADMAP.md Queue 1 item 4 "
@@ -106,6 +103,7 @@ def main(device: Optional[str] = None):
     layers = int(os.environ.get("BENCH_LAYERS", 2))
     batch = int(os.environ.get("BENCH_BATCH", 512))
     steps = int(os.environ.get("BENCH_STEPS", 20))
+    heads = int(os.environ.get("BENCH_HEADS", 1))
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -122,7 +120,7 @@ def main(device: Optional[str] = None):
     cg = compile_graph(g, edge_pad_multiple=EDGE_PAD,
                        node_pad_multiple=NODE_PAD)
     cfg = ModelConfig(gnn_hidden_dim=hidden, gnn_num_layers=layers,
-                      gnn_backbone="GAT")
+                      gat_num_head=heads, gnn_backbone="GAT")
     rel_types = {k: (r.src_type, r.rel, r.dst_type)
                  for k, r in cg.relations.items()}
     model = HeteroGNN(cfg, rel_types, 20, 128, 128, seed=0).to(device)

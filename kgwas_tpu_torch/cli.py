@@ -21,7 +21,7 @@ import json
 import os
 
 from . import kgwas
-from .kgwas import _DTYPES, _LONG_RUNS, _MULTI_DEVICE, _VARIANTS
+from .kgwas import _DTYPES, _LONG_RUNS, _MULTI_DEVICE
 
 
 def _add_data_args(p):
@@ -80,8 +80,6 @@ def _checked_train_args(args):
     """Raise for the flags of options the port has not ported yet."""
     unported = (
         (args.dtype != "float32", f"--dtype {args.dtype}", _DTYPES),
-        (args.remat, "--remat", _VARIANTS),
-        (args.heads > 1, f"--heads {args.heads}", _VARIANTS),
         (args.mesh > 0, f"--mesh {args.mesh}", _MULTI_DEVICE),
         (args.watchdog_timeout > 0,
          f"--watchdog-timeout {args.watchdog_timeout}", _LONG_RUNS),

@@ -7,8 +7,9 @@ the other's checkpoints. ``params_from_jax`` / ``params_to_jax`` carry
 weights between the JAX tree ([in, out] weights, att [H, C]) and the
 port's state_dict ([out, in] weights, att [1, H, C], reference
 ``model.py`` key names), for every backbone (GAT ``lin_src``, ``lin_dst``,
-``att_src``, ``att_dst``, ``bias``; SAGE ``lin_l``, ``lin_r``; GCN ``lin``,
-``bias``; SGC ``lin``). ``load_pretrained_torch`` reads a reference
+``att_src``, ``att_dst``, ``bias`` at any number of heads, and ``lin_edge``,
+``att_edge``, ``lin_edge_``, ``pheno_mlp``; SAGE ``lin_l``, ``lin_r``; GCN
+``lin``, ``bias``; SGC ``lin``). ``load_pretrained_torch`` reads a reference
 ``model.pt`` of any backbone, which loads straight into ``HeteroGNN``.
 """
 from __future__ import annotations
@@ -24,10 +25,13 @@ SEP = "/"
 _MLPS = ("snp_feat_mlp", "go_feat_mlp", "gene_feat_mlp")
 _MLP_MAP = {"FC_hidden": "fc1", "FC_hidden2": "fc2", "FC_output": "fc3"}
 _MLP_INV = {v: k for k, v in _MLP_MAP.items()}
-# a conv's linear maps: GAT lin_src / lin_dst, SAGE lin_l / lin_r, GCN and
-# SGC lin ({"w": [in, out], "b": [out]} in the JAX tree, "b" where there is
-# a bias)
-_LINEARS = ("lin_src", "lin_dst", "lin_l", "lin_r", "lin")
+# a conv's linear maps: GAT lin_src / lin_dst (and lin_edge, lin_edge_,
+# pheno_mlp), SAGE lin_l / lin_r, GCN and SGC lin ({"w": [in, out], "b":
+# [out]} in the JAX tree, "b" where there is a bias)
+_LINEARS = ("lin_src", "lin_dst", "lin_edge", "lin_edge_", "pheno_mlp",
+            "lin_l", "lin_r", "lin")
+# GAT attention vectors: [H, C] in the JAX tree, [1, H, C] in the port
+_ATTS = ("att_src", "att_dst", "att_edge")
 
 
 def flatten_params(params, prefix="") -> Dict[str, np.ndarray]:
@@ -93,7 +97,7 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
                     sd[f"{pre}.{k}.weight"] = _np(v["w"]).T
                     if "b" in v:
                         sd[f"{pre}.{k}.bias"] = _np(v["b"])
-                elif k in ("att_src", "att_dst"):
+                elif k in _ATTS:
                     a = _np(v)
                     sd[f"{pre}.{k}"] = a.reshape(1, *a.shape)
                 elif k == "bias":
@@ -131,7 +135,7 @@ def params_to_jax(state_dict) -> dict:
                     lin["w"] = val.T
                 else:
                     lin["b"] = val
-            elif tail[0] in ("att_src", "att_dst"):
+            elif tail[0] in _ATTS:
                 rp[tail[0]] = val.reshape(val.shape[-2], val.shape[-1])
             elif tail[0] == "bias":
                 rp["bias"] = val

@@ -15,11 +15,18 @@ def batch_loss(pred, batch_idx, y_node, w_node):
     return torch.mean(w_node[batch_idx] * (p - y_node[batch_idx]) ** 2)
 
 
-def train_step(model, optimizer, x, layouts, batch_idx, y_node, w_node):
+def train_step(model, optimizer, x, layouts, batch_idx, y_node, w_node,
+               dropout_gen=None):
     """One optimizer step on the seed batch ``batch_idx`` (an int64 tensor on
-    the model's device). Returns the loss as a 0-d tensor, not synchronised."""
+    the model's device): the forward in training (its layer path; the JAX
+    engine's training=True), dropping attention only with ``dropout_gen``,
+    a ``torch.Generator`` (the JAX engine passes no dropout_rng, and
+    KGWAS.train passes none). Returns the loss as a 0-d tensor, not
+    synchronised."""
     optimizer.zero_grad(set_to_none=True)
-    loss = batch_loss(model(x, layouts), batch_idx, y_node, w_node)
+    loss = batch_loss(model(x, layouts, training=True,
+                            dropout_gen=dropout_gen),
+                      batch_idx, y_node, w_node)
     loss.backward()
     for p in model.parameters():
         if p.grad is None:

@@ -23,8 +23,9 @@ def attention_tables(model, x, layouts, relations) -> dict:
     """Run the interpretation forward of model (a HeteroGNN) on the node
     features x and device layouts, and build the edge-weight table with
     columns h_idx, t_idx, weight (float64), h_type, rel_type, t_type and
-    layer ('l1', 'l2', ...). relations: the compiled graph's
-    RelationShards, whose real edges (src, dst) the weights follow."""
+    layer ('l1', 'l2', ...); a weight is the mean over the heads.
+    relations: the compiled graph's RelationShards, whose real edges (src,
+    dst) the weights follow."""
     layers = model.collect_attention(x, layouts)
 
     # parallel-edge dedup (reference utils.py:493 drop_duplicates) per
@@ -43,8 +44,9 @@ def attention_tables(model, x, layouts, relations) -> dict:
         return {c: np.zeros(0, dtype=np.int64 if c.endswith("_idx") else
                             np.float64 if c == "weight" else object)
                 for c in COLUMNS}
-    # one device -> host copy of every relation's weights
-    flat_w = torch.cat([layers[li][rk].float() for li, rk in specs]
+    # one device -> host copy of every relation's weights, the mean over
+    # heads of [E, H] (float32, as the JAX package takes it)
+    flat_w = torch.cat([_head_mean(layers[li][rk]) for li, rk in specs]
                        ).cpu().numpy().astype(np.float64)
 
     hs, ts, ws = [], [], []
@@ -96,6 +98,11 @@ def attention_tables(model, x, layouts, relations) -> dict:
         first.sort()
         table = {k: v[first] for k, v in table.items()}
     return table
+
+
+def _head_mean(alpha):
+    alpha = alpha.float()
+    return alpha.mean(dim=1) if alpha.dim() == 2 else alpha
 
 
 def get_network_weight(run, data) -> dict:

@@ -24,7 +24,7 @@ from .engine.optim import build_optimizer
 from .engine.profiling import ThroughputMeter, profile_trace
 from .graph.merged_layout import build_merged_layouts
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
-                                 layer_path)
+                                 layer_paths)
 from .stats.calibration import finalize_predictions
 from .utils import compute_metrics, print_sys, read_table, write_table
 
@@ -40,7 +40,6 @@ _TPU_KNOBS = ("use_pallas", "pallas_mode", "rel_fold", "matmul_precision",
 # the JAX package's dtype options, with the default that the port runs
 _DTYPE_DEFAULTS = {"param_dtype": "float32", "compute_dtype": "float32",
                    "stream_dtype": None, "stream_f32_logits": False}
-_VARIANTS = "ROADMAP.md Queue 1 item 3 (model variants)"
 _DTYPES = "ROADMAP.md Queue 1 item 7 (giant features and dtypes)"
 _LONG_RUNS = "ROADMAP.md Queue 1 item 8 (long runs)"
 _MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
@@ -98,19 +97,20 @@ class KGWAS:
         **kwargs,
     ):
         """Defaults mirror the reference's, the signature the JAX package's.
-        Served: GAT with 1 head and gnn_aggr sum, mean, max or min
-        (sigmoid_gat with sum and mean); SAGE, GCN and SGC with sum or mean.
-        kwargs: the other model-semantic config keys (negative_slope,
-        temperature, sigmoid_gat, out_channels; dropout, edge_dim and
-        pheno_condition only at their defaults); remat, the dtype options
-        and stream_features only at their defaults; the JAX package's TPU
-        execution knobs (_TPU_KNOBS), ignored."""
+        Served: GAT with any number of heads and gnn_aggr sum, mean, max or
+        min, sigmoid_gat, dropout, edge_dim and pheno_condition; SAGE, GCN
+        and SGC with sum, mean, max or min; remat. kwargs: the other
+        model-semantic config keys (negative_slope, temperature,
+        sigmoid_gat, out_channels, dropout, edge_dim, pheno_condition),
+        persisted in config as the JAX package persists them; remat (not
+        persisted); the dtype options and stream_features only at their
+        defaults; the JAX package's TPU execution knobs (_TPU_KNOBS),
+        ignored."""
         unknown = (set(kwargs) - set(_SEMANTIC_KEYS) - set(_TPU_KNOBS)
                    - set(_DTYPE_DEFAULTS) - {"remat"})
         if unknown:
             raise TypeError(f"unknown model options {sorted(unknown)}")
-        if kwargs.pop("remat", False):
-            raise NotImplementedError(f"remat is not ported yet: {_VARIANTS}")
+        remat = bool(kwargs.pop("remat", False))
         for k, default in _DTYPE_DEFAULTS.items():
             if kwargs.pop(k, default) != default:
                 raise NotImplementedError(
@@ -120,13 +120,6 @@ class KGWAS:
                 f"stream_features is not ported yet: {_DTYPES}")
         for k in _TPU_KNOBS:
             kwargs.pop(k, None)
-        if kwargs.get("dropout", 0.0):
-            raise NotImplementedError(f"dropout is not ported yet: {_VARIANTS}")
-        if kwargs.get("edge_dim") is not None:
-            raise NotImplementedError(f"edge_dim is not ported yet: {_VARIANTS}")
-        if kwargs.get("pheno_condition"):
-            raise NotImplementedError(
-                f"pheno_condition is not ported yet: {_VARIANTS}")
         self.config = {
             "gnn_num_layers": gnn_num_layers,
             "gnn_hidden_dim": gnn_hidden_dim,
@@ -136,7 +129,8 @@ class KGWAS:
             "no_relu": no_relu,
             **kwargs,
         }
-        self.model_cfg = ModelConfig.from_dict(self.config)
+        self.model_cfg = ModelConfig.from_dict({**self.config,
+                                                "remat": remat})
         check_supported(self.model_cfg)
         cg = self.data.compile()
         self.layouts = build_merged_layouts(cg, tile_rows=TILE_ROWS)
@@ -179,14 +173,16 @@ class KGWAS:
 
     def _device_state(self):
         """Node features and merged streams on the device, with the degree
-        norms (SAGE, GCN, SGC) or the per-relation streams (GAT max and
-        min) when the layer path needs them; built once per model."""
+        norms (SAGE, GCN, SGC with sum or mean) or the per-relation streams
+        (max and min, GAT with edge_dim, and GAT training with dropout)
+        when the layer paths of the model's forwards need them; built once
+        per model."""
         if self._graph is None:
             cg = self.data.compile()
             x = {t: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                  for t, v in cg.node_x.items()}
             self._graph = (cg, x, device_layouts(
-                self.layouts, self.device, cg, layer_path(self.model_cfg)))
+                self.layouts, self.device, cg, layer_paths(self.model_cfg)))
         return self._graph
 
     def _labels(self, cg):

@@ -1,5 +1,6 @@
 from .mlp import SimpleMLP
-from .convs import GATConv, GCNConv, SAGEConv, SGConv, gat_relation
+from .convs import (GATConv, GCNConv, SAGEConv, SGConv, gat_relation,
+                    gcn_relation, sage_relation, sgc_relation)
 from .hetero_gnn import (
     GO_TYPES,
     DeviceLayout,
@@ -10,4 +11,5 @@ from .hetero_gnn import (
     device_layouts,
     encoder_for,
     layer_path,
+    layer_paths,
 )

@@ -7,26 +7,36 @@ Counterpart of ``kgwas_tpu/models/hetero_gnn.py`` (``init_hetero_gnn``,
      GO types)
   2. per layer, for each destination type whose output reaches the head
      (``HeteroGNN.live_groups``), one of three paths (``layer_path``):
-       * ``merged`` (GAT, sum or mean; ``apply_merged_gat_layer``): ONE
-         merged GAT layer over every relation targeting the type
+       * ``merged`` (GAT, sum or mean; ``apply_merged_gat_layer``): per
+         head, ONE merged GAT layer over every relation targeting the type
          (``ops/gat_layer.MergedGATLayer``), the cross-relation sum (or
-         mean) folded into it, then the summed biases
-       * ``relations`` (GAT, max or min; the per-relation loop of
-         ``apply_hetero_layer``): one GAT layer per relation
-         (``convs.gat_relation``, kernels #6 and #7), its bias added per
-         relation, then the max (or min) over relations
+         mean) folded into it; the heads concatenated, then the summed
+         biases
+       * ``relations`` (the per-relation loop of ``apply_hetero_layer``):
+         GAT with max or min, with ``edge_dim``, or in training with
+         dropout: one GAT layer per relation and head
+         (``convs.gat_relation``: kernels #6 and #7, or #10 and #8 for
+         ``sigmoid_gat``); SAGE, GCN and SGC with max or min: one
+         message-passing layer per relation (``convs.sage_relation`` and
+         the like, #10 and #8); each relation's bias added, then the
+         aggregation over relations
        * ``mp`` (SAGE, GCN, SGC with sum or mean;
          ``apply_merged_mp_layer``): ONE CSR segment sum over the merged
          stream (``ops/segment.CSRSegmentSum``, kernel #10) with the static
          degree norms, then each relation's linear maps, then the sum (or
          mean) over relations
-     then ReLU on every destination type
+     then ReLU on every destination type. A GAT layer with H heads writes
+     H*hidden columns, so the next layer and the head read H*hidden
+     (the JAX package's sizing; the reference's model.py:50 cannot run
+     H > 1). With ``remat`` each layer runs under
+     ``torch.utils.checkpoint`` (``jax.checkpoint``'s counterpart), its
+     dropout masks drawn before it.
   3. the scalar head ReLU(Linear(h_SNP)) (or no ReLU)
 
 ``HeteroGNN.collect_attention`` is the interpretation forward (the JAX
 package's ``apply_collect_attention``): every destination group of every
 layer through the merged GAT forward in its raw mode, no ReLU between
-layers, no head, each relation's per-edge attention logit kept.
+layers, no head, each relation's per-edge attention logit kept, per head.
 
 Module and parameter names are the reference ``model.py``'s, so the
 state_dict loads a reference ``model.pt`` as it is: ``snp_feat_mlp.*``,
@@ -40,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import ModelConfig
@@ -50,11 +61,11 @@ from ..ops.segment_ref import leaky_relu
 from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
                             row_schedule)
 from ..ops.segment import CSRSegmentSum, csc_fields
-from .convs import gat_relation, make_conv
+from .convs import (gat_relation, gcn_relation, make_conv, sage_relation,
+                    sgc_relation)
 from .init import torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
 
-_VARIANTS = "ROADMAP.md Queue 1 item 3 (model variants)"
 BACKBONES = ("GAT", "SAGE", "GCN", "SGC")
 AGGRS = ("sum", "mean", "max", "min")
 
@@ -74,29 +85,28 @@ def check_supported(cfg: ModelConfig):
         raise ValueError(f"unknown backbone {cfg.gnn_backbone!r}")
     if cfg.gnn_aggr not in AGGRS:
         raise ValueError(f"unknown hetero aggr {cfg.gnn_aggr!r}")
-    max_min = cfg.gnn_aggr in ("max", "min")
-    if cfg.gnn_backbone != "GAT":
-        if max_min:
-            raise NotImplementedError(
-                f"{cfg.gnn_backbone} with aggr={cfg.gnn_aggr!r} is not ported "
-                f"yet (sum and mean are): {_VARIANTS}")
-        return
-    if cfg.gat_num_head != 1:
-        raise NotImplementedError(
-            f"multi-head GAT ({cfg.gat_num_head} heads) is not ported yet: "
-            f"{_VARIANTS}")
-    if cfg.sigmoid_gat and max_min:
-        raise NotImplementedError(
-            f"sigmoid_gat with aggr={cfg.gnn_aggr!r} is not ported yet: "
-            f"{_VARIANTS}")
 
 
-def layer_path(cfg: ModelConfig) -> str:
-    """'merged' (GAT, sum or mean), 'relations' (GAT, max or min) or 'mp'
-    (SAGE, GCN, SGC), as apply_hetero_layer routes them."""
+def layer_path(cfg: ModelConfig, training: bool = False) -> str:
+    """The layer path of a forward, as apply_hetero_layer routes it
+    (_merged_mp_active, _merged_path_active): 'mp' for SAGE, GCN and SGC
+    with sum or mean; 'merged' for GAT with sum or mean, but 'relations'
+    with edge_dim set or, in training, with dropout > 0 (whether or not a
+    dropout generator is given); 'relations' for every backbone with max or
+    min."""
+    sum_mean = cfg.gnn_aggr in ("sum", "mean")
     if cfg.gnn_backbone != "GAT":
-        return "mp"
-    return "relations" if cfg.gnn_aggr in ("max", "min") else "merged"
+        return "mp" if sum_mean else "relations"
+    if (not sum_mean or cfg.edge_dim is not None
+            or (training and cfg.dropout > 0.0)):
+        return "relations"
+    return "merged"
+
+
+def layer_paths(cfg: ModelConfig) -> tuple:
+    """The paths of a model's forwards, in training and not: what
+    device_layouts builds the layouts for."""
+    return tuple(sorted({layer_path(cfg, False), layer_path(cfg, True)}))
 
 
 def aggregate(outs, aggr: str):
@@ -118,12 +128,13 @@ def aggregate(outs, aggr: str):
 
 
 class HeteroConv(nn.Module):
-    def __init__(self, rel_types: Dict[str, tuple], hidden: int,
+    def __init__(self, rel_types: Dict[str, tuple], in_dim: int, hidden: int,
                  cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         self.convs = nn.ModuleDict({
-            rk: make_conv(cfg.gnn_backbone, hidden, cfg.gat_num_head,
-                          src_t == dst_t, gen)
+            rk: make_conv(cfg.gnn_backbone, in_dim, hidden, cfg.gat_num_head,
+                          src_t == dst_t, gen, cfg.edge_dim,
+                          cfg.pheno_condition)
             for rk, (src_t, _, dst_t) in rel_types.items()
         })
 
@@ -142,11 +153,13 @@ class DeviceLayout:
     dst: torch.Tensor          # int32 [E_tot]: each edge's row
     csc_perm: torch.Tensor     # int32 [E_tot]: edges in source order
     csc_offsets: torch.Tensor  # int32 [S + 1]
-    # merged layouts: slot r's edges are edge_base[r] .. edge_base[r+1],
-    # the first rel_num_edges[r] of them real, in the relation's own order
+    # slot r's edges are edge_base[r] .. edge_base[r+1], the first
+    # rel_num_edges[r] of them real, in the relation's own order (a
+    # relation stream: one slot)
     edge_base: Tuple[int, ...] = ()
     rel_num_edges: Tuple[int, ...] = ()
-    # the 'mp' path: 1/deg per row [R*N] and the symmetric norm per edge [E]
+    # the 'mp' path's merged layouts and the relation streams: 1/deg per
+    # row [R*N] and the symmetric norm per edge [E], over the real edges
     inv_deg: Optional[torch.Tensor] = None
     sym_e: Optional[torch.Tensor] = None
     # the 'relations' path: one one-slot layout per slot, in slot order
@@ -169,72 +182,95 @@ class DeviceLayout:
     csc_fold: bool = False
 
 
-def merged_mp_norms(L):
-    """(inv_deg [R*N], sym_e [E]) float32 of a merged layout: the static,
-    degree-only norms of the SAGE mean and the GCN/SGC symmetric norm
-    (the JAX package's _merged_mp_norms). Pad edges sit on trash rows and
-    trash source rows, so plain bincounts over the stream give the real
-    rows' degrees."""
-    deg_dst = np.bincount(L.dst, minlength=L.n_rows_total).astype(np.float32)
+def degree_norms(src, dst, n_src: int, n_dst: int, n_edges: int):
+    """(inv_deg [n_dst], sym_e [n_edges]) float32 over the edges (src, dst)
+    (numpy): the static, degree-only norms of the SAGE mean and the
+    GCN/SGC symmetric norm (the JAX package's _merged_mp_norms, _sym_norm);
+    sym_e is 0 past the given edges."""
+    deg_dst = np.bincount(dst, minlength=n_dst).astype(np.float32)
+    deg_src = np.bincount(src, minlength=n_src).astype(np.float32)
     inv_deg = np.where(deg_dst > 0, 1.0 / np.maximum(deg_dst, 1.0), 0.0)
-    deg_src = np.bincount(L.src, minlength=L.n_src_total).astype(np.float32)
     dinv_dst = np.where(deg_dst > 0,
                         1.0 / np.sqrt(np.maximum(deg_dst, 1.0)), 0.0)
     dinv_src = np.where(deg_src > 0,
                         1.0 / np.sqrt(np.maximum(deg_src, 1.0)), 0.0)
-    sym_e = dinv_src[L.src] * dinv_dst[L.dst]
-    return inv_deg.astype(np.float32), sym_e.astype(np.float32)
+    sym_e = np.zeros(n_edges, dtype=np.float32)
+    sym_e[:len(src)] = dinv_src[src] * dinv_dst[dst]
+    return inv_deg.astype(np.float32), sym_e
 
 
-def device_layouts(layouts, device, cg=None, path: str = "merged"
+def merged_mp_norms(L):
+    """degree_norms of a merged layout. Pad edges sit on trash rows and
+    trash source rows, so the whole stream gives the real rows' degrees."""
+    return degree_norms(L.src, L.dst, L.n_src_total, L.n_rows_total,
+                        len(L.src))
+
+
+def relation_norms(r, n_src: int, n_dst: int):
+    """degree_norms of a relation stream (graph/shard_compile.
+    RelationShard) over its real edges only, as segment_mean and _sym_norm
+    count them: its pad edges read source row 0, and would count there;
+    they get 0."""
+    e = r.num_edges
+    return degree_norms(r.src[:e], r.dst[:e], n_src, n_dst, len(r.src))
+
+
+def device_layouts(layouts, device, cg=None, path="merged"
                    ) -> Dict[str, DeviceLayout]:
-    """The merged layouts on the device, with what the layer path needs:
-    the GAT kernels' schedules (fold = R) for 'merged', the degree norms and
-    the CSR segment sum's row schedule for 'mp', and for 'relations' each
-    slot's relation
-    stream from the compiled graph cg (graph/shard_compile.RelationShard:
-    its CSR, whose pad edges read source row 0, and its CSC, which sends
-    their cotangents to the source trash row, as the JAX package does)
-    with its rows' schedule. Every stream whose backward runs the CSC
-    segment sum carries its fields (segment.csc_fields): the merged ones
-    on 'merged' (with the fold) and 'mp', the relation streams on
-    'relations'. All are built once: a layout never changes."""
+    """The merged layouts on the device, with what the layer paths need
+    (path: one of layer_path's names, or several, as layer_paths gives
+    them): the GAT kernels' schedules (fold = R) for 'merged', the degree
+    norms and the CSR segment sum's row schedule for 'mp', and for
+    'relations' each slot's relation stream from the compiled graph cg
+    (graph/shard_compile.RelationShard: its CSR, whose pad edges read
+    source row 0, and its CSC, which sends their cotangents to the source
+    trash row, as the JAX package does) with its rows' schedule (which the
+    segment softmax kernels and the CSR segment sum take alike) and its
+    degree norms over its real edges (relation_norms). Every stream whose
+    backward runs the CSC segment sum carries its fields
+    (segment.csc_fields): the merged ones on 'merged' (with the fold) and
+    'mp', the relation streams on 'relations'. All are built once: a
+    layout never changes."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    if path == "relations" and cg is None:
+    paths = {path} if isinstance(path, str) else set(path)
+    if "relations" in paths and cg is None:
         raise ValueError("the per-relation path needs the compiled graph")
 
     def relation(rk):
         r = cg.relations[rk]
         n = int(cg.padded_nodes[r.dst_type])
-        src_base = (0, int(cg.padded_nodes[r.src_type]))
+        n_src = int(cg.padded_nodes[r.src_type])
+        inv_deg, sym_e = relation_norms(r, n_src, n)
         return DeviceLayout(
             rel_keys=[rk], src_types=[r.src_type], n_rows_per_rel=n,
-            src_base=src_base, src=put(r.src),
+            src_base=(0, n_src), src=put(r.src),
             row_offsets=put(r.row_offsets), dst=put(r.dst),
             csc_perm=put(r.csc_perm), csc_offsets=put(r.csc_offsets),
+            edge_base=(0, len(r.src)), rel_num_edges=(int(r.num_edges),),
+            inv_deg=put(inv_deg), sym_e=put(sym_e),
             row_schedule=row_schedule(r.row_offsets).to(device),
-            **csc_fields(r.dst, r.csc_perm, r.csc_offsets, n, src_base, 0,
+            **csc_fields(r.dst, r.csc_perm, r.csc_offsets, n, (0, n_src), 0,
                          device))
 
     out = {}
     for t, L in layouts.items():
         extra = {}
-        if path != "relations":   # that path's CSC sums run per relation
+        if paths & {"merged", "mp"}:   # 'relations' sums per relation
             extra = csc_fields(L.dst, L.csc_perm, L.csc_offsets,
                                L.n_rows_per_rel, L.src_base,
-                               len(L.rel_keys) if path == "merged" else 0,
+                               len(L.rel_keys) if "merged" in paths else 0,
                                device)
-        if path == "mp":
+        if "mp" in paths:
             inv_deg, sym_e = merged_mp_norms(L)
             extra.update(inv_deg=put(inv_deg), sym_e=put(sym_e),
                          row_schedule=row_schedule(
                              L.row_offsets, CSR_MAX_EDGES,
                              CSR_CHUNK_EDGES).to(device))
-        elif path == "relations":
+        if "relations" in paths:
             extra["relations"] = [relation(rk) for rk in L.rel_keys]
-        elif path == "merged":
+        if "merged" in paths:
             # built once: the layout, and so the schedule, never changes
             sched = functools.partial(gat_schedule, L.row_offsets,
                                       L.n_rows_per_rel, len(L.rel_keys))
@@ -258,14 +294,19 @@ def device_layouts(layouts, device, cg=None, path: str = "merged"
     return out
 
 
-def fold0_schedule(L: DeviceLayout):
-    """Keeps the merged GAT forward's fold-0 schedule on a layout on the
-    card, built at its first use (a layout never changes). A layout on the
+def fold_schedule(L: DeviceLayout, fold: int = 0):
+    """Keeps the merged GAT forward's schedule for fold (0, or R) on a
+    layout on the card, built at its first use (a layout never changes):
+    the interpretation's, where the layer path built none. A layout on the
     CPU needs none: its plain version takes no schedule."""
-    if L.src.device.type != "cuda" or layout_schedule(L, 0) is not None:
+    if L.src.device.type != "cuda" or layout_schedule(L, fold) is not None:
         return
-    L.gat_fold0_schedule = gat_schedule(
-        L.row_offsets.cpu().numpy(), L.n_rows_per_rel, 0).to(L.src.device)
+    sched = gat_schedule(L.row_offsets.cpu().numpy(), L.n_rows_per_rel,
+                         fold).to(L.src.device)
+    if fold:
+        L.gat_schedule = sched
+    else:
+        L.gat_fold0_schedule = sched
 
 
 class HeteroGNN(nn.Module):
@@ -276,59 +317,78 @@ class HeteroGNN(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         h = cfg.gnn_hidden_dim
+        # GAT concatenates its heads: every layer after the first, and the
+        # head, reads H*h columns
+        wide = h * (cfg.gat_num_head if cfg.gnn_backbone == "GAT" else 1)
         gen = torch.Generator().manual_seed(int(seed))
         self.snp_feat_mlp = SimpleMLP(snp_init_dim, h, h, gen)
         self.go_feat_mlp = SimpleMLP(go_init_dim, h, h, gen)
         self.gene_feat_mlp = SimpleMLP(gene_init_dim, h, h, gen)
         self.convs = nn.ModuleList([
-            HeteroConv(rel_types, h, cfg, gen)
-            for _ in range(cfg.gnn_num_layers)
+            HeteroConv(rel_types, h if li == 0 else wide, h, cfg, gen)
+            for li in range(cfg.gnn_num_layers)
         ])
-        self.lin = nn.Linear(h, cfg.out_channels)
+        head_in = wide if cfg.gnn_num_layers > 0 else h
+        self.lin = nn.Linear(head_in, cfg.out_channels)
         with torch.no_grad():
-            self.lin.weight.copy_(torch_linear_weight(gen, h, cfg.out_channels))
-            self.lin.bias.copy_(torch_linear_bias(gen, h, cfg.out_channels))
+            self.lin.weight.copy_(torch_linear_weight(gen, head_in,
+                                                      cfg.out_channels))
+            self.lin.bias.copy_(torch_linear_bias(gen, head_in,
+                                                  cfg.out_channels))
 
     def merged_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
                      layouts: Dict[str, DeviceLayout], mode=None,
                      alphas: Optional[dict] = None):
-        """One hetero GAT layer, one kernel launch per destination group.
-        mode: the kernel's weights, by default the model's ('softmax', or
-        'sigmoid' with sigmoid_gat); the interpretation runs 'raw'. With
-        aggr sum or mean the kernel folds the R slot rows of a node into
-        one and the summed biases follow; with max or min (interpretation
-        only: training takes relation_layer) it writes each slot's rows
-        (fold 0), and each relation's bias is added before the max or min.
-        alphas: a dict that receives each relation's per-edge weight [E]
-        over its real edges, in the relation's own order."""
+        """One hetero GAT layer, per head one kernel launch per destination
+        group (the JAX package's loop over heads in apply_merged_gat_layer:
+        each head's slice of lin_src and lin_dst @ att_dst, at D = hidden),
+        the heads concatenated. mode: the kernel's weights, by default the
+        model's ('softmax', or 'sigmoid' with sigmoid_gat); the
+        interpretation runs 'raw'. With aggr sum or mean the kernel folds
+        the R slot rows of a node into one and the summed biases follow, at
+        full width, once; with max or min (interpretation only: training
+        takes relation_layer) it writes each slot's rows (fold 0), and each
+        relation's bias is added before the max or min. alphas: a dict that
+        receives each relation's per-edge weight [E, H] over its real
+        edges, in the relation's own order."""
         cfg = self.cfg
         if mode is None:
             mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
+        n_heads = cfg.gat_num_head
         out = {}
         for dst_t, L in layouts.items():
             convs = [layer.convs[rk] for rk in L.rel_keys]
             n_rel = len(convs)
-            att = torch.stack([c.att_src[0, 0] for c in convs])      # [R, D]
-            # a_dst = (h @ W_dst) . att_dst == h @ (W_dst^T att_dst): one
-            # [N, D] x [D, R] product instead of R projections
-            v = torch.stack([c.att_dst[0, 0] @ c.dst_weight() for c in convs],
-                            dim=1)
-            a_dst_all = (h[dst_t] @ v).T.reshape(-1)
-            xs_all = torch.cat([h[L.src_types[s]] @ convs[s].lin_src.weight.T
-                                for s in range(n_rel)])
-            if alphas is not None:
-                alphas.update(self.edge_weights(L, xs_all, att, a_dst_all,
-                                                mode))
             fold = n_rel if cfg.gnn_aggr in ("sum", "mean") else 0
-            agg = MergedGATLayer.apply(
-                xs_all, att.contiguous(), a_dst_all.contiguous(), L, fold,
-                mode, cfg.negative_slope, cfg.temperature)
+            heads, head_alphas = [], []
+            for hh in range(n_heads):
+                att = torch.stack([c.att_src[0, hh] for c in convs])  # [R, D]
+                # a_dst = (h @ W_dst) . att_dst == h @ (W_dst^T att_dst):
+                # one [N, D] x [D, R] product instead of R projections
+                v = torch.stack([c.att_dst[0, hh] @ c.head_rows(
+                    c.dst_weight(), hh) for c in convs], dim=1)
+                a_dst_all = (h[dst_t] @ v).T.reshape(-1)
+                xs_all = torch.cat([
+                    h[L.src_types[s]] @ convs[s].head_rows(
+                        convs[s].lin_src.weight, hh).T
+                    for s in range(n_rel)])
+                if alphas is not None:
+                    head_alphas.append(self.edge_weights(L, xs_all, att,
+                                                         a_dst_all, mode))
+                heads.append(MergedGATLayer.apply(
+                    xs_all, att.contiguous(), a_dst_all.contiguous(), L,
+                    fold, mode, cfg.negative_slope, cfg.temperature))
+            if alphas is not None:
+                alphas.update({rk: torch.stack([a[rk] for a in head_alphas],
+                                               dim=1) for rk in L.rel_keys})
             if not fold:
-                rel = agg.reshape(n_rel, L.n_rows_per_rel, -1)
+                rel = torch.cat([a.reshape(n_rel, L.n_rows_per_rel, -1)
+                                 for a in heads], dim=-1)
                 out[dst_t] = aggregate([rel[r] + c.bias
                                         for r, c in enumerate(convs)],
                                        cfg.gnn_aggr)
                 continue
+            agg = heads[0] if n_heads == 1 else torch.cat(heads, dim=-1)
             bias = convs[0].bias
             for c in convs[1:]:
                 bias = bias + c.bias
@@ -340,9 +400,10 @@ class HeteroGNN(nn.Module):
 
     def edge_weights(self, L: DeviceLayout, xs_all, att, a_dst_all, mode):
         """relkey -> the weight of each real edge of the relation, in its
-        own order: the logit leaky_relu(a_src[src] + a_dst[dst]) in the raw
-        mode, sigmoid(logit / temperature) in the sigmoid mode (the JAX
-        package's apply_gat alpha with raw_attention)."""
+        own order, for one head: the logit leaky_relu(a_src[src] +
+        a_dst[dst]) in the raw mode, sigmoid(logit / temperature) in the
+        sigmoid mode (the JAX package's apply_gat alpha with
+        raw_attention)."""
         cfg = self.cfg
         a_src_all = torch.cat([
             (xs_all[L.src_base[s]:L.src_base[s + 1]] * att[s]).sum(-1)
@@ -359,21 +420,40 @@ class HeteroGNN(nn.Module):
         return out
 
     def relation_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
-                       layouts: Dict[str, DeviceLayout]):
-        """One hetero GAT layer per relation (gnn_aggr max or min): one
-        launch of each per-relation kernel per relation of a group, each
-        relation's bias added before the max (or min) over relations."""
+                       layouts: Dict[str, DeviceLayout],
+                       keep: Optional[dict] = None,
+                       edge_attr: Optional[dict] = None):
+        """One hetero layer per relation (the per-relation loop of
+        apply_hetero_layer): GAT (convs.gat_relation, each head one launch
+        of the per-relation kernels), SAGE, GCN or SGC
+        (convs.sage_relation, ...; one launch of #10 per relation), each
+        relation's bias added before the aggregation over relations. keep:
+        relkey -> the dropout multiplier [E, H] (draw_keep); edge_attr:
+        relkey -> edge features [E, edge_dim]."""
         cfg = self.cfg
+        bb = cfg.gnn_backbone
+        mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
         out = {}
         for dst_t, L in layouts.items():
             if L.relations is None:
                 raise ValueError(
                     f"layout {dst_t!r} has no per-relation streams: build it "
                     "with device_layouts(..., cg, path='relations')")
-            outs = [gat_relation(layer.convs[rk], h[RL.src_types[0]],
-                                 h[dst_t], RL, cfg.negative_slope,
-                                 cfg.temperature)
-                    for rk, RL in zip(L.rel_keys, L.relations)]
+            outs = []
+            for rk, RL in zip(L.rel_keys, L.relations):
+                conv, h_src = layer.convs[rk], h[RL.src_types[0]]
+                if bb == "GAT":
+                    outs.append(gat_relation(
+                        conv, h_src, h[dst_t], RL, cfg.negative_slope,
+                        cfg.temperature, mode,
+                        None if keep is None else keep[rk],
+                        None if edge_attr is None else edge_attr.get(rk)))
+                elif bb == "SAGE":
+                    outs.append(sage_relation(conv, h_src, h[dst_t], RL))
+                elif bb == "GCN":
+                    outs.append(gcn_relation(conv, h_src, RL))
+                else:
+                    outs.append(sgc_relation(conv, h_src, RL))
             out[dst_t] = aggregate(outs, cfg.gnn_aggr)
         return out
 
@@ -414,14 +494,36 @@ class HeteroGNN(nn.Module):
         return out
 
     def layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
-              layouts: Dict[str, DeviceLayout]):
-        """One hetero layer on the configuration's path (layer_path)."""
-        path = layer_path(self.cfg)
+              layouts: Dict[str, DeviceLayout], training: bool = False,
+              keep: Optional[dict] = None,
+              edge_attr: Optional[dict] = None):
+        """One hetero layer on the configuration's path (layer_path), then
+        ReLU on every destination type."""
+        path = layer_path(self.cfg, training)
         if path == "merged":
-            return self.merged_layer(layer, h, layouts)
-        if path == "relations":
-            return self.relation_layer(layer, h, layouts)
-        return self.mp_layer(layer, h, layouts)
+            out = self.merged_layer(layer, h, layouts)
+        elif path == "relations":
+            out = self.relation_layer(layer, h, layouts, keep, edge_attr)
+        else:
+            out = self.mp_layer(layer, h, layouts)
+        return {t: torch.relu(v) for t, v in out.items()}
+
+    def draw_keep(self, layouts: Dict[str, DeviceLayout],
+                  gen: torch.Generator) -> dict:
+        """One layer's dropout multipliers, relkey -> [E, H] float32 on the
+        layouts' device: keep ~ bernoulli(1 - p) drawn from gen (u < 1 - p
+        of gen's uniforms, on gen's device), times 1 / (1 - p), as apply_gat
+        draws them on its [E_pad, H] alpha (another RNG: not its
+        numbers)."""
+        p = self.cfg.dropout
+        out = {}
+        for L in layouts.values():
+            for rk, RL in zip(L.rel_keys, L.relations):
+                u = torch.rand((RL.src.shape[0], self.cfg.gat_num_head),
+                               generator=gen, device=gen.device)
+                out[rk] = ((u < 1.0 - p).to(torch.float32)
+                           / (1.0 - p)).to(RL.src.device)
+        return out
 
     def live_groups(self, layouts: Dict[str, DeviceLayout]):
         """(per layer, the destination groups whose output reaches the
@@ -447,18 +549,18 @@ class HeteroGNN(nn.Module):
         apply_collect_attention with raw=True, after the reference): the
         encoders of every node type, then in every layer every destination
         group through merged_layer in the raw mode (sigmoid with
-        sigmoid_gat), with NO ReLU between layers and no head. Returns, per
-        layer, relkey -> the weight of each real edge [E] in the relation's
-        own order (edge_weights), the keys in sorted order. SAGE, GCN and
-        SGC have no attention: one empty dict per layer, as the JAX package
-        returns."""
+        sigmoid_gat), each head, with NO ReLU between layers and no head.
+        Returns, per layer, relkey -> the weight of each real edge and head
+        [E, H] in the relation's own order (edge_weights), the keys in
+        sorted order. SAGE, GCN and SGC have no attention: one empty dict
+        per layer, as the JAX package returns."""
         cfg = self.cfg
         if cfg.gnn_backbone != "GAT":
             return [{} for _ in self.convs]
         mode = "sigmoid" if cfg.sigmoid_gat else "raw"
-        if cfg.gnn_aggr in ("max", "min"):
-            for L in layouts.values():
-                fold0_schedule(L)
+        sum_mean = cfg.gnn_aggr in ("sum", "mean")
+        for L in layouts.values():
+            fold_schedule(L, len(L.rel_keys) if sum_mean else 0)
         per_layer = []
         with torch.no_grad():
             h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()}
@@ -472,13 +574,36 @@ class HeteroGNN(nn.Module):
         return per_layer
 
     def forward(self, x: Dict[str, torch.Tensor],
-                layouts: Dict[str, DeviceLayout]) -> torch.Tensor:
-        """Full-graph forward. Returns pred [N_snp_pad, out_channels]."""
+                layouts: Dict[str, DeviceLayout], training: bool = False,
+                dropout_gen: Optional[torch.Generator] = None,
+                edge_attr: Optional[dict] = None) -> torch.Tensor:
+        """Full-graph forward (apply_hetero_gnn). Returns pred [N_snp_pad,
+        out_channels]. training: the layer path of a training step
+        (layer_path), and with dropout_gen (the counterpart of
+        dropout_rng) a GAT on the per-relation path drops attention with
+        the model's dropout, each layer's masks drawn before the layer runs.
+        edge_attr: relkey -> edge features [E_pad, edge_dim] (or [E_pad])
+        for the edge_dim term; no loader gives any, as in the JAX package.
+        With remat each layer runs under torch.utils.checkpoint when
+        gradients are on (its recompute launches the forward kernels
+        again)."""
+        cfg = self.cfg
         groups, encoded = self.live_groups(layouts)
         h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()
              if t in encoded}
+        drop = (training and dropout_gen is not None and cfg.dropout > 0.0
+                and cfg.gnn_backbone == "GAT"
+                and layer_path(cfg, training) == "relations")
         for layer, live in zip(self.convs, groups):
-            out = self.layer(layer, h, {t: layouts[t] for t in live})
-            h = {t: torch.relu(v) for t, v in out.items()}
+            lay = {t: layouts[t] for t in live}
+            # drawn outside the checkpoint: its recompute restores the
+            # global RNG states, not a generator it is given
+            keep = self.draw_keep(lay, dropout_gen) if drop else None
+            if cfg.remat and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(
+                    self.layer, layer, h, lay, training, keep, edge_attr,
+                    use_reentrant=False)
+            else:
+                h = self.layer(layer, h, lay, training, keep, edge_attr)
         logits = self.lin(h["SNP"])
-        return logits if self.cfg.no_relu else torch.relu(logits)
+        return logits if cfg.no_relu else torch.relu(logits)

@@ -45,7 +45,7 @@ KERNELS = {
         "csc_segment_sum.cu",
         "kgwas_csc_segment_sum",
         [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, ctypes.POINTER(_I64),
-                    ctypes.POINTER(_I64), _P, _P, _P, _I32, _I32, _P],
+                    ctypes.POINTER(_I64), _P, _P, _P, _P, _I32, _I32, _P],
     ),
     "csr_segment_sum": (
         "csr_segment_sum.cu",
@@ -55,12 +55,12 @@ KERNELS = {
     "segment_softmax_spmm_fwd": (
         "segment_softmax_spmm_fwd.cu",
         "kgwas_segment_softmax_spmm_fwd",
-        [_P] * 8 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _P],
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _P],
     ),
     "segment_softmax_spmm_bwd": (
         "segment_softmax_spmm_bwd.cu",
         "kgwas_segment_softmax_spmm_bwd",
-        [_P] * 11 + [_I64, _I64, _I32, _P],
+        [_P] * 12 + [_I64, _I64, _I32, _P],
     ),
     # a measuring tool on no path of the package (chip_smoke.py)
     "gather_probe": (

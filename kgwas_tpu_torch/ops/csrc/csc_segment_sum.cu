@@ -25,6 +25,18 @@
 // flag: d_xs[s] = sum_i w_e g[row_i], no att, no d_att. With w == nullptr
 // every weight is 1 (the SAGE mean's sum) and csc_perm is not read.
 //
+// The gradient of the weights (d_w != nullptr, a compile-time flag DW, only
+// without logit cotangents: the backward of csr_segment_sum.cu when w is a
+// function of parameters, the per-relation sigmoid GAT layer): for each
+// entry i of source row s, d_w[csc_perm[i]] = g[row_i] . xs[s]. The warp
+// that owns row s loads xs[s] once, when the row starts, and dots it with
+// each cotangent row it gathers anyway: one more row read per source row
+// and one float written per edge. The U dots of a batch reduce across the
+// warp in one transposing butterfly (warp_rows.cuh multi_sum). Each edge
+// has one CSC entry, so each d_w is written once, also on chunked rows,
+// which need no combine for it. A launch without d_w runs the kernel as it
+// was.
+//
 // Design. A static schedule over source rows (gat_items.cuh,
 // ops/schedule.py; built once per layout and kept on its DeviceLayout with
 // csc_rows) gives each warp one item: up to 32 consecutive source rows of
@@ -73,6 +85,8 @@ namespace {
 using kgwas::kBwdMaxEdges;
 using kgwas::kFull;
 using kgwas::kMaxCols;
+using kgwas::multi_sum;
+using kgwas::row_dot;
 
 constexpr int kWarps = 8;          // warps per block
 constexpr int kMaxSlots = 32;      // ops/segment.py MAX_SLOTS
@@ -94,6 +108,7 @@ struct Args {
   float* part_c;             // [n_parts]
   float* d_xs;               // [S, D]
   float* d_att;              // [R, D]
+  float* d_w;                // [E], edge order, or null (DW = false)
   float* partial;            // [n_items, D]
   long long src_base[kMaxSlots + 1];
   long long slot_items[kMaxSlots + 1];  // slot r's items
@@ -113,9 +128,10 @@ __device__ __forceinline__ int slot_of(const Args& a, long long s) {
 }
 
 // at D = 128, at most 64 registers a thread: 4 blocks, 32 warps, on each
-// SM (wider rows need more)
-template <bool VEC, int NV, bool LOGITS>
-__global__ void __launch_bounds__(kWarps * 32, VEC && NV == 1 ? 4 : 1)
+// SM (wider rows need more; with DW, 3 blocks)
+template <bool VEC, int NV, bool LOGITS, bool DW>
+__global__ void __launch_bounds__(kWarps * 32,
+                                  VEC && NV == 1 ? (DW ? 3 : 4) : 1)
 csc_items_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
   constexpr int U = kgwas::rows_in_flight<VEC, NV>();
@@ -123,6 +139,7 @@ csc_items_kernel(const Args a) {
   __shared__ float s_w_w[kWarps][kBwdMaxEdges];
   __shared__ float s_dz_w[kWarps][LOGITS ? kBwdMaxEdges : 1];
   __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
+  __shared__ int s_edge_w[kWarps][DW ? kBwdMaxEdges : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long wi = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -139,9 +156,10 @@ csc_items_kernel(const Args a) {
       kgwas::item_rows(a.items[item], a.csc_offsets, a.n_src, 1, lane);
   // each virtual entry's source row, then its cotangent row and its edge
   // (the item's entries follow each other in the CSC), both loads issued
-  // together; the edge waits in s_w's place for w and dz
-  const bool by_edge = LOGITS || weighted;
-  int* s_e = reinterpret_cast<int*>(s_w);
+  // together; the edge waits in s_w's place for w and dz (in its own array
+  // with DW, which writes d_w by edge at the end)
+  const bool by_edge = LOGITS || weighted || DW;
+  int* s_e = DW ? s_edge_w[warp] : reinterpret_cast<int*>(s_w);
   const int first = kgwas::stage_row_keys(it, s_k, lane);
   for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
     int row[4] = {0, 0, 0, 0};
@@ -169,7 +187,7 @@ csc_items_kernel(const Args a) {
   R xa[U], xb[U];
   if (it.total > 0)
     kgwas::gather_rows<VEC, NV, U>(xa, a.g, s_row, 0, it.total, lane, d);
-  if (by_edge) {
+  if (LOGITS || weighted) {
     for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
       float wq[4], dzq[4];
 #pragma unroll
@@ -199,6 +217,7 @@ csc_items_kernel(const Args a) {
   int cur = -1;  // the row being summed
   R acc;
   acc.zero();
+  R xr;  // DW: the row's own xs[s]
   float my_c = 0.0f;  // lane k: c of the item's row k
   auto finish_row = [&](int k) {
     const long long s = it.unit0 + (it.chunk ? 0 : k);
@@ -226,23 +245,36 @@ csc_items_kernel(const Args a) {
     acc.store(a.d_xs + s * d, lane, d);
   };
 
-  // sums batch x of U rows, entries v..v+U-1
+  // sums batch x of U rows, entries v..v+U-1 (with DW, and each entry's
+  // g[row_i] . xs[s] to d_w)
   auto take = [&](const R (&x)[U], int v) {
+    float dw[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int vu = v + u;
+      if (DW) dw[u] = 0.0f;
       if (vu < it.total) {  // warp-uniform
         const int k = s_k[vu];
         if (k != cur) {
           if (cur >= 0) finish_row(cur);
           cur = k;
           acc.zero();
+          if (DW)
+            xr.load(a.xs + static_cast<size_t>(it.unit0 + (it.chunk ? 0 : k))
+                               * d,
+                    lane, d);
         }
         const float wv = weighted ? s_w[vu] : 1.0f;
 #pragma unroll
         for (int q = 0; q < R::C; ++q)
           acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
+        if (DW) dw[u] = row_dot(x[u], xr);
       }
+    }
+    if (DW) {
+      const float t = multi_sum<U>(dw, lane);
+      const int j = lane / (32 / U);
+      if (lane % (32 / U) == 0 && v + j < it.total) a.d_w[s_e[v + j]] = t;
     }
   };
   // two batches in flight: one is summed while the other arrives
@@ -384,14 +416,14 @@ slot_sum_kernel(const Args a) {
            a.d_att + static_cast<long long>(slot) * a.d);
 }
 
-template <bool VEC, int NV, bool LOGITS>
+template <bool VEC, int NV, bool LOGITS, bool DW>
 cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   if (blocks > 0) {
-    csc_items_kernel<VEC, NV, LOGITS>
+    csc_items_kernel<VEC, NV, LOGITS, DW>
         <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -418,8 +450,9 @@ cudaError_t launch_items(const Args& a, cudaStream_t stream) {
 
 template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.dz != nullptr ? launch_items<VEC, NV, true>(a, stream)
-                         : launch_items<VEC, NV, false>(a, stream);
+  if (a.dz != nullptr) return launch_items<VEC, NV, true, false>(a, stream);
+  return a.d_w != nullptr ? launch_items<VEC, NV, false, true>(a, stream)
+                          : launch_items<VEC, NV, false, false>(a, stream);
 }
 
 }  // namespace
@@ -429,8 +462,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // boundaries of the slots (the wrapper checks them against the schedule,
 // and 16-byte alignment of the float4 rows and the items). w may be null
 // (weight 1); dz null (no logit term) leaves att, part_c, d_att and
-// partial unread and unwritten. csc_perm is read only for w or dz. Up to
-// four launches: the items, the combine of the chunked rows, the group and
+// partial unread and unwritten; d_w null writes no weight gradient, and
+// d_w is taken only without dz. csc_perm is read only for w, dz or d_w. Up
+// to four launches: the items, the combine of the chunked rows, the group and
 // slot sums of d_att.
 extern "C" int kgwas_csc_segment_sum(
     const void* g, const void* w, const void* dz, const void* xs,
@@ -438,9 +472,10 @@ extern "C" int kgwas_csc_segment_sum(
     const void* csc_offsets, const void* items, long long n_items,
     const void* split_units, const void* part_offsets, long long n_split,
     void* part_acc, void* part_c, const long long* src_base,
-    const long long* slot_items, void* d_xs, void* d_att, void* partial,
-    int n_rel, int d, void* stream) {
-  if (n_rel < 1 || n_rel > kMaxSlots || d < 1 || d > kMaxD)
+    const long long* slot_items, void* d_xs, void* d_att, void* d_w,
+    void* partial, int n_rel, int d, void* stream) {
+  if (n_rel < 1 || n_rel > kMaxSlots || d < 1 || d > kMaxD ||
+      (dz != nullptr && d_w != nullptr))
     return cudaErrorInvalidValue;
   Args a;
   a.g = static_cast<const float*>(g);
@@ -458,6 +493,7 @@ extern "C" int kgwas_csc_segment_sum(
   a.part_c = static_cast<float*>(part_c);
   a.d_xs = static_cast<float*>(d_xs);
   a.d_att = static_cast<float*>(d_att);
+  a.d_w = static_cast<float*>(d_w);
   a.partial = static_cast<float*>(partial);
   for (int r = 0; r <= n_rel; ++r) {
     a.src_base[r] = src_base[r];

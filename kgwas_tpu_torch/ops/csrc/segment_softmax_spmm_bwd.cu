@@ -11,7 +11,14 @@
 //   dot_r     = out_r . g_r  (the TPU's formula)  =  sum_e p_e m_e
 //   d_logit_e = p_e (m_e - dot_r)
 //
-// and writes two scalars per edge, w_e = p_e and d_logit_e. The TPU kernel
+// and writes two scalars per edge, w_e = p_e and d_logit_e. With the
+// forward's per-edge multiplier mult (a compile-time flag, MULT: a launch
+// without it runs the kernel as it was), out_r = sum_e p_e mult_e xs[src_e]
+// and
+//
+//   w_e = p_e mult_e,  dot_r = sum_e p_e mult_e m_e,
+//   d_logit_e = p_e (mult_e m_e - dot_r).
+// The TPU kernel
 // also writes the [E, D] message cotangent d_msgs_e = p_e g_r; this kernel
 // does not: csc_segment_sum.cu (without logit term) forms p_e g_r in
 // registers while it walks the relation's CSC and sums d_xs per source row.
@@ -72,6 +79,8 @@ using kgwas::kExpClamp;
 using kgwas::kFull;
 using kgwas::kItemMaxRows;
 using kgwas::kMaxCols;
+using kgwas::multi_sum;
+using kgwas::row_dot;
 
 constexpr int kWarps = 8;  // warps per block
 // a batch's entry: its first virtual edge, its row (item slot) and edges
@@ -81,6 +90,7 @@ struct Args {
   const float* xs;         // [S, D]
   const int* src;          // [E]
   const float* logits;     // [E]
+  const float* mult;       // [E], or null (MULT = false)
   const int* row_offsets;  // [n_rows + 1]
   const float* row_max;    // [n_rows]
   const float* row_sum;    // [n_rows]
@@ -94,39 +104,7 @@ struct Args {
   int d;
 };
 
-// U per-lane partial sums p[0..U-1] summed over the warp, transposed: lane
-// l returns the total of p[l / (32 / U)]. Each halving exchange sends the
-// half of the values that the lane gives up and keeps the other half; the
-// last 5 - log2 U steps are a plain butterfly. A fixed order: the same bits
-// every run.
-template <int U>
-__device__ __forceinline__ float multi_sum(float (&p)[U], int lane) {
-#pragma unroll
-  for (int n = U, off = 16; n > 1; n >>= 1, off >>= 1) {
-    const bool upper = lane & off;
-#pragma unroll
-    for (int i = 0; i < n / 2; ++i) {
-      const float send = upper ? p[i] : p[i + n / 2];
-      const float keep = upper ? p[i + n / 2] : p[i];
-      p[i] = keep + __shfl_xor_sync(kFull, send, off);
-    }
-  }
-#pragma unroll
-  for (int off = 16 / U; off > 0; off >>= 1)
-    p[0] += __shfl_xor_sync(kFull, p[0], off);
-  return p[0];
-}
-
-template <bool VEC, int NV>
-__device__ __forceinline__ float row_dot(const kgwas::Row<VEC, NV>& x,
-                                         const kgwas::Row<VEC, NV>& y) {
-  float q = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kgwas::Row<VEC, NV>::C; ++c) q = fmaf(x.v[c], y.v[c], q);
-  return q;
-}
-
-template <bool VEC, int NV>
+template <bool VEC, int NV, bool MULT>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_bwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -139,6 +117,7 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
   __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
   __shared__ float s_lse_w[kWarps][kItemMaxRows];
   __shared__ float s_dot_w[kWarps][kItemMaxRows];
+  __shared__ float s_mult_w[kWarps][MULT ? kBwdMaxEdges : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -151,6 +130,7 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
   unsigned char* s_k = s_k_w[warp];
   float* s_lse = s_lse_w[warp];
   float* s_dot = s_dot_w[warp];
+  float* s_mult = s_mult_w[warp];
   const int d = a.d;
 
   const kgwas::ItemRows it =
@@ -177,18 +157,20 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
     }
     n_batches = __shfl_sync(kFull, x, 31);
   }
-  // each virtual edge's row, then its source row and logit (the item's
-  // edges follow each other in the stream)
+  // each virtual edge's row, then its source row and logit (and
+  // multiplier; the item's edges follow each other in the stream)
   const int first = kgwas::stage_row_keys(it, s_k, lane);
   for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
     int src[4] = {0, 0, 0, 0};
     float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float mu[4] = {1.0f, 1.0f, 1.0f, 1.0f};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int v = v0 + 32 * q + lane;
       if (v < it.total) {
         src[q] = a.src[first + v];
         l[q] = a.logits[first + v];
+        if (MULT) mu[q] = a.mult[first + v];
       }
     }
 #pragma unroll
@@ -197,6 +179,7 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
       if (v < it.total) {
         s_src[v] = src[q];
         s_p[v] = l[q];
+        if (MULT) s_mult[v] = mu[q];
       }
     }
   }
@@ -248,39 +231,54 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
     if (b + 1 < n_batches) take(xb, gb, b + 1);
   }
   __syncwarp();
-  if (!it.chunk) {  // dot_r = sum_e p_e m_e over each whole row
+  if (!it.chunk) {  // dot_r = sum_e p_e (mult_e) m_e over each whole row
     for (int base = 0; base < it.total; base += 32) {
       const int v = base + lane;
       const bool ok = v < it.total;
-      kgwas::segmented_add(ok ? s_p[v] * s_m[v] : 0.0f, ok ? s_k[v] : 255,
-                           s_dot, lane);
+      const float e = !ok    ? 0.0f
+                      : MULT ? s_p[v] * s_mult[v] * s_m[v]
+                             : s_p[v] * s_m[v];
+      kgwas::segmented_add(e, ok ? s_k[v] : 255, s_dot, lane);
     }
   }
   for (int v = lane; v < it.total; v += 32) {
     const float p = s_p[v];
-    a.w[first + v] = p;
-    a.d_logits[first + v] = p * (s_m[v] - s_dot[s_k[v]]);
+    if (MULT) {
+      const float mu = s_mult[v];
+      a.w[first + v] = p * mu;
+      a.d_logits[first + v] = p * (mu * s_m[v] - s_dot[s_k[v]]);
+    } else {
+      a.w[first + v] = p;
+      a.d_logits[first + v] = p * (s_m[v] - s_dot[s_k[v]]);
+    }
   }
+}
+
+template <bool VEC, int NV, bool MULT>
+cudaError_t launch_items(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks == 0) return cudaSuccess;
+  segment_softmax_spmm_bwd_kernel<VEC, NV, MULT>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks == 0) return cudaSuccess;
-  segment_softmax_spmm_bwd_kernel<VEC, NV>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-  return cudaGetLastError();
+  return a.mult != nullptr ? launch_items<VEC, NV, true>(a, stream)
+                           : launch_items<VEC, NV, false>(a, stream);
 }
 
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
 // pointers; xs, out, g and items must be 16-byte aligned (the wrapper
-// checks). items is the relation's row schedule (ops/schedule.py
-// row_schedule), at most kBwdMaxEdges edges an item.
+// checks); mult may be null (every multiplier 1). items is the relation's
+// row schedule (ops/schedule.py row_schedule), at most kBwdMaxEdges edges
+// an item.
 extern "C" int kgwas_segment_softmax_spmm_bwd(
-    const void* xs, const void* src, const void* logits,
+    const void* xs, const void* src, const void* logits, const void* mult,
     const void* row_offsets, const void* row_max, const void* row_sum,
     const void* out, const void* g, void* w, void* d_logits,
     const void* items, long long n_items, long long n_rows, int d,
@@ -289,6 +287,7 @@ extern "C" int kgwas_segment_softmax_spmm_bwd(
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
   a.logits = static_cast<const float*>(logits);
+  a.mult = static_cast<const float*>(mult);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.row_max = static_cast<const float*>(row_max);
   a.row_sum = static_cast<const float*>(row_sum);

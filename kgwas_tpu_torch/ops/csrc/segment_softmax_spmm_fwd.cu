@@ -18,6 +18,12 @@
 // sum_e p_e per row ([n_rows], not the TPU's [n_tiles * 8, BN] tiling) for
 // segment_softmax_spmm_bwd.cu. Empty rows give 0, NEG_BIG and 0.
 //
+// An optional per-edge multiplier mult [E] (the dropout of the JAX
+// package's apply_gat: keep_e / (1 - p), drawn outside) weights each edge's
+// message after the softmax: out_r = sum_e p_e mult_e xs[src_e] /
+// (sum_e p_e + 1e-16), with m_r and the row sum unchanged. It is a
+// compile-time flag (MULT): a launch without it runs the kernel as it was.
+//
 // Design. A static schedule (gat_items.cuh, ops/schedule.py; built once per
 // relation stream and kept on its DeviceLayout) gives each warp one item:
 // up to 32 consecutive rows with at most max_edges edges together, or one
@@ -71,6 +77,7 @@ struct Args {
   const float* xs;          // [S, D]
   const int* src;           // [E]
   const float* logits;      // [E]
+  const float* mult;        // [E], or null (MULT = false)
   const int* row_offsets;   // [n_rows + 1]
   float* out;               // [n_rows, D]
   float* row_max;           // [n_rows]
@@ -87,7 +94,7 @@ struct Args {
   int d;
 };
 
-template <bool VEC, int NV>
+template <bool VEC, int NV, bool MULT>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_fwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -96,6 +103,7 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
   __shared__ float s_p_w[kWarps][kBwdMaxEdges];  // logits, then weights
   __shared__ unsigned char s_k_w[kWarps][kBwdMaxEdges];
   __shared__ float s_m_w[kWarps][kItemMaxRows];  // each row's max
+  __shared__ float s_mult_w[kWarps][MULT ? kBwdMaxEdges : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -105,6 +113,7 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
   float* s_p = s_p_w[warp];
   unsigned char* s_k = s_k_w[warp];
   float* s_m = s_m_w[warp];
+  float* s_mult = s_mult_w[warp];
   const int d = a.d;
 
   const kgwas::ItemRows it =
@@ -115,18 +124,20 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
     a.row_sum[it.row] = 0.0f;
   }
   if (lane < it.n_rows) s_m[lane] = kNegBig;
-  // each virtual edge's row, then its source row and logit (the item's
-  // edges follow each other in the stream)
+  // each virtual edge's row, then its source row and logit (and
+  // multiplier; the item's edges follow each other in the stream)
   const int first = kgwas::stage_row_keys(it, s_k, lane);
   for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
     int src[4] = {0, 0, 0, 0};
     float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float mu[4] = {1.0f, 1.0f, 1.0f, 1.0f};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int v = v0 + 32 * q + lane;
       if (v < it.total) {
         src[q] = a.src[first + v];
         l[q] = a.logits[first + v];
+        if (MULT) mu[q] = a.mult[first + v];
       }
     }
 #pragma unroll
@@ -135,6 +146,7 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
       if (v < it.total) {
         s_src[v] = src[q];
         s_p[v] = l[q];
+        if (MULT) s_mult[v] = mu[q];
       }
     }
   }
@@ -194,9 +206,10 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
         }
         const float p = s_p[vu];
         s += p;
+        const float pm = MULT ? p * s_mult[vu] : p;
 #pragma unroll
         for (int c = 0; c < R::C; ++c)
-          acc.v[c] = fmaf(p, x[u].v[c], acc.v[c]);
+          acc.v[c] = fmaf(pm, x[u].v[c], acc.v[c]);
       }
     }
   };
@@ -246,14 +259,14 @@ segment_softmax_combine_kernel(const Args a) {
   }
 }
 
-template <bool VEC, int NV>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <bool VEC, int NV, bool MULT>
+cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   if (blocks > 0) {
-    segment_softmax_spmm_fwd_kernel<VEC, NV>
+    segment_softmax_spmm_fwd_kernel<VEC, NV, MULT>
         <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -266,15 +279,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
+template <bool VEC, int NV>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  return a.mult != nullptr ? launch_items<VEC, NV, true>(a, stream)
+                           : launch_items<VEC, NV, false>(a, stream);
+}
+
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
 // pointers; xs, out, part_acc and items must be 16-byte aligned (the
-// wrapper checks). The schedule (items, split_units, part_offsets) and the
-// scratch part_* come from the wrapper; two launches: the items, then the
-// combine of the chunked rows.
+// wrapper checks); mult may be null (every multiplier 1). The schedule
+// (items, split_units, part_offsets) and the scratch part_* come from the
+// wrapper; two launches: the items, then the combine of the chunked rows.
 extern "C" int kgwas_segment_softmax_spmm_fwd(
-    const void* xs, const void* src, const void* logits,
+    const void* xs, const void* src, const void* logits, const void* mult,
     const void* row_offsets, void* out, void* row_max, void* row_sum,
     const void* items, long long n_items, const void* split_units,
     const void* part_offsets, long long n_split, void* part_m, void* part_s,
@@ -283,6 +302,7 @@ extern "C" int kgwas_segment_softmax_spmm_fwd(
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
   a.logits = static_cast<const float*>(logits);
+  a.mult = static_cast<const float*>(mult);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.out = static_cast<float*>(out);
   a.row_max = static_cast<float*>(row_max);

@@ -1,5 +1,5 @@
-// Feature rows held across the 32 lanes of a warp, shared by the port's
-// kernels (merged_gat_fwd.cu, merged_gat_bwd.cu, csc_segment_sum.cu,
+// Feature rows held across the 32 lanes of a warp, and their dot products,
+// shared by the port's kernels (merged_gat_fwd.cu, merged_gat_bwd.cu, csc_segment_sum.cu,
 // csr_segment_sum.cu, segment_softmax_spmm_fwd.cu, segment_softmax_spmm_bwd.cu).
 //
 // A row of D float32 values is NV float4s per lane (D = 128 * NV, lane l
@@ -64,5 +64,37 @@ struct Row {
     }
   }
 };
+
+// U per-lane partial sums p[0..U-1] summed over the warp, transposed: lane
+// l returns the total of p[l / (32 / U)]. Each halving exchange sends the
+// half of the values that the lane gives up and keeps the other half; the
+// last 5 - log2 U steps are a plain butterfly. A fixed order: the same bits
+// every run.
+template <int U>
+__device__ __forceinline__ float multi_sum(float (&p)[U], int lane) {
+#pragma unroll
+  for (int n = U, off = 16; n > 1; n >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? p[i] : p[i + n / 2];
+      const float keep = upper ? p[i + n / 2] : p[i];
+      p[i] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+#pragma unroll
+  for (int off = 16 / U; off > 0; off >>= 1)
+    p[0] += __shfl_xor_sync(kFull, p[0], off);
+  return p[0];
+}
+
+template <bool VEC, int NV>
+__device__ __forceinline__ float row_dot(const Row<VEC, NV>& x,
+                                         const Row<VEC, NV>& y) {
+  float q = 0.0f;
+#pragma unroll
+  for (int c = 0; c < Row<VEC, NV>::C; ++c) q = fmaf(x.v[c], y.v[c], q);
+  return q;
+}
 
 }  // namespace kgwas

@@ -15,7 +15,11 @@ merged_gat_bwd``), ``g`` the layer output's cotangent (row ``row_e % N`` of
 it with the fold), and ``slot(s)`` the relation whose block
 ``[src_base[r], src_base[r+1])`` holds s. With ``dz=None`` there is no
 logit term and no ``d_att`` (the per-relation GAT and message-passing
-backwards), and with ``w=None`` every weight is 1. ``src_e`` is the source
+backwards), and with ``w=None`` every weight is 1. Without the logit term
+it also gives, on request (``edge_grad``), the weights' gradient
+``d_w[e] = g[row_e] . xs[src_e]``, written once per edge at its CSC entry
+(the backward of a CSR segment sum whose weights are a function of
+parameters: the per-relation sigmoid GAT layer). ``src_e`` is the source
 row the CSC gives the edge: pad edges sit at their slot's trash source row.
 The kernel takes its work from a static schedule over source rows
 (``csc_schedule``: packed short rows of one slot, chunks of long ones) and
@@ -34,8 +38,9 @@ ones added in part order by a second launch), which ``device_layouts``
 builds once per 'mp' layout and keeps on its ``DeviceLayout``; the wrapper
 keeps the chunks' scratch on the schedule from the first launch.
 ``CSRSegmentSum`` is it as an autograd function; its backward is
-``csc_segment_sum`` with ``w`` and no logit term (the weights are static
-degree norms and get no gradient).
+``csc_segment_sum`` with ``w`` and no logit term, and the weights'
+gradient from the same launch when ``w`` requires one (static degree norms
+do not; the sigmoid GAT layer's weights do).
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version for CPU tensors; there is no other route. ``launches`` (CSC) and
@@ -116,18 +121,23 @@ def csc_fields(dst, csc_perm, csc_offsets, n_rows_per_rel, src_base, fold,
             "csc_fold": bool(fold)}
 
 
-def csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold=0):
+def csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold=0,
+                          edge_grad=False):
     """Plain PyTorch version: the [E, D] message cotangent formed in full
-    and summed per source row with index_add_. Same arguments and results
-    as csc_segment_sum."""
+    and summed per source row with index_add_; d_w = (x[src] *
+    g[dst]).sum(-1). Same arguments and results as csc_segment_sum."""
     src_base, n_rel = _slots(layout, xs_all, att)
+    _check_edge_grad(dz, edge_grad)
     n = layout.n_rows_per_rel
     dst = layout.dst.long()
     src = csc_sources(layout)
     rows = g[dst % n if fold else dst]
     d_msgs = rows if w is None else w[:, None] * rows
     if dz is None:
-        return torch.zeros_like(xs_all).index_add_(0, src, d_msgs), None
+        d_xs = torch.zeros_like(xs_all).index_add_(0, src, d_msgs)
+        if edge_grad:
+            return d_xs, None, (xs_all[src] * rows).sum(-1)
+        return d_xs, None
     d_msgs = d_msgs + dz[:, None] * att[dst // n]
     d_xs = torch.zeros_like(xs_all).index_add_(0, src, d_msgs)
     c = torch.zeros(xs_all.shape[0], dtype=xs_all.dtype,
@@ -173,21 +183,31 @@ def _csc_plan(layout, sched, n_rel, d, logits, dev):
     return plan
 
 
-def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0):
-    """(d_xs_all [S, D], d_att [R, D] or None) of one layer's source rows.
+def _check_edge_grad(dz, edge_grad):
+    if edge_grad and dz is not None:
+        raise ValueError("the weights' gradient is taken without dz only")
+
+
+def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0, edge_grad=False):
+    """(d_xs_all [S, D], d_att [R, D] or None) of one layer's source rows,
+    and with edge_grad (only with dz=None) d_w [E] third.
 
     g [N, D] with fold=R (else [R*N, D]) is the layer output's cotangent;
     w, dz [E] the per-edge weights and logit cotangents (w=None: weight 1;
     dz=None: no logit term, and att, d_att are None); xs_all [S, D] and att
     [R, D] the layer's inputs; layout a DeviceLayout (models/hetero_gnn.py)
     with csc_fields for this fold, whose csc_schedule, csc_rows, csc_perm,
-    csc_offsets and src_base this reads."""
+    csc_offsets and src_base this reads. d_w[e] = g[row_e] . xs_all[s_e]
+    for the source row s_e the CSC gives edge e (a pad edge: its slot's
+    trash source row)."""
     if xs_all.device.type == "cpu":
-        return csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold)
+        return csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold,
+                                     edge_grad)
     if xs_all.device.type != "cuda":
         raise ValueError(f"unsupported device {xs_all.device}")
     if (dz is None) != (att is None):
         raise ValueError("dz and att are given together or not at all")
+    _check_edge_grad(dz, edge_grad)
     src_base, n_rel = _slots(layout, xs_all, att)
     n = layout.n_rows_per_rel
     d = xs_all.shape[1]
@@ -211,6 +231,8 @@ def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0):
 
     d_xs = torch.empty_like(xs_all)
     d_att = None if att is None else torch.empty_like(att)
+    d_w = torch.empty(e, dtype=torch.float32, device=dev) if edge_grad \
+        else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = library("csc_segment_sum")(
         g.data_ptr(), ptr(w), ptr(dz), xs_all.data_ptr(), ptr(att),
@@ -219,13 +241,14 @@ def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0):
         sched.items.shape[0], sched.split_units.data_ptr(),
         sched.part_offsets.data_ptr(), sched.split_units.shape[0],
         plan.part_acc.data_ptr(), ptr(plan.part_c), plan.bases,
-        plan.item_bases, d_xs.data_ptr(), ptr(d_att), ptr(plan.partial),
-        n_rel, d, torch.cuda.current_stream(dev).cuda_stream)
+        plan.item_bases, d_xs.data_ptr(), ptr(d_att), ptr(d_w),
+        ptr(plan.partial), n_rel, d,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csc_segment_sum launch failed: cudaError {err}")
     global launches
     launches += 1
-    return d_xs, d_att
+    return (d_xs, d_att, d_w) if edge_grad else (d_xs, d_att)
 
 
 def _check_csr(x, src, row_offsets, w):
@@ -295,8 +318,9 @@ def csr_segment_sum(x, src, row_offsets, w=None, sched=None):
 class CSRSegmentSum(torch.autograd.Function):
     """``CSRSegmentSum.apply(x, w, layout)`` -> csr_segment_sum over the
     layout's stream (src, row_offsets), [n_rows, D]. The backward is
-    csc_segment_sum(g, w, None) over the layout's CSC; w gets no
-    gradient."""
+    csc_segment_sum(g, w, None) over the layout's CSC, with the weights'
+    gradient d_w[e] = g[row_e] . x[src_e] from the same launch when w
+    requires one."""
 
     @staticmethod
     def forward(ctx, x, w, layout):
@@ -308,5 +332,9 @@ class CSRSegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        if w is not None and ctx.needs_input_grad[1]:
+            d_x, _, d_w = csc_segment_sum(g.contiguous(), w, None, x, None,
+                                          ctx.layout, edge_grad=True)
+            return d_x, d_w, None
         d_x, _ = csc_segment_sum(g.contiguous(), w, None, x, None, ctx.layout)
         return d_x, None, None

@@ -8,9 +8,12 @@ per-relation GAT path (gnn_aggr max and min). Over one relation's
 dst-sorted CSR (``src`` into the projected source table ``xs``,
 ``row_offsets``) and given per-edge logits:
 
-    out[r] = sum_{e in row r} softmax_r(logits)_e xs[src_e]
+    out[r] = sum_{e in row r} softmax_r(logits)_e m_e xs[src_e]
 
-``segment_softmax_spmm_fwd`` launches ``csrc/segment_softmax_spmm_fwd.cu``
+with an optional per-edge multiplier m (``mult``, None: 1) after the
+softmax: the dropout of ``apply_gat`` (keep_e / (1 - p), drawn outside; the
+kernels take it as a compile-time flag, so a launch without it runs as
+before). ``segment_softmax_spmm_fwd`` launches ``csrc/segment_softmax_spmm_fwd.cu``
 and ``segment_softmax_spmm_bwd`` launches ``csrc/segment_softmax_spmm_bwd.
 cu`` for CUDA tensors; for CPU tensors they run their ``_plain`` versions.
 There is no other route. ``launches`` and ``bwd_launches`` count calls of
@@ -41,48 +44,55 @@ launches = 0
 bwd_launches = 0
 
 
-def _check(xs, src, logits, row_offsets):
+def _check(xs, src, logits, row_offsets, mult=None):
     if xs.dim() != 2 or src.dim() != 1 or row_offsets.dim() != 1:
         raise ValueError("xs must be 2-D, src and row_offsets 1-D")
-    if logits.shape != src.shape:
-        raise ValueError(f"logits {tuple(logits.shape)} != src "
-                         f"{tuple(src.shape)}")
+    for name, t in (("logits", logits), ("mult", mult)):
+        if t is not None and t.shape != src.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != src "
+                             f"{tuple(src.shape)}")
     return row_offsets.shape[0] - 1
 
 
-def segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets):
+def segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets, mult=None):
     """Plain PyTorch version in the TPU kernel's formulas and constants
     (NEG_BIG, exp(min(l - m, 60)), +1e-16). Same arguments and results as
     segment_softmax_spmm_fwd."""
-    n_rows = _check(xs, src, logits, row_offsets)
+    n_rows = _check(xs, src, logits, row_offsets, mult)
     dst = csr_rows(row_offsets)
     e = dst.shape[0]
     l = logits[:e]
     row_max = segment_max(l, dst, n_rows)
     p = torch.exp(torch.clamp(l - row_max[dst], max=EXP_CLAMP))
     row_sum = segment_sum(p, dst, n_rows)
-    out = segment_sum(p[:, None] * gather_rows(xs, src[:e]), dst, n_rows)
+    pm = p if mult is None else p * mult[:e]
+    out = segment_sum(pm[:, None] * gather_rows(xs, src[:e]), dst, n_rows)
     return out / (row_sum + EPS)[:, None], row_max, row_sum
 
 
-def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None):
+def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None,
+                             mult=None):
     """(out [n_rows, D], row_max [n_rows], row_sum [n_rows]).
 
     xs [S, D] f32 projected source rows; src [E] int32 into xs
     (dst-sorted); logits [E] f32; row_offsets [n_rows + 1] int32, every
-    edge in a row. Empty rows give 0, NEG_BIG and 0. sched: the stream's
-    row_schedule on the device (built from row_offsets when not given);
-    the plain version needs none."""
+    edge in a row; mult [E] f32 per-edge multipliers of the messages after
+    the softmax, or None (1; the row max and sum do not see them). Empty
+    rows give 0, NEG_BIG and 0. sched: the stream's row_schedule on the
+    device (built from row_offsets when not given); the plain version needs
+    none."""
     if xs.device.type == "cpu":
-        return segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets)
+        return segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets,
+                                              mult)
     if xs.device.type != "cuda":
         raise ValueError(f"unsupported device {xs.device}")
-    n_rows = _check(xs, src, logits, row_offsets)
+    n_rows = _check(xs, src, logits, row_offsets, mult)
     from .gat_layer import check_cuda_args
 
     dev = xs.device
     check_cuda_args(dev, xs=xs, src=src, logits=logits,
-                    row_offsets=row_offsets)
+                    row_offsets=row_offsets,
+                    **({} if mult is None else {"mult": mult}))
     if sched is None:
         sched = row_schedule(row_offsets).to(dev)
     d = xs.shape[1]
@@ -108,6 +118,7 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("segment_softmax_spmm_fwd")(
         xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
+        None if mult is None else mult.data_ptr(),
         row_offsets.data_ptr(), out.data_ptr(), row_max.data_ptr(),
         row_sum.data_ptr(), sched.items.data_ptr(), sched.items.shape[0],
         sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
@@ -122,27 +133,31 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None):
 
 
 def segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets, row_max,
-                                   row_sum, out, g):
+                                   row_sum, out, g, mult=None):
     """Plain PyTorch version of the backward kernel, in the TPU backward
     kernel's formulas (dot_r from the saved output). Same arguments and
     results as segment_softmax_spmm_bwd."""
-    _check(xs, src, logits, row_offsets)
+    _check(xs, src, logits, row_offsets, mult)
     dst = csr_rows(row_offsets)
     e = dst.shape[0]
     lse = row_max + torch.log(row_sum + EPS)
     p = torch.exp(torch.clamp(logits[:e] - lse[dst], max=EXP_CLAMP))
     dot = (out * g).sum(-1)
     m = (gather_rows(xs, src[:e]) * gather_rows(g, dst)).sum(-1)
-    return p, p * (m - dot[dst])
+    if mult is None:
+        return p, p * (m - dot[dst])
+    mu = mult[:e]
+    return p * mu, p * (mu * m - dot[dst])
 
 
 def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
-                             out, g, sched=None):
+                             out, g, sched=None, mult=None):
     """Edge-level VJP of segment_softmax_spmm_fwd: (w [E], d_logits [E]).
 
     The arguments are the forward's, its out / row_max / row_sum and the
-    cotangent g [n_rows, D] of out. w_e = p_e is the softmax weight of edge
-    e, d_logits the logits' cotangent. The message cotangent p_e g_row is
+    cotangent g [n_rows, D] of out. w_e = p_e m_e is the softmax weight of
+    edge e times its multiplier (mult, None: 1), d_logits the logits'
+    cotangent, p_e (m_e xs[src_e] . g_r - dot_r). The message cotangent p_e g_row is
     never formed: segment.csc_segment_sum(g, w, None) sums it per source
     row. sched: the stream's row_schedule on the device, the forward's
     (built from row_offsets when not given). The kernel forms dot_r =
@@ -151,10 +166,10 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
     version needs no schedule."""
     if xs.device.type == "cpu":
         return segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets,
-                                              row_max, row_sum, out, g)
+                                              row_max, row_sum, out, g, mult)
     if xs.device.type != "cuda":
         raise ValueError(f"unsupported device {xs.device}")
-    n_rows = _check(xs, src, logits, row_offsets)
+    n_rows = _check(xs, src, logits, row_offsets, mult)
     d = xs.shape[1]
     if out.shape != (n_rows, d) or g.shape != (n_rows, d):
         raise ValueError(f"out and g must be ({n_rows}, {d})")
@@ -164,7 +179,8 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
 
     dev = xs.device
     check_cuda_args(dev, xs=xs, logits=logits, row_max=row_max,
-                    row_sum=row_sum, out=out, g=g)
+                    row_sum=row_sum, out=out, g=g,
+                    **({} if mult is None else {"mult": mult}))
     if sched is None:
         sched = row_schedule(row_offsets).to(dev)
     check_stream(sched, ("bwd", dev), src, row_offsets, n_rows)
@@ -176,7 +192,7 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library("segment_softmax_spmm_bwd")(
         xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
-        row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+        None if mult is None else mult.data_ptr(), row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
         out.data_ptr(), g.data_ptr(), w.data_ptr(), d_logits.data_ptr(),
         sched.items.data_ptr(), sched.items.shape[0], n_rows, d, stream)
     if err != 0:
@@ -188,44 +204,47 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
 
 
 def segment_softmax_spmm_backward(xs, logits, row_max, row_sum, out, g,
-                                  layout):
+                                  layout, mult=None):
     """VJP of segment_softmax_spmm_fwd with respect to (xs, logits): the
     edge kernel, then the CSC segment sum. layout is the relation's
     one-slot DeviceLayout (models/hetero_gnn.py)."""
     w, d_logits = segment_softmax_spmm_bwd(
         xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g,
-        sched=getattr(layout, "row_schedule", None))
+        sched=getattr(layout, "row_schedule", None), mult=mult)
     d_xs, _ = segment.csc_segment_sum(g, w, None, xs, None, layout)
     return d_xs, d_logits
 
 
 def segment_softmax_spmm_backward_plain(xs, logits, row_max, row_sum, out, g,
-                                        layout):
+                                        layout, mult=None):
     """Plain version of segment_softmax_spmm_backward: the two plain
     halves."""
     w, d_logits = segment_softmax_spmm_bwd_plain(
-        xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g)
+        xs, layout.src, logits, layout.row_offsets, row_max, row_sum, out, g,
+        mult)
     d_xs, _ = segment.csc_segment_sum_plain(g, w, None, xs, None, layout)
     return d_xs, d_logits
 
 
 class SegmentSoftmaxSpmm(torch.autograd.Function):
-    """``SegmentSoftmaxSpmm.apply(xs, logits, layout)`` -> out [N, D] over
-    the relation's stream (layout.src, layout.row_offsets). The forward
-    saves out, row_max and row_sum; the backward recomputes each edge's
-    softmax weight from them."""
+    """``SegmentSoftmaxSpmm.apply(xs, logits, layout, mult=None)`` -> out
+    [N, D] over the relation's stream (layout.src, layout.row_offsets),
+    each message times mult [E] after the softmax (None: 1; a constant, it
+    gets no gradient). The forward saves out, row_max and row_sum; the
+    backward recomputes each edge's softmax weight from them."""
 
     @staticmethod
-    def forward(ctx, xs, logits, layout):
+    def forward(ctx, xs, logits, layout, mult=None):
         out, row_max, row_sum = segment_softmax_spmm_fwd(
             xs, layout.src, logits, layout.row_offsets,
-            sched=getattr(layout, "row_schedule", None))
-        ctx.save_for_backward(xs, logits, row_max, row_sum, out)
+            sched=getattr(layout, "row_schedule", None), mult=mult)
+        ctx.save_for_backward(xs, logits, row_max, row_sum, out, mult)
         ctx.layout = layout
         return out
 
     @staticmethod
     def backward(ctx, g):
+        *saved, mult = ctx.saved_tensors
         d_xs, d_logits = segment_softmax_spmm_backward(
-            *ctx.saved_tensors, g.contiguous(), ctx.layout)
-        return d_xs, d_logits, None
+            *saved, g.contiguous(), ctx.layout, mult=mult)
+        return d_xs, d_logits, None, None

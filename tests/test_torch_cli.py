@@ -62,8 +62,6 @@ def test_cli_interpret(trained_dir, tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "8"], "item 10"),
     (["--dtype", "bfloat16"], "item 7"),
-    (["--remat"], "item 3"),
-    (["--heads", "2"], "item 3"),
     (["--watchdog-timeout", "30"], "item 8"),
 ])
 def test_cli_unported_flags_raise_before_loading(tmp_path, flag, item):
@@ -71,6 +69,21 @@ def test_cli_unported_flags_raise_before_loading(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["train", *SYNTH, "--data-path", str(d), *flag])
     assert not d.exists()
+
+
+def test_cli_heads_and_remat_run(tmp_path):
+    """--heads and --remat run: a 2-head model trained with each layer
+    recomputed in the backward, its checkpoint served by predict."""
+    d = str(tmp_path)
+    run = main(["train", *SYNTH, "--data-path", d, "--name", "h2", "--hidden",
+                "8", "--epochs", "1", "--batch-size", "512", "--heads", "2",
+                "--remat"])
+    assert run.model_cfg.gat_num_head == 2 and run.model_cfg.remat
+    assert run.config["gat_num_head"] == 2 and "remat" not in run.config
+    assert run.model.lin.weight.shape == (1, 16)
+    pred = main(["predict", *SYNTH, "--data-path", d, "--name", "h2",
+                 "--out", os.path.join(d, "pred.npy")])
+    np.testing.assert_array_equal(pred, run.predict_all())
 
 
 @pytest.mark.parametrize("cmd", ["train", "predict", "interpret"])

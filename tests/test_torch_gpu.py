@@ -43,6 +43,15 @@ not cut into chunks (the chunked rows and d_att by the float64 rule, or
 as trash rows), the segment softmax forward and backward within the
 tolerances above; and the merged GAT kernels, built from that source with
 this checkout's C interface, within the same tolerances.
+
+The segment kernels' optional operand and output: #6 and #7 with a
+per-edge multiplier (dropout) on the long-row stream and on relation
+streams, a multiplier of ones giving the bits of the launch without one,
+#8's per-edge d_w in three call forms and through CSRSegmentSum's
+backward; with KGWAS_PARENT_CSRC, #6, #7 and #8 without them bitwise as
+the earlier checkout's. The model: a per-relation GAT step's gradients
+bitwise the same in two runs, and with remat bitwise those without, the
+dropout masks drawn from one CUDA generator seed.
 """
 import dataclasses
 import importlib
@@ -59,7 +68,7 @@ import torch
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.config import ModelConfig
 from kgwas_tpu_torch.models.hetero_gnn import (HeteroGNN, device_layouts,
-                                               layer_path)
+                                               layer_path, layer_paths)
 from kgwas_tpu_torch.ops import (build, gat_layer, schedule, segment,
                                  segment_softmax)
 
@@ -838,3 +847,268 @@ def test_collect_attention_kernel_matches_plain(aggr, cuda_device,
                                    want[1][rk].cpu().numpy(), rtol=1e-5,
                                    atol=1e-5, err_msg=rk)
 
+
+
+# --------------------------- the multiplier of #6 / #7 and the d_w of #8
+
+
+def _mult(rng, e, p=0.3):
+    """A dropout multiplier [E]: keep ~ bernoulli(1 - p), times 1/(1 - p)."""
+    return ((rng.random(e) >= p) / (1.0 - p)).astype(np.float32)
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
+@pytest.mark.parametrize("d", [D, 48])
+def test_segment_softmax_kernels_with_mult_match_plain(d, max_edges,
+                                                       cuda_device):
+    """#6 and #7 with the per-edge multiplier on the stream with long rows,
+    a hub, empty rows and a trash row (chunked rows: #7's dot_r from the
+    saved out, which holds the multiplier), at the default item sizes and
+    at max_edges 8: two runs the same bits; the forward within the
+    kernel-vs-plain tolerances, the backward by the float64 rule."""
+    src, ro, logits, xs, long_rows = _long_row_stream(d=d)
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    mult = t(_mult(rng, len(src)))
+    fargs = (t(xs), t(src), t(logits), t(ro))
+    sched = schedule.row_schedule(ro, max_edges or schedule.ROW_MAX_EDGES,
+                                  max_edges or schedule.ROW_CHUNK_EDGES)
+    assert set(long_rows) <= set(sched.split_units.tolist())
+    sched = sched.to(cuda_device)
+    before = (segment_softmax.launches, segment_softmax.bwd_launches)
+    got = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_fwd(
+        *a, sched=sched, mult=mult), *fargs)
+    want = segment_softmax.segment_softmax_spmm_fwd_plain(*fargs, mult=mult)
+    for g_, w_ in zip(got, want):
+        _close_rows(g_, w_, long_rows)
+    out, row_max, row_sum = got
+    g = t(rng.standard_normal((len(ro) - 1, d)).astype(np.float32))
+    bargs = fargs + (row_max, row_sum, out, g)
+    edge = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_bwd(
+        *a, sched=sched, mult=mult), *bargs)
+    plain = segment_softmax.segment_softmax_spmm_bwd_plain(*bargs, mult=mult)
+    exact = segment_softmax.segment_softmax_spmm_bwd_plain(
+        *_as_double(bargs), mult=mult.double())
+    for a, p, x in zip(edge, plain, exact):
+        _grad_rule(a, p, x)
+    assert (segment_softmax.launches, segment_softmax.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("rk", ["Gene__Gene-PPI-Gene__Gene",
+                                "Gene__rev_TSS__SNP"])
+def test_segment_softmax_mult_on_relation_stream(rk, cuda_device,
+                                                 variant_world):
+    """The layer op with a multiplier (SegmentSoftmaxSpmm, its backward
+    #7 and #8) on one relation's stream against the same op on the CPU
+    (the plain versions) from the same inputs: forward within the
+    kernel-vs-plain tolerances, the gradients of xs and logits within the
+    backward kernels' tolerance."""
+    cg, rel, _ = variant_world
+    r = cg.relations[rk]
+    L = rel[r.dst_type]
+    RL = L.relations[L.rel_keys.index(rk)]
+    cpu = device_layouts({r.dst_type: build_merged_layouts(
+        cg, tile_rows=512)[r.dst_type]}, "cpu", cg, "relations")[r.dst_type]
+    RC = cpu.relations[L.rel_keys.index(rk)]
+    rng = np.random.default_rng(22)
+    xs = (rng.standard_normal((RL.src_base[-1], D)) * 0.1).astype(np.float32)
+    logits = (rng.standard_normal(RL.src.shape[0]) * 1.5).astype(np.float32)
+    mult = _mult(rng, RL.src.shape[0])
+    g = rng.standard_normal((RL.n_rows_per_rel, D)).astype(np.float32)
+    res = []
+    for dev, lay in ((cuda_device, RL), ("cpu", RC)):
+        a, b = (torch.from_numpy(v).to(dev).requires_grad_()
+                for v in (xs, logits))
+        out = segment_softmax.SegmentSoftmaxSpmm.apply(
+            a, b, lay, torch.from_numpy(mult).to(dev))
+        out.backward(torch.from_numpy(g).to(dev))
+        res.append((out.detach(), a.grad, b.grad))
+    _close(res[0][0], res[1][0], RL.n_rows_per_rel, cg.num_nodes[r.dst_type])
+    for a, b in zip(res[0][1:], res[1][1:]):
+        _close_grad(a, b.to(cuda_device))
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
+def test_mult_of_ones_gives_the_bits_without(max_edges, cuda_device):
+    """A multiplier of ones gives the bits of the launch without one (p * 1
+    is p): the flag changes nothing else in #6 and #7."""
+    src, ro, logits, xs, _ = _long_row_stream()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    fargs = (t(xs), t(src), t(logits), t(ro))
+    ones = torch.ones(len(src), device=cuda_device)
+    sched = schedule.row_schedule(ro, max_edges or schedule.ROW_MAX_EDGES,
+                                  max_edges or schedule.ROW_CHUNK_EDGES
+                                  ).to(cuda_device)
+    fwd = segment_softmax.segment_softmax_spmm_fwd
+    got, base = (fwd(*fargs, sched=sched, mult=m) for m in (ones, None))
+    for a, b in zip(got, base):
+        assert torch.equal(a, b)
+    g = t(np.random.default_rng(23).standard_normal(
+        (len(ro) - 1, D)).astype(np.float32))
+    bargs = fargs + (base[1], base[2], base[0], g)
+    bwd = segment_softmax.segment_softmax_spmm_bwd
+    got, base = (bwd(*bargs, sched=sched, mult=m) for m in (ones, None))
+    for a, b in zip(got, base):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [D, 48])
+@pytest.mark.parametrize("form", ["relation", "mp-weighted", "hub"])
+def test_csc_segment_sum_edge_grad_matches_plain(form, d, cuda_device,
+                                                 variant_world):
+    """#8 with d_w: on a relation stream (pad edges on the source trash
+    row), a merged 'mp' group and a hub source row cut into chunks (each
+    chunk writes its own edges' d_w): two runs the same bits, d_xs the bits
+    of the launch without d_w, d_w by the float64 rule."""
+    cg, rel, mp = variant_world
+    rng = np.random.default_rng(24)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(cuda_device)  # noqa: E731
+    if form == "relation":
+        DL, fold = rel["SNP"].relations[0], 0
+    elif form == "hub":
+        DL, _ = _hub_csc_layout(cuda_device)
+        fold = 2
+        assert DL.csc_schedule.split_units.numel() > 0
+    else:
+        DL, fold = mp["Gene"], 0
+    e = DL.csc_perm.shape[0]
+    xs = t(rng.standard_normal((DL.src_base[-1], d)) * 0.1)
+    g = t(rng.standard_normal(((DL.n_rows_per_rel if fold
+                                else DL.row_offsets.shape[0] - 1), d)))
+    w = t(rng.random(e))
+    args = (g, w, None, xs, None, DL, fold)
+    before = segment.launches
+    got = _repeat_equal(lambda *a: segment.csc_segment_sum(
+        *a, edge_grad=True), *args)
+    assert segment.launches == before + 2
+    assert got[1] is None and got[2].shape == (e,)
+    assert torch.equal(got[0], segment.csc_segment_sum(*args)[0])
+    plain = segment.csc_segment_sum_plain(*args, edge_grad=True)
+    exact = segment.csc_segment_sum_plain(
+        g.double(), w.double(), None, xs.double(), None, DL, fold,
+        edge_grad=True)
+    _grad_rule(got[0], plain[0], exact[0])
+    _grad_rule(got[2], plain[2], exact[2])
+
+
+def test_csr_segment_sum_weight_grad(cuda_device, variant_world):
+    """CSRSegmentSum with weights that need a gradient (the sigmoid GAT
+    layer's): the backward's one #8 launch gives d_x and d_w, against the
+    same op on the CPU (the plain versions) on the relation's real edges."""
+    cg, rel, _ = variant_world
+    L = rel["Gene"]
+    RL = L.relations[0]
+    rk = L.rel_keys[0]
+    cpu = device_layouts({"Gene": build_merged_layouts(
+        cg, tile_rows=512)["Gene"]}, "cpu", cg, "relations")["Gene"]
+    RC = cpu.relations[0]
+    rng = np.random.default_rng(25)
+    x = (rng.standard_normal((RL.src_base[-1], D)) * 0.1).astype(np.float32)
+    w = rng.random(RL.src.shape[0]).astype(np.float32)
+    g = rng.standard_normal((RL.n_rows_per_rel, D)).astype(np.float32)
+    res = []
+    for dev, lay in ((cuda_device, RL), ("cpu", RC)):
+        a, b = (torch.from_numpy(v).to(dev).requires_grad_() for v in (x, w))
+        before = segment.launches
+        segment.CSRSegmentSum.apply(a, b, lay).backward(
+            torch.from_numpy(g).to(dev))
+        if dev != "cpu":
+            assert segment.launches == before + 1
+        res.append((a.grad.cpu(), b.grad.cpu()))
+    e = cg.relations[rk].num_edges
+    _close_grad(res[0][0], res[1][0])
+    _close_grad(res[0][1][:e], res[1][1][:e])
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd", "csc"])
+def test_flags_off_bitwise_as_parent(kernel, parent_ops, cuda_device,
+                                     variant_world):
+    """Without the multiplier and d_w, #6, #7 and #8 give the bits of the
+    earlier checkout's kernels through its own wrappers, on every row
+    (the schedules are the same)."""
+    cg, rel, _ = variant_world
+    L = rel["SNP"]
+    RL = L.relations[0]
+    args = _relation_bwd_args(RL, D, cuda_device, seed=26)
+    if kernel == "fwd":
+        new = segment_softmax.segment_softmax_spmm_fwd(*args[:4])
+        old = parent_ops.segment_softmax.segment_softmax_spmm_fwd(*args[:4])
+    elif kernel == "bwd":
+        new = segment_softmax.segment_softmax_spmm_bwd(*args)
+        old = parent_ops.segment_softmax.segment_softmax_spmm_bwd(*args)
+    else:
+        w = args[2].sigmoid().contiguous()
+        cargs = (args[7], w, None, args[0], None, RL)
+        new = segment.csc_segment_sum(*cargs)
+        old = parent_ops.segment.csc_segment_sum(*cargs)
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_remat_gradients_bitwise_with_a_fixed_mask(cuda_device):
+    """remat=True against remat=False on the card: GAT sum, two heads,
+    dropout 0.1 in training (the per-relation path, #6 and #7 with the
+    multiplier), the masks drawn from two CUDA generators of one seed:
+    the same loss and bitwise the same gradients (the recompute relaunches
+    the forward kernels: twice the forward launches)."""
+    g = make_synthetic_kg(n_snp=3000, n_gene=300, n_go=100, seed=3)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    rel_types = {k: (r.src_type, r.rel, r.dst_type)
+                 for k, r in cg.relations.items()}
+    layouts = build_merged_layouts(cg, tile_rows=512)
+    x = {t: torch.from_numpy(v).to(cuda_device)
+         for t, v in cg.node_x.items()}
+    dims = [cg.node_x[t].shape[1]
+            for t in ("SNP", "Gene", "BiologicalProcess")]
+    grads, fwd = [], []
+    for remat in (False, True):
+        cfg = ModelConfig(gnn_hidden_dim=D, gnn_num_layers=2, gat_num_head=2,
+                          dropout=0.1, no_relu=True, remat=remat)
+        model = HeteroGNN(cfg, rel_types, *dims, seed=0).to(cuda_device)
+        dl = device_layouts(layouts, cuda_device, cg, layer_paths(cfg))
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        before = segment_softmax.launches
+        model(x, dl, training=True, dropout_gen=gen)[:, 0].square().sum(
+            ).backward()
+        torch.cuda.synchronize()
+        fwd.append(segment_softmax.launches - before)
+        grads.append({k: p.grad for k, p in model.named_parameters()
+                      if p.grad is not None})
+    assert fwd[1] == 2 * fwd[0] > 0
+    assert sorted(grads[0]) == sorted(grads[1])
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+@pytest.mark.parametrize("kw", [dict(gnn_aggr="max"),
+                                dict(gnn_aggr="min", sigmoid_gat=True,
+                                     gat_num_head=2)],
+                         ids=["GAT-max", "sigmoid-min-H2"])
+def test_relation_step_grads_bitwise_repeatable(kw, cuda_device):
+    """Two backward passes of the per-relation GAT layer give the same
+    bits: the logits' gathers sum their cotangents in a fixed order
+    (convs.EdgeLogits), where index_select's backward added with float
+    atomics on CUDA (ROADMAP Queue 3)."""
+    g = make_synthetic_kg(n_snp=3000, n_gene=300, n_go=100, seed=3)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    rel_types = {k: (r.src_type, r.rel, r.dst_type)
+                 for k, r in cg.relations.items()}
+    dims = [cg.node_x[t].shape[1]
+            for t in ("SNP", "Gene", "BiologicalProcess")]
+    cfg = ModelConfig(gnn_hidden_dim=D, gnn_num_layers=2, no_relu=True, **kw)
+    model = HeteroGNN(cfg, rel_types, *dims, seed=0).to(cuda_device)
+    dl = device_layouts(build_merged_layouts(cg, tile_rows=512), cuda_device,
+                        cg, layer_paths(cfg))
+    x = {t: torch.from_numpy(v).to(cuda_device)
+         for t, v in cg.node_x.items()}
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        model(x, dl, training=True)[:, 0].square().sum().backward()
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()
+                      if p.grad is not None})
+    assert grads[0] and sorted(grads[0]) == sorted(grads[1])
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k

@@ -222,8 +222,8 @@ def test_collect_attention_matches_jax(name):
         assert set(a) == set(b) == set(cg.relations), li
         for rk, alpha in a.items():
             e = cg.relations[rk].num_edges
-            ref = np.asarray(b[rk])[:e, 0]
-            assert alpha.shape == (e,)
+            ref = np.asarray(b[rk])[:e]
+            assert alpha.shape == (e, 1)
             np.testing.assert_allclose(alpha.numpy(), ref, rtol=ALPHA_RTOL,
                                        atol=ALPHA_ATOL, err_msg=f"l{li + 1} "
                                        f"{rk}")

@@ -167,10 +167,30 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert out.err.startswith("# device=cpu edges=")
 
 
+def test_bench_runs_with_heads(monkeypatch, capsys):
+    """BENCH_HEADS=2 (the JAX module's meaning): each step runs the merged
+    GAT layer once per head of each group and layer that reaches the head,
+    3 groups at 2 layers: 6 calls a step."""
+    from kgwas_tpu_torch.ops import gat_layer
+
+    for k, v in BENCH_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("BENCH_HEADS", "2")
+    monkeypatch.setenv("BENCH_STEPS", "2")
+    calls = []
+    fwd = gat_layer.merged_gat_forward
+    monkeypatch.setattr(gat_layer, "merged_gat_forward",
+                        lambda *a, **k: calls.append(1) or fwd(*a, **k))
+    bench_lib.main(device="cpu")
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert math.isfinite(rec["value"]) and rec["value"] > 0
+    # the warm-up, then max(steps // 4, 1) and steps timed steps
+    assert len(calls) == 2 * 3 * (1 + 1 + 2)
+
+
 @pytest.mark.parametrize("env,item", [
     ({"BENCH_DTYPE": "bfloat16"}, 7),
     ({"BENCH_STREAM_DTYPE": "bfloat16"}, 7),
-    ({"BENCH_HEADS": "2"}, 3),
     ({"BENCH_SCAN": "8"}, 4),
 ])
 def test_bench_unported_options_raise(monkeypatch, env, item):

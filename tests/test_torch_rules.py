@@ -8,7 +8,9 @@
 * A CPU tensor runs the plain version of each kernel wrapper and launches
   nothing, in the forward and in the backward.
 * Options still unported raise NotImplementedError naming their ROADMAP
-  item; ``initialize_model`` takes the JAX method's arguments: the TPU
+  item; the model variants of item 3 run, on the CPU here, and persist the
+  JAX package's ``config``; ``initialize_model`` takes the JAX method's
+  arguments: the TPU
   execution knobs are accepted and leave the same ``config`` as the JAX
   package's, and a name that is no ``ModelConfig`` field raises TypeError.
 """
@@ -70,6 +72,56 @@ def test_scan_catches_a_banned_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom jax import numpy\nimport kgwas_tpu.graph\n")
     assert _imported_top_names(f) & BANNED == {"jax", "kgwas_tpu"}
+
+
+# torch's sampling functions, which draw from the global RNG unless given a
+# generator, and numpy's legacy global-state functions
+TORCH_SAMPLERS = {"rand", "randn", "randint", "randperm", "bernoulli",
+                  "multinomial", "normal", "rand_like", "randn_like",
+                  "randint_like"}
+NUMPY_GLOBAL = {"rand", "randn", "randint", "random", "choice", "seed",
+                "shuffle", "permutation", "normal", "uniform", "binomial",
+                "poisson"}
+
+
+def _global_rng_calls(path):
+    """Lines that draw from a global RNG: torch.<sampler>(...) without a
+    generator keyword, or np.random.<function>(...) of numpy's legacy
+    global state (default_rng and Generator are explicit)."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)):
+            continue
+        f, owner = node.func, node.func.value
+        if (f.attr in TORCH_SAMPLERS and isinstance(owner, ast.Name)
+                and owner.id == "torch"
+                and not any(k.arg == "generator" for k in node.keywords)):
+            bad.append(node.lineno)
+        elif (f.attr in NUMPY_GLOBAL and isinstance(owner, ast.Attribute)
+              and owner.attr == "random" and isinstance(owner.value, ast.Name)
+              and owner.value.id in ("np", "numpy")):
+            bad.append(node.lineno)
+    return bad
+
+
+def test_port_draws_from_explicit_generators_only():
+    """Every random draw of the package and of chip_smoke.py names its
+    generator (a torch.Generator, or a numpy Generator from default_rng):
+    a seed gives the same draws whatever ran before."""
+    bad = {str(f.relative_to(ROOT)): _global_rng_calls(f)
+           for f in _port_sources()}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_rng_scan_catches_global_draws(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import numpy as np, torch\n"
+                 "a = torch.randn(3)\n"
+                 "b = torch.rand(3, generator=g)\n"
+                 "c = np.random.rand(2)\n"
+                 "d = np.random.default_rng(0).random(2)\n")
+    assert _global_rng_calls(f) == [2, 4]
 
 
 def test_package_exports():
@@ -188,25 +240,64 @@ def test_train_options_of_later_items_raise(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """Only the options of items 7, 8 and 10 still raise: the model
+    variants (item 3) run (test_lifted_variant_options_run); the dtypes and
+    host-streamed features are item 7 (the training options of items 8 and
+    10: test_train_options_of_later_items_raise)."""
     data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                      data_path=str(tmp_path))
     run = KGWAS(data, device="cpu")
-    for kw in ({"gat_num_head": 2},
-               {"gnn_backbone": "SAGE", "gnn_aggr": "max"},
-               {"gnn_aggr": "max", "sigmoid_gat": True}, {"dropout": 0.1},
-               {"edge_dim": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run.initialize_model(gnn_hidden_dim=16, **kw)
-    # remat is a model variant (item 3); the dtypes and host-streamed
-    # features are item 7
-    for kw, item in (({"remat": True}, 3),
-                     ({"compute_dtype": "bfloat16"}, 7),
+    for kw, item in (({"compute_dtype": "bfloat16"}, 7),
                      ({"stream_dtype": "bfloat16"}, 7),
                      ({"stream_features": ["SNP"]}, 7),
                      ({"param_dtype": "bfloat16"}, 7)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue 1 item {item} "):
             run.initialize_model(gnn_hidden_dim=16, **kw)
+
+
+LIFTED = {
+    "heads2": dict(gat_num_head=2),
+    "heads2-max": dict(gat_num_head=2, gnn_aggr="max"),
+    "sigmoid-min": dict(sigmoid_gat=True, gnn_aggr="min"),
+    "SAGE-max": dict(gnn_backbone="SAGE", gnn_aggr="max"),
+    "GCN-min": dict(gnn_backbone="GCN", gnn_aggr="min"),
+    "SGC-max": dict(gnn_backbone="SGC", gnn_aggr="max"),
+    "dropout": dict(dropout=0.1),
+    "edge_dim-ATT": dict(edge_dim=4, pheno_condition="ATT"),
+    "MSG-remat": dict(edge_dim=2, pheno_condition="MSG", remat=True),
+}
+
+
+@pytest.mark.parametrize("name", list(LIFTED))
+def test_lifted_variant_options_run(tmp_path, name):
+    """Each option of ROADMAP Queue 1 item 3 now runs through the entry
+    points (train, predict_all, the interpretation) with the config the
+    JAX package persists (remat is not persisted, as there)."""
+    from kgwas_tpu import KGWAS as JaxKGWAS
+    from kgwas_tpu import KGWAS_Data as JaxData
+
+    kw = dict(gnn_hidden_dim=8, no_relu=True, **LIFTED[name])
+    data = KGWAS_Data.from_synthetic(n_snp=80, n_gene=16, n_go=8, seed=0,
+                                     data_path=str(tmp_path / "port"))
+    data.load_synthetic_gwas(seed=0)
+    data.process_gwas_file()
+    data.prepare_split()
+    run = KGWAS(data, device="cpu").initialize_model(**kw)
+    jrun = JaxKGWAS(JaxData.from_synthetic(
+        n_snp=80, n_gene=16, n_go=8, seed=0,
+        data_path=str(tmp_path / "jax")))
+    jrun.initialize_model(**kw)
+    assert run.config == jrun.config
+    assert run.model_cfg.remat == kw.get("remat", False)
+    run.train(batch_size=16, epoch=1, lr=1e-3, save_best_model=False)
+    assert len(run.epoch_losses[0]) > 0
+    assert np.isfinite(run.epoch_losses[0]).all()
+    pred = run.predict_all()
+    assert pred.shape == (80,) and np.isfinite(pred).all()
+    nw, _, _ = run.get_disease_critical_network(variant_threshold=0.5)
+    gat = kw.get("gnn_backbone", "GAT") == "GAT"
+    assert (len(nw["weight"]) > 0) == gat
 
 
 def test_tpu_knobs_are_accepted_and_not_persisted(tmp_path):
