@@ -99,6 +99,28 @@ PyTorch version:
      device ms, bound, gather floor, plain version, and the same launches
      without the flag
 
+ 11. long runs, host-streamed features and the cohort builder: (a) at
+     full width, KGWAS.train(max_restarts=1) over 3 epochs clean and with a
+     transient fault injected in epoch 2 (one restart; final and best
+     parameters bitwise the clean run's), the snapshot's host time per
+     epoch and the time to recover; (b) checkpoint_every=100 beside the
+     same epoch without saves (each step's host time, with and without a
+     save after it), the saved state and the state resume=True restores
+     bitwise the run's at step 300; (c) a device-side assert in a child
+     process, classified fatal, and the next CUDA call failing too; (d)
+     the stall watchdog with the first attempt wedged: python -m
+     kgwas_tpu_torch.cli train --watchdog-timeout on --synthetic, and
+     KGWAS.train(checkpoint_every, resume=True) on a KG that size under
+     run_with_watchdog (exactly one relaunch each, the second resuming
+     from the newest step_N), both recovery times; (e) Gene rows 57,742
+     wide (4.62 GB of host table): three train steps in device memory and
+     streamed from the host from the same initial state, step ms, bytes to
+     the device and the rate beside a pinned copy, the host gather time,
+     then KGWAS.train and predict_all streamed; (f) the UK Biobank cohort
+     builder on 502,000 fabricated participants, host seconds by stage.
+     Launches of merged_gat_fwd, merged_gat_bwd and csc_segment_sum are
+     counted from 0 just before each entry point and checked
+
   Phase 5 also writes its KGWAS_P table with write_table and with the row
   writer it replaced, and checks that the bytes are equal.
 
@@ -3028,6 +3050,755 @@ def phase_models(kt, data, cg, device, card, floors):
     return launches, worst, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: long runs, host-streamed features and the cohort builder
+# ---------------------------------------------------------------------------
+
+# (a) a clean run and one with a transient fault before step FAULT_STEP of
+# epoch 2, LONG_EPOCHS epochs each; (b) a train state every CKPT_EVERY steps
+LONG_EPOCHS, FAULT_STEP, CKPT_EVERY = 3, 100, 100
+# (d) the watchdog's stall timeout (s): start-up, data and a first step fit
+# in it; the wedged attempt stops after WEDGE_CLI / WEDGE_SCRIPT heartbeats
+WATCHDOG_T, WEDGE_CLI, WEDGE_SCRIPT = 60.0, 7, 15
+# (d) the script's checkpoint_every (its newest state before the wedge),
+# batch and KG: the CLI's --synthetic sizes, so that a process reaches its
+# first step well inside the timeout
+WEDGE_EVERY, WEDGE_BATCH = 10, 64
+WEDGE_KG = dict(n_snp=2000, n_gene=400, n_go=150)
+# (e) Gene rows at the PoPS width (reference kgwas_data.py:244)
+POPS_DIM = 57_742
+# (f) UK Biobank's cohort: participants, kinship pairs, ICD10 array width
+# (field 41270 has hundreds of array entries; cut to 20), genotyping batches
+UKBB = dict(n=502_000, kin_pairs=100_000, icd_width=20, batches=106)
+LONG_KERNELS = ("merged_gat_fwd", "merged_gat_bwd", "csc_segment_sum")
+
+
+class StopRun(Exception):
+    """Raised by a fault hook to end a training run once it has what a
+    check needs (not a backend failure: train does not retry it)."""
+
+
+def long_counts(zero=False):
+    """Launch counts of the merged GAT path's kernels (set to 0 first with
+    zero)."""
+    counts = model_counts(zero)
+    return {k: counts[k] for k in LONG_KERNELS}
+
+
+def to_host(obj):
+    """A nested state dict with every tensor copied to the host."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_host(v) for v in obj)
+    return obj
+
+
+def same_state(a, b, what):
+    """Raise unless two nested state dicts are equal, tensors bitwise."""
+    if isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and torch.equal(a.cpu(),
+                                                            b.cpu())):
+            raise AssertionError(f"{what}: tensors differ")
+    elif isinstance(b, dict):
+        if sorted(map(str, a)) != sorted(map(str, b)):
+            raise AssertionError(f"{what}: keys differ")
+        for k in b:
+            same_state(a[k], b[k], f"{what}/{k}")
+    elif isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_state(x, y, f"{what}/{i}")
+    elif a != b:
+        raise AssertionError(f"{what}: {a!r} != {b!r}")
+
+
+def expect_launches(counts, per_step, steps, forwards, what):
+    want = {"merged_gat_fwd": per_step * (steps + forwards),
+            "merged_gat_bwd": per_step * steps,
+            "csc_segment_sum": per_step * steps}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def phase_restart(kt, data, card):
+    """(a) KGWAS.train(max_restarts=1) over LONG_EPOCHS epochs at full
+    width, clean and with a transient fault before step FAULT_STEP of
+    epoch 2: one restart, and the final and best parameters bitwise the
+    clean run's (deterministic kernels); the snapshot's host time per
+    epoch and the time to recover. Returns the launches of both runs."""
+    from kgwas_tpu_torch.engine import resilience
+
+    steps = len(data.train_mask) // BATCH
+    fault = steps + FAULT_STEP
+    runs, counts, wall = {}, {}, {}
+    sleep_backoff = resilience.sleep_backoff
+    resilience.sleep_backoff = lambda *a, **k: None   # no backoff sleep
+    try:
+        for tag in ("clean", "faulty"):
+            run = kt.KGWAS(data, exp_name=f"chip_smoke_{tag}", seed=SEED)
+            run.initialize_model(gnn_num_layers=LAYERS,
+                                 gnn_hidden_dim=HIDDEN)
+            if tag == "faulty":
+                fired = []
+
+                def hook(global_step):
+                    if global_step == fault and not fired:
+                        fired.append(global_step)
+                        raise RuntimeError(
+                            "INTERNAL: injected transient backend failure")
+                run._fault_hook = hook
+            long_counts(zero=True)
+            t0 = time.perf_counter()
+            run.train(batch_size=BATCH, epoch=LONG_EPOCHS, lr=LR,
+                      save_best_model=False, max_restarts=1)
+            wall[tag] = time.perf_counter() - t0
+            counts[tag] = long_counts()
+            runs[tag] = run
+    finally:
+        resilience.sleep_backoff = sleep_backoff
+    clean, faulty = runs["clean"], runs["faulty"]
+    if (clean.restart_count, faulty.restart_count) != (0, 1):
+        raise AssertionError(f"restarts {clean.restart_count}, "
+                             f"{faulty.restart_count}, expected 0, 1")
+    per_step = sum(len(g) for g in clean.model.live_groups(
+        clean._device_state()[2])[0])
+    expect_launches(counts["clean"], per_step, LONG_EPOCHS * steps,
+                    LONG_EPOCHS + 1, "(a) clean")
+    expect_launches(counts["faulty"], per_step,
+                    LONG_EPOCHS * steps + FAULT_STEP, LONG_EPOCHS + 1,
+                    "(a) faulty")
+    same_state(faulty.params, clean.params, "(a) final parameters")
+    same_state(faulty.best_params, clean.best_params, "(a) best parameters")
+    if faulty.epoch_losses != clean.epoch_losses:
+        raise AssertionError("(a) per-step losses differ")
+    snap = clean.snapshot_seconds
+    log(f"phase 11a ok [{card}]: restart: {LONG_EPOCHS} epochs of {steps} "
+        f"steps, a transient fault before global step {fault}: restarts "
+        f"{faulty.restart_count}, final and best parameters and "
+        f"{sum(map(len, clean.epoch_losses))} losses bitwise the clean "
+        f"run's; snapshot host s at start and per epoch "
+        f"{[round(s, 4) for s in snap]}; time to recover (graph upload and "
+        f"state restore) {faulty.recovery_seconds[0]:.3f} s; wall clean "
+        f"{wall['clean']:.1f} s, faulty {wall['faulty']:.1f} s (replayed "
+        f"{FAULT_STEP} steps); launches clean {counts['clean']}, faulty "
+        f"{counts['faulty']}")
+    return add_counts((1, counts["clean"]), (1, counts["faulty"]))
+
+
+def phase_checkpoint(kt, data, card):
+    """(b) KGWAS.train(checkpoint_every=CKPT_EVERY) over one epoch beside
+    the same epoch without saves: the host time of each step (between the
+    fault hook's calls) with and without a save after it; the newest state
+    saved (the last multiple of CKPT_EVERY) and the state resume=True
+    restores, bitwise the run's at that step. Returns the launches."""
+    import shutil
+
+    from kgwas_tpu_torch.engine.checkpoint import (latest_train_state,
+                                                   restore_train_state)
+
+    name = "chip_smoke_ckpt"
+    ckpt_dir = os.path.join(data.data_path, "model", name, "train_state")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    held_at = len(data.train_mask) // BATCH // CKPT_EVERY * CKPT_EVERY
+    ms, counts, held = {}, {}, {}
+    for tag, every in (("saves", CKPT_EVERY), ("none", None)):
+        run = kt.KGWAS(data, exp_name=name if every else name + "_none",
+                       seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN)
+        ticks = []
+
+        def hook(global_step, run=run, ticks=ticks, every=every):
+            ticks.append(time.perf_counter())
+            if every and global_step == held_at:
+                held["model"] = to_host(run.model.state_dict())
+                held["optimizer"] = to_host(run.optimizer.state_dict())
+        run._fault_hook = hook
+        long_counts(zero=True)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  checkpoint_every=every)
+        counts[tag] = long_counts()
+        ms[tag] = np.diff(ticks) * 1e3
+    # step k's interval runs from its hook to the next one's: the step and,
+    # when k + 1 is a multiple of CKPT_EVERY, the save after it
+    saves = np.arange(CKPT_EVERY - 1, len(ms["saves"]), CKPT_EVERY)
+    others = np.setdiff1d(np.arange(len(ms["saves"])),
+                          np.concatenate([saves, [held_at]]))
+    latest = latest_train_state(ckpt_dir)
+    if not latest.endswith(f"step_{held_at}"):
+        raise AssertionError(f"(b) newest train state {latest}")
+    model_state, opt_state = restore_train_state(latest)
+    same_state(model_state, held["model"], "(b) saved model state")
+    same_state(opt_state, held["optimizer"], "(b) saved optimizer state")
+
+    resumed = {}
+    run = kt.KGWAS(data, exp_name=name, seed=SEED)
+    run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN)
+
+    def first_step(global_step):
+        resumed["model"] = to_host(run.model.state_dict())
+        resumed["optimizer"] = to_host(run.optimizer.state_dict())
+        raise StopRun()
+    run._fault_hook = first_step
+    t0 = time.perf_counter()
+    try:
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  resume=True)
+    except StopRun:
+        pass
+    resume_s = time.perf_counter() - t0
+    same_state(resumed["model"], held["model"], "(b) resumed model state")
+    same_state(resumed["optimizer"], held["optimizer"],
+               "(b) resumed optimizer state")
+    steps = len(ms["none"]) + 1
+    per_step = sum(len(g) for g in run.model.live_groups(
+        run._device_state()[2])[0])
+    for tag in counts:
+        expect_launches(counts[tag], per_step, steps, 2, f"(b) {tag}")
+    log(f"phase 11b ok [{card}]: checkpoint_every={CKPT_EVERY}: step host "
+        f"ms median {np.median(ms['saves'][others]):.3f} without a save, "
+        f"{[round(float(v), 3) for v in ms['saves'][saves]]} with one "
+        f"(steps {(saves + 1).tolist()}); the run without saves: median "
+        f"{np.median(ms['none']):.3f} ms, the same steps "
+        f"{[round(float(v), 3) for v in ms['none'][saves]]}; "
+        f"{os.path.basename(latest)} and the state resume=True restored "
+        f"bitwise the run's at step {held_at} (resume to the first step "
+        f"{resume_s:.2f} s); launches {counts}")
+    return add_counts((1, counts["saves"]), (1, counts["none"]))
+
+
+STICKY_SCRIPT = r"""
+import json, sys
+import torch
+from kgwas_tpu_torch.engine.resilience import is_transient_backend_error
+out = {}
+x = torch.zeros(10, device="cuda")
+try:
+    x[torch.tensor([100], device="cuda")] += 1   # out of range: an assert
+    torch.cuda.synchronize()
+    out["first"] = None
+except Exception as e:
+    out["first"] = [type(e).__name__, str(e)[:160],
+                    is_transient_backend_error(e)]
+try:
+    torch.ones(4, device="cuda").sum().item()
+    out["next"] = None
+except Exception as e:
+    out["next"] = [type(e).__name__, str(e)[:160],
+                   is_transient_backend_error(e)]
+print("STICKY " + json.dumps(out), flush=True)
+"""
+
+
+def child_env(**extra):
+    """The environment of a child process that imports this checkout's
+    package (and, with the wedge directory first, its sitecustomize)."""
+    path = os.environ.get("PYTHONPATH")
+    paths = [p for p in (extra.pop("first", None), str(HERE), path) if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(paths), **extra)
+
+
+def phase_sticky(card):
+    """(c) a device-side assert (an index out of range into a CUDA tensor)
+    in a child process: is_transient_backend_error calls it fatal, and the
+    next CUDA call of that process fails too, so no in-process restart can
+    recover it; only the watchdog's new process (d) can."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STICKY_SCRIPT],
+                          capture_output=True, text=True, timeout=300,
+                          env=child_env())
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("STICKY ")]
+    if not line:
+        raise AssertionError(f"(c) the child printed no result (rc "
+                             f"{proc.returncode}): {proc.stderr[-2000:]}")
+    out = json.loads(line[0][len("STICKY "):])
+    first, nxt = out["first"], out["next"]
+    if first is None or first[2] is not False:
+        raise AssertionError(f"(c) the assert was not raised as fatal: "
+                             f"{first}")
+    if nxt is None or nxt[2] is not False:
+        raise AssertionError(f"(c) the next CUDA call did not fail fatally: "
+                             f"{nxt}")
+    log(f"phase 11c ok [{card}]: a device-side assert raised {first[0]} "
+        f"({first[1].splitlines()[0]!r}), classified fatal; the next CUDA "
+        f"call of that process raised {nxt[0]}, fatal too; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+WEDGE_SITE = r'''
+"""Wedges the first training attempt of a watchdog test: the process that
+trains (KGWAS_UNDER_WATCHDOG from the CLI, or KGWAS_WEDGE_CHILD) counts its
+attempts in KGWAS_WEDGE_MARK and logs its heartbeats beside it; attempt 0
+stops making progress after KGWAS_WEDGE_AFTER heartbeats (alive, no
+exception). Then the site's own sitecustomize, if any, runs."""
+import os
+import sys
+
+if os.environ.get("KGWAS_WEDGE_MARK") and (
+        os.environ.get("KGWAS_UNDER_WATCHDOG")
+        or os.environ.get("KGWAS_WEDGE_CHILD")):
+    import json
+    import pathlib
+    import time
+
+    _start = time.time()
+    _mark = pathlib.Path(os.environ["KGWAS_WEDGE_MARK"])
+    _n = int(_mark.read_text()) if _mark.exists() else 0
+    _mark.write_text(str(_n + 1))
+    _log = pathlib.Path(f"{_mark}.{_n}.json")
+    _after = int(os.environ.get("KGWAS_WEDGE_AFTER", "5"))
+    import kgwas_tpu_torch.engine.watchdog as _wd
+
+    _touch, _beats = _wd.touch_heartbeat, []
+
+    def touch_heartbeat(path):
+        if _n == 0 and len(_beats) >= _after:
+            time.sleep(3600)
+        _touch(path)
+        _beats.append(time.time())
+        _log.write_text(json.dumps({"start": _start, "first": _beats[0],
+                                    "last": _beats[-1], "n": len(_beats)}))
+
+    _wd.touch_heartbeat = touch_heartbeat
+    _log.write_text(json.dumps({"start": _start, "imported": time.time(),
+                                "n": 0}))
+
+_here = os.path.dirname(os.path.abspath(__file__))
+import importlib.util  # noqa: E402
+from importlib.machinery import PathFinder  # noqa: E402
+
+_spec = PathFinder.find_spec("sitecustomize",
+                             [p for p in sys.path
+                              if os.path.abspath(p or ".") != _here])
+if _spec is not None and _spec.loader is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+
+WATCHDOG_SCRIPT = r"""
+import json, sys
+from kgwas_tpu_torch import KGWAS, KGWAS_Data
+from kgwas_tpu_torch.engine.checkpoint import latest_train_state
+from kgwas_tpu_torch.ops import gat_layer, segment
+root, result, hb, kg, every, device, batch = sys.argv[1:8]
+data = KGWAS_Data.from_synthetic(seed=0, data_path=root, **json.loads(kg))
+data.load_synthetic_gwas(seed=0)
+data.process_gwas_file()
+data.prepare_split()
+run = KGWAS(data, exp_name="wedge", seed=0, device=device)
+run.initialize_model(gnn_num_layers=2, gnn_hidden_dim=128)
+latest = latest_train_state(root + "/model/wedge/train_state")
+run.train(batch_size=int(batch), epoch=2, lr=1e-4, save_best_model=False,
+          checkpoint_every=int(every), resume=True, heartbeat_path=hb)
+with open(result, "w") as f:
+    json.dump({"resumed_from": latest, "epochs": len(run.train_history),
+               "steps": sum(map(len, run.epoch_losses)),
+               "launches": {"merged_gat_fwd": gat_layer.launches,
+                            "merged_gat_bwd": gat_layer.bwd_launches,
+                            "csc_segment_sum": segment.launches}}, f)
+"""
+
+
+def attempt_log(mark, n):
+    with open(f"{mark}.{n}.json") as f:
+        return json.load(f)
+
+
+def attempt_logs(root):
+    """Every attempt's heartbeat log under root (for a failure's message)."""
+    return {p.name: p.read_text() for p in root.glob("*attempt.*.json")}
+
+
+def recovery(mark):
+    """(the first attempt's heartbeats, the relaunch's, the time from the
+    stall's detection, the last heartbeat plus the timeout, to the
+    relaunch's first heartbeat)."""
+    a0, a1 = attempt_log(mark, 0), attempt_log(mark, 1)
+    return a0, a1, a1["first"] - (a0["last"] + WATCHDOG_T)
+
+
+def phase_watchdog(card, tmp):
+    """(d) the stall watchdog on the card, the first attempt wedged (a
+    sitecustomize in a directory first on the child's path patches
+    engine.watchdog.touch_heartbeat): python -m kgwas_tpu_torch.cli train
+    --device cuda --watchdog-timeout --watchdog-restarts 1 on --synthetic
+    (the CLI has no checkpoint flag: the relaunch starts afresh), and a
+    script running KGWAS.train(checkpoint_every, resume=True,
+    heartbeat_path) under run_with_watchdog on a KG of the same size:
+    exactly one relaunch each, the script's resuming from the newest
+    step_N.
+    Returns the script's launches."""
+    import shutil
+
+    from kgwas_tpu_torch.engine.watchdog import run_with_watchdog
+
+    root = tmp / "watchdog"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "site").mkdir(parents=True)
+    (root / "site" / "sitecustomize.py").write_text(WEDGE_SITE)
+    site = str(root / "site")
+
+    # the CLI
+    mark = root / "cli_attempt"
+    t0 = time.perf_counter()
+    with open(root / "cli.log", "w") as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kgwas_tpu_torch.cli", "train",
+             "--synthetic", "--device", DEVICE, "--data-path",
+             str(root / "cli"), "--name", "wd", "--epochs", "3",
+             "--batch-size", str(BATCH), "--watchdog-timeout",
+             str(WATCHDOG_T), "--watchdog-restarts", "1"],
+            stdout=out, stderr=subprocess.STDOUT, timeout=600,
+            env=child_env(first=site, KGWAS_WEDGE_MARK=str(mark),
+                          KGWAS_WEDGE_AFTER=str(WEDGE_CLI)))
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0 or mark.read_text() != "2":
+        raise AssertionError(
+            f"(d) CLI: rc {proc.returncode}, attempts {mark.read_text()}, "
+            f"attempt logs {attempt_logs(root)}: "
+            + (root / "cli.log").read_text()[-3000:])
+    log(f"  (d) CLI: {json.dumps(attempt_log(mark, 0))} then "
+        f"{json.dumps(attempt_log(mark, 1))}")
+    a0, a1, cli_rec = recovery(mark)
+    if not os.path.exists(root / "cli" / "model" / "wd" / "pred.csv"):
+        raise AssertionError("(d) CLI: the relaunch wrote no checkpoint")
+
+    # KGWAS.train under run_with_watchdog, resuming
+    mark = root / "script_attempt"
+    script = root / "train_job.py"
+    script.write_text(WATCHDOG_SCRIPT)
+    result, hb = root / "result.json", root / "heartbeat"
+    every = WEDGE_EVERY
+    t0 = time.perf_counter()
+    rc = run_with_watchdog(
+        [sys.executable, str(script), str(root / "script"), str(result),
+         str(hb), json.dumps(WEDGE_KG), str(every), DEVICE,
+         str(WEDGE_BATCH)],
+        heartbeat=str(hb), stall_timeout_s=WATCHDOG_T, max_restarts=1,
+        poll_s=0.5,
+        env=child_env(first=site, KGWAS_WEDGE_MARK=str(mark),
+                      KGWAS_WEDGE_AFTER=str(WEDGE_SCRIPT),
+                      KGWAS_WEDGE_CHILD="1"))
+    script_s = time.perf_counter() - t0
+    out = json.loads(result.read_text())
+    newest = f"step_{WEDGE_SCRIPT // every * every}"
+    if rc != 0 or mark.read_text() != "2" or not (
+            out["resumed_from"] or "").endswith(newest):
+        raise AssertionError(f"(d) script: rc {rc}, attempts "
+                             f"{mark.read_text()}, {out}, expected a resume "
+                             f"from {newest}; attempt logs "
+                             f"{attempt_logs(root)}")
+    b0, b1, script_rec = recovery(mark)
+    launches = out["launches"]
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"(d) script launches {launches}")
+    log(f"phase 11d ok [{card}]: watchdog (stall timeout {WATCHDOG_T:.0f} "
+        f"s): the CLI's first attempt wedged after {a0['n']} "
+        f"heartbeats, one relaunch completed ({a1['n']} heartbeats; start "
+        f"to first heartbeat {a1['first'] - a1['start']:.2f} s), recovery "
+        f"after the stall's detection {cli_rec:.2f} s, wall {cli_s:.1f} s; "
+        f"the script wedged after {b0['n']} heartbeats, one relaunch "
+        f"resumed from {newest} and completed {out['epochs']} epochs "
+        f"({out['steps']} steps), recovery {script_rec:.2f} s, wall "
+        f"{script_s:.1f} s; the relaunch's launches {launches}")
+    return add_counts((1, launches))
+
+
+def pinned_rate(nbytes, device, reps=5):
+    """GB/s of a host-to-device copy of nbytes from pinned memory."""
+    host = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty_like(host, device=device)
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), reps)
+    return nbytes / (ms / 1e3) / 1e9
+
+
+def phase_streamed(kt, data, cg, device, card):
+    """(e) the full-width KG with Gene rows POPS_DIM wide (4.62 GB of host
+    table): CMP_STEPS train steps in device memory and with
+    stream_features=["Gene"] from the same initial state (losses at rtol
+    1e-5, parameters within PARAM_ATOL), each step's ms, the host-to-device
+    bytes per step (two passes over the table) and the rate reached beside
+    a pinned copy of one chunk, the host gather time; then KGWAS.train and
+    predict_all streamed (launches from 0 just before) against the
+    in-device model at the same weights. Returns the launches."""
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.engine.streamed import train_step_streamed
+    from kgwas_tpu_torch.ops import streaming
+
+    t0 = time.perf_counter()
+    n_gene, n_pad = cg.num_nodes["Gene"], cg.padded_nodes["Gene"]
+    wide = np.zeros((n_pad, POPS_DIM), dtype=np.float32)
+    np.random.default_rng(SEED).random(out=wide[:n_gene], dtype=np.float32)
+    data_w = copy.copy(data)
+    data_w.compiled = dataclasses.replace(cg, node_x={**cg.node_x,
+                                                      "Gene": wide})
+    data_w.gene_init_dim_size = POPS_DIM
+    data_w.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    runs = {}
+    for tag, kw in (("hbm", {}), ("streamed", {"stream_features": ["Gene"]})):
+        run = kt.KGWAS(data_w, exp_name=f"chip_smoke_{tag}", seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             **kw)
+        run._device_state()
+        runs[tag] = run
+    setup_s = time.perf_counter() - t0
+    hbm, st = runs["hbm"], runs["streamed"]
+    init = copy.deepcopy(hbm.model.state_dict())
+    _, x_h, lay_h = hbm._device_state()
+    cg_w, x_s, lay_s = st._device_state()
+    y_node, w_node = hbm._labels(cg_w)
+    batches = [torch.from_numpy(b).to(device) for b in
+               epoch_batches(data_w.train_mask, BATCH, False, None)]
+    losses = {"hbm": [], "streamed": []}
+    ms = {"hbm": [], "streamed": []}
+    gather_s, h2d = [], []
+    opt_h = build_optimizer(hbm.model.parameters(), LR, 5e-4)
+    opt_s = build_optimizer(st.model.parameters(), LR, 5e-4)
+    long_counts(zero=True)
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses["hbm"].append(float(train_step(hbm.model, opt_h, x_h, lay_h,
+                                              b, y_node, w_node)))
+        ms["hbm"].append((time.perf_counter() - t0) * 1e3)
+        streaming.reset_stats()
+        t0 = time.perf_counter()
+        losses["streamed"].append(float(train_step_streamed(
+            st.model, opt_s, x_s, lay_s, st._x_host, cg_w.padded_nodes, b,
+            y_node, w_node)))
+        ms["streamed"].append((time.perf_counter() - t0) * 1e3)
+        gather_s.append(streaming.stats["gather_s"])
+        h2d.append(streaming.stats["h2d_bytes"])
+    counts = long_counts()
+    table_bytes = n_gene * POPS_DIM * 4
+    # two passes over the table a step (none cross on a CPU rehearsal)
+    want = 2 * table_bytes if device.type == "cuda" else 0
+    if h2d != [want] * len(batches):
+        raise AssertionError(f"(e) host-to-device bytes per step {h2d}, "
+                             f"expected {want}")
+    np.testing.assert_allclose(losses["streamed"], losses["hbm"], rtol=1e-5)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        st.model.state_dict().values(), hbm.model.state_dict().values()))
+    if diff > PARAM_ATOL:
+        raise AssertionError(f"(e) parameters differ by {diff:.3e}")
+    per_step = sum(len(g) for g in st.model.live_groups(lay_s)[0])
+    expect_launches(counts, 2 * per_step, len(batches), 0, "(e) steps")
+    probe = pinned_rate(n_gene * streaming.COL_CHUNK * 4, device)
+    log(f"phase 11e [{card}]: streamed Gene features {n_gene} x {POPS_DIM} "
+        f"({table_bytes / 1e9:.2f} GB on the host; set-up {setup_s:.1f} s): "
+        f"{len(batches)} steps, losses in device memory {losses['hbm']} "
+        f"streamed {losses['streamed']}, parameters within {diff:.3e}; step "
+        f"ms in device memory {[round(v, 3) for v in ms['hbm']]}, streamed "
+        f"{[round(v, 3) for v in ms['streamed']]}; {h2d[-1] / 1e9:.3f} GB "
+        f"to the device per step, {h2d[-1] / 1e9 / (ms['streamed'][-1] / 1e3):.2f} "
+        f"GB/s over the streamed step against {probe:.2f} GB/s for a "
+        f"pinned copy of one chunk; host gather "
+        f"{[round(s, 3) for s in gather_s]} s per step")
+
+    # the entry points: train over the same batches and predict_all
+    st.model.load_state_dict(init)
+    long_counts(zero=True)
+    t0 = time.perf_counter()
+    table = st.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+    train_s = time.perf_counter() - t0
+    pred = st.predict_all()
+    entry = long_counts()
+    expect_launches(entry, per_step, len(batches), 3, "(e) train")
+    hbm.model.load_state_dict(st.model.state_dict())
+    ref = hbm.predict_all()
+    np.testing.assert_allclose(pred, ref, rtol=PRED_RTOL, atol=PRED_ATOL)
+    kp = table["KGWAS_P"]
+    if not (np.isfinite(kp).all() and (kp >= 0).all() and (kp <= 1).all()):
+        raise AssertionError("(e) KGWAS_P not finite in [0, 1]")
+    log(f"phase 11e ok [{card}]: KGWAS.train streamed over {len(batches)} "
+        f"batches in {train_s:.1f} s, predict_all equal to the in-device "
+        f"forward at the same weights (rtol {PRED_RTOL}); launches of the "
+        f"steps {counts}, of train and predict_all {entry}")
+    del runs, hbm, st, wide, data_w
+    torch.cuda.empty_cache()
+    return add_counts((1, counts), (1, entry))
+
+
+def write_ukbb(root, n, kin_pairs, icd_width, batches, seed=SEED):
+    """Fabricated UK Biobank files at the cohort's size, in the showcase's
+    layout: main.csv (eid; the QC fields 22006, 22018, 22019, 22001, 22010
+    and sex 31; age 21003 and centre 54 over 4 visits; the 40 PCs of 22009;
+    a phenotype, 50, over 4 visits; ICD10 codes of 41270), a kinship table
+    (ID1 ID2 HetHet IBS0 Kinship) and a fam file of genotyping batches.
+    Returns (their paths, the QC pass mask, the ICD10 level-2 grid)."""
+    rng = np.random.default_rng(seed)
+    eid = np.arange(1_000_000, 1_000_000 + n)
+
+    def num(x, decimals=None):
+        """Text cells: integers, or floats rounded to decimals as the
+        showcase gives them; NaN as an empty cell."""
+        nan = np.isnan(x)
+        if decimals is None:
+            text = np.where(nan, 0, x).astype(np.int64).astype(str)
+        else:
+            text = np.round(x, decimals).astype(str)
+        text = text.astype(object)
+        text[nan] = ""
+        return text
+
+    def missing(x, frac):
+        x = x.astype(np.float64)
+        x[rng.random(n) < frac] = np.nan
+        return x
+
+    cols = {"eid": eid.astype(str).astype(object)}
+    sex = rng.integers(0, 2, n).astype(np.float64)
+    cols["31-0.0"] = num(sex)
+    for v in range(4):
+        cols[f"50-{v}.0"] = num(missing(np.round(rng.normal(170, 10, n), 1),
+                                        0.05 + 0.3 * v), 1)
+    centres = np.arange(11001, 11023, dtype=np.float64)
+    for v in range(4):
+        cols[f"54-{v}.0"] = num(missing(rng.choice(centres, n),
+                                        0.0 if v == 0 else 0.8))
+    for v in range(4):
+        cols[f"21003-{v}.0"] = num(missing(rng.integers(40, 71, n) + 4.0 * v,
+                                           0.0 if v == 0 else 0.8))
+    geno_sex = sex.copy()
+    flip = rng.random(n) < 0.002
+    geno_sex[flip] = 1 - geno_sex[flip]
+    geno_sex = missing(geno_sex, 0.01)
+    cols["22001-0.0"] = num(geno_sex)
+    anc = np.where(rng.random(n) < 0.82, 1.0, np.nan)
+    cols["22006-0.0"] = num(anc)
+    for i in range(1, 41):
+        cols[f"22009-0.{i}"] = num(missing(rng.normal(0, 20.0 / i, n), 0.01), 4)
+    qc = {}
+    for f, frac in (("22010-0.0", 0.001), ("22018-0.0", 0.0015),
+                    ("22019-0.0", 0.001)):
+        qc[f] = np.where(rng.random(n) < frac, 1.0, np.nan)
+        cols[f] = num(qc[f])
+    # ICD10: each participant's codes (Poisson, mean 3) from 1,600 codes of
+    # 400 level-2 groups with a heavy-tailed frequency, first codes first
+    groups = np.array([f"{chr(65 + i // 100)}{i % 100:02d}"
+                       for i in range(400)], dtype=object)
+    vocab = np.array([f"{g}{k}" for g in groups for k in range(4)],
+                     dtype=object)
+    p = 1.0 / np.arange(1, len(vocab) + 1) ** 1.1
+    draws = rng.choice(len(vocab), (n, icd_width), p=p / p.sum())
+    count = np.minimum(rng.poisson(3.0, n), icd_width)
+    present = np.arange(icd_width)[None, :] < count[:, None]
+    codes = vocab[draws]
+    for k in range(icd_width):
+        cells = codes[:, k].copy()
+        cells[~present[:, k]] = ""
+        cols[f"41270-0.{k}"] = cells
+    main = root / "main.csv"
+    names = list(cols)
+    with open(main, "w") as f:
+        f.write(",".join(names) + "\n")
+        step = 50_000
+        for s in range(0, n, step):
+            block = [cols[c][s:s + step].tolist() for c in names]
+            f.write("\n".join(map(",".join, zip(*block))) + "\n")
+
+    pairs = rng.choice(eid, (kin_pairs, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    kin = root / "kinship.dat"
+    with open(kin, "w") as f:
+        f.write("ID1 ID2 HetHet IBS0 Kinship\n")
+        f.writelines(f"{a} {b} 0.0{k} 0.00{k} 0.{k:03d}\n" for (a, b), k in
+                     zip(pairs.tolist(), rng.integers(1, 300, len(pairs))))
+    names_b = ([f"Batch_b{i:03d}" for i in range(1, batches - 10)]
+               + [f"UKBiLEVEAX_b{i}" for i in range(1, 12)])
+    genotyped = eid[rng.random(n) < 0.97]
+    fam = root / "fam.csv"
+    with open(fam, "w") as f:
+        f.write("fid,trait\n")
+        f.writelines(f"{e},{b}\n" for e, b in zip(
+            genotyped.tolist(), rng.choice(names_b, len(genotyped)).tolist()))
+    passed = ((anc == 1) & np.isnan(qc["22018-0.0"])
+              & np.isnan(qc["22019-0.0"]) & (sex == geno_sex)
+              & np.isnan(qc["22010-0.0"]))
+    level2 = np.where(present, groups[draws // 4], "")
+    return (main, kin, fam), passed, level2
+
+
+def phase_cohort(kt, card, tmp):
+    """(f) kgwas_tpu_torch.cohort.ukbb on fabricated UK Biobank files at
+    the cohort's size (UKBB), end to end: __init__ (QC, kinship),
+    get_covariates(to_plink=True), get_phenotype(to_plink=True,
+    normalize="quantile_normalization", frac=0.1), get_icd10(to_plink=True);
+    host seconds by stage, on numpy and scipy alone. Checks: the QC count
+    against the fabrication's pass mask, the PLINK files' shapes, finite
+    values, the ICD10 columns against the codes with more than 100 cases
+    counted from the fabrication."""
+    import shutil
+
+    from kgwas_tpu_torch.cohort import ukbb
+
+    root = tmp / "ukbb"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    (main, kin, fam), passed, level2 = write_ukbb(root, **UKBB)
+    write_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(main) / 1e6
+    stages = {}
+    fam_path = ukbb.fam_path
+    ukbb.fam_path = str(fam)
+    try:
+        t0 = time.perf_counter()
+        c = ukbb.ukbb_cohort(str(main), str(root / "cohort"), "/nonexistent",
+                             keep_relatives=False,
+                             kinship_table_path=str(kin))
+        stages["__init__"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        covar = c.get_covariates(to_plink=True)
+        stages["get_covariates"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pheno = c.get_phenotype(50, to_plink=True,
+                                normalize="quantile_normalization", frac=0.1)
+        stages["get_phenotype"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        icd = c.get_icd10(to_plink=True)
+        stages["get_icd10"] = time.perf_counter() - t0
+    finally:
+        ukbb.fam_path = fam_path
+    with_rel = ukbb.load_dict(str(root / "cohort"
+                                  / "cohort_with_relatives.pkl"))
+    if len(with_rel) != int(passed.sum()):
+        raise AssertionError(f"(f) {len(with_rel)} pass QC, the fabrication "
+                             f"says {int(passed.sum())}")
+    n_cohort = len(c.cohort)
+    if not (0 < n_cohort < len(with_rel)):
+        raise AssertionError(f"(f) kinship pruning left {n_cohort}")
+    if len(covar) != 21 or len(covar[0]) != UKBB["n"]:
+        raise AssertionError(f"(f) covariates {len(covar)} columns, "
+                             f"{len(covar[0])} rows")
+    vals = np.asarray(pheno[2], dtype=np.float64)
+    if not np.isfinite(vals).all() or len(pheno) != 3:
+        raise AssertionError("(f) the phenotype file is not finite")
+    keep = np.isin(np.arange(UKBB["n"]) + 1_000_000, c.cohort)
+    cases = {}
+    for row in level2[keep]:
+        for g in set(row.tolist()) - {""}:
+            cases[g] = cases.get(g, 0) + 1
+    common = sorted(g for g, k in cases.items() if k > 100)
+    if list(icd)[2:] != common or len(icd["FID"]) != n_cohort:
+        raise AssertionError(f"(f) ICD10: {len(icd) - 2} codes, expected "
+                             f"{len(common)}")
+    with open(root / "cohort" / "icd10_plink_no_relatives_level2.txt") as f:
+        head = [f.readline().split() for _ in range(2)]
+    if head[0] != list(icd) or len(head[1]) != len(icd):
+        raise AssertionError("(f) the ICD10 file's first lines")
+    log(f"phase 11f ok [{card}]: cohort builder on {UKBB['n']} "
+        f"participants ({size_mb:.0f} MB main table, {UKBB['icd_width']} "
+        f"ICD10 columns, {UKBB['kin_pairs']} kinship pairs; written in "
+        f"{write_s:.1f} s): {len(with_rel)} pass QC, {n_cohort} without "
+        f"relatives; phenotype file {len(pheno[0])} rows, ICD10 "
+        f"{len(common)} codes with more than 100 cases; host s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3106,11 +3877,24 @@ def main():
     # ---- phase 10: the other model options (heads, dropout, ...), full width
     model_launches, model_worst, _ = phase_models(kt, data, cg, device, card,
                                                   floors)
+
+    # ---- phase 11 (a), (b), (e): long runs and streamed features, full width
+    long_launches = add_counts(
+        (1, phase_restart(kt, data, card)),
+        (1, phase_checkpoint(kt, data, card)),
+        (1, phase_streamed(kt, data, cg, device, card)))
     del data, cg
     torch.cuda.empty_cache()
 
     # ---- phase 9: the real-data path through the CLI, full width
     phase_real(kt, card, step_5d, tmp)
+
+    # ---- phase 11 (c), (d), (f): a sticky CUDA error, the watchdog, the
+    # cohort builder
+    phase_sticky(card)
+    long_launches = add_counts((1, long_launches),
+                               (1, phase_watchdog(card, tmp)))
+    phase_cohort(kt, card, tmp)
 
     train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
                                        worst_small_bwd)
@@ -3129,8 +3913,9 @@ def main():
                      else "operations"),
         "library_ms": None,
     }] + train_rows + variant_rows
-    for row in kernels:   # phase 10's launches and errors join each row
-        row["launches"] += model_launches.get(row["name"], 0)
+    for row in kernels:   # phases 10 and 11's launches, 10's errors
+        row["launches"] += (model_launches.get(row["name"], 0)
+                            + long_launches.get(row["name"], 0))
         row["max_abs_err"] = max(row["max_abs_err"],
                                  model_worst.get(row["name"], 0.0))
     print(json.dumps({"kernels": kernels}), flush=True)

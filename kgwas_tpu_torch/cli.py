@@ -11,6 +11,8 @@ The model runs on the CUDA card unless ``--device`` names another device
 (``--device cpu``); with no card and no ``--device`` a command raises
 before it loads any data. Flags of options not ported yet raise
 NotImplementedError naming their ROADMAP item, also before loading.
+``train --watchdog-timeout T`` runs the same command again in a child
+process under the stall watchdog, as the JAX package's CLI does.
 ``main`` returns what the command made (the trained KGWAS, the
 predictions, the three interpretation tables, ...).
 """
@@ -19,9 +21,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 from . import kgwas
-from .kgwas import _DTYPES, _LONG_RUNS, _MULTI_DEVICE
+from .kgwas import _DTYPES, _MULTI_DEVICE
 
 
 def _add_data_args(p):
@@ -81,8 +84,6 @@ def _checked_train_args(args):
     unported = (
         (args.dtype != "float32", f"--dtype {args.dtype}", _DTYPES),
         (args.mesh > 0, f"--mesh {args.mesh}", _MULTI_DEVICE),
-        (args.watchdog_timeout > 0,
-         f"--watchdog-timeout {args.watchdog_timeout}", _LONG_RUNS),
     )
     for bad, flag, item in unported:
         if bad:
@@ -99,11 +100,38 @@ def _pretrained(args, need_gwas):
     return run
 
 
+def _under_watchdog(args):
+    """Run this same command again in a child process under the stall
+    watchdog (engine/watchdog.run_with_watchdog): the child trains with
+    heartbeats (KGWAS_HEARTBEAT), and a stall kills it and relaunches it,
+    up to --watchdog-restarts times. Returns the exit code (0)."""
+    import sys
+    import tempfile
+
+    from .engine.watchdog import run_with_watchdog
+
+    hb = os.path.join(tempfile.mkdtemp(prefix="kgwas_wd_"), "heartbeat")
+    # the child imports this package as the parent did
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, KGWAS_UNDER_WATCHDOG="1", KGWAS_HEARTBEAT=hb,
+               PYTHONPATH=root + (os.pathsep + path if path else ""))
+    return run_with_watchdog(
+        [sys.executable, "-m", "kgwas_tpu_torch.cli"] + args.raw_argv,
+        heartbeat=hb,
+        stall_timeout_s=args.watchdog_timeout,
+        max_restarts=args.watchdog_restarts,
+        env=env,
+    )
+
+
 def cmd_train(args):
     from . import KGWAS
 
     _checked_train_args(args)
     device = _device(args)
+    if args.watchdog_timeout and not os.environ.get("KGWAS_UNDER_WATCHDOG"):
+        return _under_watchdog(args)
     data = _load_data(args)
     run = KGWAS(data, device=device, exp_name=args.name, seed=args.seed,
                 weight_bias_track=args.wandb)
@@ -125,6 +153,7 @@ def cmd_train(args):
         epoch=args.epochs,
         profile_dir=args.profile_dir,
         metrics_log=args.metrics_log,
+        heartbeat_path=os.environ.get("KGWAS_HEARTBEAT"),
     )
     cols = ("ID", "P", "pred", "KGWAS_P")
     print("\t".join(cols))
@@ -297,6 +326,7 @@ def main(argv=None):
     b.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    args.raw_argv = list(argv) if argv is not None else sys.argv[1:]
     return args.fn(args)
 
 

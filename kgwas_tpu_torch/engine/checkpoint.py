@@ -11,11 +11,18 @@ port's state_dict ([out, in] weights, att [1, H, C], reference
 ``att_edge``, ``lin_edge_``, ``pheno_mlp``; SAGE ``lin_l``, ``lin_r``; GCN
 ``lin``, ``bias``; SGC ``lin``). ``load_pretrained_torch`` reads a reference
 ``model.pt`` of any backbone, which loads straight into ``HeteroGNN``.
+
+The train state of a long run (the counterpart of the JAX package's orbax
+``save_train_state_async`` / ``restore_train_state`` /
+``latest_train_state``) is the port's own ``torch.save`` file
+(``AsyncCheckpointer``).
 """
 from __future__ import annotations
 
+import copy
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import numpy as np
@@ -174,3 +181,158 @@ def load_pretrained_torch(path: str) -> Dict[str, torch.Tensor]:
                     weights_only=True)
     return {(k[7:] if k.startswith("module.") else k): v
             for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Train-state checkpoints of a long run (checkpoint_every / resume)
+# ---------------------------------------------------------------------------
+# The JAX package saves (params, opt_state) with orbax; the port's format is
+# its own: one torch.save file ``step_{N}`` holding the model's and the
+# optimizer's state_dicts, written as ``step_{N}.tmp`` and renamed, so a
+# partly written file is never the newest state. model.npz + config.pkl
+# stay the format both packages read.
+
+TRAIN_STATE_FILE = "step_{}"
+
+
+class _Slot:
+    """Where a device tensor sat in a state being copied to the host."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+class HostCopy:
+    """A host copy of a nested state (a model's and an optimizer's
+    state_dicts), taken in two halves. The constructor packs the device
+    tensors, on the current stream, into one flat device buffer per dtype
+    (one launch each: the values as they are now, whatever the next step
+    writes) and copies the host tensors. ``result()`` copies the packed
+    buffers to the host, on a side stream after the packing, and returns
+    the state with host tensors; a background thread can call it while the
+    steps go on."""
+
+    def __init__(self, state):
+        self._tensors = []
+        self._tree = self._strip(state)
+        groups = {}
+        for i, t in enumerate(self._tensors):
+            groups.setdefault(t.dtype, []).append(i)
+        self._shapes = [t.shape for t in self._tensors]
+        self._flat = [(idx, torch.cat([self._tensors[i].reshape(-1)
+                                       for i in idx]))
+                      for idx in groups.values()]
+        self._tensors = None
+        self._event = None
+        if self._flat:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def _strip(self, obj):
+        if isinstance(obj, torch.Tensor):
+            if obj.device.type == "cpu":
+                return obj.detach().clone()
+            self._tensors.append(obj.detach())
+            return _Slot(len(self._tensors) - 1)
+        if isinstance(obj, dict):
+            return {k: self._strip(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._strip(v) for v in obj)
+        return copy.deepcopy(obj)
+
+    def result(self):
+        host = [None] * len(self._shapes)
+        if self._flat:
+            side = torch.cuda.Stream(device=self._flat[0][1].device)
+            with torch.cuda.stream(side):
+                side.wait_event(self._event)
+                for idx, flat in self._flat:
+                    parts = flat.to("cpu").split(
+                        [self._shapes[i].numel() for i in idx])
+                    for i, part in zip(idx, parts):
+                        host[i] = part.view(self._shapes[i])
+            self._flat = []
+        return self._fill(self._tree, host)
+
+    def _fill(self, obj, host):
+        if isinstance(obj, _Slot):
+            return host[obj.index]
+        if isinstance(obj, dict):
+            return {k: self._fill(v, host) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._fill(v, host) for v in obj)
+        return obj
+
+
+def host_train_state(model_state: dict, optimizer_state: dict) -> HostCopy:
+    """The HostCopy of a model's and an optimizer's state_dicts
+    (``{"model": ..., "optimizer": ...}``), taken before the next step can
+    change them."""
+    return HostCopy({"model": model_state, "optimizer": optimizer_state})
+
+
+class AsyncCheckpointer:
+    """Writes train states on one background thread, in order. ``save``
+    returns once the state is packed on the device; the thread copies it
+    to the host and writes it. ``wait_until_finished`` blocks until every
+    write has landed, and raises a write's error."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="ckpt")
+        self._pending = []
+
+    def save(self, path: str, state: HostCopy):
+        self._pending.append(self._pool.submit(self._write, path, state))
+
+    @staticmethod
+    def _write(path, state):
+        tmp = path + ".tmp"
+        torch.save(state.result(), tmp)
+        os.replace(tmp, path)
+
+    def wait_until_finished(self):
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def close(self):
+        self.wait_until_finished()
+        self._pool.shutdown()
+
+
+def make_async_checkpointer() -> AsyncCheckpointer:
+    return AsyncCheckpointer()
+
+
+def save_train_state_async(checkpointer: AsyncCheckpointer, path_dir: str,
+                           step: int, model_state: dict,
+                           optimizer_state: dict) -> str:
+    """Non-blocking save of the model's and the optimizer's state_dicts as
+    ``path_dir/step_{step}``. Returns the path."""
+    os.makedirs(path_dir, exist_ok=True)
+    path = os.path.join(os.path.abspath(path_dir),
+                        TRAIN_STATE_FILE.format(step))
+    checkpointer.save(path, host_train_state(model_state, optimizer_state))
+    return path
+
+
+def restore_train_state(path: str, map_location="cpu"):
+    """(model state_dict, optimizer state_dict) of a saved train state."""
+    state = torch.load(path, map_location=map_location, weights_only=True)
+    return state["model"], state["optimizer"]
+
+
+def latest_train_state(path_dir: str):
+    """The newest ``step_{N}`` in path_dir, or None. A ``step_{N}.tmp``
+    (a write cut short) is never it."""
+    if not os.path.isdir(path_dir):
+        return None
+    steps = [
+        int(d.split("_")[1])
+        for d in os.listdir(path_dir)
+        if d.startswith("step_") and d.split("_")[1].isdigit()
+    ]
+    if not steps:
+        return None
+    return os.path.join(path_dir, TRAIN_STATE_FILE.format(max(steps)))

@@ -28,19 +28,34 @@ def train_step(model, optimizer, x, layouts, batch_idx, y_node, w_node,
                             dropout_gen=dropout_gen),
                       batch_idx, y_node, w_node)
     loss.backward()
-    for p in model.parameters():
-        if p.grad is None:
-            # no path to the loss (a group the head does not read): the
-            # JAX step's gradient is 0 there, and Adam still decays it
-            p.grad = torch.zeros_like(p)
+    fill_dead_grads(model)
     optimizer.step()
     return loss.detach()
+
+
+def fill_dead_grads(model):
+    """A zero gradient for each parameter with no path to the loss (a group
+    the head does not read): the JAX step's gradient is 0 there, and Adam
+    still decays it, so the optimizer's state follows the JAX chain."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def forward(model, x, layouts):
     """Full-graph predictions [N_snp_pad]: the first output channel."""
     with torch.inference_mode():
         return model(x, layouts)[:, 0]
+
+
+def forward_streamed(model, x, layouts, x_host, padded_nodes):
+    """``forward`` with host-streamed features (make_forward_streamed's
+    counterpart): x holds the stripped tables, x_host the streamed ones."""
+    from .streamed import compute_h1
+
+    with torch.inference_mode():
+        h1 = compute_h1(model, x_host, padded_nodes)
+        return model(x, layouts, h1_override=h1)[:, 0]
 
 
 def epoch_batches(ids, batch_size: int, shuffle: bool, rng) -> list:

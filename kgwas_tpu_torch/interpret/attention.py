@@ -108,5 +108,11 @@ def _head_mean(alpha):
 def get_network_weight(run, data) -> dict:
     """run: a KGWAS engine; its model's current state is served."""
     print_sys("Retrieving weights...")
-    _, x, layouts = run._device_state()
-    return attention_tables(run.model, x, layouts, data.compile().relations)
+    cg, x, layouts = run._device_state()
+    streamed = getattr(run, "stream_features", [])
+    if streamed:
+        # as the JAX package's interpretation: every feature table on the
+        # device, streamed ones included
+        x = {**x, **{t: torch.from_numpy(np.ascontiguousarray(
+            cg.node_x[t])).to(run.device) for t in streamed}}
+    return attention_tables(run.model, x, layouts, cg.relations)

@@ -2,7 +2,10 @@
 
 Counterpart of ``kgwas_tpu/kgwas.py``: ``initialize_model``, ``train``,
 ``load_pretrained``, ``load_pretrained_torch``, ``predict_all``,
-``run_magma`` and ``get_disease_critical_network``. It runs
+``run_magma`` and ``get_disease_critical_network``, with the long-run
+options of ``train`` (``checkpoint_every`` / ``resume``, ``max_restarts``,
+``heartbeat_path``) and host-streamed feature tables
+(``initialize_model(stream_features=...)``). It runs
 on CUDA unless the caller passes ``device="cpu"``; with no card and no
 explicit device it raises. The KGWAS_P tail is
 ``stats.calibration.finalize_predictions(data.lr_uni, pred[data.all_ids])``.
@@ -11,17 +14,23 @@ from __future__ import annotations
 
 import copy
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .config import ModelConfig
-from .engine.checkpoint import (load_model, load_pretrained_torch,
-                                params_from_jax, save_model)
-from .engine.loop import epoch_batches, forward, train_step
+from .engine.checkpoint import (host_train_state, latest_train_state,
+                                load_model, load_pretrained_torch,
+                                make_async_checkpointer, params_from_jax,
+                                restore_train_state, save_model,
+                                save_train_state_async)
+from .engine.loop import (epoch_batches, forward, forward_streamed,
+                          train_step)
 from .engine.optim import build_optimizer
 from .engine.profiling import ThroughputMeter, profile_trace
+from .engine.streamed import strip_streamed_features, train_step_streamed
 from .graph.merged_layout import build_merged_layouts
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
                                  layer_paths)
@@ -40,8 +49,7 @@ _TPU_KNOBS = ("use_pallas", "pallas_mode", "rel_fold", "matmul_precision",
 # the JAX package's dtype options, with the default that the port runs
 _DTYPE_DEFAULTS = {"param_dtype": "float32", "compute_dtype": "float32",
                    "stream_dtype": None, "stream_f32_logits": False}
-_DTYPES = "ROADMAP.md Queue 1 item 7 (giant features and dtypes)"
-_LONG_RUNS = "ROADMAP.md Queue 1 item 8 (long runs)"
+_DTYPES = "ROADMAP.md Queue 1 item 7 (the bf16 dtypes)"
 _MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
 
 
@@ -74,6 +82,7 @@ class KGWAS:
         self.exp_name = exp_name
         self.device = resolve_device(device)
         self._graph = None
+        self.stream_features = []
 
         if weight_bias_track:
             import wandb
@@ -99,13 +108,15 @@ class KGWAS:
         """Defaults mirror the reference's, the signature the JAX package's.
         Served: GAT with any number of heads and gnn_aggr sum, mean, max or
         min, sigmoid_gat, dropout, edge_dim and pheno_condition; SAGE, GCN
-        and SGC with sum, mean, max or min; remat. kwargs: the other
-        model-semantic config keys (negative_slope, temperature,
-        sigmoid_gat, out_channels, dropout, edge_dim, pheno_condition),
-        persisted in config as the JAX package persists them; remat (not
-        persisted); the dtype options and stream_features only at their
-        defaults; the JAX package's TPU execution knobs (_TPU_KNOBS),
-        ignored."""
+        and SGC with sum, mean, max or min; remat. stream_features: node
+        types whose feature tables stay on the host and stream to the card
+        in column chunks twice a step (engine/streamed.py); not persisted,
+        as in the JAX package. kwargs: the other model-semantic config keys
+        (negative_slope, temperature, sigmoid_gat, out_channels, dropout,
+        edge_dim, pheno_condition), persisted in config as the JAX package
+        persists them; remat (not persisted); the dtype options only at
+        their defaults; the JAX package's TPU execution knobs
+        (_TPU_KNOBS), ignored."""
         unknown = (set(kwargs) - set(_SEMANTIC_KEYS) - set(_TPU_KNOBS)
                    - set(_DTYPE_DEFAULTS) - {"remat"})
         if unknown:
@@ -115,9 +126,7 @@ class KGWAS:
             if kwargs.pop(k, default) != default:
                 raise NotImplementedError(
                     f"{k} other than {default!r} is not ported yet: {_DTYPES}")
-        if stream_features:
-            raise NotImplementedError(
-                f"stream_features is not ported yet: {_DTYPES}")
+        self.stream_features = list(stream_features or [])
         for k in _TPU_KNOBS:
             kwargs.pop(k, None)
         self.config = {
@@ -176,14 +185,29 @@ class KGWAS:
         norms (SAGE, GCN, SGC with sum or mean) or the per-relation streams
         (max and min, GAT with edge_dim, and GAT training with dropout)
         when the layer paths of the model's forwards need them; built once
-        per model."""
+        per model (a restart drops it, and it is built again). The
+        streamed types' tables stay on the host (``_x_host``, their real
+        rows) with [N_pad, 1] placeholders on the device."""
         if self._graph is None:
             cg = self.data.compile()
-            x = {t: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            streamed = self.stream_features
+            self._x_host = {t: cg.node_x[t][: cg.num_nodes[t]]
+                            for t in streamed}
+            x = {t: (None if t in streamed else torch.from_numpy(
+                     np.ascontiguousarray(v)).to(self.device))
                  for t, v in cg.node_x.items()}
+            x = strip_streamed_features(x, streamed, cg.padded_nodes,
+                                        self.device)
             self._graph = (cg, x, device_layouts(
                 self.layouts, self.device, cg, layer_paths(self.model_cfg)))
         return self._graph
+
+    def _forward(self, cg, x, layouts):
+        """Full-graph predictions [N_snp_pad] of the model's state."""
+        if self.stream_features:
+            return forward_streamed(self.model, x, layouts, self._x_host,
+                                    cg.padded_nodes)
+        return forward(self.model, x, layouts)
 
     def _labels(self, cg):
         """(y_node, w_node) [N_snp_pad] on the device: the split's labels
@@ -238,17 +262,29 @@ class KGWAS:
         num_workers, data_to_cuda and scan_steps are accepted and do
         nothing: there are no sampler processes, the graph always lives on
         the device, and eager PyTorch dispatches one step at a time (the
-        JAX package's lax.scan of scan_steps steps runs the same math)."""
-        unported = {
-            "checkpoint_every": (checkpoint_every, None, _LONG_RUNS),
-            "resume": (resume, False, _LONG_RUNS),
-            "max_restarts": (max_restarts, 0, _LONG_RUNS),
-            "heartbeat_path": (heartbeat_path, None, _LONG_RUNS),
-            "mesh": (mesh, None, _MULTI_DEVICE),
-        }
-        for name, (value, default, item) in unported.items():
-            if value != default:
-                raise NotImplementedError(f"{name} is not ported yet: {item}")
+        JAX package's lax.scan of scan_steps steps runs the same math).
+
+        Long runs, as in the JAX package: checkpoint_every=N writes the
+        model's and the optimizer's state after every N-th step
+        (engine/checkpoint.save_train_state_async: packed on the device,
+        then copied and written on a background thread), as
+        ``step_{count}`` under ``<data_path>/model/<save_name>/
+        train_state``; resume=True restores the newest such state, then
+        runs all ``epoch`` epochs from epoch 0. max_restarts=N: a failure
+        that engine/resilience.py calls transient restores the host
+        snapshot taken at the last epoch end (parameters, Adam state, best
+        state and early-stop bookkeeping; not the shuffle generator),
+        uploads the graph again and replays from that epoch, up to N
+        times; other errors raise. heartbeat_path: a file touched after
+        every step and around each epoch-end forward, for
+        engine/watchdog.run_with_watchdog. ``_fault_hook(global_step)``,
+        when set on the instance, is called before every step (fault
+        injection)."""
+        from .engine.watchdog import touch_heartbeat
+
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh is not ported yet: {_MULTI_DEVICE}")
         if save_name is None:
             save_name = self.exp_name
         self.save_name = save_name
@@ -263,6 +299,17 @@ class KGWAS:
         model = self.model
         model.train()
         optimizer = build_optimizer(model.parameters(), lr, weight_decay)
+        self.optimizer = optimizer
+        ckpt_dir = os.path.join(self.data_path, "model", save_name,
+                                "train_state")
+        checkpointer = make_async_checkpointer() if checkpoint_every else None
+        if resume:
+            latest = latest_train_state(ckpt_dir)
+            if latest:
+                print_sys(f"Resuming train state from {latest}")
+                model_state, opt_state = restore_train_state(latest)
+                model.load_state_dict(model_state)
+                optimizer.load_state_dict(opt_state)
         best_state = copy.deepcopy(model.state_dict())
         min_val = -1000.0
         best_epoch = 0
@@ -270,55 +317,144 @@ class KGWAS:
         edges_per_step = cg.total_real_edges() * self.model_cfg.gnn_num_layers
         meter = ThroughputMeter(edges_per_step, log_path=metrics_log)
 
+        def step(b):
+            bidx = torch.from_numpy(b).to(self.device)
+            if self.stream_features:
+                return train_step_streamed(
+                    model, optimizer, x, layouts, self._x_host,
+                    cg.padded_nodes, bidx, y_node, w_node)
+            return train_step(model, optimizer, x, layouts, bidx, y_node,
+                              w_node)
+
         print_sys("Start Training...")
         self.train_history = []
         self.epoch_losses = []
-        for ep in range(epoch):
-            batches = epoch_batches(train_ids, batch_size, shuffle,
-                                    shuffle_rng)
-            meter.start_epoch()
-            losses = []
-            with profile_trace(profile_dir if ep == 0 else None):
-                for st, b in enumerate(batches):
-                    losses.append(train_step(
-                        model, optimizer, x, layouts,
-                        torch.from_numpy(b).to(self.device), y_node, w_node))
-                    meter.step()
-                    if self.wandb:
-                        self.wandb.log({"training_loss": float(losses[-1])})
-                    if st % log_interval == 0 and st >= log_interval:
-                        print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
-                                  f"Loss: {float(losses[-1]):.4f}")
-                self.epoch_losses.append(
-                    torch.stack(losses).cpu().tolist() if losses else [])
+        self.restart_count = 0
+        # host seconds of each epoch-end snapshot, and of each recovery
+        # (from the failure to the restored state, without the backoff)
+        self.snapshot_seconds = []
+        self.recovery_seconds = []
+        global_step = 0
+        fault_hook = getattr(self, "_fault_hook", None)
 
-            pred_all = forward(model, x, layouts).cpu().numpy()
-            # reference quirk: the val loader drops its tail past a
-            # batch_size multiple; with fewer val SNPs than a batch the
-            # whole set is scored
-            n_val_eval = (len(val_ids) // batch_size) * batch_size
-            val_eval_ids = val_ids[:n_val_eval] if n_val_eval else val_ids
-            val_metrics = compute_metrics({"pred": pred_all[val_eval_ids],
-                                           "truth": y_host[val_eval_ids]})
-            rec = meter.end_epoch(ep + 1, extra={
-                "loss": (self.epoch_losses[-1][-1] if losses
-                         else float("nan")),
-                **{f"val_{k}": v for k, v in val_metrics.items()},
-            })
-            print_sys(
-                f"Epoch {ep + 1}: Validation MSE: {val_metrics['mse']:.4f} "
-                f"Validation Pearson: {val_metrics['pearsonr']:.4f}. "
-                f"({rec['steps']} steps, {rec['epoch_time_s']:.2f}s, "
-                f"{rec['edges_per_sec']:.3g} edge-traversals/s)")
-            self.train_history.append(rec)
-            if self.wandb:
-                for k, v in val_metrics.items():
-                    self.wandb.log({"val_" + k: v})
-            if val_metrics["pearsonr"] > min_val:
-                min_val = val_metrics["pearsonr"]
-                best_state = copy.deepcopy(model.state_dict())
-                best_epoch = ep
+        if max_restarts:
+            from .engine.resilience import (RetryPolicy,
+                                            is_transient_backend_error,
+                                            sleep_backoff)
 
+            policy = RetryPolicy(max_restarts=max_restarts)
+
+            def host_snap(ep):
+                t0 = time.perf_counter()
+                state = host_train_state(model.state_dict(),
+                                         optimizer.state_dict()).result()
+                best = host_train_state(best_state, {}).result()
+                self.snapshot_seconds.append(time.perf_counter() - t0)
+                return {**state, "best": best["model"], "min_val": min_val,
+                        "best_epoch": best_epoch, "ep": ep,
+                        "global_step": global_step}
+
+            snap = host_snap(0)
+
+        ep = 0
+        while ep < epoch:
+            try:
+                batches = epoch_batches(train_ids, batch_size, shuffle,
+                                        shuffle_rng)
+                self.epoch_losses = self.epoch_losses[:ep]
+                meter.start_epoch()
+                losses = []
+                with profile_trace(profile_dir if ep == 0 else None):
+                    for st, b in enumerate(batches):
+                        if fault_hook is not None:
+                            fault_hook(global_step)
+                        losses.append(step(b))
+                        meter.step()
+                        global_step += 1
+                        if checkpointer and (global_step % checkpoint_every
+                                             == 0):
+                            save_train_state_async(
+                                checkpointer, ckpt_dir, global_step,
+                                model.state_dict(), optimizer.state_dict())
+                        if self.wandb:
+                            self.wandb.log(
+                                {"training_loss": float(losses[-1])})
+                        if st % log_interval == 0 and st >= log_interval:
+                            print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
+                                      f"Loss: {float(losses[-1]):.4f}")
+                        touch_heartbeat(heartbeat_path)
+                    self.epoch_losses.append(
+                        torch.stack(losses).cpu().tolist() if losses else [])
+
+                # the epoch-end forward makes no step heartbeats
+                touch_heartbeat(heartbeat_path)
+                pred_all = self._forward(cg, x, layouts).cpu().numpy()
+                touch_heartbeat(heartbeat_path)
+                # reference quirk: the val loader drops its tail past a
+                # batch_size multiple; with fewer val SNPs than a batch the
+                # whole set is scored
+                n_val_eval = (len(val_ids) // batch_size) * batch_size
+                val_eval_ids = val_ids[:n_val_eval] if n_val_eval else val_ids
+                val_metrics = compute_metrics({"pred": pred_all[val_eval_ids],
+                                               "truth": y_host[val_eval_ids]})
+                rec = meter.end_epoch(ep + 1, extra={
+                    "loss": (self.epoch_losses[-1][-1] if losses
+                             else float("nan")),
+                    **{f"val_{k}": v for k, v in val_metrics.items()},
+                })
+                print_sys(
+                    f"Epoch {ep + 1}: Validation MSE: "
+                    f"{val_metrics['mse']:.4f} Validation Pearson: "
+                    f"{val_metrics['pearsonr']:.4f}. ({rec['steps']} steps, "
+                    f"{rec['epoch_time_s']:.2f}s, "
+                    f"{rec['edges_per_sec']:.3g} edge-traversals/s)")
+                self.train_history.append(rec)
+                if self.wandb:
+                    for k, v in val_metrics.items():
+                        self.wandb.log({"val_" + k: v})
+                if val_metrics["pearsonr"] > min_val:
+                    min_val = val_metrics["pearsonr"]
+                    best_state = copy.deepcopy(model.state_dict())
+                    best_epoch = ep
+                ep += 1
+                if max_restarts:
+                    snap = host_snap(ep)
+            except Exception as e:  # noqa: BLE001 (classified below)
+                if not (max_restarts
+                        and self.restart_count < max_restarts
+                        and is_transient_backend_error(e)):
+                    raise
+                self.restart_count += 1
+                print_sys(
+                    f"Transient backend failure ({type(e).__name__}: "
+                    f"{str(e)[:200]}); restart "
+                    f"{self.restart_count}/{max_restarts} from epoch "
+                    f"{snap['ep'] + 1}")
+                sleep_backoff(policy, self.restart_count)
+                t0 = time.perf_counter()
+                # upload everything again, as the JAX package does after a
+                # backend restart
+                self._graph = None
+                cg, x, layouts = self._device_state()
+                y_node, w_node = self._labels(cg)
+                model.load_state_dict(snap["model"])
+                # the optimizer keeps host tensors it is given as they are:
+                # a copy, so the steps after it leave the snapshot intact
+                optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+                best_state = {k: v.to(self.device, copy=True)
+                              for k, v in snap["best"].items()}
+                min_val = snap["min_val"]
+                best_epoch = snap["best_epoch"]
+                ep = snap["ep"]
+                global_step = snap["global_step"]
+                self.train_history = self.train_history[:ep]
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.recovery_seconds.append(time.perf_counter() - t0)
+
+        if checkpointer:
+            checkpointer.close()
+        self.params = copy.deepcopy(model.state_dict())
         model.load_state_dict(best_state)
         self.best_params = best_state
         self.best_epoch = best_epoch
@@ -327,7 +463,7 @@ class KGWAS:
             print_sys("Saving models to " + model_dir)
             save_model(best_state, self.config, model_dir)
 
-        pred_all = forward(model, x, layouts).cpu().numpy()
+        pred_all = self._forward(cg, x, layouts).cpu().numpy()
         self.test_metrics = compute_metrics(
             {"pred": pred_all[test_ids], "truth": y_host[test_ids]})
         if self.wandb:
@@ -356,7 +492,7 @@ class KGWAS:
         if params is not None:
             self.model.load_state_dict(params)
         cg, x, layouts = self._device_state()
-        pred = forward(self.model, x, layouts)
+        pred = self._forward(cg, x, layouts)
         return pred[: cg.num_nodes["SNP"]].cpu().numpy()
 
     # ------------------------------------------------------------------ magma

@@ -576,7 +576,9 @@ class HeteroGNN(nn.Module):
     def forward(self, x: Dict[str, torch.Tensor],
                 layouts: Dict[str, DeviceLayout], training: bool = False,
                 dropout_gen: Optional[torch.Generator] = None,
-                edge_attr: Optional[dict] = None) -> torch.Tensor:
+                edge_attr: Optional[dict] = None,
+                h1_override: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """Full-graph forward (apply_hetero_gnn). Returns pred [N_snp_pad,
         out_channels]. training: the layer path of a training step
         (layer_path), and with dropout_gen (the counterpart of
@@ -584,13 +586,18 @@ class HeteroGNN(nn.Module):
         the model's dropout, each layer's masks drawn before the layer runs.
         edge_attr: relkey -> edge features [E_pad, edge_dim] (or [E_pad])
         for the edge_dim term; no loader gives any, as in the JAX package.
+        h1_override: type -> the first encoder layer's pre-activations
+        [N_pad, hidden] (the streamed giant-feature path,
+        engine/streamed.py); those types run only the encoder's tail.
         With remat each layer runs under torch.utils.checkpoint when
         gradients are on (its recompute launches the forward kernels
         again)."""
         cfg = self.cfg
         groups, encoded = self.live_groups(layouts)
-        h = {t: getattr(self, encoder_for(t))(xt) for t, xt in x.items()
-             if t in encoded}
+        h1_override = h1_override or {}
+        h = {t: (getattr(self, encoder_for(t)).tail(h1_override[t])
+                 if t in h1_override else getattr(self, encoder_for(t))(xt))
+             for t, xt in x.items() if t in encoded}
         drop = (training and dropout_gen is not None and cfg.dropout > 0.0
                 and cfg.gnn_backbone == "GAT"
                 and layer_path(cfg, training) == "relations")

@@ -2,6 +2,8 @@
 
 h = ReLU(W1 x); h = ReLU(W2 h); out = W3 h   (no final activation)
 
+``SimpleMLP.tail`` is ``apply_mlp_tail``: the same after W1 x + b1.
+
 Submodule names are the reference's (FC_hidden, FC_hidden2, FC_output), so
 the state_dict keys match a reference ``model.pt``.
 """
@@ -30,6 +32,12 @@ class SimpleMLP(nn.Module):
         self.FC_output = _linear(gen, hidden_dim, output_dim)
 
     def forward(self, x):
-        h = torch.relu(self.FC_hidden(x))
+        return self.tail(self.FC_hidden(x))
+
+    def tail(self, h1_pre):
+        """The encoder after its first layer, given that layer's
+        pre-activation (the streamed-feature path, where h1_pre = X W1^T +
+        b1 is computed over a host table: apply_mlp_tail)."""
+        h = torch.relu(h1_pre)
         h = torch.relu(self.FC_hidden2(h))
         return self.FC_output(h)

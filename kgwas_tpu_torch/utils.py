@@ -127,25 +127,34 @@ def _quoted(cells: np.ndarray, sep: str) -> np.ndarray:
     return cells
 
 
-def write_table(table: dict, path: str, sep: str = "\t"):
-    """Write a column table as text with a header line, columns in order,
-    as pandas' ``to_csv(path, sep=sep, index=False)`` writes it: NaN as an
-    empty cell, text quoted where csv's QUOTE_MINIMAL quotes it. Each column
-    is converted to text at once, the file written in one call."""
-    names = list(table)
-    cols = []
-    for k in names:
-        text = _cell_text(table[k])
-        if text.dtype.kind == "O" or len(names) == 1:
+def write_columns(cols: list, path: str, sep: str = "\t", names=None):
+    """Write columns as text, as pandas' ``to_csv(path, sep=sep,
+    index=False)`` writes a frame of them: a header line of ``names``
+    (``header=None`` when names is None), NaN as an empty cell, text quoted
+    where csv's QUOTE_MINIMAL quotes it, floats as numpy prints them (as
+    pandas does). Each column is converted to text at once, the file
+    written in one call. Columns may repeat (``df[["eid", "eid"]]``)."""
+    texts = []
+    for col in cols:
+        text = _cell_text(col)
+        if text.dtype.kind == "O" or len(cols) == 1:
             text = _quoted(text, sep)
-            if len(names) == 1:
+            if len(cols) == 1:
                 # csv writes a row of one empty field as ""
                 text[text == ""] = '""'
-        cols.append(text.tolist())
-    lines = [sep.join(_quoted(np.array(names, dtype=object), sep).tolist())]
-    lines.extend(map(sep.join, zip(*cols)))
+        texts.append(text.tolist())
+    lines = ([] if names is None else
+             [sep.join(_quoted(np.array(names, dtype=object), sep).tolist())])
+    lines.extend(map(sep.join, zip(*texts)))
     with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write("".join(line + "\n" for line in lines))
+
+
+def write_table(table: dict, path: str, sep: str = "\t"):
+    """Write a column table as text with a header line, columns in order,
+    as pandas' ``to_csv(path, sep=sep, index=False)`` writes it
+    (``write_columns``)."""
+    write_columns(list(table.values()), path, sep, names=list(table))
 
 
 # pandas' default missing-value tokens (pandas._libs.parsers.STR_NA_VALUES)

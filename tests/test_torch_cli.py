@@ -1,8 +1,9 @@
 """The port's command line (kgwas_tpu_torch/cli.py) through ``--device
 cpu``: the cases of tests/test_cli.py on --synthetic, the same flow on a
 layout-exact bundle (tests/test_torch_realdata.py's), a checkpoint trained
-by the JAX package's CLI served by the port's predict, and the flags of
-options not ported yet, which raise before any data loads.
+by the JAX package's CLI served by the port's predict, --watchdog-timeout's
+relaunch under the stall watchdog, and the flags of options not ported
+yet, which raise before any data loads.
 """
 import os
 
@@ -62,13 +63,43 @@ def test_cli_interpret(trained_dir, tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "8"], "item 10"),
     (["--dtype", "bfloat16"], "item 7"),
-    (["--watchdog-timeout", "30"], "item 8"),
 ])
 def test_cli_unported_flags_raise_before_loading(tmp_path, flag, item):
     d = tmp_path / "never"
     with pytest.raises(NotImplementedError, match=item):
         main(["train", *SYNTH, "--data-path", str(d), *flag])
     assert not d.exists()
+
+
+def test_cli_watchdog_timeout_relaunches(tmp_path, monkeypatch):
+    """--watchdog-timeout runs the same command again as a child process
+    (python -m kgwas_tpu_torch.cli, KGWAS_UNDER_WATCHDOG and KGWAS_HEARTBEAT
+    set) under the stall watchdog; the child trains, touching the
+    heartbeat, and its artifacts are on disk when the parent returns 0."""
+    from kgwas_tpu_torch.engine import watchdog
+
+    d = str(tmp_path / "wd")
+    argv = ["train", *SYNTH, "--data-path", d, "--name", "wd", "--hidden",
+            "8", "--epochs", "1", "--batch-size", "512",
+            "--watchdog-timeout", "300", "--watchdog-restarts", "0"]
+    calls = []
+    real = watchdog.run_with_watchdog
+
+    def spy(cmd, heartbeat, **kw):
+        calls.append((list(cmd), heartbeat, kw))
+        rc = real(cmd, heartbeat, poll_s=0.5, **kw)
+        calls[-1] += (os.path.exists(heartbeat),)
+        return rc
+
+    monkeypatch.setattr(watchdog, "run_with_watchdog", spy)
+    assert main(argv) == 0
+    (cmd, hb, kw, beat), = calls
+    assert cmd[1:3] == ["-m", "kgwas_tpu_torch.cli"] and cmd[3:] == argv
+    assert kw["env"]["KGWAS_UNDER_WATCHDOG"] == "1"
+    assert kw["env"]["KGWAS_HEARTBEAT"] == hb and beat
+    assert (kw["stall_timeout_s"], kw["max_restarts"]) == (300.0, 0)
+    for f in ("model.npz", "config.pkl", "pred.csv"):
+        assert os.path.exists(os.path.join(d, "model", "wd", f)), f
 
 
 def test_cli_heads_and_remat_run(tmp_path):

@@ -52,6 +52,11 @@ backward; with KGWAS_PARENT_CSRC, #6, #7 and #8 without them bitwise as
 the earlier checkout's. The model: a per-relation GAT step's gradients
 bitwise the same in two runs, and with remat bitwise those without, the
 dropout masks drawn from one CUDA generator seed.
+
+Outside the kernels: the host-streamed products (ops/streaming.py: pinned
+staging, a copy stream) against a float64 dense product, and the train
+state's asynchronous host copy (engine/checkpoint.host_train_state)
+against an in-place update issued after it.
 """
 import dataclasses
 import importlib
@@ -1112,3 +1117,67 @@ def test_relation_step_grads_bitwise_repeatable(kw, cuda_device):
     assert grads[0] and sorted(grads[0]) == sorted(grads[1])
     for k in grads[0]:
         assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+def test_streamed_products_on_the_card(cuda_device):
+    """ops/streaming.py on the card: column chunks through the pinned
+    staging buffers and the copy stream (the copy of chunk k+1 under the
+    product of chunk k), against one dense product; every byte of the
+    table crosses once a pass; a second call reuses the staging and gives
+    the same bits."""
+    from kgwas_tpu_torch.ops import streaming
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1000, 700)).astype(np.float32)
+    w = torch.from_numpy(rng.standard_normal((700, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    dh = torch.from_numpy(rng.standard_normal((1024, 64)).astype(np.float32))
+    streaming.reset_stats()
+    out = streaming.streamed_matmul(x, w.to(cuda_device), b.to(cuda_device),
+                                    col_chunk=96, row_pad_to=1024)
+    gw = streaming.streamed_grad_w(x, dh.to(cuda_device), col_chunk=96)
+    assert streaming.stats["h2d_bytes"] == 2 * x.nbytes
+    assert streaming.stats["chunks"] == 2 * 8
+    want = torch.zeros(1024, 64, dtype=torch.float64)
+    want[:1000] = torch.from_numpy(x).double() @ w.double()
+    want += b.double()
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        gw.cpu().numpy(), (torch.from_numpy(x).double().t()
+                           @ dh[:1000].double()).numpy(), rtol=1e-5,
+        atol=1e-4)
+    again = streaming.streamed_matmul(x, w.to(cuda_device),
+                                      b.to(cuda_device), col_chunk=96,
+                                      row_pad_to=1024)
+    assert torch.equal(out, again)
+
+
+def test_train_state_copy_precedes_the_next_step(cuda_device):
+    """engine/checkpoint.host_train_state packs a CUDA state on the device
+    and copies it to the host later, from another thread: an in-place
+    update issued after the packing does not reach the copy; host tensors
+    and other values come through as they were."""
+    import threading
+
+    from kgwas_tpu_torch.engine.checkpoint import host_train_state
+
+    p = torch.arange(1 << 20, dtype=torch.float32, device=cuda_device)
+    q = torch.arange(12, dtype=torch.int64, device=cuda_device).view(3, 4)
+    step = torch.tensor(7.0)
+    want = p.cpu()
+    copy = host_train_state({"p": p, "q": q}, {
+        "state": {0: {"m": p * 2, "step": step}}, "param_groups": [
+            {"lr": 1e-4, "params": [0]}]})
+    p.add_(1.0)
+    step += 1
+    out = {}
+    t = threading.Thread(target=lambda: out.update(copy.result()))
+    t.start()
+    t.join()
+    assert torch.equal(out["model"]["p"], want)
+    assert torch.equal(out["model"]["q"], q.cpu())
+    assert out["model"]["q"].shape == (3, 4)
+    assert torch.equal(out["optimizer"]["state"][0]["m"], want * 2)
+    assert float(out["optimizer"]["state"][0]["step"]) == 7.0
+    assert out["optimizer"]["param_groups"] == [{"lr": 1e-4, "params": [0]}]

@@ -7,8 +7,8 @@
 * ``KGWAS(data)`` with no device raises when CUDA is absent.
 * A CPU tensor runs the plain version of each kernel wrapper and launches
   nothing, in the forward and in the backward.
-* Options still unported raise NotImplementedError naming their ROADMAP
-  item; the model variants of item 3 run, on the CPU here, and persist the
+* Options still unported (mesh, the bf16 dtypes) raise NotImplementedError
+  naming their ROADMAP item; the model variants of item 3 run, on the CPU here, and persist the
   JAX package's ``config``; ``initialize_model`` takes the JAX method's
   arguments: the TPU
   execution knobs are accepted and leave the same ``config`` as the JAX
@@ -64,7 +64,9 @@ def test_scan_covers_every_module_of_the_package():
     scanned = {str(f.relative_to(ROOT)) for f in _port_sources()}
     for mod in ("bench_lib.py", "engine/profiling.py", "interpret/__init__.py",
                 "interpret/attention.py", "interpret/network.py",
-                "stats/labels.py", "utils.py"):
+                "stats/labels.py", "utils.py", "cohort/ukbb.py",
+                "engine/resilience.py", "engine/watchdog.py",
+                "engine/streamed.py", "ops/streaming.py"):
         assert f"kgwas_tpu_torch/{mod}" in scanned, mod
 
 
@@ -230,26 +232,26 @@ def test_train_options_of_later_items_raise(tmp_path):
     data.process_gwas_file()
     data.prepare_split()
     run = KGWAS(data, device="cpu").initialize_model(gnn_hidden_dim=8)
-    # profile_dir and metrics_log are ported (tests/test_torch_profiling.py)
-    for kw, item in (({"mesh": 2}, 10), ({"checkpoint_every": 10}, 8),
-                     ({"resume": True}, 8), ({"max_restarts": 1}, 8),
-                     ({"heartbeat_path": "hb"}, 8)):
+    # profile_dir and metrics_log are ported (tests/test_torch_profiling.py),
+    # the long-run options of item 8 too (tests/test_torch_long_runs.py):
+    # only mesh (item 10) still raises
+    for kw, item in (({"mesh": 2}, 10), ({"mesh": {"data": 4}}, 10)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue 1 item {item} "):
             run.train(batch_size=8, epoch=1, **kw)
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the options of items 7, 8 and 10 still raise: the model
-    variants (item 3) run (test_lifted_variant_options_run); the dtypes and
-    host-streamed features are item 7 (the training options of items 8 and
-    10: test_train_options_of_later_items_raise)."""
+    """Only the bf16 dtypes of item 7 still raise from initialize_model:
+    the model variants (item 3) run (test_lifted_variant_options_run), and
+    so do host-streamed features (tests/test_torch_streaming.py); mesh
+    (item 10): test_train_options_of_later_items_raise."""
     data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                      data_path=str(tmp_path))
     run = KGWAS(data, device="cpu")
     for kw, item in (({"compute_dtype": "bfloat16"}, 7),
                      ({"stream_dtype": "bfloat16"}, 7),
-                     ({"stream_features": ["SNP"]}, 7),
+                     ({"stream_f32_logits": True}, 7),
                      ({"param_dtype": "bfloat16"}, 7)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue 1 item {item} "):
