@@ -13,7 +13,8 @@ PyTorch version:
      the order of the full-width layouts' index streams (and shuffled),
      from a table that L2 holds and from one it does not, at 1-16 rows in
      flight a warp, and each layer kernel's gather floor (its gathered
-     rows over that rate)
+     rows over that rate); the same on 256-byte bf16 rows, and the bf16
+     instances' gather floors
   2. the merged GAT forward and backward kernels vs plain on a 20k-SNP
      synthetic KG, every merged group, the softmax/sigmoid/raw modes, fold
      off and on, on the default schedule and with max_edges 8 (real rows
@@ -120,6 +121,25 @@ PyTorch version:
      builder on 502,000 fabricated participants, host seconds by stage.
      Launches of merged_gat_fwd, merged_gat_bwd and csc_segment_sum are
      counted from 0 just before each entry point and checked
+
+ 12. the bf16 dtypes at full width (after phase 10): (a) the bf16
+     instances of #1, #2, #8 (with the logit term) and #10 against their
+     plain bf16 versions on random bf16 tables of the GAT-sum layer's
+     Gene and SNP groups (at most 1e-3 of the rows, or 1e-4 of d_xs's
+     values, off the f32 tolerances, each within a bf16 rounding of its
+     neighbour), bitwise repeatable, with ms, device ms, plain ms, bound
+     (2-byte rows), bf16 gather floor, the f32 instance on the same
+     values and, for #10, torch.sparse.mm in bf16 where the card's
+     PyTorch takes it; (b)-(d) GAT sum under f32, stream_dtype and
+     compute_dtype, and GCN, SAGE and sigmoid GAT max under compute_dtype:
+     predict_all and KGWAS.train over three batches with every layer
+     kernel counted from 0 just before (the bf16 instances where the
+     table is bf16), against the plain ops, two kernel runs bitwise,
+     forward and step ms with the device's busy share
+ 13. the bf16 quality gate (scripts/exp_stream_gate.py's KG and model):
+     f32, stream_dtype, compute_dtype and f32 with TF32 matmuls trained
+     30 epochs; KGWAS_P's Spearman and top-50 overlap against f32 (a
+     finding: only a crash or a non-finite KGWAS_P fails the phase)
 
   Phase 5 also writes its KGWAS_P table with write_table and with the row
   writer it replaced, and checks that the bytes are equal.
@@ -248,13 +268,24 @@ KERNEL_LAUNCH = {
     "csr_segment_sum_kernel": (256, 0),
     "csr_combine_kernel": (256, 0),
     "gather_probe_kernel": (256, 0),
+    "gather_probe_bf16_kernel": (256, 0),
+    "merged_gat_fwd_bf16_kernel": (128, 0),
+    "merged_gat_row_max_kernel": (128, 0),
+    "merged_gat_bwd_bf16_kernel": (128, 4 * 8 * 128 * 4),
+    "merged_gat_bwd_combine_bf16_kernel": (128, 0),
 }
 # template arguments of the entries reported: D = 128 (softmax mode, with
-# and without the logit term, the segment kernels' multiplier and d_w), and
+# and without the logit term, the segment kernels' multiplier and d_w, the
+# bf16 instances), and
 # the probe's rows in flight
 D128 = ("<0, true, 1>", "<0>", "<true, 1>", "<true, 1, true>",
         "<true, 1, false>", "<true, 1, true, false>",
-        "<true, 1, false, false>", "<true, 1, false, true>", "<8>", "<16>")
+        "<true, 1, false, false>", "<true, 1, false, true>", "<8>", "<16>",
+        "<0, true, 1, 0>", "<0, true, 1, 1>", "<true, 1, true, false, false>",
+        "<true, 1, false, false, false>", "<true, 1, false, true, false>",
+        "<true, 1, true, false, true>", "<true, 1, false, false, true>",
+        "<true, 1, false, true, true>", "<true, 1, true, true, true>",
+        "<true, 1, true, true, false>", "<true, 1, true, true>")
 
 
 def report_ptxas(build, name, text, launch=None):
@@ -1688,20 +1719,25 @@ def probe_call(fn, table, idx, u, per_warp=256):
     return go, out
 
 
-def phase_probe(build, layouts, cg, device, card):
+def phase_probe(build, layouts, cg, device, card, bf16=False):
     """Phase 1b: the gather ceiling. gather_probe.cu sums random 512-byte
     rows (float4 a lane, a warp a row, U rows in flight a warp) from a
     random table, in the order of the real layouts' index streams and of a
-    shuffled copy of each. Returns {"l2": TB/s, "hbm": TB/s}: the best rate
-    over U on the real orders from a table that L2 holds and from one it
-    does not."""
-    fn = build.library("gather_probe")
+    shuffled copy of each; with bf16, 256-byte bf16 rows (8 bytes a lane:
+    the bf16 instances' gather). Returns {"l2": TB/s, "hbm": TB/s}: the
+    best rate over U on the real orders from a table that L2 holds and
+    from one it does not."""
+    fn = build.library("gather_probe_bf16" if bf16 else "gather_probe")
     rng = np.random.default_rng(SEED + 9)
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     best = {"l2": 0.0, "hbm": 0.0}
+    label = " (bf16)" if bf16 else ""
     for name, (n_rows, idx) in probe_streams(layouts, cg).items():
         table = torch.randn(n_rows, HIDDEN, device=device, generator=gen)
-        kind = "l2" if table.numel() * 4 <= L2_TABLE_BYTES else "hbm"
+        if bf16:
+            table = table.to(torch.bfloat16)
+        row_bytes = HIDDEN * table.element_size()
+        kind = "l2" if n_rows * row_bytes <= L2_TABLE_BYTES else "hbm"
         for order in ("real", "shuffled"):
             i = idx if order == "real" else rng.permutation(idx)
             i = torch.from_numpy(i).to(device)
@@ -1710,8 +1746,8 @@ def phase_probe(build, layouts, cg, device, card):
             for u in PROBE_U:
                 go, out = probe_call(fn, table, i, u)
                 ms = cuda_ms(go, 20)
-                rates[u] = n * HIDDEN * 4 / (ms * 1e-3) / 1e12
-            want = table[i.long()].sum(0)
+                rates[u] = n * row_bytes / (ms * 1e-3) / 1e12
+            want = table[i.long()].float().sum(0)
             got = out.sum(0)
             torch.cuda.synchronize()
             if not torch.allclose(got, want, rtol=1e-3, atol=1e-2 * n ** 0.5):
@@ -1719,14 +1755,14 @@ def phase_probe(build, layouts, cg, device, card):
             top = max(rates, key=rates.get)
             if order == "real":
                 best[kind] = max(best[kind], rates[top])
-            log(f"  probe {name}, {order} order, {n} rows of "
-                f"{HIDDEN * 4} B from a {table.numel() * 4 / 1e6:.1f} MB "
+            log(f"  probe{label} {name}, {order} order, {n} rows of "
+                f"{row_bytes} B from a {n_rows * row_bytes / 1e6:.1f} MB "
                 f"table ({kind}): "
                 + ", ".join(f"U={u} {r:.3f} TB/s" for u, r in rates.items())
                 + f"; best U={top}")
         del table
-    log(f"phase 1b ok [{card}]: gather ceiling {best['l2']:.3f} TB/s from a "
-        f"table L2 holds, {best['hbm']:.3f} TB/s from device memory")
+    log(f"phase 1b{label} ok [{card}]: gather ceiling {best['l2']:.3f} TB/s "
+        f"from a table L2 holds, {best['hbm']:.3f} TB/s from device memory")
     return best
 
 
@@ -3799,6 +3835,537 @@ def phase_cohort(kt, card, tmp):
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the bf16 dtypes (stream_dtype, compute_dtype) at full width, and
+# phase 13: the quality gate of the bf16 modes
+# ---------------------------------------------------------------------------
+
+BF16_KERNELS = ("merged_gat_fwd_bf16", "merged_gat_bwd_bf16",
+                "csc_segment_sum_bf16", "csr_segment_sum_bf16")
+# each bf16 kernel's f32 family (path_launches counts the family)
+BF16_FAMILY = {"merged_gat_fwd_bf16": "merged_gat_fwd",
+               "merged_gat_bwd_bf16": "merged_gat_bwd",
+               "csc_segment_sum_bf16": "csc_segment_sum",
+               "csr_segment_sum_bf16": "csr_segment_sum"}
+# the TPU kernel each replaces (its Pallas body), PERF.md's table
+BF16_REPLACES = {
+    "merged_gat_fwd_bf16": "kgwas_tpu/ops/pallas_gat_layer.py:210",
+    "merged_gat_bwd_bf16": "kgwas_tpu/ops/pallas_gat_layer.py:387",
+    "csc_segment_sum_bf16": "kgwas_tpu/ops/pallas_segment.py:659",
+    "csr_segment_sum_bf16": "kgwas_tpu/ops/pallas_segment.py:659",
+}
+BF16_SOURCE = {
+    "merged_gat_fwd_bf16": "kgwas_tpu_torch/ops/csrc/merged_gat_fwd.cu",
+    "merged_gat_bwd_bf16": "kgwas_tpu_torch/ops/csrc/merged_gat_bwd.cu",
+    "csc_segment_sum_bf16": "kgwas_tpu_torch/ops/csrc/csc_segment_sum.cu",
+    "csr_segment_sum_bf16": "kgwas_tpu_torch/ops/csrc/csr_segment_sum.cu",
+}
+# the published bf16 tensor-core peak (dense): the least time for the
+# operations on bf16 inputs
+BF16_FLOPS = 989e12
+# a bf16 kernel against its plain bf16 version: the same rounding points,
+# float32 sums in another order. A value both round to bf16 from float32
+# values a few ulps apart can round to the neighbouring bf16 value: at
+# most BF16_OFF_ROWS of the rows (of the values, for d_xs) miss the f32
+# tolerances, each within BF16_RTOL (a weight's bf16 ulp, 2^-8, of its
+# share) or 2^-8 of its row's largest value
+BF16_OFF_ROWS, BF16_RTOL = 1e-3, 1e-2
+# the model through the kernels against the plain ops, and the JAX
+# package's port tests' bound (tests/test_torch_bf16_model.py)
+BF16_PRED_RTOL, BF16_PRED_ATOL, BF16_LOSS_RTOL = 1e-2, 1e-3, 1e-2
+BF16_VARIANTS = {
+    "GAT-sum f32": {},
+    "GAT-sum stream": dict(stream_dtype="bfloat16"),
+    "GAT-sum compute": dict(compute_dtype="bfloat16"),
+    "GCN compute": dict(gnn_backbone="GCN", compute_dtype="bfloat16"),
+    "SAGE compute": dict(gnn_backbone="SAGE", compute_dtype="bfloat16"),
+    "GAT-max sigmoid compute": dict(gnn_aggr="max", sigmoid_gat=True,
+                                    compute_dtype="bfloat16"),
+}
+
+
+def bf16_counts(zero=False):
+    """Launch counts of the four bf16 instances (set to 0 first with
+    zero)."""
+    from kgwas_tpu_torch.ops import gat_layer, segment
+
+    if zero:
+        gat_layer.bf16_launches = gat_layer.bf16_bwd_launches = 0
+        segment.bf16_launches = segment.csr_bf16_launches = 0
+    return dict(zip(BF16_KERNELS, (
+        gat_layer.bf16_launches, gat_layer.bf16_bwd_launches,
+        segment.bf16_launches, segment.csr_bf16_launches)))
+
+
+def all_counts(zero=False):
+    """The f32 instances' counts and the bf16 instances', one dict."""
+    return {**model_counts(zero), **bf16_counts(zero)}
+
+
+def family_totals(counts):
+    """The counts of each f32 family, its bf16 instance's added."""
+    out = {k: counts[k] for k in MODEL_KERNELS}
+    for k, fam in BF16_FAMILY.items():
+        out[fam] += counts[k]
+    return out
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bf16_bound(nb, flops):
+    """(bytes ms, operations ms) of bytes nb moved and flops on bf16
+    inputs, at the card's published peaks."""
+    return nb / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def bf16_rows_check(got, want, trash, what):
+    """Rows of a forward output: at most BF16_OFF_ROWS of them outside the
+    f32 tolerances (trash rows at TRASH_RTOL), every one within
+    BF16_RTOL. Returns (max abs err, rows off)."""
+    g = got.detach().double().cpu().numpy().reshape(len(trash), -1)
+    w = want.detach().double().cpu().numpy().reshape(len(trash), -1)
+    err = np.abs(g - w)
+    rtol = np.where(trash, TRASH_RTOL, RTOL)[:, None]
+    off = (err > ATOL + rtol * np.abs(w)).any(axis=1)
+    if off.sum() > max(1, BF16_OFF_ROWS * len(off)) or (
+            err > 1e-4 + BF16_RTOL * np.abs(w)).any():
+        raise AssertionError(f"{what}: {int(off.sum())} of {len(off)} rows "
+                             f"off, max abs err {err.max():.3e}")
+    return float(err.max()), int(off.sum())
+
+
+def bf16_grad_check(got, want, what, rtol=1e-4):
+    """A gradient: at most 1 value in 10^4 outside rtol with an absolute
+    floor of 1e-5 of the largest value, each within 2^-8 of its row's
+    largest |value|. Returns (max abs err, values off)."""
+    g = got.detach().double().cpu().numpy()
+    w = want.detach().double().cpu().numpy()
+    err = np.abs(g - w)
+    off = err > 1e-5 * np.abs(w).max() + rtol * np.abs(w)
+    scale = (np.abs(w).max() if w.ndim == 1
+             else np.abs(w).max(axis=1, keepdims=True))
+    if off.sum() > max(1, off.size // 10 ** 4) or (
+            err > 2.0 ** -8 * scale + 1e-6).any():
+        raise AssertionError(f"{what}: {int(off.sum())} of {off.size} "
+                             f"values off, max abs err {err.max():.3e}")
+    return float(err.max()), int(off.sum())
+
+
+def gather_floors_bf16(layouts, rates16, rates32):
+    """The bf16 instances' gather floors over one GAT-sum forward or step
+    (Gene once, SNP twice) and the SAGE forward's bf16 launches (layer 1:
+    Gene and SNP once): the merged GAT kernels and the CSR sum gather
+    256-byte bf16 rows at the bf16 probe's rate; the CSC sum gathers the
+    float32 cotangent rows (512 bytes) at the f32 probe's."""
+    def ms(edges, table_rows, row_bytes, rates):
+        kind = "l2" if table_rows * row_bytes <= L2_TABLE_BYTES else "hbm"
+        return edges * row_bytes / (rates[kind] * 1e12) * 1e3
+
+    live = {"Gene": 1, "SNP": 2}
+    merged = sum(k * ms(len(layouts[t].src), layouts[t].n_src_total,
+                        HIDDEN * 2, rates16) for t, k in live.items())
+    csc = sum(k * ms(len(layouts[t].src), layouts[t].n_rows_per_rel,
+                     HIDDEN * 4, rates32) for t, k in live.items())
+    csr = sum(ms(len(layouts[t].src), layouts[t].n_src_total, HIDDEN * 2,
+                 rates16) for t in live)
+    floors = {"merged_gat_fwd_bf16": merged, "merged_gat_bwd_bf16": merged,
+              "csc_segment_sum_bf16": csc, "csr_segment_sum_bf16": csr}
+    log("  bf16 gather floors per forward or step: "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
+    return floors
+
+
+def sparse_mm_bf16(x, src, ro, w):
+    """torch.sparse.mm of the CSR matrix (values w, or 1, in bf16) against
+    the bf16 table x, or None where the card's PyTorch refuses bf16 sparse
+    CSR products (the reason logged)."""
+    vals = (w if w is not None else torch.ones(src.numel(),
+                                               device=x.device))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a = torch.sparse_csr_tensor(ro, src, vals.to(torch.bfloat16),
+                                        size=(ro.numel() - 1, x.shape[0]),
+                                        check_invariants=False)
+            torch.sparse.mm(a, x)
+            torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"    torch.sparse.mm in bf16 refused: {str(e).splitlines()[0]}")
+        return None
+    return lambda: torch.sparse.mm(a, x)
+
+
+def phase_bf16_kernels(kt, cg, device, card, floors16):
+    """Phase 12a: each bf16 instance against its plain bf16 version at full
+    width (the GAT-sum layer's Gene and SNP groups, fold R, softmax, random
+    bf16 tables; the CSR sum on the merged SNP and Gene groups, unweighted
+    and with the f32 and the bf16 norm), and its times over one forward or
+    step: host-paced ms, device ms, plain ms, bound (each input read once
+    and each output written once at its own width; operations at the bf16
+    peak), gather floor, the f32 instance on the same values, and for the
+    CSR sum torch.sparse.mm in bf16. Returns {kernel: row totals}."""
+    from kgwas_tpu_torch.graph import build_merged_layouts
+    from kgwas_tpu_torch.kgwas import TILE_ROWS
+    from kgwas_tpu_torch.models import device_layouts
+    from kgwas_tpu_torch.ops import gat_layer, segment
+
+    t0 = time.perf_counter()
+    host = build_merged_layouts(cg, tile_rows=TILE_ROWS)
+    dls = device_layouts(host, device, cg, ("merged", "mp"))
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    rows = {k: dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bytes", "operations", "f32_ms",
+                              "f32_device_ms"), 0.0)
+            for k in BF16_KERNELS}
+    rows["csr_segment_sum_bf16"]["library_ms"] = 0.0
+    worst = dict.fromkeys(BF16_KERNELS, 0.0)
+    off = dict.fromkeys(BF16_KERNELS, 0)
+    lib_ok = True
+
+    def timed(name, k, fn, plain_fn, f32_fn, bound):
+        r = rows[name]
+        r["ms"] += k * cuda_ms(fn, 10)
+        r["device_ms"] += k * graph_ms(fn, 10)
+        r["plain_ms"] += k * cuda_ms(plain_fn, 2)
+        r["f32_ms"] += k * cuda_ms(f32_fn, 10)
+        r["f32_device_ms"] += k * graph_ms(f32_fn, 10)
+        r["bytes"] += k * bound[0]
+        r["operations"] += k * bound[1]
+        r["bound_ms"] += k * max(bound)
+
+    for t, k in (("Gene", 1), ("SNP", 2)):
+        L, DL = host[t], dls[t]
+        R, n, d = len(L.rel_keys), L.n_rows_per_rel, HIDDEN
+        xs = (torch.randn(L.n_src_total, d, device=device, generator=gen)
+              * 0.1).to(torch.bfloat16)
+        xs32 = xs.float()
+        att = torch.randn(R, d, device=device, generator=gen) * 0.2
+        ad = torch.randn(L.n_rows_total, device=device, generator=gen) * 0.5
+        g = torch.randn(n, d, device=device, generator=gen)
+        e = DL.src.numel()
+        sched = gat_layer.layout_schedule(DL, R)
+        bsched = gat_layer.layout_schedule(DL, R, backward=True)
+        fa = (DL.src, DL.row_offsets, att, ad, n, R, "softmax", 0.2, 1.0)
+        trash = np.zeros(n, dtype=bool)
+        trash[cg.num_nodes[t]] = True
+        # #1
+        out = gat_layer.merged_gat_forward(xs, *fa, sched=sched)
+        again = gat_layer.merged_gat_forward(xs, *fa, sched=sched)
+        want = gat_layer.merged_gat_forward_plain(xs, *fa)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"merged_gat_fwd_bf16 {t}: two runs differ")
+        err, o = bf16_rows_check(out[0], want[0], trash,
+                                 f"merged_gat_fwd_bf16 {t}")
+        slot_trash = np.zeros(L.n_rows_total, dtype=bool)
+        slot_trash[cg.num_nodes[t]::n] = True
+        for a, b in zip(out[1:], want[1:]):
+            err = max(err, bf16_rows_check(a, b, slot_trash,
+                                           f"merged_gat_fwd_bf16 {t} stats")
+                      [0])
+        worst["merged_gat_fwd_bf16"] = max(worst["merged_gat_fwd_bf16"], err)
+        off["merged_gat_fwd_bf16"] += o
+        timed("merged_gat_fwd_bf16", k,
+              lambda: gat_layer.merged_gat_forward(xs, *fa, sched=sched),  # noqa: B023
+              lambda: gat_layer.merged_gat_forward_plain(xs, *fa),  # noqa: B023
+              lambda: gat_layer.merged_gat_forward(xs32, *fa, sched=sched),  # noqa: B023
+              bf16_bound(nbytes(xs, DL.src, DL.row_offsets, att, ad, *out),
+                         4 * d * e))
+        # #2
+        ba = (DL.src, DL.row_offsets, att, ad, want[1], want[2], g, n, R,
+              "softmax", 0.2, 1.0)
+        bk = gat_layer.merged_gat_bwd(xs, *ba, sched=bsched)
+        bk2 = gat_layer.merged_gat_bwd(xs, *ba, sched=bsched)
+        bp = gat_layer.merged_gat_bwd_plain(xs, *ba)
+        if not all(torch.equal(a, b) for a, b in zip(bk, bk2)):
+            raise AssertionError(f"merged_gat_bwd_bf16 {t}: two runs differ")
+        for a, b in zip(bk, bp):
+            err, o = bf16_grad_check(a, b, f"merged_gat_bwd_bf16 {t}")
+            worst["merged_gat_bwd_bf16"] = max(worst["merged_gat_bwd_bf16"],
+                                               err)
+            off["merged_gat_bwd_bf16"] += o
+        timed("merged_gat_bwd_bf16", k,
+              lambda: gat_layer.merged_gat_bwd(xs, *ba, sched=bsched),  # noqa: B023
+              lambda: gat_layer.merged_gat_bwd_plain(xs, *ba),  # noqa: B023
+              lambda: gat_layer.merged_gat_bwd(xs32, *ba, sched=bsched),  # noqa: B023
+              bf16_bound(nbytes(xs, DL.src, DL.row_offsets, att, ad, want[1],
+                                want[2], g, *bk), 6 * d * e))
+        # #8 with the logit term
+        w, dz = bk[0], bk[1]
+        ck = segment.csc_segment_sum(g, w, dz, xs, att, DL, R)
+        ck2 = segment.csc_segment_sum(g, w, dz, xs, att, DL, R)
+        cp = segment.csc_segment_sum_plain(g, w, dz, xs, att, DL, R)
+        if not all(torch.equal(a, b) for a, b in zip(ck, ck2)):
+            raise AssertionError(f"csc_segment_sum_bf16 {t}: two runs differ")
+        err, o = bf16_grad_check(ck[0], cp[0], f"csc_segment_sum_bf16 {t}")
+        err2, _ = bf16_grad_check(ck[1], cp[1],
+                                  f"csc_segment_sum_bf16 {t} d_att")
+        worst["csc_segment_sum_bf16"] = max(worst["csc_segment_sum_bf16"],
+                                            err, err2)
+        off["csc_segment_sum_bf16"] += o
+        timed("csc_segment_sum_bf16", k,
+              lambda: segment.csc_segment_sum(g, w, dz, xs, att, DL, R),  # noqa: B023
+              lambda: segment.csc_segment_sum_plain(g, w, dz, xs, att, DL,  # noqa: B023
+                                                    R),
+              lambda: segment.csc_segment_sum(g, w, dz, xs32, att, DL, R),  # noqa: B023
+              bf16_bound(nbytes(g, w, dz, xs, att, DL.csc_rows, DL.csc_perm,
+                                DL.csc_offsets, *ck), 4 * d * e))
+        del out, again, want, bk, bk2, bp, ck, ck2, cp
+        # #10 on the merged group's stream ('mp': the SAGE / GCN sums)
+        for wk in (None, DL.sym_e, DL.sym_e.to(torch.bfloat16)):
+            args = (xs, DL.src, DL.row_offsets, wk)
+            got = segment.csr_segment_sum(*args, sched=DL.row_schedule)
+            got2 = segment.csr_segment_sum(*args, sched=DL.row_schedule)
+            want = segment.csr_segment_sum_plain(*args)
+            if not torch.equal(got, got2):
+                raise AssertionError(f"csr_segment_sum_bf16 {t}: two runs "
+                                     "differ")
+            rtrash = np.zeros(L.n_rows_total, dtype=bool)
+            rtrash[cg.num_nodes[t]::n] = True
+            err, o = bf16_rows_check(got, want, rtrash,
+                                     f"csr_segment_sum_bf16 {t}")
+            worst["csr_segment_sum_bf16"] = max(
+                worst["csr_segment_sum_bf16"], err)
+            off["csr_segment_sum_bf16"] += o
+            if wk is None:   # the SAGE sum: layer 1, each group once
+                timed("csr_segment_sum_bf16", 1,
+                      lambda: segment.csr_segment_sum(  # noqa: B023
+                          *args, sched=DL.row_schedule),  # noqa: B023
+                      lambda: segment.csr_segment_sum_plain(*args),  # noqa: B023
+                      lambda: segment.csr_segment_sum(  # noqa: B023
+                          xs32, DL.src, DL.row_offsets, None,
+                          sched=DL.row_schedule),
+                      bf16_bound(nbytes(xs, DL.src, DL.row_offsets, got),
+                                 2 * d * e))
+                lib = sparse_mm_bf16(*args) if lib_ok else None
+                if lib is None:
+                    lib_ok = False
+                else:
+                    rows["csr_segment_sum_bf16"]["library_ms"] += cuda_ms(
+                        lib, 10)
+        del xs, xs32, g
+        torch.cuda.empty_cache()
+    if not lib_ok:
+        rows["csr_segment_sum_bf16"]["library_ms"] = None
+    for name, r in rows.items():
+        r["max_abs_err"] = worst[name]
+        r["floor_ms"] = floors16[name]
+        log(f"  phase 12a {name} [{card}]: {r['ms']:.4f} ms [device "
+            f"{r['device_ms']:.4f}], f32 instance on the same values "
+            f"{r['f32_ms']:.4f} [{r['f32_device_ms']:.4f}]; bound "
+            f"{r['bound_ms']:.4f} ({r['bytes']:.4f} bytes, "
+            f"{r['operations']:.4f} operations), gather floor "
+            f"{r['floor_ms']:.4f}, plain {r['plain_ms']:.4f}"
+            + (f", torch.sparse.mm bf16 {r['library_ms']:.4f}"
+               if r.get("library_ms") else "")
+            + f"; max abs err {worst[name]:.3e}, {off[name]} rows or "
+            f"values off the f32 tolerance (bf16 rounding neighbours)")
+    del dls
+    torch.cuda.empty_cache()
+    log(f"phase 12a ok [{card}]: four bf16 instances against their plain "
+        f"versions at full width, bitwise repeatable; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_bf16_models(kt, data, cg, device, card):
+    """Phase 12b-d: BF16_VARIANTS at full width through KGWAS
+    (initialize_model with the dtype option, no_relu): predict_all with
+    every layer kernel counted from 0 just before (the bf16 instances where
+    the table is bf16; each family's total per path_launches), against the
+    plain ops at BF16_PRED_RTOL / ATOL and bitwise repeatable; KGWAS.train
+    over CMP_STEPS batches, counted; CMP_STEPS steps from one state through
+    the kernels twice (bitwise) and through the plain ops (losses at
+    BF16_LOSS_RTOL, parameters within PARAM_ATOL); forward and step ms with
+    the device's busy share, beside the f32 GAT sum's. Returns ({kernel:
+    launches}, {kernel: worst abs err}, {variant: (fwd ms, step ms, busy
+    fwd, busy step)})."""
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+
+    t_phase = time.perf_counter()
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    batches = [torch.from_numpy(b).to(device) for b in
+               epoch_batches(data_v.train_mask, BATCH, False, None)]
+    launches = dict.fromkeys(BF16_KERNELS, 0)
+    worst = dict.fromkeys(BF16_KERNELS, 0.0)
+    times = {}
+    for name, kw in BF16_VARIANTS.items():
+        t0 = time.perf_counter()
+        low = bool(kw.get("compute_dtype") or kw.get("stream_dtype"))
+        run = kt.KGWAS(data_v, exp_name="chip_smoke_bf16", seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True, **kw)
+        model = run.model
+        init = copy.deepcopy(model.state_dict())
+        run.predict_all()
+        _, x, layouts = run._device_state()
+        y_node, w_node = run._labels(cg)
+        f_eval, _ = path_launches(model, layouts, False)
+        f_train, b_train = path_launches(model, layouts, True)
+        per_step = add_counts((1, f_train), (1, b_train))
+
+        def checked(counts, want, what):
+            fam = family_totals(counts)
+            if fam != want:
+                raise AssertionError(f"{name}: {what} launched {counts}, "
+                                     f"expected the families {want}")
+            bf = {k: counts[k] for k in BF16_KERNELS if counts[k]}
+            if low and not bf or not low and bf:
+                raise AssertionError(f"{name}: {what} launched the bf16 "
+                                     f"instances {bf}")
+            for k in BF16_KERNELS:
+                launches[k] += counts[k]
+            return bf
+
+        all_counts(zero=True)
+        pred = run.predict_all()
+        bf_fwd = checked(all_counts(), add_counts((1, f_eval)),
+                         "predict_all")
+        if pred.shape != (cg.num_nodes["SNP"],) or not np.isfinite(
+                pred).all():
+            raise AssertionError(f"{name}: bad predictions")
+        if not np.array_equal(pred, run.predict_all()):
+            raise AssertionError(f"{name}: two forwards differ")
+        with plain_ops():
+            pred_plain = run.predict_all()
+        np.testing.assert_allclose(pred, pred_plain, rtol=BF16_PRED_RTOL,
+                                   atol=BF16_PRED_ATOL)
+        pred_err = float(np.abs(pred - pred_plain).max())
+
+        all_counts(zero=True)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        steps = len(run.epoch_losses[0])
+        bf_train = checked(all_counts(),
+                           add_counts((steps, per_step), (2, f_eval)),
+                           "KGWAS.train")
+        if steps != CMP_STEPS:
+            raise AssertionError(f"{name}: KGWAS.train took {steps} steps")
+
+        def steps_from_init(ctx):
+            model.load_state_dict(init)
+            opt = build_optimizer(model.parameters(), LR, 5e-4)
+            with ctx:
+                ls = [train_step(model, opt, x, layouts, b, y_node, w_node)
+                      for b in batches]
+            return (torch.stack(ls).cpu().numpy(),
+                    {k: v.detach().clone()
+                     for k, v in model.state_dict().items()})
+
+        loss_k, par_k = steps_from_init(contextlib.nullcontext())
+        loss_k2, par_k2 = steps_from_init(contextlib.nullcontext())
+        if not (np.array_equal(loss_k, loss_k2) and all(
+                torch.equal(par_k[k], par_k2[k]) for k in par_k)):
+            raise AssertionError(f"{name}: two kernel runs differ")
+        loss_p, par_p = steps_from_init(plain_ops())
+        np.testing.assert_allclose(loss_k, loss_p, rtol=BF16_LOSS_RTOL)
+        par_err = max(float((par_k[k].float() - par_p[k].float()).abs().max())
+                      for k in par_k)
+        if par_err > PARAM_ATOL:
+            raise AssertionError(f"{name}: parameters after {CMP_STEPS} "
+                                 f"steps differ by {par_err:.3e}")
+        for k in bf_fwd:
+            worst[k] = max(worst[k], pred_err)
+        del par_k2, par_p
+
+        model.load_state_dict(init)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        fwd_ms = step_times(run.predict_all, n=6)
+        cycle = itertools.cycle(batches)
+        step = lambda: train_step(model, opt, x, layouts,  # noqa: E731
+                                  next(cycle), y_node, w_node)
+        step_ms = step_times(step, n=6)
+        busy_f = profile_device(run.predict_all, fwd_ms, f"{name} forward",
+                                reps=2)
+        busy_s = profile_device(step, step_ms, f"{name} training step",
+                                reps=2)
+        times[name] = (fwd_ms, step_ms, busy_f, busy_s)
+        log(f"  phase 12 {name} [{card}]: bf16 launches per forward "
+            f"{bf_fwd}, in KGWAS.train {bf_train}; predict_all vs plain ops "
+            f"max abs err {pred_err:.3e}, bitwise repeatable; {CMP_STEPS} "
+            f"steps, losses kernel {loss_k.tolist()} plain "
+            f"{loss_p.tolist()}, parameters differ by {par_err:.3e}; forward "
+            f"{fwd_ms:.3f} ms (busy {busy_f:.3f}, idle "
+            f"{1 - busy_f / fwd_ms:.1%}), train step {step_ms:.3f} ms (busy "
+            f"{busy_s:.3f}, idle {1 - busy_s / step_ms:.1%}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del run, model, opt, x, layouts, init, par_k
+        torch.cuda.empty_cache()
+    f32 = times["GAT-sum f32"]
+    log(f"phase 12 ok [{card}]: {len(BF16_VARIANTS)} configurations in "
+        f"{time.perf_counter() - t_phase:.1f} s; GAT-sum forward / step ms: "
+        + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} ({v[0] / f32[0]:.3f}x / "
+                    f"{v[1] / f32[1]:.3f}x f32)"
+                    for k, v in times.items() if k.startswith("GAT-sum"))
+        + f"; bf16 launches {launches}")
+    return launches, worst, times
+
+
+# the quality gate (scripts/exp_stream_gate.py, scripts/exp_bf16_gate.py):
+# their KG, model and training, KGWAS_P of each mode against f32
+GATE_KG = dict(n_snp=4000, n_gene=400, n_go=80)
+GATE_SEED = 7
+GATE_MODES = {"f32": {}, "stream_dtype=bfloat16": dict(stream_dtype="bfloat16"),
+              "compute_dtype=bfloat16": dict(compute_dtype="bfloat16"),
+              "f32 with TF32 matmuls": {}}
+GATE_TOP = 50
+
+
+def phase_gate(kt, card, tmp):
+    """Phase 13: the bf16 quality gate on the card. Each mode trains the
+    gate scripts' model (hidden 64, 2 layers, batch 512, 30 epochs, lr
+    3e-3) on their KG (4,000 SNPs, 400 genes, 80 GO terms, seed 7) and
+    scores KGWAS_P's Spearman correlation and top-50 overlap against the
+    f32 run; TF32 is switched on for its run only and restored. Fails on a
+    crash or a non-finite KGWAS_P only: the scores are findings (the bar,
+    Spearman > 0.95 and overlap >= 0.9, is printed beside them)."""
+    from scipy.stats import spearmanr
+
+    t_phase = time.perf_counter()
+    res = {}
+    for mode, kw in GATE_MODES.items():
+        t0 = time.perf_counter()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = mode.endswith("TF32 matmuls")
+        try:
+            data = kt.KGWAS_Data.from_synthetic(
+                seed=GATE_SEED, data_path=str(
+                    tmp / "gate" / mode.replace(" ", "_").replace("=", "_")),
+                **GATE_KG)
+            data.load_synthetic_gwas(seed=GATE_SEED)
+            data.process_gwas_file()
+            data.prepare_split()
+            run = kt.KGWAS(data, exp_name="gate", seed=GATE_SEED)
+            run.initialize_model(gnn_num_layers=2, gnn_hidden_dim=64, **kw)
+            table = run.train(batch_size=512, epoch=30, lr=3e-3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        p = np.asarray(table["KGWAS_P"], dtype=np.float64)
+        if not np.isfinite(p).all():
+            raise AssertionError(f"gate {mode}: non-finite KGWAS_P")
+        res[mode] = (np.asarray(table["ID"]), p)
+        log(f"  phase 13 {mode}: trained in {time.perf_counter() - t0:.1f} "
+            f"s, val pearson {run.train_history[-1]['val_pearsonr']:.4f}")
+    ids, p32 = res["f32"]
+    top32 = set(ids[np.argsort(p32, kind="stable")[:GATE_TOP]])
+    for mode, (ids_m, p) in res.items():
+        if mode == "f32":
+            continue
+        if not np.array_equal(ids_m, ids):
+            raise AssertionError(f"gate {mode}: another SNP order")
+        rho = float(spearmanr(p32, p).statistic)
+        top = set(ids[np.argsort(p, kind="stable")[:GATE_TOP]])
+        overlap = len(top & top32) / GATE_TOP
+        verdict = "PASS" if rho > 0.95 and overlap >= 0.9 else "FAIL"
+        log(f"phase 13 gate [{card}]: {mode} against f32: Spearman "
+            f"{rho:.4f}, top-{GATE_TOP} overlap {overlap:.2f} (bar > 0.95 "
+            f"and >= 0.9: {verdict})")
+    log(f"phase 13 ok [{card}]: {len(GATE_MODES)} runs, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3848,6 +4415,8 @@ def main():
     layouts = build_merged_layouts(cg, tile_rows=TILE_ROWS)
     rates = phase_probe(build, layouts, cg, device, card)
     floors = gather_floors(cg, layouts, rates)
+    rates16 = phase_probe(build, layouts, cg, device, card, bf16=True)
+    floors16 = gather_floors_bf16(layouts, rates16, rates)
     del layouts
 
     # ---- phase 2: kernel vs plain on the card, small KG
@@ -3877,6 +4446,12 @@ def main():
     # ---- phase 10: the other model options (heads, dropout, ...), full width
     model_launches, model_worst, _ = phase_models(kt, data, cg, device, card,
                                                   floors)
+
+    # ---- phases 12 and 13: the bf16 dtypes at full width, the quality gate
+    bf16_rows = phase_bf16_kernels(kt, cg, device, card, floors16)
+    bf16_launches, bf16_worst, _ = phase_bf16_models(kt, data, cg, device,
+                                                     card)
+    phase_gate(kt, card, tmp)
 
     # ---- phase 11 (a), (b), (e): long runs and streamed features, full width
     long_launches = add_counts(
@@ -3918,6 +4493,25 @@ def main():
                             + long_launches.get(row["name"], 0))
         row["max_abs_err"] = max(row["max_abs_err"],
                                  model_worst.get(row["name"], 0.0))
+    for name in BF16_KERNELS:   # phase 12's
+        r = bf16_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": BF16_SOURCE[name],
+            "replaces": BF16_REPLACES[name],
+            "launches": bf16_launches[name],
+            "max_abs_err": max(r["max_abs_err"], bf16_worst[name]),
+            "ms": r["ms"],
+            "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if r["bytes"] >= r["operations"]
+                         else "operations"),
+            "library_ms": r.get("library_ms"),
+            "gather_floor_ms": r["floor_ms"],
+            "f32_ms": r["f32_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

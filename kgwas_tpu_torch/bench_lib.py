@@ -27,9 +27,10 @@ only a test asks for, on ``perf_counter``).
 Environment variables (the JAX module's): BENCH_N_SNP, BENCH_N_GENE,
 BENCH_N_GO, BENCH_AVG_DEGREE, BENCH_HIDDEN, BENCH_LAYERS, BENCH_BATCH,
 BENCH_STEPS, BENCH_HEADS (GAT heads, each a merged GAT launch per group
-and layer). Not ported, and raising NotImplementedError: BENCH_DTYPE
-other than float32 and BENCH_STREAM_DTYPE (ROADMAP.md Queue 1 item 7),
-BENCH_SCAN > 1 (item 4: the CUDA graph of the step is the port's
+and layer), BENCH_DTYPE (the compute dtype, float32 or bfloat16) and
+BENCH_STREAM_DTYPE (the stream dtype), both reported in the JSON line's
+config. Not ported, and raising NotImplementedError: BENCH_SCAN > 1
+(ROADMAP.md Queue 1 item 4: the CUDA graph of the step is the port's
 counterpart of dispatching many steps at once). The
 TPU execution variables BENCH_PALLAS, BENCH_GATHER_CHUNK,
 BENCH_BWD_WINDOW, BENCH_MM_PRECISION, BENCH_REL_FOLD and BENCH_NODE_PAD
@@ -59,18 +60,18 @@ NODE_PAD = 512
 
 def _unported():
     """Raises NotImplementedError for the JAX module's options the port
-    does not run yet, naming their ROADMAP items."""
-    dtype = os.environ.get("BENCH_DTYPE", "float32")
-    if dtype != "float32" or os.environ.get("BENCH_STREAM_DTYPE"):
-        raise NotImplementedError(
-            "BENCH_DTYPE other than float32 and BENCH_STREAM_DTYPE are not "
-            "ported yet: ROADMAP.md Queue 1 item 7 (giant features and "
-            "dtypes)")
+    does not run yet (BENCH_SCAN > 1), naming their ROADMAP items."""
     if int(os.environ.get("BENCH_SCAN", "0")) > 1:
         raise NotImplementedError(
             "BENCH_SCAN > 1 is not ported yet: ROADMAP.md Queue 1 item 4 "
             "(the CUDA graph of the step)")
-    return dtype
+
+
+def _dtypes():
+    """(compute dtype, stream dtype or None) from BENCH_DTYPE and
+    BENCH_STREAM_DTYPE, as the JAX module reads them."""
+    return (os.environ.get("BENCH_DTYPE", "float32"),
+            os.environ.get("BENCH_STREAM_DTYPE") or None)
 
 
 def _timer(device):
@@ -94,7 +95,8 @@ def main(device: Optional[str] = None):
     from .kgwas import resolve_device
     from .models import HeteroGNN, device_layouts
 
-    dtype = _unported()
+    _unported()
+    dtype, stream_dtype = _dtypes()
     n_snp = int(os.environ.get("BENCH_N_SNP", 200_000))
     n_gene = int(os.environ.get("BENCH_N_GENE", 20_000))
     n_go = int(os.environ.get("BENCH_N_GO", 12_000))
@@ -120,7 +122,8 @@ def main(device: Optional[str] = None):
     cg = compile_graph(g, edge_pad_multiple=EDGE_PAD,
                        node_pad_multiple=NODE_PAD)
     cfg = ModelConfig(gnn_hidden_dim=hidden, gnn_num_layers=layers,
-                      gat_num_head=heads, gnn_backbone="GAT")
+                      gat_num_head=heads, gnn_backbone="GAT",
+                      compute_dtype=dtype, stream_dtype=stream_dtype)
     rel_types = {k: (r.src_type, r.rel, r.dst_type)
                  for k, r in cg.relations.items()}
     model = HeteroGNN(cfg, rel_types, 20, 128, 128, seed=0).to(device)
@@ -172,7 +175,8 @@ def main(device: Optional[str] = None):
             "n_snp": n_snp,
             "edges": real_edges,
             "layers": layers,
-            "dtype": dtype,
+            "dtype": (dtype if stream_dtype is None
+                      else f"{dtype},stream={stream_dtype}"),
             "scan": int(os.environ.get("BENCH_SCAN", "0")),
             "step_ms": round(dt / steps * 1e3, 2),
         },

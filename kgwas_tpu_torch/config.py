@@ -1,15 +1,34 @@
-"""Model configuration of the port.
+"""Model and training configuration of the port.
 
-Counterpart of ``kgwas_tpu/config.py``'s ``ModelConfig``, holding the
-model-semantic fields that a KGWAS checkpoint persists (``config.pkl``) and
-``remat``, which it does not persist. The TPU execution knobs of the JAX
-package have no counterpart here.
+Counterpart of ``kgwas_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
+``save_config`` and ``load_config``. ``ModelConfig`` holds the
+model-semantic fields that a KGWAS checkpoint persists (``config.pkl``),
+``remat`` and the dtype options, which it does not persist:
+
+  * ``param_dtype``: the dtype the parameters are created and kept in (the
+    optimizer's moments follow it);
+  * ``compute_dtype``: the features, the parameters and the streamed
+    first-layer pre-activations are cast to it at the start of a forward
+    (inside autograd: the gradients reach the ``param_dtype`` leaves);
+  * ``stream_dtype``: the dtype of the merged GAT layer's message table and
+    of the per-relation sigmoid GAT's messages (None: the compute dtype);
+  * ``stream_f32_logits``: with ``stream_dtype``, the per-relation sigmoid
+    GAT's logits read the unrounded table.
+
+Each dtype is "float32" or "bfloat16" (the JAX CLI's choices); f32 is the
+default everywhere. The TPU execution knobs of the JAX package
+(``use_pallas``, ``matmul_precision``, ...) have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional
+
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -29,9 +48,72 @@ class ModelConfig:
     edge_dim: Optional[int] = None
     # 'ATT' | 'MSG' | None: parameters created and never read (reference)
     pheno_condition: Optional[str] = None
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    stream_dtype: Optional[str] = None   # None: the compute dtype
+    stream_f32_logits: bool = False
     remat: bool = False        # recompute each layer in the backward
+
+    def __post_init__(self):
+        for k in ("param_dtype", "compute_dtype", "stream_dtype"):
+            v = getattr(self, k)
+            if not (v in DTYPES or (k == "stream_dtype" and v is None)):
+                raise ValueError(f"{k} must be one of {DTYPES}, got {v!r}")
+        # KGWAS_STREAM_F32_LOGITS predates the stream_f32_logits field: it
+        # is honoured, with a warning toward the field
+        env = os.environ.get("KGWAS_STREAM_F32_LOGITS")
+        if env is not None and not self.stream_f32_logits:
+            warnings.warn(
+                "KGWAS_STREAM_F32_LOGITS env var is deprecated; set "
+                "ModelConfig(stream_f32_logits=True) instead "
+                "(env value honored this run)",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            object.__setattr__(self, "stream_f32_logits", env == "1")
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d):
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference KGWAS.train kwargs)."""
+
+    batch_size: int = 512
+    lr: float = 1e-4
+    weight_decay: float = 5e-4   # torch-Adam coupled L2 (not AdamW)
+    epoch: int = 10
+    save_best_model: bool = True
+    shuffle: bool = False
+    eval_batch_size: int = 512
+    full_batch: bool = False     # one step per epoch over all train SNPs
+    data_parallel_devices: int = 1
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d):
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def save_config(path: str, model_cfg: ModelConfig,
+                extra: Optional[dict] = None):
+    """config.json: {"model": model_cfg.to_dict(), **extra}."""
+    payload = {"model": model_cfg.to_dict()}
+    if extra:
+        payload.update(extra)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, default=str)
+
+
+def load_config(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)

@@ -12,6 +12,14 @@ port's state_dict ([out, in] weights, att [1, H, C], reference
 ``lin``, ``bias``; SGC ``lin``). ``load_pretrained_torch`` reads a reference
 ``model.pt`` of any backbone, which loads straight into ``HeteroGNN``.
 
+bf16 parameters (``param_dtype="bfloat16"``) carry both ways as their
+16 bits: numpy has no bf16 of its own, and an ``np.savez`` of the JAX
+package's bf16 arrays reloads as raw 2-byte ``|V2`` values where no bf16
+dtype is registered, so a bf16 leaf goes numpy ``uint16`` <-> torch
+``int16`` <-> ``.view(torch.bfloat16)``, never through a float conversion.
+``params_to_jax`` gives numpy's registered ``bfloat16`` dtype where there
+is one (the JAX package's ``ml_dtypes``), else ``|V2``.
+
 The train state of a long run (the counterpart of the JAX package's orbax
 ``save_train_state_async`` / ``restore_train_state`` /
 ``latest_train_state``) is the port's own ``torch.save`` file
@@ -78,10 +86,34 @@ def _listify(node):
     return node
 
 
+def _bf16_np() -> np.dtype:
+    """numpy's bfloat16 dtype where one is registered, else raw |V2."""
+    try:
+        return np.dtype("bfloat16")
+    except TypeError:
+        return np.dtype("V2")
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    """A numpy bf16 array: the registered dtype or its raw |V2 bytes."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
 def _np(v):
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).numpy().view(np.uint16).view(
+                _bf16_np()).copy()
+        v = v.numpy()
     return np.array(v, copy=True)
+
+
+def _torch(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if _is_bf16(a):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(params) -> Dict[str, torch.Tensor]:
@@ -113,7 +145,7 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
                     raise KeyError(f"unmapped conv param {rk}/{k}")
     sd["lin.weight"] = _np(params["lin"]["w"]).T
     sd["lin.bias"] = _np(params["lin"]["b"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return {k: _torch(v) for k, v in sd.items()}
 
 
 def params_to_jax(state_dict) -> dict:

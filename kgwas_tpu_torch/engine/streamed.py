@@ -38,11 +38,14 @@ def compute_h1(model, x_host: Dict[str, np.ndarray], padded_nodes,
                col_chunk: int = COL_CHUNK) -> Dict[str, torch.Tensor]:
     """Streamed first-layer pre-activations of each streamed type, padded
     to N_pad with bias rows (zero features give fc1's bias, as the in-device
-    pad rows do); differentiable in the encoders' first layers."""
+    pad rows do); differentiable in the encoders' first layers. float32
+    (bf16 parameters promoted, as the JAX package's host product promotes
+    them); the model casts them to the compute dtype, as h1_override."""
     out = {}
     for t, xh in x_host.items():
         fc1 = getattr(model, encoder_for(t)).FC_hidden
-        out[t] = StreamedLinear.apply(fc1.weight, fc1.bias, xh,
+        out[t] = StreamedLinear.apply(fc1.weight.to(torch.float32),
+                                      fc1.bias.to(torch.float32), xh,
                                       padded_nodes[t], col_chunk)
     return out
 

@@ -32,6 +32,7 @@ from .engine.optim import build_optimizer
 from .engine.profiling import ThroughputMeter, profile_trace
 from .engine.streamed import strip_streamed_features, train_step_streamed
 from .graph.merged_layout import build_merged_layouts
+from .models.convs import SOFTMAX_BF16
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
                                  layer_paths)
 from .stats.calibration import finalize_predictions
@@ -46,10 +47,13 @@ _SEMANTIC_KEYS = ("negative_slope", "dropout", "sigmoid_gat", "temperature",
 _TPU_KNOBS = ("use_pallas", "pallas_mode", "rel_fold", "matmul_precision",
               "gather_chunk_rows", "bwd_window_edges", "pad_fragments",
               "layout_operands")
-# the JAX package's dtype options, with the default that the port runs
-_DTYPE_DEFAULTS = {"param_dtype": "float32", "compute_dtype": "float32",
-                   "stream_dtype": None, "stream_f32_logits": False}
-_DTYPES = "ROADMAP.md Queue 1 item 7 (the bf16 dtypes)"
+# the dtype options (config.py): model options that are not persisted, as
+# the JAX package persists only the model-semantic keys. A bf16 compute or
+# stream dtype on the per-relation softmax GAT raises (check_supported:
+# ROADMAP.md Queue 1 item 7, the remainder)
+_DTYPE_KEYS = ("param_dtype", "compute_dtype", "stream_dtype",
+               "stream_f32_logits")
+_DTYPES = SOFTMAX_BF16
 _MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
 
 
@@ -114,18 +118,17 @@ class KGWAS:
         as in the JAX package. kwargs: the other model-semantic config keys
         (negative_slope, temperature, sigmoid_gat, out_channels, dropout,
         edge_dim, pheno_condition), persisted in config as the JAX package
-        persists them; remat (not persisted); the dtype options only at
-        their defaults; the JAX package's TPU execution knobs
-        (_TPU_KNOBS), ignored."""
+        persists them; remat and the dtype options (param_dtype,
+        compute_dtype, stream_dtype, stream_f32_logits: config.py; not
+        persisted); the JAX package's TPU execution knobs (_TPU_KNOBS),
+        ignored. A bf16 compute or stream dtype raises on the per-relation
+        softmax GAT (GAT max / min, edge_dim, dropout)."""
         unknown = (set(kwargs) - set(_SEMANTIC_KEYS) - set(_TPU_KNOBS)
-                   - set(_DTYPE_DEFAULTS) - {"remat"})
+                   - set(_DTYPE_KEYS) - {"remat"})
         if unknown:
             raise TypeError(f"unknown model options {sorted(unknown)}")
         remat = bool(kwargs.pop("remat", False))
-        for k, default in _DTYPE_DEFAULTS.items():
-            if kwargs.pop(k, default) != default:
-                raise NotImplementedError(
-                    f"{k} other than {default!r} is not ported yet: {_DTYPES}")
+        dtypes = {k: kwargs.pop(k) for k in _DTYPE_KEYS if k in kwargs}
         self.stream_features = list(stream_features or [])
         for k in _TPU_KNOBS:
             kwargs.pop(k, None)
@@ -139,7 +142,7 @@ class KGWAS:
             **kwargs,
         }
         self.model_cfg = ModelConfig.from_dict({**self.config,
-                                                "remat": remat})
+                                                "remat": remat, **dtypes})
         check_supported(self.model_cfg)
         cg = self.data.compile()
         self.layouts = build_merged_layouts(cg, tile_rows=TILE_ROWS)

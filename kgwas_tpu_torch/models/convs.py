@@ -24,6 +24,15 @@ with max or min per relation (``sage_relation``, ``gcn_relation``,
 ``sgc_relation``). The GAT layer runs merged for sum and mean and per
 relation (``gat_relation``) for max and min, with ``edge_dim``, and in
 training with dropout, as the JAX package routes them.
+
+Each layer function takes the compute dtype ``cdt`` (``models/precision.
+py``): the parameters in that dtype, each product in its operands'
+promoted dtype. A relation's segment sum (#10) returns float32; SAGE, GCN
+and SGC round it back to their messages' dtype, as the JAX package's
+segment sums return their data's dtype there, and the sigmoid GAT keeps
+it, as the JAX package's Pallas sum does. The per-relation softmax GAT
+(#6, #7) takes float32 only: a bf16 compute or stream dtype there raises
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -34,6 +43,10 @@ from ..ops.segment import CSRSegmentSum
 from ..ops.segment_ref import gather_rows, leaky_relu
 from ..ops.segment_softmax import SegmentSoftmaxSpmm
 from .init import glorot_att, glorot_weight, torch_linear_bias, torch_linear_weight
+from .precision import linear, matmul
+
+SOFTMAX_BF16 = ("the per-relation softmax GAT (kernels #6 and #7) in bf16 is "
+                "not ported yet: ROADMAP.md Queue 1 item 7 (the bf16 dtypes)")
 
 
 def _linear(in_dim, out, weight, bias=None):
@@ -159,19 +172,21 @@ class EdgeLogits(torch.autograd.Function):
         return d_src, d_dst, None
 
 
-def edge_logits(conv: GATConv, edge_attr, n_edges: int):
+def edge_logits(conv: GATConv, edge_attr, n_edges: int, cdt=torch.float32):
     """The edge-feature term of the logits [E, H] (reference
     conv.py:207-215): (edge_attr @ lin_edge) . att_edge per head, or None
     without edge_attr or lin_edge. Dim-1 attributes may come as [E]."""
     if edge_attr is None or conv.lin_edge is None:
         return None
-    ea = conv.lin_edge(edge_attr.reshape(n_edges, -1))
-    return (ea.reshape(n_edges, conv.heads, -1) * conv.att_edge[0]).sum(-1)
+    ea = linear(edge_attr.reshape(n_edges, -1), conv.lin_edge, cdt)
+    return (ea.reshape(n_edges, conv.heads, -1)
+            * conv.att_edge[0].to(cdt)).sum(-1)
 
 
 def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
                  temperature: float, mode: str = "softmax", keep=None,
-                 edge_attr=None):
+                 edge_attr=None, cdt=torch.float32, sdt=None,
+                 f32_logits=False):
     """One relation's GAT layer, one pass per head: the head's projections
     (each its own contiguous [N, C] product), the per-edge logits
     leaky_relu(a_src[src] + a_dst[dst] (+ the edge_attr term)) / temperature
@@ -186,20 +201,31 @@ def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
 
     keep: the dropout's per-edge, per-head multiplier [E, H] (keep_e / (1 -
     p)) applied after the softmax or sigmoid, or None. edge_attr: the
-    relation's edge features [E, edge_dim] (or [E]), or None."""
+    relation's edge features [E, edge_dim] (or [E]), or None. cdt: the
+    compute dtype; sdt: the stream dtype the messages are rounded to (the
+    sigmoid mode; None: none), and the logits with them unless
+    f32_logits (apply_gat's stream_dtype and stream_f32_logits)."""
+    if mode == "softmax" and (cdt != torch.float32
+                              or sdt not in (None, torch.float32)):
+        raise NotImplementedError(SOFTMAX_BF16)
     n_edges = layout.src.shape[0]
-    e_term = edge_logits(conv, edge_attr, n_edges)
+    e_term = edge_logits(conv, edge_attr, n_edges, cdt)
     if mode == "sigmoid":
         valid = (torch.arange(n_edges, device=layout.src.device)
                  < layout.rel_num_edges[0])
     outs = []
     for h in range(conv.heads):
-        xs = h_src @ conv.head_rows(conv.lin_src.weight, h).T
+        xs = matmul(h_src, conv.head_rows(conv.lin_src.weight, h).T, cdt)
         # homogeneous relations: lin_src projects the destination end too
-        xd = xs if conv.lin_dst is None else (
-            h_dst @ conv.head_rows(conv.lin_dst.weight, h).T)
-        a_src = (xs * conv.att_src[0, h]).sum(-1)
-        a_dst = (xd * conv.att_dst[0, h]).sum(-1)
+        xd = xs if conv.lin_dst is None else matmul(
+            h_dst, conv.head_rows(conv.lin_dst.weight, h).T, cdt)
+        xs_logit = xs
+        if sdt is not None:
+            xs = xs.to(sdt)
+            if not f32_logits:
+                xs_logit = xs
+        a_src = (xs_logit * conv.att_src[0, h].to(cdt)).sum(-1)
+        a_dst = (xd * conv.att_dst[0, h].to(cdt)).sum(-1)
         z = EdgeLogits.apply(a_src, a_dst, layout)
         if e_term is not None:
             z = z + e_term[:, h]
@@ -212,26 +238,29 @@ def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
         else:
             outs.append(SegmentSoftmaxSpmm.apply(xs, logits, layout, mult))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
-    return out + conv.bias
+    return out + conv.bias.to(cdt)
 
 
-def sage_relation(conv: SAGEConv, h_src, h_dst, layout):
+def sage_relation(conv: SAGEConv, h_src, h_dst, layout, cdt=torch.float32):
     """One relation's SAGE layer (apply_sage): the CSR segment sum (#10;
     backward #8) of the source rows over the relation's stream, times
     1/deg over its real edges (layout.inv_deg), then lin_l + lin_r(h_dst)."""
     summed = CSRSegmentSum.apply(h_src, None, layout) * layout.inv_deg[:, None]
-    return conv.lin_l(summed) + conv.lin_r(h_dst)
+    return (linear(summed.to(h_src.dtype), conv.lin_l, cdt)
+            + linear(h_dst, conv.lin_r, cdt))
 
 
-def gcn_relation(conv: GCNConv, h_src, layout):
+def gcn_relation(conv: GCNConv, h_src, layout, cdt=torch.float32):
     """One relation's GCN layer (apply_gcn): lin(h_src) summed with the
     symmetric norm of the relation's real edges (layout.sym_e, 0 on pad
-    edges), plus bias."""
-    xp = h_src @ conv.lin.weight.T
-    return CSRSegmentSum.apply(xp, layout.sym_e, layout) + conv.bias
+    edges; in the messages' dtype), plus bias."""
+    xp = matmul(h_src, conv.lin.weight.T, cdt)
+    summed = CSRSegmentSum.apply(xp, layout.sym_e.to(xp.dtype), layout)
+    return summed.to(xp.dtype) + conv.bias.to(cdt)
 
 
-def sgc_relation(conv: SGConv, h_src, layout):
+def sgc_relation(conv: SGConv, h_src, layout, cdt=torch.float32):
     """One relation's SGC layer (apply_sgc, K=1): lin of the symmetric-
     normalised sum of the source rows."""
-    return conv.lin(CSRSegmentSum.apply(h_src, layout.sym_e, layout))
+    summed = CSRSegmentSum.apply(h_src, layout.sym_e.to(h_src.dtype), layout)
+    return linear(summed.to(h_src.dtype), conv.lin, cdt)

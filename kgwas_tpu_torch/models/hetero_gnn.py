@@ -31,7 +31,17 @@ Counterpart of ``kgwas_tpu/models/hetero_gnn.py`` (``init_hetero_gnn``,
      H > 1). With ``remat`` each layer runs under
      ``torch.utils.checkpoint`` (``jax.checkpoint``'s counterpart), its
      dropout masks drawn before it.
-  3. the scalar head ReLU(Linear(h_SNP)) (or no ReLU)
+  3. the scalar head ReLU(Linear(h_SNP)) (or no ReLU), in float32
+
+The dtype options (``config.py``): the parameters are created in
+``param_dtype``; a forward casts the features, the parameters and
+``h1_override`` to ``compute_dtype`` (``models/precision.py``: each product
+in its operands' promoted dtype, as the JAX package's arrays promote), and
+the merged GAT layer's message table goes to the kernels in
+``stream_dtype`` (else the compute dtype) while ``att`` and ``a_dst`` go in
+float32; the layer output is cast back to the table's dtype before the
+biases (``apply_merged_gat_layer``). The per-relation softmax GAT takes no
+bf16 compute or stream dtype yet (``check_supported``).
 
 ``HeteroGNN.collect_attention`` is the interpretation forward (the JAX
 package's ``apply_collect_attention``): every destination group of every
@@ -61,10 +71,11 @@ from ..ops.segment_ref import leaky_relu
 from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
                             row_schedule)
 from ..ops.segment import CSRSegmentSum, csc_fields
-from .convs import (gat_relation, gcn_relation, make_conv, sage_relation,
-                    sgc_relation)
+from .convs import (SOFTMAX_BF16, gat_relation, gcn_relation, make_conv,
+                    sage_relation, sgc_relation)
 from .init import torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
+from .precision import linear, matmul, torch_dtype
 
 BACKBONES = ("GAT", "SAGE", "GCN", "SGC")
 AGGRS = ("sum", "mean", "max", "min")
@@ -81,10 +92,18 @@ def encoder_for(ntype: str) -> str:
 
 
 def check_supported(cfg: ModelConfig):
+    """Raises on what the port does not run: an unknown backbone or
+    aggregation, and a bf16 compute or stream dtype on the per-relation
+    softmax GAT (GAT max / min, edge_dim, training with dropout)."""
     if cfg.gnn_backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {cfg.gnn_backbone!r}")
     if cfg.gnn_aggr not in AGGRS:
         raise ValueError(f"unknown hetero aggr {cfg.gnn_aggr!r}")
+    if (cfg.gnn_backbone == "GAT" and not cfg.sigmoid_gat
+            and "relations" in layer_paths(cfg)
+            and (cfg.compute_dtype != "float32"
+                 or cfg.stream_dtype not in (None, "float32"))):
+        raise NotImplementedError(SOFTMAX_BF16)
 
 
 def layer_path(cfg: ModelConfig, training: bool = False) -> str:
@@ -335,10 +354,24 @@ class HeteroGNN(nn.Module):
                                                       cfg.out_channels))
             self.lin.bias.copy_(torch_linear_bias(gen, head_in,
                                                   cfg.out_channels))
+        # drawn in float32 from the generator, then kept in param_dtype
+        self.to(torch_dtype(cfg.param_dtype))
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.compute_dtype)
+
+    @property
+    def stream_dtype(self) -> Optional[torch.dtype]:
+        """The merged GAT table's dtype when it differs from the compute
+        dtype, else None."""
+        sdt = torch_dtype(self.cfg.stream_dtype)
+        return None if sdt in (None, self.compute_dtype) else sdt
 
     def merged_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
                      layouts: Dict[str, DeviceLayout], mode=None,
-                     alphas: Optional[dict] = None):
+                     alphas: Optional[dict] = None, cdt=torch.float32,
+                     sdt=None):
         """One hetero GAT layer, per head one kernel launch per destination
         group (the JAX package's loop over heads in apply_merged_gat_layer:
         each head's slice of lin_src and lin_dst @ att_dst, at D = hidden),
@@ -350,7 +383,11 @@ class HeteroGNN(nn.Module):
         takes relation_layer) it writes each slot's rows (fold 0), and each
         relation's bias is added before the max or min. alphas: a dict that
         receives each relation's per-edge weight [E, H] over its real
-        edges, in the relation's own order."""
+        edges, in the relation's own order. cdt: the compute dtype; sdt: the
+        table's stream dtype (None: the compute dtype); the interpretation
+        passes float32 and rounds the table's values instead (its raw
+        weights multiply the messages in float32, as the JAX package's
+        per-relation collect path does)."""
         cfg = self.cfg
         if mode is None:
             mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
@@ -362,40 +399,47 @@ class HeteroGNN(nn.Module):
             fold = n_rel if cfg.gnn_aggr in ("sum", "mean") else 0
             heads, head_alphas = [], []
             for hh in range(n_heads):
-                att = torch.stack([c.att_src[0, hh] for c in convs])  # [R, D]
+                att = torch.stack([c.att_src[0, hh].to(cdt)
+                                   for c in convs])                 # [R, D]
                 # a_dst = (h @ W_dst) . att_dst == h @ (W_dst^T att_dst):
                 # one [N, D] x [D, R] product instead of R projections
-                v = torch.stack([c.att_dst[0, hh] @ c.head_rows(
-                    c.dst_weight(), hh) for c in convs], dim=1)
-                a_dst_all = (h[dst_t] @ v).T.reshape(-1)
+                v = torch.stack([c.att_dst[0, hh].to(cdt) @ c.head_rows(
+                    c.dst_weight(), hh).to(cdt) for c in convs], dim=1)
+                a_dst_all = matmul(h[dst_t], v, cdt).T.reshape(-1)
                 xs_all = torch.cat([
-                    h[L.src_types[s]] @ convs[s].head_rows(
-                        convs[s].lin_src.weight, hh).T
+                    matmul(h[L.src_types[s]], convs[s].head_rows(
+                        convs[s].lin_src.weight, hh).T, cdt)
                     for s in range(n_rel)])
+                out_dtype = xs_all.dtype
+                att = att.to(torch.float32)
+                a_dst_all = a_dst_all.to(torch.float32)
                 if alphas is not None:
+                    if cfg.stream_dtype is not None:
+                        xs_all = xs_all.to(torch_dtype(
+                            cfg.stream_dtype)).to(xs_all.dtype)
                     head_alphas.append(self.edge_weights(L, xs_all, att,
                                                          a_dst_all, mode))
                 heads.append(MergedGATLayer.apply(
                     xs_all, att.contiguous(), a_dst_all.contiguous(), L,
-                    fold, mode, cfg.negative_slope, cfg.temperature))
+                    fold, mode, cfg.negative_slope, cfg.temperature, sdt))
             if alphas is not None:
                 alphas.update({rk: torch.stack([a[rk] for a in head_alphas],
                                                dim=1) for rk in L.rel_keys})
             if not fold:
                 rel = torch.cat([a.reshape(n_rel, L.n_rows_per_rel, -1)
-                                 for a in heads], dim=-1)
-                out[dst_t] = aggregate([rel[r] + c.bias
+                                 for a in heads], dim=-1).to(out_dtype)
+                out[dst_t] = aggregate([rel[r] + c.bias.to(cdt)
                                         for r, c in enumerate(convs)],
                                        cfg.gnn_aggr)
                 continue
             agg = heads[0] if n_heads == 1 else torch.cat(heads, dim=-1)
-            bias = convs[0].bias
+            bias = convs[0].bias.to(cdt)
             for c in convs[1:]:
-                bias = bias + c.bias
+                bias = bias + c.bias.to(cdt)
             if cfg.gnn_aggr == "mean":
                 agg = agg / n_rel
                 bias = bias / n_rel
-            out[dst_t] = agg + bias
+            out[dst_t] = agg.to(out_dtype) + bias
         return out
 
     def edge_weights(self, L: DeviceLayout, xs_all, att, a_dst_all, mode):
@@ -433,6 +477,7 @@ class HeteroGNN(nn.Module):
         cfg = self.cfg
         bb = cfg.gnn_backbone
         mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
+        cdt = self.compute_dtype
         out = {}
         for dst_t, L in layouts.items():
             if L.relations is None:
@@ -447,13 +492,16 @@ class HeteroGNN(nn.Module):
                         conv, h_src, h[dst_t], RL, cfg.negative_slope,
                         cfg.temperature, mode,
                         None if keep is None else keep[rk],
-                        None if edge_attr is None else edge_attr.get(rk)))
+                        None if edge_attr is None else edge_attr.get(rk),
+                        cdt, torch_dtype(cfg.stream_dtype),
+                        cfg.stream_f32_logits))
                 elif bb == "SAGE":
-                    outs.append(sage_relation(conv, h_src, h[dst_t], RL))
+                    outs.append(sage_relation(conv, h_src, h[dst_t], RL,
+                                              cdt))
                 elif bb == "GCN":
-                    outs.append(gcn_relation(conv, h_src, RL))
+                    outs.append(gcn_relation(conv, h_src, RL, cdt))
                 else:
-                    outs.append(sgc_relation(conv, h_src, RL))
+                    outs.append(sgc_relation(conv, h_src, RL, cdt))
             out[dst_t] = aggregate(outs, cfg.gnn_aggr)
         return out
 
@@ -464,6 +512,7 @@ class HeteroGNN(nn.Module):
         package's apply_merged_mp_layer)."""
         cfg = self.cfg
         bb = cfg.gnn_backbone
+        cdt = self.compute_dtype
         out = {}
         for dst_t, L in layouts.items():
             if L.inv_deg is None:
@@ -473,7 +522,7 @@ class HeteroGNN(nn.Module):
             convs = [layer.convs[rk] for rk in L.rel_keys]
             if bb == "GCN":
                 # GCN projects before the aggregation: one table per slot
-                xs_all = torch.cat([h[t] @ c.lin.weight.T
+                xs_all = torch.cat([matmul(h[t], c.lin.weight.T, cdt)
                                     for t, c in zip(L.src_types, convs)])
             else:
                 # SAGE and SGC aggregate the hidden rows themselves
@@ -483,13 +532,16 @@ class HeteroGNN(nn.Module):
             if bb == "SAGE":
                 summed = summed * L.inv_deg[:, None]                # mean
             rel = summed.reshape(len(convs), L.n_rows_per_rel, -1)
+            # the f32 sum promotes what follows, as in the JAX package
             if bb == "SAGE":
-                outs = [c.lin_l(rel[r]) + c.lin_r(h[dst_t])
+                outs = [linear(rel[r], c.lin_l, cdt)
+                        + linear(h[dst_t], c.lin_r, cdt)
                         for r, c in enumerate(convs)]
             elif bb == "GCN":
-                outs = [rel[r] + c.bias for r, c in enumerate(convs)]
+                outs = [rel[r] + c.bias.to(cdt) for r, c in enumerate(convs)]
             else:
-                outs = [c.lin(rel[r]) for r, c in enumerate(convs)]
+                outs = [linear(rel[r], c.lin, cdt)
+                        for r, c in enumerate(convs)]
             out[dst_t] = aggregate(outs, cfg.gnn_aggr)
         return out
 
@@ -501,7 +553,8 @@ class HeteroGNN(nn.Module):
         ReLU on every destination type."""
         path = layer_path(self.cfg, training)
         if path == "merged":
-            out = self.merged_layer(layer, h, layouts)
+            out = self.merged_layer(layer, h, layouts, cdt=self.compute_dtype,
+                                    sdt=self.stream_dtype)
         elif path == "relations":
             out = self.relation_layer(layer, h, layouts, keep, edge_attr)
         else:
@@ -553,7 +606,9 @@ class HeteroGNN(nn.Module):
         Returns, per layer, relkey -> the weight of each real edge and head
         [E, H] in the relation's own order (edge_weights), the keys in
         sorted order. SAGE, GCN and SGC have no attention: one empty dict
-        per layer, as the JAX package returns."""
+        per layer, as the JAX package returns. No compute cast, as in
+        apply_collect_attention: it runs in float32 (bf16 parameters
+        promoted), the stream dtype rounding the table's values."""
         cfg = self.cfg
         if cfg.gnn_backbone != "GAT":
             return [{} for _ in self.convs]
@@ -591,12 +646,16 @@ class HeteroGNN(nn.Module):
         engine/streamed.py); those types run only the encoder's tail.
         With remat each layer runs under torch.utils.checkpoint when
         gradients are on (its recompute launches the forward kernels
-        again)."""
+        again). The features, the parameters and h1_override are cast to
+        the compute dtype; the prediction is float32."""
         cfg = self.cfg
+        cdt = self.compute_dtype
         groups, encoded = self.live_groups(layouts)
         h1_override = h1_override or {}
-        h = {t: (getattr(self, encoder_for(t)).tail(h1_override[t])
-                 if t in h1_override else getattr(self, encoder_for(t))(xt))
+        h = {t: (getattr(self, encoder_for(t)).tail(h1_override[t].to(cdt),
+                                                    cdt)
+                 if t in h1_override
+                 else getattr(self, encoder_for(t))(xt.to(cdt), cdt))
              for t, xt in x.items() if t in encoded}
         drop = (training and dropout_gen is not None and cfg.dropout > 0.0
                 and cfg.gnn_backbone == "GAT"
@@ -612,5 +671,6 @@ class HeteroGNN(nn.Module):
                     use_reentrant=False)
             else:
                 h = self.layer(layer, h, lay, training, keep, edge_attr)
-        logits = self.lin(h["SNP"])
-        return logits if cfg.no_relu else torch.relu(logits)
+        logits = linear(h["SNP"], self.lin, cdt)
+        pred = logits if cfg.no_relu else torch.relu(logits)
+        return pred.to(torch.float32)

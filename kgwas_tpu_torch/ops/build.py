@@ -5,7 +5,9 @@ shared library with a plain C interface, named by a content hash of the
 source, the shared headers (``*.cuh``) and the flags, under
 ``build/kernels/`` at the repository root (or ``$KGWAS_TORCH_BUILD_DIR``).
 A library whose hash is already there is reused. ``build_all`` starts one
-nvcc per source, all at once.
+nvcc per source, all at once. A source may export several entry points
+(the f32 and bf16 instances of a kernel): each is a name of ``KERNELS``,
+and the names of one source share its library and its build.
 """
 from __future__ import annotations
 
@@ -62,10 +64,39 @@ KERNELS = {
         "kgwas_segment_softmax_spmm_bwd",
         [_P] * 12 + [_I64, _I64, _I32, _P],
     ),
+    # the bf16 instances (bf16 value tables), in the same sources
+    "merged_gat_fwd_bf16": (
+        "merged_gat_fwd.cu",
+        "kgwas_merged_gat_fwd_bf16",
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32,
+                    _F32, _F32, _P],
+    ),
+    "merged_gat_bwd_bf16": (
+        "merged_gat_bwd.cu",
+        "kgwas_merged_gat_bwd_bf16",
+        [_P] * 12 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32, _F32,
+                     _F32, _P],
+    ),
+    "csc_segment_sum_bf16": (
+        "csc_segment_sum.cu",
+        "kgwas_csc_segment_sum_bf16",
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, ctypes.POINTER(_I64),
+                    ctypes.POINTER(_I64), _P, _P, _P, _P, _I32, _I32, _P],
+    ),
+    "csr_segment_sum_bf16": (
+        "csr_segment_sum.cu",
+        "kgwas_csr_segment_sum_bf16",
+        [_P] * 6 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _P],
+    ),
     # a measuring tool on no path of the package (chip_smoke.py)
     "gather_probe": (
         "gather_probe.cu",
         "kgwas_gather_probe",
+        [_P, _P, _I64, _I64, _P, _I32, _P],
+    ),
+    "gather_probe_bf16": (
+        "gather_probe.cu",
+        "kgwas_gather_probe_bf16",
         [_P, _P, _I64, _I64, _P, _I32, _P],
     ),
 }
@@ -103,7 +134,15 @@ def _nvcc() -> str:
     return found
 
 
+def _primary(name: str) -> str:
+    """The first name of KERNELS whose entry point lives in name's source:
+    the name its library and build log go by."""
+    source = KERNELS[name][0]
+    return next(k for k, v in KERNELS.items() if v[0] == source)
+
+
 def _lib_path(name: str) -> Path:
+    name = _primary(name)
     source = KERNELS[name][0]
     h = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):   # included by the sources
@@ -114,8 +153,10 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names=None) -> dict:
     """Compile every kernel not yet built, one nvcc per source started
-    together. Returns {name: seconds} for the ones compiled now."""
+    together. Returns {name: seconds} for the sources compiled now, by
+    their primary name."""
     names = list(KERNELS) if names is None else list(names)
+    names = list(dict.fromkeys(_primary(n) for n in names))
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()

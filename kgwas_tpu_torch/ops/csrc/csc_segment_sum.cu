@@ -72,10 +72,24 @@
 // when g fits (the Gene group's 10.5 MB), else mostly from device memory
 // (the SNP group's 102.5 MB); that gather's rate, measured alone by
 // gather_probe.cu, is the floor the design aims at.
+//
+// The bf16 instance (kgwas_csc_segment_sum_bf16: xs bf16; g, w, dz, att
+// and every output float32), a compile-time flag BF. With the logit term
+// it rounds where the JAX package's backward rounds on bf16 messages:
+// each entry's message cotangent row w_e g[row_i] + dz_e att[slot]
+// (products and sum rounded separately, as the plain version forms them)
+// is rounded to bf16 before it is added, so the att term is not factored
+// out of the row's sum, and c_s sums the bf16-rounded dz_e for d_att.
+// Without it, a weighted sum rounds each product w_e g[row_i] to bf16 (the
+// JAX package's cotangent of bf16 messages times float32 weights comes
+// back through the cast to bf16) and an unweighted one is the f32
+// instance's sum; xs is read as bf16 for d_att and d_w. Its bound: xs
+// read at 2 bytes a value.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "gat_items.cuh"
 #include "warp_rows.cuh"
@@ -118,7 +132,17 @@ struct Args {
   long long n_src;           // S
   int n_rel;
   int d;
+  const __nv_bfloat16* xsb;  // [S, D]: the bf16 instance's table
 };
+
+// the table of the f32 (BF false) or the bf16 instance
+template <bool BF>
+__device__ __forceinline__ auto xs_table(const Args& a) {
+  if constexpr (BF)
+    return a.xsb;
+  else
+    return a.xs;
+}
 
 // the slot whose source rows hold row s
 __device__ __forceinline__ int slot_of(const Args& a, long long s) {
@@ -129,11 +153,12 @@ __device__ __forceinline__ int slot_of(const Args& a, long long s) {
 
 // at D = 128, at most 64 registers a thread: 4 blocks, 32 warps, on each
 // SM (wider rows need more; with DW, 3 blocks)
-template <bool VEC, int NV, bool LOGITS, bool DW>
+template <bool VEC, int NV, bool LOGITS, bool DW, bool BF>
 __global__ void __launch_bounds__(kWarps * 32,
                                   VEC && NV == 1 ? (DW ? 3 : 4) : 1)
 csc_items_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
+  const auto xs = xs_table<BF>(a);
   constexpr int U = kgwas::rows_in_flight<VEC, NV>();
   __shared__ int s_row_w[kWarps][kBwdMaxEdges];
   __shared__ float s_w_w[kWarps][kBwdMaxEdges];
@@ -227,7 +252,8 @@ csc_items_kernel(const Args a) {
     if (LOGITS) {
       const int beg = __shfl_sync(kFull, it.vbeg, k);
       const int cnt = __shfl_sync(kFull, it.cnt, k);
-      for (int j = lane; j < cnt; j += 32) c += s_dz[beg + j];
+      for (int j = lane; j < cnt; j += 32)
+        c += BF ? kgwas::round_bf16(s_dz[beg + j]) : s_dz[beg + j];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         c += __shfl_xor_sync(kFull, c, off);
@@ -238,7 +264,7 @@ csc_items_kernel(const Args a) {
       acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
       return;
     }
-    if (LOGITS) {
+    if (LOGITS && !BF) {
 #pragma unroll
       for (int q = 0; q < R::C; ++q) acc.v[q] = fmaf(c, att.v[q], acc.v[q]);
     }
@@ -260,14 +286,27 @@ csc_items_kernel(const Args a) {
           cur = k;
           acc.zero();
           if (DW)
-            xr.load(a.xs + static_cast<size_t>(it.unit0 + (it.chunk ? 0 : k))
-                               * d,
+            xr.load(xs + static_cast<size_t>(it.unit0 + (it.chunk ? 0 : k))
+                             * d,
                     lane, d);
         }
         const float wv = weighted ? s_w[vu] : 1.0f;
+        if (BF && LOGITS) {
+          // the formed row w_e g + dz_e att, rounded to bf16
+          const float dzv = s_dz[vu];
 #pragma unroll
-        for (int q = 0; q < R::C; ++q)
-          acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
+          for (int q = 0; q < R::C; ++q)
+            acc.v[q] += kgwas::round_bf16(__fadd_rn(
+                __fmul_rn(wv, x[u].v[q]), __fmul_rn(dzv, att.v[q])));
+        } else if (BF && weighted) {
+#pragma unroll
+          for (int q = 0; q < R::C; ++q)
+            acc.v[q] += kgwas::round_bf16(__fmul_rn(wv, x[u].v[q]));
+        } else {
+#pragma unroll
+          for (int q = 0; q < R::C; ++q)
+            acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
+        }
         if (DW) dw[u] = row_dot(x[u], xr);
       }
     }
@@ -323,13 +362,13 @@ csc_items_kernel(const Args a) {
     }
   };
   if (n_nz > 0)
-    kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_row, 0, n_nz, lane, d);
+    kgwas::gather_rows<VEC, NV, U>(xa, xs, s_row, 0, n_nz, lane, d);
   for (int v = 0; v < n_nz; v += 2 * U) {
     if (v + U < n_nz)
-      kgwas::gather_rows<VEC, NV, U>(xb, a.xs, s_row, v + U, n_nz, lane, d);
+      kgwas::gather_rows<VEC, NV, U>(xb, xs, s_row, v + U, n_nz, lane, d);
     add(xa, v);
     if (v + 2 * U < n_nz)
-      kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_row, v + 2 * U, n_nz, lane,
+      kgwas::gather_rows<VEC, NV, U>(xa, xs, s_row, v + 2 * U, n_nz, lane,
                                      d);
     if (v + U < n_nz) add(xb, v + U);
   }
@@ -337,8 +376,8 @@ csc_items_kernel(const Args a) {
 }
 
 // One warp per source row cut into chunks: its parts added in part order,
-// then c_s att[slot].
-template <bool VEC, int NV, bool LOGITS>
+// then c_s att[slot] (the bf16 instance's parts hold the att term).
+template <bool VEC, int NV, bool LOGITS, bool BF>
 __global__ void __launch_bounds__(kWarps * 32)
 csc_combine_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -358,7 +397,7 @@ csc_combine_kernel(const Args a) {
     for (int q = 0; q < R::C; ++q) acc.v[q] += x.v[q];
     if (LOGITS) c += a.part_c[pi];
   }
-  if (LOGITS) {
+  if (LOGITS && !BF) {
     R att;
     att.load(a.att + static_cast<size_t>(slot_of(a, s)) * d, lane, d);
 #pragma unroll
@@ -416,20 +455,20 @@ slot_sum_kernel(const Args a) {
            a.d_att + static_cast<long long>(slot) * a.d);
 }
 
-template <bool VEC, int NV, bool LOGITS, bool DW>
+template <bool VEC, int NV, bool LOGITS, bool DW, bool BF>
 cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   if (blocks > 0) {
-    csc_items_kernel<VEC, NV, LOGITS, DW>
+    csc_items_kernel<VEC, NV, LOGITS, DW, BF>
         <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (cblocks > 0) {
-    csc_combine_kernel<VEC, NV, LOGITS>
+    csc_combine_kernel<VEC, NV, LOGITS, BF>
         <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -448,14 +487,13 @@ cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool VEC, int NV>
+template <bool VEC, int NV, bool BF>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if (a.dz != nullptr) return launch_items<VEC, NV, true, false>(a, stream);
-  return a.d_w != nullptr ? launch_items<VEC, NV, false, true>(a, stream)
-                          : launch_items<VEC, NV, false, false>(a, stream);
+  if (a.dz != nullptr)
+    return launch_items<VEC, NV, true, false, BF>(a, stream);
+  return a.d_w != nullptr ? launch_items<VEC, NV, false, true, BF>(a, stream)
+                          : launch_items<VEC, NV, false, false, BF>(a, stream);
 }
-
-}  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Device pointers except
 // src_base and slot_items, host arrays of n_rel + 1 source-row and item
@@ -466,7 +504,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // d_w is taken only without dz. csc_perm is read only for w, dz or d_w. Up
 // to four launches: the items, the combine of the chunked rows, the group and
 // slot sums of d_att.
-extern "C" int kgwas_csc_segment_sum(
+template <bool BF>
+int segment_sum_entry(
     const void* g, const void* w, const void* dz, const void* xs,
     const void* att, const void* csc_rows, const void* csc_perm,
     const void* csc_offsets, const void* items, long long n_items,
@@ -478,10 +517,11 @@ extern "C" int kgwas_csc_segment_sum(
       (dz != nullptr && d_w != nullptr))
     return cudaErrorInvalidValue;
   Args a;
+  a.xsb = BF ? static_cast<const __nv_bfloat16*>(xs) : nullptr;
   a.g = static_cast<const float*>(g);
   a.w = static_cast<const float*>(w);
   a.dz = static_cast<const float*>(dz);
-  a.xs = static_cast<const float*>(xs);
+  a.xs = BF ? nullptr : static_cast<const float*>(xs);
   a.att = static_cast<const float*>(att);
   a.csc_rows = static_cast<const int*>(csc_rows);
   a.csc_perm = static_cast<const int*>(csc_perm);
@@ -511,10 +551,42 @@ extern "C" int kgwas_csc_segment_sum(
   a.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 128: return launch<true, 1>(a, s);
-    case 256: return launch<true, 2>(a, s);
-    case 384: return launch<true, 3>(a, s);
-    case 512: return launch<true, 4>(a, s);
-    default: return launch<false, 1>(a, s);
+    case 128: return launch<true, 1, BF>(a, s);
+    case 256: return launch<true, 2, BF>(a, s);
+    case 384: return launch<true, 3, BF>(a, s);
+    case 512: return launch<true, 4, BF>(a, s);
+    default: return launch<false, 1, BF>(a, s);
   }
+}
+
+}  // namespace
+
+extern "C" int kgwas_csc_segment_sum(
+    const void* g, const void* w, const void* dz, const void* xs,
+    const void* att, const void* csc_rows, const void* csc_perm,
+    const void* csc_offsets, const void* items, long long n_items,
+    const void* split_units, const void* part_offsets, long long n_split,
+    void* part_acc, void* part_c, const long long* src_base,
+    const long long* slot_items, void* d_xs, void* d_att, void* d_w,
+    void* partial, int n_rel, int d, void* stream) {
+  return segment_sum_entry<false>(
+      g, w, dz, xs, att, csc_rows, csc_perm, csc_offsets, items, n_items,
+      split_units, part_offsets, n_split, part_acc, part_c, src_base,
+      slot_items, d_xs, d_att, d_w, partial, n_rel, d, stream);
+}
+
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
+// aligned rows at D = 128 * NV; the wrapper checks).
+extern "C" int kgwas_csc_segment_sum_bf16(
+    const void* g, const void* w, const void* dz, const void* xs,
+    const void* att, const void* csc_rows, const void* csc_perm,
+    const void* csc_offsets, const void* items, long long n_items,
+    const void* split_units, const void* part_offsets, long long n_split,
+    void* part_acc, void* part_c, const long long* src_base,
+    const long long* slot_items, void* d_xs, void* d_att, void* d_w,
+    void* partial, int n_rel, int d, void* stream) {
+  return segment_sum_entry<true>(
+      g, w, dz, xs, att, csc_rows, csc_perm, csc_offsets, items, n_items,
+      split_units, part_offsets, n_split, part_acc, part_c, src_base,
+      slot_items, d_xs, d_att, d_w, partial, n_rel, d, stream);
 }

@@ -40,6 +40,14 @@
 // size), else from device memory (the Gene group's, 234 MB): gather_probe.cu
 // measures that gather alone on the same index stream, the floor the design
 // aims at.
+//
+// The bf16 instance (kgwas_csr_segment_sum_bf16: x bf16, out float32), a
+// compile-time flag BF: the same sums of bf16 rows read at 8 bytes a lane
+// (D = 128), the JAX package's one-hot products on bf16 values summed in
+// float32. With round_products (a bf16 w, which the wrapper passes as its
+// exact float32 copy) each product w_e x[src_e] is rounded to bf16 before
+// it is added, as the JAX package forms msgs * w in bf16 there; else an f32
+// w multiplies in float32. Its bound: the f32 one's with 2-byte rows.
 
 #include <cuda_runtime.h>
 
@@ -70,9 +78,19 @@ struct Args {
   long long n_split;
   long long n_rows;
   int d;
+  const __nv_bfloat16* xb;  // [S, D]: the bf16 instance's table
 };
 
-template <bool VEC, int NV, bool WEIGHTED>
+template <bool BF>
+__device__ __forceinline__ auto x_table(const Args& a) {
+  if constexpr (BF)
+    return a.xb;
+  else
+    return a.x;
+}
+
+template <bool VEC, int NV, bool WEIGHTED, bool BF = false,
+          bool ROUND = false>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_segment_sum_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -139,24 +157,31 @@ csr_segment_sum_kernel(const Args a) {
           acc.zero();
         }
         const float wu = WEIGHTED ? s_w[vu] : 1.0f;
+        if (ROUND) {
 #pragma unroll
-        for (int c = 0; c < R::C; ++c)
-          acc.v[c] = WEIGHTED ? fmaf(wu, x[u].v[c], acc.v[c])
-                              : acc.v[c] + x[u].v[c];
+          for (int c = 0; c < R::C; ++c)
+            acc.v[c] += kgwas::round_bf16(__fmul_rn(wu, x[u].v[c]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < R::C; ++c)
+            acc.v[c] = WEIGHTED ? fmaf(wu, x[u].v[c], acc.v[c])
+                                : acc.v[c] + x[u].v[c];
+        }
       }
     }
   };
   // two batches in flight: one is summed while the other arrives
   R xa[U], xb[U];
+  const auto x_tab = x_table<BF>(a);
   if (it.total > 0)
-    kgwas::gather_rows<VEC, NV, U>(xa, a.x, s_src, 0, it.total, lane, d);
+    kgwas::gather_rows<VEC, NV, U>(xa, x_tab, s_src, 0, it.total, lane, d);
   for (int v = 0; v < it.total; v += 2 * U) {
     if (v + U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xb, a.x, s_src, v + U, it.total, lane,
+      kgwas::gather_rows<VEC, NV, U>(xb, x_tab, s_src, v + U, it.total, lane,
                                      d);
     take(xa, v);
     if (v + 2 * U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xa, a.x, s_src, v + 2 * U, it.total,
+      kgwas::gather_rows<VEC, NV, U>(xa, x_tab, s_src, v + 2 * U, it.total,
                                      lane, d);
     if (v + U < it.total) take(xb, v + U);
   }
@@ -188,14 +213,15 @@ csr_combine_kernel(const Args a) {
             a.d);
 }
 
-template <bool VEC, int NV, bool WEIGHTED>
+template <bool VEC, int NV, bool WEIGHTED, bool BF = false,
+          bool ROUND = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   if (blocks > 0) {
-    csr_segment_sum_kernel<VEC, NV, WEIGHTED>
+    csr_segment_sum_kernel<VEC, NV, WEIGHTED, BF, ROUND>
         <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -208,16 +234,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <bool WEIGHTED>
+template <bool WEIGHTED, bool BF = false, bool ROUND = false>
 cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
   switch (a.d) {
-    case 128: return launch<true, 1, WEIGHTED>(a, stream);
-    case 256: return launch<true, 2, WEIGHTED>(a, stream);
-    case 384: return launch<true, 3, WEIGHTED>(a, stream);
-    case 512: return launch<true, 4, WEIGHTED>(a, stream);
+    case 128: return launch<true, 1, WEIGHTED, BF, ROUND>(a, stream);
+    case 256: return launch<true, 2, WEIGHTED, BF, ROUND>(a, stream);
+    case 384: return launch<true, 3, WEIGHTED, BF, ROUND>(a, stream);
+    case 512: return launch<true, 4, WEIGHTED, BF, ROUND>(a, stream);
     default:
       if (a.d >= 1 && a.d <= 32 * kMaxCols)
-        return launch<false, 1, WEIGHTED>(a, stream);
+        return launch<false, 1, WEIGHTED, BF, ROUND>(a, stream);
       return cudaErrorInvalidValue;
   }
 }
@@ -236,6 +262,7 @@ extern "C" int kgwas_csr_segment_sum(
     long long n_rows, int d, void* stream) {
   Args a;
   a.x = static_cast<const float*>(x);
+  a.xb = nullptr;
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.w = static_cast<const float*>(w);
@@ -250,4 +277,33 @@ extern "C" int kgwas_csr_segment_sum(
   a.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return w != nullptr ? dispatch_width<true>(a, s) : dispatch_width<false>(a, s);
+}
+
+// The bf16 instance: the same arguments, x a bf16 [S, D] table (8-byte
+// aligned rows at D = 128 * NV; the wrapper checks); round_products != 0
+// (with w) rounds each product w_e x[src_e] to bf16.
+extern "C" int kgwas_csr_segment_sum_bf16(
+    const void* x, const void* src, const void* row_offsets, const void* w,
+    void* out, const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_acc,
+    long long n_rows, int d, int round_products, void* stream) {
+  Args a;
+  a.x = nullptr;
+  a.xb = static_cast<const __nv_bfloat16*>(x);
+  a.src = static_cast<const int*>(src);
+  a.row_offsets = static_cast<const int*>(row_offsets);
+  a.w = static_cast<const float*>(w);
+  a.out = static_cast<float*>(out);
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.n_items = n_items;
+  a.n_split = n_split;
+  a.n_rows = n_rows;
+  a.d = d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w == nullptr) return dispatch_width<false, true, false>(a, s);
+  return round_products ? dispatch_width<true, true, true>(a, s)
+                        : dispatch_width<true, true, false>(a, s);
 }

@@ -252,12 +252,12 @@ __host__ __device__ constexpr int rows_in_flight() {
   return VEC ? (NV == 1 ? 4 : NV == 2 ? 2 : 1) : 1;
 }
 
-// U feature rows of table into registers, all loads issued before any is
-// used: rows idx[v .. v+U-1] of a shared-memory index array of n entries
-// (a step past its end re-reads the last row).
-template <bool VEC, int NV, int U>
+// U feature rows of table (float or bf16) into registers, all loads
+// issued before any is used: rows idx[v .. v+U-1] of a shared-memory index
+// array of n entries (a step past its end re-reads the last row).
+template <bool VEC, int NV, int U, typename T>
 __device__ __forceinline__ void gather_rows(Row<VEC, NV> (&x)[U],
-                                            const float* __restrict__ table,
+                                            const T* __restrict__ table,
                                             const int* idx, int v, int n,
                                             int lane, int d) {
 #pragma unroll

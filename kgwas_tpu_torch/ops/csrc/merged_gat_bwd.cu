@@ -40,6 +40,18 @@
 // row_max, row_sum and d_a_dst [R*N]), ~0.04-0.08 ms per launch at the
 // bench size. The gathered source rows come from L2 (the SNP group) or
 // from device memory (the Gene group's 234 MB table), as in the forward.
+//
+// The bf16 instance (kgwas_merged_gat_bwd_bf16: xs bf16) rounds where the
+// TPU kernel rounds on bf16 messages: att to bf16 for the score, g to bf16
+// for m_e = g_row . xs[src_e]; dot_row is the forward output row dotted
+// with the unrounded g, taken from the row's edges as the sum of the
+// forward's rounded weights bf16(exp(min(l_e - row_max, 60))) times
+// g_row . xs[src_e], over row_sum + 1e-16. w_e, dz_e and d_a_dst stay
+// float32 (the TPU kernel's d_msgs rounding is csc_segment_sum.cu's). exp
+// and the divisions are the accurate ones, as the plain version's. A warp
+// gathers its edges' rows into registers (two batches of 4 at D = 128,
+// 8 bytes a lane) and sums each batch's two or three dots in transposing
+// butterflies; the item's cotangent rows wait in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -90,6 +102,7 @@ struct Args {
   int d;
   float slope;
   float temperature;
+  const __nv_bfloat16* xsb;  // [S, D]: the bf16 instance's table
 };
 
 // the final w_e and dz_e of an edge from z_e, m_e and its row's lse and
@@ -343,6 +356,312 @@ cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
   }
 }
 
+// ---- the bf16 instance
+
+// the bf16 instance's w_e and dz_e, in the plain version's formulas
+template <int MODE>
+__device__ __forceinline__ void edge_grads_bf16(float z, float m, float lse,
+                                                float dot, float slope,
+                                                float t, float& wt,
+                                                float& dzv) {
+  const float leaky_d = z >= 0.0f ? 1.0f : slope;
+  const float l = (z >= 0.0f ? z : slope * z) / t;
+  if (MODE == kSoftmax) {
+    wt = expf(fminf(l - lse, kExpClamp));
+    dzv = wt * (m - dot) * leaky_d / t;
+  } else if (MODE == kSigmoid) {
+    wt = 1.0f / (1.0f + expf(-l));
+    dzv = m * wt * (1.0f - wt) * leaky_d / t;
+  } else {
+    wt = l * t;
+    dzv = m * leaky_d;
+  }
+}
+
+// a lane's columns of a shared-memory f32 row
+template <bool VEC, int NV>
+__device__ __forceinline__ void load_shared(kgwas::Row<VEC, NV>& x,
+                                            const float* row, int lane,
+                                            int d) {
+  if (VEC) {
+    const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const float4 q = p[k * 32 + lane];
+      x.v[4 * k] = q.x;
+      x.v[4 * k + 1] = q.y;
+      x.v[4 * k + 2] = q.z;
+      x.v[4 * k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      const int c = lane + 32 * k;
+      x.v[k] = c < d ? row[c] : 0.0f;
+    }
+  }
+}
+
+template <int MODE, bool VEC, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_bwd_bf16_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  constexpr int E = kBwdMaxEdges;
+  constexpr bool SM = MODE == kSoftmax;
+  extern __shared__ __align__(16) float smem[];  // the g rows
+  __shared__ int s_src_w[kWarps][E];
+  __shared__ int s_beg_w[kWarps][kItemMaxRows];
+  __shared__ int s_vbeg_w[kWarps][kItemMaxRows];
+  __shared__ unsigned char s_k_w[kWarps][E];
+  __shared__ float s_z_w[kWarps][E];
+  __shared__ float s_m_w[kWarps][E];
+  __shared__ float s_m2_w[kWarps][SM ? E : 1];
+  __shared__ float s_dot_w[kWarps][kItemMaxRows];
+  __shared__ float s_da_w[kWarps][kItemMaxRows];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wi = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (wi >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(wi, a.n_items);
+  const int d = a.d;
+  const int F = a.fold_slots;
+  const int rl = kgwas::row_len<VEC, NV>(d);
+  float* s_g = smem + static_cast<size_t>(warp) * kItemMaxUnits * rl;
+  int* s_beg = s_beg_w[warp];
+  int* s_vbeg = s_vbeg_w[warp];
+  unsigned char* s_k = s_k_w[warp];
+  float* s_z = s_z_w[warp];
+  float* s_m = s_m_w[warp];
+  float* s_m2 = s_m2_w[warp];
+  float* s_dot = s_dot_w[warp];
+  float* s_da = s_da_w[warp];
+
+  const kgwas::ItemRows it = kgwas::item_rows(
+      a.items[item], a.row_offsets, a.n_rows_per_rel, F, lane);
+  for (int i = 0; i < it.n_units; ++i)
+    kgwas::copy_row<VEC, NV>(s_g + i * rl, a.g + (it.unit0 + i) * d, lane, d);
+  kgwas::cp_async_commit();
+  if (lane < kItemMaxRows) {
+    s_dot[lane] = 0.0f;
+    s_da[lane] = 0.0f;
+  }
+  kgwas::stage_edges(it, a.src, s_beg, s_vbeg, s_src_w[warp], s_k, lane);
+  float ad = 0.0f, rmax = 0.0f, rsum = 0.0f, lse = 0.0f;
+  if (lane < it.n_rows) {
+    ad = a.a_dst[it.row];
+    if (SM) {
+      rmax = a.row_max[it.row];
+      rsum = a.row_sum[it.row];
+      lse = rmax + logf(rsum + kEps);
+    }
+  }
+  kgwas::cp_async_wait<0>();
+  __syncwarp();
+
+  // pass 1: z_e, m_e (and with softmax g_row . x_e unrounded) per edge
+  int att_slot = -1, g_unit = -1;
+  R attr, gr, grr;
+  auto take = [&](const R (&x)[U], int v) {
+    float pz[U], pm[U], pm2[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = s_k[min(v + u, it.total - 1)];  // warp-uniform
+      const int slot = __shfl_sync(kFull, it.slot, k);
+      if (slot != att_slot) {
+        attr.load(a.att + static_cast<size_t>(slot) * d, lane, d);
+#pragma unroll
+        for (int c = 0; c < R::C; ++c) attr.v[c] = kgwas::round_bf16(attr.v[c]);
+        att_slot = slot;
+      }
+      const int i = it.chunk ? 0 : k / F;
+      if (i != g_unit) {
+        load_shared<VEC, NV>(gr, s_g + i * rl, lane, d);
+#pragma unroll
+        for (int c = 0; c < R::C; ++c) grr.v[c] = kgwas::round_bf16(gr.v[c]);
+        g_unit = i;
+      }
+      pz[u] = kgwas::row_dot(x[u], attr);
+      pm[u] = kgwas::row_dot(x[u], grr);
+      pm2[u] = SM ? kgwas::row_dot(x[u], gr) : 0.0f;
+    }
+    const float tz = kgwas::multi_sum<U>(pz, lane);
+    const float tm = kgwas::multi_sum<U>(pm, lane);
+    const float tm2 = SM ? kgwas::multi_sum<U>(pm2, lane) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vu = v + u;
+      const int src_lane = u * (32 / U);
+      const int k = s_k[min(vu, it.total - 1)];
+      const float z = __shfl_sync(kFull, tz, src_lane) +
+                      __shfl_sync(kFull, ad, k);
+      const float m = __shfl_sync(kFull, tm, src_lane);
+      const float m2 = SM ? __shfl_sync(kFull, tm2, src_lane) : 0.0f;
+      if (lane == 0 && vu < it.total) {
+        s_z[vu] = z;
+        s_m[vu] = m;
+        if (SM) s_m2[vu] = m2;
+      }
+    }
+  };
+  R xa[U], xb[U];
+  const int* s_src = s_src_w[warp];
+  if (it.total > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, 0, it.total, lane, d);
+  for (int v = 0; v < it.total; v += 2 * U) {
+    if (v + U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.xsb, s_src, v + U, it.total, lane,
+                                     d);
+    take(xa, v);
+    if (v + 2 * U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, v + 2 * U, it.total,
+                                     lane, d);
+    if (v + U < it.total) take(xb, v + U);
+  }
+  __syncwarp();
+  const int n_win = (it.total + 31) / 32;
+
+  // the sum over the row of the forward's rounded weight times m2
+  if (SM) {
+    for (int wn = 0; wn < n_win; ++wn) {
+      const int v = wn * 32 + lane;
+      const bool ok = v < it.total;
+      const int k = ok ? s_k[v] : 255;
+      const float rmax_k = __shfl_sync(kFull, rmax, ok ? k : 0);
+      float val = 0.0f;
+      if (ok) {
+        const float z = s_z[v];
+        const float l = (z >= 0.0f ? z : a.slope * z) / a.temperature;
+        val = kgwas::round_bf16(expf(fminf(l - rmax_k, kExpClamp))) * s_m2[v];
+      }
+      kgwas::segmented_add(val, k, s_dot, lane);
+    }
+  }
+
+  if (it.chunk) {
+    for (int v = lane; v < it.total; v += 32) {
+      a.w[s_beg[0] + v] = s_z[v];
+      a.dz[s_beg[0] + v] = s_m[v];
+    }
+    if (lane == 0) a.part_dot[it.part] = s_dot[0];
+    return;
+  }
+
+  // pass 2: each lane finishes an edge; d_a_dst per row
+  for (int wn = 0; wn < n_win; ++wn) {
+    const int v = wn * 32 + lane;
+    const bool ok = v < it.total;
+    const int k = ok ? s_k[v] : 255;
+    const float lse_k = __shfl_sync(kFull, lse, ok ? k : 0);
+    const float rsum_k = __shfl_sync(kFull, rsum, ok ? k : 0);
+    float dzv = 0.0f;
+    if (ok) {
+      float wt;
+      const float dot = SM ? s_dot[k] / (rsum_k + kEps) : 0.0f;
+      edge_grads_bf16<MODE>(s_z[v], s_m[v], lse_k, dot, a.slope,
+                            a.temperature, wt, dzv);
+      const int e = s_beg[k] + v - s_vbeg[k];
+      a.w[e] = wt;
+      a.dz[e] = dzv;
+    }
+    kgwas::segmented_add(dzv, k, s_da, lane);
+  }
+  if (lane < it.n_rows) a.d_a_dst[it.row] = s_da[lane];
+}
+
+// One warp per slot row of a unit cut into chunks: dot_row from the row's
+// parts in part order over row_sum + 1e-16, then every edge's w_e and dz_e
+// from the z_e and m_e the chunks stored, and d_a_dst.
+template <int MODE>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_bwd_combine_bf16_kernel(const Args a) {
+  constexpr int kBatch = 4;
+  const int lane = threadIdx.x & 31;
+  const long long jr =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int F = a.fold_slots;
+  if (jr >= a.n_split * F) return;
+  const long long j = jr / F;
+  const int r = static_cast<int>(jr % F);
+  const long long u = a.split_units[j];
+  const long long row = F > 1 ? r * a.n_rows_per_rel + u : u;
+  float dot = 0.0f, lse = 0.0f;
+  if (MODE == kSoftmax) {
+    for (int pi = a.part_offsets[jr]; pi < a.part_offsets[jr + 1]; ++pi)
+      dot += a.part_dot[pi];
+    dot = dot / (a.row_sum[row] + kEps);
+    lse = a.row_max[row] + logf(a.row_sum[row] + kEps);
+  }
+  const int beg = a.row_offsets[row], end = a.row_offsets[row + 1];
+  float da = 0.0f;
+  for (int e0 = beg + lane; e0 < end; e0 += 32 * kBatch) {
+    float z[kBatch], m[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = e0 + 32 * b;
+      z[b] = e < end ? a.w[e] : 0.0f;
+      m[b] = e < end ? a.dz[e] : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = e0 + 32 * b;
+      if (e < end) {
+        float wt, dzv;
+        edge_grads_bf16<MODE>(z[b], m[b], lse, dot, a.slope, a.temperature,
+                              wt, dzv);
+        a.w[e] = wt;
+        a.dz[e] = dzv;
+        da += dzv;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) da += __shfl_xor_sync(kFull, da, off);
+  if (lane == 0) a.d_a_dst[row] = da;
+}
+
+template <int MODE, bool VEC, int NV>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  const long long cblocks =
+      (a.n_split * a.fold_slots + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const int rl = kgwas::row_len<VEC, NV>(a.d);
+  const size_t smem = sizeof(float) * kWarps * kItemMaxUnits * rl;
+  if (blocks > 0) {
+    auto kern = merged_gat_bwd_bf16_kernel<MODE, VEC, NV>;
+    if (smem > 16 * 1024) {  // beside ~19 KB of static shared memory
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (cblocks > 0) {
+    merged_gat_bwd_combine_bf16_kernel<MODE>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+template <int MODE>
+cudaError_t dispatch_width_bf16(const Args& a, cudaStream_t stream) {
+  switch (a.d) {
+    case 128: return launch_bf16<MODE, true, 1>(a, stream);
+    case 256: return launch_bf16<MODE, true, 2>(a, stream);
+    case 384: return launch_bf16<MODE, true, 3>(a, stream);
+    case 512: return launch_bf16<MODE, true, 4>(a, stream);
+    default:
+      if (a.d <= 32 * kMaxCols) return launch_bf16<MODE, false, 1>(a, stream);
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
@@ -361,6 +680,7 @@ extern "C" int kgwas_merged_gat_bwd(
     void* stream) {
   Args a;
   a.xs = static_cast<const float*>(xs);
+  a.xsb = nullptr;
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.att = static_cast<const float*>(att);
@@ -387,6 +707,49 @@ extern "C" int kgwas_merged_gat_bwd(
     case kSoftmax: return dispatch_width<kSoftmax>(a, s);
     case kSigmoid: return dispatch_width<kSigmoid>(a, s);
     case kgwas::kRaw: return dispatch_width<kgwas::kRaw>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
+// aligned rows at D = 128 * NV; the wrapper checks).
+extern "C" int kgwas_merged_gat_bwd_bf16(
+    const void* xs, const void* src, const void* row_offsets, const void* att,
+    const void* a_dst, const void* row_max, const void* row_sum,
+    const void* g, void* w, void* dz, void* d_a_dst, const void* items,
+    long long n_items, const void* split_units, const void* part_offsets,
+    long long n_split, void* part_dot, long long n_rows_per_rel,
+    int fold_slots, int d, int mode, float slope, float temperature,
+    void* stream) {
+  Args a;
+  a.xs = nullptr;
+  a.xsb = static_cast<const __nv_bfloat16*>(xs);
+  a.src = static_cast<const int*>(src);
+  a.row_offsets = static_cast<const int*>(row_offsets);
+  a.att = static_cast<const float*>(att);
+  a.a_dst = static_cast<const float*>(a_dst);
+  a.row_max = static_cast<const float*>(row_max);
+  a.row_sum = static_cast<const float*>(row_sum);
+  a.g = static_cast<const float*>(g);
+  a.w = static_cast<float*>(w);
+  a.dz = static_cast<float*>(dz);
+  a.d_a_dst = static_cast<float*>(d_a_dst);
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_dot = static_cast<float*>(part_dot);
+  a.n_items = n_items;
+  a.n_split = n_split;
+  a.n_rows_per_rel = n_rows_per_rel;
+  a.fold_slots = fold_slots;
+  a.d = d;
+  a.slope = slope;
+  a.temperature = temperature;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kSoftmax: return dispatch_width_bf16<kSoftmax>(a, s);
+    case kSigmoid: return dispatch_width_bf16<kSigmoid>(a, s);
+    case kgwas::kRaw: return dispatch_width_bf16<kgwas::kRaw>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -42,6 +42,23 @@
 // source row (0.7-0.9 GB per launch) from the 50 MB L2, which holds the
 // tables; the ring keeps enough of them in flight, and what is left is the
 // per-edge instruction stream of the warps (scoring, exp, D-wide FMAs).
+//
+// The bf16 instance (kgwas_merged_gat_fwd_bf16: xs bf16, everything else
+// as above) computes what the TPU kernel computes on bf16 messages, at
+// its rounding points: the score att . xs with att rounded to bf16, and
+// each weight rounded to bf16 before it multiplies its message (products
+// of two bf16 values are exact in float32; the sums are float32). The
+// softmax weight is exp(min(l - row_max, 60)) against the row's max,
+// known before the row is aggregated: so the instance makes two passes
+// over its items, a first that scores every edge and writes each row's
+// max (a chunked row's from its chunks' maxima, by a small launch), and a
+// second that scores again and aggregates; the weights' sum is of the
+// unrounded weights. exp and the divisions are the accurate ones (expf,
+// IEEE division), as the plain version's. A warp gathers its edges' rows
+// into registers, two batches of 4 in flight at D = 128 (8 bytes a lane:
+// a bf16 row is 256 bytes), and sums each batch's dots in one transposing
+// butterfly (warp_rows.cuh multi_sum). Its bound: the same bytes with
+// 2-byte rows, twice the gather (the second pass mostly from L2).
 
 #include <cuda_runtime.h>
 
@@ -87,6 +104,7 @@ struct Args {
   int d;
   float slope;
   float temperature;
+  const __nv_bfloat16* xsb;  // [S, D]: the bf16 instance's table
 };
 
 // leaky_relu(a_src + a_dst) / temperature, the division folded into two
@@ -346,6 +364,236 @@ cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
   }
 }
 
+// ---- the bf16 instance
+
+constexpr int kPhaseMax = 0;  // score every edge, write each row's max
+constexpr int kPhaseAgg = 1;  // score again and aggregate
+
+// the logit of the bf16 instance: leaky_relu(z) / temperature, as the
+// plain version divides
+__device__ __forceinline__ float edge_logit_bf16(float z, float slope,
+                                                 float t) {
+  return (z >= 0.0f ? z : slope * z) / t;
+}
+
+template <int MODE, bool VEC, int NV, int PHASE>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_fwd_bf16_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  constexpr int E = kgwas::kFwdMaxEdges;
+  __shared__ int s_src_w[kWarps][E];
+  __shared__ int s_beg_w[kWarps][kgwas::kItemMaxRows];
+  __shared__ int s_vbeg_w[kWarps][kgwas::kItemMaxRows];
+  __shared__ unsigned char s_k_w[kWarps][E];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (w >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(w, a.n_items);
+  int* s_src = s_src_w[warp];
+  unsigned char* s_k = s_k_w[warp];
+  const int d = a.d;
+  const int F = a.fold_slots;
+
+  const kgwas::ItemRows it = kgwas::item_rows(
+      a.items[item], a.row_offsets, a.n_rows_per_rel, F, lane);
+  if (PHASE == kPhaseAgg && !it.chunk && lane < it.n_rows && it.cnt == 0) {
+    a.row_max[it.row] = kNegBig;
+    a.row_sum[it.row] = 0.0f;
+  }
+  kgwas::stage_edges(it, a.src, s_beg_w[warp], s_vbeg_w[warp], s_src, s_k,
+                     lane);
+  const float ad = lane < it.n_rows ? a.a_dst[it.row] : 0.0f;
+
+  int att_slot = -1;  // the slot whose rounded att row is in attr
+  R attr;
+  int cur = -1;       // the row being scored or aggregated
+  int next_unit = 0;  // units before it are stored
+  float m = kNegBig, s = 0.0f;
+  R acc, res;
+  acc.zero();
+  res.zero();
+
+  auto finish_row = [&](int k) {
+    const long long row = __shfl_sync(kFull, it.row, k);
+    if (PHASE == kPhaseMax) {
+      if (lane == 0) {
+        if (it.chunk)
+          a.part_m[it.part] = m;
+        else
+          a.row_max[row] = m;
+      }
+      return;
+    }
+    if (it.chunk) {
+      if (lane == 0) {
+        a.part_m[it.part] = m;
+        a.part_s[it.part] = s;
+      }
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+      return;
+    }
+    if (lane == 0) {
+      a.row_max[row] = MODE == kSoftmax ? m : kNegBig;
+      a.row_sum[row] = MODE == kSoftmax ? s : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < R::C; ++c)
+      res.v[c] += MODE == kSoftmax ? acc.v[c] / (s + kEps) : acc.v[c];
+  };
+  auto store_unit = [&](int i) {
+    R zero;
+    zero.zero();
+    for (; next_unit < i; ++next_unit)
+      zero.store(a.out + (it.unit0 + next_unit) * d, lane, d);
+    res.store(a.out + (it.unit0 + i) * d, lane, d);
+    next_unit = i + 1;
+    res.zero();
+  };
+  // a new row k: its softmax max (the first pass's) when aggregating
+  auto start_row = [&](int k) {
+    cur = k;
+    s = 0.0f;
+    acc.zero();
+    m = kNegBig;
+    if (PHASE == kPhaseAgg && MODE == kSoftmax)
+      m = a.row_max[__shfl_sync(kFull, it.row, k)];
+  };
+
+  // the U edges v..v+U-1 of batch x: their scores, then each edge in turn
+  auto take = [&](const R (&x)[U], int v) {
+    float p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = s_k[min(v + u, it.total - 1)];  // warp-uniform
+      const int slot = __shfl_sync(kFull, it.slot, k);
+      if (slot != att_slot) {
+        attr.load(a.att + static_cast<size_t>(slot) * d, lane, d);
+#pragma unroll
+        for (int c = 0; c < R::C; ++c) attr.v[c] = kgwas::round_bf16(attr.v[c]);
+        att_slot = slot;
+      }
+      p[u] = kgwas::row_dot(x[u], attr);
+    }
+    const float tot = kgwas::multi_sum<U>(p, lane);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vu = v + u;
+      const float dot = __shfl_sync(kFull, tot, u * (32 / U));
+      if (vu >= it.total) continue;  // warp-uniform
+      const int k = s_k[vu];
+      if (k != cur) {
+        if (cur >= 0) {
+          finish_row(cur);
+          if (PHASE == kPhaseAgg && !it.chunk && k / F != cur / F)
+            store_unit(cur / F);
+        }
+        start_row(k);
+      }
+      const float l = edge_logit_bf16(dot + __shfl_sync(kFull, ad, k),
+                                      a.slope, a.temperature);
+      if (PHASE == kPhaseMax) {
+        m = fmaxf(m, l);
+        continue;
+      }
+      float wt;
+      if (MODE == kSoftmax) {
+        wt = expf(fminf(l - m, kExpClamp));
+        s += wt;
+      } else {
+        wt = MODE == kSigmoid ? 1.0f / (1.0f + expf(-l)) : l * a.temperature;
+      }
+      const float alpha = kgwas::round_bf16(wt);
+#pragma unroll
+      for (int c = 0; c < R::C; ++c)
+        acc.v[c] = fmaf(alpha, x[u].v[c], acc.v[c]);
+    }
+  };
+
+  // two batches in flight: one is scored while the other arrives
+  R xa[U], xb[U];
+  if (it.total > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, 0, it.total, lane, d);
+  for (int v = 0; v < it.total; v += 2 * U) {
+    if (v + U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.xsb, s_src, v + U, it.total, lane,
+                                     d);
+    take(xa, v);
+    if (v + 2 * U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, v + 2 * U, it.total,
+                                     lane, d);
+    if (v + U < it.total) take(xb, v + U);
+  }
+  if (cur >= 0) {
+    finish_row(cur);
+    if (PHASE == kPhaseAgg && !it.chunk) store_unit(cur / F);
+  }
+  if (PHASE == kPhaseAgg && !it.chunk) {
+    R zero;
+    zero.zero();
+    for (; next_unit < it.n_units; ++next_unit)
+      zero.store(a.out + (it.unit0 + next_unit) * d, lane, d);
+  }
+}
+
+// The max of each chunked slot row, from its chunks' maxima: one thread
+// per slot row of a unit cut into chunks.
+__global__ void __launch_bounds__(128) merged_gat_row_max_kernel(const Args a) {
+  const long long jr = static_cast<long long>(blockIdx.x) * 128 + threadIdx.x;
+  const int F = a.fold_slots;
+  if (jr >= a.n_split * F) return;
+  const long long u = a.split_units[jr / F];
+  const long long row = F > 1 ? (jr % F) * a.n_rows_per_rel + u : u;
+  float m = kNegBig;
+  for (int pi = a.part_offsets[jr]; pi < a.part_offsets[jr + 1]; ++pi)
+    m = fmaxf(m, a.part_m[pi]);
+  a.row_max[row] = m;
+}
+
+template <int MODE, bool VEC, int NV>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
+  const long long mblocks = (a.n_split * a.fold_slots + 127) / 128;
+  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  if (blocks == 0) return cudaSuccess;
+  cudaError_t err;
+  if (MODE == kSoftmax) {
+    merged_gat_fwd_bf16_kernel<MODE, VEC, NV, kPhaseMax>
+        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (mblocks > 0) {
+      merged_gat_row_max_kernel<<<static_cast<unsigned>(mblocks), 128, 0,
+                                  stream>>>(a);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  merged_gat_fwd_bf16_kernel<MODE, VEC, NV, kPhaseAgg>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (cblocks > 0) {
+    merged_gat_combine_kernel<MODE, VEC, NV>
+        <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+template <int MODE>
+cudaError_t dispatch_width_bf16(const Args& a, cudaStream_t stream) {
+  switch (a.d) {
+    case 128: return launch_bf16<MODE, true, 1>(a, stream);
+    case 256: return launch_bf16<MODE, true, 2>(a, stream);
+    case 384: return launch_bf16<MODE, true, 3>(a, stream);
+    case 512: return launch_bf16<MODE, true, 4>(a, stream);
+    default:
+      if (a.d <= 32 * kMaxCols) return launch_bf16<MODE, false, 1>(a, stream);
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). Pointers are device
@@ -362,6 +610,7 @@ extern "C" int kgwas_merged_gat_fwd(
     float slope, float temperature, void* stream) {
   Args a;
   a.xs = static_cast<const float*>(xs);
+  a.xsb = nullptr;
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.att = static_cast<const float*>(att);
@@ -387,6 +636,49 @@ extern "C" int kgwas_merged_gat_fwd(
     case kgwas::kSoftmax: return dispatch_width<kgwas::kSoftmax>(a, s);
     case kgwas::kSigmoid: return dispatch_width<kgwas::kSigmoid>(a, s);
     case kgwas::kRaw: return dispatch_width<kgwas::kRaw>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
+// aligned rows at D = 128 * NV; the wrapper checks). Up to four launches:
+// with softmax the first pass and the chunked rows' maxima, then the
+// second pass and the combine of the chunked units.
+extern "C" int kgwas_merged_gat_fwd_bf16(
+    const void* xs, const void* src, const void* row_offsets, const void* att,
+    const void* a_dst, void* out, void* row_max, void* row_sum,
+    const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_m, void* part_s,
+    void* part_acc, long long n_rows_per_rel, int fold_slots, int d, int mode,
+    float slope, float temperature, void* stream) {
+  Args a;
+  a.xs = nullptr;
+  a.xsb = static_cast<const __nv_bfloat16*>(xs);
+  a.src = static_cast<const int*>(src);
+  a.row_offsets = static_cast<const int*>(row_offsets);
+  a.att = static_cast<const float*>(att);
+  a.a_dst = static_cast<const float*>(a_dst);
+  a.out = static_cast<float*>(out);
+  a.row_max = static_cast<float*>(row_max);
+  a.row_sum = static_cast<float*>(row_sum);
+  a.items = static_cast<const int4*>(items);
+  a.split_units = static_cast<const int*>(split_units);
+  a.part_offsets = static_cast<const int*>(part_offsets);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_s = static_cast<float*>(part_s);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.n_items = n_items;
+  a.n_split = n_split;
+  a.n_rows_per_rel = n_rows_per_rel;
+  a.fold_slots = fold_slots;
+  a.d = d;
+  a.slope = slope;
+  a.temperature = temperature;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kgwas::kSoftmax: return dispatch_width_bf16<kgwas::kSoftmax>(a, s);
+    case kgwas::kSigmoid: return dispatch_width_bf16<kgwas::kSigmoid>(a, s);
+    case kgwas::kRaw: return dispatch_width_bf16<kgwas::kRaw>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

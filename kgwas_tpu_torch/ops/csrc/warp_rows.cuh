@@ -6,8 +6,15 @@
 // holding columns 4 (32 k + l) .. + 3), so a warp reads or writes a row as
 // 16-byte loads on neighbouring addresses; any other D <= 512 is up to
 // kMaxCols scalars per lane at columns lane + 32 k.
+//
+// A bf16 row (the kernels' bf16 instances) is read into the same float
+// registers at the same columns: at D = 128 * NV, 8 bytes (4 values) a
+// lane per 128 columns, widened with __bfloat1622float2; any other even
+// D, a value a lane per 32 columns. Every value of a bf16 row is exact in
+// float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace kgwas {
@@ -18,6 +25,11 @@ constexpr unsigned kFull = 0xffffffffu;
 // exp(x) as exp2(x * log2 e): the MUFU.EX2 path, a shorter chain than expf
 __device__ __forceinline__ float fast_exp(float x) {
   return exp2f(x * 1.4426950408889634f);
+}
+
+// x rounded to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 template <bool VEC, int NV>
@@ -45,6 +57,31 @@ struct Row {
       for (int k = 0; k < C; ++k) {
         const int col = lane + 32 * k;
         v[k] = col < d ? __ldg(row + col) : 0.0f;
+      }
+    }
+  }
+  // the same columns of a bf16 row
+  __device__ __forceinline__ void load(const __nv_bfloat16* row, int lane,
+                                       int d) {
+    if (VEC) {
+      const uint2* p = reinterpret_cast<const uint2*>(row);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const uint2 q = __ldg(p + k * 32 + lane);
+        const float2 lo =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+        const float2 hi =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+        v[4 * k] = lo.x;
+        v[4 * k + 1] = lo.y;
+        v[4 * k + 2] = hi.x;
+        v[4 * k + 3] = hi.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int col = lane + 32 * k;
+        v[k] = col < d ? __bfloat162float(row[col]) : 0.0f;
       }
     }
   }

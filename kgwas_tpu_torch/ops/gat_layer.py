@@ -19,6 +19,25 @@ chunks (the items, then the combine), else one. ``MergedGATLayer`` is the
 layer as an autograd function: its backward is ``merged_gat_bwd`` followed
 by ``segment.csc_segment_sum``.
 
+bf16 messages. ``xs_all`` may be bfloat16 (the dtype options: the stream
+or compute dtype); then ``merged_gat_forward`` and ``merged_gat_bwd``
+launch the bf16 instances of the two kernels (entry points
+``kgwas_merged_gat_fwd_bf16`` and ``kgwas_merged_gat_bwd_bf16`` of the
+same sources; counted in ``bf16_launches`` and ``bf16_bwd_launches``),
+and the plain versions round where the TPU kernels round
+(``pallas_gat_layer.py`` ``_logits_row``, ``_make_fwd_kernel``,
+``_make_bwd_kernel``):
+``att`` to bf16 before the score, each weight to bf16 before it multiplies
+its message (the softmax weight exp(l - row_max) against the row's max),
+``g`` to bf16 before ``g . msg``; every product of two bf16 values is exact
+in float32, every sum is float32, and ``att``, ``a_dst``, the outputs, the
+row statistics and the edge terms stay float32. The softmax backward takes
+``dot_row`` (the output row dotted with ``g``, in float32) as the sum over
+the row's edges of the rounded weight times ``g . msg`` with ``g`` unrounded,
+over ``row_sum + 1e-16``. The [E, D] message cotangent, which the TPU
+kernel rounds to bf16 when it writes it, is rounded where
+``segment.csc_segment_sum`` forms each row.
+
 Both kernels take their work from a static schedule (``schedule``, built
 once per layout on the host, ``ops/schedule.py``): items that pack the slot
 rows of consecutive units (output rows) up to ``max_edges`` edges, and
@@ -33,6 +52,7 @@ from . import segment
 from .schedule import (BWD_ITEM_MAX_EDGES, ITEM_MAX_EDGES, ITEM_MAX_ROWS,
                        ITEM_MAX_UNITS, check_device_schedule)
 from .schedule import schedule as _schedule
+from .segment_ref import round_bf16
 
 NEG_BIG = -1e9
 EXP_CLAMP = 60.0
@@ -49,6 +69,8 @@ BWD_CHUNK_EDGES = 128
 
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 
 def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=MAX_EDGES,
@@ -85,18 +107,25 @@ def _check(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
 
 _INT_ARGS = ("src", "row_offsets", "dst", "csc_rows", "csc_perm",
              "csc_offsets")
+# the value tables a kernel also takes in bf16 (its bf16 instance)
+_BF16_ARGS = ("xs_all", "x")
 
 
 def check_cuda_args(device, **tensors):
     """What every kernel of the port takes: tensors on ``device``,
-    contiguous, int32 for the layout's index arrays and float32 for the
-    rest, feature rows at most 512 wide and 16-byte aligned when their
-    width is a multiple of 128 (float4 rows)."""
+    contiguous, int32 for the layout's index arrays, float32 or bfloat16
+    for the value tables (``xs_all``, ``x``; bf16 rows of an even width)
+    and float32 for the rest, feature rows at most 512 wide and 16-byte
+    aligned when their width is a multiple of 128 (float4 rows)."""
     for name, t in tensors.items():
         dtype = torch.int32 if name in _INT_ARGS else torch.float32
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, not {device}")
-        if t.dtype != dtype:
+        if name in _BF16_ARGS and t.dtype == torch.bfloat16:
+            if t.dim() == 2 and t.shape[1] % 2:
+                raise ValueError(f"{name}: bf16 rows must have an even "
+                                 f"width, got {t.shape[1]}")
+        elif t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -113,11 +142,13 @@ def merged_gat_forward_plain(xs_all, src, row_offsets, att, a_dst_all,
                              negative_slope=0.2, temperature=1.0):
     """Plain PyTorch version: gather, per-edge logits, scatter softmax and
     index_add aggregation. Same arguments and results as
-    merged_gat_forward."""
+    merged_gat_forward; with bf16 xs_all, each weight rounded to bf16
+    before it multiplies its message."""
     n_rows, n_rel = _check(xs_all, src, row_offsets, att, a_dst_all,
                            n_rows_per_rel, fold, mode)
     dev = xs_all.device
     d = xs_all.shape[1]
+    bf16 = xs_all.dtype == torch.bfloat16
     dst, msgs, _, l = _edge_terms(xs_all, src, row_offsets, att, a_dst_all,
                                   n_rows_per_rel, negative_slope, temperature)
     row_max = torch.full((n_rows,), NEG_BIG, dtype=torch.float32, device=dev)
@@ -127,11 +158,13 @@ def merged_gat_forward_plain(xs_all, src, row_offsets, att, a_dst_all,
         row_max = row_max.scatter_reduce(0, dst, l, "amax", include_self=True)
         w = torch.exp(torch.clamp(l - row_max[dst], max=EXP_CLAMP))
         row_sum.index_add_(0, dst, w)
-        out.index_add_(0, dst, w[:, None] * msgs)
+        out.index_add_(0, dst, (round_bf16(w) if bf16 else w)[:, None]
+                       * msgs)
         out = out / (row_sum + EPS)[:, None]
     else:
         w = torch.sigmoid(l) if mode == "sigmoid" else l * temperature
-        out.index_add_(0, dst, w[:, None] * msgs)
+        out.index_add_(0, dst, (round_bf16(w) if bf16 else w)[:, None]
+                       * msgs)
     if fold:
         out = out.reshape(fold, n_rows_per_rel, d).sum(0)
     return out, row_max, row_sum
@@ -155,7 +188,7 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
                        negative_slope=0.2, temperature=1.0, sched=None):
     """Merged GAT layer forward over one destination group.
 
-    xs_all [S, D] f32 concatenated projected source rows; src [E] int32 into
+    xs_all [S, D] f32 (or bf16) concatenated projected source rows; src [E] int32 into
     xs_all (dst-sorted); row_offsets [R*N+1] int32; att [R, D] per-slot
     attention vectors; a_dst_all [R*N] per-row destination logits;
     n_rows_per_rel = N. Returns (out, row_max, row_sum): out is [R*N, D],
@@ -173,6 +206,7 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
                            n_rows_per_rel, fold, mode)
     check_cuda_args(xs_all.device, xs_all=xs_all, src=src,
                     row_offsets=row_offsets, att=att, a_dst_all=a_dst_all)
+    bf16 = xs_all.dtype == torch.bfloat16
     d = xs_all.shape[1]
     if fold and n_rel > ITEM_MAX_ROWS:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
@@ -190,7 +224,7 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     part_s = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
     part_acc = torch.empty(sched.n_parts, d, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library("merged_gat_fwd")(
+    err = library("merged_gat_fwd_bf16" if bf16 else "merged_gat_fwd")(
         xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
         att.data_ptr(), a_dst_all.data_ptr(), out.data_ptr(),
         row_max.data_ptr(), row_sum.data_ptr(), sched.items.data_ptr(),
@@ -201,20 +235,27 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
         negative_slope, temperature, stream)
     if err != 0:
         raise RuntimeError(f"merged_gat_fwd launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    global launches, bf16_launches
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out, row_max, row_sum
 
 
 def _edge_terms(xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel,
                 negative_slope, temperature):
-    """Per edge: destination row, gathered source row, pre-activation logit
-    z and scaled logit l = leaky_relu(z) / temperature."""
+    """Per edge: destination row, gathered source row (float32), pre-
+    activation logit z and scaled logit l = leaky_relu(z) / temperature;
+    with bf16 xs_all, att rounded to bf16 for the score."""
     n_rows = row_offsets.shape[0] - 1
     row_offsets = row_offsets.long()
     dst = torch.repeat_interleave(torch.arange(n_rows, device=xs_all.device),
                                   row_offsets[1:] - row_offsets[:-1])
     x = xs_all[src[:dst.shape[0]].long()]
+    if xs_all.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
+        att = round_bf16(att)
     z = (x * att[dst // n_rows_per_rel]).sum(-1) + a_dst_all[dst]
     l = torch.where(z >= 0, z, negative_slope * z) / temperature
     return dst, x, z, l
@@ -225,19 +266,28 @@ def merged_gat_bwd_plain(xs_all, src, row_offsets, att, a_dst_all, row_max,
                          negative_slope=0.2, temperature=1.0):
     """Plain PyTorch version of the merged_gat_bwd kernel, in the TPU
     backward kernel's formulas and constants. Same arguments and results
-    as merged_gat_bwd."""
+    as merged_gat_bwd; with bf16 xs_all, g rounded to bf16 for g_row . x_e,
+    and dot_row from the forward's rounded weights and the unrounded g."""
     n_rows, _ = _check(xs_all, src, row_offsets, att, a_dst_all,
                        n_rows_per_rel, fold, mode)
+    bf16 = xs_all.dtype == torch.bfloat16
     dst, x, z, l = _edge_terms(xs_all, src, row_offsets, att, a_dst_all,
                                n_rows_per_rel, negative_slope, temperature)
-    m = (g[dst % n_rows_per_rel if fold else dst] * x).sum(-1)   # g_row . x_e
+    g_rows = g[dst % n_rows_per_rel if fold else dst]
+    m = ((round_bf16(g_rows) if bf16 else g_rows) * x).sum(-1)  # g_row . x_e
     leaky_d = torch.where(z >= 0, 1.0, negative_slope)
     if mode == "softmax":
         lse = row_max + torch.log(row_sum + EPS)
         w = torch.exp(torch.clamp(l - lse[dst], max=EXP_CLAMP))
         # dot_r = out_row . g_row, from the row's own edges
         dot_r = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
-        dot_r.index_add_(0, dst, w * m)
+        if bf16:
+            alpha = round_bf16(torch.exp(torch.clamp(l - row_max[dst],
+                                                     max=EXP_CLAMP)))
+            dot_r.index_add_(0, dst, alpha * (g_rows * x).sum(-1))
+            dot_r = dot_r / (row_sum + EPS)
+        else:
+            dot_r.index_add_(0, dst, w * m)
         dz = w * (m - dot_r[dst]) * leaky_d / temperature
     elif mode == "sigmoid":
         w = torch.sigmoid(l)
@@ -280,6 +330,7 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     check_cuda_args(xs_all.device, xs_all=xs_all, src=src,
                     row_offsets=row_offsets, att=att, a_dst_all=a_dst_all,
                     row_max=row_max, row_sum=row_sum, g=g)
+    bf16 = xs_all.dtype == torch.bfloat16
     if fold and n_rel > ITEM_MAX_ROWS:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
     sched = _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel,
@@ -293,7 +344,7 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     d_a_dst = torch.empty(n_rows, dtype=torch.float32, device=dev)
     part_dot = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library("merged_gat_bwd")(
+    err = library("merged_gat_bwd_bf16" if bf16 else "merged_gat_bwd")(
         xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
         att.data_ptr(), a_dst_all.data_ptr(), row_max.data_ptr(),
         row_sum.data_ptr(), g.data_ptr(), w.data_ptr(), dz.data_ptr(),
@@ -304,8 +355,11 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
         negative_slope, temperature, stream)
     if err != 0:
         raise RuntimeError(f"merged_gat_bwd launch failed: cudaError {err}")
-    global bwd_launches
-    bwd_launches += 1
+    global bwd_launches, bf16_bwd_launches
+    if bf16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return w, dz, d_a_dst
 
 
@@ -353,13 +407,18 @@ def merged_gat_backward(xs_all, att, a_dst_all, row_max, row_sum, g, layout,
 class MergedGATLayer(torch.autograd.Function):
     """The merged GAT layer with its gradient:
     ``MergedGATLayer.apply(xs_all, att, a_dst_all, layout, fold, mode,
-    negative_slope, temperature)`` -> out ([N, D] with fold=R, else
-    [R*N, D]). The forward saves row_max / row_sum; the backward
-    recomputes every edge's logit from xs_all, att and a_dst_all."""
+    negative_slope, temperature[, stream_dtype])`` -> out ([N, D] with
+    fold=R, else [R*N, D]), float32. The forward saves row_max / row_sum;
+    the backward recomputes every edge's logit from xs_all, att and
+    a_dst_all. stream_dtype: the dtype the table is cast to inside the
+    layer (the stream dtype), so that xs_all's gradient is float32, as
+    the JAX package's custom VJP leaves it; every gradient is float32."""
 
     @staticmethod
     def forward(ctx, xs_all, att, a_dst_all, layout, fold, mode,
-                negative_slope, temperature):
+                negative_slope, temperature, stream_dtype=None):
+        if stream_dtype is not None:
+            xs_all = xs_all.to(stream_dtype)
         out, row_max, row_sum = merged_gat_forward(
             xs_all, layout.src, layout.row_offsets, att, a_dst_all,
             layout.n_rows_per_rel, fold, mode, negative_slope, temperature,
@@ -375,4 +434,4 @@ class MergedGATLayer(torch.autograd.Function):
         d_xs_all, d_att, d_a_dst = merged_gat_backward(
             xs_all, att, a_dst_all, row_max, row_sum, g.contiguous(),
             ctx.layout, *ctx.options)
-        return d_xs_all, d_att, d_a_dst, None, None, None, None, None
+        return d_xs_all, d_att, d_a_dst, None, None, None, None, None, None

@@ -42,6 +42,23 @@ keeps the chunks' scratch on the schedule from the first launch.
 gradient from the same launch when ``w`` requires one (static degree norms
 do not; the sigmoid GAT layer's weights do).
 
+**bf16 tables.** ``xs_all`` and ``x`` may be bfloat16 (the dtype
+options); the wrappers then launch the kernels' bf16 instances (entry
+points ``kgwas_csc_segment_sum_bf16``, ``kgwas_csr_segment_sum_bf16``;
+counted in ``bf16_launches`` and ``csr_bf16_launches``). Outputs stay
+float32, as the TPU kernels write them. With the logit term, each formed
+message cotangent row ``w_e g[row_e] + dz_e att[slot]`` is rounded to
+bf16 before it is summed, and ``c_s`` sums the bf16-rounded ``dz_e``: the
+JAX package's backward layer kernel writes ``d_msgs`` in bf16 and dots
+``dz`` rounded to bf16 with the messages for ``d_att``. Without it, a
+weighted sum rounds each product ``w_e g[row_e]`` to bf16 (the cotangent
+of bf16 messages that the JAX package multiplied by float32 weights comes
+back through the cast to bf16), an unweighted one adds the float32 rows
+(the JAX package's segment sum hands its float32 cotangent on as it is).
+In the CSR sum a
+bf16 ``w`` rounds each product ``w_e x[src_e]`` to bf16 (the JAX package
+forms ``msgs * w`` in bf16 there); an f32 ``w`` multiplies in float32.
+
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version for CPU tensors; there is no other route. ``launches`` (CSC) and
 ``csr_launches`` count calls of the wrappers that reach the card (a call
@@ -59,12 +76,14 @@ from .schedule import (BWD_ITEM_MAX_EDGES, CSC_CHUNK_EDGES,
                        CSC_LOGIT_MAX_EDGES, CSC_MAX_EDGES, CSR_CHUNK_EDGES,
                        CSR_MAX_EDGES, ITEM_MAX_ROWS, check_device_schedule,
                        check_stream, row_schedule, schedule)
-from .segment_ref import csr_rows, gather_rows, segment_sum
+from .segment_ref import csr_rows, gather_rows, round_bf16, segment_sum
 
 MAX_SLOTS = 32
 
 launches = 0
 csr_launches = 0
+bf16_launches = 0
+csr_bf16_launches = 0
 
 
 def _slots(layout, xs_all, att):
@@ -125,20 +144,28 @@ def csc_segment_sum_plain(g, w, dz, xs_all, att, layout, fold=0,
                           edge_grad=False):
     """Plain PyTorch version: the [E, D] message cotangent formed in full
     and summed per source row with index_add_; d_w = (x[src] *
-    g[dst]).sum(-1). Same arguments and results as csc_segment_sum."""
+    g[dst]).sum(-1). Same arguments and results as csc_segment_sum (bf16
+    xs_all: d_msgs rows and dz rounded to bf16, float32 outputs)."""
     src_base, n_rel = _slots(layout, xs_all, att)
     _check_edge_grad(dz, edge_grad)
+    bf16 = xs_all.dtype == torch.bfloat16
+    if bf16:
+        xs_all = xs_all.to(torch.float32)
     n = layout.n_rows_per_rel
     dst = layout.dst.long()
     src = csc_sources(layout)
     rows = g[dst % n if fold else dst]
     d_msgs = rows if w is None else w[:, None] * rows
     if dz is None:
+        if bf16 and w is not None:
+            d_msgs = round_bf16(d_msgs)
         d_xs = torch.zeros_like(xs_all).index_add_(0, src, d_msgs)
         if edge_grad:
             return d_xs, None, (xs_all[src] * rows).sum(-1)
         return d_xs, None
     d_msgs = d_msgs + dz[:, None] * att[dst // n]
+    if bf16:
+        d_msgs, dz = round_bf16(d_msgs), round_bf16(dz)
     d_xs = torch.zeros_like(xs_all).index_add_(0, src, d_msgs)
     c = torch.zeros(xs_all.shape[0], dtype=xs_all.dtype,
                     device=xs_all.device).index_add_(0, src, dz)
@@ -227,14 +254,15 @@ def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0, edge_grad=False):
     plan = _csc_plan(layout, sched, n_rel, d, dz is not None, dev)
     check_cuda_args(dev, g=g, xs_all=xs_all, **edge,
                     **({} if att is None else {"att": att}))
+    bf16 = xs_all.dtype == torch.bfloat16
     from .build import library
 
-    d_xs = torch.empty_like(xs_all)
+    d_xs = torch.empty(xs_all.shape, dtype=torch.float32, device=dev)
     d_att = None if att is None else torch.empty_like(att)
     d_w = torch.empty(e, dtype=torch.float32, device=dev) if edge_grad \
         else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = library("csc_segment_sum")(
+    err = library("csc_segment_sum_bf16" if bf16 else "csc_segment_sum")(
         g.data_ptr(), ptr(w), ptr(dz), xs_all.data_ptr(), ptr(att),
         layout.csc_rows.data_ptr(), layout.csc_perm.data_ptr(),
         layout.csc_offsets.data_ptr(), sched.items.data_ptr(),
@@ -246,8 +274,11 @@ def csc_segment_sum(g, w, dz, xs_all, att, layout, fold=0, edge_grad=False):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csc_segment_sum launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    global launches, bf16_launches
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return (d_xs, d_att, d_w) if edge_grad else (d_xs, d_att)
 
 
@@ -258,22 +289,40 @@ def _check_csr(x, src, row_offsets, w):
         raise ValueError(f"w {tuple(w.shape)} != src {tuple(src.shape)}")
 
 
+def _csr_operands(x, w):
+    """(x, w, round_products) as the kernels take them: with a bf16 w and
+    a bf16 x, each product is rounded to bf16 (w goes as float32, exact);
+    a bf16 w with a wider x multiplies in x's dtype."""
+    if w is None or w.dtype != torch.bfloat16:
+        return x, w, False
+    if x.dtype == torch.bfloat16:
+        return x, w.to(torch.float32), True
+    return x, w.to(x.dtype), False
+
+
 def csr_segment_sum_plain(x, src, row_offsets, w=None):
     """Plain PyTorch version: gather, weight and index_add_ per row. Same
-    arguments and result as csr_segment_sum."""
+    arguments and result as csr_segment_sum (bf16 x: float32 sums, the
+    products of a bf16 w rounded to bf16)."""
     _check_csr(x, src, row_offsets, w)
+    x, w, round_products = _csr_operands(x, w)
     rows = csr_rows(row_offsets)
     msgs = gather_rows(x, src[:rows.shape[0]])
+    if msgs.dtype == torch.bfloat16:
+        msgs = msgs.to(torch.float32)
     if w is not None:
         msgs = w[:rows.shape[0], None] * msgs
+        if round_products:
+            msgs = round_bf16(msgs)
     return segment_sum(msgs, rows, row_offsets.shape[0] - 1)
 
 
 def csr_segment_sum(x, src, row_offsets, w=None, sched=None):
     """out [n_rows, D], out[r] = sum over row r's edges e of w_e x[src_e].
 
-    x [S, D] f32 source rows; src [E] int32 into x (dst-sorted);
-    row_offsets [n_rows + 1] int32; w [E] f32 per-edge weights or None (1).
+    x [S, D] f32 (or bf16) source rows; src [E] int32 into x (dst-sorted);
+    row_offsets [n_rows + 1] int32; w [E] f32 (or bf16) per-edge weights
+    or None (1). out is float32.
     Empty rows give 0. sched: the stream's row_schedule on the device with
     CSR_MAX_EDGES and CSR_CHUNK_EDGES (DeviceLayout.row_schedule on 'mp';
     built from row_offsets when not given); the plain version needs none."""
@@ -285,7 +334,9 @@ def csr_segment_sum(x, src, row_offsets, w=None, sched=None):
     from .gat_layer import check_cuda_args
 
     dev = x.device
+    x, w, round_products = _csr_operands(x, w)
     check_cuda_args(dev, x=x, **({} if w is None else {"w": w}))
+    bf16 = x.dtype == torch.bfloat16
     n_rows = row_offsets.shape[0] - 1
     if sched is None:
         sched = row_schedule(row_offsets, CSR_MAX_EDGES,
@@ -301,17 +352,24 @@ def csr_segment_sum(x, src, row_offsets, w=None, sched=None):
     from .build import library
 
     out = torch.empty(n_rows, d, dtype=torch.float32, device=dev)
-    err = library("csr_segment_sum")(
-        x.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
-        None if w is None else w.data_ptr(), out.data_ptr(),
-        sched.items.data_ptr(), sched.items.shape[0],
-        sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
-        sched.split_units.shape[0], part_acc.data_ptr(), n_rows, d,
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (x.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
+            None if w is None else w.data_ptr(), out.data_ptr(),
+            sched.items.data_ptr(), sched.items.shape[0],
+            sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
+            sched.split_units.shape[0], part_acc.data_ptr(), n_rows, d)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf16:
+        err = library("csr_segment_sum_bf16")(*args, int(round_products),
+                                              stream)
+    else:
+        err = library("csr_segment_sum")(*args, stream)
     if err != 0:
         raise RuntimeError(f"csr_segment_sum launch failed: cudaError {err}")
-    global csr_launches
-    csr_launches += 1
+    global csr_launches, csr_bf16_launches
+    if bf16:
+        csr_bf16_launches += 1
+    else:
+        csr_launches += 1
     return out
 
 
@@ -324,6 +382,8 @@ class CSRSegmentSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, layout):
+        # the gradients are float32 (the engine casts them to x's and w's
+        # dtypes), as the JAX package's VJP gives them
         ctx.save_for_backward(x, w)
         ctx.layout = layout
         return csr_segment_sum(x, layout.src, layout.row_offsets, w,
@@ -332,9 +392,11 @@ class CSRSegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        wf = None if w is None else w.to(torch.float32)
         if w is not None and ctx.needs_input_grad[1]:
-            d_x, _, d_w = csc_segment_sum(g.contiguous(), w, None, x, None,
+            d_x, _, d_w = csc_segment_sum(g.contiguous(), wf, None, x, None,
                                           ctx.layout, edge_grad=True)
             return d_x, d_w, None
-        d_x, _ = csc_segment_sum(g.contiguous(), w, None, x, None, ctx.layout)
+        d_x, _ = csc_segment_sum(g.contiguous(), wf, None, x, None,
+                                 ctx.layout)
         return d_x, None, None

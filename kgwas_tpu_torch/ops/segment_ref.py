@@ -19,6 +19,12 @@ def gather_rows(x, idx):
     return x.index_select(0, idx)
 
 
+def round_bf16(t):
+    """t (float32) rounded to the nearest bf16, kept in float32: where the
+    TPU kernels round on bf16 operands (the kernels' bf16 instances)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def segment_sum(data, segment_ids, num_segments: int):
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)

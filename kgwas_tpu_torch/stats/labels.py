@@ -4,8 +4,8 @@ the Bonferroni correction.
 Counterpart of ``kgwas_tpu/stats/labels.py`` on column tables (numpy
 only). The residual-* labels regress chi2 on LD scores and train on the
 residual; the closed-form weighted least squares gives statsmodels' WLS
-estimates. ``KGWAS_Data.process_gwas_file`` does not wire them yet (the
-real-data loaders, ROADMAP.md Queue 1 item 9).
+estimates. ``KGWAS_Data.process_gwas_file`` builds them from the loaded
+LD scores (its ``label`` argument).
 """
 from __future__ import annotations
 

@@ -62,7 +62,7 @@ def test_cli_interpret(trained_dir, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "8"], "item 10"),
-    (["--dtype", "bfloat16"], "item 7"),
+    (["--dtype", "bfloat16", "--aggr", "max"], "item 7"),
 ])
 def test_cli_unported_flags_raise_before_loading(tmp_path, flag, item):
     d = tmp_path / "never"

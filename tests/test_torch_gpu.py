@@ -1181,3 +1181,160 @@ def test_train_state_copy_precedes_the_next_step(cuda_device):
     assert torch.equal(out["optimizer"]["state"][0]["m"], want * 2)
     assert float(out["optimizer"]["state"][0]["step"]) == 7.0
     assert out["optimizer"]["param_groups"] == [{"lr": 1e-4, "params": [0]}]
+
+
+# ---- the bf16 instances (the dtype options)
+#
+# Each bf16 kernel against its plain bf16 version on the same bf16 table:
+# the same rounding points, float32 sums in another order. A value the
+# two round to bf16 from float32 values a few ulps apart (a weight, a
+# message cotangent, dz for d_att) can round to the neighbouring bf16
+# value: so at most 1 row in 10^3 of a forward (1 element in 10^4 of
+# d_xs) misses the f32 tolerances above, each within 1e-2 relative (a
+# weight's bf16 ulp, 2^-8, of its share) or 2^-8 of its row's largest
+# value; d_att at rtol 1e-4 with a floor of 1e-4 of its largest value (a
+# dz_e rounded to its bf16 neighbour moves one term of a d_att sum by
+# 2^-8: up to 2.3e-5 of the largest value seen). Two launches give the
+# same bits.
+
+def _bf16_rows_close(got, want, n_per_rel, trash, fold):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    mask = np.zeros(len(got), dtype=bool)
+    if fold:
+        mask[trash] = True
+    else:
+        mask[trash::n_per_rel] = True
+    ok = np.isclose(got, want, rtol=1e-5, atol=1e-5).all(axis=1)
+    ok[mask] = np.isclose(got[mask], want[mask], rtol=1e-4,
+                          atol=1e-5).all(axis=1)
+    assert (~ok).sum() <= max(1, len(ok) // 1000), (~ok).sum()
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-4)
+
+
+def _bf16_grad_close(got, want):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    miss = ~np.isclose(got, want, rtol=1e-4,
+                       atol=1e-5 * np.abs(want).max())
+    assert miss.sum() <= max(1, want.size // 10 ** 4), miss.sum()
+    # a row's largest |value|; of a 1-D array (per row or edge), its largest
+    scale = (np.abs(want).max() if want.ndim == 1
+             else np.abs(want).max(axis=-1, keepdims=True))
+    assert np.all(np.abs(got - want) <= 2.0 ** -8 * scale + 1e-6)
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
+@pytest.mark.parametrize("d", [D, 48])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
+def test_bf16_kernels_match_plain(mode, fold, d, max_edges, cuda_device,
+                                  group):
+    """merged_gat_fwd_bf16 (#1), then merged_gat_bwd_bf16 (#2) and
+    csc_segment_sum_bf16 (#8, the logit term) on its output's cotangent."""
+    L, trash = group
+    fold = len(L.rel_keys) if fold else 0
+    DL = _merged_layout(L, fold, cuda_device)
+    xs, att, a_dst, g = _bwd_inputs(L, fold, d, cuda_device)
+    xs = xs.to(torch.bfloat16)
+    n = L.n_rows_per_rel
+    args = (xs, DL.src, DL.row_offsets, att, a_dst, n, fold, mode, 0.2, 0.7)
+    sched = _sched(L, fold, max_edges, cuda_device)
+    before = (gat_layer.launches, gat_layer.bf16_launches)
+    got = gat_layer.merged_gat_forward(*args, sched=sched)
+    again = gat_layer.merged_gat_forward(*args, sched=sched)
+    torch.cuda.synchronize()
+    assert (gat_layer.launches, gat_layer.bf16_launches) == (
+        before[0], before[1] + 2)
+    want = gat_layer.merged_gat_forward_plain(*args)
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        assert g_.dtype == torch.float32
+    _bf16_rows_close(got[0], want[0], n, trash, fold)
+    for g_, w_ in zip(got[1:], want[1:]):
+        _bf16_rows_close(g_[:, None], w_[:, None], n, trash, False)
+    bwd = (xs, att, a_dst, want[1], want[2], g, DL, fold, mode, 0.2, 0.7)
+    b0 = (gat_layer.bf16_bwd_launches, segment.bf16_launches)
+    new = gat_layer.merged_gat_backward(*bwd)
+    new2 = gat_layer.merged_gat_backward(*bwd)
+    torch.cuda.synchronize()
+    assert (gat_layer.bf16_bwd_launches, segment.bf16_launches) == (
+        b0[0] + 2, b0[1] + 2)
+    plain = gat_layer.merged_gat_backward_plain(*bwd)
+    for a, b in zip(new, new2):
+        assert torch.equal(a, b)
+    _bf16_grad_close(new[0], plain[0])
+    np.testing.assert_allclose(new[1].cpu().numpy(), plain[1].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4 * float(
+                                   plain[1].abs().max()))
+    _bf16_grad_close(new[2], plain[2])
+
+
+@pytest.mark.parametrize("kind", ["none", "f32", "bf16"])
+@pytest.mark.parametrize("d", [D, 48])
+def test_bf16_segment_sums_match_plain(kind, d, cuda_device, group):
+    """csr_segment_sum_bf16 (#10: unweighted, f32 weights, bf16 weights
+    with bf16 products) and csc_segment_sum_bf16 without the logit term
+    (its weighted products rounded to bf16; with the weights' gradient)
+    over a merged group's stream and its CSC."""
+    L, trash = group
+    DL = _merged_layout(L, 0, cuda_device)
+    DL = dataclasses.replace(DL, row_schedule=schedule.row_schedule(
+        L.row_offsets, schedule.CSR_MAX_EDGES,
+        schedule.CSR_CHUNK_EDGES).to(cuda_device))
+    xs, _, _, g = _bwd_inputs(L, 0, d, cuda_device)
+    xs = xs.to(torch.bfloat16)
+    rng = np.random.default_rng(21)
+    e = DL.src.shape[0]
+    w = (None if kind == "none" else torch.from_numpy(
+        rng.random(e, dtype=np.float32)).to(cuda_device))
+    if kind == "bf16":
+        w = w.to(torch.bfloat16)
+    c0 = segment.csr_bf16_launches
+    got = segment.csr_segment_sum(xs, DL.src, DL.row_offsets, w,
+                                  sched=DL.row_schedule)
+    again = segment.csr_segment_sum(xs, DL.src, DL.row_offsets, w,
+                                    sched=DL.row_schedule)
+    want = segment.csr_segment_sum_plain(xs, DL.src, DL.row_offsets, w)
+    torch.cuda.synchronize()
+    assert segment.csr_bf16_launches == c0 + 2
+    assert torch.equal(got, again)
+    _close(got, want, L.n_rows_per_rel, trash)
+    wf = None if w is None else w.to(torch.float32)
+    new = segment.csc_segment_sum(g, wf, None, xs, None, DL,
+                                  edge_grad=w is not None)
+    plain = segment.csc_segment_sum_plain(g, wf, None, xs, None, DL,
+                                          edge_grad=w is not None)
+    torch.cuda.synchronize()
+    _bf16_grad_close(new[0], plain[0])
+    if w is not None:
+        _close_grad(new[2], plain[2])
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
+def test_merged_gat_f32_instances_bitwise_as_parent(mode, fold, parent_csrc,
+                                                    cuda_device, group,
+                                                    monkeypatch):
+    """The f32 instances of the merged GAT kernels, whose sources gained
+    the bf16 instances beside them, give the earlier source's bits on the
+    same inputs and schedules."""
+    L, _ = group
+    fold = len(L.rel_keys) if fold else 0
+    n = L.n_rows_per_rel
+    xs, att, a_dst, g = _bwd_inputs(L, fold, D, cuda_device)
+    src = torch.from_numpy(L.src).to(cuda_device)
+    ro = torch.from_numpy(L.row_offsets).to(cuda_device)
+    new = gat_layer.merged_gat_forward(xs, src, ro, att, a_dst, n, fold, mode,
+                                       0.2, 0.7)
+    bargs = (xs, src, ro, att, a_dst, new[1], new[2], g, n, fold, mode, 0.2,
+             0.7)
+    new_b = gat_layer.merged_gat_bwd(*bargs)
+    for name in ("merged_gat_fwd", "merged_gat_bwd"):
+        source, entry, argtypes = build.KERNELS[name]
+        monkeypatch.setitem(build._loaded, name, build.build_source(
+            parent_csrc / source, f"parent_{name}", entry, argtypes))
+    old = gat_layer.merged_gat_forward(xs, src, ro, att, a_dst, n, fold, mode,
+                                       0.2, 0.7)
+    old_b = gat_layer.merged_gat_bwd(*bargs)
+    torch.cuda.synchronize()
+    for a, b in zip(new + new_b, old + old_b):
+        assert torch.equal(a, b)

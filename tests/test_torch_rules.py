@@ -242,20 +242,39 @@ def test_train_options_of_later_items_raise(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the bf16 dtypes of item 7 still raise from initialize_model:
-    the model variants (item 3) run (test_lifted_variant_options_run), and
-    so do host-streamed features (tests/test_torch_streaming.py); mesh
-    (item 10): test_train_options_of_later_items_raise."""
+    """Of the bf16 dtypes of item 7, only a bf16 compute or stream dtype on
+    the per-relation softmax GAT (GAT max / min, edge_dim, dropout in
+    training: kernels #6 and #7) still raises from initialize_model; the
+    four options run elsewhere, kept in model_cfg and out of the persisted
+    config (their computation: tests/test_torch_bf16_model.py). The model
+    variants (item 3) run (test_lifted_variant_options_run), and so do
+    host-streamed features (tests/test_torch_streaming.py); mesh (item 10):
+    test_train_options_of_later_items_raise."""
     data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                      data_path=str(tmp_path))
     run = KGWAS(data, device="cpu")
-    for kw, item in (({"compute_dtype": "bfloat16"}, 7),
-                     ({"stream_dtype": "bfloat16"}, 7),
-                     ({"stream_f32_logits": True}, 7),
-                     ({"param_dtype": "bfloat16"}, 7)):
+    for kw, item in (({"compute_dtype": "bfloat16", "gnn_aggr": "max"}, 7),
+                     ({"stream_dtype": "bfloat16", "edge_dim": 4}, 7),
+                     ({"compute_dtype": "bfloat16", "dropout": 0.1}, 7),
+                     ({"stream_dtype": "bfloat16", "gnn_aggr": "min"}, 7)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue 1 item {item} "):
             run.initialize_model(gnn_hidden_dim=16, **kw)
+    for kw in ({"compute_dtype": "bfloat16"}, {"stream_dtype": "bfloat16"},
+               {"stream_dtype": "bfloat16", "stream_f32_logits": True},
+               {"param_dtype": "bfloat16", "gnn_aggr": "max"},
+               {"compute_dtype": "bfloat16", "sigmoid_gat": True,
+                "gnn_aggr": "max"}):
+        run.initialize_model(gnn_hidden_dim=16, **kw)
+        for k, v in kw.items():
+            assert getattr(run.model_cfg, k) == v
+        assert not set(kw) & {"param_dtype", "compute_dtype", "stream_dtype",
+                              "stream_f32_logits"} & set(run.config)
+        want = "bfloat16" if "param_dtype" in kw else "float32"
+        assert {str(p.dtype) for p in run.model.parameters()} == {
+            f"torch.{want}"}
+    with pytest.raises(ValueError, match="compute_dtype"):
+        run.initialize_model(gnn_hidden_dim=16, compute_dtype="float16")
 
 
 LIFTED = {
