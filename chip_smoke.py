@@ -101,7 +101,7 @@ PyTorch version:
      without the flag
 
  11. long runs, host-streamed features and the cohort builder: (a) at
-     full width, KGWAS.train(max_restarts=1) over 3 epochs clean and with a
+     full width, KGWAS.train(max_restarts=1) over 2 epochs clean and with a
      transient fault injected in epoch 2 (one restart; final and best
      parameters bitwise the clean run's), the snapshot's host time per
      epoch and the time to recover; (b) checkpoint_every=100 beside the
@@ -118,7 +118,8 @@ PyTorch version:
      streamed from the host from the same initial state, step ms, bytes to
      the device and the rate beside a pinned copy, the host gather time,
      then KGWAS.train and predict_all streamed; (f) the UK Biobank cohort
-     builder on 502,000 fabricated participants, host seconds by stage.
+     builder on 120,000 fabricated participants (UKBB; cut from 502,000
+     to pay for phases 12's relation runs and 14), host seconds by stage.
      Launches of merged_gat_fwd, merged_gat_bwd and csc_segment_sum are
      counted from 0 just before each entry point and checked
 
@@ -135,11 +136,31 @@ PyTorch version:
      predict_all and KGWAS.train over three batches with every layer
      kernel counted from 0 just before (the bf16 instances where the
      table is bf16), against the plain ops, two kernel runs bitwise,
-     forward and step ms with the device's busy share
+     forward and step ms with the device's busy share; the per-relation
+     softmax GAT (GAT max, GAT min, GAT sum with edge_dim 4) under
+     stream_dtype and compute_dtype the same way (no profile: forward and
+     step ms beside phase 6c's float32 GAT max / min), and every launch of
+     #6 / #7 on a bf16 table in one forward and one step held against its
+     plain version (the float64 rule) and bitwise the float32 instance on
+     the widened operands; GAT max's launches timed (ms, device ms, plain
+     ms, bound at 2-byte rows, bf16 gather floor, the float32 instance on
+     the widened values)
  13. the bf16 quality gate (scripts/exp_stream_gate.py's KG and model):
      f32, stream_dtype, compute_dtype and f32 with TF32 matmuls trained
      30 epochs; KGWAS_P's Spearman and top-50 overlap against f32 (a
      finding: only a crash or a non-finite KGWAS_P fails the phase)
+ 14. multi-device training (kgwas_tpu_torch/parallel) on the one card:
+     KGWAS.train(mesh=1) at full width in a one-rank NCCL process group
+     (launches counted from 0 just before, losses against the
+     single-device run's), the all-gather and reduce-scatter ms at world
+     size 1, a train step over the mesh beside one on the device alone; the per-rank layouts of 2 and 4 ranks (the Gene and SNP
+     groups whose tiles split) through #1, #2 and #8 in this process, the
+     ranks' rows and summed gradients against the unsharded layer. Two
+     ranks over NCCL need two cards: not run here
+
+  Every phase's seconds are logged, and their list before the kernel
+  table. Phase 4 times one other max_edges (SWEEP_MAX_EDGES) beside the
+  default.
 
   Phase 5 also writes its KGWAS_P table with write_table and with the row
   writer it replaced, and checks that the bytes are equal.
@@ -220,7 +241,7 @@ GRAD_ERR_RATIO, GRAD_FLOOR = 8.0, 1e-6
 # differs in the last bits can move it by up to 2 lr per step
 BATCH, LR, CMP_STEPS = 512, 1e-4, 3
 # max_edges of the merged GAT schedule timed beside the default (phase 4)
-SWEEP_MAX_EDGES = (32, 64, 256)
+SWEEP_MAX_EDGES = (256,)
 LOSS_RTOL, PARAM_ATOL = 1e-4, 2 * LR * CMP_STEPS
 # published H100 SXM peaks (dense): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores
@@ -1201,6 +1222,8 @@ VARIANTS = {
 }
 VARIANT_KERNELS = ("segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd",
                    "csr_segment_sum", "csc_segment_sum")
+# phase 6c's float32 forward / step ms of each variant, beside phase 12's
+F32_TIMES = {}
 
 
 def variant_counts(zero=False):
@@ -1629,6 +1652,7 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
                 + ("bytes" if tot["bytes"] >= tot["operations"]
                    else "operations") + ")")
         summary[name] = {"forward_ms": fwd_ms, "step_ms": step_ms}
+        F32_TIMES[name] = (fwd_ms, step_ms)
         edges = cg.total_real_edges()
         log(f"  phase 6c {name} [{card}]: forward {fwd_ms:.3f} ms median of "
             f"10 ({edges * LAYERS / (fwd_ms / 1e3):.4g} edge-traversals/s), "
@@ -3092,10 +3116,10 @@ def phase_models(kt, data, cg, device, card, floors):
 
 # (a) a clean run and one with a transient fault before step FAULT_STEP of
 # epoch 2, LONG_EPOCHS epochs each; (b) a train state every CKPT_EVERY steps
-LONG_EPOCHS, FAULT_STEP, CKPT_EVERY = 3, 100, 100
+LONG_EPOCHS, FAULT_STEP, CKPT_EVERY = 2, 100, 100
 # (d) the watchdog's stall timeout (s): start-up, data and a first step fit
 # in it; the wedged attempt stops after WEDGE_CLI / WEDGE_SCRIPT heartbeats
-WATCHDOG_T, WEDGE_CLI, WEDGE_SCRIPT = 60.0, 7, 15
+WATCHDOG_T, WEDGE_CLI, WEDGE_SCRIPT = 45.0, 7, 15
 # (d) the script's checkpoint_every (its newest state before the wedge),
 # batch and KG: the CLI's --synthetic sizes, so that a process reaches its
 # first step well inside the timeout
@@ -3105,7 +3129,7 @@ WEDGE_KG = dict(n_snp=2000, n_gene=400, n_go=150)
 POPS_DIM = 57_742
 # (f) UK Biobank's cohort: participants, kinship pairs, ICD10 array width
 # (field 41270 has hundreds of array entries; cut to 20), genotyping batches
-UKBB = dict(n=502_000, kin_pairs=100_000, icd_width=20, batches=106)
+UKBB = dict(n=120_000, kin_pairs=24_000, icd_width=20, batches=106)
 LONG_KERNELS = ("merged_gat_fwd", "merged_gat_bwd", "csc_segment_sum")
 
 
@@ -3841,24 +3865,36 @@ def phase_cohort(kt, card, tmp):
 # ---------------------------------------------------------------------------
 
 BF16_KERNELS = ("merged_gat_fwd_bf16", "merged_gat_bwd_bf16",
-                "csc_segment_sum_bf16", "csr_segment_sum_bf16")
+                "csc_segment_sum_bf16", "csr_segment_sum_bf16",
+                "segment_softmax_spmm_fwd_bf16",
+                "segment_softmax_spmm_bwd_bf16")
+# the per-relation softmax GAT's (#6, #7): phase 12's relation runs
+REL_BF16 = ("segment_softmax_spmm_fwd_bf16", "segment_softmax_spmm_bwd_bf16")
 # each bf16 kernel's f32 family (path_launches counts the family)
 BF16_FAMILY = {"merged_gat_fwd_bf16": "merged_gat_fwd",
                "merged_gat_bwd_bf16": "merged_gat_bwd",
                "csc_segment_sum_bf16": "csc_segment_sum",
-               "csr_segment_sum_bf16": "csr_segment_sum"}
+               "csr_segment_sum_bf16": "csr_segment_sum",
+               "segment_softmax_spmm_fwd_bf16": "segment_softmax_spmm_fwd",
+               "segment_softmax_spmm_bwd_bf16": "segment_softmax_spmm_bwd"}
 # the TPU kernel each replaces (its Pallas body), PERF.md's table
 BF16_REPLACES = {
     "merged_gat_fwd_bf16": "kgwas_tpu/ops/pallas_gat_layer.py:210",
     "merged_gat_bwd_bf16": "kgwas_tpu/ops/pallas_gat_layer.py:387",
     "csc_segment_sum_bf16": "kgwas_tpu/ops/pallas_segment.py:659",
     "csr_segment_sum_bf16": "kgwas_tpu/ops/pallas_segment.py:659",
+    "segment_softmax_spmm_fwd_bf16": "kgwas_tpu/ops/pallas_segment.py:220",
+    "segment_softmax_spmm_bwd_bf16": "kgwas_tpu/ops/pallas_segment.py:370",
 }
 BF16_SOURCE = {
     "merged_gat_fwd_bf16": "kgwas_tpu_torch/ops/csrc/merged_gat_fwd.cu",
     "merged_gat_bwd_bf16": "kgwas_tpu_torch/ops/csrc/merged_gat_bwd.cu",
     "csc_segment_sum_bf16": "kgwas_tpu_torch/ops/csrc/csc_segment_sum.cu",
     "csr_segment_sum_bf16": "kgwas_tpu_torch/ops/csrc/csr_segment_sum.cu",
+    "segment_softmax_spmm_fwd_bf16":
+        "kgwas_tpu_torch/ops/csrc/segment_softmax_spmm_fwd.cu",
+    "segment_softmax_spmm_bwd_bf16":
+        "kgwas_tpu_torch/ops/csrc/segment_softmax_spmm_bwd.cu",
 }
 # the published bf16 tensor-core peak (dense): the least time for the
 # operations on bf16 inputs
@@ -3881,20 +3917,32 @@ BF16_VARIANTS = {
     "SAGE compute": dict(gnn_backbone="SAGE", compute_dtype="bfloat16"),
     "GAT-max sigmoid compute": dict(gnn_aggr="max", sigmoid_gat=True,
                                     compute_dtype="bfloat16"),
+    # the per-relation softmax GAT (#6 and #7 in bf16), 3 batches each
+    "GAT-max stream": dict(gnn_aggr="max", stream_dtype="bfloat16"),
+    "GAT-max compute": dict(gnn_aggr="max", compute_dtype="bfloat16"),
+    "GAT-min stream": dict(gnn_aggr="min", stream_dtype="bfloat16"),
+    "GAT-min compute": dict(gnn_aggr="min", compute_dtype="bfloat16"),
+    "GAT-sum edge_dim stream": dict(edge_dim=4, stream_dtype="bfloat16"),
+    "GAT-sum edge_dim compute": dict(edge_dim=4, compute_dtype="bfloat16"),
 }
+# the relation runs whose #6 / #7 launches are timed (the kernel table's
+# rows: the compute dtype's, as --dtype bfloat16 sets it)
+REL_TIMED = ("GAT-max stream", "GAT-max compute")
 
 
 def bf16_counts(zero=False):
-    """Launch counts of the four bf16 instances (set to 0 first with
+    """Launch counts of the six bf16 instances (set to 0 first with
     zero)."""
-    from kgwas_tpu_torch.ops import gat_layer, segment
+    from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
 
     if zero:
         gat_layer.bf16_launches = gat_layer.bf16_bwd_launches = 0
         segment.bf16_launches = segment.csr_bf16_launches = 0
+        segment_softmax.bf16_launches = segment_softmax.bf16_bwd_launches = 0
     return dict(zip(BF16_KERNELS, (
         gat_layer.bf16_launches, gat_layer.bf16_bwd_launches,
-        segment.bf16_launches, segment.csr_bf16_launches)))
+        segment.bf16_launches, segment.csr_bf16_launches,
+        segment_softmax.bf16_launches, segment_softmax.bf16_bwd_launches)))
 
 
 def all_counts(zero=False):
@@ -3953,7 +4001,7 @@ def bf16_grad_check(got, want, what, rtol=1e-4):
     return float(err.max()), int(off.sum())
 
 
-def gather_floors_bf16(layouts, rates16, rates32):
+def gather_floors_bf16(cg, layouts, rates16, rates32):
     """The bf16 instances' gather floors over one GAT-sum forward or step
     (Gene once, SNP twice) and the SAGE forward's bf16 launches (layer 1:
     Gene and SNP once): the merged GAT kernels and the CSR sum gather
@@ -3970,8 +4018,15 @@ def gather_floors_bf16(layouts, rates16, rates32):
                      HIDDEN * 4, rates32) for t, k in live.items())
     csr = sum(ms(len(layouts[t].src), layouts[t].n_src_total, HIDDEN * 2,
                  rates16) for t in live)
+    # #6 / #7: each relation's bf16 source rows, per forward or step
+    rel = sum(k * ms(len(cg.relations[rk].src),
+                     cg.padded_nodes[cg.relations[rk].src_type], HIDDEN * 2,
+                     rates16)
+              for t, k in live.items() for rk in layouts[t].rel_keys)
     floors = {"merged_gat_fwd_bf16": merged, "merged_gat_bwd_bf16": merged,
-              "csc_segment_sum_bf16": csc, "csr_segment_sum_bf16": csr}
+              "csc_segment_sum_bf16": csc, "csr_segment_sum_bf16": csr,
+              "segment_softmax_spmm_fwd_bf16": rel,
+              "segment_softmax_spmm_bwd_bf16": rel}
     log("  bf16 gather floors per forward or step: "
         + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
     return floors
@@ -4015,13 +4070,14 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
     host = build_merged_layouts(cg, tile_rows=TILE_ROWS)
     dls = device_layouts(host, device, cg, ("merged", "mp"))
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    mine = [k for k in BF16_KERNELS if k not in REL_BF16]
     rows = {k: dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms",
                               "bytes", "operations", "f32_ms",
                               "f32_device_ms"), 0.0)
-            for k in BF16_KERNELS}
+            for k in mine}
     rows["csr_segment_sum_bf16"]["library_ms"] = 0.0
-    worst = dict.fromkeys(BF16_KERNELS, 0.0)
-    off = dict.fromkeys(BF16_KERNELS, 0)
+    worst = dict.fromkeys(mine, 0.0)
+    off = dict.fromkeys(mine, 0)
     lib_ok = True
 
     def timed(name, k, fn, plain_fn, f32_fn, bound):
@@ -4169,7 +4225,74 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
     return rows
 
 
-def phase_bf16_models(kt, data, cg, device, card):
+def relation_bf16_launches(calls_f, calls_b, timing, n_timed_f=None):
+    """Phase 12's relation runs: every recorded launch of #6 and #7 on a
+    bf16 table (one forward and one training step) against its plain
+    version (the
+    float64 rule) and bitwise the float32 instance on the widened operands
+    under the same schedule; with timing, their sums over the launches:
+    host-paced and device ms, plain ms, bound (each input read and each
+    output written once at its own width; operations at the bf16 peak) and
+    the float32 instance's ms on the widened operands, over the first
+    n_timed_f forward launches (one forward's) and every backward launch.
+    Returns ({kernel: worst abs err}, {kernel: totals})."""
+    from kgwas_tpu_torch.ops import segment_softmax as ss
+
+    worst, rows = {}, {}
+    for name, calls, fn, plain in (
+            ("segment_softmax_spmm_fwd_bf16", calls_f,
+             ss.segment_softmax_spmm_fwd, ss.segment_softmax_spmm_fwd_plain),
+            ("segment_softmax_spmm_bwd_bf16", calls_b,
+             ss.segment_softmax_spmm_bwd, ss.segment_softmax_spmm_bwd_plain)):
+        tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bytes", "operations", "f32_ms",
+                             "f32_device_ms"), 0.0)
+        err = 0.0
+        # under compute_dtype the layers after a relation layer's float32
+        # output run the float32 instance (their products promote)
+        n_timed = len(calls) if name == REL_BF16[1] else n_timed_f
+        calls = [(i < n_timed, c) for i, c in enumerate(calls)
+                 if c[0][0].dtype == torch.bfloat16]
+        if not calls:
+            raise AssertionError(f"{name}: no launch on a bf16 table")
+        n_t = 0
+        for timed_call, (args, kwargs) in calls:
+            args = detached(args)
+            wide = tuple(a.float() if torch.is_tensor(a)
+                         and a.dtype == torch.bfloat16 else a for a in args)
+            got = as_tuple(fn(*args, **kwargs))
+            f32 = as_tuple(fn(*wide, **kwargs))
+            if not all(torch.equal(a, b) for a, b in zip(got, f32)):
+                raise AssertionError(f"{name}: not bitwise the float32 "
+                                     "instance on the widened operands")
+            pkw = {k: v for k, v in kwargs.items() if k != "sched"}
+            pkw64 = dict(zip(pkw, as_double(tuple(pkw.values()))))
+            for a, p, x in zip(got, as_tuple(plain(*args, **pkw)),
+                               as_tuple(plain(*as_double(args), **pkw64))):
+                err = max(err, grad_compare(a, p, x, f"full-width {name}"))
+            if not (timing and timed_call):
+                continue
+            n_t += 1
+            d, ro = args[0].shape[1], args[3]
+            e, n_rows = int(ro[-1]), ro.numel() - 1
+            flops = 2 * d * (e if name == REL_BF16[0] else e + n_rows)
+            b_ms, o_ms = bf16_bound(nbytes(*(a for a in args
+                                             if torch.is_tensor(a)),
+                                           kwargs.get("mult"), *got), flops)
+            tot["bytes"] += b_ms
+            tot["operations"] += o_ms
+            tot["bound_ms"] += max(b_ms, o_ms)
+            tot["ms"] += cuda_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
+            tot["device_ms"] += graph_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
+            tot["plain_ms"] += cuda_ms(lambda: plain(*args, **pkw), 2)  # noqa: B023
+            tot["f32_ms"] += cuda_ms(lambda: fn(*wide, **kwargs), 10)  # noqa: B023
+            tot["f32_device_ms"] += graph_ms(lambda: fn(*wide, **kwargs), 10)  # noqa: B023
+        worst[name] = err
+        rows[name] = dict(tot, launches_timed=n_t)
+    return worst, rows
+
+
+def phase_bf16_models(kt, data, cg, device, card, floors16):
     """Phase 12b-d: BF16_VARIANTS at full width through KGWAS
     (initialize_model with the dtype option, no_relu): predict_all with
     every layer kernel counted from 0 just before (the bf16 instances where
@@ -4178,11 +4301,19 @@ def phase_bf16_models(kt, data, cg, device, card):
     over CMP_STEPS batches, counted; CMP_STEPS steps from one state through
     the kernels twice (bitwise) and through the plain ops (losses at
     BF16_LOSS_RTOL, parameters within PARAM_ATOL); forward and step ms with
-    the device's busy share, beside the f32 GAT sum's. Returns ({kernel:
-    launches}, {kernel: worst abs err}, {variant: (fwd ms, step ms, busy
-    fwd, busy step)})."""
+    the device's busy share, beside the f32 GAT sum's. The per-relation
+    softmax GAT's runs (GAT max, GAT min, edge_dim under each option)
+    also record #6 / #7 bf16 over one forward and one step, each launch
+    held against its plain version and bitwise the float32 instance on the
+    widened operands (relation_bf16_launches; REL_TIMED's timed), their
+    forward / step ms beside phase 6c's float32 GAT max / min (no
+    profile). Returns ({kernel: launches}, {kernel: worst abs err},
+    {variant: (fwd ms, step ms, busy fwd, busy step)}, {kernel: the timed
+    relation run's row})."""
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.models.hetero_gnn import layer_path
+    from kgwas_tpu_torch.ops import segment_softmax
 
     t_phase = time.perf_counter()
     data_v = copy.copy(data)
@@ -4191,7 +4322,7 @@ def phase_bf16_models(kt, data, cg, device, card):
                epoch_batches(data_v.train_mask, BATCH, False, None)]
     launches = dict.fromkeys(BF16_KERNELS, 0)
     worst = dict.fromkeys(BF16_KERNELS, 0.0)
-    times = {}
+    times, rel_rows = {}, {}
     for name, kw in BF16_VARIANTS.items():
         t0 = time.perf_counter()
         low = bool(kw.get("compute_dtype") or kw.get("stream_dtype"))
@@ -4270,6 +4401,33 @@ def phase_bf16_models(kt, data, cg, device, card):
             worst[k] = max(worst[k], pred_err)
         del par_k2, par_p
 
+        rel = (model.cfg.gnn_backbone == "GAT" and not model.cfg.sigmoid_gat
+               and layer_path(model.cfg, True) == "relations")
+        rel_note = ""
+        if rel:
+            rec_f = Recorder(segment_softmax.segment_softmax_spmm_fwd)
+            rec_b = Recorder(segment_softmax.segment_softmax_spmm_bwd)
+            model.load_state_dict(init)
+            opt = build_optimizer(model.parameters(), LR, 5e-4)
+            with swapped(segment_softmax, segment_softmax_spmm_fwd=rec_f,
+                         segment_softmax_spmm_bwd=rec_b):
+                run.predict_all()
+                n_fwd = len(rec_f.calls)
+                train_step(model, opt, x, layouts, batches[0], y_node,
+                           w_node)
+            errs, tots = relation_bf16_launches(rec_f.calls, rec_b.calls,
+                                                name in REL_TIMED, n_fwd)
+            for k, v in errs.items():
+                worst[k] = max(worst[k], v)
+            if name in REL_TIMED:
+                rel_rows[name] = tots
+            rel_note = (f"; #6 / #7 bf16 on {len(rec_f.calls)} / "
+                        f"{len(rec_b.calls)} launches of a forward and a "
+                        f"step: bitwise the float32 instance on the widened "
+                        f"operands, max abs err against plain "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            del rec_f, rec_b
+
         model.load_state_dict(init)
         opt = build_optimizer(model.parameters(), LR, 5e-4)
         fwd_ms = step_times(run.predict_all, n=6)
@@ -4277,30 +4435,53 @@ def phase_bf16_models(kt, data, cg, device, card):
         step = lambda: train_step(model, opt, x, layouts,  # noqa: E731
                                   next(cycle), y_node, w_node)
         step_ms = step_times(step, n=6)
-        busy_f = profile_device(run.predict_all, fwd_ms, f"{name} forward",
-                                reps=2)
-        busy_s = profile_device(step, step_ms, f"{name} training step",
-                                reps=2)
+        if rel:   # beside phase 6c's float32 run of the same aggregation
+            busy_f = busy_s = float("nan")
+            ref = F32_TIMES.get("GAT-min" if "min" in name else "GAT-max")
+            busy = (f" (phase 6c float32 GAT {'min' if 'min' in name else 'max'}"
+                    f": {ref[0]:.3f} / {ref[1]:.3f} ms)" if ref else "")
+        else:
+            busy_f = profile_device(run.predict_all, fwd_ms,
+                                    f"{name} forward", reps=2)
+            busy_s = profile_device(step, step_ms, f"{name} training step",
+                                    reps=2)
+            busy = (f"; busy forward {busy_f:.3f} (idle "
+                    f"{1 - busy_f / fwd_ms:.1%}), step {busy_s:.3f} (idle "
+                    f"{1 - busy_s / step_ms:.1%})")
         times[name] = (fwd_ms, step_ms, busy_f, busy_s)
         log(f"  phase 12 {name} [{card}]: bf16 launches per forward "
             f"{bf_fwd}, in KGWAS.train {bf_train}; predict_all vs plain ops "
             f"max abs err {pred_err:.3e}, bitwise repeatable; {CMP_STEPS} "
             f"steps, losses kernel {loss_k.tolist()} plain "
             f"{loss_p.tolist()}, parameters differ by {par_err:.3e}; forward "
-            f"{fwd_ms:.3f} ms (busy {busy_f:.3f}, idle "
-            f"{1 - busy_f / fwd_ms:.1%}), train step {step_ms:.3f} ms (busy "
-            f"{busy_s:.3f}, idle {1 - busy_s / step_ms:.1%}); "
+            f"{fwd_ms:.3f} ms, train step {step_ms:.3f} ms{busy}{rel_note}; "
             f"{time.perf_counter() - t0:.1f} s")
         del run, model, opt, x, layouts, init, par_k
         torch.cuda.empty_cache()
     f32 = times["GAT-sum f32"]
+    rows = {}
+    for k in REL_BF16:
+        r = rows[k] = dict(rel_rows["GAT-max compute"][k])
+        r["floor_ms"] = floors16[k]
+        r["max_abs_err"] = worst[k]
+        for cfg_name in REL_TIMED:
+            t = rel_rows[cfg_name][k]
+            log(f"  phase 12 {k} [{card}] ({cfg_name}, "
+                f"{t['launches_timed']} bf16 launches of a forward or a "
+                f"step): "
+                f"{t['ms']:.4f} ms [device {t['device_ms']:.4f}], float32 "
+                f"instance on the widened values {t['f32_ms']:.4f} "
+                f"[{t['f32_device_ms']:.4f}]; bound {t['bound_ms']:.4f} "
+                f"({t['bytes']:.4f} bytes, {t['operations']:.4f} "
+                f"operations), bf16 gather floor {floors16[k]:.4f}, plain "
+                f"{t['plain_ms']:.4f}")
     log(f"phase 12 ok [{card}]: {len(BF16_VARIANTS)} configurations in "
         f"{time.perf_counter() - t_phase:.1f} s; GAT-sum forward / step ms: "
         + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} ({v[0] / f32[0]:.3f}x / "
                     f"{v[1] / f32[1]:.3f}x f32)"
                     for k, v in times.items() if k.startswith("GAT-sum"))
         + f"; bf16 launches {launches}")
-    return launches, worst, times
+    return launches, worst, times, rows
 
 
 # the quality gate (scripts/exp_stream_gate.py, scripts/exp_bf16_gate.py):
@@ -4366,6 +4547,207 @@ def phase_gate(kt, card, tmp):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device training (kgwas_tpu_torch/parallel), on one card
+# ---------------------------------------------------------------------------
+
+# rank counts whose per-rank layouts run through the kernels in one process
+MESH_SHARDS = (2, 4)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh(kt, data, cg, device, card):
+    """Phase 14. The card's machine has one GPU, so no run of two ranks
+    over NCCL is possible here. (a) KGWAS.train(mesh=1) at full width (GAT
+    sum, CMP_STEPS batches) in a process group of one rank over NCCL
+    (tcp://localhost): the sharded path, its halo all-gathers and
+    reduce-scatters through NCCL; its launches counted from 0 just before
+    (per step and forward, as path_launches), its losses against the
+    single-device train from the same weights (LOSS_RTOL); the all-gather
+    and reduce-scatter ms at world size 1 on the SNP group's source table,
+    and a train step over the mesh beside one on the device alone (in
+    turns, twice each).
+    (b) Each rank's layout for MESH_SHARDS ranks (build_device_layouts of
+    the Gene and SNP groups, random tables) through #1, #2 and #8 in this
+    process (no process group: each rank given the whole table, its d_xs
+    summed), the ranks' rows assembled, against the unsharded layer (fold
+    0): rows at RTOL / TRASH_RTOL; d_xs, d_att and d_a_dst against the
+    float64 plain layer within the backward rule or twice the unsharded
+    kernels' own error (d_att and d_a_dst are sums that cancel, and the
+    ranks' schedules pack items otherwise). Returns {kernel: launches} of
+    (a)."""
+    import torch.distributed as dist
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.graph import build_merged_layouts
+    from kgwas_tpu_torch.kgwas import TILE_ROWS
+    from kgwas_tpu_torch.models import device_layouts
+    from kgwas_tpu_torch.ops import gat_layer, segment
+    from kgwas_tpu_torch.parallel import merged_shard
+    from kgwas_tpu_torch.parallel.mesh import (gather_rows, init_distributed,
+                                               make_mesh, reduce_scatter_rows)
+    from kgwas_tpu_torch.parallel.shard import sharded_train_step
+
+    t0 = time.perf_counter()
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    n_batches = len(epoch_batches(data_v.train_mask, BATCH, False, None))
+    init_distributed("nccl", f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh(1)
+        run = kt.KGWAS(data_v, exp_name="chip_smoke_mesh", seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True)
+        init = copy.deepcopy(run.model.state_dict())
+        model_counts(zero=True)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  mesh=mesh)
+        counts = model_counts()
+        _, _, layouts = run._device_state()
+        f_train, b_train = path_launches(run.model, layouts, True)
+        f_eval, _ = path_launches(run.model, layouts, False)
+        want = add_counts((n_batches, f_train), (n_batches, b_train),
+                          (2, f_eval))
+        if counts != want:
+            raise AssertionError(f"KGWAS.train(mesh=1) launched {counts}, "
+                                 f"expected {want}")
+        lm = np.asarray(run.epoch_losses[0])
+        run.model.load_state_dict(init)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        ls = np.asarray(run.epoch_losses[0])
+        np.testing.assert_allclose(lm, ls, rtol=LOSS_RTOL)
+        # a train step over the mesh beside one on the single device, in
+        # turns, from the trained state
+        _, x, layouts = run._device_state()
+        y_node, w_node = run._labels(cg)
+        shard = run._sharded_run(mesh, cg, x)
+        opt = build_optimizer(run.model.parameters(), LR, 5e-4)
+        cyc = itertools.cycle([torch.from_numpy(b).to(device) for b in
+                               epoch_batches(data_v.train_mask, BATCH,
+                                             False, None)])
+        step_ms = {"mesh": [], "one": []}
+        for _ in range(2):
+            step_ms["mesh"].append(step_times(lambda: sharded_train_step(
+                run.model, opt, shard, layouts, next(cyc), y_node, w_node),
+                n=6))
+            step_ms["one"].append(step_times(lambda: train_step(
+                run.model, opt, x, layouts, next(cyc), y_node, w_node), n=6))
+        sn = run.layouts["SNP"]
+        xs = torch.randn(sn.n_src_total, HIDDEN, device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             SEED + 14))
+        g_ms = cuda_ms(lambda: gather_rows(xs, mesh.data_group), 10)
+        r_ms = cuda_ms(lambda: reduce_scatter_rows(xs, mesh.data_group), 10)
+        log(f"  phase 14a [{card}]: KGWAS.train(mesh=1) over NCCL, "
+            f"{n_batches} steps, launches {counts}; losses {lm.tolist()} "
+            f"against the single-device run's {ls.tolist()}; all-gather "
+            f"{g_ms:.4f} ms, reduce-scatter {r_ms:.4f} ms of the SNP "
+            f"group's [{sn.n_src_total}, {HIDDEN}] table at world size 1; "
+            f"train step over the mesh {step_ms['mesh']} ms, on the device "
+            f"alone {step_ms['one']} ms (median of 6, in turns)")
+        del run, init, xs, x, layouts, shard, opt
+    finally:
+        dist.destroy_process_group()
+
+    host = build_merged_layouts(cg, tile_rows=TILE_ROWS)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    checked = 0
+    for t in ("Gene", "SNP"):
+        L = host[t]
+        R, n, d = len(L.rel_keys), L.n_rows_per_rel, HIDDEN
+        DL = device_layouts({t: L}, device)[t]
+        DL = dataclasses.replace(DL, **segment.csc_fields(
+            L.dst, L.csc_perm, L.csc_offsets, n, L.src_base, 0, device))
+        xs = torch.randn(L.n_src_total, d, device=device, generator=gen) * 0.1
+        att = torch.randn(R, d, device=device, generator=gen) * 0.2
+        ad = torch.randn(L.n_rows_total, device=device, generator=gen) * 0.5
+        g = torch.randn(L.n_rows_total, d, device=device, generator=gen)
+        fa = (DL.src, DL.row_offsets, att, ad, n, 0, "softmax", 0.2, 1.0)
+        want, rmax, rsum = gat_layer.merged_gat_forward(xs, *fa)
+        bw = (xs, att, ad, rmax, rsum, g, DL, 0, "softmax", 0.2, 1.0)
+        want_b = gat_layer.merged_gat_backward(*bw)
+        plain_b = gat_layer.merged_gat_backward_plain(*bw)
+        exact_b = gat_layer.merged_gat_backward_plain(*as_double(bw[:6]),
+                                                      *bw[6:])
+        trash = np.zeros(L.n_rows_total, dtype=bool)
+        trash[cg.num_nodes[t]::n] = True
+        for n_dev in MESH_SHARDS:
+            if (L.n_rows_total // merged_shard.TILE) % n_dev:
+                log(f"  phase 14b {t}: {L.n_rows_total // merged_shard.TILE}"
+                    f" row tiles do not split over {n_dev} ranks")
+                continue
+            dls = merged_shard.build_device_layouts(L, n_dev)
+            outs, grads = [], [0.0, 0.0, 0.0]
+            before = model_counts()
+            for i in range(n_dev):
+                shard = merged_shard.RankShard(L, dls, i, device)
+                leaves = [v.detach().clone().requires_grad_()
+                          for v in (xs, att, ad)]
+                out = merged_shard.ShardedMergedGAT.apply(
+                    *leaves, shard, None, "softmax", 0.2, 1.0)
+                rows = slice(shard.row0, shard.row0 + shard.rows_per_dev)
+                out.backward(g[rows])
+                outs.append(out.detach())
+                for k, v in enumerate(leaves):
+                    grads[k] = grads[k] + v.grad
+            after = model_counts()
+            launched = {k: after[k] - before[k] for k in
+                        ("merged_gat_fwd", "merged_gat_bwd",
+                         "csc_segment_sum")}
+            if set(launched.values()) != {n_dev}:
+                raise AssertionError(f"phase 14b {t} x{n_dev}: launched "
+                                     f"{launched}")
+            compare(torch.cat(outs), want, trash,
+                    f"phase 14b {t} x{n_dev} rows")
+            errs = []
+            for what, a, u, p, x in zip(("d_xs", "d_att", "d_a_dst"), grads,
+                                        want_b, plain_b, exact_b):
+                e_s, e_u, e_p = (float((v.double() - x).abs().max())
+                                 for v in (a, u, p))
+                limit = (max(GRAD_ERR_RATIO * e_p, 2 * e_u)
+                         + GRAD_FLOOR * float(x.abs().max()))
+                if e_s > limit:
+                    raise AssertionError(
+                        f"phase 14b {t} x{n_dev} {what}: max abs err against "
+                        f"float64 {e_s:.3e}, the unsharded kernels' "
+                        f"{e_u:.3e}, the plain version's {e_p:.3e}")
+                errs.append(f"{what} {e_s:.3e} (unsharded {e_u:.3e}, plain "
+                            f"{e_p:.3e})")
+            log(f"  phase 14b {t} x{n_dev} [{card}]: {n_dev} ranks' rows "
+                f"({dls.rows_per_dev} each, {dls.e_dev} padded edges) through "
+                f"#1, #2, #8 against the unsharded layer; max abs err "
+                f"against float64: " + ", ".join(errs))
+            checked += 1
+        del xs, att, ad, g, want, want_b, plain_b, exact_b, DL
+        torch.cuda.empty_cache()
+    if checked == 0:
+        raise AssertionError("phase 14b: no group split over the ranks")
+    log(f"phase 14 ok [{card}]: mesh=1 over NCCL trained like one device; "
+        f"{checked} sharded layouts matched the unsharded layer; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+PHASE_SECONDS = {}
+
+
+def timed_phase(name, fn, *args):
+    """fn(*args), its seconds kept in PHASE_SECONDS and logged."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4398,6 +4780,7 @@ def main():
     log(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({sorted(built) or 'cached'})"
         + (f"; earlier kernels from {parent.csrc}" if parent else ""))
+    PHASE_SECONDS["1"] = time.perf_counter() - t0
 
     # ---- phase 1b: the gather ceiling on the full-width data's streams
     t0 = time.perf_counter()
@@ -4416,60 +4799,74 @@ def main():
     rates = phase_probe(build, layouts, cg, device, card)
     floors = gather_floors(cg, layouts, rates)
     rates16 = phase_probe(build, layouts, cg, device, card, bf16=True)
-    floors16 = gather_floors_bf16(layouts, rates16, rates)
+    floors16 = gather_floors_bf16(cg, layouts, rates16, rates)
     del layouts
+    PHASE_SECONDS["1b (and the data)"] = time.perf_counter() - t0
 
     # ---- phase 2: kernel vs plain on the card, small KG
-    worst_small, worst_small_bwd = phase_kernel_vs_plain(
-        device, gat_layer, kt, tmp)
+    worst_small, worst_small_bwd = timed_phase(
+        "2", phase_kernel_vs_plain, device, gat_layer, kt, tmp)
 
     # ---- phases 3 and 4: the serving slice at full width, its timing
-    tot, worst_full = phase_serve(kt, data, cg, device, card, parent, tmp)
+    tot, worst_full = timed_phase("3-4", phase_serve, kt, data, cg, device,
+                                  card, parent, tmp)
 
     # ---- phase 5: the training slice at full width
-    train_rows, train_counts, trainer, step_5d = phase_train(
-        kt, data, cg, device, card, parent)
+    train_rows, train_counts, trainer, step_5d = timed_phase(
+        "5", phase_train, kt, data, cg, device, card, parent)
 
     # ---- phase 6: the model variants
-    worst_variants = phase_variant_kernels(kt, device, tmp)
-    variant_rows = phase_variants(kt, data, cg, device, card,
-                                  worst_variants, parent)
+    worst_variants = timed_phase("6a", phase_variant_kernels, kt, device, tmp)
+    variant_rows = timed_phase("6b-c", phase_variants, kt, data, cg, device,
+                               card, worst_variants, parent)
 
     # ---- phase 7: interpretation on phase 5's model, and on GAT-max
-    phase_interpret(kt, trainer, cg, card, tmp)
+    timed_phase("7", phase_interpret, kt, trainer, cg, card, tmp)
     del trainer
     torch.cuda.empty_cache()
 
     # ---- phase 8: the bench entry, and a traced, logged epoch
-    phase_bench(kt, data, card, step_5d[0], tmp)
+    timed_phase("8", phase_bench, kt, data, card, step_5d[0], tmp)
 
     # ---- phase 10: the other model options (heads, dropout, ...), full width
-    model_launches, model_worst, _ = phase_models(kt, data, cg, device, card,
-                                                  floors)
+    model_launches, model_worst, _ = timed_phase(
+        "10", phase_models, kt, data, cg, device, card, floors)
 
-    # ---- phases 12 and 13: the bf16 dtypes at full width, the quality gate
-    bf16_rows = phase_bf16_kernels(kt, cg, device, card, floors16)
-    bf16_launches, bf16_worst, _ = phase_bf16_models(kt, data, cg, device,
-                                                     card)
-    phase_gate(kt, card, tmp)
+    # ---- phases 12 and 13: the bf16 dtypes at full width (the per-relation
+    # softmax GAT's #6 / #7 among them), the quality gate
+    bf16_rows = timed_phase("12a", phase_bf16_kernels, kt, cg, device, card,
+                            floors16)
+    bf16_launches, bf16_worst, _, rel_rows = timed_phase(
+        "12b-d", phase_bf16_models, kt, data, cg, device, card, floors16)
+    bf16_rows.update(rel_rows)
+    timed_phase("13", phase_gate, kt, card, tmp)
+
+    # ---- phase 14: multi-device training (mesh=1 over NCCL, the sharded
+    # layouts of 2 and 4 ranks through the kernels)
+    mesh_launches = timed_phase("14", phase_mesh, kt, data, cg, device, card)
 
     # ---- phase 11 (a), (b), (e): long runs and streamed features, full width
     long_launches = add_counts(
-        (1, phase_restart(kt, data, card)),
-        (1, phase_checkpoint(kt, data, card)),
-        (1, phase_streamed(kt, data, cg, device, card)))
+        (1, timed_phase("11a", phase_restart, kt, data, card)),
+        (1, timed_phase("11b", phase_checkpoint, kt, data, card)),
+        (1, timed_phase("11e", phase_streamed, kt, data, cg, device, card)),
+        (1, mesh_launches))
     del data, cg
     torch.cuda.empty_cache()
 
     # ---- phase 9: the real-data path through the CLI, full width
-    phase_real(kt, card, step_5d, tmp)
+    timed_phase("9", phase_real, kt, card, step_5d, tmp)
 
     # ---- phase 11 (c), (d), (f): a sticky CUDA error, the watchdog, the
     # cohort builder
-    phase_sticky(card)
+    timed_phase("11c", phase_sticky, card)
     long_launches = add_counts((1, long_launches),
-                               (1, phase_watchdog(card, tmp)))
-    phase_cohort(kt, card, tmp)
+                               (1, timed_phase("11d", phase_watchdog, card,
+                                               tmp)))
+    timed_phase("11f", phase_cohort, kt, card, tmp)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in PHASE_SECONDS.items())
+        + f"; total {sum(PHASE_SECONDS.values()):.1f} s")
 
     train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
                                        worst_small_bwd)
@@ -4511,6 +4908,7 @@ def main():
             "library_ms": r.get("library_ms"),
             "gather_floor_ms": r["floor_ms"],
             "f32_ms": r["f32_ms"],
+            "f32_device_ms": r["f32_device_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -11,6 +11,9 @@ The model runs on the CUDA card unless ``--device`` names another device
 (``--device cpu``); with no card and no ``--device`` a command raises
 before it loads any data. Flags of options not ported yet raise
 NotImplementedError naming their ROADMAP item, also before loading.
+``train --mesh N`` trains over N processes (one per device, started by
+``torchrun --nproc-per-node N -m kgwas_tpu_torch.cli train --mesh N``;
+NCCL on the cards, gloo with ``--device cpu``).
 ``train --watchdog-timeout T`` runs the same command again in a child
 process under the stall watchdog, as the JAX package's CLI does.
 ``main`` returns what the command made (the trained KGWAS, the
@@ -24,7 +27,6 @@ import os
 import sys
 
 from . import kgwas
-from .kgwas import _MULTI_DEVICE
 
 
 def _add_data_args(p):
@@ -80,12 +82,8 @@ def _load_data(args, need_gwas=True):
 
 
 def _checked_train_args(args):
-    """Raise for the flags of options the port has not ported yet. (A
-    bf16 --dtype on the per-relation softmax GAT raises in
-    initialize_model.)"""
-    if args.mesh > 0:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not ported yet: {_MULTI_DEVICE}")
+    """Raise for a backbone or aggregation the port does not know, before
+    loading."""
     from .config import ModelConfig
     from .models.hetero_gnn import check_supported
 
@@ -135,6 +133,12 @@ def cmd_train(args):
     device = _device(args)
     if args.watchdog_timeout and not os.environ.get("KGWAS_UNDER_WATCHDOG"):
         return _under_watchdog(args)
+    if args.mesh > 1 or (args.mesh and "RANK" in os.environ):
+        # one process per device, as torchrun starts them
+        from .parallel.mesh import init_distributed
+
+        init_distributed("gloo" if device.type == "cpu" else "nccl")
+        device = _device(args)
     data = _load_data(args)
     run = KGWAS(data, device=device, exp_name=args.name, seed=args.seed,
                 weight_bias_track=args.wandb)
@@ -157,7 +161,10 @@ def cmd_train(args):
         profile_dir=args.profile_dir,
         metrics_log=args.metrics_log,
         heartbeat_path=os.environ.get("KGWAS_HEARTBEAT"),
+        mesh=args.mesh or None,
     )
+    if run.mesh is not None and run.mesh.rank != 0:
+        return run
     cols = ("ID", "P", "pred", "KGWAS_P")
     print("\t".join(cols))
     for row in zip(*(res[c][:5].tolist() for c in cols)):
@@ -272,7 +279,8 @@ def main(argv=None):
                         "step progress for this many seconds (0 = off)")
     t.add_argument("--watchdog-restarts", type=int, default=2)
     t.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel device count (0 = single device)")
+                   help="ranks on the mesh's 'data' axis (0 = single "
+                        "device); run one process per rank with torchrun")
     t.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict", help="per-SNP predictions from a checkpoint")

@@ -1,7 +1,7 @@
 """Model and training configuration of the port.
 
 Counterpart of ``kgwas_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
-``save_config`` and ``load_config``. ``ModelConfig`` holds the
+``MeshConfig``, ``save_config`` and ``load_config``. ``ModelConfig`` holds the
 model-semantic fields that a KGWAS checkpoint persists (``config.pkl``),
 ``remat`` and the dtype options, which it does not persist:
 
@@ -102,6 +102,23 @@ class TrainConfig:
     def from_dict(cls, d):
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of a multi-device run (the JAX package's
+    MeshConfig): the 'data' axis partitions the merged GAT layer's rows
+    and edges, the 'model' axis the columns of feature tables at least
+    parallel/shard.TP_FEATURE_DIM_THRESHOLD wide. The port runs one process
+    per device, so data_axis * model_axis is the world size of the
+    torch.distributed process group (parallel/mesh.py)."""
+
+    data_axis: int = 1
+    model_axis: int = 1
+    axis_names: tuple = ("data", "model")
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
 
 
 def save_config(path: str, model_cfg: ModelConfig,

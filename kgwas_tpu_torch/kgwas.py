@@ -4,7 +4,8 @@ Counterpart of ``kgwas_tpu/kgwas.py``: ``initialize_model``, ``train``,
 ``load_pretrained``, ``load_pretrained_torch``, ``predict_all``,
 ``run_magma`` and ``get_disease_critical_network``, with the long-run
 options of ``train`` (``checkpoint_every`` / ``resume``, ``max_restarts``,
-``heartbeat_path``) and host-streamed feature tables
+``heartbeat_path``), training over a device mesh (``train(mesh=...)``,
+parallel/) and host-streamed feature tables
 (``initialize_model(stream_features=...)``). It runs
 on CUDA unless the caller passes ``device="cpu"``; with no card and no
 explicit device it raises. The KGWAS_P tail is
@@ -32,7 +33,6 @@ from .engine.optim import build_optimizer
 from .engine.profiling import ThroughputMeter, profile_trace
 from .engine.streamed import strip_streamed_features, train_step_streamed
 from .graph.merged_layout import build_merged_layouts
-from .models.convs import SOFTMAX_BF16
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
                                  layer_paths)
 from .stats.calibration import finalize_predictions
@@ -48,13 +48,9 @@ _TPU_KNOBS = ("use_pallas", "pallas_mode", "rel_fold", "matmul_precision",
               "gather_chunk_rows", "bwd_window_edges", "pad_fragments",
               "layout_operands")
 # the dtype options (config.py): model options that are not persisted, as
-# the JAX package persists only the model-semantic keys. A bf16 compute or
-# stream dtype on the per-relation softmax GAT raises (check_supported:
-# ROADMAP.md Queue 1 item 7, the remainder)
+# the JAX package persists only the model-semantic keys
 _DTYPE_KEYS = ("param_dtype", "compute_dtype", "stream_dtype",
                "stream_f32_logits")
-_DTYPES = SOFTMAX_BF16
-_MULTI_DEVICE = "ROADMAP.md Queue 1 item 10 (multi-device)"
 
 
 def resolve_device(device) -> torch.device:
@@ -121,8 +117,7 @@ class KGWAS:
         persists them; remat and the dtype options (param_dtype,
         compute_dtype, stream_dtype, stream_f32_logits: config.py; not
         persisted); the JAX package's TPU execution knobs (_TPU_KNOBS),
-        ignored. A bf16 compute or stream dtype raises on the per-relation
-        softmax GAT (GAT max / min, edge_dim, dropout)."""
+        ignored."""
         unknown = (set(kwargs) - set(_SEMANTIC_KEYS) - set(_TPU_KNOBS)
                    - set(_DTYPE_KEYS) - {"remat"})
         if unknown:
@@ -182,6 +177,48 @@ class KGWAS:
         return self
 
     # ------------------------------------------------------------ device state
+
+    def _resolve_mesh(self, mesh):
+        """mesh: None (single device), an int (that many ranks on the
+        'data' axis), a dict of axis sizes ({'data': 2, 'model': 1}), a
+        config.MeshConfig or a parallel.mesh.Mesh. The sizes must match
+        the world size of the process group (parallel/mesh.make_mesh)."""
+        if mesh is None:
+            return None
+        from .config import MeshConfig
+        from .parallel.mesh import Mesh, make_mesh
+
+        if isinstance(mesh, Mesh):
+            return mesh
+        if isinstance(mesh, MeshConfig):
+            return make_mesh(mesh.data_axis, mesh.model_axis)
+        if isinstance(mesh, int):
+            return make_mesh(data=mesh, model=1)
+        if isinstance(mesh, dict):
+            return make_mesh(data=mesh.get("data", 1),
+                             model=mesh.get("model", 1))
+        raise TypeError(f"mesh must be None, int, dict, MeshConfig or Mesh, "
+                        f"got {mesh!r}")
+
+    def _live_layouts(self):
+        """The merged layouts of the destination groups the model's
+        forward runs (HeteroGNN.live_groups): the ones a mesh splits."""
+        live = set().union(*self.model.live_groups(self.layouts)[0])
+        return {t: L for t, L in self.layouts.items() if t in live}
+
+    def _sharded_run(self, mesh, cg, x):
+        """The sharded step's per-rank state for this mesh (built once per
+        model and mesh, and again after a restart drops the graph): the
+        streamed x mesh composition passes the streamed types' host rows
+        (the JAX package's _device_state)."""
+        from .parallel.shard import ShardedRun
+
+        cached = getattr(self, "_shard", None)
+        if cached is None or cached[0] is not mesh or cached[1] is not x:
+            self._shard = (mesh, x, ShardedRun(
+                self._live_layouts(), x, mesh, self.device, cg.padded_nodes,
+                self._x_host))
+        return self._shard[2]
 
     def _device_state(self):
         """Node features and merged streams on the device, with the degree
@@ -282,17 +319,35 @@ class KGWAS:
         every step and around each epoch-end forward, for
         engine/watchdog.run_with_watchdog. ``_fault_hook(global_step)``,
         when set on the instance, is called before every step (fault
-        injection)."""
+        injection).
+
+        mesh: training over the ranks of a torch.distributed process group
+        (one process per device, each calling train): an int (ranks on the
+        'data' axis), a dict of axis sizes, a MeshConfig or a Mesh, which
+        must match the world size (_resolve_mesh). The merged GAT layer's
+        rows and edges split over the 'data' axis and feature tables at
+        least 1024 wide over the 'model' axis (parallel/shard.py); other
+        configurations raise NotImplementedError (ROADMAP Queue 1 item
+        10b). Every rank returns the same table; rank 0 alone writes the
+        checkpoints, model.npz and pred.csv."""
         from .engine.watchdog import touch_heartbeat
 
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh is not ported yet: {_MULTI_DEVICE}")
+        mesh = self._resolve_mesh(mesh)
+        self.mesh = mesh
+        writer = mesh is None or mesh.rank == 0
         if save_name is None:
             save_name = self.exp_name
         self.save_name = save_name
 
         cg, x, layouts = self._device_state()
+        if mesh is not None:
+            from .parallel.shard import (broadcast_state, select_kernel_path,
+                                         sharded_forward, sharded_train_step)
+
+            for training in (True, False):
+                select_kernel_path(self.model_cfg, self._live_layouts(),
+                                   mesh, training)
+            shard = self._sharded_run(mesh, cg, x)
         y_node, w_node = self._labels(cg)
         y_host = y_node.cpu().numpy()
         train_ids = np.asarray(self.data.train_mask)
@@ -305,7 +360,8 @@ class KGWAS:
         self.optimizer = optimizer
         ckpt_dir = os.path.join(self.data_path, "model", save_name,
                                 "train_state")
-        checkpointer = make_async_checkpointer() if checkpoint_every else None
+        checkpointer = (make_async_checkpointer()
+                        if checkpoint_every and writer else None)
         if resume:
             latest = latest_train_state(ckpt_dir)
             if latest:
@@ -313,6 +369,8 @@ class KGWAS:
                 model_state, opt_state = restore_train_state(latest)
                 model.load_state_dict(model_state)
                 optimizer.load_state_dict(opt_state)
+        if mesh is not None:
+            broadcast_state(model, mesh)
         best_state = copy.deepcopy(model.state_dict())
         min_val = -1000.0
         best_epoch = 0
@@ -322,12 +380,20 @@ class KGWAS:
 
         def step(b):
             bidx = torch.from_numpy(b).to(self.device)
+            if mesh is not None:
+                return sharded_train_step(model, optimizer, shard, layouts,
+                                          bidx, y_node, w_node)
             if self.stream_features:
                 return train_step_streamed(
                     model, optimizer, x, layouts, self._x_host,
                     cg.padded_nodes, bidx, y_node, w_node)
             return train_step(model, optimizer, x, layouts, bidx, y_node,
                               w_node)
+
+        def forward_all():
+            if mesh is not None:
+                return sharded_forward(model, shard, layouts)
+            return self._forward(cg, x, layouts)
 
         print_sys("Start Training...")
         self.train_history = []
@@ -391,7 +457,7 @@ class KGWAS:
 
                 # the epoch-end forward makes no step heartbeats
                 touch_heartbeat(heartbeat_path)
-                pred_all = self._forward(cg, x, layouts).cpu().numpy()
+                pred_all = forward_all().cpu().numpy()
                 touch_heartbeat(heartbeat_path)
                 # reference quirk: the val loader drops its tail past a
                 # batch_size multiple; with fewer val SNPs than a batch the
@@ -439,6 +505,8 @@ class KGWAS:
                 # backend restart
                 self._graph = None
                 cg, x, layouts = self._device_state()
+                if mesh is not None:
+                    shard = self._sharded_run(mesh, cg, x)
                 y_node, w_node = self._labels(cg)
                 model.load_state_dict(snap["model"])
                 # the optimizer keeps host tensors it is given as they are:
@@ -462,11 +530,11 @@ class KGWAS:
         self.best_params = best_state
         self.best_epoch = best_epoch
         model_dir = os.path.join(self.data_path, "model", save_name)
-        if save_best_model:
+        if save_best_model and writer:
             print_sys("Saving models to " + model_dir)
             save_model(best_state, self.config, model_dir)
 
-        pred_all = self._forward(cg, x, layouts).cpu().numpy()
+        pred_all = forward_all().cpu().numpy()
         self.test_metrics = compute_metrics(
             {"pred": pred_all[test_ids], "truth": y_host[test_ids]})
         if self.wandb:
@@ -474,13 +542,15 @@ class KGWAS:
                 self.wandb.log({"test_" + k: v})
         table, self.scale_factor = finalize_predictions(
             self.data.lr_uni, pred_all[np.asarray(self.data.all_mask)])
-        out_dir = os.path.join(self.data_path, "model_pred", "new_experiments")
-        os.makedirs(out_dir, exist_ok=True)
-        out_csv = os.path.join(out_dir, save_name + "_pred.csv")
-        write_table(table, out_csv)
-        print_sys("KGWAS prediction and p-values saved to " + out_csv)
-        if save_best_model:
-            write_table(table, os.path.join(model_dir, "pred.csv"))
+        if writer:
+            out_dir = os.path.join(self.data_path, "model_pred",
+                                   "new_experiments")
+            os.makedirs(out_dir, exist_ok=True)
+            out_csv = os.path.join(out_dir, save_name + "_pred.csv")
+            write_table(table, out_csv)
+            print_sys("KGWAS prediction and p-values saved to " + out_csv)
+            if save_best_model:
+                write_table(table, os.path.join(model_dir, "pred.csv"))
         self.kgwas_res = table
         return table
 

@@ -30,9 +30,10 @@ py``): the parameters in that dtype, each product in its operands'
 promoted dtype. A relation's segment sum (#10) returns float32; SAGE, GCN
 and SGC round it back to their messages' dtype, as the JAX package's
 segment sums return their data's dtype there, and the sigmoid GAT keeps
-it, as the JAX package's Pallas sum does. The per-relation softmax GAT
-(#6, #7) takes float32 only: a bf16 compute or stream dtype there raises
-(ROADMAP Queue 1 item 7).
+it, as the JAX package's Pallas sum does. The softmax GAT's segment
+softmax (#6, #7) takes bf16 messages and logits and returns float32, as
+the JAX package's Pallas op keeps its softmax state and output float32;
+``+ bias`` keeps the relation's output float32 for the layers after it.
 """
 from __future__ import annotations
 
@@ -44,10 +45,6 @@ from ..ops.segment_ref import gather_rows, leaky_relu
 from ..ops.segment_softmax import SegmentSoftmaxSpmm
 from .init import glorot_att, glorot_weight, torch_linear_bias, torch_linear_weight
 from .precision import linear, matmul
-
-SOFTMAX_BF16 = ("the per-relation softmax GAT (kernels #6 and #7) in bf16 is "
-                "not ported yet: ROADMAP.md Queue 1 item 7 (the bf16 dtypes)")
-
 
 def _linear(in_dim, out, weight, bias=None):
     lin = nn.Linear(in_dim, out, bias=bias is not None)
@@ -202,12 +199,10 @@ def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
     keep: the dropout's per-edge, per-head multiplier [E, H] (keep_e / (1 -
     p)) applied after the softmax or sigmoid, or None. edge_attr: the
     relation's edge features [E, edge_dim] (or [E]), or None. cdt: the
-    compute dtype; sdt: the stream dtype the messages are rounded to (the
-    sigmoid mode; None: none), and the logits with them unless
-    f32_logits (apply_gat's stream_dtype and stream_f32_logits)."""
-    if mode == "softmax" and (cdt != torch.float32
-                              or sdt not in (None, torch.float32)):
-        raise NotImplementedError(SOFTMAX_BF16)
+    compute dtype; sdt: the stream dtype the messages are rounded to
+    (None: none), and the logits with them unless f32_logits (apply_gat's
+    stream_dtype and stream_f32_logits). The softmax mode's output is
+    float32 (#6 on bf16 messages computes in float32)."""
     n_edges = layout.src.shape[0]
     e_term = edge_logits(conv, edge_attr, n_edges, cdt)
     if mode == "sigmoid":

@@ -40,8 +40,9 @@ in its operands' promoted dtype, as the JAX package's arrays promote), and
 the merged GAT layer's message table goes to the kernels in
 ``stream_dtype`` (else the compute dtype) while ``att`` and ``a_dst`` go in
 float32; the layer output is cast back to the table's dtype before the
-biases (``apply_merged_gat_layer``). The per-relation softmax GAT takes no
-bf16 compute or stream dtype yet (``check_supported``).
+biases (``apply_merged_gat_layer``). The per-relation softmax GAT runs #6
+and #7 on bf16 messages (and bf16 logits under the compute dtype) and
+keeps each relation's output float32.
 
 ``HeteroGNN.collect_attention`` is the interpretation forward (the JAX
 package's ``apply_collect_attention``): every destination group of every
@@ -71,8 +72,8 @@ from ..ops.segment_ref import leaky_relu
 from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
                             row_schedule)
 from ..ops.segment import CSRSegmentSum, csc_fields
-from .convs import (SOFTMAX_BF16, gat_relation, gcn_relation, make_conv,
-                    sage_relation, sgc_relation)
+from .convs import (gat_relation, gcn_relation, make_conv, sage_relation,
+                    sgc_relation)
 from .init import torch_linear_bias, torch_linear_weight
 from .mlp import SimpleMLP
 from .precision import linear, matmul, torch_dtype
@@ -93,17 +94,11 @@ def encoder_for(ntype: str) -> str:
 
 def check_supported(cfg: ModelConfig):
     """Raises on what the port does not run: an unknown backbone or
-    aggregation, and a bf16 compute or stream dtype on the per-relation
-    softmax GAT (GAT max / min, edge_dim, training with dropout)."""
+    aggregation."""
     if cfg.gnn_backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {cfg.gnn_backbone!r}")
     if cfg.gnn_aggr not in AGGRS:
         raise ValueError(f"unknown hetero aggr {cfg.gnn_aggr!r}")
-    if (cfg.gnn_backbone == "GAT" and not cfg.sigmoid_gat
-            and "relations" in layer_paths(cfg)
-            and (cfg.compute_dtype != "float32"
-                 or cfg.stream_dtype not in (None, "float32"))):
-        raise NotImplementedError(SOFTMAX_BF16)
 
 
 def layer_path(cfg: ModelConfig, training: bool = False) -> str:
@@ -368,10 +363,27 @@ class HeteroGNN(nn.Module):
         sdt = torch_dtype(self.cfg.stream_dtype)
         return None if sdt in (None, self.compute_dtype) else sdt
 
+    def source_rows(self, h, L, convs, hh: int, cdt, lo: int = 0, hi=None):
+        """Rows lo..hi (all by default) of a destination group's projected
+        source table for head hh: slot s's block of the concatenated source
+        space is h[src_type] @ W_src^T of its relation."""
+        hi = L.src_base[-1] if hi is None else hi
+        parts = []
+        for s, c in enumerate(convs):
+            b0, b1 = L.src_base[s], L.src_base[s + 1]
+            a, b = max(lo, b0), min(hi, b1)
+            if a < b:
+                hs = h[L.src_types[s]]
+                if (a, b) != (b0, b1):
+                    hs = hs[a - b0:b - b0]
+                parts.append(matmul(hs, c.head_rows(c.lin_src.weight, hh).T,
+                                    cdt))
+        return torch.cat(parts)
+
     def merged_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
                      layouts: Dict[str, DeviceLayout], mode=None,
                      alphas: Optional[dict] = None, cdt=torch.float32,
-                     sdt=None):
+                     sdt=None, merged_fns: Optional[dict] = None):
         """One hetero GAT layer, per head one kernel launch per destination
         group (the JAX package's loop over heads in apply_merged_gat_layer:
         each head's slice of lin_src and lin_dst @ att_dst, at D = hidden),
@@ -387,7 +399,11 @@ class HeteroGNN(nn.Module):
         table's stream dtype (None: the compute dtype); the interpretation
         passes float32 and rounds the table's values instead (its raw
         weights multiply the messages in float32, as the JAX package's
-        per-relation collect path does)."""
+        per-relation collect path does). merged_fns: dst type -> the group's
+        layer over a mesh (parallel/merged_shard.ShardedMergedGroup), which
+        projects its rank's rows of the source table (x_lo..x_hi) and
+        returns the unfolded [R*N, D] output, summed over relations here
+        (the JAX package's merged_kernel_fns)."""
         cfg = self.cfg
         if mode is None:
             mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
@@ -396,7 +412,8 @@ class HeteroGNN(nn.Module):
         for dst_t, L in layouts.items():
             convs = [layer.convs[rk] for rk in L.rel_keys]
             n_rel = len(convs)
-            fold = n_rel if cfg.gnn_aggr in ("sum", "mean") else 0
+            fold = (n_rel if cfg.gnn_aggr in ("sum", "mean")
+                    and merged_fns is None else 0)
             heads, head_alphas = [], []
             for hh in range(n_heads):
                 att = torch.stack([c.att_src[0, hh].to(cdt)
@@ -406,10 +423,17 @@ class HeteroGNN(nn.Module):
                 v = torch.stack([c.att_dst[0, hh].to(cdt) @ c.head_rows(
                     c.dst_weight(), hh).to(cdt) for c in convs], dim=1)
                 a_dst_all = matmul(h[dst_t], v, cdt).T.reshape(-1)
-                xs_all = torch.cat([
-                    matmul(h[L.src_types[s]], convs[s].head_rows(
-                        convs[s].lin_src.weight, hh).T, cdt)
-                    for s in range(n_rel)])
+                if merged_fns is not None:
+                    fn = merged_fns[dst_t]
+                    xs_local = self.source_rows(h, L, convs, hh, cdt,
+                                                *fn.x_range)
+                    out_dtype = xs_local.dtype
+                    heads.append(fn(xs_local, att.float().contiguous(),
+                                    a_dst_all.float().contiguous(), mode,
+                                    cfg.negative_slope, cfg.temperature,
+                                    sdt))
+                    continue
+                xs_all = self.source_rows(h, L, convs, hh, cdt)
                 out_dtype = xs_all.dtype
                 att = att.to(torch.float32)
                 a_dst_all = a_dst_all.to(torch.float32)
@@ -548,13 +572,15 @@ class HeteroGNN(nn.Module):
     def layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
               layouts: Dict[str, DeviceLayout], training: bool = False,
               keep: Optional[dict] = None,
-              edge_attr: Optional[dict] = None):
+              edge_attr: Optional[dict] = None,
+              merged_fns: Optional[dict] = None):
         """One hetero layer on the configuration's path (layer_path), then
         ReLU on every destination type."""
         path = layer_path(self.cfg, training)
         if path == "merged":
             out = self.merged_layer(layer, h, layouts, cdt=self.compute_dtype,
-                                    sdt=self.stream_dtype)
+                                    sdt=self.stream_dtype,
+                                    merged_fns=merged_fns)
         elif path == "relations":
             out = self.relation_layer(layer, h, layouts, keep, edge_attr)
         else:
@@ -632,8 +658,8 @@ class HeteroGNN(nn.Module):
                 layouts: Dict[str, DeviceLayout], training: bool = False,
                 dropout_gen: Optional[torch.Generator] = None,
                 edge_attr: Optional[dict] = None,
-                h1_override: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                h1_override: Optional[Dict[str, torch.Tensor]] = None,
+                merged_fns: Optional[dict] = None) -> torch.Tensor:
         """Full-graph forward (apply_hetero_gnn). Returns pred [N_snp_pad,
         out_channels]. training: the layer path of a training step
         (layer_path), and with dropout_gen (the counterpart of
@@ -647,7 +673,8 @@ class HeteroGNN(nn.Module):
         With remat each layer runs under torch.utils.checkpoint when
         gradients are on (its recompute launches the forward kernels
         again). The features, the parameters and h1_override are cast to
-        the compute dtype; the prediction is float32."""
+        the compute dtype; the prediction is float32. merged_fns: the
+        merged layer over a mesh (merged_layer; parallel/shard.py)."""
         cfg = self.cfg
         cdt = self.compute_dtype
         groups, encoded = self.live_groups(layouts)
@@ -668,9 +695,10 @@ class HeteroGNN(nn.Module):
             if cfg.remat and torch.is_grad_enabled():
                 h = torch.utils.checkpoint.checkpoint(
                     self.layer, layer, h, lay, training, keep, edge_attr,
-                    use_reentrant=False)
+                    merged_fns, use_reentrant=False)
             else:
-                h = self.layer(layer, h, lay, training, keep, edge_attr)
+                h = self.layer(layer, h, lay, training, keep, edge_attr,
+                               merged_fns)
         logits = linear(h["SNP"], self.lin, cdt)
         pred = logits if cfg.no_relu else torch.relu(logits)
         return pred.to(torch.float32)

@@ -88,6 +88,16 @@ KERNELS = {
         "kgwas_csr_segment_sum_bf16",
         [_P] * 6 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _P],
     ),
+    "segment_softmax_spmm_fwd_bf16": (
+        "segment_softmax_spmm_fwd.cu",
+        "kgwas_segment_softmax_spmm_fwd_bf16",
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _P],
+    ),
+    "segment_softmax_spmm_bwd_bf16": (
+        "segment_softmax_spmm_bwd.cu",
+        "kgwas_segment_softmax_spmm_bwd_bf16",
+        [_P] * 12 + [_I64, _I64, _I32, _I32, _P],
+    ),
     # a measuring tool on no path of the package (chip_smoke.py)
     "gather_probe": (
         "gather_probe.cu",

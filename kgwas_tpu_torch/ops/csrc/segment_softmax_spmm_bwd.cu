@@ -62,7 +62,21 @@
 // when the table fits, else from device memory: gather_probe.cu's rate for
 // that gather is the floor the design aims at. No atomics: two runs give
 // the same bits.
+//
+// The bf16 instance (kgwas_segment_softmax_spmm_bwd_bf16: xs bf16, logits
+// float32 or bf16; out, g, mult float32), compile-time flags BF and LB:
+// the float32 instance's arithmetic on widened operands (exact), as the
+// TPU kernel's body is float32 throughout (its dmsgs and dlogits
+// out_shapes). w and d_logits are written in float32. So it gives the
+// float32 instance's bits on the operands widened to float32, under the
+// same schedule. out is segment_softmax_spmm_fwd.cu's float32 output and g
+// its float32 cotangent: a packed row's dot_r is formed from its edges,
+// which equals out_r . g_r only for the forward's own out, so a rounded
+// (bf16) out is not taken. Rows are read at 8 bytes a lane at D = 128,
+// else a value a lane per 32 columns. Its bound: xs read at 2 bytes a
+// value.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -102,9 +116,29 @@ struct Args {
   long long n_items;
   long long n_rows;
   int d;
+  const __nv_bfloat16* xsb;      // [S, D]: the bf16 instance's table
+  const __nv_bfloat16* logitsb;  // [E]: its bf16 logits (LB)
 };
 
-template <bool VEC, int NV, bool MULT>
+// the table of the float32 (BF false) or the bf16 instance
+template <bool BF>
+__device__ __forceinline__ auto xs_table(const Args& a) {
+  if constexpr (BF)
+    return a.xsb;
+  else
+    return a.xs;
+}
+
+// logit i, widened from bf16 when LB
+template <bool LB>
+__device__ __forceinline__ float logit(const Args& a, int i) {
+  if constexpr (LB)
+    return __bfloat162float(a.logitsb[i]);
+  else
+    return a.logits[i];
+}
+
+template <bool VEC, int NV, bool MULT, bool BF = false, bool LB = false>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_bwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -169,7 +203,7 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
       const int v = v0 + 32 * q + lane;
       if (v < it.total) {
         src[q] = a.src[first + v];
-        l[q] = a.logits[first + v];
+        l[q] = logit<LB>(a, first + v);
         if (MULT) mu[q] = a.mult[first + v];
       }
     }
@@ -194,7 +228,8 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
     const int n = (e >> kCountShift) & 63;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      x[u].load(a.xs + static_cast<size_t>(s_src[v + min(u, n - 1)]) * d,
+      x[u].load(xs_table<BF>(a) +
+                    static_cast<size_t>(s_src[v + min(u, n - 1)]) * d,
                 lane, d);
     gr.load(a.g + (it.unit0 + k) * d, lane, d);
   };
@@ -254,35 +289,36 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
   }
 }
 
-template <bool VEC, int NV, bool MULT>
+template <bool VEC, int NV, bool MULT, bool BF, bool LB>
 cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (blocks == 0) return cudaSuccess;
-  segment_softmax_spmm_bwd_kernel<VEC, NV, MULT>
+  segment_softmax_spmm_bwd_kernel<VEC, NV, MULT, BF, LB>
       <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool VEC, int NV>
+template <bool VEC, int NV, bool BF = false, bool LB = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.mult != nullptr ? launch_items<VEC, NV, true>(a, stream)
-                           : launch_items<VEC, NV, false>(a, stream);
+  return a.mult != nullptr ? launch_items<VEC, NV, true, BF, LB>(a, stream)
+                           : launch_items<VEC, NV, false, BF, LB>(a, stream);
 }
 
-}  // namespace
+// the bf16 instance's widths: 8-byte row loads at D = 128, else generic
+template <bool LB>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  if (a.d == 128) return launch<true, 1, true, LB>(a, stream);
+  if (a.d >= 1 && a.d <= 32 * kMaxCols)
+    return launch<false, 1, true, LB>(a, stream);
+  return cudaErrorInvalidValue;
+}
 
-// Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; xs, out, g and items must be 16-byte aligned (the wrapper
-// checks); mult may be null (every multiplier 1). items is the relation's
-// row schedule (ops/schedule.py row_schedule), at most kBwdMaxEdges edges
-// an item.
-extern "C" int kgwas_segment_softmax_spmm_bwd(
-    const void* xs, const void* src, const void* logits, const void* mult,
-    const void* row_offsets, const void* row_max, const void* row_sum,
-    const void* out, const void* g, void* w, void* d_logits,
-    const void* items, long long n_items, long long n_rows, int d,
-    void* stream) {
+Args make_args(const void* xs, const void* src, const void* logits,
+               const void* mult, const void* row_offsets,
+               const void* row_max, const void* row_sum, const void* out,
+               const void* g, void* w, void* d_logits, const void* items,
+               long long n_items, long long n_rows, int d) {
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
@@ -299,6 +335,26 @@ extern "C" int kgwas_segment_softmax_spmm_bwd(
   a.n_items = n_items;
   a.n_rows = n_rows;
   a.d = d;
+  a.xsb = a.logitsb = nullptr;
+  return a;
+}
+
+}  // namespace
+
+// Returns the launch's cudaError_t (0 on success). Pointers are device
+// pointers; xs, out, g and items must be 16-byte aligned (the wrapper
+// checks); mult may be null (every multiplier 1). items is the relation's
+// row schedule (ops/schedule.py row_schedule), at most kBwdMaxEdges edges
+// an item.
+extern "C" int kgwas_segment_softmax_spmm_bwd(
+    const void* xs, const void* src, const void* logits, const void* mult,
+    const void* row_offsets, const void* row_max, const void* row_sum,
+    const void* out, const void* g, void* w, void* d_logits,
+    const void* items, long long n_items, long long n_rows, int d,
+    void* stream) {
+  const Args a = make_args(xs, src, logits, mult, row_offsets, row_max,
+                           row_sum, out, g, w, d_logits, items, n_items,
+                           n_rows, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 128: return launch<true, 1>(a, s);
@@ -309,4 +365,23 @@ extern "C" int kgwas_segment_softmax_spmm_bwd(
       if (d >= 1 && d <= 32 * kMaxCols) return launch<false, 1>(a, s);
       return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
+// aligned rows at D = 128; the wrapper checks), logits bf16 when
+// logits_bf16 != 0, else float32; out, g, w and d_logits float32.
+extern "C" int kgwas_segment_softmax_spmm_bwd_bf16(
+    const void* xs, const void* src, const void* logits, const void* mult,
+    const void* row_offsets, const void* row_max, const void* row_sum,
+    const void* out, const void* g, void* w, void* d_logits,
+    const void* items, long long n_items, long long n_rows, int d,
+    int logits_bf16, void* stream) {
+  Args a = make_args(nullptr, src, logits_bf16 ? nullptr : logits, mult,
+                     row_offsets, row_max, row_sum, out, g, w, d_logits,
+                     items, n_items, n_rows, d);
+  a.xsb = static_cast<const __nv_bfloat16*>(xs);
+  a.logitsb =
+      logits_bf16 ? static_cast<const __nv_bfloat16*>(logits) : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return logits_bf16 ? launch_bf16<true>(a, s) : launch_bf16<false>(a, s);
 }

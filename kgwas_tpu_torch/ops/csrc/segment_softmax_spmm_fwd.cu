@@ -52,7 +52,21 @@
 // gather reads each source row once per edge (512 bytes at D = 128), from
 // the 50 MB L2 when the table fits, else from device memory: that gather's
 // rate, measured alone by gather_probe.cu, is the floor the design aims at.
+//
+// The bf16 instance (kgwas_segment_softmax_spmm_fwd_bf16: xs bf16, logits
+// float32 or bf16, mult float32), compile-time flags BF and LB: the
+// float32 instance's arithmetic on bf16 operands, as the TPU kernel keeps
+// the softmax state and the output float32 (pallas_segment.py's out_shapes
+// and scratch). Each message row is read as bf16 and widened (exact), each
+// bf16 logit widened; the row max and sum, p_e, the products, the sums and
+// the division are float32, and out, row_max and row_sum are written in
+// float32. So the instance on (xs, logits) gives the float32 instance's
+// bits on (xs.float(), logits.float()) under the same schedule. Rows are
+// read at 8 bytes a lane at D = 128 (4 values), else a value a lane per 32
+// columns; the chunk combine is the float32 one. Its bound: xs read at 2
+// bytes a value, the gather half the float32 instance's bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -92,9 +106,29 @@ struct Args {
   long long n_split;
   long long n_rows;
   int d;
+  const __nv_bfloat16* xsb;      // [S, D]: the bf16 instance's table
+  const __nv_bfloat16* logitsb;  // [E]: its bf16 logits (LB)
 };
 
-template <bool VEC, int NV, bool MULT>
+// the table of the float32 (BF false) or the bf16 instance
+template <bool BF>
+__device__ __forceinline__ auto xs_table(const Args& a) {
+  if constexpr (BF)
+    return a.xsb;
+  else
+    return a.xs;
+}
+
+// logit i, widened from bf16 when LB
+template <bool LB>
+__device__ __forceinline__ float logit(const Args& a, int i) {
+  if constexpr (LB)
+    return __bfloat162float(a.logitsb[i]);
+  else
+    return a.logits[i];
+}
+
+template <bool VEC, int NV, bool MULT, bool BF = false, bool LB = false>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_fwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -136,7 +170,7 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
       const int v = v0 + 32 * q + lane;
       if (v < it.total) {
         src[q] = a.src[first + v];
-        l[q] = a.logits[first + v];
+        l[q] = logit<LB>(a, first + v);
         if (MULT) mu[q] = a.mult[first + v];
       }
     }
@@ -155,7 +189,8 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
   // are formed
   R xa[U], xb[U];
   if (it.total > 0)
-    kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_src, 0, it.total, lane, d);
+    kgwas::gather_rows<VEC, NV, U>(xa, xs_table<BF>(a), s_src, 0, it.total,
+                                   lane, d);
   for (int base = 0; base < it.total; base += 32) {
     const int v = base + lane;
     const bool ok = v < it.total;
@@ -216,12 +251,12 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
   // two batches in flight: one is summed while the other arrives
   for (int v = 0; v < it.total; v += 2 * U) {
     if (v + U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xb, a.xs, s_src, v + U, it.total, lane,
-                                     d);
+      kgwas::gather_rows<VEC, NV, U>(xb, xs_table<BF>(a), s_src, v + U,
+                                     it.total, lane, d);
     take(xa, v);
     if (v + 2 * U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_src, v + 2 * U, it.total,
-                                     lane, d);
+      kgwas::gather_rows<VEC, NV, U>(xa, xs_table<BF>(a), s_src, v + 2 * U,
+                                     it.total, lane, d);
     if (v + U < it.total) take(xb, v + U);
   }
   if (cur >= 0) finish_row(cur);
@@ -259,14 +294,14 @@ segment_softmax_combine_kernel(const Args a) {
   }
 }
 
-template <bool VEC, int NV, bool MULT>
+template <bool VEC, int NV, bool MULT, bool BF, bool LB>
 cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   if (blocks > 0) {
-    segment_softmax_spmm_fwd_kernel<VEC, NV, MULT>
+    segment_softmax_spmm_fwd_kernel<VEC, NV, MULT, BF, LB>
         <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -279,25 +314,27 @@ cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <bool VEC, int NV>
+template <bool VEC, int NV, bool BF = false, bool LB = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.mult != nullptr ? launch_items<VEC, NV, true>(a, stream)
-                           : launch_items<VEC, NV, false>(a, stream);
+  return a.mult != nullptr ? launch_items<VEC, NV, true, BF, LB>(a, stream)
+                           : launch_items<VEC, NV, false, BF, LB>(a, stream);
 }
 
-}  // namespace
+// the bf16 instance's widths: 8-byte row loads at D = 128, else generic
+template <bool LB>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  if (a.d == 128) return launch<true, 1, true, LB>(a, stream);
+  if (a.d >= 1 && a.d <= 32 * kMaxCols)
+    return launch<false, 1, true, LB>(a, stream);
+  return cudaErrorInvalidValue;
+}
 
-// Returns the launch's cudaError_t (0 on success). Pointers are device
-// pointers; xs, out, part_acc and items must be 16-byte aligned (the
-// wrapper checks); mult may be null (every multiplier 1). The schedule
-// (items, split_units, part_offsets) and the scratch part_* come from the
-// wrapper; two launches: the items, then the combine of the chunked rows.
-extern "C" int kgwas_segment_softmax_spmm_fwd(
-    const void* xs, const void* src, const void* logits, const void* mult,
-    const void* row_offsets, void* out, void* row_max, void* row_sum,
-    const void* items, long long n_items, const void* split_units,
-    const void* part_offsets, long long n_split, void* part_m, void* part_s,
-    void* part_acc, long long n_rows, int d, void* stream) {
+Args make_args(const void* xs, const void* src, const void* logits,
+               const void* mult, const void* row_offsets, void* out,
+               void* row_max, void* row_sum, const void* items,
+               long long n_items, const void* split_units,
+               const void* part_offsets, long long n_split, void* part_m,
+               void* part_s, void* part_acc, long long n_rows, int d) {
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.src = static_cast<const int*>(src);
@@ -317,6 +354,27 @@ extern "C" int kgwas_segment_softmax_spmm_fwd(
   a.n_split = n_split;
   a.n_rows = n_rows;
   a.d = d;
+  a.xsb = nullptr;
+  a.logitsb = nullptr;
+  return a;
+}
+
+}  // namespace
+
+// Returns the launch's cudaError_t (0 on success). Pointers are device
+// pointers; xs, out, part_acc and items must be 16-byte aligned (the
+// wrapper checks); mult may be null (every multiplier 1). The schedule
+// (items, split_units, part_offsets) and the scratch part_* come from the
+// wrapper; two launches: the items, then the combine of the chunked rows.
+extern "C" int kgwas_segment_softmax_spmm_fwd(
+    const void* xs, const void* src, const void* logits, const void* mult,
+    const void* row_offsets, void* out, void* row_max, void* row_sum,
+    const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_m, void* part_s,
+    void* part_acc, long long n_rows, int d, void* stream) {
+  const Args a = make_args(xs, src, logits, mult, row_offsets, out, row_max,
+                           row_sum, items, n_items, split_units, part_offsets,
+                           n_split, part_m, part_s, part_acc, n_rows, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 128: return launch<true, 1>(a, s);
@@ -327,4 +385,24 @@ extern "C" int kgwas_segment_softmax_spmm_fwd(
       if (d >= 1 && d <= 32 * kMaxCols) return launch<false, 1>(a, s);
       return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
+// aligned rows at D = 128; the wrapper checks), logits bf16 when
+// logits_bf16 != 0, else float32; every output float32.
+extern "C" int kgwas_segment_softmax_spmm_fwd_bf16(
+    const void* xs, const void* src, const void* logits, const void* mult,
+    const void* row_offsets, void* out, void* row_max, void* row_sum,
+    const void* items, long long n_items, const void* split_units,
+    const void* part_offsets, long long n_split, void* part_m, void* part_s,
+    void* part_acc, long long n_rows, int d, int logits_bf16, void* stream) {
+  Args a = make_args(nullptr, src, logits_bf16 ? nullptr : logits, mult,
+                     row_offsets, out, row_max, row_sum, items, n_items,
+                     split_units, part_offsets, n_split, part_m, part_s,
+                     part_acc, n_rows, d);
+  a.xsb = static_cast<const __nv_bfloat16*>(xs);
+  a.logitsb =
+      logits_bf16 ? static_cast<const __nv_bfloat16*>(logits) : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return logits_bf16 ? launch_bf16<true>(a, s) : launch_bf16<false>(a, s);
 }

@@ -111,17 +111,20 @@ _INT_ARGS = ("src", "row_offsets", "dst", "csc_rows", "csc_perm",
 _BF16_ARGS = ("xs_all", "x")
 
 
-def check_cuda_args(device, **tensors):
+def check_cuda_args(device, bf16=(), **tensors):
     """What every kernel of the port takes: tensors on ``device``,
     contiguous, int32 for the layout's index arrays, float32 or bfloat16
-    for the value tables (``xs_all``, ``x``; bf16 rows of an even width)
-    and float32 for the rest, feature rows at most 512 wide and 16-byte
-    aligned when their width is a multiple of 128 (float4 rows)."""
+    for the value tables (``xs_all``, ``x``, and the names in ``bf16``,
+    which a call takes in either: the relation wrappers' ``xs`` and
+    ``logits``; bf16 rows of an even width) and float32
+    for the rest, feature rows at most 512 wide and 16-byte aligned when
+    their width is a multiple of 128 (float4 rows)."""
     for name, t in tensors.items():
         dtype = torch.int32 if name in _INT_ARGS else torch.float32
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, not {device}")
-        if name in _BF16_ARGS and t.dtype == torch.bfloat16:
+        if ((name in _BF16_ARGS or name in bf16)
+                and t.dtype == torch.bfloat16):
             if t.dim() == 2 and t.shape[1] % 2:
                 raise ValueError(f"{name}: bf16 rows must have an even "
                                  f"width, got {t.shape[1]}")

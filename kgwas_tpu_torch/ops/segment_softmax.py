@@ -28,6 +28,23 @@ backward is ``segment_softmax_spmm_bwd`` (per-edge ``p_e`` and
 ``d_logit_e``), then ``segment.csc_segment_sum(g, p, None)`` over the
 relation's CSC for ``d_xs``: the ``[E, D]`` message cotangent is never
 formed.
+
+**bf16 operands.** ``xs`` may be bfloat16 (a bf16 compute or stream
+dtype), with float32 or bfloat16 logits (float32 under ``stream_dtype``,
+bf16 under ``compute_dtype``); the backward's ``out`` and ``g`` stay
+float32 (the forward's output and its cotangent: the kernel forms a packed
+row's ``dot_r`` from its edges, which is ``out_r . g_r`` only for the
+forward's own output). The wrappers then launch the kernels'
+bf16 instances (entry points ``kgwas_segment_softmax_spmm_fwd_bf16`` and
+``kgwas_segment_softmax_spmm_bwd_bf16`` of the same sources; counted in
+``bf16_launches`` and ``bf16_bwd_launches``), which compute the float32
+instances' arithmetic on the operands widened to float32 (exact), as the
+TPU kernels' bodies are float32 throughout: the row max and sum, every
+weight and sum, and the outputs (``out``, ``row_max``, ``row_sum``, ``w``,
+``d_logits``) are float32. The plain versions widen explicitly and compute
+the same. In the autograd function, ``d_xs`` comes from #8's bf16
+instance (each product ``w_e g[row_e]`` rounded to bf16, as for the
+sigmoid GAT) and ``d_logits`` is handed back in the logits' dtype.
 """
 from __future__ import annotations
 
@@ -42,6 +59,8 @@ EXP_CLAMP = 60.0
 
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 
 def _check(xs, src, logits, row_offsets, mult=None):
@@ -54,11 +73,17 @@ def _check(xs, src, logits, row_offsets, mult=None):
     return row_offsets.shape[0] - 1
 
 
+def _widened(*ts):
+    """bf16 tensors as float32 (exact); other dtypes as they are."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
+
+
 def segment_softmax_spmm_fwd_plain(xs, src, logits, row_offsets, mult=None):
     """Plain PyTorch version in the TPU kernel's formulas and constants
     (NEG_BIG, exp(min(l - m, 60)), +1e-16). Same arguments and results as
-    segment_softmax_spmm_fwd."""
+    segment_softmax_spmm_fwd (bf16 operands widened to float32)."""
     n_rows = _check(xs, src, logits, row_offsets, mult)
+    xs, logits = _widened(xs, logits)
     dst = csr_rows(row_offsets)
     e = dst.shape[0]
     l = logits[:e]
@@ -74,8 +99,9 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None,
                              mult=None):
     """(out [n_rows, D], row_max [n_rows], row_sum [n_rows]).
 
-    xs [S, D] f32 projected source rows; src [E] int32 into xs
-    (dst-sorted); logits [E] f32; row_offsets [n_rows + 1] int32, every
+    xs [S, D] f32 (or bf16) projected source rows; src [E] int32 into xs
+    (dst-sorted); logits [E] f32 (or bf16, with bf16 xs); row_offsets
+    [n_rows + 1] int32, every
     edge in a row; mult [E] f32 per-edge multipliers of the messages after
     the softmax, or None (1; the row max and sum do not see them). Empty
     rows give 0, NEG_BIG and 0. sched: the stream's row_schedule on the
@@ -90,8 +116,9 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None,
     from .gat_layer import check_cuda_args
 
     dev = xs.device
-    check_cuda_args(dev, xs=xs, src=src, logits=logits,
-                    row_offsets=row_offsets,
+    bf16 = xs.dtype == torch.bfloat16
+    check_cuda_args(dev, ("xs", "logits") if bf16 else (), xs=xs, src=src,
+                    logits=logits, row_offsets=row_offsets,
                     **({} if mult is None else {"mult": mult}))
     if sched is None:
         sched = row_schedule(row_offsets).to(dev)
@@ -116,19 +143,26 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None,
     row_max = torch.empty(n_rows, dtype=torch.float32, device=dev)
     row_sum = torch.empty(n_rows, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library("segment_softmax_spmm_fwd")(
-        xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
-        None if mult is None else mult.data_ptr(),
-        row_offsets.data_ptr(), out.data_ptr(), row_max.data_ptr(),
-        row_sum.data_ptr(), sched.items.data_ptr(), sched.items.shape[0],
-        sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
-        sched.split_units.shape[0], part_m.data_ptr(), part_s.data_ptr(),
-        part_acc.data_ptr(), n_rows, d, stream)
+    args = (xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
+            None if mult is None else mult.data_ptr(),
+            row_offsets.data_ptr(), out.data_ptr(), row_max.data_ptr(),
+            row_sum.data_ptr(), sched.items.data_ptr(), sched.items.shape[0],
+            sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
+            sched.split_units.shape[0], part_m.data_ptr(), part_s.data_ptr(),
+            part_acc.data_ptr(), n_rows, d)
+    if bf16:
+        err = library("segment_softmax_spmm_fwd_bf16")(
+            *args, int(logits.dtype == torch.bfloat16), stream)
+    else:
+        err = library("segment_softmax_spmm_fwd")(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"segment_softmax_spmm_fwd launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    global launches, bf16_launches
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out, row_max, row_sum
 
 
@@ -136,8 +170,10 @@ def segment_softmax_spmm_bwd_plain(xs, src, logits, row_offsets, row_max,
                                    row_sum, out, g, mult=None):
     """Plain PyTorch version of the backward kernel, in the TPU backward
     kernel's formulas (dot_r from the saved output). Same arguments and
-    results as segment_softmax_spmm_bwd."""
+    results as segment_softmax_spmm_bwd (bf16 operands widened to
+    float32)."""
     _check(xs, src, logits, row_offsets, mult)
+    xs, logits = _widened(xs, logits)
     dst = csr_rows(row_offsets)
     e = dst.shape[0]
     lse = row_max + torch.log(row_sum + EPS)
@@ -159,8 +195,10 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
     edge e times its multiplier (mult, None: 1), d_logits the logits'
     cotangent, p_e (m_e xs[src_e] . g_r - dot_r). The message cotangent p_e g_row is
     never formed: segment.csc_segment_sum(g, w, None) sums it per source
-    row. sched: the stream's row_schedule on the device, the forward's
-    (built from row_offsets when not given). The kernel forms dot_r =
+    row. xs may be bf16 (then logits f32 or bf16); out, g, w and d_logits
+    are f32. sched: the stream's
+    row_schedule on the device, the forward's (built from row_offsets when
+    not given). The kernel forms dot_r =
     out_r . g_r from the row's own edges where an item holds the whole row
     (sum_e p_e xs[src_e] . g_r), and from out on chunked rows. The plain
     version needs no schedule."""
@@ -178,9 +216,10 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
     from .gat_layer import check_cuda_args
 
     dev = xs.device
-    check_cuda_args(dev, xs=xs, logits=logits, row_max=row_max,
-                    row_sum=row_sum, out=out, g=g,
-                    **({} if mult is None else {"mult": mult}))
+    bf16 = xs.dtype == torch.bfloat16
+    check_cuda_args(dev, ("xs", "logits") if bf16 else (),
+                    xs=xs, logits=logits, row_max=row_max, row_sum=row_sum,
+                    out=out, g=g, **({} if mult is None else {"mult": mult}))
     if sched is None:
         sched = row_schedule(row_offsets).to(dev)
     check_stream(sched, ("bwd", dev), src, row_offsets, n_rows)
@@ -190,16 +229,24 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
     w = torch.empty(e, dtype=torch.float32, device=dev)
     d_logits = torch.empty(e, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library("segment_softmax_spmm_bwd")(
-        xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
-        None if mult is None else mult.data_ptr(), row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
-        out.data_ptr(), g.data_ptr(), w.data_ptr(), d_logits.data_ptr(),
-        sched.items.data_ptr(), sched.items.shape[0], n_rows, d, stream)
+    args = (xs.data_ptr(), src.data_ptr(), logits.data_ptr(),
+            None if mult is None else mult.data_ptr(),
+            row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+            out.data_ptr(), g.data_ptr(), w.data_ptr(), d_logits.data_ptr(),
+            sched.items.data_ptr(), sched.items.shape[0], n_rows, d)
+    if bf16:
+        err = library("segment_softmax_spmm_bwd_bf16")(
+            *args, int(logits.dtype == torch.bfloat16), stream)
+    else:
+        err = library("segment_softmax_spmm_bwd")(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"segment_softmax_spmm_bwd launch failed: cudaError {err}")
-    global bwd_launches
-    bwd_launches += 1
+    global bwd_launches, bf16_bwd_launches
+    if bf16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return w, d_logits
 
 
@@ -228,10 +275,12 @@ def segment_softmax_spmm_backward_plain(xs, logits, row_max, row_sum, out, g,
 
 class SegmentSoftmaxSpmm(torch.autograd.Function):
     """``SegmentSoftmaxSpmm.apply(xs, logits, layout, mult=None)`` -> out
-    [N, D] over the relation's stream (layout.src, layout.row_offsets),
-    each message times mult [E] after the softmax (None: 1; a constant, it
-    gets no gradient). The forward saves out, row_max and row_sum; the
-    backward recomputes each edge's softmax weight from them."""
+    [N, D] float32 over the relation's stream (layout.src,
+    layout.row_offsets), each message times mult [E] after the softmax
+    (None: 1; a constant, it gets no gradient). The forward saves out,
+    row_max and row_sum; the backward recomputes each edge's softmax
+    weight from them. With bf16 xs and logits, their gradients come back in
+    their dtypes."""
 
     @staticmethod
     def forward(ctx, xs, logits, layout, mult=None):
@@ -247,4 +296,5 @@ class SegmentSoftmaxSpmm(torch.autograd.Function):
         *saved, mult = ctx.saved_tensors
         d_xs, d_logits = segment_softmax_spmm_backward(
             *saved, g.contiguous(), ctx.layout, mult=mult)
-        return d_xs, d_logits, None, None
+        xs, logits = saved[:2]
+        return d_xs.to(xs.dtype), d_logits.to(logits.dtype), None, None

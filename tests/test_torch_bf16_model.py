@@ -42,6 +42,7 @@ bound is far inside the JAX package's own bf16-against-f32 bound (rtol
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -76,9 +77,17 @@ DTYPES = {"stream": {"stream_dtype": "bfloat16"},
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_bf16_forward_matches_jax(variant, dtype):
+    """The JAX side runs jitted on jnp arrays, as KGWAS.train runs it: run
+    eagerly on numpy parameters, apply_hetero_gnn casts them to numpy
+    (ml_dtypes) bfloat16 under compute_dtype, and a numpy bf16 @ bf16
+    product returns float32, so the eager forward's encoders would leave
+    float32 where the jitted one (jnp) keeps bf16 (the two JAX forwards
+    differ by up to 5.8e-3 of the largest prediction)."""
     cg_j, cfg, meta, params = _jax_setup(128, use_pallas=True,
                                          **VARIANTS[variant], **DTYPES[dtype])
-    want = np.asarray(apply_hetero_gnn(params, cfg, meta, cg_j.arrays()))
+    want = np.asarray(jax.jit(lambda p, a: apply_hetero_gnn(p, cfg, meta, a))(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, cg_j.arrays())))
     cg, model = _port_model(cfg, params)
     assert model.cfg.to_dict().items() >= DTYPES[dtype].items()
     layouts = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu",

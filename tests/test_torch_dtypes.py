@@ -14,8 +14,8 @@ optimizer, the entry points, and what still raises, against the JAX package.
   the same operations rounded to bf16 in the same order, so the
   parameters and both moments bit for bit after 5 steps.
 * The per-relation softmax GAT (GAT max, edge_dim, dropout in training)
-  under a bf16 compute or stream dtype raises NotImplementedError naming
-  ROADMAP Queue 1 item 7.
+  under a bf16 compute or stream dtype trains (it raised before its
+  kernels' bf16 forms; the tests keep their names).
 * The CLI's ``--dtype bfloat16`` trains (it sets compute_dtype), the
   streamed first layer is cast to the compute dtype as h1_override (the
   forward against ``apply_hetero_gnn(h1_override=...)`` at rtol 1e-2,
@@ -240,21 +240,50 @@ def test_fill_dead_grads_in_param_dtype():
     {"dropout": 0.1, "stream_dtype": "bfloat16"},
 ], ids=["GAT-max", "GAT-min", "edge_dim", "dropout"])
 def test_per_relation_softmax_bf16_raises(tmp_path, kw):
+    """The per-relation softmax GAT under a bf16 compute or stream dtype no
+    longer raises (its kernels' bf16 forms, tests/test_torch_bf16_relations
+    .py): the option initialises, trains and predicts; param_dtype alone
+    (the float32 kernels) runs as before."""
     data = kt.KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                         data_path=str(tmp_path))
+    data.load_synthetic_gwas(seed=0)
+    data.process_gwas_file()
+    data.prepare_split()
     run = kt.KGWAS(data, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 7 "):
-        run.initialize_model(gnn_hidden_dim=16, **kw)
-    # param_dtype alone keeps the float32 kernels: it runs
+    run.initialize_model(gnn_hidden_dim=16, no_relu=True, **kw)
+    assert run.model.cfg.to_dict().items() >= kw.items()
+    run.train(batch_size=8, epoch=1, lr=1e-3, save_best_model=False)
+    assert np.all(np.isfinite(run.epoch_losses[0]))
+    assert np.all(np.isfinite(run.predict_all()))
     run.initialize_model(gnn_hidden_dim=16, param_dtype="bfloat16",
                          **{k: v for k, v in kw.items() if "dtype" not in k})
 
 
 def test_gat_relation_softmax_raises_in_bf16():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gat_relation(None, None, None, None, 0.2, 1.0, "softmax",
-                     cdt=torch.bfloat16)
+    """gat_relation's softmax mode in bf16 runs: a bf16 relation layer on
+    one relation stream gives a float32 output (its checks against the
+    float32 segment softmax of the widened values:
+    tests/test_torch_bf16_relations.py)."""
+    from kgwas_tpu_torch.graph import (build_merged_layouts, compile_graph,
+                                       make_synthetic_kg)
+    from kgwas_tpu_torch.models import device_layouts
+    from kgwas_tpu_torch.models.convs import GATConv
+
+    cg = compile_graph(make_synthetic_kg(n_snp=60, n_gene=12, n_go=6, seed=1),
+                       edge_pad_multiple=512, node_pad_multiple=512)
+    L = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu", cg,
+                       "relations")["SNP"]
+    RL = L.relations[0]
+    src_t = RL.src_types[0]
+    gen = torch.Generator().manual_seed(0)
+    conv = GATConv(8, 8, 1, src_t == "SNP", gen)
+    h = {t: torch.randn(n, 8, generator=gen).to(torch.bfloat16)
+         for t, n in cg.padded_nodes.items()}
+    out = gat_relation(conv, h[src_t], h["SNP"], RL, 0.2, 1.0, "softmax",
+                       cdt=torch.bfloat16)
+    assert out.dtype == torch.float32
+    assert out.shape == (cg.padded_nodes["SNP"], 8)
+    assert torch.isfinite(out).all()
 
 
 # -------------------------------------------------------------- entry points

@@ -1338,3 +1338,157 @@ def test_merged_gat_f32_instances_bitwise_as_parent(mode, fold, parent_csrc,
     torch.cuda.synchronize()
     for a, b in zip(new + new_b, old + old_b):
         assert torch.equal(a, b)
+
+
+# ---- the bf16 instances of the segment softmax kernels (#6, #7)
+#
+# They compute the float32 instances' arithmetic on operands widened to
+# float32 (exact), so each is bitwise equal to the float32 instance on the
+# widened operands under the same schedule, and held against the plain
+# version (which widens the same way) at the float32 tolerances.
+
+def _bf16_softmax_case(d, max_edges, logits_bf16, device, mult=False):
+    """The long-row stream with a bf16 table (and bf16 logits when asked),
+    its schedule, an optional multiplier and a cotangent g."""
+    src, ro, logits, xs, long_rows = _long_row_stream(d=d)
+    rng = np.random.default_rng(31)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    xs_b = t(xs).to(torch.bfloat16)
+    lg = t(logits)
+    if logits_bf16:
+        lg = lg.to(torch.bfloat16)
+    sched = schedule.row_schedule(ro, max_edges or schedule.ROW_MAX_EDGES,
+                                  max_edges or schedule.ROW_CHUNK_EDGES)
+    g = t(rng.standard_normal((len(ro) - 1, d)).astype(np.float32))
+    mu = t(_mult(rng, len(src))) if mult else None
+    return (xs_b, t(src), lg, t(ro)), sched.to(device), g, mu, long_rows
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("logits", ["f32", "bf16"])
+@pytest.mark.parametrize("max_edges", [None, 8])
+@pytest.mark.parametrize("d", [D, 48])
+def test_bf16_segment_softmax_kernels_match_plain_and_f32(
+        d, max_edges, logits, mult, cuda_device):
+    """segment_softmax_spmm_fwd_bf16 (#6) and _bwd_bf16 (#7) on bf16 rows
+    (logits float32 as under stream_dtype, bf16 as under compute_dtype),
+    on the long-row stream (chunks, a hub, empty rows, a trash row) at the
+    default item sizes and at max_edges 8: two runs the same bits, float32
+    outputs, within the float32 kernel-vs-plain tolerances of the plain
+    version, and bitwise the float32 instances on the widened operands."""
+    fargs, sched, g, mu, long_rows = _bf16_softmax_case(
+        d, max_edges, logits == "bf16", cuda_device, mult)
+    before = (segment_softmax.launches, segment_softmax.bwd_launches,
+              segment_softmax.bf16_launches,
+              segment_softmax.bf16_bwd_launches)
+    got = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_fwd(
+        *a, sched=sched, mult=mu), *fargs)
+    assert all(v.dtype == torch.float32 for v in got)
+    want = segment_softmax.segment_softmax_spmm_fwd_plain(*fargs, mult=mu)
+    for g_, w_ in zip(got, want):
+        _close_rows(g_, w_, long_rows)
+    wide = (fargs[0].float(), fargs[1], fargs[2].float(), fargs[3])
+    f32 = segment_softmax.segment_softmax_spmm_fwd(*wide, sched=sched,
+                                                   mult=mu)
+    for a, b in zip(got, f32):
+        assert torch.equal(a, b)
+    out, row_max, row_sum = got
+    bargs = fargs + (row_max, row_sum, out, g)
+    edge = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_bwd(
+        *a, sched=sched, mult=mu), *bargs)
+    assert all(v.dtype == torch.float32 for v in edge)
+    plain = segment_softmax.segment_softmax_spmm_bwd_plain(*bargs, mult=mu)
+    exact = segment_softmax.segment_softmax_spmm_bwd_plain(
+        *_as_double(bargs), mult=None if mu is None else mu.double())
+    for a, p, x in zip(edge, plain, exact):
+        _grad_rule(a, p, x)
+    f32_b = segment_softmax.segment_softmax_spmm_bwd(*_as_float(bargs),
+                                                     sched=sched, mult=mu)
+    for a, b in zip(edge, f32_b):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert (segment_softmax.launches, segment_softmax.bwd_launches,
+            segment_softmax.bf16_launches,
+            segment_softmax.bf16_bwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 2)
+
+
+def _as_float(args):
+    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+@pytest.mark.parametrize("rk", ["Gene__Gene-PPI-Gene__Gene",
+                                "Gene__rev_TSS__SNP"])
+def test_bf16_segment_softmax_op_on_relation_stream(rk, cuda_device,
+                                                    variant_world):
+    """SegmentSoftmaxSpmm on bf16 xs and bf16 logits over one relation's
+    stream and its row schedule (the compute dtype's op): float32 output,
+    the gradients in the operands' dtypes, against the same op on the CPU
+    (the plain versions) from the same bf16 values: the forward within
+    the kernel-vs-plain tolerances, d_logits by the backward tolerance and
+    d_xs (#8's bf16 instance, products rounded to bf16) by the bf16 rule."""
+    cg, rel, _ = variant_world
+    r = cg.relations[rk]
+    L = rel[r.dst_type]
+    RL = L.relations[L.rel_keys.index(rk)]
+    cpu = device_layouts({r.dst_type: build_merged_layouts(
+        cg, tile_rows=512)[r.dst_type]}, "cpu", cg, "relations")[r.dst_type]
+    RC = cpu.relations[L.rel_keys.index(rk)]
+    rng = np.random.default_rng(32)
+    xs = torch.from_numpy((rng.standard_normal((RL.src_base[-1], D))
+                           * 0.1).astype(np.float32)).to(torch.bfloat16)
+    logits = torch.from_numpy((rng.standard_normal(RL.src.shape[0])
+                               * 1.5).astype(np.float32)).to(torch.bfloat16)
+    g = rng.standard_normal((RL.n_rows_per_rel, D)).astype(np.float32)
+    res = []
+    before = (segment_softmax.bf16_launches,
+              segment_softmax.bf16_bwd_launches, segment.bf16_launches)
+    for dev, lay in ((cuda_device, RL), ("cpu", RC)):
+        a, b = (v.to(dev).requires_grad_() for v in (xs, logits))
+        out = segment_softmax.SegmentSoftmaxSpmm.apply(a, b, lay)
+        assert out.dtype == torch.float32
+        out.backward(torch.from_numpy(g).to(dev))
+        assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+        res.append((out.detach().cpu(), a.grad.float().cpu(),
+                    b.grad.float().cpu()))
+    assert (segment_softmax.bf16_launches, segment_softmax.bf16_bwd_launches,
+            segment.bf16_launches) == (before[0] + 1, before[1] + 1,
+                                       before[2] + 1)
+    (o, dx, dl), (o_p, dx_p, dl_p) = res
+    _close(o, o_p, RL.n_rows_per_rel, cg.num_nodes[r.dst_type])
+    _bf16_grad_close(dx, dx_p)
+    _bf16_grad_close(dl, dl_p)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+def test_segment_softmax_f32_instances_bitwise_as_parent(
+        mult, parent_csrc, cuda_device, monkeypatch):
+    """The f32 instances of #6 and #7, whose sources gained the bf16
+    instances beside them, give the earlier source's bits on the same
+    inputs and schedules (the C interface of the f32 entry points is
+    unchanged)."""
+    src, ro, logits, xs, _ = _long_row_stream()
+    rng = np.random.default_rng(33)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    mu = t(_mult(rng, len(src))) if mult else None
+    sched = schedule.row_schedule(ro).to(cuda_device)
+    fargs = (t(xs), t(src), t(logits), t(ro))
+    g = t(rng.standard_normal((len(ro) - 1, D)).astype(np.float32))
+
+    def run():
+        f = segment_softmax.segment_softmax_spmm_fwd(*fargs, sched=sched,
+                                                     mult=mu)
+        b = segment_softmax.segment_softmax_spmm_bwd(
+            *fargs, f[1], f[2], f[0], g, sched=sched, mult=mu)
+        return f + b
+
+    new = run()
+    for name in ("segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd"):
+        source, entry, argtypes = build.KERNELS[name]
+        monkeypatch.setitem(build._loaded, name, build.build_source(
+            parent_csrc / source, f"parent_{name}", entry, argtypes))
+    old = run()
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)

@@ -7,7 +7,7 @@
 * ``KGWAS(data)`` with no device raises when CUDA is absent.
 * A CPU tensor runs the plain version of each kernel wrapper and launches
   nothing, in the forward and in the backward.
-* Options still unported (mesh, the bf16 dtypes) raise NotImplementedError
+* Options still unported raise NotImplementedError
   naming their ROADMAP item; the model variants of item 3 run, on the CPU here, and persist the
   JAX package's ``config``; ``initialize_model`` takes the JAX method's
   arguments: the TPU
@@ -233,33 +233,41 @@ def test_train_options_of_later_items_raise(tmp_path):
     data.prepare_split()
     run = KGWAS(data, device="cpu").initialize_model(gnn_hidden_dim=8)
     # profile_dir and metrics_log are ported (tests/test_torch_profiling.py),
-    # the long-run options of item 8 too (tests/test_torch_long_runs.py):
-    # only mesh (item 10) still raises
-    for kw, item in (({"mesh": 2}, 10), ({"mesh": {"data": 4}}, 10)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item} "):
+    # the long-run options of item 8 too (tests/test_torch_long_runs.py),
+    # and mesh (item 10: tests/test_torch_parallel.py): in a process without
+    # a 2- or 4-rank process group those meshes do not match the world size
+    for kw in ({"mesh": 2}, {"mesh": {"data": 4}}):
+        with pytest.raises(ValueError, match="does not match the world "
+                                             "size 1"):
             run.train(batch_size=8, epoch=1, **kw)
+    # a mesh of one rank trains
+    run.train(batch_size=8, epoch=1, mesh=1, save_best_model=False)
+    assert run.mesh.size == 1 and np.all(np.isfinite(run.epoch_losses[0]))
 
 
 def test_unported_options_raise(tmp_path):
-    """Of the bf16 dtypes of item 7, only a bf16 compute or stream dtype on
-    the per-relation softmax GAT (GAT max / min, edge_dim, dropout in
-    training: kernels #6 and #7) still raises from initialize_model; the
-    four options run elsewhere, kept in model_cfg and out of the persisted
-    config (their computation: tests/test_torch_bf16_model.py). The model
-    variants (item 3) run (test_lifted_variant_options_run), and so do
-    host-streamed features (tests/test_torch_streaming.py); mesh (item 10):
-    test_train_options_of_later_items_raise."""
+    """The bf16 dtypes of item 7 all run now: a bf16 compute or stream dtype
+    on the per-relation softmax GAT (GAT max / min, edge_dim, dropout in
+    training: kernels #6 and #7) initialises like the rest, each option
+    kept in model_cfg and out of the persisted config (their computation:
+    tests/test_torch_bf16_model.py, tests/test_torch_bf16_relations.py).
+    The model variants (item 3) run (test_lifted_variant_options_run), and
+    so do host-streamed features (tests/test_torch_streaming.py); mesh
+    (item 10): test_train_options_of_later_items_raise. An unknown dtype
+    name still raises."""
     data = KGWAS_Data.from_synthetic(n_snp=50, n_gene=10, n_go=5, seed=0,
                                      data_path=str(tmp_path))
     run = KGWAS(data, device="cpu")
-    for kw, item in (({"compute_dtype": "bfloat16", "gnn_aggr": "max"}, 7),
-                     ({"stream_dtype": "bfloat16", "edge_dim": 4}, 7),
-                     ({"compute_dtype": "bfloat16", "dropout": 0.1}, 7),
-                     ({"stream_dtype": "bfloat16", "gnn_aggr": "min"}, 7)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item} "):
-            run.initialize_model(gnn_hidden_dim=16, **kw)
+    for kw in ({"compute_dtype": "bfloat16", "gnn_aggr": "max"},
+               {"stream_dtype": "bfloat16", "edge_dim": 4},
+               {"compute_dtype": "bfloat16", "dropout": 0.1},
+               {"stream_dtype": "bfloat16", "gnn_aggr": "min"}):
+        run.initialize_model(gnn_hidden_dim=16, **kw)
+        for k, v in kw.items():
+            assert getattr(run.model_cfg, k) == v
+        assert not {"compute_dtype", "stream_dtype"} & set(run.config)
+        assert {k: v for k, v in kw.items() if "dtype" not in k}.items() <= \
+            run.config.items()
     for kw in ({"compute_dtype": "bfloat16"}, {"stream_dtype": "bfloat16"},
                {"stream_dtype": "bfloat16", "stream_f32_logits": True},
                {"param_dtype": "bfloat16", "gnn_aggr": "max"},
