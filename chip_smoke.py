@@ -101,19 +101,21 @@ PyTorch version:
      without the flag
 
  11. long runs, host-streamed features and the cohort builder: (a) at
-     full width, KGWAS.train(max_restarts=1) over 2 epochs clean and with a
-     transient fault injected in epoch 2 (one restart; final and best
-     parameters bitwise the clean run's), the snapshot's host time per
-     epoch and the time to recover; (b) checkpoint_every=100 beside the
-     same epoch without saves (each step's host time, with and without a
-     save after it), the saved state and the state resume=True restores
-     bitwise the run's at step 300; (c) a device-side assert in a child
+     full width, KGWAS.train(max_restarts=1) over 2 epochs of 120 batches
+     (352 before PR 13) clean and with a transient fault injected in
+     epoch 2 (one restart; final and best parameters bitwise the clean
+     run's), the snapshot's host time per epoch and the time to recover;
+     (b) checkpoint_every=100 over an epoch of 220 batches (352 before PR
+     13) beside the same epoch without saves (each step's host time, with
+     and without a save after it), the saved state and the state
+     resume=True restores bitwise the run's at step 200; (c) a device-side assert in a child
      process, classified fatal, and the next CUDA call failing too; (d)
      the stall watchdog with the first attempt wedged: python -m
      kgwas_tpu_torch.cli train --watchdog-timeout on --synthetic, and
      KGWAS.train(checkpoint_every, resume=True) on a KG that size under
      run_with_watchdog (exactly one relaunch each, the second resuming
-     from the newest step_N), both recovery times; (e) Gene rows 57,742
+     from the newest step_N; the two side by side since PR 13), both
+     recovery times; (e) Gene rows 57,742
      wide (4.62 GB of host table): three train steps in device memory and
      streamed from the host from the same initial state, step ms, bytes to
      the device and the rate beside a pinned copy, the host gather time,
@@ -157,6 +159,23 @@ PyTorch version:
      groups whose tiles split) through #1, #2 and #8 in this process, the
      ranks' rows and summed gradients against the unsharded layer. Two
      ranks over NCCL need two cards: not run here
+ 15. scanned dispatch (KGWAS.train(scan_steps=8): each full block of 8
+     steps one replay of a CUDA graph of 8 captured steps,
+     engine/loop.TrainScan): (a) full-width GAT sum over 3 blocks and a
+     3-step tail, scanned and with scan_steps=0 from one initial state
+     (losses, parameters and Adam's state bitwise; launches counted from 0
+     just before each run: the eager first block, the capture, the tail;
+     one captured block's launches), the step's ms both ways (slope on
+     CUDA events) with each one's device idle share, the eager step's
+     peak memory beside the capture's and the graph pool's; (b) one
+     replayed block of GAT max, GCN, compute_dtype bf16, param_dtype bf16
+     (Bf16Adam) and remat, bitwise the same steps eager, with step ms;
+     (c) bench_lib with BENCH_SCAN=8 (its JSON line printed) beside phase
+     8's BENCH_SCAN=0; (d) KGWAS.train(max_restarts=1, scan_steps=8) on
+     the 20k-SNP KG over 2 epochs, clean and with a transient fault in
+     epoch 2: bitwise the clean run. The other phases that count launches
+     from KGWAS.train pass scan_steps=0; phase 9's CLI trains scanned and
+     its count is the eager steps' and the capture's
 
   Every phase's seconds are logged, and their list before the kernel
   table. Phase 4 times one other max_edges (SWEEP_MAX_EDGES) beside the
@@ -187,7 +206,7 @@ saved output; 5d (GAT sum) and 6c (GAT-max, SAGE) also time the train
 step, and 6c (SAGE, GCN) the forward, with its segment kernels in place
 of this checkout's, alternating.
 
-Prints the bench's JSON line (phase 8) on an earlier line, and at the end
+Prints the bench's JSON lines (phases 8 and 15c) on earlier lines, and at the end
 the kernel table as one JSON line, then the card's name and power limit,
 then the result line. Exits non-zero, printing no
 result, without a CUDA device or without the package beside this file.
@@ -1140,7 +1159,8 @@ def phase_train(kt, data, cg, device, card, parent=None):
     gat_layer.launches = gat_layer.bwd_launches = segment.launches = 0
     t0 = time.perf_counter()
     with swapped(kgwas, **tail):
-        table = trainer.train(batch_size=BATCH, epoch=1, lr=LR)
+        table = trainer.train(batch_size=BATCH, epoch=1, lr=LR,
+                              scan_steps=0)
     train_s = time.perf_counter() - t0
     counts = {"merged_gat_fwd": gat_layer.launches,
               "merged_gat_bwd": gat_layer.bwd_launches,
@@ -1520,7 +1540,8 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
         # (b) training: KGWAS.train over CMP_STEPS steps, counts set to 0
         # just before, against CMP_STEPS steps through the plain ops
         variant_counts(zero=True)
-        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  scan_steps=0)
         counts = variant_counts()
         steps = len(run.epoch_losses[0])
         want = ({"segment_softmax_spmm_fwd": n * (steps + 2),
@@ -2456,7 +2477,8 @@ def phase_bench(kt, data, card, step_ms_5d, tmp):
     shutil.rmtree(out_dir, ignore_errors=True)
     metrics = out_dir / "metrics.jsonl"
     run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
-              profile_dir=str(out_dir / "trace"), metrics_log=str(metrics))
+              profile_dir=str(out_dir / "trace"), metrics_log=str(metrics),
+              scan_steps=0)
     traces = sorted((out_dir / "trace").glob("*.pt.trace.json"))
     if len(traces) != 1:
         raise AssertionError(f"{len(traces)} trace files")
@@ -2478,6 +2500,7 @@ def phase_bench(kt, data, card, step_ms_5d, tmp):
         f"events, entries {found}; device busy {busy_ms:.3f} ms of the "
         f"traced {window_ms:.3f} ms (idle {idle:.1%}); metrics record "
         f"{recs[0]}; {time.perf_counter() - t0:.1f} s")
+    return bench
 
 
 # ---- phase 9: the real-data path, a bundle in the real one's layout
@@ -2659,9 +2682,12 @@ def phase_real(kt, card, step_5d, tmp):
     steps = len(run.epoch_losses[0])
     live, _ = run.model.live_groups(run._device_state()[2])
     per_step = sum(len(g) for g in live)
-    want = {"merged_gat_fwd": per_step * (steps + 2),
-            "merged_gat_bwd": per_step * steps,
-            "csc_segment_sum": per_step * steps}
+    # the CLI trains with KGWAS.train's default scan_steps: the wrappers
+    # count the eager steps and the captured ones once
+    counted = scan_counted_steps(steps)
+    want = {"merged_gat_fwd": per_step * (counted + 2),
+            "merged_gat_bwd": per_step * counted,
+            "csc_segment_sum": per_step * counted}
     if counts != want or not steps:
         raise AssertionError(f"cli train: {steps} steps, launches {counts}, "
                              f"expected {want}")
@@ -2673,7 +2699,8 @@ def phase_real(kt, card, step_5d, tmp):
     if run.data.gene_init_dim_size != 5120:
         raise AssertionError("the Gene rows are not 5120 wide")
     rec = run.train_history[0]
-    log(f"  phase 9 train: {steps} steps, launches {counts}; {len(kp)} "
+    log(f"  phase 9 train: {steps} steps ({counted} counted: scanned), "
+        f"launches {counts}; {len(kp)} "
         f"KGWAS_P finite in [0, 1]; loss first "
         f"{run.epoch_losses[0][0]:.4f} last {run.epoch_losses[0][-1]:.4f}; "
         f"val pearson {rec['val_pearsonr']:.4f}; {train_s:.1f} s")
@@ -2920,7 +2947,8 @@ def phase_models(kt, data, cg, device, card, floors):
 
         # training: KGWAS.train over CMP_STEPS batches, counts set to 0
         model_counts(zero=True)
-        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  scan_steps=0)
         counts = model_counts()
         steps = len(run.epoch_losses[0])
         want = add_counts((steps, per_step), (2, f_eval))
@@ -3117,6 +3145,10 @@ def phase_models(kt, data, cg, device, card, floors):
 # (a) a clean run and one with a transient fault before step FAULT_STEP of
 # epoch 2, LONG_EPOCHS epochs each; (b) a train state every CKPT_EVERY steps
 LONG_EPOCHS, FAULT_STEP, CKPT_EVERY = 2, 100, 100
+# (a) and (b)'s epochs cut to these many batches of the full-width split
+# (352 before PR 13), to pay for phase 15: the fault still lands in epoch
+# 2, (b) still saves twice and resumes from the newest save
+LONG_BATCHES, CKPT_BATCHES = 120, 220
 # (d) the watchdog's stall timeout (s): start-up, data and a first step fit
 # in it; the wedged attempt stops after WEDGE_CLI / WEDGE_SCRIPT heartbeats
 WATCHDOG_T, WEDGE_CLI, WEDGE_SCRIPT = 45.0, 7, 15
@@ -3185,13 +3217,15 @@ def expect_launches(counts, per_step, steps, forwards, what):
 
 
 def phase_restart(kt, data, card):
-    """(a) KGWAS.train(max_restarts=1) over LONG_EPOCHS epochs at full
-    width, clean and with a transient fault before step FAULT_STEP of
+    """(a) KGWAS.train(max_restarts=1) over LONG_EPOCHS epochs of
+    LONG_BATCHES batches at full width, clean and with a transient fault before step FAULT_STEP of
     epoch 2: one restart, and the final and best parameters bitwise the
     clean run's (deterministic kernels); the snapshot's host time per
     epoch and the time to recover. Returns the launches of both runs."""
     from kgwas_tpu_torch.engine import resilience
 
+    data = copy.copy(data)
+    data.train_mask = np.asarray(data.train_mask)[:LONG_BATCHES * BATCH]
     steps = len(data.train_mask) // BATCH
     fault = steps + FAULT_STEP
     runs, counts, wall = {}, {}, {}
@@ -3214,7 +3248,7 @@ def phase_restart(kt, data, card):
             long_counts(zero=True)
             t0 = time.perf_counter()
             run.train(batch_size=BATCH, epoch=LONG_EPOCHS, lr=LR,
-                      save_best_model=False, max_restarts=1)
+                      save_best_model=False, max_restarts=1, scan_steps=0)
             wall[tag] = time.perf_counter() - t0
             counts[tag] = long_counts()
             runs[tag] = run
@@ -3250,7 +3284,8 @@ def phase_restart(kt, data, card):
 
 
 def phase_checkpoint(kt, data, card):
-    """(b) KGWAS.train(checkpoint_every=CKPT_EVERY) over one epoch beside
+    """(b) KGWAS.train(checkpoint_every=CKPT_EVERY) over one epoch of
+    CKPT_BATCHES batches beside
     the same epoch without saves: the host time of each step (between the
     fault hook's calls) with and without a save after it; the newest state
     saved (the last multiple of CKPT_EVERY) and the state resume=True
@@ -3261,6 +3296,8 @@ def phase_checkpoint(kt, data, card):
                                                    restore_train_state)
 
     name = "chip_smoke_ckpt"
+    data = copy.copy(data)
+    data.train_mask = np.asarray(data.train_mask)[:CKPT_BATCHES * BATCH]
     ckpt_dir = os.path.join(data.data_path, "model", name, "train_state")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     held_at = len(data.train_mask) // BATCH // CKPT_EVERY * CKPT_EVERY
@@ -3279,7 +3316,7 @@ def phase_checkpoint(kt, data, card):
         run._fault_hook = hook
         long_counts(zero=True)
         run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
-                  checkpoint_every=every)
+                  checkpoint_every=every, scan_steps=0)
         counts[tag] = long_counts()
         ms[tag] = np.diff(ticks) * 1e3
     # step k's interval runs from its hook to the next one's: the step and,
@@ -3306,7 +3343,7 @@ def phase_checkpoint(kt, data, card):
     t0 = time.perf_counter()
     try:
         run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
-                  resume=True)
+                  resume=True, scan_steps=0)
     except StopRun:
         pass
     resume_s = time.perf_counter() - t0
@@ -3451,7 +3488,8 @@ run = KGWAS(data, exp_name="wedge", seed=0, device=device)
 run.initialize_model(gnn_num_layers=2, gnn_hidden_dim=128)
 latest = latest_train_state(root + "/model/wedge/train_state")
 run.train(batch_size=int(batch), epoch=2, lr=1e-4, save_best_model=False,
-          checkpoint_every=int(every), resume=True, heartbeat_path=hb)
+          checkpoint_every=int(every), resume=True, heartbeat_path=hb,
+          scan_steps=0)
 with open(result, "w") as f:
     json.dump({"resumed_from": latest, "epochs": len(run.train_history),
                "steps": sum(map(len, run.epoch_losses)),
@@ -3489,10 +3527,8 @@ def phase_watchdog(card, tmp):
     heartbeat_path) under run_with_watchdog on a KG of the same size:
     exactly one relaunch each, the script's resuming from the newest
     step_N.
-    Returns the script's launches."""
+    The two run side by side. Returns the script's launches."""
     import shutil
-
-    from kgwas_tpu_torch.engine.watchdog import run_with_watchdog
 
     root = tmp / "watchdog"
     shutil.rmtree(root, ignore_errors=True)
@@ -3500,19 +3536,29 @@ def phase_watchdog(card, tmp):
     (root / "site" / "sitecustomize.py").write_text(WEDGE_SITE)
     site = str(root / "site")
 
-    # the CLI
+    # the CLI, in a child process, while this process runs the script's
+    # case below (each waits out its own stall timeout: PR 13 runs them
+    # side by side to pay for phase 15)
     mark = root / "cli_attempt"
     t0 = time.perf_counter()
-    with open(root / "cli.log", "w") as out:
-        proc = subprocess.run(
-            [sys.executable, "-m", "kgwas_tpu_torch.cli", "train",
-             "--synthetic", "--device", DEVICE, "--data-path",
-             str(root / "cli"), "--name", "wd", "--epochs", "3",
-             "--batch-size", str(BATCH), "--watchdog-timeout",
-             str(WATCHDOG_T), "--watchdog-restarts", "1"],
-            stdout=out, stderr=subprocess.STDOUT, timeout=600,
-            env=child_env(first=site, KGWAS_WEDGE_MARK=str(mark),
-                          KGWAS_WEDGE_AFTER=str(WEDGE_CLI)))
+    cli_log = open(root / "cli.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kgwas_tpu_torch.cli", "train",
+         "--synthetic", "--device", DEVICE, "--data-path",
+         str(root / "cli"), "--name", "wd", "--epochs", "3",
+         "--batch-size", str(BATCH), "--watchdog-timeout",
+         str(WATCHDOG_T), "--watchdog-restarts", "1"],
+        stdout=cli_log, stderr=subprocess.STDOUT,
+        env=child_env(first=site, KGWAS_WEDGE_MARK=str(mark),
+                      KGWAS_WEDGE_AFTER=str(WEDGE_CLI)))
+    try:
+        script = phase_watchdog_script(root, site)
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        cli_log.close()
     cli_s = time.perf_counter() - t0
     if proc.returncode != 0 or mark.read_text() != "2":
         raise AssertionError(
@@ -3524,8 +3570,29 @@ def phase_watchdog(card, tmp):
     a0, a1, cli_rec = recovery(mark)
     if not os.path.exists(root / "cli" / "model" / "wd" / "pred.csv"):
         raise AssertionError("(d) CLI: the relaunch wrote no checkpoint")
+    mark, out, newest, script_s, launches = script
+    b0, b1, script_rec = recovery(mark)
+    log(f"phase 11d ok [{card}]: watchdog (stall timeout {WATCHDOG_T:.0f} "
+        f"s): the CLI's first attempt wedged after {a0['n']} "
+        f"heartbeats, one relaunch completed ({a1['n']} heartbeats; start "
+        f"to first heartbeat {a1['first'] - a1['start']:.2f} s), recovery "
+        f"after the stall's detection {cli_rec:.2f} s, wall {cli_s:.1f} s; "
+        f"the script wedged after {b0['n']} heartbeats, one relaunch "
+        f"resumed from {newest} and completed {out['epochs']} epochs "
+        f"({out['steps']} steps), recovery {script_rec:.2f} s, wall "
+        f"{script_s:.1f} s (the two side by side); the relaunch's launches "
+        f"{launches}")
+    return add_counts((1, launches))
 
-    # KGWAS.train under run_with_watchdog, resuming
+
+def phase_watchdog_script(root, site):
+    """(d)'s second case: KGWAS.train(checkpoint_every, resume=True,
+    heartbeat_path) in a script under run_with_watchdog, the first attempt
+    wedged; exactly one relaunch, resuming from the newest step_N.
+    Returns (the attempt mark, the script's result, the newest state's
+    name, wall s, the relaunch's launches)."""
+    from kgwas_tpu_torch.engine.watchdog import run_with_watchdog
+
     mark = root / "script_attempt"
     script = root / "train_job.py"
     script.write_text(WATCHDOG_SCRIPT)
@@ -3550,20 +3617,10 @@ def phase_watchdog(card, tmp):
                              f"{mark.read_text()}, {out}, expected a resume "
                              f"from {newest}; attempt logs "
                              f"{attempt_logs(root)}")
-    b0, b1, script_rec = recovery(mark)
     launches = out["launches"]
     if min(launches.values()) <= 0:
         raise AssertionError(f"(d) script launches {launches}")
-    log(f"phase 11d ok [{card}]: watchdog (stall timeout {WATCHDOG_T:.0f} "
-        f"s): the CLI's first attempt wedged after {a0['n']} "
-        f"heartbeats, one relaunch completed ({a1['n']} heartbeats; start "
-        f"to first heartbeat {a1['first'] - a1['start']:.2f} s), recovery "
-        f"after the stall's detection {cli_rec:.2f} s, wall {cli_s:.1f} s; "
-        f"the script wedged after {b0['n']} heartbeats, one relaunch "
-        f"resumed from {newest} and completed {out['epochs']} epochs "
-        f"({out['steps']} steps), recovery {script_rec:.2f} s, wall "
-        f"{script_s:.1f} s; the relaunch's launches {launches}")
-    return add_counts((1, launches))
+    return mark, out, newest, script_s, launches
 
 
 def pinned_rate(nbytes, device, reps=5):
@@ -3662,7 +3719,8 @@ def phase_streamed(kt, data, cg, device, card):
     st.model.load_state_dict(init)
     long_counts(zero=True)
     t0 = time.perf_counter()
-    table = st.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+    table = st.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                     scan_steps=0)
     train_s = time.perf_counter() - t0
     pred = st.predict_all()
     entry = long_counts()
@@ -4367,7 +4425,8 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
         pred_err = float(np.abs(pred - pred_plain).max())
 
         all_counts(zero=True)
-        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  scan_steps=0)
         steps = len(run.epoch_losses[0])
         bf_train = checked(all_counts(),
                            add_counts((steps, per_step), (2, f_eval)),
@@ -4608,7 +4667,7 @@ def phase_mesh(kt, data, cg, device, card):
         init = copy.deepcopy(run.model.state_dict())
         model_counts(zero=True)
         run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
-                  mesh=mesh)
+                  mesh=mesh, scan_steps=0)
         counts = model_counts()
         _, _, layouts = run._device_state()
         f_train, b_train = path_launches(run.model, layouts, True)
@@ -4620,7 +4679,8 @@ def phase_mesh(kt, data, cg, device, card):
                                  f"expected {want}")
         lm = np.asarray(run.epoch_losses[0])
         run.model.load_state_dict(init)
-        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False)
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  scan_steps=0)
         ls = np.asarray(run.epoch_losses[0])
         np.testing.assert_allclose(lm, ls, rtol=LOSS_RTOL)
         # a train step over the mesh beside one on the single device, in
@@ -4735,6 +4795,293 @@ def phase_mesh(kt, data, cg, device, card):
     return counts
 
 
+# ---- phase 15: scanned dispatch, blocks of SCAN_S steps as CUDA graphs
+
+# KGWAS.train's default scan_steps; (a) full blocks and a tail of a
+# full-width epoch cut to SCAN_BLOCKS * SCAN_S + SCAN_TAIL batches
+SCAN_S, SCAN_BLOCKS, SCAN_TAIL = 8, 3, 3
+# (b) one captured block each, beside the same steps eager
+SCAN_VARIANTS = {
+    "GAT-max": dict(gnn_aggr="max"),
+    "GCN": dict(gnn_backbone="GCN"),
+    "compute bf16": dict(compute_dtype="bfloat16"),
+    "param bf16": dict(param_dtype="bfloat16"),
+    "remat": dict(remat=True),
+}
+# (d) the transient fault: this many steps into epoch 2 of the 20k-SNP KG
+SCAN_FAULT = 10
+
+
+def scan_counted_steps(steps, scan=SCAN_S):
+    """The steps of one epoch of KGWAS.train(scan_steps=scan) whose
+    launches the wrappers count: the run's first block runs eagerly, the
+    graph of the second is captured (its launches counted once, at
+    capture), the later blocks replay it uncounted, the tail runs
+    eagerly."""
+    if scan <= 1:
+        return steps
+    blocks, tail = divmod(steps, scan)
+    return min(blocks, 2) * scan + tail
+
+
+def slope_ms(call, n1, n2, steps_per_call):
+    """ms per step: n1, then n2 chained calls, each series ending in one
+    synchronise, CUDA events; the difference cancels the fixed cost."""
+    def series(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            call()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    t1, t2 = series(n1), series(n2)
+    return (t2 - t1) / ((n2 - n1) * steps_per_call)
+
+
+def phase_scan(kt, data, device, card, bench0, tmp):
+    """Phase 15: KGWAS.train(scan_steps=SCAN_S), each full block one
+    replay of a CUDA graph of SCAN_S captured steps (engine/loop.TrainScan).
+    (a) Full-width GAT sum over SCAN_BLOCKS blocks and a SCAN_TAIL-step
+    tail, scanned and with scan_steps=0 from one initial state: losses,
+    parameters and Adam's state bitwise; the launches counted (the eager
+    first block, the capture, the tail); one captured block's launches
+    (SCAN_S eager steps'); the step's ms both ways (slope, CUDA events),
+    each one's device idle share (torch.profiler), the eager step's peak
+    memory and the graph's (its capture's peak and its pool). (b) One
+    block of each SCAN_VARIANTS replayed against the same steps eager,
+    bitwise, with step ms. (c) bench_lib with BENCH_SCAN=SCAN_S beside
+    phase 8's BENCH_SCAN=0. (d) KGWAS.train(max_restarts=1, scan_steps=
+    SCAN_S) on the 20k-SNP KG over 2 epochs, clean and with a transient
+    fault SCAN_FAULT steps into epoch 2: bitwise the clean run. Returns the
+    launches of the layer kernels."""
+    import io
+
+    from kgwas_tpu_torch import bench_lib
+    from kgwas_tpu_torch.engine import resilience
+    from kgwas_tpu_torch.engine.loop import (TrainScan, batch_loss,
+                                             epoch_batches, train_step)
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
+    n_steps = SCAN_BLOCKS * SCAN_S + SCAN_TAIL
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:n_steps * BATCH]
+
+    # (a) full width, scanned and step by step
+    runs, counts, init = {}, {}, None
+    for scan in (SCAN_S, 0):
+        run = kt.KGWAS(data_v, exp_name="chip_smoke_scan", seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True)
+        if init is None:
+            init = copy.deepcopy(run.model.state_dict())
+        run.model.load_state_dict(init)
+        model_counts(zero=True)
+        t0 = time.perf_counter()
+        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
+                  scan_steps=scan)
+        run.wall = time.perf_counter() - t0
+        counts[scan] = model_counts()
+        runs[scan] = run
+    scanned, stepped = runs[SCAN_S], runs[0]
+    sc = scanned.train_scan
+    if sc is None or (sc.captures, sc.replays) != (1, SCAN_BLOCKS - 1):
+        raise AssertionError(f"(a) captures / replays "
+                             f"{sc and (sc.captures, sc.replays)}")
+    if scanned.epoch_losses != stepped.epoch_losses or len(
+            scanned.epoch_losses[0]) != n_steps:
+        raise AssertionError("(a) the scanned losses differ from the "
+                             "step-by-step run's")
+    same_state(scanned.params, stepped.params, "(a) parameters")
+    same_state(scanned.optimizer.state_dict(), stepped.optimizer.state_dict(),
+               "(a) Adam's state")
+    f_eval, _ = path_launches(scanned.model, scanned._device_state()[2],
+                              False)
+    f_train, b_train = path_launches(scanned.model,
+                                     scanned._device_state()[2], True)
+    per_step = add_counts((1, f_train), (1, b_train))
+    for scan, n in ((SCAN_S, scan_counted_steps(n_steps)), (0, n_steps)):
+        want = add_counts((n, per_step), (2, f_eval))
+        if counts[scan] != want:
+            raise AssertionError(f"(a) scan_steps={scan}: launches "
+                                 f"{counts[scan]}, expected {want}")
+        for k, v in counts[scan].items():
+            launches[k] += v
+
+    # one captured block's launches, the timing, the memory
+    model, opt = scanned.model, scanned.optimizer
+    cg_, x, layouts = scanned._device_state()
+    y_node, w_node = scanned._labels(cg_)
+    bm = np.stack(epoch_batches(data_v.train_mask, BATCH, False,
+                                None)[:SCAN_S])
+    bidx = torch.from_numpy(bm[0]).to(device)
+    scan = TrainScan(model, opt, x, layouts, y_node, w_node, SCAN_S)
+    scan(bm)   # the eager block a capture follows
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # as the capture does first
+    torch.cuda.reset_peak_memory_stats()
+    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    model_counts(zero=True)
+    scan.capture(BATCH)
+    block = model_counts()
+    capture_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    pool_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+    want = add_counts((SCAN_S, per_step))
+    if block != want:
+        raise AssertionError(f"(a) one captured block launched {block}, "
+                             f"expected {want}")
+    for k, v in block.items():
+        launches[k] += v
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    train_step(model, opt, x, layouts, bidx, y_node, w_node)
+    torch.cuda.synchronize()
+    eager_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    graph_step = slope_ms(lambda: scan(bm), 2, 6, SCAN_S)
+    eager_step = slope_ms(lambda: train_step(model, opt, x, layouts, bidx,
+                                             y_node, w_node), 8, 24, 1)
+    busy_graph = profile_device(lambda: scan(bm), graph_step * SCAN_S,
+                                f"replayed block of {SCAN_S} steps")
+    busy_eager = profile_device(lambda: train_step(
+        model, opt, x, layouts, bidx, y_node, w_node), eager_step,
+        "eager step")
+    idle_graph = 1 - busy_graph / (graph_step * SCAN_S)
+    idle_eager = 1 - busy_eager / eager_step
+    log(f"  phase 15a [{card}]: full-width GAT sum, {SCAN_BLOCKS} blocks of "
+        f"{SCAN_S} and a {SCAN_TAIL}-step tail: losses, parameters and "
+        f"Adam's state bitwise scan_steps=0's; launches scanned "
+        f"{counts[SCAN_S]}, step by step {counts[0]}; one captured block "
+        f"{block}; train wall {scanned.wall:.2f} s scanned, "
+        f"{stepped.wall:.2f} s step by step")
+    log(f"  phase 15a [{card}]: step ms (slope): graph {graph_step:.4f} "
+        f"(device idle {idle_graph:.1%}), eager {eager_step:.4f} (idle "
+        f"{idle_eager:.1%}); peak above the start: eager step "
+        f"{eager_mb:.1f} MiB, the capture {capture_mb:.1f} MiB, the graph's "
+        f"pool {pool_mb:.1f} MiB reserved")
+    del scan, runs, scanned, stepped, model, opt, x, layouts
+    torch.cuda.empty_cache()
+
+    # (b) one replayed block of each variant against the same steps eager
+    batches = [torch.from_numpy(b).to(device) for b in
+               epoch_batches(data_v.train_mask, BATCH, False, None)]
+    notes = []
+    for name, kw in SCAN_VARIANTS.items():
+        run = kt.KGWAS(data_v, exp_name="chip_smoke_scan", seed=SEED)
+        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True, **kw)
+        model = run.model
+        cg_, x, layouts = run._device_state()
+        y_node, w_node = run._labels(cg_)
+        init = copy.deepcopy(model.state_dict())
+        model_counts(zero=True)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        eager = torch.stack([train_step(model, opt, x, layouts, b, y_node,
+                                        w_node)
+                             for b in batches[:2 * SCAN_S]])
+        want_state = to_host(model.state_dict())
+        model.load_state_dict(init)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        scan = TrainScan(model, opt, x, layouts, y_node, w_node, SCAN_S)
+        got = torch.cat([scan(bm), scan(np.stack(epoch_batches(
+            data_v.train_mask, BATCH, False, None)[SCAN_S:2 * SCAN_S]))])
+        if scan.replays != 1 or not torch.equal(got, eager):
+            raise AssertionError(f"(b) {name}: the replayed block's losses "
+                                 "differ from the eager steps'")
+        same_state(to_host(model.state_dict()), want_state,
+                   f"(b) {name} parameters")
+        for k, v in model_counts().items():
+            launches[k] += v
+        g_ms = slope_ms(lambda: scan(bm), 1, 3, SCAN_S)
+        e_ms = step_times(lambda: train_step(model, opt, x, layouts,
+                                             batches[0], y_node, w_node),
+                          n=5, warm=1)
+        notes.append(f"{name} graph {g_ms:.3f} / eager {e_ms:.3f} ms")
+        del scan, run, model, opt, x, layouts
+        torch.cuda.empty_cache()
+    log(f"  phase 15b [{card}]: one replayed block each bitwise the eager "
+        f"steps; step ms " + "; ".join(notes))
+
+    # (c) the bench, scanned, beside phase 8's
+    out = io.StringIO()
+    env = os.environ.get("BENCH_SCAN")
+    os.environ["BENCH_SCAN"] = str(SCAN_S)
+    try:
+        with contextlib.redirect_stdout(out):
+            bench_lib.main()
+    finally:
+        if env is None:
+            os.environ.pop("BENCH_SCAN", None)
+        else:
+            os.environ["BENCH_SCAN"] = env
+    line = out.getvalue().strip().split("\n")[-1]
+    bench = json.loads(line)
+    print(line, flush=True)
+    if bench["config"]["scan"] != SCAN_S or not bench["value"] > 0:
+        raise AssertionError(f"(c) bench {bench}")
+    log(f"  phase 15c [{card}]: bench BENCH_SCAN={SCAN_S}: "
+        f"{bench['value']:.6g} edge-traversals/s, step_ms "
+        f"{bench['config']['step_ms']}; BENCH_SCAN=0 (phase 8): "
+        f"{bench0['value']:.6g}, step_ms {bench0['config']['step_ms']}")
+
+    # (d) a transient fault in a scanned run, 20k-SNP KG
+    small = kt.KGWAS_Data.from_synthetic(seed=SEED, data_path=str(
+        tmp / "scan_small"), **SMALL_KG)
+    small.load_synthetic_gwas(seed=SEED)
+    small.process_gwas_file()
+    small.prepare_split()
+    steps = len(small.train_mask) // BATCH
+    fault = steps + SCAN_FAULT
+    runs = {}
+    sleep_backoff = resilience.sleep_backoff
+    resilience.sleep_backoff = lambda *a, **k: None
+    try:
+        for tag in ("clean", "faulty"):
+            run = kt.KGWAS(small, exp_name=f"chip_smoke_scan_{tag}",
+                           seed=SEED)
+            run.initialize_model(gnn_num_layers=LAYERS,
+                                 gnn_hidden_dim=HIDDEN, no_relu=True)
+            if tag == "faulty":
+                fired = []
+
+                def hook(global_step):
+                    if global_step == fault and not fired:
+                        fired.append(global_step)
+                        raise RuntimeError(
+                            "INTERNAL: injected transient backend failure")
+                run._fault_hook = hook
+            model_counts(zero=True)
+            run.train(batch_size=BATCH, epoch=2, lr=LR,
+                      save_best_model=False, max_restarts=1,
+                      scan_steps=SCAN_S)
+            for k, v in model_counts().items():
+                launches[k] += v
+            runs[tag] = run
+    finally:
+        resilience.sleep_backoff = sleep_backoff
+    clean, faulty = runs["clean"], runs["faulty"]
+    if (clean.restart_count, faulty.restart_count) != (0, 1):
+        raise AssertionError(f"(d) restarts {clean.restart_count}, "
+                             f"{faulty.restart_count}")
+    if faulty.epoch_losses != clean.epoch_losses:
+        raise AssertionError("(d) per-step losses differ")
+    same_state(faulty.params, clean.params, "(d) final parameters")
+    same_state(faulty.best_params, clean.best_params, "(d) best parameters")
+    if faulty.train_scan.captures != 1 or faulty.train_scan is \
+            clean.train_scan:
+        raise AssertionError("(d) the restart did not capture anew")
+    log(f"phase 15 ok [{card}]: (d) 20k-SNP KG, 2 epochs of {steps} steps "
+        f"scanned ({SCAN_S} a block), a transient fault before global step "
+        f"{fault}: one restart, a new graph captured, losses and final and "
+        f"best parameters bitwise the clean run's; recovery "
+        f"{faulty.recovery_seconds[0]:.3f} s")
+    return launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -4826,7 +5173,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 8: the bench entry, and a traced, logged epoch
-    timed_phase("8", phase_bench, kt, data, card, step_5d[0], tmp)
+    bench0 = timed_phase("8", phase_bench, kt, data, card, step_5d[0], tmp)
 
     # ---- phase 10: the other model options (heads, dropout, ...), full width
     model_launches, model_worst, _ = timed_phase(
@@ -4845,12 +5192,16 @@ def main():
     # layouts of 2 and 4 ranks through the kernels)
     mesh_launches = timed_phase("14", phase_mesh, kt, data, cg, device, card)
 
+    # ---- phase 15: scanned dispatch (CUDA graphs of blocks of steps)
+    scan_launches = timed_phase("15", phase_scan, kt, data, device, card,
+                                bench0, tmp)
+
     # ---- phase 11 (a), (b), (e): long runs and streamed features, full width
     long_launches = add_counts(
         (1, timed_phase("11a", phase_restart, kt, data, card)),
         (1, timed_phase("11b", phase_checkpoint, kt, data, card)),
         (1, timed_phase("11e", phase_streamed, kt, data, cg, device, card)),
-        (1, mesh_launches))
+        (1, mesh_launches), (1, scan_launches))
     del data, cg
     torch.cuda.empty_cache()
 

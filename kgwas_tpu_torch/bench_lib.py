@@ -24,14 +24,22 @@ steps, then n2 = steps steps, each series ending in one synchronise;
 dt = (t2 - t1) / (n2 - n1) * steps, on CUDA events (on the CPU, which
 only a test asks for, on ``perf_counter``).
 
+BENCH_SCAN=S > 1 runs S steps a call through ``engine/loop.TrainScan``
+(the JAX module's ``make_train_scan``): on the card one replay of a CUDA
+graph of S captured steps, on the CPU S eager steps. Its batches are a
+matrix ``rng.integers(0, n_snp, (S, B))`` drawn after the fixed batch from
+the same generator; two untimed calls (the eager warm-up, then the
+capture and its first replay), then n1 = max(steps // (4 S), 1) and n2 =
+max(steps // S, n1 + 1) calls; steps = (n2 - n1) S and dt = t2 - t1, as
+the JAX module times it. ``config.scan`` is S and ``config.step_ms`` is
+per step.
+
 Environment variables (the JAX module's): BENCH_N_SNP, BENCH_N_GENE,
 BENCH_N_GO, BENCH_AVG_DEGREE, BENCH_HIDDEN, BENCH_LAYERS, BENCH_BATCH,
 BENCH_STEPS, BENCH_HEADS (GAT heads, each a merged GAT launch per group
 and layer), BENCH_DTYPE (the compute dtype, float32 or bfloat16) and
 BENCH_STREAM_DTYPE (the stream dtype), both reported in the JSON line's
-config. Not ported, and raising NotImplementedError: BENCH_SCAN > 1
-(ROADMAP.md Queue 1 item 4: the CUDA graph of the step is the port's
-counterpart of dispatching many steps at once). The
+config, and BENCH_SCAN (above). The
 TPU execution variables BENCH_PALLAS, BENCH_GATHER_CHUNK,
 BENCH_BWD_WINDOW, BENCH_MM_PRECISION, BENCH_REL_FOLD and BENCH_NODE_PAD
 are not read.
@@ -58,15 +66,6 @@ EDGE_PAD = 8192
 NODE_PAD = 512
 
 
-def _unported():
-    """Raises NotImplementedError for the JAX module's options the port
-    does not run yet (BENCH_SCAN > 1), naming their ROADMAP items."""
-    if int(os.environ.get("BENCH_SCAN", "0")) > 1:
-        raise NotImplementedError(
-            "BENCH_SCAN > 1 is not ported yet: ROADMAP.md Queue 1 item 4 "
-            "(the CUDA graph of the step)")
-
-
 def _dtypes():
     """(compute dtype, stream dtype or None) from BENCH_DTYPE and
     BENCH_STREAM_DTYPE, as the JAX module reads them."""
@@ -89,14 +88,14 @@ def _timer(device):
 
 def main(device: Optional[str] = None):
     from .config import ModelConfig
-    from .engine.loop import train_step
+    from .engine.loop import TrainScan, train_step
     from .engine.optim import build_optimizer
     from .graph import build_merged_layouts, compile_graph, make_synthetic_kg
     from .kgwas import resolve_device
     from .models import HeteroGNN, device_layouts
 
-    _unported()
     dtype, stream_dtype = _dtypes()
+    scan_steps = int(os.environ.get("BENCH_SCAN", "0"))
     n_snp = int(os.environ.get("BENCH_N_SNP", 200_000))
     n_gene = int(os.environ.get("BENCH_N_GENE", 20_000))
     n_go = int(os.environ.get("BENCH_N_GO", 12_000))
@@ -145,22 +144,42 @@ def main(device: Optional[str] = None):
                           w_node)
 
     mark, seconds = _timer(device)
-    loss = step()   # warm-up: the kernels' first launches, the allocator
-    float(loss)
+    if scan_steps > 1:
+        batch_mat = rng.integers(0, cg.num_nodes["SNP"], (scan_steps, batch))
+        scan = TrainScan(model, optimizer, x, layouts, y_node, w_node,
+                         scan_steps)
+        for _ in range(2):   # eager warm-up; capture and first replay
+            float(scan(batch_mat)[-1])
 
-    # slope timing: n1 then n2 chained steps, each series ended by one
-    # sync; the difference cancels the fixed dispatch and sync latency
-    def run_n(n):
-        t0 = mark()
-        for _ in range(n):
-            out = step()
-        return seconds(t0, mark()), out
+        def run_n(n):
+            t0 = mark()
+            for _ in range(n):
+                out = scan(batch_mat)[-1]
+            return seconds(t0, mark()), out
 
-    n1 = max(steps // 4, 1)
-    n2 = steps
-    t1, _ = run_n(n1)
-    t2, loss = run_n(n2)
-    dt = (t2 - t1) / (n2 - n1) * steps  # normalized to `steps` steps
+        n1 = max(steps // (4 * scan_steps), 1)
+        n2 = max(steps // scan_steps, n1 + 1)
+        t1, _ = run_n(n1)
+        t2, loss = run_n(n2)
+        steps = (n2 - n1) * scan_steps
+        dt = t2 - t1
+    else:
+        loss = step()   # warm-up: the kernels' first launches, the allocator
+        float(loss)
+
+        # slope timing: n1 then n2 chained steps, each series ended by one
+        # sync; the difference cancels the fixed dispatch and sync latency
+        def run_n(n):
+            t0 = mark()
+            for _ in range(n):
+                out = step()
+            return seconds(t0, mark()), out
+
+        n1 = max(steps // 4, 1)
+        n2 = steps
+        t1, _ = run_n(n1)
+        t2, loss = run_n(n2)
+        dt = (t2 - t1) / (n2 - n1) * steps  # normalized to `steps` steps
 
     real_edges = cg.total_real_edges()
     value = real_edges * layers * steps / dt
@@ -177,7 +196,7 @@ def main(device: Optional[str] = None):
             "layers": layers,
             "dtype": (dtype if stream_dtype is None
                       else f"{dtype},stream={stream_dtype}"),
-            "scan": int(os.environ.get("BENCH_SCAN", "0")),
+            "scan": scan_steps,
             "step_ms": round(dt / steps * 1e3, 2),
         },
     }), flush=True)

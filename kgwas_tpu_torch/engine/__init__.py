@@ -11,8 +11,8 @@ from .checkpoint import (
     save_train_state_async,
     unflatten_params,
 )
-from .loop import (batch_loss, epoch_batches, forward, forward_streamed,
-                   train_step)
+from .loop import (TrainScan, batch_loss, epoch_batches, forward,
+                   forward_streamed, train_step)
 from .optim import build_optimizer
 from .resilience import RetryPolicy, is_transient_backend_error, sleep_backoff
 from .streamed import (compute_h1, strip_streamed_features,

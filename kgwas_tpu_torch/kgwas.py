@@ -27,8 +27,8 @@ from .engine.checkpoint import (host_train_state, latest_train_state,
                                 make_async_checkpointer, params_from_jax,
                                 restore_train_state, save_model,
                                 save_train_state_async)
-from .engine.loop import (epoch_batches, forward, forward_streamed,
-                          train_step)
+from .engine.loop import (TrainScan, epoch_batches, forward,
+                          forward_streamed, train_step)
 from .engine.optim import build_optimizer
 from .engine.profiling import ThroughputMeter, profile_trace
 from .engine.streamed import strip_streamed_features, train_step_streamed
@@ -296,17 +296,31 @@ class KGWAS:
         scores the test SNPs and gives KGWAS_P; ``predict_all()`` then
         serves it. Returns the KGWAS_P table, also written as pred.csv.
 
+        scan_steps=S > 1 runs the epoch in blocks of S steps while at least
+        S remain, as the JAX package's lax.scan of S steps does, on one
+        device without streamed features (under a mesh or with streamed
+        features it is ignored, as there); the tail runs one step at a
+        time; 0 or 1 runs every step on its own. On the card a block is
+        one replay of a CUDA graph of S captured steps
+        (engine/loop.TrainScan: the run's first block runs eagerly, the
+        graph is captured once a run, and again after a restart), with the
+        same bits as S steps one at a time; on the CPU a block's steps run
+        eagerly. The side work goes once a block, in the JAX package's
+        order: the fault hook for each of its steps before it runs, then
+        the meter's ticks, a train state saved where the block crosses a
+        multiple of checkpoint_every (named by the block's last step),
+        wandb, the log_interval prints and the heartbeat.
         profile_dir: a torch.profiler trace of epoch 1's steps, written
         there (engine/profiling.profile_trace). metrics_log: one JSON line
         per epoch appended there (engine/profiling.ThroughputMeter).
-        num_workers, data_to_cuda and scan_steps are accepted and do
-        nothing: there are no sampler processes, the graph always lives on
-        the device, and eager PyTorch dispatches one step at a time (the
-        JAX package's lax.scan of scan_steps steps runs the same math).
+        num_workers and data_to_cuda are accepted and do nothing: there
+        are no sampler processes, and the graph always lives on the
+        device.
 
         Long runs, as in the JAX package: checkpoint_every=N writes the
-        model's and the optimizer's state after every N-th step
-        (engine/checkpoint.save_train_state_async: packed on the device,
+        model's and the optimizer's state after each block that crosses a
+        multiple of N steps (every N-th step when blocks are single steps;
+        engine/checkpoint.save_train_state_async: packed on the device,
         then copied and written on a background thread), as
         ``step_{count}`` under ``<data_path>/model/<save_name>/
         train_state``; resume=True restores the newest such state, then
@@ -316,10 +330,10 @@ class KGWAS:
         state and early-stop bookkeeping; not the shuffle generator),
         uploads the graph again and replays from that epoch, up to N
         times; other errors raise. heartbeat_path: a file touched after
-        every step and around each epoch-end forward, for
+        every block and around each epoch-end forward, for
         engine/watchdog.run_with_watchdog. ``_fault_hook(global_step)``,
         when set on the instance, is called before every step (fault
-        injection).
+        injection), a block's calls all before the block runs.
 
         mesh: training over the ranks of a torch.distributed process group
         (one process per device, each calling train): an int (ranks on the
@@ -390,6 +404,22 @@ class KGWAS:
             return train_step(model, optimizer, x, layouts, bidx, y_node,
                               w_node)
 
+        # the JAX package's gate (kgwas_tpu/kgwas.py:381)
+        scan_s = (scan_steps if mesh is None and not self.stream_features
+                  and scan_steps and scan_steps > 1 else 1)
+
+        def make_scan():
+            """The run's scanned steps over the current device state."""
+            if scan_s == 1:
+                return None
+            return TrainScan(model, optimizer, x, layouts, y_node, w_node,
+                             scan_s, before_capture=(
+                                 checkpointer.wait_until_finished
+                                 if checkpointer else None))
+
+        scan = make_scan()
+        self.train_scan = scan
+
         def forward_all():
             if mesh is not None:
                 return sharded_forward(model, shard, layouts)
@@ -405,6 +435,32 @@ class KGWAS:
         self.recovery_seconds = []
         global_step = 0
         fault_hook = getattr(self, "_fault_hook", None)
+
+        def after_block(blk_losses, start, ep):
+            """The side work of the steps just run (the JAX package's
+            _after_block): meter ticks, a save where the block crosses a
+            multiple of checkpoint_every, wandb, the log_interval prints,
+            the heartbeat."""
+            nonlocal global_step
+            n = blk_losses.shape[0]
+            for _ in range(n):
+                meter.step()
+            g0 = global_step
+            global_step += n
+            if checkpointer and (global_step // checkpoint_every
+                                 > g0 // checkpoint_every):
+                save_train_state_async(
+                    checkpointer, ckpt_dir, global_step,
+                    model.state_dict(), optimizer.state_dict())
+            if self.wandb:
+                for lv in blk_losses.tolist():
+                    self.wandb.log({"training_loss": float(lv)})
+            for k in range(n):
+                st = start + k
+                if st % log_interval == 0 and st >= log_interval:
+                    print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
+                              f"Loss: {float(blk_losses[k]):.4f}")
+            touch_heartbeat(heartbeat_path)
 
         if max_restarts:
             from .engine.resilience import (RetryPolicy,
@@ -434,26 +490,21 @@ class KGWAS:
                 meter.start_epoch()
                 losses = []
                 with profile_trace(profile_dir if ep == 0 else None):
-                    for st, b in enumerate(batches):
+                    step0 = 0
+                    while step0 < len(batches):
+                        n_blk = (scan_s if scan is not None
+                                 and len(batches) - step0 >= scan_s else 1)
+                        blk = batches[step0:step0 + n_blk]
                         if fault_hook is not None:
-                            fault_hook(global_step)
-                        losses.append(step(b))
-                        meter.step()
-                        global_step += 1
-                        if checkpointer and (global_step % checkpoint_every
-                                             == 0):
-                            save_train_state_async(
-                                checkpointer, ckpt_dir, global_step,
-                                model.state_dict(), optimizer.state_dict())
-                        if self.wandb:
-                            self.wandb.log(
-                                {"training_loss": float(losses[-1])})
-                        if st % log_interval == 0 and st >= log_interval:
-                            print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
-                                      f"Loss: {float(losses[-1]):.4f}")
-                        touch_heartbeat(heartbeat_path)
+                            for k in range(n_blk):
+                                fault_hook(global_step + k)
+                        blk_losses = (scan(np.stack(blk)) if n_blk > 1
+                                      else step(blk[0]).reshape(1))
+                        losses.append(blk_losses)
+                        after_block(blk_losses, step0, ep)
+                        step0 += n_blk
                     self.epoch_losses.append(
-                        torch.stack(losses).cpu().tolist() if losses else [])
+                        torch.cat(losses).cpu().tolist() if losses else [])
 
                 # the epoch-end forward makes no step heartbeats
                 touch_heartbeat(heartbeat_path)
@@ -512,6 +563,10 @@ class KGWAS:
                 # the optimizer keeps host tensors it is given as they are:
                 # a copy, so the steps after it leave the snapshot intact
                 optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+                # new features, layouts, labels and optimizer state: the
+                # graph is captured again after an eager block
+                scan = make_scan()
+                self.train_scan = scan
                 best_state = {k: v.to(self.device, copy=True)
                               for k, v in snap["best"].items()}
                 min_val = snap["min_val"]

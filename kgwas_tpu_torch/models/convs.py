@@ -153,7 +153,9 @@ class EdgeLogits(torch.autograd.Function):
     to the source trash row, as the CSC routes it everywhere in the port)
     with torch.segment_reduce: a fixed order, where index_select's
     backward (index_add_) adds with float atomics on CUDA and two runs
-    differ in the last bits."""
+    differ in the last bits. ``unsafe=True`` skips segment_reduce's checks
+    of the offsets, which read them on the host (a layout's offsets are
+    checked when it is built), so a CUDA graph can capture it."""
 
     @staticmethod
     def forward(ctx, a_src, a_dst, layout):
@@ -163,9 +165,11 @@ class EdgeLogits(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         L = ctx.layout
-        d_dst = torch.segment_reduce(g, "sum", offsets=L.row_offsets.long())
-        d_src = torch.segment_reduce(gather_rows(g, L.csc_perm),
-                                     "sum", offsets=L.csc_offsets.long())
+        d_dst = torch.segment_reduce(g, "sum", offsets=L.row_offsets.long(),
+                                     unsafe=True)
+        d_src = torch.segment_reduce(gather_rows(g, L.csc_perm), "sum",
+                                     offsets=L.csc_offsets.long(),
+                                     unsafe=True)
         return d_src, d_dst, None
 
 

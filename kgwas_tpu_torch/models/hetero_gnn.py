@@ -690,12 +690,15 @@ class HeteroGNN(nn.Module):
         for layer, live in zip(self.convs, groups):
             lay = {t: layouts[t] for t in live}
             # drawn outside the checkpoint: its recompute restores the
-            # global RNG states, not a generator it is given
+            # global RNG states, not a generator it is given. The layer
+            # draws from no RNG, so the checkpoint keeps no RNG state (which
+            # a CUDA graph's capture refuses to read)
             keep = self.draw_keep(lay, dropout_gen) if drop else None
             if cfg.remat and torch.is_grad_enabled():
                 h = torch.utils.checkpoint.checkpoint(
                     self.layer, layer, h, lay, training, keep, edge_attr,
-                    merged_fns, use_reentrant=False)
+                    merged_fns, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 h = self.layer(layer, h, lay, training, keep, edge_attr,
                                merged_fns)

@@ -60,6 +60,7 @@ from test_torch_train_layouts import reached  # noqa: F401
 
 from kgwas_tpu_torch.graph import build_merged_layouts
 from kgwas_tpu_torch.models import device_layouts, layer_paths
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 RTOL, ATOL = 1e-2, 1e-3
 VARIANTS = {

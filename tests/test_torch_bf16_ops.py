@@ -59,6 +59,7 @@ from kgwas_tpu_torch.models import device_layouts
 from kgwas_tpu_torch.models.hetero_gnn import merged_mp_norms
 from kgwas_tpu_torch.ops import gat_layer, segment
 from test_torch_gat_layer import SLOPE, TEMP, _inputs, _layout
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 D = 128
 RTOL, ATOL = 1e-5, 1e-6

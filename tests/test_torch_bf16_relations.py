@@ -38,6 +38,7 @@ against the JAX package.
   and without a dropout multiplier.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -50,12 +51,14 @@ from kgwas_tpu.models.hetero_gnn import apply_hetero_gnn, init_hetero_gnn
 from kgwas_tpu.ops.pallas_segment import fused_segment_softmax_spmm
 
 import kgwas_tpu_torch as kt
-from kgwas_tpu_torch.engine.checkpoint import flatten_params
+from kgwas_tpu_torch.engine.checkpoint import flatten_params, params_to_jax
+from kgwas_tpu_torch.engine.loop import batch_loss
 from kgwas_tpu_torch.graph import build_merged_layouts
 from kgwas_tpu_torch.models import device_layouts, layer_paths
 from kgwas_tpu_torch.ops import segment_ref, segment_softmax
 from test_torch_model import _port_model
-from test_torch_train import jax_step_grads, port_step_grads, step_world  # noqa: F401
+from test_torch_train import jax_step_grads, step_world  # noqa: F401
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 RTOL, ATOL = 1e-2, 1e-3
 VARIANTS = {
@@ -167,16 +170,28 @@ def _cfg(variant, dtype, use_pallas=False):
                           **DTYPES[dtype])
 
 
-_JAX_RUNS = {}
+@pytest.fixture(scope="module")
+def case_runs(step_world):  # noqa: F811
+    """(variant, dtype, f32) -> the case's parameters, the JAX run and the
+    port's, each built once for the module: the forward and the step test
+    of a case share them. The JAX run: the forward's predictions, the JAX
+    engine's loss and its gradients (apply_hetero_gnn and
+    jax.value_and_grad of the loss, one jitted function on jnp arrays),
+    with f32 of the case's configuration in float32 (F32_REFERENCE). The
+    port's: the forward's predictions and one step's loss and gradients
+    (test_torch_train.port_step_grads' loss) on one model and layouts."""
+    cache = {}
 
-
-def _jax_run(step_world, cfg, params):  # noqa: F811
-    """(the forward's predictions, the JAX engine's loss, its gradients):
-    apply_hetero_gnn and jax.value_and_grad of the loss, in one jitted
-    function on jnp arrays (compiled once per configuration: the forward
-    and the step tests of a case share it)."""
-    key = repr(cfg)
-    if key not in _JAX_RUNS:
+    def get(variant, dtype, f32=False):
+        key = (variant, dtype, f32)
+        if key in cache:
+            return cache[key]
+        cfg = _cfg(variant, dtype)
+        params = jax.tree_util.tree_map(np.asarray, init_hetero_gnn(
+            jax.random.PRNGKey(0), cfg, step_world[0].meta(), 20, 32, 16))
+        if f32:
+            cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                      stream_dtype=None)
         cg_j, _, y, w, batch = step_world
         meta = cg_j.meta()
         b, yj, wj = jnp.asarray(batch), jnp.asarray(y), jnp.asarray(w)
@@ -193,14 +208,29 @@ def _jax_run(step_world, cfg, params):  # noqa: F811
         pred, (loss, grads) = jax.jit(run)(
             jax.tree_util.tree_map(jnp.asarray, params),
             jax.tree_util.tree_map(jnp.asarray, cg_j.arrays()))
-        _JAX_RUNS[key] = (np.asarray(pred), float(loss), flatten_params(
-            jax.tree_util.tree_map(np.asarray, grads)))
-    return _JAX_RUNS[key]
+        out = cache[key] = SimpleNamespace(
+            cfg=cfg, params=params, pred=np.asarray(pred), loss=float(loss),
+            grads=flatten_params(jax.tree_util.tree_map(np.asarray, grads)))
+        if not f32:
+            cg, model = _port_model(cfg, params)
+            layouts = device_layouts(build_merged_layouts(cg, tile_rows=512),
+                                     "cpu", cg, layer_paths(model.cfg))
+            x = {t: torch.from_numpy(v) for t, v in cg.node_x.items()}
+            with torch.inference_mode():
+                out.port_pred = model(x, layouts)
+            loss = batch_loss(model(x, layouts, training=True),
+                              torch.from_numpy(batch), torch.from_numpy(y),
+                              torch.from_numpy(w))
+            loss.backward()
+            # a group the head does not read has no gradient; JAX's is 0
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                     for k, p in model.named_parameters()}
+            out.n_snp = cg.num_nodes["SNP"]
+            out.port_loss = loss.item()
+            out.port_grads = flatten_params(params_to_jax(grads))
+        return out
 
-
-def _params(step_world, cfg):  # noqa: F811
-    return jax.tree_util.tree_map(np.asarray, init_hetero_gnn(
-        jax.random.PRNGKey(0), cfg, step_world[0].meta(), 20, 32, 16))
+    return get
 
 
 def _pallas_raises(fn):
@@ -211,19 +241,11 @@ def _pallas_raises(fn):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_bf16_relations_forward_matches_jax_xla(step_world, variant,  # noqa: F811
-                                                dtype):
-    cfg = _cfg(variant, dtype)
-    params = _params(step_world, cfg)
-    want = _jax_run(step_world, cfg, params)[0]
-    cg, model = _port_model(cfg, params)
-    layouts = device_layouts(build_merged_layouts(cg, tile_rows=512), "cpu",
-                             cg, layer_paths(model.cfg))
-    x = {t: torch.from_numpy(v) for t, v in cg.node_x.items()}
-    with torch.inference_mode():
-        got = model(x, layouts)
+def test_bf16_relations_forward_matches_jax_xla(case_runs, variant, dtype):
+    case = case_runs(variant, dtype)
+    n = case.n_snp
+    got, want = case.port_pred, case.pred
     assert got.dtype == torch.float32
-    n = cg.num_nodes["SNP"]
     got = got.numpy()[:n]
     assert np.abs(want[:n]).max() > 0 and np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want[:n], rtol=RTOL, atol=ATOL)
@@ -231,25 +253,24 @@ def test_bf16_relations_forward_matches_jax_xla(step_world, variant,  # noqa: F8
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_bf16_relations_step_matches_jax_xla(step_world, variant,  # noqa: F811
-                                             dtype):
-    cfg = _cfg(variant, dtype)
-    params = _params(step_world, cfg)
-    if cfg.gat_num_head == 1:
+def test_bf16_relations_step_matches_jax_xla(step_world, case_runs,  # noqa: F811
+                                             variant, dtype):
+    case = case_runs(variant, dtype)
+    if case.cfg.gat_num_head == 1:
         # the JAX package's Pallas path cannot take this step (eager, as
         # jax_step_grads runs it: under jit the same fault surfaces as an
         # AssertionError of the Pallas lowering)
         _pallas_raises(lambda: jax_step_grads(
-            step_world, _cfg(variant, dtype, True), params))
+            step_world, _cfg(variant, dtype, True), case.params))
     f32_ref = (variant, dtype) in F32_REFERENCE
     if f32_ref:
-        _, jl, jg = _jax_run(step_world, dataclasses.replace(
-            cfg, compute_dtype="float32", stream_dtype=None), params)
+        ref = case_runs(variant, dtype, f32=True)
         floor = 1e-2
     else:
-        _, jl, jg = _jax_run(step_world, cfg, params)
+        ref = case
         floor = 2.5e-3 if dtype == "compute" else ATOL
-    pl_, pg = port_step_grads(step_world, cfg, params)
+    jl, jg = ref.loss, ref.grads
+    pl_, pg = case.port_loss, case.port_grads
     assert pl_ == pytest.approx(jl, rel=RTOL, abs=ATOL)
     assert sorted(pg) == sorted(jg)
     top = max(np.abs(v).max() for v in jg.values())

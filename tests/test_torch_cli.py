@@ -16,6 +16,7 @@ from kgwas_tpu.cli import main as jax_main
 from kgwas_tpu_torch import cli
 from kgwas_tpu_torch.cli import main
 from test_torch_realdata import sumstats_frame, write_bundle, write_sumstats
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 SYNTH = ["--synthetic", "--device", "cpu", "--seed", "7"]
 

@@ -23,6 +23,7 @@ from kgwas_tpu_torch.cohort import (get_fields, get_kinship_groups,
                                     get_row_last_values, remove_kinships,
                                     ukbb_cohort)
 from test_cohort import raw_ukbb  # noqa: F401  (the JAX tests' fixture)
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 
 def assert_table_equal(table, df, rtol=0.0):

@@ -53,6 +53,7 @@ from kgwas_tpu_torch.engine.optim import Bf16Adam, build_optimizer
 from kgwas_tpu_torch.models import gat_relation
 from test_torch_interpret import ALPHA_ATOL, ALPHA_RTOL, _small_world
 from test_torch_model import _jax_setup, _port_model
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 DTYPE_KEYS = ("param_dtype", "compute_dtype", "stream_dtype",
               "stream_f32_logits")

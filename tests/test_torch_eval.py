@@ -15,6 +15,7 @@ import kgwas_tpu.stats.gwas_eval as je
 import kgwas_tpu_torch.stats.clumps as pc
 import kgwas_tpu_torch.stats.gwas_eval as pe
 from kgwas_tpu_torch.utils import read_table, sort_order, write_table
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 
 def _table(df):

@@ -21,6 +21,7 @@ import kgwas_tpu_torch.external.gwas_runner as pg
 import kgwas_tpu_torch.external.magma as pm
 from kgwas_tpu_torch import KGWAS, KGWAS_Data
 from kgwas_tpu_torch.cli import main
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 
 def _mock_binary(path, script):

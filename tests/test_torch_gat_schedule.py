@@ -23,6 +23,7 @@ from kgwas_tpu.ops import pallas_gat_layer as P
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models.hetero_gnn import device_layouts
 from kgwas_tpu_torch.ops import gat_layer
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 D = 128
 SLOPE, TEMP = 0.2, 0.7

@@ -57,6 +57,14 @@ Outside the kernels: the host-streamed products (ops/streaming.py: pinned
 staging, a copy stream) against a float64 dense product, and the train
 state's asynchronous host copy (engine/checkpoint.host_train_state)
 against an in-place update issued after it.
+
+Scanned dispatch (engine/loop.TrainScan): a replayed CUDA graph of S
+steps bitwise the same S steps eager (losses, parameters, Adam's state)
+for GAT sum, GAT max and GCN on the 20k-SNP KG; the graph captured again
+after load_state_dict (the resume path) replays the restored state; a
+step that synchronises with the host cannot be captured and raises (in a
+child process); the capturable Bf16Adam bitwise the host-stepped one it
+replaced.
 """
 import dataclasses
 import importlib
@@ -1492,3 +1500,260 @@ def test_segment_softmax_f32_instances_bitwise_as_parent(
     torch.cuda.synchronize()
     for a, b in zip(new, old):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------ scanned dispatch
+
+SCAN_S, SCAN_LR = 4, 1e-3
+
+
+@pytest.fixture(scope="module")
+def scan_world(cuda_device):
+    g = make_synthetic_kg(n_snp=20_000, n_gene=2_000, n_go=1_200, seed=0)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    rel_types = {k: (r.src_type, r.rel, r.dst_type)
+                 for k, r in cg.relations.items()}
+    dims = [cg.node_x[t].shape[1]
+            for t in ("SNP", "Gene", "BiologicalProcess")]
+    n, n_pad = cg.num_nodes["SNP"], cg.padded_nodes["SNP"]
+    rng = np.random.default_rng(2)
+    y = np.zeros(n_pad, np.float32)
+    w = np.zeros(n_pad, np.float32)
+    y[:n] = rng.standard_normal(n) ** 2
+    w[:n] = rng.random(n) + 0.5
+    batches = rng.integers(0, n, (4 * SCAN_S, 512))
+    x = {t: torch.from_numpy(v).to(cuda_device)
+         for t, v in cg.node_x.items()}
+    return SimpleNamespace(
+        cg=cg, rel_types=rel_types, dims=dims, x=x,
+        layouts=build_merged_layouts(cg, tile_rows=512), batches=batches,
+        y=torch.from_numpy(y).to(cuda_device),
+        w=torch.from_numpy(w).to(cuda_device))
+
+
+def _scan_model(world, device, **kw):
+    cfg = ModelConfig(gnn_hidden_dim=D, gnn_num_layers=2, no_relu=True, **kw)
+    model = HeteroGNN(cfg, world.rel_types, *world.dims, seed=0).to(device)
+    return model, device_layouts(world.layouts, device, world.cg,
+                                 layer_paths(cfg))
+
+
+def _state_equal(a, b):
+    if isinstance(b, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(b, dict):
+        return sorted(map(str, a)) == sorted(map(str, b)) and all(
+            _state_equal(a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(map(_state_equal, a, b))
+    return a == b
+
+
+def _eager_steps(model, opt, world, layouts, batches):
+    from kgwas_tpu_torch.engine.loop import train_step
+
+    dev = world.y.device
+    return torch.stack([train_step(model, opt, world.x, layouts,
+                                   torch.from_numpy(b).to(dev), world.y,
+                                   world.w) for b in batches])
+
+
+@pytest.mark.parametrize("kw", [{}, dict(gnn_aggr="max"),
+                                dict(gnn_backbone="GCN")],
+                         ids=["GAT-sum", "GAT-max", "GCN"])
+def test_captured_block_bitwise_eager_steps(kw, cuda_device, scan_world):
+    """Three blocks through TrainScan (the first eager, the graph
+    captured at the second, replayed at the third) against the same
+    3 S steps eager, from the same state: losses, parameters and Adam's
+    state bitwise; the capture counts one block's launches."""
+    from kgwas_tpu_torch.engine.loop import TrainScan
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+
+    world = scan_world
+    model, layouts = _scan_model(world, cuda_device, **kw)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    bm = world.batches[:3 * SCAN_S]
+    opt = build_optimizer(model.parameters(), SCAN_LR, 5e-4)
+    want = _eager_steps(model, opt, world, layouts, bm)
+    want_state = ({k: v.clone() for k, v in model.state_dict().items()},
+                  opt.state_dict())
+    model.load_state_dict(init)
+    opt = build_optimizer(model.parameters(), SCAN_LR, 5e-4)
+    scan = TrainScan(model, opt, world.x, layouts, world.y, world.w, SCAN_S)
+    got = [scan(bm[:SCAN_S])]
+    before = (gat_layer.launches, segment_softmax.launches,
+              segment.csr_launches, segment.launches)
+    got += [scan(bm[SCAN_S:2 * SCAN_S])]
+    per_block = [a - b for a, b in zip((
+        gat_layer.launches, segment_softmax.launches, segment.csr_launches,
+        segment.launches), before)]
+    got += [scan(bm[2 * SCAN_S:])]
+    torch.cuda.synchronize()
+    assert (scan.captures, scan.replays) == (1, 2)
+    assert sum(per_block) > 0 and all(v % SCAN_S == 0 for v in per_block)
+    assert torch.equal(torch.cat(got), want)
+    assert _state_equal(model.state_dict(), want_state[0])
+    assert _state_equal(opt.state_dict(), want_state[1])
+
+
+def test_capture_again_after_load_state_dict(cuda_device, scan_world):
+    """The resume path: after load_state_dict of the model and the
+    optimizer (new state tensors), reset() and the next block captures
+    again and replays the restored state: the block's losses and the
+    parameters after it are those the first time it ran from that state."""
+    from kgwas_tpu_torch.engine.loop import TrainScan
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+
+    world = scan_world
+    model, layouts = _scan_model(world, cuda_device)
+    opt = build_optimizer(model.parameters(), SCAN_LR, 5e-4)
+    scan = TrainScan(model, opt, world.x, layouts, world.y, world.w, SCAN_S)
+    b = world.batches
+    scan(b[:SCAN_S])
+    scan(b[SCAN_S:2 * SCAN_S])
+    saved = ({k: v.clone() for k, v in model.state_dict().items()},
+             copy_state(opt.state_dict()))
+    first = scan(b[2 * SCAN_S:3 * SCAN_S])
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    scan(b[3 * SCAN_S:])
+    model.load_state_dict(saved[0])
+    opt.load_state_dict(saved[1])
+    scan.reset()
+    again = scan(b[2 * SCAN_S:3 * SCAN_S])
+    torch.cuda.synchronize()
+    assert scan.captures == 2
+    assert torch.equal(again, first)
+    assert _state_equal(model.state_dict(), after)
+
+
+def copy_state(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: copy_state(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [copy_state(v) for v in obj]
+    return obj
+
+
+HOST_SYNC_CAPTURE = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+from kgwas_tpu_torch.engine import loop
+from kgwas_tpu_torch.engine.loop import TrainScan
+dev = torch.device("cuda")
+lin = torch.nn.Linear(8, 1).to(dev)
+opt = torch.optim.Adam(lin.parameters(), lr=1e-3, capturable=True)
+x = torch.randn(64, 8, device=dev)
+y = torch.randn(64, device=dev)
+w = torch.ones(64, device=dev)
+
+
+class Model(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.lin = lin
+
+    def forward(self, x, layouts, training=False, dropout_gen=None):
+        out = self.lin(x)
+        if float(out.sum()) > 1e30:   # a host sync inside the step
+            out = out * 2
+        return out
+
+
+scan = TrainScan(Model(), opt, x, None, y, w, 2)
+b = torch.arange(32).reshape(2, 16)
+scan(b)   # eager: runs
+try:
+    scan(b)
+except RuntimeError as e:
+    print("RAISED", type(e).__name__, str(e)[:200])
+    sys.exit(0)
+print("NO RAISE", scan.captures, scan.replays)
+sys.exit(1)
+"""
+
+
+def test_capture_with_a_host_sync_raises(cuda_device, tmp_path):
+    """A step that reads a value on the host cannot be captured: the
+    scanned call raises (no fallback to eager steps). In a child process,
+    so that a broken capture cannot touch this one's CUDA context."""
+    import subprocess
+
+    script = tmp_path / "sync_capture.py"
+    script.write_text(HOST_SYNC_CAPTURE.format(
+        root=str(Path(__file__).resolve().parents[1])))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "RAISED" in proc.stdout
+
+
+class PlainBf16Adam(torch.optim.Optimizer):
+    """The Bf16Adam that the capturable one replaced (engine/optim.py
+    before scanned dispatch): the step read on the host and the bias
+    corrections built there every step. The plain version of both
+    Bf16Adam tests (tests/test_torch_scan.py imports it: this module
+    imports no jax)."""
+
+    def __init__(self, params, lr, weight_decay=0.0, betas=(0.9, 0.999),
+                 eps=1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            dt = next((p.dtype for p in group["params"]), torch.float32)
+
+            def c(v):
+                return torch.tensor(v, dtype=torch.float32).to(dt)
+
+            c_wd, c_lr, c_eps = c(wd), c(-lr), c(eps)
+            c1, c2, c3, c4 = c(1 - b1), c(b1), c(1 - b2), c(b2)
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                t = int(st["step"])
+                g = p.grad.to(p.dtype)
+                if wd:
+                    g = g + c_wd * p
+                mu = c1 * g + c2 * st["exp_avg"]
+                nu = c3 * (g * g) + c4 * st["exp_avg_sq"]
+                st["exp_avg"], st["exp_avg_sq"] = mu, nu
+                bc1 = c(float(np.float32(1) - np.float32(b1) ** np.float32(t)))
+                bc2 = c(float(np.float32(1) - np.float32(b2) ** np.float32(t)))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + c_eps)
+                p.copy_(p + c_lr * u)
+
+
+def test_bf16_adam_on_the_card_bitwise_the_host_stepped_one(cuda_device):
+    """The capturable Bf16Adam (device step, bias tables; on the card a
+    product with the bias correction's float32 reciprocal, as CUDA divides
+    by a CPU scalar) against the Bf16Adam it replaced, 300 steps."""
+    from kgwas_tpu_torch.engine.optim import Bf16Adam
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    shapes = [(256, 128), (128,), (7, 3)]
+    a = [(torch.randn(s, generator=gen, device=cuda_device) * 0.3).to(
+        torch.bfloat16) for s in shapes]
+    b = [p.clone() for p in a]
+    plain, opt = PlainBf16Adam(a, 1e-2, 5e-4), Bf16Adam(b, 1e-2, 5e-4)
+    for _ in range(300):
+        for pa, pb in zip(a, b):
+            g = (torch.randn(pa.shape, generator=gen, device=cuda_device)
+                 * 0.1).to(torch.bfloat16)
+            pa.grad, pb.grad = g, g.clone()
+        plain.step()
+        opt.step()
+    for pa, pb in zip(a, b):
+        assert torch.equal(pa.view(torch.int16), pb.view(torch.int16))

@@ -20,6 +20,7 @@ from kgwas_tpu_torch import KGWAS_Data
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.stats import calibration
 from kgwas_tpu_torch.utils import read_table, write_table
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 KG = dict(n_snp=700, n_gene=90, n_go=45, snp_dim=20, gene_dim=24, go_dim=12,
           avg_degree=5)

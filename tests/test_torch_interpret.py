@@ -58,6 +58,7 @@ from kgwas_tpu_torch.models import HeteroGNN, device_layouts, layer_path
 from kgwas_tpu_torch.stats import labels
 
 from test_interpret_tables import _graph_with_parallel_edges
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 ALPHA_RTOL, ALPHA_ATOL = 1e-5, 1e-6
 TABLE_RTOL, TABLE_ATOL = 1e-4, 1e-5

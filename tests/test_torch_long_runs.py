@@ -35,6 +35,7 @@ from kgwas_tpu_torch.engine import checkpoint, params_from_jax
 from kgwas_tpu_torch.engine import resilience
 from kgwas_tpu_torch.engine.resilience import (RetryPolicy,
                                                is_transient_backend_error)
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 DATA = dict(n_snp=300, n_gene=60, n_go=25, seed=5)
 MODEL = dict(gnn_num_layers=2, gnn_hidden_dim=16, no_relu=True)

@@ -29,6 +29,7 @@ from kgwas_tpu_torch.engine.checkpoint import (
 )
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models import HeteroGNN, device_layouts, encoder_for
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 KG = dict(n_snp=300, n_gene=60, n_go=30, snp_dim=20, gene_dim=32, go_dim=16,
           seed=7)

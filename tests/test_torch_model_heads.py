@@ -57,6 +57,7 @@ from kgwas_tpu_torch.ops import gat_layer, segment_softmax
 
 from test_torch_interpret import (ALPHA_ATOL, ALPHA_RTOL, NETWORK_KEYS,
                                   _small_world, columns_of, compare_tables)
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 KG = dict(n_snp=90, n_gene=35, n_go=14, seed=43)
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5

@@ -7,8 +7,11 @@ package's ``kgwas_tpu/parallel`` and the single-process port.
   both packages refuse the others).
 * The eligibility gates, case for case with
   ``tests/test_merged_shard.py::test_sharded_merged_eligibility_gates``.
-* Two ranks over gloo (processes started here, a ``FileStore`` in
-  ``tmp_path``, each joined with its own timeout), GAT sum at hidden 128
+* Two ranks over gloo (processes started once for the module, a
+  ``FileStore`` in a module temporary directory, each joined with its own
+  timeout; each rank runs the two cases below in turn, with a share of
+  the cores, while this process runs the JAX package's step), GAT sum at
+  hidden 128
   on a KG whose every merged group splits over 2 (600 GO terms): the
   forward's predictions, one step's loss and parameter gradients (summed
   over the ranks) and 3 Adam steps' losses, the same on both ranks,
@@ -44,6 +47,7 @@ from kgwas_tpu_torch.models import HeteroGNN, device_layouts, layer_paths
 from kgwas_tpu_torch.parallel import merged_shard
 from kgwas_tpu_torch.parallel.mesh import Mesh, make_mesh
 from kgwas_tpu_torch.parallel.shard import ITEM_10B
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 KG = dict(n_snp=300, n_gene=60, n_go=30, snp_dim=20, gene_dim=32, go_dim=16,
           seed=7)
@@ -122,39 +126,48 @@ def test_sharded_merged_eligibility_gates():
 
 # ----------------------------------------------------- two ranks over gloo
 
-def _rank_main(rank, world, work, data, model):
-    """One rank: the sharded forward, one step's summed gradients and 3
-    Adam steps, written to work/rank{rank}.npz."""
+# the two-rank cases: (KG, 'data' axis size, 'model' axis size)
+GLOO_CASES = {"data": (KG_2, 2, 1), "model": (KG_TP, 1, 2)}
+
+
+def _rank_main(rank, world, work, threads):
+    """One rank: for each of GLOO_CASES (its spec and state under
+    work/<case>), the sharded forward, one step's summed gradients and 3
+    Adam steps, written to work/<case>/rank{rank}.npz."""
     from kgwas_tpu_torch.parallel.mesh import init_distributed
     from kgwas_tpu_torch.parallel.shard import (ShardedRun, sharded_forward,
                                                 sharded_train_step,
                                                 sum_grads)
     import torch.distributed as dist
 
+    torch.set_num_threads(threads)
     work = Path(work)
     init_distributed("gloo", f"file://{work / 'store'}", world, rank)
-    spec = np.load(work / "spec.npz")
-    kg = KG_TP if model > 1 else KG_2
-    cg, model_, layouts, x = _port_world(kg, torch.load(work / "state.pt"))
-    mesh = make_mesh(data=data, model=model)
-    run = ShardedRun(build_merged_layouts(cg, tile_rows=512), x, mesh, "cpu",
-                     cg.padded_nodes)
-    y, w = torch.from_numpy(spec["y"]), torch.from_numpy(spec["w"])
-    b0 = torch.from_numpy(spec["batches"][0])
-    out = {"pred": sharded_forward(model_, run, layouts).numpy()}
-    loss = batch_loss(run.forward(model_, layouts, training=True), b0, y, w)
-    (loss / mesh.size).backward()
-    fill_dead_grads(model_)
-    sum_grads(model_, mesh)
-    out["loss"] = loss.item()
-    out.update({f"grad:{k}": p.grad.numpy().copy()
-                for k, p in model_.named_parameters()})
-    model_.load_state_dict(torch.load(work / "state.pt"))
-    opt = build_optimizer(model_.parameters(), LR, WD)
-    out["losses"] = np.array([
-        sharded_train_step(model_, opt, run, layouts, torch.from_numpy(b), y,
-                           w).item() for b in spec["batches"]])
-    np.savez(work / f"rank{rank}.npz", **out)
+    for name, (kg, data, model) in GLOO_CASES.items():
+        case = work / name
+        spec = np.load(case / "spec.npz")
+        cg, model_, layouts, x = _port_world(kg, torch.load(case /
+                                                            "state.pt"))
+        mesh = make_mesh(data=data, model=model)
+        run = ShardedRun(build_merged_layouts(cg, tile_rows=512), x, mesh,
+                         "cpu", cg.padded_nodes)
+        y, w = torch.from_numpy(spec["y"]), torch.from_numpy(spec["w"])
+        b0 = torch.from_numpy(spec["batches"][0])
+        out = {"pred": sharded_forward(model_, run, layouts).numpy()}
+        loss = batch_loss(run.forward(model_, layouts, training=True), b0, y,
+                          w)
+        (loss / mesh.size).backward()
+        fill_dead_grads(model_)
+        sum_grads(model_, mesh)
+        out["loss"] = loss.item()
+        out.update({f"grad:{k}": p.grad.numpy().copy()
+                    for k, p in model_.named_parameters()})
+        model_.load_state_dict(torch.load(case / "state.pt"))
+        opt = build_optimizer(model_.parameters(), LR, WD)
+        out["losses"] = np.array([
+            sharded_train_step(model_, opt, run, layouts, torch.from_numpy(b),
+                               y, w).item() for b in spec["batches"]])
+        np.savez(case / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
 
@@ -172,17 +185,23 @@ def _port_world(kg, state):
     return cg, model, layouts, x
 
 
-def _spawn(work, world, data, model, timeout=240):
-    """world processes of _rank_main, each joined with its own timeout."""
+def _spawn(work, world):
+    """world processes of _rank_main, started (each with a share of the
+    cores: the ranks' threads would otherwise contend)."""
+    threads = max(1, (os.cpu_count() or 2) // (2 * world))
     code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
             "import test_torch_parallel as T; "
             "T._rank_main(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], "
-            "int(sys.argv[6]), int(sys.argv[7]))")
-    procs = [subprocess.Popen(
+            "int(sys.argv[6]))")
+    return [subprocess.Popen(
         [sys.executable, "-c", code, str(HERE), str(HERE.parent), str(r),
-         str(world), str(work), str(data), str(model)],
+         str(world), str(work), str(threads)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+
+
+def _join(procs, work, timeout=240):
+    """Each rank joined with its own timeout; every case's rank outputs."""
     logs = []
     try:
         for p in procs:
@@ -194,7 +213,8 @@ def _spawn(work, world, data, model, timeout=240):
                 p.wait()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
-    return [dict(np.load(work / f"rank{r}.npz")) for r in range(world)]
+    return {name: [dict(np.load(work / name / f"rank{r}.npz"))
+                   for r in range(len(procs))] for name in GLOO_CASES}
 
 
 def _setup(work, kg, jax_params=None):
@@ -258,7 +278,13 @@ def _assert_like_single(ranks, single):
     np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
 
 
-def test_two_rank_gloo_step_matches_single_and_jax(tmp_path):
+@pytest.fixture(scope="module")
+def gloo_world(tmp_path_factory):
+    """The two ranks over gloo, started once for both cases, and the JAX
+    package's 3 steps on its 2-device mesh (the shard_map'd merged
+    kernels, interpret mode) from the 'data' case's parameters, run here
+    while the ranks run: (rank outputs by case, the single-process inputs
+    by case, the JAX losses)."""
     import jax
     import jax.numpy as jnp
     from kgwas_tpu.config import ModelConfig as JaxModelConfig
@@ -270,6 +296,7 @@ def test_two_rank_gloo_step_matches_single_and_jax(tmp_path):
                                           node_vector_sharding, replicated,
                                           shard_graph_arrays)
 
+    work = tmp_path_factory.mktemp("gloo")
     cg_j = _compile(KG_2, jax=True)
     meta = cg_j.meta()
     jcfg = JaxModelConfig(gnn_hidden_dim=128, gnn_num_layers=2, no_relu=True,
@@ -277,34 +304,48 @@ def test_two_rank_gloo_step_matches_single_and_jax(tmp_path):
     params = jax.tree_util.tree_map(np.asarray, init_hetero_gnn(
         jax.random.PRNGKey(0), jcfg, meta, KG["snp_dim"], KG["gene_dim"],
         KG["go_dim"]))
-    y, w, batches = _setup(tmp_path, KG_2, params)
-    ranks = _spawn(tmp_path, 2, 2, 1)
-    _assert_like_single(ranks, _single(KG_2, tmp_path, y, w, batches))
+    inputs = {}
+    for name, (kg, _, _) in GLOO_CASES.items():
+        (work / name).mkdir()
+        inputs[name] = _setup(work / name, kg,
+                              params if name == "data" else None)
+    procs = _spawn(work, 2)
+    try:
+        mesh = jmake_mesh(data=2, model=1)
+        assert _select_kernel_path(jcfg, meta, mesh,
+                                   training=True)[1] is not None
+        y, w, batches = inputs["data"]
+        yj, wj = jnp.asarray(y), jnp.asarray(w)
+        step = make_sharded_train_step(jcfg, meta, jbuild_optimizer(LR, WD),
+                                       mesh, cg_j.arrays())
+        arrays = shard_graph_arrays(mesh, cg_j.arrays())
+        p, s = params, jbuild_optimizer(LR, WD).init(params)
+        jax_losses = []
+        for b in batches:
+            p, s, l_ = step(p, s, arrays,
+                            jax.device_put(jnp.asarray(b, jnp.int32),
+                                           replicated(mesh)),
+                            jax.device_put(yj, node_vector_sharding(mesh)),
+                            jax.device_put(wj, node_vector_sharding(mesh)))
+            jax_losses.append(float(l_))
+    finally:
+        ranks = _join(procs, work)
+    return ranks, inputs, work, jax_losses
 
+
+def test_two_rank_gloo_step_matches_single_and_jax(gloo_world):
+    ranks, inputs, work, jax_losses = gloo_world
+    _assert_like_single(ranks["data"],
+                        _single(KG_2, work / "data", *inputs["data"]))
     # the JAX package on its 2-device mesh: the shard_map'd merged kernels
-    mesh = jmake_mesh(data=2, model=1)
-    assert _select_kernel_path(jcfg, meta, mesh, training=True)[1] is not None
-    yj, wj = jnp.asarray(y), jnp.asarray(w)
-    got = ranks[0]
-    step = make_sharded_train_step(jcfg, meta, jbuild_optimizer(LR, WD),
-                                   mesh, cg_j.arrays())
-    arrays = shard_graph_arrays(mesh, cg_j.arrays())
-    p, s = params, jbuild_optimizer(LR, WD).init(params)
-    losses = []
-    for b in batches:
-        p, s, l_ = step(p, s, arrays,
-                        jax.device_put(jnp.asarray(b, jnp.int32),
-                                       replicated(mesh)),
-                        jax.device_put(yj, node_vector_sharding(mesh)),
-                        jax.device_put(wj, node_vector_sharding(mesh)))
-        losses.append(float(l_))
-    np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
+    np.testing.assert_allclose(ranks["data"][0]["losses"], jax_losses,
+                               rtol=1e-4)
 
 
-def test_model_axis_encoder_matches_single(tmp_path):
-    y, w, batches = _setup(tmp_path, KG_TP)
-    ranks = _spawn(tmp_path, 2, 1, 2)
-    _assert_like_single(ranks, _single(KG_TP, tmp_path, y, w, batches))
+def test_model_axis_encoder_matches_single(gloo_world):
+    ranks, inputs, work, _ = gloo_world
+    _assert_like_single(ranks["model"],
+                        _single(KG_TP, work / "model", *inputs["model"]))
 
 
 # ------------------------------------------------------------- entry points

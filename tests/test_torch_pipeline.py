@@ -20,6 +20,7 @@ from kgwas_tpu import KGWAS_Data as JaxData
 from kgwas_tpu_torch import KGWAS, KGWAS_Data
 from kgwas_tpu_torch.stats.calibration import finalize_predictions
 from kgwas_tpu_torch.utils import read_table, write_table
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 KW = dict(n_snp=250, n_gene=50, n_go=18, seed=123)
 

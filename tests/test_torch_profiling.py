@@ -36,6 +36,7 @@ from kgwas_tpu.graph import make_synthetic_kg as jax_make_kg
 
 from kgwas_tpu_torch import KGWAS, KGWAS_Data, bench_lib
 from kgwas_tpu_torch.engine import profiling
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 JAX_RECORD_KEYS = ["epoch", "steps", "epoch_time_s", "edges_per_sec", "loss",
                    "val_mse", "val_pearsonr"]
@@ -191,24 +192,23 @@ def test_bench_runs_with_heads(monkeypatch, capsys):
 @pytest.mark.parametrize("env,item", [
     ({"BENCH_DTYPE": "bfloat16"}, 7),
     ({"BENCH_STREAM_DTYPE": "bfloat16"}, 7),
-    ({"BENCH_SCAN": "8"}, 4),
+    ({"BENCH_SCAN": "2"}, 4),
 ])
 def test_bench_unported_options_raise(monkeypatch, capsys, env, item):
-    """BENCH_SCAN > 1 (item 4) raises, naming its item; the dtypes of item
-    7 run (at the small BENCH_ENV sizes) and the JSON line reports them."""
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    if "BENCH_SCAN" in env:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item} "):
-            bench_lib.main(device="cpu")
-        return
-    for k, v in BENCH_ENV.items():
+    """The options once unported run (at the small BENCH_ENV sizes) and the
+    JSON line reports them: the dtypes of item 7, and BENCH_SCAN > 1 of
+    item 4 (blocks of steps through TrainScan, PR 13), which no longer
+    raises."""
+    for k, v in {**BENCH_ENV, **env}.items():
         monkeypatch.setenv(k, v)
     bench_lib.main(device="cpu")
     rec = json.loads(capsys.readouterr().out.strip())
     # a slope of two host-clock series on the CPU: finite, its sign noise
     assert math.isfinite(rec["value"])
+    if "BENCH_SCAN" in env:
+        assert item == 4 and rec["config"]["scan"] == 2
+        assert rec["config"]["dtype"] == "float32"
+        return
     assert rec["config"]["dtype"] == (
         "bfloat16" if "BENCH_DTYPE" in env else "float32,stream=bfloat16")
 

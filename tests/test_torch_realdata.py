@@ -45,6 +45,7 @@ import kgwas_tpu_torch.kgwas_data as pkd
 from kgwas_tpu_torch import KGWAS, KGWAS_Data
 from kgwas_tpu_torch.engine import params_from_jax
 from kgwas_tpu_torch.utils import read_table
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 N_SNP, N_GENE, N_GO = 60, 20, 8
 GO_TYPES = ["CellularComponent", "BiologicalProcess", "MolecularFunction"]

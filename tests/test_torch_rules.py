@@ -26,6 +26,7 @@ from kgwas_tpu_torch import KGWAS, KGWAS_Data
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models import device_layouts
 from kgwas_tpu_torch.ops import build, gat_layer, segment, segment_softmax
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "optax", "orbax", "pandas", "sklearn", "kgwas_tpu"}

@@ -49,6 +49,7 @@ from kgwas_tpu_torch.models import device_layouts
 from kgwas_tpu_torch.ops import schedule as S
 from kgwas_tpu_torch.ops import segment, segment_softmax
 from kgwas_tpu_torch.ops.segment_ref import EPS, NEG_BIG, csr_rows
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 D = 128
 KG = dict(n_snp=300, n_gene=70, n_go=40, seed=3)

@@ -31,6 +31,7 @@ from kgwas_tpu_torch.engine.checkpoint import flatten_params
 from kgwas_tpu_torch.ops import streaming
 from kgwas_tpu_torch.ops.streaming import (StreamedLinear, streamed_grad_w,
                                            streamed_matmul)
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 GENE_DIM = 96          # a pretend-giant Gene feature width
 DATA = dict(n_snp=150, n_gene=40, n_go=15, seed=5, gene_dim=GENE_DIM)

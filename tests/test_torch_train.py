@@ -50,6 +50,7 @@ from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synt
 from kgwas_tpu_torch.kgwas_data import train_test_split
 from kgwas_tpu_torch.models import HeteroGNN, device_layouts, layer_path
 from kgwas_tpu_torch.ops import gat_layer, segment
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 D = 128
 SLOPE = 0.2

@@ -19,6 +19,7 @@ from kgwas_tpu.ops import pallas_gat_layer as P
 from kgwas_tpu.ops import pallas_segment as S
 
 from test_torch_train import assert_step_grads_match, step_world  # noqa: F401
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 # TPU kernel number (PERF.md table) -> its pallas_call wrapper
 SITES = {

@@ -54,6 +54,7 @@ from test_torch_model_heads import (FWD_ATOL, FWD_RTOL, LOSS_RTOL,  # noqa: F401
                                     assert_grads_close, jax_loss_grads,
                                     port_loss_grads, port_model, world)
 from test_torch_train_layouts import reached  # noqa: F401
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 REF_RTOL, REF_FLOOR = 1e-5, 1e-6
 

@@ -34,6 +34,7 @@ from kgwas_tpu.ops.pallas_segment import (fused_segment_softmax_spmm,
 from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph, make_synthetic_kg
 from kgwas_tpu_torch.models import device_layouts
 from kgwas_tpu_torch.ops import segment, segment_ref, segment_softmax
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 D = 128
 KG = dict(n_snp=300, n_gene=70, n_go=40, seed=3)

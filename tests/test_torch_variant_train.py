@@ -31,6 +31,7 @@ from kgwas_tpu_torch.engine import flatten_params, params_from_jax, params_to_ja
 from kgwas_tpu_torch.engine.checkpoint import load_pretrained_torch
 
 from test_torch_model import _assert_tree_equal, _jax_setup
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 VARIANTS = {
     "GAT-max": dict(gnn_backbone="GAT", gnn_aggr="max"),

@@ -37,6 +37,7 @@ from kgwas_tpu_torch.ops import segment, segment_softmax
 
 from test_torch_train import jax_step_grads, port_step_grads, step_world  # noqa: F401
 from test_torch_train_layouts import reached  # noqa: F401
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 D = 128
 CONFIGS = {

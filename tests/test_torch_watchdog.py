@@ -15,6 +15,7 @@ import textwrap
 import pytest
 
 from kgwas_tpu_torch.engine.watchdog import WatchdogStall, run_with_watchdog
+from torch_threads import few_torch_threads  # noqa: F401,E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
