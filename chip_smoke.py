@@ -309,9 +309,14 @@ KERNEL_LAUNCH = {
     "csr_combine_kernel": (256, 0),
     "gather_probe_kernel": (256, 0),
     "gather_probe_bf16_kernel": (256, 0),
-    "merged_gat_fwd_bf16_kernel": (128, 0),
-    "merged_gat_row_max_kernel": (128, 0),
-    "merged_gat_bwd_bf16_kernel": (128, 4 * 8 * 128 * 4),
+    # the bf16 instances: a ring of 2 stages of 8 256-byte rows,
+    # the staging arrays (merged_gat_fwd.cu fwd_bf16_words, merged_gat_bwd.cu
+    # bwd_bf16_words: the backward's 8 cotangent rows too), the score pass
+    "merged_gat_fwd_bf16_kernel": (128, 4 * 4 * (2 * 8 * 64 + 1248)),
+    "merged_gat_chunk_max_bf16_kernel": (128, 0),
+    "merged_gat_a_src_kernel": (128, 0),
+    "merged_gat_bwd_bf16_kernel": (128, 4 * 4 * (8 * 128 + 2 * 8 * 64
+                                                  + 1216)),
     "merged_gat_bwd_combine_bf16_kernel": (128, 0),
 }
 # template arguments of the entries reported: D = 128 (softmax mode, with
@@ -325,7 +330,8 @@ D128 = ("<0, true, 1>", "<0>", "<true, 1>", "<true, 1, true>",
         "<true, 1, false, false, false>", "<true, 1, false, true, false>",
         "<true, 1, true, false, true>", "<true, 1, false, false, true>",
         "<true, 1, false, true, true>", "<true, 1, true, true, true>",
-        "<true, 1, true, true, false>", "<true, 1, true, true>")
+        "<true, 1, true, true, false>", "<true, 1, true, true>",
+        "<0, true, 1, 2>")
 
 
 def report_ptxas(build, name, text, launch=None):
@@ -358,9 +364,12 @@ def report_ptxas(build, name, text, launch=None):
 class ParentKernels:
     """The kernels of an earlier checkout (KGWAS_PARENT_CSRC: its
     kgwas_tpu_torch/ops/csrc), built from its sources, for timing beside
-    this checkout's on the same launches. The merged GAT kernels have this
-    checkout's C interface and run through its wrappers with the earlier
-    library swapped in (fwd, bwd take the wrappers' arguments and sched).
+    this checkout's on the same launches. The merged GAT kernels' f32
+    instances have this checkout's C interface and run through its
+    wrappers with the earlier library swapped in (fwd, bwd take the
+    wrappers' arguments and sched); their bf16 instances run through the
+    earlier wrappers (fwd_bf16, bwd_bf16; has_bf16 False where the earlier
+    checkout has none).
     The segment kernels (SEGMENT) run through the earlier checkout's own
     wrappers (its package imported as parent_kgwas_tpu_torch, its kernels
     built by its own ops/build.py), so their host-paced times carry that
@@ -387,7 +396,20 @@ class ParentKernels:
         self.pbuild = importlib.import_module(f"{pkg}.ops.build")
         self.psegment = importlib.import_module(f"{pkg}.ops.segment")
         self.psoftmax = importlib.import_module(f"{pkg}.ops.segment_softmax")
+        self.pgat = importlib.import_module(f"{pkg}.ops.gat_layer")
         self.pbuild.build_all(self.SEGMENT)
+        # its bf16 merged GAT instances (phase 12a), from the libraries
+        # built above, through its own wrappers (its C interface)
+        self.has_bf16 = True
+        logs = dict(build.build_log)
+        for name in ("merged_gat_fwd", "merged_gat_bwd"):
+            entry = self.pbuild.KERNELS.get(f"{name}_bf16")
+            if entry is None:
+                self.has_bf16 = False
+                continue
+            self.pbuild._loaded[f"{name}_bf16"] = build.build_source(
+                self.csrc / entry[0], f"parent_{name}", entry[1], entry[2])
+        build.build_log.update(logs)
         # the earlier backward without its read of the saved output
         text = (self.csrc / "segment_softmax_spmm_bwd.cu").read_text()
         self._bwd_no_out = None
@@ -424,6 +446,15 @@ class ParentKernels:
         from kgwas_tpu_torch.ops import gat_layer
         return self._swapped("merged_gat_bwd", gat_layer.merged_gat_bwd,
                              *args, **kwargs)
+
+    def fwd_bf16(self, *args, sched=None):
+        """The earlier bf16 forward (#1 bf16) through the earlier wrapper,
+        which takes no src_base: its kernel scores every edge itself."""
+        return self.pgat.merged_gat_forward(*args, sched=sched)
+
+    def bwd_bf16(self, *args, sched=None):
+        """The earlier bf16 edge backward (#2 bf16), the same way."""
+        return self.pgat.merged_gat_bwd(*args, sched=sched)
 
     @staticmethod
     @functools.lru_cache(maxsize=None)
@@ -783,9 +814,10 @@ def swapped(module, **fns):
 
 def without_sched(plain):
     """A plain version in its kernel wrapper's place: the layer ops pass
-    the kernels' schedule, which the plain version does not take (its other
-    keywords pass on)."""
-    def fn(*args, sched=None, **kwargs):
+    the kernels' schedule and the merged GAT layer its per-source-row
+    scores, which the plain version does not take (its other keywords
+    pass on)."""
+    def fn(*args, sched=None, a_src=None, **kwargs):
         return plain(*args, **kwargs)
     return fn
 
@@ -2839,6 +2871,7 @@ def plain_ops():
     from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
 
     with swapped(gat_layer,
+                 merged_gat_a_src=gat_layer.merged_gat_a_src_plain,
                  merged_gat_forward=without_sched(
                      gat_layer.merged_gat_forward_plain),
                  merged_gat_backward=gat_layer.merged_gat_backward_plain), \
@@ -3925,7 +3958,10 @@ def phase_cohort(kt, card, tmp):
 BF16_KERNELS = ("merged_gat_fwd_bf16", "merged_gat_bwd_bf16",
                 "csc_segment_sum_bf16", "csr_segment_sum_bf16",
                 "segment_softmax_spmm_fwd_bf16",
-                "segment_softmax_spmm_bwd_bf16")
+                "segment_softmax_spmm_bwd_bf16",
+                # #1 and #2 bf16's scores per source row, one launch per
+                # bf16 merged layer forward (no f32 instance)
+                "merged_gat_a_src_bf16")
 # the per-relation softmax GAT's (#6, #7): phase 12's relation runs
 REL_BF16 = ("segment_softmax_spmm_fwd_bf16", "segment_softmax_spmm_bwd_bf16")
 # each bf16 kernel's f32 family (path_launches counts the family)
@@ -3943,6 +3979,8 @@ BF16_REPLACES = {
     "csr_segment_sum_bf16": "kgwas_tpu/ops/pallas_segment.py:659",
     "segment_softmax_spmm_fwd_bf16": "kgwas_tpu/ops/pallas_segment.py:220",
     "segment_softmax_spmm_bwd_bf16": "kgwas_tpu/ops/pallas_segment.py:370",
+    # the score att . msgs in _logits_row, which #1 and #2's bodies call
+    "merged_gat_a_src_bf16": "kgwas_tpu/ops/pallas_gat_layer.py:183",
 }
 BF16_SOURCE = {
     "merged_gat_fwd_bf16": "kgwas_tpu_torch/ops/csrc/merged_gat_fwd.cu",
@@ -3953,6 +3991,7 @@ BF16_SOURCE = {
         "kgwas_tpu_torch/ops/csrc/segment_softmax_spmm_fwd.cu",
     "segment_softmax_spmm_bwd_bf16":
         "kgwas_tpu_torch/ops/csrc/segment_softmax_spmm_bwd.cu",
+    "merged_gat_a_src_bf16": "kgwas_tpu_torch/ops/csrc/merged_gat_fwd.cu",
 }
 # the published bf16 tensor-core peak (dense): the least time for the
 # operations on bf16 inputs
@@ -3983,24 +4022,29 @@ BF16_VARIANTS = {
     "GAT-sum edge_dim stream": dict(edge_dim=4, stream_dtype="bfloat16"),
     "GAT-sum edge_dim compute": dict(edge_dim=4, compute_dtype="bfloat16"),
 }
+# the runs whose bf16 launches are counted over a full-width epoch of
+# train_steps: #1 and #2 bf16 (and the score pass) under each dtype option
+EPOCH_VARIANTS = ("GAT-sum stream", "GAT-sum compute")
 # the relation runs whose #6 / #7 launches are timed (the kernel table's
 # rows: the compute dtype's, as --dtype bfloat16 sets it)
 REL_TIMED = ("GAT-max stream", "GAT-max compute")
 
 
 def bf16_counts(zero=False):
-    """Launch counts of the six bf16 instances (set to 0 first with
-    zero)."""
+    """Launch counts of the six bf16 instances and the score pass (set to
+    0 first with zero)."""
     from kgwas_tpu_torch.ops import gat_layer, segment, segment_softmax
 
     if zero:
         gat_layer.bf16_launches = gat_layer.bf16_bwd_launches = 0
+        gat_layer.a_src_launches = 0
         segment.bf16_launches = segment.csr_bf16_launches = 0
         segment_softmax.bf16_launches = segment_softmax.bf16_bwd_launches = 0
     return dict(zip(BF16_KERNELS, (
         gat_layer.bf16_launches, gat_layer.bf16_bwd_launches,
         segment.bf16_launches, segment.csr_bf16_launches,
-        segment_softmax.bf16_launches, segment_softmax.bf16_bwd_launches)))
+        segment_softmax.bf16_launches, segment_softmax.bf16_bwd_launches,
+        gat_layer.a_src_launches)))
 
 
 def all_counts(zero=False):
@@ -4081,12 +4125,14 @@ def gather_floors_bf16(cg, layouts, rates16, rates32):
                      cg.padded_nodes[cg.relations[rk].src_type], HIDDEN * 2,
                      rates16)
               for t, k in live.items() for rk in layouts[t].rel_keys)
-    floors = {"merged_gat_fwd_bf16": merged, "merged_gat_bwd_bf16": merged,
+    floors = {"merged_gat_a_src_bf16": None,   # reads its rows in order
+              "merged_gat_fwd_bf16": merged, "merged_gat_bwd_bf16": merged,
               "csc_segment_sum_bf16": csc, "csr_segment_sum_bf16": csr,
               "segment_softmax_spmm_fwd_bf16": rel,
               "segment_softmax_spmm_bwd_bf16": rel}
     log("  bf16 gather floors per forward or step: "
-        + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()
+                    if v is not None))
     return floors
 
 
@@ -4110,7 +4156,7 @@ def sparse_mm_bf16(x, src, ro, w):
     return lambda: torch.sparse.mm(a, x)
 
 
-def phase_bf16_kernels(kt, cg, device, card, floors16):
+def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
     """Phase 12a: each bf16 instance against its plain bf16 version at full
     width (the GAT-sum layer's Gene and SNP groups, fold R, softmax, random
     bf16 tables; the CSR sum on the merged SNP and Gene groups, unweighted
@@ -4118,7 +4164,13 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
     step: host-paced ms, device ms, plain ms, bound (each input read once
     and each output written once at its own width; operations at the bf16
     peak), gather floor, the f32 instance on the same values, and for the
-    CSR sum torch.sparse.mm in bf16. Returns {kernel: row totals}."""
+    CSR sum torch.sparse.mm in bf16. #1 bf16 is timed with its score pass
+    (merged_gat_a_src_bf16, a forward's first launch, also timed alone),
+    #2 bf16 on the forward's scores, as the layer runs them; with parent
+    (KGWAS_PARENT_CSRC) the earlier checkout's #1 and #2 bf16, which score
+    every edge themselves, are timed in turns with them (this, earlier,
+    earlier, this) and their outputs compared bit for bit. Returns
+    {kernel: row totals}."""
     from kgwas_tpu_torch.graph import build_merged_layouts
     from kgwas_tpu_torch.kgwas import TILE_ROWS
     from kgwas_tpu_torch.models import device_layouts
@@ -4134,20 +4186,42 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
                               "f32_device_ms"), 0.0)
             for k in mine}
     rows["csr_segment_sum_bf16"]["library_ms"] = 0.0
+    rows["merged_gat_a_src_bf16"].update(f32_ms=None, f32_device_ms=None)
+    earlier = parent is not None and parent.has_bf16
+    for k in ("merged_gat_fwd_bf16", "merged_gat_bwd_bf16"):
+        rows[k].update(parent_ms=0.0, parent_device_ms=0.0) if earlier \
+            else rows[k].update(parent_ms=None, parent_device_ms=None)
+    not_bitwise = []   # (kernel, group, output) off the earlier bits
     worst = dict.fromkeys(mine, 0.0)
     off = dict.fromkeys(mine, 0)
     lib_ok = True
 
-    def timed(name, k, fn, plain_fn, f32_fn, bound):
+    def timed(name, k, fn, plain_fn, f32_fn, bound, parent_fn=None):
+        """Adds k times the launch's times to its row; with parent_fn the
+        earlier kernel's in turns (this, earlier, earlier, this)."""
         r = rows[name]
-        r["ms"] += k * cuda_ms(fn, 10)
-        r["device_ms"] += k * graph_ms(fn, 10)
+        ms, dev = [cuda_ms(fn, 10)], [graph_ms(fn, 10)]
+        if parent_fn is not None:
+            pms = [cuda_ms(parent_fn, 10) for _ in range(2)]
+            pdev = [graph_ms(parent_fn, 10) for _ in range(2)]
+            r["parent_ms"] += k * statistics.mean(pms)
+            r["parent_device_ms"] += k * statistics.mean(pdev)
+            ms.append(cuda_ms(fn, 10))
+            dev.append(graph_ms(fn, 10))
+        r["ms"] += k * statistics.mean(ms)
+        r["device_ms"] += k * statistics.mean(dev)
         r["plain_ms"] += k * cuda_ms(plain_fn, 2)
-        r["f32_ms"] += k * cuda_ms(f32_fn, 10)
-        r["f32_device_ms"] += k * graph_ms(f32_fn, 10)
+        if f32_fn is not None:
+            r["f32_ms"] += k * cuda_ms(f32_fn, 10)
+            r["f32_device_ms"] += k * graph_ms(f32_fn, 10)
         r["bytes"] += k * bound[0]
         r["operations"] += k * bound[1]
         r["bound_ms"] += k * max(bound)
+
+    def same_bits(name, t, names, got, old):
+        for what, a, b in zip(names, got, old):
+            if not torch.equal(a, b):
+                not_bitwise.append((name, t, what))
 
     for t, k in (("Gene", 1), ("SNP", 2)):
         L, DL = host[t], dls[t]
@@ -4162,14 +4236,38 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
         sched = gat_layer.layout_schedule(DL, R)
         bsched = gat_layer.layout_schedule(DL, R, backward=True)
         fa = (DL.src, DL.row_offsets, att, ad, n, R, "softmax", 0.2, 1.0)
+        base = DL.src_base
         trash = np.zeros(n, dtype=bool)
         trash[cg.num_nodes[t]] = True
-        # #1
-        out = gat_layer.merged_gat_forward(xs, *fa, sched=sched)
-        again = gat_layer.merged_gat_forward(xs, *fa, sched=sched)
+        # the score pass: bitwise repeatable, against its plain version
+        a_src = gat_layer.merged_gat_a_src(xs, att, base)
+        if not torch.equal(a_src, gat_layer.merged_gat_a_src(xs, att, base)):
+            raise AssertionError(f"merged_gat_a_src_bf16 {t}: two runs "
+                                 "differ")
+        a_plain = gat_layer.merged_gat_a_src_plain(xs, att, base)
+        err = float((a_src - a_plain).abs().max())
+        if not torch.allclose(a_src, a_plain, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"merged_gat_a_src_bf16 {t}: max abs err "
+                                 f"{err:.3e} against its plain version")
+        worst["merged_gat_a_src_bf16"] = max(worst["merged_gat_a_src_bf16"],
+                                             err)
+        timed("merged_gat_a_src_bf16", k,
+              lambda: gat_layer.merged_gat_a_src(xs, att, base),  # noqa: B023
+              lambda: gat_layer.merged_gat_a_src_plain(xs, att, base),  # noqa: B023
+              None, bf16_bound(nbytes(xs, att, a_src), 2 * d * xs.shape[0]))
+        # #1: the score pass and the items, as the layer's forward runs them
+        def fwd():
+            return gat_layer.merged_gat_forward(
+                xs, *fa, sched=sched,  # noqa: B023
+                a_src=gat_layer.merged_gat_a_src(xs, att, base))  # noqa: B023
+
+        out, again = fwd(), fwd()
         want = gat_layer.merged_gat_forward_plain(xs, *fa)
         if not all(torch.equal(a, b) for a, b in zip(out, again)):
             raise AssertionError(f"merged_gat_fwd_bf16 {t}: two runs differ")
+        if earlier:
+            same_bits("merged_gat_fwd_bf16", t, ("out", "row_max", "row_sum"),
+                      out, parent.fwd_bf16(xs, *fa, sched=sched))
         err, o = bf16_rows_check(out[0], want[0], trash,
                                  f"merged_gat_fwd_bf16 {t}")
         slot_trash = np.zeros(L.n_rows_total, dtype=bool)
@@ -4180,31 +4278,39 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
                       [0])
         worst["merged_gat_fwd_bf16"] = max(worst["merged_gat_fwd_bf16"], err)
         off["merged_gat_fwd_bf16"] += o
-        timed("merged_gat_fwd_bf16", k,
-              lambda: gat_layer.merged_gat_forward(xs, *fa, sched=sched),  # noqa: B023
+        timed("merged_gat_fwd_bf16", k, fwd,
               lambda: gat_layer.merged_gat_forward_plain(xs, *fa),  # noqa: B023
               lambda: gat_layer.merged_gat_forward(xs32, *fa, sched=sched),  # noqa: B023
               bf16_bound(nbytes(xs, DL.src, DL.row_offsets, att, ad, *out),
-                         4 * d * e))
-        # #2
+                         4 * d * e),
+              functools.partial(parent.fwd_bf16, xs, *fa, sched=sched)
+              if earlier else None)
+        # #2 on the forward's scores; its bound counts the bytes and dots
+        # of the function, which scores each source row once
         ba = (DL.src, DL.row_offsets, att, ad, want[1], want[2], g, n, R,
               "softmax", 0.2, 1.0)
-        bk = gat_layer.merged_gat_bwd(xs, *ba, sched=bsched)
-        bk2 = gat_layer.merged_gat_bwd(xs, *ba, sched=bsched)
+        bwd = functools.partial(gat_layer.merged_gat_bwd, xs, *ba,
+                                sched=bsched, a_src=a_src)
+        bk, bk2 = bwd(), bwd()
         bp = gat_layer.merged_gat_bwd_plain(xs, *ba)
         if not all(torch.equal(a, b) for a, b in zip(bk, bk2)):
             raise AssertionError(f"merged_gat_bwd_bf16 {t}: two runs differ")
+        if earlier:
+            same_bits("merged_gat_bwd_bf16", t, ("w", "dz", "d_a_dst"), bk,
+                      parent.bwd_bf16(xs, *ba, sched=bsched))
         for a, b in zip(bk, bp):
             err, o = bf16_grad_check(a, b, f"merged_gat_bwd_bf16 {t}")
             worst["merged_gat_bwd_bf16"] = max(worst["merged_gat_bwd_bf16"],
                                                err)
             off["merged_gat_bwd_bf16"] += o
-        timed("merged_gat_bwd_bf16", k,
-              lambda: gat_layer.merged_gat_bwd(xs, *ba, sched=bsched),  # noqa: B023
+        timed("merged_gat_bwd_bf16", k, bwd,
               lambda: gat_layer.merged_gat_bwd_plain(xs, *ba),  # noqa: B023
               lambda: gat_layer.merged_gat_bwd(xs32, *ba, sched=bsched),  # noqa: B023
               bf16_bound(nbytes(xs, DL.src, DL.row_offsets, att, ad, want[1],
-                                want[2], g, *bk), 6 * d * e))
+                                want[2], g, *bk),
+                         4 * d * e + 2 * d * xs.shape[0]),
+              functools.partial(parent.bwd_bf16, xs, *ba, sched=bsched)
+              if earlier else None)
         # #8 with the logit term
         w, dz = bk[0], bk[1]
         ck = segment.csc_segment_sum(g, w, dz, xs, att, DL, R)
@@ -4262,24 +4368,38 @@ def phase_bf16_kernels(kt, cg, device, card, floors16):
         torch.cuda.empty_cache()
     if not lib_ok:
         rows["csr_segment_sum_bf16"]["library_ms"] = None
+
+    def opt(v):
+        return "none" if v is None else f"{v:.4f}"
+
     for name, r in rows.items():
         r["max_abs_err"] = worst[name]
         r["floor_ms"] = floors16[name]
         log(f"  phase 12a {name} [{card}]: {r['ms']:.4f} ms [device "
-            f"{r['device_ms']:.4f}], f32 instance on the same values "
-            f"{r['f32_ms']:.4f} [{r['f32_device_ms']:.4f}]; bound "
+            f"{r['device_ms']:.4f}]"
+            + (f", earlier checkout's {r['parent_ms']:.4f} [device "
+               f"{r['parent_device_ms']:.4f}]"
+               if r.get("parent_ms") is not None else "")
+            + f", f32 instance on the same values {opt(r['f32_ms'])} "
+            f"[{opt(r['f32_device_ms'])}]; bound "
             f"{r['bound_ms']:.4f} ({r['bytes']:.4f} bytes, "
             f"{r['operations']:.4f} operations), gather floor "
-            f"{r['floor_ms']:.4f}, plain {r['plain_ms']:.4f}"
+            f"{opt(r['floor_ms'])}, plain {r['plain_ms']:.4f}"
             + (f", torch.sparse.mm bf16 {r['library_ms']:.4f}"
                if r.get("library_ms") else "")
             + f"; max abs err {worst[name]:.3e}, {off[name]} rows or "
             f"values off the f32 tolerance (bf16 rounding neighbours)")
+    note = ""
+    if earlier:   # each exception stays held by the bf16 rule above
+        note = ("; #1 / #2 bf16 bitwise the earlier checkout's on every "
+                "launch" if not not_bitwise else
+                f"; #1 / #2 bf16 NOT bitwise the earlier checkout's on "
+                f"{not_bitwise}")
     del dls
     torch.cuda.empty_cache()
-    log(f"phase 12a ok [{card}]: four bf16 instances against their plain "
-        f"versions at full width, bitwise repeatable; "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 12a ok [{card}]: four bf16 instances and the score pass "
+        f"against their plain versions at full width, bitwise repeatable"
+        f"{note}; {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -4367,7 +4487,8 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
     forward / step ms beside phase 6c's float32 GAT max / min (no
     profile). Returns ({kernel: launches}, {kernel: worst abs err},
     {variant: (fwd ms, step ms, busy fwd, busy step)}, {kernel: the timed
-    relation run's row})."""
+    relation run's row}, {variant: {kernel: bf16 launches counted over a
+    full-width epoch of train_steps}}, the last for EPOCH_VARIANTS only)."""
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
     from kgwas_tpu_torch.models.hetero_gnn import layer_path
@@ -4381,6 +4502,12 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
     launches = dict.fromkeys(BF16_KERNELS, 0)
     worst = dict.fromkeys(BF16_KERNELS, 0.0)
     times, rel_rows = {}, {}
+    # the batches of one full-width epoch: EPOCH_VARIANTS count their bf16
+    # launches over that many train_steps
+    epoch_idx = epoch_batches(np.asarray(data.train_mask), BATCH, False,
+                              None)
+    n_epoch = len(epoch_idx)
+    epoch = {}
     for name, kw in BF16_VARIANTS.items():
         t0 = time.perf_counter()
         low = bool(kw.get("compute_dtype") or kw.get("stream_dtype"))
@@ -4405,6 +4532,11 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
             if low and not bf or not low and bf:
                 raise AssertionError(f"{name}: {what} launched the bf16 "
                                      f"instances {bf}")
+            if counts["merged_gat_a_src_bf16"] != counts[
+                    "merged_gat_fwd_bf16"]:
+                raise AssertionError(f"{name}: {what} ran the score pass "
+                                     "other than once per bf16 forward: "
+                                     f"{bf}")
             for k in BF16_KERNELS:
                 launches[k] += counts[k]
             return bf
@@ -4444,7 +4576,9 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
                     {k: v.detach().clone()
                      for k, v in model.state_dict().items()})
 
+        bf16_counts(zero=True)
         loss_k, par_k = steps_from_init(contextlib.nullcontext())
+        in_steps = {k: v for k, v in bf16_counts().items() if v}
         loss_k2, par_k2 = steps_from_init(contextlib.nullcontext())
         if not (np.array_equal(loss_k, loss_k2) and all(
                 torch.equal(par_k[k], par_k2[k]) for k in par_k)):
@@ -4459,6 +4593,29 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
         for k in bf_fwd:
             worst[k] = max(worst[k], pred_err)
         del par_k2, par_p
+        epoch_note = ""
+        if name in EPOCH_VARIANTS:   # a full-width epoch of train_steps
+            model.load_state_dict(init)
+            opt = build_optimizer(model.parameters(), LR, 5e-4)
+            ep_batches = [torch.from_numpy(b).to(device) for b in epoch_idx]
+            te = time.perf_counter()
+            bf16_counts(zero=True)
+            ep_loss = torch.stack([train_step(model, opt, x, layouts, b,
+                                              y_node, w_node)
+                                   for b in ep_batches])
+            epoch[name] = {k: v for k, v in bf16_counts().items() if v}
+            if not torch.isfinite(ep_loss).all():
+                raise AssertionError(f"{name}: a non-finite loss in the "
+                                     "epoch")
+            if epoch[name] != {k: v // CMP_STEPS * n_epoch
+                               for k, v in in_steps.items()}:
+                raise AssertionError(f"{name}: {n_epoch} steps launched "
+                                     f"{epoch[name]}, {CMP_STEPS} launched "
+                                     f"{in_steps}")
+            epoch_note = (f"; bf16 launches counted over {n_epoch} "
+                          f"train_steps {epoch[name]} "
+                          f"({time.perf_counter() - te:.1f} s)")
+            del ep_batches, ep_loss
 
         rel = (model.cfg.gnn_backbone == "GAT" and not model.cfg.sigmoid_gat
                and layer_path(model.cfg, True) == "relations")
@@ -4509,7 +4666,8 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
                     f"{1 - busy_s / step_ms:.1%})")
         times[name] = (fwd_ms, step_ms, busy_f, busy_s)
         log(f"  phase 12 {name} [{card}]: bf16 launches per forward "
-            f"{bf_fwd}, in KGWAS.train {bf_train}; predict_all vs plain ops "
+            f"{bf_fwd}, in KGWAS.train {bf_train}, in {CMP_STEPS} "
+            f"train_steps {in_steps}{epoch_note}; predict_all vs plain ops "
             f"max abs err {pred_err:.3e}, bitwise repeatable; {CMP_STEPS} "
             f"steps, losses kernel {loss_k.tolist()} plain "
             f"{loss_p.tolist()}, parameters differ by {par_err:.3e}; forward "
@@ -4540,7 +4698,7 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
                     f"{v[1] / f32[1]:.3f}x f32)"
                     for k, v in times.items() if k.startswith("GAT-sum"))
         + f"; bf16 launches {launches}")
-    return launches, worst, times, rows
+    return launches, worst, times, rows, epoch
 
 
 # the quality gate (scripts/exp_stream_gate.py, scripts/exp_bf16_gate.py):
@@ -5182,8 +5340,8 @@ def main():
     # ---- phases 12 and 13: the bf16 dtypes at full width (the per-relation
     # softmax GAT's #6 / #7 among them), the quality gate
     bf16_rows = timed_phase("12a", phase_bf16_kernels, kt, cg, device, card,
-                            floors16)
-    bf16_launches, bf16_worst, _, rel_rows = timed_phase(
+                            floors16, parent)
+    bf16_launches, bf16_worst, _, rel_rows, bf16_epoch = timed_phase(
         "12b-d", phase_bf16_models, kt, data, cg, device, card, floors16)
     bf16_rows.update(rel_rows)
     timed_phase("13", phase_gate, kt, card, tmp)
@@ -5260,6 +5418,12 @@ def main():
             "gather_floor_ms": r["floor_ms"],
             "f32_ms": r["f32_ms"],
             "f32_device_ms": r["f32_device_ms"],
+            # counted over a full-width epoch of train_steps, by variant
+            # (phase 12's EPOCH_VARIANTS; kernels they launch)
+            **({"epoch_launches": ep} if (ep := {
+                v: c[name] for v, c in bf16_epoch.items() if c.get(name)})
+               else {}),
+            **{k: r[k] for k in ("parent_ms", "parent_device_ms") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

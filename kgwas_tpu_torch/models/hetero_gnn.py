@@ -66,7 +66,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..graph.synthetic import GO_TYPES
-from ..ops.gat_layer import BWD_CHUNK_EDGES, MergedGATLayer, layout_schedule
+from ..ops.gat_layer import (BWD_CHUNK_EDGES, MergedGATLayer,
+                              check_src_owner, layout_schedule)
 from ..ops.gat_layer import schedule as gat_schedule
 from ..ops.segment_ref import leaky_relu
 from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
@@ -243,8 +244,10 @@ def device_layouts(layouts, device, cg=None, path="merged"
     degree norms over its real edges (relation_norms). Every stream whose
     backward runs the CSC segment sum carries its fields
     (segment.csc_fields): the merged ones on 'merged' (with the fold) and
-    'mp', the relation streams on 'relations'. All are built once: a
-    layout never changes."""
+    'mp', the relation streams on 'relations'. On 'merged' each stream's
+    slots are checked to read only their own source rows
+    (gat_layer.check_src_owner), as the bf16 instances' per-row scores
+    need. All are built once: a layout never changes."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -285,6 +288,8 @@ def device_layouts(layouts, device, cg=None, path="merged"
         if "relations" in paths:
             extra["relations"] = [relation(rk) for rk in L.rel_keys]
         if "merged" in paths:
+            check_src_owner(L.src, L.row_offsets, L.n_rows_per_rel,
+                            L.src_base)
             # built once: the layout, and so the schedule, never changes
             sched = functools.partial(gat_schedule, L.row_offsets,
                                       L.n_rows_per_rel, len(L.rel_keys))

@@ -65,16 +65,23 @@ KERNELS = {
         [_P] * 12 + [_I64, _I64, _I32, _P],
     ),
     # the bf16 instances (bf16 value tables), in the same sources
+    # (the merged GAT kernels' bf16 instances take the per-source-row
+    # scores a_src after a_dst, from the score pass merged_gat_a_src_bf16)
     "merged_gat_fwd_bf16": (
         "merged_gat_fwd.cu",
         "kgwas_merged_gat_fwd_bf16",
-        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32,
-                    _F32, _F32, _P],
+        [_P] * 10 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32,
+                     _F32, _F32, _P],
+    ),
+    "merged_gat_a_src_bf16": (
+        "merged_gat_fwd.cu",
+        "kgwas_merged_gat_a_src_bf16",
+        [_P, _P, _P, ctypes.POINTER(_I64), _I32, _I32, _P],
     ),
     "merged_gat_bwd_bf16": (
         "merged_gat_bwd.cu",
         "kgwas_merged_gat_bwd_bf16",
-        [_P] * 12 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32, _F32,
+        [_P] * 13 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32, _F32,
                      _F32, _P],
     ),
     "csc_segment_sum_bf16": (

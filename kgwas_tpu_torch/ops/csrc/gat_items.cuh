@@ -189,6 +189,16 @@ __device__ __forceinline__ ItemRows item_rows(const int4 it,
   return r;
 }
 
+// The unit i = k / F of an item's row k < kItemMaxRows without an integer
+// division (a sequence of some twenty instructions for a divisor known only
+// at run time): (k * unit_multiplier(F)) >> 16, exact for k, F <= 32.
+__device__ __forceinline__ int unit_multiplier(int F) {
+  return (65536 + F - 1) / F;
+}
+__device__ __forceinline__ int unit_of(int k, int mul) {
+  return (k * mul) >> 16;
+}
+
 // Stages the item's edges: s_src[v] and s_k[v] (its row) for each virtual
 // edge v, from s_beg / s_vbeg (row k's first edge and first virtual edge).
 // A row holding virtual edge v is the last row k with s_vbeg[k] <= v.
@@ -210,6 +220,28 @@ __device__ __forceinline__ void stage_edges(const ItemRows& r,
     }
     s_k[v] = static_cast<unsigned char>(lo);
     s_src[v] = src[s_beg[lo] + v - s_vbeg[lo]];
+  }
+  __syncwarp();
+}
+
+// s_val[v] = table[s_src[v]] for the item's total edges, up to 4 windows
+// of 32 loads issued before any is stored
+__device__ __forceinline__ void gather_edge_values(
+    const float* __restrict__ table, const int* s_src, float* s_val,
+    int total, int lane) {
+  constexpr int W = 4;
+  for (int v0 = 0; v0 < total; v0 += 32 * W) {
+    float x[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int v = v0 + 32 * w + lane;
+      x[w] = v < total ? table[s_src[v]] : 0.0f;
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int v = v0 + 32 * w + lane;
+      if (v < total) s_val[v] = x[w];
+    }
   }
   __syncwarp();
 }
@@ -242,6 +274,81 @@ __device__ __forceinline__ void load_group(float* ring, int rl, int g,
     copy_row<VEC, NV>(stage + q * rl,
                       xs + static_cast<size_t>(s_src[g * kGroup + q]) * d,
                       lane, d);
+}
+
+// ---- bf16 rows through a ring (the merged GAT kernels' bf16 instances)
+//
+// A ring row holds a bf16 feature row as it lies in device memory: at
+// D = 128 * NV its 256 * NV bytes, copied 16 bytes a lane (two rows a warp
+// instruction at D = 128); at any other even D its 2D bytes, 4 bytes a
+// lane. A lane reads back the columns Row<VEC, NV>::load gives it from
+// device memory, so a dot over ring rows sums in the same order.
+
+// ring row length in 32-bit words (the launch sizes shared memory with it)
+template <bool VEC, int NV>
+__host__ __device__ __forceinline__ int row_words_bf16(int d) {
+  return VEC ? 64 * NV : d / 2;
+}
+
+// ring stages of kGroup rows: two, one loading while one is used (at
+// D = 128, 3 or 4 stages cost warps per SM and measured slower at full
+// width: the items' latency, not the rows in flight, bounds the kernels)
+constexpr int kStagesBf16 = 2;
+
+// cp.async of group g's bf16 source rows (edges 8g .. 8g+7 of the item)
+// into stage g % kStagesBf16 of a ring of kGroup-row stages of rw words
+template <bool VEC, int NV>
+__device__ __forceinline__ void load_group_bf16(
+    unsigned* ring, int rw, int g, int total, const int* s_src,
+    const __nv_bfloat16* __restrict__ xs, int lane, int d) {
+  unsigned* stage = ring + (g % kStagesBf16) * kGroup * rw;
+  const int n = min(kGroup, total - g * kGroup);
+  if (VEC) {
+    constexpr int P = 16 * NV;  // 16-byte pieces of a row
+    for (int i = lane; i < n * P; i += 32) {
+      const int q = i / P, c = i - q * P;
+      const float* row = reinterpret_cast<const float*>(
+          xs + static_cast<size_t>(s_src[g * kGroup + q]) * d);
+      cp_async16(reinterpret_cast<float*>(stage + q * rw + 4 * c),
+                 row + 4 * c);
+    }
+  } else {
+    for (int q = 0; q < n; ++q) {
+      const float* row = reinterpret_cast<const float*>(
+          xs + static_cast<size_t>(s_src[g * kGroup + q]) * d);
+      for (int c = lane; c < rw; c += 32)
+        cp_async4(reinterpret_cast<float*>(stage + q * rw + c), row + c);
+    }
+  }
+}
+
+// a lane's columns of a bf16 ring row, widened to float32
+template <bool VEC, int NV>
+__device__ __forceinline__ void load_ring_bf16(Row<VEC, NV>& x,
+                                               const unsigned* row, int lane,
+                                               int d) {
+  if (VEC) {
+    const uint2* p = reinterpret_cast<const uint2*>(row);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const uint2 q = p[k * 32 + lane];
+      const float2 lo =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+      const float2 hi =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+      x.v[4 * k] = lo.x;
+      x.v[4 * k + 1] = lo.y;
+      x.v[4 * k + 2] = hi.x;
+      x.v[4 * k + 3] = hi.y;
+    }
+  } else {
+    const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(row);
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      const int col = lane + 32 * k;
+      x.v[k] = col < d ? __bfloat162float(r[col]) : 0.0f;
+    }
+  }
 }
 
 // Rows of one register batch when a warp gathers feature rows into

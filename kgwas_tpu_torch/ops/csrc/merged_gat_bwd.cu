@@ -48,10 +48,15 @@
 // forward's rounded weights bf16(exp(min(l_e - row_max, 60))) times
 // g_row . xs[src_e], over row_sum + 1e-16. w_e, dz_e and d_a_dst stay
 // float32 (the TPU kernel's d_msgs rounding is csc_segment_sum.cu's). exp
-// and the divisions are the accurate ones, as the plain version's. A warp
-// gathers its edges' rows into registers (two batches of 4 at D = 128,
-// 8 bytes a lane) and sums each batch's two or three dots in transposing
-// butterflies; the item's cotangent rows wait in shared memory.
+// and the divisions are the accurate ones, as the plain version's. The
+// score is the forward's per-source-row a_src (merged_gat_fwd.cu), so z_e
+// = a_src[src_e] + a_dst[row] costs 4 bytes an edge and no dot. The two
+// dots left, bf16(g_row) . x_e and (softmax) g_row . x_e, read the rows
+// from a cp.async ring of two 8-row stages (one loads while the other is
+// scored), the lanes' columns and the transposing
+// butterfly those of the per-edge dots before (one butterfly of 8 sums a
+// group a dot); the item's cotangent rows wait in shared memory. The second
+// pass, the chunks and their combine are unchanged.
 
 #include <cuda_runtime.h>
 
@@ -103,6 +108,7 @@ struct Args {
   float slope;
   float temperature;
   const __nv_bfloat16* xsb;  // [S, D]: the bf16 instance's table
+  const float* a_src;        // [S]: the bf16 instance's per-row scores
 };
 
 // the final w_e and dz_e of an edge from z_e, m_e and its row's lse and
@@ -402,23 +408,23 @@ __device__ __forceinline__ void load_shared(kgwas::Row<VEC, NV>& x,
   }
 }
 
+// shared memory of one warp in 32-bit words: the item's cotangent rows
+// (kItemMaxUnits float32 rows of rl), the ring (S stages of kGroup bf16
+// rows of rw words), s_src, s_z, s_m, s_m2 (kBwdMaxEdges each), s_beg,
+// s_vbeg, s_dot, s_da (kItemMaxRows each) and s_k (kBwdMaxEdges bytes)
+__host__ __device__ inline int bwd_bf16_words(int rl, int rw, int stages) {
+  return kItemMaxUnits * rl + stages * kGroup * rw + 4 * kBwdMaxEdges +
+         4 * kItemMaxRows + kBwdMaxEdges / 4;
+}
+
 template <int MODE, bool VEC, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 merged_gat_bwd_bf16_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  constexpr int S = kgwas::kStagesBf16;
   constexpr int E = kBwdMaxEdges;
   constexpr bool SM = MODE == kSoftmax;
-  extern __shared__ __align__(16) float smem[];  // the g rows
-  __shared__ int s_src_w[kWarps][E];
-  __shared__ int s_beg_w[kWarps][kItemMaxRows];
-  __shared__ int s_vbeg_w[kWarps][kItemMaxRows];
-  __shared__ unsigned char s_k_w[kWarps][E];
-  __shared__ float s_z_w[kWarps][E];
-  __shared__ float s_m_w[kWarps][E];
-  __shared__ float s_m2_w[kWarps][SM ? E : 1];
-  __shared__ float s_dot_w[kWarps][kItemMaxRows];
-  __shared__ float s_da_w[kWarps][kItemMaxRows];
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long wi = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -427,15 +433,18 @@ merged_gat_bwd_bf16_kernel(const Args a) {
   const int d = a.d;
   const int F = a.fold_slots;
   const int rl = kgwas::row_len<VEC, NV>(d);
-  float* s_g = smem + static_cast<size_t>(warp) * kItemMaxUnits * rl;
-  int* s_beg = s_beg_w[warp];
-  int* s_vbeg = s_vbeg_w[warp];
-  unsigned char* s_k = s_k_w[warp];
-  float* s_z = s_z_w[warp];
-  float* s_m = s_m_w[warp];
-  float* s_m2 = s_m2_w[warp];
-  float* s_dot = s_dot_w[warp];
-  float* s_da = s_da_w[warp];
+  const int rw = kgwas::row_words_bf16<VEC, NV>(d);
+  float* s_g = smem + static_cast<size_t>(warp) * bwd_bf16_words(rl, rw, S);
+  unsigned* ring = reinterpret_cast<unsigned*>(s_g + kItemMaxUnits * rl);
+  int* s_src = reinterpret_cast<int*>(ring + S * kGroup * rw);
+  float* s_z = reinterpret_cast<float*>(s_src + E);
+  float* s_m = s_z + E;
+  float* s_m2 = s_m + E;
+  int* s_beg = reinterpret_cast<int*>(s_m2 + E);
+  int* s_vbeg = s_beg + kItemMaxRows;
+  float* s_dot = reinterpret_cast<float*>(s_vbeg + kItemMaxRows);
+  float* s_da = s_dot + kItemMaxRows;
+  unsigned char* s_k = reinterpret_cast<unsigned char*>(s_da + kItemMaxRows);
 
   const kgwas::ItemRows it = kgwas::item_rows(
       a.items[item], a.row_offsets, a.n_rows_per_rel, F, lane);
@@ -446,7 +455,16 @@ merged_gat_bwd_bf16_kernel(const Args a) {
     s_dot[lane] = 0.0f;
     s_da[lane] = 0.0f;
   }
-  kgwas::stage_edges(it, a.src, s_beg, s_vbeg, s_src_w[warp], s_k, lane);
+  kgwas::stage_edges(it, a.src, s_beg, s_vbeg, s_src, s_k, lane);
+  const int n_groups = (it.total + kGroup - 1) / kGroup;
+#pragma unroll
+  for (int g = 0; g < S - 1; ++g) {
+    if (g < n_groups)
+      kgwas::load_group_bf16<VEC, NV>(ring, rw, g, it.total, s_src, a.xsb,
+                                      lane, d);
+    kgwas::cp_async_commit();
+  }
+  kgwas::gather_edge_values(a.a_src, s_src, s_z, it.total, lane);
   float ad = 0.0f, rmax = 0.0f, rsum = 0.0f, lse = 0.0f;
   if (lane < it.n_rows) {
     ad = a.a_dst[it.row];
@@ -456,70 +474,62 @@ merged_gat_bwd_bf16_kernel(const Args a) {
       lse = rmax + logf(rsum + kEps);
     }
   }
-  kgwas::cp_async_wait<0>();
-  __syncwarp();
+  const int n_win = (it.total + 31) / 32;
 
-  // pass 1: z_e, m_e (and with softmax g_row . x_e unrounded) per edge
-  int att_slot = -1, g_unit = -1;
-  R attr, gr, grr;
-  auto take = [&](const R (&x)[U], int v) {
-    float pz[U], pm[U], pm2[U];
+  // z_e = a_src[src_e] + a_dst[row], a lane an edge
+  for (int wn = 0; wn < n_win; ++wn) {
+    const int v = wn * 32 + lane;
+    const bool ok = v < it.total;
+    const float adk = __shfl_sync(kFull, ad, ok ? s_k[v] : 0);
+    if (ok) s_z[v] = s_z[v] + adk;
+  }
+
+  // m_e = bf16(g_row) . x_e (and with softmax g_row . x_e unrounded) from
+  // the rows in the ring: a group's dots summed in one transposing
+  // butterfly, each total written by the lane that holds it
+  int g_unit = -1;
+  const int fmul = kgwas::unit_multiplier(F);
+  R gr, grr;
+  for (int g = 0; g < n_groups; ++g) {
+    if (g + S - 1 < n_groups)
+      kgwas::load_group_bf16<VEC, NV>(ring, rw, g + S - 1, it.total,
+                                      s_src, a.xsb, lane, d);
+    kgwas::cp_async_commit();
+    kgwas::cp_async_wait<S - 1>();  // the g rows and group g have landed
+    __syncwarp();
+    const unsigned* stage = ring + (g % S) * kGroup * rw;
+    const int cnt = min(kGroup, it.total - g * kGroup);
+    float pm[kGroup], pm2[kGroup];
+    // the group's rows k, one read (past the end: the last edge again)
+    const uint2 keys = *reinterpret_cast<const uint2*>(s_k + g * kGroup);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = s_k[min(v + u, it.total - 1)];  // warp-uniform
-      const int slot = __shfl_sync(kFull, it.slot, k);
-      if (slot != att_slot) {
-        attr.load(a.att + static_cast<size_t>(slot) * d, lane, d);
-#pragma unroll
-        for (int c = 0; c < R::C; ++c) attr.v[c] = kgwas::round_bf16(attr.v[c]);
-        att_slot = slot;
-      }
-      const int i = it.chunk ? 0 : k / F;
+    for (int u = 0; u < kGroup; ++u) {
+      const int uu = min(u, cnt - 1);
+      const int k = ((uu < 4 ? keys.x : keys.y) >> (8 * (uu & 3))) & 0xff;
+      const int i = it.chunk ? 0 : kgwas::unit_of(k, fmul);
       if (i != g_unit) {
         load_shared<VEC, NV>(gr, s_g + i * rl, lane, d);
 #pragma unroll
         for (int c = 0; c < R::C; ++c) grr.v[c] = kgwas::round_bf16(gr.v[c]);
         g_unit = i;
       }
-      pz[u] = kgwas::row_dot(x[u], attr);
-      pm[u] = kgwas::row_dot(x[u], grr);
-      pm2[u] = SM ? kgwas::row_dot(x[u], gr) : 0.0f;
+      R x;
+      kgwas::load_ring_bf16<VEC, NV>(x, stage + uu * rw, lane, d);
+      pm[u] = kgwas::row_dot(x, grr);
+      pm2[u] = SM ? kgwas::row_dot(x, gr) : 0.0f;
     }
-    const float tz = kgwas::multi_sum<U>(pz, lane);
-    const float tm = kgwas::multi_sum<U>(pm, lane);
-    const float tm2 = SM ? kgwas::multi_sum<U>(pm2, lane) : 0.0f;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int vu = v + u;
-      const int src_lane = u * (32 / U);
-      const int k = s_k[min(vu, it.total - 1)];
-      const float z = __shfl_sync(kFull, tz, src_lane) +
-                      __shfl_sync(kFull, ad, k);
-      const float m = __shfl_sync(kFull, tm, src_lane);
-      const float m2 = SM ? __shfl_sync(kFull, tm2, src_lane) : 0.0f;
-      if (lane == 0 && vu < it.total) {
-        s_z[vu] = z;
-        s_m[vu] = m;
-        if (SM) s_m2[vu] = m2;
-      }
+    const float tm = kgwas::multi_sum<kGroup>(pm, lane);
+    const float tm2 = SM ? kgwas::multi_sum<kGroup>(pm2, lane) : 0.0f;
+    constexpr int kLanes = 32 / kGroup;  // lanes holding each total
+    const int u = lane / kLanes;
+    if (lane % kLanes == 0 && u < cnt) {
+      s_m[g * kGroup + u] = tm;
+      if (SM) s_m2[g * kGroup + u] = tm2;
     }
-  };
-  R xa[U], xb[U];
-  const int* s_src = s_src_w[warp];
-  if (it.total > 0)
-    kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, 0, it.total, lane, d);
-  for (int v = 0; v < it.total; v += 2 * U) {
-    if (v + U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xb, a.xsb, s_src, v + U, it.total, lane,
-                                     d);
-    take(xa, v);
-    if (v + 2 * U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, v + 2 * U, it.total,
-                                     lane, d);
-    if (v + U < it.total) take(xb, v + U);
+    __syncwarp();  // the stage is read before it is loaded again
   }
+  kgwas::cp_async_wait<0>();
   __syncwarp();
-  const int n_win = (it.total + 31) / 32;
 
   // the sum over the row of the forward's rounded weight times m2
   if (SM) {
@@ -622,16 +632,18 @@ merged_gat_bwd_combine_bf16_kernel(const Args a) {
 
 template <int MODE, bool VEC, int NV>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  constexpr int S = kgwas::kStagesBf16;
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks =
       (a.n_split * a.fold_slots + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   const int rl = kgwas::row_len<VEC, NV>(a.d);
-  const size_t smem = sizeof(float) * kWarps * kItemMaxUnits * rl;
+  const int rw = kgwas::row_words_bf16<VEC, NV>(a.d);
+  const size_t smem = sizeof(float) * kWarps * bwd_bf16_words(rl, rw, S);
   if (blocks > 0) {
     auto kern = merged_gat_bwd_bf16_kernel<MODE, VEC, NV>;
-    if (smem > 16 * 1024) {  // beside ~19 KB of static shared memory
+    if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
@@ -681,6 +693,7 @@ extern "C" int kgwas_merged_gat_bwd(
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.xsb = nullptr;
+  a.a_src = nullptr;
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.att = static_cast<const float*>(att);
@@ -711,11 +724,14 @@ extern "C" int kgwas_merged_gat_bwd(
   }
 }
 
-// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
-// aligned rows at D = 128 * NV; the wrapper checks).
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (16-byte
+// aligned at D = 128 * NV, else 4-byte aligned; the wrapper checks), and
+// a_src [S] from kgwas_merged_gat_a_src_bf16 (merged_gat_fwd.cu) on the
+// same table and att.
 extern "C" int kgwas_merged_gat_bwd_bf16(
     const void* xs, const void* src, const void* row_offsets, const void* att,
-    const void* a_dst, const void* row_max, const void* row_sum,
+    const void* a_dst, const void* a_src, const void* row_max,
+    const void* row_sum,
     const void* g, void* w, void* dz, void* d_a_dst, const void* items,
     long long n_items, const void* split_units, const void* part_offsets,
     long long n_split, void* part_dot, long long n_rows_per_rel,
@@ -724,6 +740,7 @@ extern "C" int kgwas_merged_gat_bwd_bf16(
   Args a;
   a.xs = nullptr;
   a.xsb = static_cast<const __nv_bfloat16*>(xs);
+  a.a_src = static_cast<const float*>(a_src);
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.att = static_cast<const float*>(att);

@@ -49,16 +49,31 @@
 // each weight rounded to bf16 before it multiplies its message (products
 // of two bf16 values are exact in float32; the sums are float32). The
 // softmax weight is exp(min(l - row_max, 60)) against the row's max,
-// known before the row is aggregated: so the instance makes two passes
-// over its items, a first that scores every edge and writes each row's
-// max (a chunked row's from its chunks' maxima, by a small launch), and a
-// second that scores again and aggregates; the weights' sum is of the
+// known before the row is aggregated; the weights' sum is of the
 // unrounded weights. exp and the divisions are the accurate ones (expf,
-// IEEE division), as the plain version's. A warp gathers its edges' rows
-// into registers, two batches of 4 in flight at D = 128 (8 bytes a lane:
-// a bf16 row is 256 bytes), and sums each batch's dots in one transposing
-// butterfly (warp_rows.cuh multi_sum). Its bound: the same bytes with
-// 2-byte rows, twice the gather (the second pass mostly from L2).
+// IEEE division), as the plain version's.
+//
+// The score depends on the source row alone: slot r owns the rows
+// src_base[r] .. src_base[r+1] of the table, so a first pass
+// (kgwas_merged_gat_a_src_bf16, one launch per layer forward, whose
+// result the backward reuses) takes one dot per source row, a_src[s] =
+// bf16(att[slot(s)]) . xs[s], with the lanes' columns and the transposing
+// butterfly (warp_rows.cuh row_dot, multi_sum) the per-edge dot had: the
+// Gene group's 457,728 rows against its 1,781,760 edges. The item kernel
+// then reads 4 bytes an edge to form every logit and each packed row's
+// max before it gathers any row (a chunked row's max comes from a small
+// launch over its edges' a_src), and gathers each edge's 256-byte row
+// once, through a cp.async ring of two 8-row stages, weighting it in edge
+// order, row by row (runs of edges inside a stage, no shared-memory read
+// on the way to the next edge). Chunk partials and their combine are the
+// f32 instance's. What bounds it: the same bytes as above with 2-byte
+// rows and 4 bytes of a_src a row; then the gather of one 256-byte row an
+// edge, from L2 for the SNP group and mostly from device memory for the
+// Gene group's 117 MB table; measured (PERF.md), each item's chain of
+// dependent steps (its indices, its scores, the ring, one row after
+// another), which the SNP group's short rows, 16 to an item, make long.
+// The unit of a row comes from a multiply and a shift (gat_items.cuh
+// unit_of), not an integer division.
 
 #include <cuda_runtime.h>
 
@@ -105,6 +120,7 @@ struct Args {
   float slope;
   float temperature;
   const __nv_bfloat16* xsb;  // [S, D]: the bf16 instance's table
+  const float* a_src;        // [S]: the bf16 instance's per-row scores
 };
 
 // leaky_relu(a_src + a_dst) / temperature, the division folded into two
@@ -366,8 +382,75 @@ cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
 
 // ---- the bf16 instance
 
-constexpr int kPhaseMax = 0;  // score every edge, write each row's max
-constexpr int kPhaseAgg = 1;  // score again and aggregate
+constexpr int kMaxSlots = 32;  // slots of a group (ops/gat_layer.py)
+constexpr int kSrcBatches = 8;  // register batches of rows a warp scores
+
+// shared memory of one warp in 32-bit words: the ring (S stages of kGroup
+// rows of rw words), then s_w, s_src (kFwdMaxEdges each), s_beg, s_vbeg,
+// s_mx (kItemMaxRows each) and s_k (kFwdMaxEdges bytes)
+__host__ __device__ inline int fwd_bf16_words(int rw, int stages) {
+  return stages * kGroup * rw + 2 * kgwas::kFwdMaxEdges +
+         3 * kgwas::kItemMaxRows + kgwas::kFwdMaxEdges / 4;
+}
+
+struct SrcArgs {
+  const __nv_bfloat16* xs;  // [S, D]
+  const float* att;         // [R, D]
+  float* a_src;             // [S]
+  long long src_base[kMaxSlots + 1];
+  long long s_begin;        // src_base[0]
+  long long s_end;          // src_base[R]
+  int n_slots;              // R
+  int d;
+};
+
+// a_src[s] = round_bf16(att[slot(s)]) . xs[s] for the source rows s of the
+// slots, slot r owning rows src_base[r] .. src_base[r+1]: a warp scores
+// kSrcBatches batches of U consecutive rows, each batch's dots summed in
+// one transposing butterfly. The lanes' columns and the butterfly are the
+// ones the edge kernels used per edge, so a_src[src_e] has the bits of
+// that per-edge score.
+template <bool VEC, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_a_src_kernel(const SrcArgs a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  const int lane = threadIdx.x & 31;
+  const long long w =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const long long first = a.s_begin + w * (kSrcBatches * U);
+  if (first >= a.s_end) return;  // whole warp exits together
+  const int d = a.d;
+  int slot = 0;
+  while (slot + 1 < a.n_slots && a.src_base[slot + 1] <= first) ++slot;
+  int att_slot = -1;
+  R attr;
+  for (int b = 0; b < kSrcBatches; ++b) {
+    const long long s0 = first + b * U;
+    if (s0 >= a.s_end) break;  // warp-uniform
+    R x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      x[u].load(a.xs + static_cast<size_t>(min(s0 + u, a.s_end - 1)) * d,
+                lane, d);
+    float p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long s = min(s0 + u, a.s_end - 1);
+      while (slot + 1 < a.n_slots && a.src_base[slot + 1] <= s) ++slot;
+      if (slot != att_slot) {
+        attr.load(a.att + static_cast<size_t>(slot) * d, lane, d);
+#pragma unroll
+        for (int c = 0; c < R::C; ++c) attr.v[c] = kgwas::round_bf16(attr.v[c]);
+        att_slot = slot;
+      }
+      p[u] = kgwas::row_dot(x[u], attr);
+    }
+    const float tot = kgwas::multi_sum<U>(p, lane);
+    const int u = lane / (32 / U);
+    if (lane % (32 / U) == 0 && s0 + u < a.s_end) a.a_src[s0 + u] = tot;
+  }
+}
 
 // the logit of the bf16 instance: leaky_relu(z) / temperature, as the
 // plain version divides
@@ -376,56 +459,128 @@ __device__ __forceinline__ float edge_logit_bf16(float z, float slope,
   return (z >= 0.0f ? z : slope * z) / t;
 }
 
-template <int MODE, bool VEC, int NV, int PHASE>
+// The max logit of each chunked slot row, from a_src over its edges (4
+// bytes an edge): one warp per slot row of a unit cut into chunks.
+__global__ void __launch_bounds__(kWarps * 32)
+merged_gat_chunk_max_bf16_kernel(const Args a) {
+  const int lane = threadIdx.x & 31;
+  const long long jr =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int F = a.fold_slots;
+  if (jr >= a.n_split * F) return;
+  const long long u = a.split_units[jr / F];
+  const long long row = F > 1 ? (jr % F) * a.n_rows_per_rel + u : u;
+  const int beg = a.row_offsets[row], end = a.row_offsets[row + 1];
+  const float ad = a.a_dst[row];
+  float m = kNegBig;
+  for (int e = beg + lane; e < end; e += 32)
+    m = fmaxf(m, edge_logit_bf16(a.a_src[a.src[e]] + ad, a.slope,
+                                 a.temperature));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  if (lane == 0) a.row_max[row] = m;
+}
+
+// One warp per item, one pass: every edge's logit from a_src[src_e] and
+// a_dst (a lane an edge), the packed rows' softmax max (a chunk's from
+// merged_gat_chunk_max_bf16_kernel), every edge's weight, then the rows
+// aggregated in edge order through the cp.async ring.
+template <int MODE, bool VEC, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 merged_gat_fwd_bf16_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  constexpr int S = kgwas::kStagesBf16;
   constexpr int E = kgwas::kFwdMaxEdges;
-  __shared__ int s_src_w[kWarps][E];
-  __shared__ int s_beg_w[kWarps][kgwas::kItemMaxRows];
-  __shared__ int s_vbeg_w[kWarps][kgwas::kItemMaxRows];
-  __shared__ unsigned char s_k_w[kWarps][E];
+  constexpr int KR = kgwas::kItemMaxRows;
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long w = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (w >= a.n_items) return;  // whole warp exits together
   const long long item = kgwas::item_of_warp(w, a.n_items);
-  int* s_src = s_src_w[warp];
-  unsigned char* s_k = s_k_w[warp];
   const int d = a.d;
   const int F = a.fold_slots;
+  const int rw = kgwas::row_words_bf16<VEC, NV>(d);
+  unsigned* ring = reinterpret_cast<unsigned*>(smem) +
+                   static_cast<size_t>(warp) * fwd_bf16_words(rw, S);
+  float* s_w = reinterpret_cast<float*>(ring + S * kGroup * rw);
+  int* s_src = reinterpret_cast<int*>(s_w + E);
+  int* s_beg = s_src + E;
+  int* s_vbeg = s_beg + KR;
+  float* s_mx = reinterpret_cast<float*>(s_vbeg + KR);
+  unsigned char* s_k = reinterpret_cast<unsigned char*>(s_mx + KR);
 
   const kgwas::ItemRows it = kgwas::item_rows(
       a.items[item], a.row_offsets, a.n_rows_per_rel, F, lane);
-  if (PHASE == kPhaseAgg && !it.chunk && lane < it.n_rows && it.cnt == 0) {
+  // a packed item's rows without edges: the plain version's NEG_BIG and 0
+  if (!it.chunk && lane < it.n_rows && it.cnt == 0) {
     a.row_max[it.row] = kNegBig;
     a.row_sum[it.row] = 0.0f;
   }
-  kgwas::stage_edges(it, a.src, s_beg_w[warp], s_vbeg_w[warp], s_src, s_k,
-                     lane);
-  const float ad = lane < it.n_rows ? a.a_dst[it.row] : 0.0f;
+  kgwas::stage_edges(it, a.src, s_beg, s_vbeg, s_src, s_k, lane);
 
-  int att_slot = -1;  // the slot whose rounded att row is in attr
-  R attr;
-  int cur = -1;       // the row being scored or aggregated
+  // the ring's first S - 1 stages are in flight while the weights form,
+  // from each edge's score a_src[src_e] (into s_w)
+  const int n_groups = (it.total + kGroup - 1) / kGroup;
+#pragma unroll
+  for (int g = 0; g < S - 1; ++g) {
+    if (g < n_groups)
+      kgwas::load_group_bf16<VEC, NV>(ring, rw, g, it.total, s_src, a.xsb,
+                                      lane, d);
+    kgwas::cp_async_commit();
+  }
+  kgwas::gather_edge_values(a.a_src, s_src, s_w, it.total, lane);
+
+  // every edge's logit (a lane an edge); without a max to wait for (a
+  // chunk's is its row's, the other modes take none) its weight at once
+  constexpr bool SM = MODE == kSoftmax;
+  const float ad = lane < it.n_rows ? a.a_dst[it.row] : 0.0f;
+  float mrow = kNegBig;  // lane k: row k's softmax max
+  if (SM && it.chunk) mrow = a.row_max[it.row];
+  if (SM && !it.chunk && lane < KR) s_mx[lane] = kNegBig;
+  __syncwarp();
+  const bool direct = !SM || it.chunk;
+  const int n_win = (it.total + 31) / 32;
+  for (int wn = 0; wn < n_win; ++wn) {
+    const int v = wn * 32 + lane;
+    const bool ok = v < it.total;
+    const int k = ok ? s_k[v] : 0;
+    const float adk = __shfl_sync(kFull, ad, k);
+    float l = kNegBig;
+    if (ok) {
+      l = edge_logit_bf16(s_w[v] + adk, a.slope, a.temperature);
+      if (!direct)
+        s_w[v] = l;
+      else if (SM)
+        s_w[v] = expf(fminf(l - mrow, kExpClamp));
+      else
+        s_w[v] = MODE == kSigmoid ? 1.0f / (1.0f + expf(-l))
+                                  : l * a.temperature;
+    }
+    if (!direct) kgwas::segmented_max(l, ok ? k : 255, s_mx, lane);
+  }
+  if (!direct) {  // the packed rows' softmax weights against their max
+    mrow = lane < KR ? s_mx[lane] : kNegBig;
+    for (int wn = 0; wn < n_win; ++wn) {
+      const int v = wn * 32 + lane;
+      const bool ok = v < it.total;
+      const float mk = __shfl_sync(kFull, mrow, ok ? s_k[v] : 0);
+      if (ok) s_w[v] = expf(fminf(s_w[v] - mk, kExpClamp));
+    }
+  }
+  __syncwarp();
+
+  int cur = -1;       // the row being aggregated
   int next_unit = 0;  // units before it are stored
   float m = kNegBig, s = 0.0f;
   R acc, res;
   acc.zero();
   res.zero();
 
+  // lane k keeps row k's statistics, stored together at the item's end
+  float row_m = kNegBig, row_s = 0.0f;
   auto finish_row = [&](int k) {
-    const long long row = __shfl_sync(kFull, it.row, k);
-    if (PHASE == kPhaseMax) {
-      if (lane == 0) {
-        if (it.chunk)
-          a.part_m[it.part] = m;
-        else
-          a.row_max[row] = m;
-      }
-      return;
-    }
     if (it.chunk) {
       if (lane == 0) {
         a.part_m[it.part] = m;
@@ -434,13 +589,13 @@ merged_gat_fwd_bf16_kernel(const Args a) {
       acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
       return;
     }
-    if (lane == 0) {
-      a.row_max[row] = MODE == kSoftmax ? m : kNegBig;
-      a.row_sum[row] = MODE == kSoftmax ? s : 0.0f;
+    if (SM && lane == k) {
+      row_m = m;
+      row_s = s;
     }
 #pragma unroll
     for (int c = 0; c < R::C; ++c)
-      res.v[c] += MODE == kSoftmax ? acc.v[c] / (s + kEps) : acc.v[c];
+      res.v[c] += SM ? acc.v[c] / (s + kEps) : acc.v[c];
   };
   auto store_unit = [&](int i) {
     R zero;
@@ -451,127 +606,106 @@ merged_gat_fwd_bf16_kernel(const Args a) {
     next_unit = i + 1;
     res.zero();
   };
-  // a new row k: its softmax max (the first pass's) when aggregating
-  auto start_row = [&](int k) {
+
+  // group g of the ring made readable: the stage read last is free, so
+  // group g + S - 1 starts loading into it
+  auto next_group = [&](int g) {
+    __syncwarp();
+    if (g + S - 1 < n_groups)
+      kgwas::load_group_bf16<VEC, NV>(ring, rw, g + S - 1, it.total,
+                                      s_src, a.xsb, lane, d);
+    kgwas::cp_async_commit();
+    kgwas::cp_async_wait<S - 1>();  // group g has landed
+    __syncwarp();
+  };
+
+  // the rows in order, each row's edges in order: runs of edges inside one
+  // ring stage, with no shared-memory read on the way to the next edge
+  const int fmul = kgwas::unit_multiplier(F);
+  for (int k = 0; k < it.n_rows; ++k) {  // warp-uniform
+    const int cnt_k = __shfl_sync(kFull, it.cnt, k);
+    if (cnt_k == 0) continue;
+    if (cur >= 0) {
+      finish_row(cur);
+      const int i = kgwas::unit_of(cur, fmul);
+      if (!it.chunk && kgwas::unit_of(k, fmul) != i) store_unit(i);
+    }
     cur = k;
     s = 0.0f;
     acc.zero();
-    m = kNegBig;
-    if (PHASE == kPhaseAgg && MODE == kSoftmax)
-      m = a.row_max[__shfl_sync(kFull, it.row, k)];
-  };
-
-  // the U edges v..v+U-1 of batch x: their scores, then each edge in turn
-  auto take = [&](const R (&x)[U], int v) {
-    float p[U];
+    m = __shfl_sync(kFull, mrow, k);
+    const int v1 = __shfl_sync(kFull, it.vbeg, k) + cnt_k;
+    for (int v = v1 - cnt_k; v < v1;) {
+      if (v % kGroup == 0) next_group(v / kGroup);
+      const unsigned* stage = ring + ((v / kGroup) % S) * kGroup * rw;
+      const int run_end = min(v1, (v / kGroup + 1) * kGroup);
+      for (; v < run_end; ++v) {
+        const float wt = s_w[v];
+        if (SM) s += wt;
+        const float alpha = kgwas::round_bf16(wt);
+        R x;
+        kgwas::load_ring_bf16<VEC, NV>(x, stage + (v % kGroup) * rw, lane,
+                                       d);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = s_k[min(v + u, it.total - 1)];  // warp-uniform
-      const int slot = __shfl_sync(kFull, it.slot, k);
-      if (slot != att_slot) {
-        attr.load(a.att + static_cast<size_t>(slot) * d, lane, d);
-#pragma unroll
-        for (int c = 0; c < R::C; ++c) attr.v[c] = kgwas::round_bf16(attr.v[c]);
-        att_slot = slot;
+        for (int c = 0; c < R::C; ++c)
+          acc.v[c] = fmaf(alpha, x.v[c], acc.v[c]);
       }
-      p[u] = kgwas::row_dot(x[u], attr);
     }
-    const float tot = kgwas::multi_sum<U>(p, lane);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int vu = v + u;
-      const float dot = __shfl_sync(kFull, tot, u * (32 / U));
-      if (vu >= it.total) continue;  // warp-uniform
-      const int k = s_k[vu];
-      if (k != cur) {
-        if (cur >= 0) {
-          finish_row(cur);
-          if (PHASE == kPhaseAgg && !it.chunk && k / F != cur / F)
-            store_unit(cur / F);
-        }
-        start_row(k);
-      }
-      const float l = edge_logit_bf16(dot + __shfl_sync(kFull, ad, k),
-                                      a.slope, a.temperature);
-      if (PHASE == kPhaseMax) {
-        m = fmaxf(m, l);
-        continue;
-      }
-      float wt;
-      if (MODE == kSoftmax) {
-        wt = expf(fminf(l - m, kExpClamp));
-        s += wt;
-      } else {
-        wt = MODE == kSigmoid ? 1.0f / (1.0f + expf(-l)) : l * a.temperature;
-      }
-      const float alpha = kgwas::round_bf16(wt);
-#pragma unroll
-      for (int c = 0; c < R::C; ++c)
-        acc.v[c] = fmaf(alpha, x[u].v[c], acc.v[c]);
-    }
-  };
-
-  // two batches in flight: one is scored while the other arrives
-  R xa[U], xb[U];
-  if (it.total > 0)
-    kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, 0, it.total, lane, d);
-  for (int v = 0; v < it.total; v += 2 * U) {
-    if (v + U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xb, a.xsb, s_src, v + U, it.total, lane,
-                                     d);
-    take(xa, v);
-    if (v + 2 * U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, s_src, v + 2 * U, it.total,
-                                     lane, d);
-    if (v + U < it.total) take(xb, v + U);
   }
+  kgwas::cp_async_wait<0>();
   if (cur >= 0) {
     finish_row(cur);
-    if (PHASE == kPhaseAgg && !it.chunk) store_unit(cur / F);
+    if (!it.chunk) store_unit(kgwas::unit_of(cur, fmul));
   }
-  if (PHASE == kPhaseAgg && !it.chunk) {
+  if (!it.chunk) {
     R zero;
     zero.zero();
     for (; next_unit < it.n_units; ++next_unit)
       zero.store(a.out + (it.unit0 + next_unit) * d, lane, d);
+    if (lane < it.n_rows && it.cnt > 0) {  // rows without edges: above
+      a.row_max[it.row] = row_m;
+      a.row_sum[it.row] = row_s;
+    }
   }
 }
 
-// The max of each chunked slot row, from its chunks' maxima: one thread
-// per slot row of a unit cut into chunks.
-__global__ void __launch_bounds__(128) merged_gat_row_max_kernel(const Args a) {
-  const long long jr = static_cast<long long>(blockIdx.x) * 128 + threadIdx.x;
-  const int F = a.fold_slots;
-  if (jr >= a.n_split * F) return;
-  const long long u = a.split_units[jr / F];
-  const long long row = F > 1 ? (jr % F) * a.n_rows_per_rel + u : u;
-  float m = kNegBig;
-  for (int pi = a.part_offsets[jr]; pi < a.part_offsets[jr + 1]; ++pi)
-    m = fmaxf(m, a.part_m[pi]);
-  a.row_max[row] = m;
+template <bool VEC, int NV>
+cudaError_t launch_a_src(const SrcArgs& a, cudaStream_t stream) {
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  const long long per_block = static_cast<long long>(kWarps) * kSrcBatches * U;
+  const long long blocks = (a.s_end - a.s_begin + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks <= 0) return cudaSuccess;
+  merged_gat_a_src_kernel<VEC, NV>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int MODE, bool VEC, int NV>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  constexpr int S = kgwas::kStagesBf16;
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
-  const long long mblocks = (a.n_split * a.fold_slots + 127) / 128;
-  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
+  const long long mblocks = (a.n_split * a.fold_slots + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL || mblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   if (blocks == 0) return cudaSuccess;
   cudaError_t err;
-  if (MODE == kSoftmax) {
-    merged_gat_fwd_bf16_kernel<MODE, VEC, NV, kPhaseMax>
-        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+  if (MODE == kSoftmax && mblocks > 0) {
+    merged_gat_chunk_max_bf16_kernel<<<static_cast<unsigned>(mblocks),
+                                       kWarps * 32, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (mblocks > 0) {
-      merged_gat_row_max_kernel<<<static_cast<unsigned>(mblocks), 128, 0,
-                                  stream>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
   }
-  merged_gat_fwd_bf16_kernel<MODE, VEC, NV, kPhaseAgg>
-      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+  const int rw = kgwas::row_words_bf16<VEC, NV>(a.d);
+  const size_t smem = sizeof(unsigned) * kWarps * fwd_bf16_words(rw, S);
+  auto kern = merged_gat_fwd_bf16_kernel<MODE, VEC, NV>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (cblocks > 0) {
     merged_gat_combine_kernel<MODE, VEC, NV>
@@ -611,6 +745,7 @@ extern "C" int kgwas_merged_gat_fwd(
   Args a;
   a.xs = static_cast<const float*>(xs);
   a.xsb = nullptr;
+  a.a_src = nullptr;
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.att = static_cast<const float*>(att);
@@ -640,20 +775,23 @@ extern "C" int kgwas_merged_gat_fwd(
   }
 }
 
-// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
-// aligned rows at D = 128 * NV; the wrapper checks). Up to four launches:
-// with softmax the first pass and the chunked rows' maxima, then the
-// second pass and the combine of the chunked units.
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (16-byte
+// aligned at D = 128 * NV, else 4-byte aligned; the wrapper checks), and
+// a_src [S] from kgwas_merged_gat_a_src_bf16 on the same table and att.
+// Up to three launches: with softmax the chunked rows' maxima, then the
+// items and the combine of the chunked units.
 extern "C" int kgwas_merged_gat_fwd_bf16(
     const void* xs, const void* src, const void* row_offsets, const void* att,
-    const void* a_dst, void* out, void* row_max, void* row_sum,
-    const void* items, long long n_items, const void* split_units,
-    const void* part_offsets, long long n_split, void* part_m, void* part_s,
-    void* part_acc, long long n_rows_per_rel, int fold_slots, int d, int mode,
-    float slope, float temperature, void* stream) {
+    const void* a_dst, const void* a_src, void* out, void* row_max,
+    void* row_sum, const void* items, long long n_items,
+    const void* split_units, const void* part_offsets, long long n_split,
+    void* part_m, void* part_s, void* part_acc, long long n_rows_per_rel,
+    int fold_slots, int d, int mode, float slope, float temperature,
+    void* stream) {
   Args a;
   a.xs = nullptr;
   a.xsb = static_cast<const __nv_bfloat16*>(xs);
+  a.a_src = static_cast<const float*>(a_src);
   a.src = static_cast<const int*>(src);
   a.row_offsets = static_cast<const int*>(row_offsets);
   a.att = static_cast<const float*>(att);
@@ -680,5 +818,38 @@ extern "C" int kgwas_merged_gat_fwd_bf16(
     case kgwas::kSigmoid: return dispatch_width_bf16<kgwas::kSigmoid>(a, s);
     case kgwas::kRaw: return dispatch_width_bf16<kgwas::kRaw>(a, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 instance's logit pass: a_src[s] = round_bf16(att[r]) . xs[s]
+// (float32) for every source row s of slot r, src_base[r] <= s <
+// src_base[r+1]; src_base a host array of n_slots + 1 non-decreasing row
+// indices (n_slots <= 32), rows outside them untouched. xs a bf16 [S, D]
+// table as for kgwas_merged_gat_fwd_bf16, att float32 [n_slots, D]. One
+// launch.
+extern "C" int kgwas_merged_gat_a_src_bf16(const void* xs, const void* att,
+                                           void* a_src,
+                                           const long long* src_base,
+                                           int n_slots, int d, void* stream) {
+  if (n_slots < 1 || n_slots > kMaxSlots) return cudaErrorInvalidValue;
+  SrcArgs a;
+  a.xs = static_cast<const __nv_bfloat16*>(xs);
+  a.att = static_cast<const float*>(att);
+  a.a_src = static_cast<float*>(a_src);
+  for (int r = 0; r <= kMaxSlots; ++r)
+    a.src_base[r] = src_base[r < n_slots ? r : n_slots];
+  a.s_begin = src_base[0];
+  a.s_end = src_base[n_slots];
+  a.n_slots = n_slots;
+  a.d = d;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 128: return launch_a_src<true, 1>(a, s);
+    case 256: return launch_a_src<true, 2>(a, s);
+    case 384: return launch_a_src<true, 3>(a, s);
+    case 512: return launch_a_src<true, 4>(a, s);
+    default:
+      if (d <= 32 * kMaxCols) return launch_a_src<false, 1>(a, s);
+      return cudaErrorInvalidValue;
   }
 }

@@ -38,6 +38,17 @@ over ``row_sum + 1e-16``. The [E, D] message cotangent, which the TPU
 kernel rounds to bf16 when it writes it, is rounded where
 ``segment.csc_segment_sum`` forms each row.
 
+An edge's score depends on its source row alone: slot r owns the rows
+``src_base[r]`` .. ``src_base[r+1]`` of ``xs_all`` (``check_src_owner``,
+run once where a layout is built). So the bf16 instances take the scores
+per source row, ``a_src[s] = bf16(att[slot(s)]) . xs_all[s]``, from a pass
+of their own (``merged_gat_a_src``: ``kgwas_merged_gat_a_src_bf16`` in
+``merged_gat_fwd.cu``, counted in ``a_src_launches``; its plain version
+``merged_gat_a_src_plain``), with the bits of the per-edge score; the
+edge kernels read ``a_src[src_e]``, 4 bytes an edge. A bf16 table on the
+card needs ``a_src=`` in both wrappers; ``MergedGATLayer`` runs the pass
+once per forward and saves ``a_src`` for the backward.
+
 Both kernels take their work from a static schedule (``schedule``, built
 once per layout on the host, ``ops/schedule.py``): items that pack the slot
 rows of consecutive units (output rows) up to ``max_edges`` edges, and
@@ -45,6 +56,8 @@ chunks of at most ``chunk_edges`` edges of the slot rows of a longer unit,
 whose partials a second launch combines in a fixed order.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -71,6 +84,8 @@ launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
+a_src_launches = 0
+A_SRC_MAX_SLOTS = 32   # merged_gat_fwd.cu kMaxSlots
 
 
 def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=MAX_EDGES,
@@ -186,9 +201,121 @@ def _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel, fold,
         BWD_ITEM_MAX_EDGES if backward else ITEM_MAX_EDGES, device)
 
 
+def _check_src_base(src_base, n_rel, n_src):
+    """src_base: n_rel + 1 non-decreasing row indices of a table of n_src
+    rows, at most A_SRC_MAX_SLOTS slots."""
+    base = [int(b) for b in src_base]
+    if len(base) != n_rel + 1:
+        raise ValueError(f"src_base {base} does not give R={n_rel} slots")
+    if n_rel > A_SRC_MAX_SLOTS:
+        raise ValueError(f"{n_rel} slots > {A_SRC_MAX_SLOTS} are not "
+                         "supported")
+    if base[0] < 0 or base[-1] > n_src or any(
+            b1 < b0 for b0, b1 in zip(base, base[1:])):
+        raise ValueError(f"src_base {base} is not a non-decreasing split "
+                         f"of {n_src} source rows")
+    return base
+
+
+def check_src_owner(src, row_offsets, n_rows_per_rel, src_base):
+    """Raises unless every edge of slot row r*N + n reads a source row that
+    slot r owns, src_base[r] <= src[e] < src_base[r+1], over the stream's
+    row_offsets[-1] edges: the bf16 instances take each edge's score as
+    a_src[src_e], scored with its slot's att. Host arrays or tensors (a
+    host sync); run once where a layout is built."""
+    ro = torch.as_tensor(row_offsets).cpu().long()
+    n_rows = ro.shape[0] - 1
+    base = torch.tensor(_check_src_base(src_base, n_rows // n_rows_per_rel,
+                                        torch.iinfo(torch.int64).max))
+    s = torch.as_tensor(src).cpu().long()[:int(ro[-1])]
+    slot = torch.repeat_interleave(
+        torch.arange(n_rows) // n_rows_per_rel, ro.diff())
+    bad = ((s < base[slot]) | (s >= base[slot + 1])).nonzero()
+    if bad.numel():
+        e = int(bad[0, 0])
+        r = int(slot[e])
+        raise ValueError(
+            f"edge {e} of slot {r} reads source row {int(s[e])}, outside "
+            f"the slot's rows {int(base[r])}..{int(base[r + 1])}")
+
+
+def merged_gat_a_src_plain(xs_all, att, src_base):
+    """Plain version of merged_gat_a_src: each source row's score with its
+    slot's att (rounded to bf16 for a bf16 table), the score the plain
+    versions form per edge; 0 on rows outside the slots."""
+    x = xs_all.to(torch.float32)
+    if xs_all.dtype == torch.bfloat16:
+        att = round_bf16(att)
+    base = [int(b) for b in src_base]
+    a_src = torch.zeros(xs_all.shape[0], dtype=torch.float32,
+                        device=xs_all.device)
+    for r, (b0, b1) in enumerate(zip(base, base[1:])):
+        a_src[b0:b1] = (x[b0:b1] * att[r]).sum(-1)
+    return a_src
+
+
+def _check_bf16_table(xs_all):
+    if xs_all.data_ptr() % 4:
+        raise ValueError("a bf16 xs_all must be 4-byte aligned")
+
+
+def merged_gat_a_src(xs_all, att, src_base):
+    """The bf16 instances' scores per source row: a_src [S] float32 with
+    a_src[s] = bf16(att[r]) . xs_all[s] for src_base[r] <= s <
+    src_base[r+1] (R = len(src_base) - 1 slots, att [R, D] float32), 0
+    outside the slots. A bf16 xs_all on the card launches
+    kgwas_merged_gat_a_src_bf16 (counted in a_src_launches); a CPU table
+    runs merged_gat_a_src_plain."""
+    if xs_all.device.type == "cpu":
+        return merged_gat_a_src_plain(xs_all, att, src_base)
+    if xs_all.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs_all.device}")
+    if xs_all.dtype != torch.bfloat16:
+        raise TypeError(f"the score pass takes a bf16 table, got "
+                        f"{xs_all.dtype}")
+    n_rel = len(src_base) - 1
+    if xs_all.dim() != 2 or att.shape != (n_rel, xs_all.shape[1]):
+        raise ValueError(f"xs_all {tuple(xs_all.shape)} and att "
+                         f"{tuple(att.shape)} do not match R={n_rel}")
+    check_cuda_args(xs_all.device, xs_all=xs_all, att=att)
+    _check_bf16_table(xs_all)
+    n_src = xs_all.shape[0]
+    base = _check_src_base(src_base, n_rel, n_src)
+    from .build import library
+
+    dev = xs_all.device
+    whole = base[0] == 0 and base[-1] == n_src
+    a_src = (torch.empty if whole else torch.zeros)(
+        n_src, dtype=torch.float32, device=dev)
+    err = library("merged_gat_a_src_bf16")(
+        xs_all.data_ptr(), att.data_ptr(), a_src.data_ptr(),
+        (ctypes.c_longlong * (n_rel + 1))(*base), n_rel, xs_all.shape[1],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"merged_gat_a_src launch failed: cudaError {err}")
+    global a_src_launches
+    a_src_launches += 1
+    return a_src
+
+
+def _check_a_src(xs_all, a_src):
+    """a_src for a bf16 instance's launch: merged_gat_a_src of xs_all,
+    which a bf16 table on the card must be given."""
+    _check_bf16_table(xs_all)
+    if a_src is None:
+        raise ValueError("a bf16 xs_all on the card needs a_src "
+                         "(merged_gat_a_src)")
+    if (a_src.shape != (xs_all.shape[0],) or a_src.dtype != torch.float32
+            or a_src.device != xs_all.device or not a_src.is_contiguous()):
+        raise ValueError(f"a_src must be float32 ({xs_all.shape[0]},) on "
+                         f"{xs_all.device}, contiguous")
+    return a_src
+
+
 def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
                        n_rows_per_rel, fold=0, mode="softmax",
-                       negative_slope=0.2, temperature=1.0, sched=None):
+                       negative_slope=0.2, temperature=1.0, sched=None,
+                       a_src=None):
     """Merged GAT layer forward over one destination group.
 
     xs_all [S, D] f32 (or bf16) concatenated projected source rows; src [E] int32 into
@@ -198,7 +325,10 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     or with fold=R the cross-relation sum [N, D]; row_max and row_sum are
     [R*N] (NEG_BIG and 0 for empty rows and for the sigmoid/raw modes).
     sched: the stream's schedule for this fold on the device (built
-    from row_offsets when not given); the plain version needs none."""
+    from row_offsets when not given); the plain version needs none.
+    a_src: merged_gat_a_src of xs_all and att over the layout's
+    src_base, which a bf16 xs_all on the card needs; the plain version
+    scores each edge itself and does not read it."""
     if xs_all.device.type == "cpu":
         return merged_gat_forward_plain(
             xs_all, src, row_offsets, att, a_dst_all, n_rows_per_rel, fold,
@@ -213,6 +343,8 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     d = xs_all.shape[1]
     if fold and n_rel > ITEM_MAX_ROWS:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
+    if bf16:
+        _check_a_src(xs_all, a_src)
     sched = _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel,
                              fold, xs_all.device)
     from .build import library
@@ -227,9 +359,10 @@ def merged_gat_forward(xs_all, src, row_offsets, att, a_dst_all,
     part_s = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
     part_acc = torch.empty(sched.n_parts, d, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scores = (a_src.data_ptr(),) if bf16 else ()
     err = library("merged_gat_fwd_bf16" if bf16 else "merged_gat_fwd")(
         xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
-        att.data_ptr(), a_dst_all.data_ptr(), out.data_ptr(),
+        att.data_ptr(), a_dst_all.data_ptr(), *scores, out.data_ptr(),
         row_max.data_ptr(), row_sum.data_ptr(), sched.items.data_ptr(),
         sched.items.shape[0], sched.split_units.data_ptr(),
         sched.part_offsets.data_ptr(), sched.split_units.shape[0],
@@ -305,7 +438,8 @@ def merged_gat_bwd_plain(xs_all, src, row_offsets, att, a_dst_all, row_max,
 
 def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
                    row_sum, g, n_rows_per_rel, fold=0, mode="softmax",
-                   negative_slope=0.2, temperature=1.0, sched=None):
+                   negative_slope=0.2, temperature=1.0, sched=None,
+                   a_src=None):
     """Edge-level backward of merged_gat_forward over one destination group.
 
     The arguments are merged_gat_forward's, plus its row_max / row_sum and
@@ -316,7 +450,8 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     cotangent w_e g_row + dz_e att[slot] is never formed:
     segment.csc_segment_sum reduces it per source row. sched as in
     merged_gat_forward, of items of at most BWD_ITEM_MAX_EDGES edges
-    (built with BWD_CHUNK_EDGES when not given)."""
+    (built with BWD_CHUNK_EDGES when not given); a_src as in
+    merged_gat_forward (the forward's, which the layer saves)."""
     if xs_all.device.type == "cpu":
         return merged_gat_bwd_plain(
             xs_all, src, row_offsets, att, a_dst_all, row_max, row_sum, g,
@@ -336,6 +471,8 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     bf16 = xs_all.dtype == torch.bfloat16
     if fold and n_rel > ITEM_MAX_ROWS:
         raise ValueError(f"fold over R={n_rel} > 32 relations is not supported")
+    if bf16:
+        _check_a_src(xs_all, a_src)
     sched = _device_schedule(sched, row_offsets, n_rows, n_rows_per_rel,
                              fold, xs_all.device, backward=True)
     from .build import library
@@ -347,9 +484,10 @@ def merged_gat_bwd(xs_all, src, row_offsets, att, a_dst_all, row_max,
     d_a_dst = torch.empty(n_rows, dtype=torch.float32, device=dev)
     part_dot = torch.empty(sched.n_parts, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scores = (a_src.data_ptr(),) if bf16 else ()
     err = library("merged_gat_bwd_bf16" if bf16 else "merged_gat_bwd")(
         xs_all.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
-        att.data_ptr(), a_dst_all.data_ptr(), row_max.data_ptr(),
+        att.data_ptr(), a_dst_all.data_ptr(), *scores, row_max.data_ptr(),
         row_sum.data_ptr(), g.data_ptr(), w.data_ptr(), dz.data_ptr(),
         d_a_dst.data_ptr(), sched.items.data_ptr(), sched.items.shape[0],
         sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
@@ -381,8 +519,10 @@ def layout_schedule(layout, fold, backward=False):
 
 def merged_gat_backward_plain(xs_all, att, a_dst_all, row_max, row_sum, g,
                               layout, fold=0, mode="softmax",
-                              negative_slope=0.2, temperature=1.0):
-    """Plain version of merged_gat_backward: the two plain halves."""
+                              negative_slope=0.2, temperature=1.0,
+                              a_src=None):
+    """Plain version of merged_gat_backward: the two plain halves (which
+    score each edge themselves: a_src is not read)."""
     w, dz, d_a_dst = merged_gat_bwd_plain(
         xs_all, layout.src, layout.row_offsets, att, a_dst_all, row_max,
         row_sum, g, layout.n_rows_per_rel, fold, mode, negative_slope,
@@ -394,14 +534,16 @@ def merged_gat_backward_plain(xs_all, att, a_dst_all, row_max, row_sum, g,
 
 def merged_gat_backward(xs_all, att, a_dst_all, row_max, row_sum, g, layout,
                         fold=0, mode="softmax", negative_slope=0.2,
-                        temperature=1.0):
+                        temperature=1.0, a_src=None):
     """VJP of merged_gat_forward with respect to (xs_all, att, a_dst_all):
     merged_gat_bwd, then the CSC segment sum over source rows. layout is
-    the group's DeviceLayout (models/hetero_gnn.py)."""
+    the group's DeviceLayout (models/hetero_gnn.py); a_src: the forward's
+    scores of a bf16 table on the card (merged_gat_a_src)."""
     w, dz, d_a_dst = merged_gat_bwd(
         xs_all, layout.src, layout.row_offsets, att, a_dst_all, row_max,
         row_sum, g, layout.n_rows_per_rel, fold, mode, negative_slope,
-        temperature, sched=layout_schedule(layout, fold, backward=True))
+        temperature, sched=layout_schedule(layout, fold, backward=True),
+        a_src=a_src)
     d_xs_all, d_att = segment.csc_segment_sum(g, w, dz, xs_all, att, layout,
                                               fold)
     return d_xs_all, d_att, d_a_dst
@@ -411,9 +553,10 @@ class MergedGATLayer(torch.autograd.Function):
     """The merged GAT layer with its gradient:
     ``MergedGATLayer.apply(xs_all, att, a_dst_all, layout, fold, mode,
     negative_slope, temperature[, stream_dtype])`` -> out ([N, D] with
-    fold=R, else [R*N, D]), float32. The forward saves row_max / row_sum;
-    the backward recomputes every edge's logit from xs_all, att and
-    a_dst_all. stream_dtype: the dtype the table is cast to inside the
+    fold=R, else [R*N, D]), float32. The forward saves row_max / row_sum
+    (and a bf16 table's a_src); the backward recomputes every edge's
+    logit from xs_all, att and a_dst_all (a bf16 table's from a_src and
+    a_dst_all). stream_dtype: the dtype the table is cast to inside the
     layer (the stream dtype), so that xs_all's gradient is float32, as
     the JAX package's custom VJP leaves it; every gradient is float32."""
 
@@ -422,19 +565,26 @@ class MergedGATLayer(torch.autograd.Function):
                 negative_slope, temperature, stream_dtype=None):
         if stream_dtype is not None:
             xs_all = xs_all.to(stream_dtype)
+        # the bf16 instances read the scores per source row, taken once
+        # for the forward and the backward; the plain versions (a CPU
+        # table) score each edge themselves
+        a_src = (merged_gat_a_src(xs_all, att, layout.src_base)
+                 if xs_all.dtype == torch.bfloat16 and xs_all.is_cuda
+                 else None)
         out, row_max, row_sum = merged_gat_forward(
             xs_all, layout.src, layout.row_offsets, att, a_dst_all,
             layout.n_rows_per_rel, fold, mode, negative_slope, temperature,
-            sched=layout_schedule(layout, fold))
-        ctx.save_for_backward(xs_all, att, a_dst_all, row_max, row_sum)
+            sched=layout_schedule(layout, fold), a_src=a_src)
+        ctx.save_for_backward(xs_all, att, a_dst_all, row_max, row_sum,
+                              a_src)
         ctx.layout = layout
         ctx.options = (fold, mode, negative_slope, temperature)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        xs_all, att, a_dst_all, row_max, row_sum = ctx.saved_tensors
+        xs_all, att, a_dst_all, row_max, row_sum, a_src = ctx.saved_tensors
         d_xs_all, d_att, d_a_dst = merged_gat_backward(
             xs_all, att, a_dst_all, row_max, row_sum, g.contiguous(),
-            ctx.layout, *ctx.options)
+            ctx.layout, *ctx.options, a_src=a_src)
         return d_xs_all, d_att, d_a_dst, None, None, None, None, None, None

@@ -131,8 +131,9 @@ class RankShard:
     of the slots s_lo..s_hi it touches, its own rows at off..off +
     rows_per_dev there), their row offsets and the kernels' schedules, the
     CSC over the full source space (csc_segment_sum's DeviceLayout, rows
-    in the group's R * N space), and the rows of the source table it
-    projects (x_lo..x_hi)."""
+    in the group's R * N space), the rows of the full source table its
+    slots own (src_base, for the bf16 instances' per-row scores), and the
+    rows of the source table it projects (x_lo..x_hi)."""
 
     def __init__(self, L: MergedDstLayout, DL: DeviceMergedLayout, i: int,
                  device):
@@ -152,6 +153,10 @@ class RankShard:
         put = lambda a: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(a, dtype=np.int32)).to(device)
         self.src, self.row_offsets = put(src), put(ro)
+        # the slots s_lo..s_hi own these rows of the full source table
+        self.src_base = tuple(int(b) for b in L.src_base[self.s_lo:
+                                                          self.s_hi + 1])
+        gat_layer.check_src_owner(src, ro, n, self.src_base)
         self.sched = self.bwd_sched = None
         if torch.device(device).type == "cuda":   # the plain versions take none
             self.sched = gat_layer.schedule(ro, n, 0).to(device)
@@ -207,10 +212,15 @@ class ShardedMergedGAT(torch.autograd.Function):
         n = shard.n_rows_per_rel
         att_loc = att[shard.s_lo:shard.s_hi].contiguous()
         a_dst = a_dst_all[shard.s_lo * n:shard.s_hi * n].contiguous()
+        # a bf16 table's scores per source row, for the forward and the
+        # backward (MergedGATLayer's)
+        a_src = (gat_layer.merged_gat_a_src(xs_all, att_loc, shard.src_base)
+                 if xs_all.dtype == torch.bfloat16 and xs_all.is_cuda
+                 else None)
         out, row_max, row_sum = gat_layer.merged_gat_forward(
             xs_all, shard.src, shard.row_offsets, att_loc, a_dst, n, 0, mode,
-            negative_slope, temperature, sched=shard.sched)
-        ctx.save_for_backward(xs_all, att, a_dst, row_max, row_sum)
+            negative_slope, temperature, sched=shard.sched, a_src=a_src)
+        ctx.save_for_backward(xs_all, att, a_dst, row_max, row_sum, a_src)
         ctx.shard, ctx.group = shard, group
         ctx.options = (mode, negative_slope, temperature)
         ctx.xs_dtype = xs_local.dtype
@@ -218,7 +228,7 @@ class ShardedMergedGAT(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        xs_all, att, a_dst, row_max, row_sum = ctx.saved_tensors
+        xs_all, att, a_dst, row_max, row_sum, a_src = ctx.saved_tensors
         s = ctx.shard
         n = s.n_rows_per_rel
         mode, slope, temp = ctx.options
@@ -229,7 +239,7 @@ class ShardedMergedGAT(torch.autograd.Function):
         w, dz, d_a_dst = gat_layer.merged_gat_bwd(
             xs_all, s.src, s.row_offsets, att_loc, a_dst, row_max, row_sum,
             g_all[s.s_lo * n:s.s_hi * n], n, 0, mode, slope, temp,
-            sched=s.bwd_sched)
+            sched=s.bwd_sched, a_src=a_src)
         d_xs_all, d_att = segment.csc_segment_sum(g_all, w, dz, xs_all, att,
                                                   s.csc, 0)
         d_xs = reduce_scatter_rows(d_xs_all, ctx.group)

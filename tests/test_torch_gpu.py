@@ -658,8 +658,9 @@ def parent_csrc():
 
 @pytest.fixture
 def parent_ops(parent_csrc):
-    """The earlier checkout's segment wrappers: its package imported as
-    parent_kgwas_tpu_torch (its kernels built by its own ops/build.py)."""
+    """The earlier checkout's segment and merged GAT wrappers: its package
+    imported as parent_kgwas_tpu_torch (its kernels built by its own
+    ops/build.py)."""
     name = "parent_kgwas_tpu_torch"
     if name not in sys.modules:
         pkg = parent_csrc.resolve().parents[1]
@@ -671,7 +672,8 @@ def parent_ops(parent_csrc):
     return SimpleNamespace(
         segment=importlib.import_module(f"{name}.ops.segment"),
         segment_softmax=importlib.import_module(
-            f"{name}.ops.segment_softmax"))
+            f"{name}.ops.segment_softmax"),
+        gat_layer=importlib.import_module(f"{name}.ops.gat_layer"))
 
 
 def _grad_rule(got, plain, exact):
@@ -848,7 +850,7 @@ def test_collect_attention_kernel_matches_plain(aggr, cuda_device,
         assert all(L.gat_fold0_schedule is not None
                    for L in layouts.values())
     monkeypatch.setattr(gat_layer, "merged_gat_forward",
-                        lambda *a, sched=None:
+                        lambda *a, sched=None, a_src=None:
                         gat_layer.merged_gat_forward_plain(*a))
     want = model.collect_attention(x, layouts)
     assert [list(a) for a in got] == [list(b) for b in want]
@@ -1204,6 +1206,13 @@ def test_train_state_copy_precedes_the_next_step(cuda_device):
 # dz_e rounded to its bf16 neighbour moves one term of a d_att sum by
 # 2^-8: up to 2.3e-5 of the largest value seen). Two launches give the
 # same bits.
+#
+# The bf16 instances read each edge's score from the per-source-row pass
+# (merged_gat_a_src): the pass bitwise its own order emulated in float32
+# tensor code; #1 and #2 bf16 on the default schedule (trash rows in
+# chunks), at max_edges 8 and on a hub node split across its slots; with
+# KGWAS_PARENT_CSRC, bitwise the earlier checkout's instances, which
+# scored every edge in the kernels.
 
 def _bf16_rows_close(got, want, n_per_rel, trash, fold):
     got, want = got.cpu().numpy(), want.cpu().numpy()
@@ -1231,13 +1240,15 @@ def _bf16_grad_close(got, want):
 
 
 @pytest.mark.parametrize("max_edges", [None, 8])
-@pytest.mark.parametrize("d", [D, 48])
+@pytest.mark.parametrize("d", [D, 256, 48])
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
 def test_bf16_kernels_match_plain(mode, fold, d, max_edges, cuda_device,
                                   group):
-    """merged_gat_fwd_bf16 (#1), then merged_gat_bwd_bf16 (#2) and
-    csc_segment_sum_bf16 (#8, the logit term) on its output's cotangent."""
+    """merged_gat_fwd_bf16 (#1, its scores from the score pass), then
+    merged_gat_bwd_bf16 (#2) and csc_segment_sum_bf16 (#8, the logit
+    term) on its output's cotangent; the default schedule cuts the trash
+    rows into chunks, max_edges 8 real rows too."""
     L, trash = group
     fold = len(L.rel_keys) if fold else 0
     DL = _merged_layout(L, fold, cuda_device)
@@ -1246,12 +1257,18 @@ def test_bf16_kernels_match_plain(mode, fold, d, max_edges, cuda_device,
     n = L.n_rows_per_rel
     args = (xs, DL.src, DL.row_offsets, att, a_dst, n, fold, mode, 0.2, 0.7)
     sched = _sched(L, fold, max_edges, cuda_device)
-    before = (gat_layer.launches, gat_layer.bf16_launches)
-    got = gat_layer.merged_gat_forward(*args, sched=sched)
-    again = gat_layer.merged_gat_forward(*args, sched=sched)
+    before = (gat_layer.launches, gat_layer.bf16_launches,
+              gat_layer.a_src_launches)
+    got = gat_layer.merged_gat_forward(
+        *args, sched=sched,
+        a_src=gat_layer.merged_gat_a_src(xs, att, L.src_base))
+    again = gat_layer.merged_gat_forward(
+        *args, sched=sched,
+        a_src=gat_layer.merged_gat_a_src(xs, att, L.src_base))
     torch.cuda.synchronize()
-    assert (gat_layer.launches, gat_layer.bf16_launches) == (
-        before[0], before[1] + 2)
+    assert (gat_layer.launches, gat_layer.bf16_launches,
+            gat_layer.a_src_launches) == (before[0], before[1] + 2,
+                                          before[2] + 2)
     want = gat_layer.merged_gat_forward_plain(*args)
     for g_, a_, w_ in zip(got, again, want):
         assert torch.equal(g_, a_)
@@ -1260,9 +1277,10 @@ def test_bf16_kernels_match_plain(mode, fold, d, max_edges, cuda_device,
     for g_, w_ in zip(got[1:], want[1:]):
         _bf16_rows_close(g_[:, None], w_[:, None], n, trash, False)
     bwd = (xs, att, a_dst, want[1], want[2], g, DL, fold, mode, 0.2, 0.7)
+    a_src = gat_layer.merged_gat_a_src(xs, att, L.src_base)
     b0 = (gat_layer.bf16_bwd_launches, segment.bf16_launches)
-    new = gat_layer.merged_gat_backward(*bwd)
-    new2 = gat_layer.merged_gat_backward(*bwd)
+    new = gat_layer.merged_gat_backward(*bwd, a_src=a_src)
+    new2 = gat_layer.merged_gat_backward(*bwd, a_src=a_src)
     torch.cuda.synchronize()
     assert (gat_layer.bf16_bwd_launches, segment.bf16_launches) == (
         b0[0] + 2, b0[1] + 2)
@@ -1274,6 +1292,186 @@ def test_bf16_kernels_match_plain(mode, fold, d, max_edges, cuda_device,
                                rtol=1e-4, atol=1e-4 * float(
                                    plain[1].abs().max()))
     _bf16_grad_close(new[2], plain[2])
+
+
+def _a_src_lane_order(xs, att, src_base):
+    """merged_gat_a_src in the kernel's order, on the kernel's device: lane
+    l sums its columns from 0 one by one (4 (32 k + l) .. + 3 at D = 128 k,
+    else l + 32 k up to 512, zero past D), then the lanes' sums xor 16, 8,
+    4, 2, 1. A product of two bf16 values is exact in float32, so each
+    fused multiply-add of the kernel is this one rounded add."""
+    x = xs.to(torch.float32)
+    a = gat_layer.round_bf16(att)
+    s, d = x.shape
+    prods = torch.zeros(s, d, device=x.device)
+    for r, (b0, b1) in enumerate(zip(src_base, src_base[1:])):
+        prods[b0:b1] = x[b0:b1] * a[r]
+    if d % 128 == 0:
+        lanes = prods.view(s, d // 128, 32, 4).permute(0, 2, 1, 3).reshape(
+            s, 32, d // 32)
+    else:
+        pad = torch.zeros(s, 512, device=x.device)
+        pad[:, :d] = prods
+        lanes = pad.view(s, 16, 32).permute(0, 2, 1)
+    q = torch.zeros(s, 32, device=x.device)
+    for c in range(lanes.shape[2]):
+        q = q + lanes[:, :, c]
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        q = q + q[:, idx ^ off]
+    out = torch.zeros(s, device=x.device)
+    out[src_base[0]:src_base[-1]] = q[src_base[0]:src_base[-1], 0]
+    return out
+
+
+@pytest.mark.parametrize("slots", ["all", "shard"])
+@pytest.mark.parametrize("d", [D, 256, 384, 512, 48, 130])
+def test_a_src_pass_bitwise(d, slots, cuda_device, group):
+    """The score pass (kgwas_merged_gat_a_src_bf16) bitwise its order
+    emulated in float32 tensor code, and against the plain version
+    (merged_gat_a_src_plain, whose torch sum takes another order: up to 512
+    terms) at rtol 1e-5, atol 1e-6; with a shard's slots (1..R) the rows
+    of slot 0 stay 0."""
+    L, _ = group
+    xs, att, _, _ = _bwd_inputs(L, 0, d, cuda_device)
+    xs = xs.to(torch.bfloat16)
+    base = tuple(int(b) for b in L.src_base)
+    if slots == "shard":
+        base, att = base[1:], att[1:].contiguous()
+    n0 = gat_layer.a_src_launches
+    got = gat_layer.merged_gat_a_src(xs, att, base)
+    again = gat_layer.merged_gat_a_src(xs, att, base)
+    torch.cuda.synchronize()
+    assert gat_layer.a_src_launches == n0 + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, _a_src_lane_order(xs, att, base))
+    plain = gat_layer.merged_gat_a_src_plain(xs.cpu(), att.cpu(), base)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert not got[:base[0]].any()
+    with pytest.raises(TypeError):
+        gat_layer.merged_gat_a_src(xs.float(), att, base)
+    with pytest.raises(ValueError):
+        gat_layer.merged_gat_a_src(xs, att, base[:-1])
+
+
+def test_bf16_wrappers_need_a_src(cuda_device, group):
+    """A bf16 table on the card launches #1 and #2 bf16 only with the
+    score pass's a_src (no pass inside the wrappers), of the table's
+    rows and float32."""
+    L, _ = group
+    xs, att, a_dst, g = _bwd_inputs(L, 0, D, cuda_device)
+    xs = xs.to(torch.bfloat16)
+    n = L.n_rows_per_rel
+    src = torch.from_numpy(L.src).to(cuda_device)
+    ro = torch.from_numpy(L.row_offsets).to(cuda_device)
+    args = (xs, src, ro, att, a_dst, n, 0, "softmax", 0.2, 1.0)
+    sched = _sched(L, 0, gat_layer.MAX_EDGES, cuda_device)
+    n0 = (gat_layer.bf16_launches, gat_layer.a_src_launches)
+    with pytest.raises(ValueError, match="needs a_src"):
+        gat_layer.merged_gat_forward(*args, sched=sched)
+    with pytest.raises(ValueError, match="a_src must be"):
+        gat_layer.merged_gat_forward(
+            *args, sched=sched,
+            a_src=torch.zeros(xs.shape[0] - 1, device=cuda_device))
+    _, row_max, row_sum = gat_layer.merged_gat_forward_plain(*args)
+    bargs = (xs, src, ro, att, a_dst, row_max, row_sum, g, n, 0, "softmax",
+             0.2, 1.0)
+    with pytest.raises(ValueError, match="needs a_src"):
+        gat_layer.merged_gat_bwd(*bargs)
+    assert (gat_layer.bf16_launches, gat_layer.a_src_launches) == n0
+
+
+def _owned_hub_stream(seed=6):
+    """_hub_stream with each slot's sources inside its own third of the
+    table, as the bf16 instances' scores per source row need."""
+    src, ro, n, hub, rng = _hub_stream(seed)
+    n_rel = (len(ro) - 1) // n
+    base = np.linspace(0, 4096, n_rel + 1).astype(np.int64)
+    slot = np.repeat(np.arange(n_rel * n) // n, np.diff(ro))
+    src = base[slot] + src % np.diff(base)[slot]
+    return src.astype(np.int32), ro, n, hub, rng, tuple(base.tolist())
+
+
+@pytest.mark.parametrize("max_edges", [None, 64])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
+def test_bf16_hub_node_split_across_slots(mode, fold, max_edges,
+                                          cuda_device):
+    """#1 bf16 and #2 bf16 on a hub node's thousands of edges in each slot,
+    cut into chunks, against their plain versions (bf16 rule), and bitwise
+    repeatable."""
+    src, ro, n, hub, rng, base = _owned_hub_stream()
+    n_rel = (len(ro) - 1) // n
+    fold = n_rel if fold else 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    xs = t((rng.standard_normal((4096, D)) * 0.1).astype(np.float32)).to(
+        torch.bfloat16)
+    att = t((rng.standard_normal((n_rel, D)) * 0.2).astype(np.float32))
+    a_dst = t((rng.standard_normal(n_rel * n) * 0.5).astype(np.float32))
+    sched = gat_layer.schedule(ro, n, fold, max_edges or gat_layer.MAX_EDGES)
+    assert hub in sched.split_units.tolist()
+    sched = sched.to(cuda_device)
+    args = (xs, t(src), t(ro), att, a_dst, n, fold, mode, 0.2, 0.7)
+    got = gat_layer.merged_gat_forward(
+        *args, sched=sched, a_src=gat_layer.merged_gat_a_src(xs, att, base))
+    again = gat_layer.merged_gat_forward(
+        *args, sched=sched, a_src=gat_layer.merged_gat_a_src(xs, att, base))
+    want = gat_layer.merged_gat_forward_plain(*args)
+    torch.cuda.synchronize()
+    for g_, a_ in zip(got, again):
+        assert torch.equal(g_, a_)
+    _bf16_rows_close(got[0], want[0], n, hub, fold)
+    for g_, w_ in zip(got[1:], want[1:]):
+        _bf16_rows_close(g_[:, None], w_[:, None], n, hub, False)
+    g = t(rng.standard_normal((n if fold else n_rel * n, D)).astype(
+        np.float32))
+    bargs = (xs, t(src), t(ro), att, a_dst, want[1], want[2], g, n, fold,
+             mode, 0.2, 0.7)
+    bsched = gat_layer.schedule(ro, n, fold, max_edges or gat_layer.MAX_EDGES,
+                                gat_layer.BWD_CHUNK_EDGES).to(cuda_device)
+    edge = gat_layer.merged_gat_bwd(
+        *bargs, sched=bsched, a_src=gat_layer.merged_gat_a_src(xs, att, base))
+    again = gat_layer.merged_gat_bwd(
+        *bargs, sched=bsched, a_src=gat_layer.merged_gat_a_src(xs, att, base))
+    torch.cuda.synchronize()
+    for got_, rep, want_ in zip(edge, again,
+                                gat_layer.merged_gat_bwd_plain(*bargs)):
+        assert torch.equal(got_, rep)
+        _bf16_grad_close(got_, want_)
+
+
+@pytest.mark.parametrize("max_edges", [None, 8])
+@pytest.mark.parametrize("d", [D, 256, 48])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid", "raw"])
+def test_merged_gat_bf16_bitwise_as_parent(mode, fold, d, max_edges,
+                                           parent_ops, cuda_device, group):
+    """#1 bf16 and #2 bf16 give the earlier checkout's bits (its kernels
+    through its own wrappers, which score every edge in the kernels) on
+    the same inputs and schedules."""
+    L, _ = group
+    fold = len(L.rel_keys) if fold else 0
+    n = L.n_rows_per_rel
+    xs, att, a_dst, g = _bwd_inputs(L, fold, d, cuda_device)
+    xs = xs.to(torch.bfloat16)
+    src = torch.from_numpy(L.src).to(cuda_device)
+    ro = torch.from_numpy(L.row_offsets).to(cuda_device)
+    sched = _sched(L, fold, max_edges or gat_layer.MAX_EDGES, cuda_device)
+    bsched = _sched(L, fold, max_edges or gat_layer.MAX_EDGES, cuda_device,
+                    gat_layer.BWD_CHUNK_EDGES if max_edges is None
+                    else max_edges)
+    args = (xs, src, ro, att, a_dst, n, fold, mode, 0.2, 0.7)
+    a_src = gat_layer.merged_gat_a_src(xs, att, L.src_base)
+    new = gat_layer.merged_gat_forward(*args, sched=sched, a_src=a_src)
+    old = parent_ops.gat_layer.merged_gat_forward(*args, sched=sched)
+    bargs = (xs, src, ro, att, a_dst, new[1], new[2], g, n, fold, mode, 0.2,
+             0.7)
+    new_b = gat_layer.merged_gat_bwd(*bargs, sched=bsched, a_src=a_src)
+    old_b = parent_ops.gat_layer.merged_gat_bwd(*bargs, sched=bsched)
+    torch.cuda.synchronize()
+    for a, b in zip(new + new_b, old + old_b):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kind", ["none", "f32", "bf16"])
