@@ -64,7 +64,8 @@ PyTorch version:
      layer (10), each launch held against its plain version, α (layer 1
      bitwise, layer 2 at rtol/atol) and the three tables against a run
      with the plain version on the same card (equal rows up to counted
-     near-ties); each stage's host seconds
+     near-ties; an importance, a z score of a weight, within what a
+     weight within rtol/atol moves it); each stage's host seconds
   8. the bench entry (python3 -m kgwas_tpu_torch.bench_lib at its
      defaults, edges padded to 8192; its JSON line printed) beside phase
      5d's train step, then KGWAS.train(epoch=1) over three batches with
@@ -318,6 +319,12 @@ KERNEL_LAUNCH = {
     "merged_gat_bwd_bf16_kernel": (128, 4 * 4 * (8 * 128 + 2 * 8 * 64
                                                   + 1216)),
     "merged_gat_bwd_combine_bf16_kernel": (128, 0),
+    # #6 bf16: a ring of 3 stages of 8 256-byte rows and the item's
+    # arrays for items of 128 edges (the relation schedules':
+    # segment_softmax_spmm_fwd.cu bf16_warp_words); #8 bf16's are static
+    "segment_softmax_spmm_fwd_bf16_kernel": (128, 4 * 4 * (3 * 8 * 64
+                                                          + 320)),
+    "csc_items_bf16_kernel": (128, 0),
 }
 # template arguments of the entries reported: D = 128 (softmax mode, with
 # and without the logit term, the segment kernels' multiplier and d_w, the
@@ -409,6 +416,10 @@ class ParentKernels:
                 continue
             self.pbuild._loaded[f"{name}_bf16"] = build.build_source(
                 self.csrc / entry[0], f"parent_{name}", entry[1], entry[2])
+        # its score pass, in its forward's library
+        entry = self.pbuild.KERNELS["merged_gat_a_src_bf16"]
+        self.pbuild._loaded["merged_gat_a_src_bf16"] = build.build_source(
+            self.csrc / entry[0], "parent_merged_gat_fwd", entry[1], entry[2])
         build.build_log.update(logs)
         # the earlier backward without its read of the saved output
         text = (self.csrc / "segment_softmax_spmm_bwd.cu").read_text()
@@ -447,14 +458,30 @@ class ParentKernels:
         return self._swapped("merged_gat_bwd", gat_layer.merged_gat_bwd,
                              *args, **kwargs)
 
-    def fwd_bf16(self, *args, sched=None):
-        """The earlier bf16 forward (#1 bf16) through the earlier wrapper,
-        which takes no src_base: its kernel scores every edge itself."""
-        return self.pgat.merged_gat_forward(*args, sched=sched)
+    def a_src_bf16(self, xs, att, src_base):
+        """The earlier score pass's a_src."""
+        return self.pgat.merged_gat_a_src(xs, att, src_base)
 
-    def bwd_bf16(self, *args, sched=None):
-        """The earlier bf16 edge backward (#2 bf16), the same way."""
-        return self.pgat.merged_gat_bwd(*args, sched=sched)
+    def fwd_bf16(self, xs, *args, sched=None, src_base=None):
+        """The earlier bf16 forward (#1 bf16) through the earlier wrapper,
+        after its score pass over src_base (args[2] is att)."""
+        return self.pgat.merged_gat_forward(
+            xs, *args, sched=sched,
+            a_src=self.a_src_bf16(xs, args[2], src_base))
+
+    def bwd_bf16(self, *args, sched=None, a_src=None):
+        """The earlier bf16 edge backward (#2 bf16), the same way, on the
+        earlier pass's scores a_src."""
+        return self.pgat.merged_gat_bwd(*args, sched=sched, a_src=a_src)
+
+    def seg_fwd_bf16(self, *args, **kwargs):
+        """The earlier #6 bf16 (a bf16 table) through the earlier wrapper,
+        with this checkout's wrapper arguments."""
+        return self.psoftmax.segment_softmax_spmm_fwd(*args, **kwargs)
+
+    def csc_bf16(self, *args, **kwargs):
+        """The earlier #8 bf16 (a bf16 table) the same way."""
+        return self.psegment.csc_segment_sum(*args, **kwargs)
 
     @staticmethod
     @functools.lru_cache(maxsize=None)
@@ -560,6 +587,25 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps):
+    """Mean host ms to issue fn, over reps runs issued with no
+    synchronisation between them, after one warm-up run: where it exceeds
+    the device time, the host paces the launches (cuda_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def fmt_ms(values):
+    """Times in ms, each to 4 places, joined by '/'."""
+    return "/".join(f"{v:.4f}" for v in values) or "none"
 
 
 def graph_ms(fn, reps):
@@ -2268,7 +2314,7 @@ def interpret(run, thr, plain):
     """KGWAS.get_disease_critical_network(thr) with the merged GAT forward
     (or, plain, its plain version) recorded. Returns (tables, alphas per
     layer, the forward's recorded calls and results, launches, stage host
-    seconds)."""
+    seconds, and with plain the z tables' weight_slack, else None)."""
     from kgwas_tpu_torch.interpret import attention, network
     from kgwas_tpu_torch.ops import gat_layer
 
@@ -2277,7 +2323,8 @@ def interpret(run, thr, plain):
     alphas = Recorder(run.model.collect_attention, keep_outputs=True)
     forward = HostTimer(alphas, sync=True)
     tables = HostTimer(attention.attention_tables)
-    zmax = [HostTimer(network._zscore), HostTimer(network._max_over_parallel)]
+    zrec = Recorder(network._zscore, keep_outputs=True)
+    zmax = [HostTimer(zrec), HostTimer(network._max_over_parallel)]
     local = HostTimer(network.get_local_interpretation)
     run.model.collect_attention = forward
     gat_layer.launches = 0
@@ -2298,12 +2345,56 @@ def interpret(run, thr, plain):
     # generate_viz's filters, id columns and row index
     stages["other"] = total - sum(stages.values())
     stages["total"] = total
-    return out, alphas.outputs[0], fwd, gat_layer.launches, stages
+    slack = weight_slack(zrec.outputs) if plain else None
+    return out, alphas.outputs[0], fwd, gat_layer.launches, stages, slack
+
+
+def weight_slack(ztables):
+    """(h_type, t_type) -> (sorted (h_idx, t_idx) keys, slack) from the
+    z tables of one interpretation run: for each pair, the most that a
+    weight within the network weight check's tolerance (RTOL, ATOL) moves
+    its z = (weight - mean) / std, over the pair's parallel relations.
+    The plain version sums in no fixed order, so its own runs differ by
+    that much, and a z near 0 magnifies it past PRED_RTOL and PRED_ATOL."""
+    parts = {}
+    for t in ztables:
+        if not len(t["weight"]):
+            continue
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s = (ATOL + RTOL * np.abs(np.asarray(t["weight"], np.float64))
+                 ) / np.asarray(t["rel_type_std"], np.float64)
+        s[~np.isfinite(s)] = 0.0
+        key = (np.asarray(t["h_idx"], np.int64) << 32) | np.asarray(
+            t["t_idx"], np.int64)
+        parts.setdefault((t["h_type"][0], t["t_type"][0]), []).append(
+            (key, s))
+    out = {}
+    for pair, kv in parts.items():
+        keys, inv = np.unique(np.concatenate([k for k, _ in kv]),
+                              return_inverse=True)
+        s = np.zeros(len(keys))
+        np.maximum.at(s, inv, np.concatenate([v for _, v in kv]))
+        out[pair] = (keys, s)
+    return out
+
+
+def row_slack(t, slack):
+    """Each row's weight slack (weight_slack) by its types and indices."""
+    out = np.zeros(len(t["h_idx"]))
+    key = (np.asarray(t["h_idx"], np.int64) << 32) | np.asarray(
+        t["t_idx"], np.int64)
+    for (h_type, t_type), (keys, s) in slack.items():
+        sel = ((np.asarray(t["h_type"]) == h_type)
+               & (np.asarray(t["t_type"]) == t_type))
+        i = np.minimum(np.searchsorted(keys, key[sel]), len(keys) - 1)
+        out[sel] = np.where(keys[i] == key[sel], s[i], 0.0)
+    return out
 
 
 def same_rows(a, b, float_col, rtol=PRED_RTOL, atol=PRED_ATOL):
     """Two column tables hold the same rows in the same order, floats
-    within tolerance (NaN and inf in the same places)."""
+    within tolerance (atol a number or one for each row; NaN and inf in
+    the same places)."""
     if list(a) != list(b) or len(a[float_col]) != len(b[float_col]):
         return False
     for c in a:
@@ -2316,19 +2407,22 @@ def same_rows(a, b, float_col, rtol=PRED_RTOL, atol=PRED_ATOL):
         if not (np.array_equal(np.isfinite(x), fin)
                 and np.array_equal(x[~fin], y[~fin], equal_nan=True)
                 and np.all(np.abs(x[fin] - y[fin])
-                           <= atol + rtol * np.abs(y[fin]))):
+                           <= np.broadcast_to(atol, y.shape)[fin]
+                           + rtol * np.abs(y[fin]))):
             return False
     return True
 
 
-def near_ties(a, b, group, float_col, what):
-    """0 when the tables hold the same rows in order; else the number of
-    groups (rows sharing the group columns) whose rows differ, each only
-    at a near-tie: the same largest float_col value within tolerance (a
-    pair whose kept relation differs, a neighbourhood whose genes
-    differ). Raises beyond that, or past 1% of the groups."""
+def near_ties(a, b, group, float_col, what, slack):
+    """(0, 0) when the tables hold the same rows in order; else the number
+    of groups (rows sharing the group columns) whose rows differ, each
+    only at a near-tie: the same largest float_col value within tolerance
+    (a pair whose kept relation differs, a neighbourhood whose genes
+    differ), and the number of groups with the same rows whose float_col
+    values need b's row_slack beside PRED_ATOL. The near-tie test grants
+    the slack too. Raises beyond that, or past 1% of the groups."""
     if same_rows(a, b, float_col):
-        return 0
+        return 0, 0
 
     def grouped(t):
         rows = {}
@@ -2340,20 +2434,25 @@ def near_ties(a, b, group, float_col, what):
     ga, gb = grouped(a), grouped(b)
     if ga.keys() != gb.keys():
         raise AssertionError(f"{what}: the groups differ")
-    ties = 0
+    ties = slacked = 0
     for k, ra in ga.items():
         ta = {c: np.asarray(v)[ra] for c, v in a.items()}
         tb = {c: np.asarray(v)[gb[k]] for c, v in b.items()}
         if same_rows(ta, tb, float_col):
             continue
+        atol = PRED_ATOL + row_slack(tb, slack)
+        if same_rows(ta, tb, float_col, atol=atol):
+            slacked += 1
+            continue
         if not same_rows({"m": [np.nanmax(ta[float_col])]},
-                         {"m": [np.nanmax(tb[float_col])]}, "m"):
+                         {"m": [np.nanmax(tb[float_col])]}, "m",
+                         atol=atol.max()):
             raise AssertionError(f"{what}: group {k} differs beyond a "
                                  "near-tie")
         ties += 1
     if ties > max(1, 0.01 * len(ga)):
         raise AssertionError(f"{what}: {ties} near-ties of {len(ga)} groups")
-    return ties
+    return ties, slacked
 
 
 def interpret_vs_plain(run, cg, thr, folded, what):
@@ -2367,8 +2466,9 @@ def interpret_vs_plain(run, cg, thr, folded, what):
     from kgwas_tpu_torch.ops import gat_layer
 
     _, _, layouts = run._device_state()
-    got, alpha_k, rec, launches, stages = interpret(run, thr, plain=False)
-    want, alpha_p, _, plain_launches, _ = interpret(run, thr, plain=True)
+    got, alpha_k, rec, launches, stages, _ = interpret(run, thr, plain=False)
+    want, alpha_p, _, plain_launches, _, slack = interpret(run, thr,
+                                                          plain=True)
     torch.cuda.synchronize()
     n_groups = len(layouts) * LAYERS
     if launches != n_groups or plain_launches != 0:
@@ -2412,10 +2512,11 @@ def interpret_vs_plain(run, cg, thr, folded, what):
     if not set(dcn["Category"]) <= {"V2G", "G2G", "G2P"} or any(
             r.startswith("rev_") for r in dcn["rel_type"]):
         raise AssertionError(f"{what}: bad Category or rel_type")
-    ties = (near_ties(dcn, want[2], ("Category", "h_idx", "t_idx"),
-                      "importance", f"{what} disease-critical network"),
-            near_ties(vi, want[1], ("QUERY_SNP",), "importance",
-                      f"{what} variant interpretation"))
+    (ties, slacked) = zip(
+        near_ties(dcn, want[2], ("Category", "h_idx", "t_idx"),
+                  "importance", f"{what} disease-critical network", slack),
+        near_ties(vi, want[1], ("QUERY_SNP",), "importance",
+                  f"{what} variant interpretation", slack))
     hits = len(set(vi["QUERY_SNP"]))
     log(f"  phase 7 {what}: variant_threshold {thr:.3g}; merged_gat_fwd "
         f"raw {'fold R' if folded else 'fold 0'} x{launches} vs plain "
@@ -2424,8 +2525,8 @@ def interpret_vs_plain(run, cg, thr, folded, what):
         f"{len(nw['h_idx'])} rows, disease-critical network "
         f"{len(dcn['h_idx'])}, variant interpretation {len(vi['h_idx'])} "
         f"rows over {hits} hit SNPs, equal to the plain run's up to near-ties "
-        f"{ties}; host s: " + ", ".join(f"{k} {v:.2f}"
-                                        for k, v in stages.items()))
+        f"{ties} (groups within the weight slack {slacked}); host s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     return launches
 
 
@@ -3964,6 +4065,9 @@ BF16_KERNELS = ("merged_gat_fwd_bf16", "merged_gat_bwd_bf16",
                 "merged_gat_a_src_bf16")
 # the per-relation softmax GAT's (#6, #7): phase 12's relation runs
 REL_BF16 = ("segment_softmax_spmm_fwd_bf16", "segment_softmax_spmm_bwd_bf16")
+# phase 12's relation timing of #8 bf16: its launches after #7 bf16 (no
+# logit term), reported beside phase 12a's GAT-sum row
+REL_CSC = "csc_segment_sum_bf16 relation"
 # each bf16 kernel's f32 family (path_launches counts the family)
 BF16_FAMILY = {"merged_gat_fwd_bf16": "merged_gat_fwd",
                "merged_gat_bwd_bf16": "merged_gat_bwd",
@@ -4023,8 +4127,11 @@ BF16_VARIANTS = {
     "GAT-sum edge_dim compute": dict(edge_dim=4, compute_dtype="bfloat16"),
 }
 # the runs whose bf16 launches are counted over a full-width epoch of
-# train_steps: #1 and #2 bf16 (and the score pass) under each dtype option
-EPOCH_VARIANTS = ("GAT-sum stream", "GAT-sum compute")
+# train_steps: #1, #2 and #8 bf16 (and the score pass) under each dtype
+# option; #6, #7 and #8 bf16 under stream_dtype; #10 and #8 bf16 under
+# compute_dtype
+EPOCH_VARIANTS = ("GAT-sum stream", "GAT-sum compute", "GAT-max stream",
+                  "SAGE compute")
 # the relation runs whose #6 / #7 launches are timed (the kernel table's
 # rows: the compute dtype's, as --dtype bfloat16 sets it)
 REL_TIMED = ("GAT-max stream", "GAT-max compute")
@@ -4125,11 +4232,16 @@ def gather_floors_bf16(cg, layouts, rates16, rates32):
                      cg.padded_nodes[cg.relations[rk].src_type], HIDDEN * 2,
                      rates16)
               for t, k in live.items() for rk in layouts[t].rel_keys)
+    # #8 after #7 (no logit term): each relation's float32 cotangent rows
+    rel_csc = sum(k * ms(len(cg.relations[rk].src),
+                         cg.padded_nodes[cg.relations[rk].dst_type],
+                         HIDDEN * 4, rates32)
+                  for t, k in live.items() for rk in layouts[t].rel_keys)
     floors = {"merged_gat_a_src_bf16": None,   # reads its rows in order
               "merged_gat_fwd_bf16": merged, "merged_gat_bwd_bf16": merged,
               "csc_segment_sum_bf16": csc, "csr_segment_sum_bf16": csr,
               "segment_softmax_spmm_fwd_bf16": rel,
-              "segment_softmax_spmm_bwd_bf16": rel}
+              "segment_softmax_spmm_bwd_bf16": rel, REL_CSC: rel_csc}
     log("  bf16 gather floors per forward or step: "
         + "; ".join(f"{k} {v:.4f} ms" for k, v in floors.items()
                     if v is not None))
@@ -4168,13 +4280,17 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
     (merged_gat_a_src_bf16, a forward's first launch, also timed alone),
     #2 bf16 on the forward's scores, as the layer runs them; with parent
     (KGWAS_PARENT_CSRC) the earlier checkout's #1 and #2 bf16, which score
-    every edge themselves, are timed in turns with them (this, earlier,
-    earlier, this) and their outputs compared bit for bit. Returns
-    {kernel: row totals}."""
+    every edge themselves, and its #8 bf16 are timed in turns with them
+    (this, earlier, earlier, this) and their outputs compared bit for bit.
+    #8 bf16's library call: index_add_ of the materialised message
+    cotangent, each row rounded to bf16 as the kernel rounds it (held in
+    float32, so the sums are the kernel's function). Returns {kernel: row
+    totals}."""
     from kgwas_tpu_torch.graph import build_merged_layouts
     from kgwas_tpu_torch.kgwas import TILE_ROWS
     from kgwas_tpu_torch.models import device_layouts
     from kgwas_tpu_torch.ops import gat_layer, segment
+    from kgwas_tpu_torch.ops.segment_ref import round_bf16
 
     t0 = time.perf_counter()
     host = build_merged_layouts(cg, tile_rows=TILE_ROWS)
@@ -4186,10 +4302,14 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
                               "f32_device_ms"), 0.0)
             for k in mine}
     rows["csr_segment_sum_bf16"]["library_ms"] = 0.0
+    rows["csc_segment_sum_bf16"]["library_ms"] = 0.0
     rows["merged_gat_a_src_bf16"].update(f32_ms=None, f32_device_ms=None)
     earlier = parent is not None and parent.has_bf16
-    for k in ("merged_gat_fwd_bf16", "merged_gat_bwd_bf16"):
-        rows[k].update(parent_ms=0.0, parent_device_ms=0.0) if earlier \
+    earlier_seg = parent is not None
+    for k, e in (("merged_gat_fwd_bf16", earlier),
+                 ("merged_gat_bwd_bf16", earlier),
+                 ("csc_segment_sum_bf16", earlier_seg)):
+        rows[k].update(parent_ms=0.0, parent_device_ms=0.0) if e \
             else rows[k].update(parent_ms=None, parent_device_ms=None)
     not_bitwise = []   # (kernel, group, output) off the earlier bits
     worst = dict.fromkeys(mine, 0.0)
@@ -4267,7 +4387,8 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
             raise AssertionError(f"merged_gat_fwd_bf16 {t}: two runs differ")
         if earlier:
             same_bits("merged_gat_fwd_bf16", t, ("out", "row_max", "row_sum"),
-                      out, parent.fwd_bf16(xs, *fa, sched=sched))
+                      out, parent.fwd_bf16(xs, *fa, sched=sched,
+                                           src_base=base))
         err, o = bf16_rows_check(out[0], want[0], trash,
                                  f"merged_gat_fwd_bf16 {t}")
         slot_trash = np.zeros(L.n_rows_total, dtype=bool)
@@ -4283,7 +4404,8 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
               lambda: gat_layer.merged_gat_forward(xs32, *fa, sched=sched),  # noqa: B023
               bf16_bound(nbytes(xs, DL.src, DL.row_offsets, att, ad, *out),
                          4 * d * e),
-              functools.partial(parent.fwd_bf16, xs, *fa, sched=sched)
+              functools.partial(parent.fwd_bf16, xs, *fa, sched=sched,
+                                src_base=base)
               if earlier else None)
         # #2 on the forward's scores; its bound counts the bytes and dots
         # of the function, which scores each source row once
@@ -4291,13 +4413,15 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
               "softmax", 0.2, 1.0)
         bwd = functools.partial(gat_layer.merged_gat_bwd, xs, *ba,
                                 sched=bsched, a_src=a_src)
+        p_a_src = parent.a_src_bf16(xs, att, base) if earlier else None
         bk, bk2 = bwd(), bwd()
         bp = gat_layer.merged_gat_bwd_plain(xs, *ba)
         if not all(torch.equal(a, b) for a, b in zip(bk, bk2)):
             raise AssertionError(f"merged_gat_bwd_bf16 {t}: two runs differ")
         if earlier:
             same_bits("merged_gat_bwd_bf16", t, ("w", "dz", "d_a_dst"), bk,
-                      parent.bwd_bf16(xs, *ba, sched=bsched))
+                      parent.bwd_bf16(xs, *ba, sched=bsched,
+                                      a_src=p_a_src))
         for a, b in zip(bk, bp):
             err, o = bf16_grad_check(a, b, f"merged_gat_bwd_bf16 {t}")
             worst["merged_gat_bwd_bf16"] = max(worst["merged_gat_bwd_bf16"],
@@ -4309,7 +4433,8 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
               bf16_bound(nbytes(xs, DL.src, DL.row_offsets, att, ad, want[1],
                                 want[2], g, *bk),
                          4 * d * e + 2 * d * xs.shape[0]),
-              functools.partial(parent.bwd_bf16, xs, *ba, sched=bsched)
+              functools.partial(parent.bwd_bf16, xs, *ba, sched=bsched,
+                                a_src=p_a_src)
               if earlier else None)
         # #8 with the logit term
         w, dz = bk[0], bk[1]
@@ -4318,6 +4443,9 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
         cp = segment.csc_segment_sum_plain(g, w, dz, xs, att, DL, R)
         if not all(torch.equal(a, b) for a, b in zip(ck, ck2)):
             raise AssertionError(f"csc_segment_sum_bf16 {t}: two runs differ")
+        if earlier_seg:
+            same_bits("csc_segment_sum_bf16", t, ("d_xs", "d_att"), ck,
+                      parent.csc_bf16(g, w, dz, xs, att, DL, R))
         err, o = bf16_grad_check(ck[0], cp[0], f"csc_segment_sum_bf16 {t}")
         err2, _ = bf16_grad_check(ck[1], cp[1],
                                   f"csc_segment_sum_bf16 {t} d_att")
@@ -4330,7 +4458,17 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
                                                     R),
               lambda: segment.csc_segment_sum(g, w, dz, xs32, att, DL, R),  # noqa: B023
               bf16_bound(nbytes(g, w, dz, xs, att, DL.csc_rows, DL.csc_perm,
-                                DL.csc_offsets, *ck), 4 * d * e))
+                                DL.csc_offsets, *ck), 4 * d * e),
+              functools.partial(parent.csc_bf16, g, w, dz, xs, att, DL, R)
+              if earlier_seg else None)
+        # its library call: index_add_ of the bf16-rounded cotangent rows
+        dst = DL.dst.long()
+        d_msgs = round_bf16(w[:, None] * g[dst % n] + dz[:, None]
+                            * att[dst // n])
+        src_l = DL.src.long()
+        rows["csc_segment_sum_bf16"]["library_ms"] += k * cuda_ms(
+            lambda: torch.zeros_like(xs32).index_add_(0, src_l, d_msgs), 5)  # noqa: B023
+        del d_msgs, dst, src_l
         del out, again, want, bk, bk2, bp, ck, ck2, cp
         # #10 on the merged group's stream ('mp': the SAGE / GCN sums)
         for wk in (None, DL.sym_e, DL.sym_e.to(torch.bfloat16)):
@@ -4385,16 +4523,15 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
             f"{r['bound_ms']:.4f} ({r['bytes']:.4f} bytes, "
             f"{r['operations']:.4f} operations), gather floor "
             f"{opt(r['floor_ms'])}, plain {r['plain_ms']:.4f}"
-            + (f", torch.sparse.mm bf16 {r['library_ms']:.4f}"
-               if r.get("library_ms") else "")
+            + (f", {'index_add_' if name == 'csc_segment_sum_bf16' else 'torch.sparse.mm'}"
+               f" bf16 {r['library_ms']:.4f}" if r.get("library_ms") else "")
             + f"; max abs err {worst[name]:.3e}, {off[name]} rows or "
             f"values off the f32 tolerance (bf16 rounding neighbours)")
     note = ""
-    if earlier:   # each exception stays held by the bf16 rule above
-        note = ("; #1 / #2 bf16 bitwise the earlier checkout's on every "
-                "launch" if not not_bitwise else
-                f"; #1 / #2 bf16 NOT bitwise the earlier checkout's on "
-                f"{not_bitwise}")
+    if earlier or earlier_seg:   # each exception stays held by the bf16 rule
+        note = ("; #1 / #2 / #8 bf16 bitwise the earlier checkout's on "
+                "every launch" if not not_bitwise else
+                f"; NOT bitwise the earlier checkout's on {not_bitwise}")
     del dls
     torch.cuda.empty_cache()
     log(f"phase 12a ok [{card}]: four bf16 instances and the score pass "
@@ -4403,74 +4540,139 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
     return rows
 
 
-def relation_bf16_launches(calls_f, calls_b, timing, n_timed_f=None):
+def relation_bf16_launches(calls_f, calls_b, calls_c, timing,
+                           n_timed_f=None, parent=None):
     """Phase 12's relation runs: every recorded launch of #6 and #7 on a
     bf16 table (one forward and one training step) against its plain
-    version (the
-    float64 rule) and bitwise the float32 instance on the widened operands
-    under the same schedule; with timing, their sums over the launches:
+    version (the float64 rule) and bitwise the float32 instance on the
+    widened operands under the same schedule, and every launch of #8 on a
+    bf16 table in that step (after #7, no logit term) against its plain
+    version (the bf16 rule); with timing, their sums over the launches:
     host-paced and device ms, plain ms, bound (each input read and each
     output written once at its own width; operations at the bf16 peak) and
     the float32 instance's ms on the widened operands, over the first
     n_timed_f forward launches (one forward's) and every backward launch.
-    Returns ({kernel: worst abs err}, {kernel: totals})."""
+    With parent (KGWAS_PARENT_CSRC), the earlier checkout's #6 and #8 bf16
+    on each launch, bit for bit and, with timing, in turns (this, earlier,
+    earlier, this). Returns ({kernel: worst abs err}, {kernel: totals},
+    [(kernel, launch) not bitwise the earlier checkout's]); #8's row is
+    REL_CSC."""
+    from kgwas_tpu_torch.ops import segment
     from kgwas_tpu_torch.ops import segment_softmax as ss
 
-    worst, rows = {}, {}
-    for name, calls, fn, plain in (
+    earlier = parent is not None
+    worst, rows, not_bitwise = {}, {}, []
+    for name, calls, fn, plain, pfn in (
             ("segment_softmax_spmm_fwd_bf16", calls_f,
-             ss.segment_softmax_spmm_fwd, ss.segment_softmax_spmm_fwd_plain),
+             ss.segment_softmax_spmm_fwd, ss.segment_softmax_spmm_fwd_plain,
+             parent.seg_fwd_bf16 if earlier else None),
             ("segment_softmax_spmm_bwd_bf16", calls_b,
-             ss.segment_softmax_spmm_bwd, ss.segment_softmax_spmm_bwd_plain)):
+             ss.segment_softmax_spmm_bwd, ss.segment_softmax_spmm_bwd_plain,
+             None),
+            (REL_CSC, calls_c, segment.csc_segment_sum,
+             segment.csc_segment_sum_plain,
+             parent.csc_bf16 if earlier else None)):
         tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms",
                              "bytes", "operations", "f32_ms",
                              "f32_device_ms"), 0.0)
+        if pfn is not None:
+            tot.update(parent_ms=0.0, parent_device_ms=0.0)
         err = 0.0
+        csc = name == REL_CSC
+        xs_at = 3 if csc else 0
         # under compute_dtype the layers after a relation layer's float32
         # output run the float32 instance (their products promote)
-        n_timed = len(calls) if name == REL_BF16[1] else n_timed_f
+        n_timed = n_timed_f if name == REL_BF16[0] else len(calls)
         calls = [(i < n_timed, c) for i, c in enumerate(calls)
-                 if c[0][0].dtype == torch.bfloat16]
+                 if c[0][xs_at].dtype == torch.bfloat16]
         if not calls:
             raise AssertionError(f"{name}: no launch on a bf16 table")
         n_t = 0
-        for timed_call, (args, kwargs) in calls:
+        for li, (timed_call, (args, kwargs)) in enumerate(calls):
             args = detached(args)
             wide = tuple(a.float() if torch.is_tensor(a)
                          and a.dtype == torch.bfloat16 else a for a in args)
             got = as_tuple(fn(*args, **kwargs))
-            f32 = as_tuple(fn(*wide, **kwargs))
-            if not all(torch.equal(a, b) for a, b in zip(got, f32)):
-                raise AssertionError(f"{name}: not bitwise the float32 "
-                                     "instance on the widened operands")
+            if pfn is not None and not all(
+                    torch.equal(a, b) for a, b in zip(
+                        got, as_tuple(pfn(*args, **kwargs)))
+                    if a is not None):
+                not_bitwise.append((name, li))
             pkw = {k: v for k, v in kwargs.items() if k != "sched"}
-            pkw64 = dict(zip(pkw, as_double(tuple(pkw.values()))))
-            for a, p, x in zip(got, as_tuple(plain(*args, **pkw)),
-                               as_tuple(plain(*as_double(args), **pkw64))):
-                err = max(err, grad_compare(a, p, x, f"full-width {name}"))
+            if csc:
+                for a, p in zip(got, as_tuple(plain(*args, **pkw))):
+                    if a is not None:
+                        err = max(err, bf16_grad_check(
+                            a, p, f"full-width {name}")[0])
+            else:
+                f32 = as_tuple(fn(*wide, **kwargs))
+                if not all(torch.equal(a, b) for a, b in zip(got, f32)):
+                    raise AssertionError(f"{name}: not bitwise the float32 "
+                                         "instance on the widened operands")
+                pkw64 = dict(zip(pkw, as_double(tuple(pkw.values()))))
+                for a, p, x in zip(got, as_tuple(plain(*args, **pkw)),
+                                   as_tuple(plain(*as_double(args),
+                                                  **pkw64))):
+                    err = max(err, grad_compare(a, p, x,
+                                                f"full-width {name}"))
             if not (timing and timed_call):
                 continue
             n_t += 1
-            d, ro = args[0].shape[1], args[3]
-            e, n_rows = int(ro[-1]), ro.numel() - 1
-            flops = 2 * d * (e if name == REL_BF16[0] else e + n_rows)
-            b_ms, o_ms = bf16_bound(nbytes(*(a for a in args
-                                             if torch.is_tensor(a)),
-                                           kwargs.get("mult"), *got), flops)
+            if csc:
+                # xs is read (with its D-wide dot an edge) only for d_w,
+                # as the float32 bound counts it (kernel_bound)
+                g, w, _, xs, _, lay = args[:6]
+                d, e = xs.shape[1], lay.csc_perm.numel()
+                dw = bool(kwargs.get("edge_grad"))
+                flops = 2 * d * e * (2 if dw else 1)
+                ins = (g, w, xs if dw else None, lay.csc_rows,
+                       lay.csc_offsets,
+                       None if w is None and not dw else lay.csc_perm)
+            else:
+                d, ro = args[0].shape[1], args[3]
+                e, n_rows = int(ro[-1]), ro.numel() - 1
+                flops = 2 * d * (e if name == REL_BF16[0] else e + n_rows)
+                ins = tuple(a for a in args if torch.is_tensor(a)) + (
+                    kwargs.get("mult"),)
+            b_ms, o_ms = bf16_bound(nbytes(*ins, *got), flops)
             tot["bytes"] += b_ms
             tot["operations"] += o_ms
             tot["bound_ms"] += max(b_ms, o_ms)
-            tot["ms"] += cuda_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
-            tot["device_ms"] += graph_ms(lambda: fn(*args, **kwargs), 10)  # noqa: B023
+            call = lambda: fn(*args, **kwargs)  # noqa: B023, E731
+            f32_call = lambda: fn(*wide, **kwargs)  # noqa: B023, E731
+            ms, dev = [cuda_ms(call, 10)], [graph_ms(call, 10)]
+            pms = pdev = ()
+            if pfn is not None:
+                pcall = lambda: pfn(*args, **kwargs)  # noqa: B023, E731
+                pms = [cuda_ms(pcall, 10) for _ in range(2)]
+                pdev = [graph_ms(pcall, 10) for _ in range(2)]
+                tot["parent_ms"] += statistics.mean(pms)
+                tot["parent_device_ms"] += statistics.mean(pdev)
+                ms.append(cuda_ms(call, 10))
+                dev.append(graph_ms(call, 10))
+            tot["ms"] += statistics.mean(ms)
+            tot["device_ms"] += statistics.mean(dev)
             tot["plain_ms"] += cuda_ms(lambda: plain(*args, **pkw), 2)  # noqa: B023
-            tot["f32_ms"] += cuda_ms(lambda: fn(*wide, **kwargs), 10)  # noqa: B023
-            tot["f32_device_ms"] += graph_ms(lambda: fn(*wide, **kwargs), 10)  # noqa: B023
+            f32_ms, f32_dev = cuda_ms(f32_call, 10), graph_ms(f32_call, 10)
+            tot["f32_ms"] += f32_ms
+            tot["f32_device_ms"] += f32_dev
+            if pfn is not None:   # where the time goes, launch by launch
+                hosts = [host_ms(c, 10) for c in (call, f32_call, pcall)]
+                sched = lay.csc_schedule if csc else kwargs.get("sched")
+                log(f"    {name} launch {li} ("
+                    f"{'no' if sched is None else sched.items.shape[0]} items, "
+                    f"{e} edges, {args[xs_at].shape[0]} source rows): "
+                    f"host-paced "
+                    f"{fmt_ms(ms)} [device {fmt_ms(dev)}], earlier "
+                    f"{fmt_ms(pms)} [{fmt_ms(pdev)}], float32 instance "
+                    f"{f32_ms:.4f} [{f32_dev:.4f}]; host issue a call "
+                    f"{fmt_ms(hosts)} (this, float32, earlier)")
         worst[name] = err
         rows[name] = dict(tot, launches_timed=n_t)
-    return worst, rows
+    return worst, rows, not_bitwise
 
 
-def phase_bf16_models(kt, data, cg, device, card, floors16):
+def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
     """Phase 12b-d: BF16_VARIANTS at full width through KGWAS
     (initialize_model with the dtype option, no_relu): predict_all with
     every layer kernel counted from 0 just before (the bf16 instances where
@@ -4481,9 +4683,11 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
     BF16_LOSS_RTOL, parameters within PARAM_ATOL); forward and step ms with
     the device's busy share, beside the f32 GAT sum's. The per-relation
     softmax GAT's runs (GAT max, GAT min, edge_dim under each option)
-    also record #6 / #7 bf16 over one forward and one step, each launch
-    held against its plain version and bitwise the float32 instance on the
-    widened operands (relation_bf16_launches; REL_TIMED's timed), their
+    also record #6 / #7 bf16 over one forward and one step, and #8 bf16
+    after #7 in that step, each launch held against its plain version, #6
+    and #7 bitwise the float32 instance on the widened operands
+    (relation_bf16_launches; REL_TIMED's timed; with parent, #6 and #8
+    bf16 bitwise and in turns with the earlier checkout's), their
     forward / step ms beside phase 6c's float32 GAT max / min (no
     profile). Returns ({kernel: launches}, {kernel: worst abs err},
     {variant: (fwd ms, step ms, busy fwd, busy step)}, {kernel: the timed
@@ -4492,7 +4696,7 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
     from kgwas_tpu_torch.models.hetero_gnn import layer_path
-    from kgwas_tpu_torch.ops import segment_softmax
+    from kgwas_tpu_torch.ops import segment, segment_softmax
 
     t_phase = time.perf_counter()
     data_v = copy.copy(data)
@@ -4623,26 +4827,36 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
         if rel:
             rec_f = Recorder(segment_softmax.segment_softmax_spmm_fwd)
             rec_b = Recorder(segment_softmax.segment_softmax_spmm_bwd)
+            rec_c = Recorder(segment.csc_segment_sum)
             model.load_state_dict(init)
             opt = build_optimizer(model.parameters(), LR, 5e-4)
             with swapped(segment_softmax, segment_softmax_spmm_fwd=rec_f,
-                         segment_softmax_spmm_bwd=rec_b):
+                         segment_softmax_spmm_bwd=rec_b), \
+                    swapped(segment, csc_segment_sum=rec_c):
                 run.predict_all()
                 n_fwd = len(rec_f.calls)
                 train_step(model, opt, x, layouts, batches[0], y_node,
                            w_node)
-            errs, tots = relation_bf16_launches(rec_f.calls, rec_b.calls,
-                                                name in REL_TIMED, n_fwd)
+            errs, tots, off_bits = relation_bf16_launches(
+                rec_f.calls, rec_b.calls, rec_c.calls, name in REL_TIMED,
+                n_fwd, parent)
             for k, v in errs.items():
-                worst[k] = max(worst[k], v)
+                worst[k if k != REL_CSC else "csc_segment_sum_bf16"] = max(
+                    worst[k if k != REL_CSC else "csc_segment_sum_bf16"], v)
             if name in REL_TIMED:
                 rel_rows[name] = tots
-            rel_note = (f"; #6 / #7 bf16 on {len(rec_f.calls)} / "
-                        f"{len(rec_b.calls)} launches of a forward and a "
-                        f"step: bitwise the float32 instance on the widened "
-                        f"operands, max abs err against plain "
+            rel_note = (f"; #6 / #7 / #8 bf16 on {len(rec_f.calls)} / "
+                        f"{len(rec_b.calls)} / {len(rec_c.calls)} launches "
+                        f"of a forward and a step: #6 / #7 bitwise the "
+                        f"float32 instance on the widened operands, max abs "
+                        f"err against plain "
                         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-            del rec_f, rec_b
+            if parent is not None:
+                rel_note += ("; #6 / #8 bf16 bitwise the earlier checkout's "
+                             "on every launch" if not off_bits else
+                             f"; NOT bitwise the earlier checkout's on "
+                             f"{off_bits}")
+            del rec_f, rec_b, rec_c
 
         model.load_state_dict(init)
         opt = build_optimizer(model.parameters(), LR, 5e-4)
@@ -4677,16 +4891,21 @@ def phase_bf16_models(kt, data, cg, device, card, floors16):
         torch.cuda.empty_cache()
     f32 = times["GAT-sum f32"]
     rows = {}
-    for k in REL_BF16:
-        r = rows[k] = dict(rel_rows["GAT-max compute"][k])
-        r["floor_ms"] = floors16[k]
-        r["max_abs_err"] = worst[k]
+    for k in REL_BF16 + (REL_CSC,):
+        if k in REL_BF16:
+            r = rows[k] = dict(rel_rows["GAT-max compute"][k])
+            r["floor_ms"] = floors16[k]
+            r["max_abs_err"] = worst[k]
         for cfg_name in REL_TIMED:
             t = rel_rows[cfg_name][k]
             log(f"  phase 12 {k} [{card}] ({cfg_name}, "
                 f"{t['launches_timed']} bf16 launches of a forward or a "
                 f"step): "
-                f"{t['ms']:.4f} ms [device {t['device_ms']:.4f}], float32 "
+                f"{t['ms']:.4f} ms [device {t['device_ms']:.4f}]"
+                + (f", earlier checkout's {t['parent_ms']:.4f} [device "
+                   f"{t['parent_device_ms']:.4f}]" if "parent_ms" in t
+                   else "")
+                + f", float32 "
                 f"instance on the widened values {t['f32_ms']:.4f} "
                 f"[{t['f32_device_ms']:.4f}]; bound {t['bound_ms']:.4f} "
                 f"({t['bytes']:.4f} bytes, {t['operations']:.4f} "
@@ -5342,7 +5561,8 @@ def main():
     bf16_rows = timed_phase("12a", phase_bf16_kernels, kt, cg, device, card,
                             floors16, parent)
     bf16_launches, bf16_worst, _, rel_rows, bf16_epoch = timed_phase(
-        "12b-d", phase_bf16_models, kt, data, cg, device, card, floors16)
+        "12b-d", phase_bf16_models, kt, data, cg, device, card, floors16,
+        parent)
     bf16_rows.update(rel_rows)
     timed_phase("13", phase_gate, kt, card, tmp)
 

@@ -98,7 +98,8 @@ KERNELS = {
     "segment_softmax_spmm_fwd_bf16": (
         "segment_softmax_spmm_fwd.cu",
         "kgwas_segment_softmax_spmm_fwd_bf16",
-        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _P],
+        [_P] * 9 + [_I64, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32,
+                    _P],
     ),
     "segment_softmax_spmm_bwd_bf16": (
         "segment_softmax_spmm_bwd.cu",

@@ -74,17 +74,30 @@
 // gather_probe.cu, is the floor the design aims at.
 //
 // The bf16 instance (kgwas_csc_segment_sum_bf16: xs bf16; g, w, dz, att
-// and every output float32), a compile-time flag BF. With the logit term
-// it rounds where the JAX package's backward rounds on bf16 messages:
-// each entry's message cotangent row w_e g[row_i] + dz_e att[slot]
-// (products and sum rounded separately, as the plain version forms them)
-// is rounded to bf16 before it is added, so the att term is not factored
-// out of the row's sum, and c_s sums the bf16-rounded dz_e for d_att.
-// Without it, a weighted sum rounds each product w_e g[row_i] to bf16 (the
-// JAX package's cotangent of bf16 messages times float32 weights comes
-// back through the cast to bf16) and an unweighted one is the f32
-// instance's sum; xs is read as bf16 for d_att and d_w. Its bound: xs
-// read at 2 bytes a value.
+// and every output float32). With the logit term it rounds where the JAX
+// package's backward rounds on bf16 messages: each entry's message
+// cotangent row w_e g[row_i] + dz_e att[slot] (products and sum rounded
+// separately, as the plain version forms them) is rounded to bf16 before
+// it is added, so the att term is not factored out of the row's sum, and
+// c_s sums the bf16-rounded dz_e for d_att. Without it, a weighted sum
+// rounds each product w_e g[row_i] to bf16 (the JAX package's cotangent of
+// bf16 messages times float32 weights comes back through the cast to bf16)
+// and an unweighted one is the f32 instance's sum; xs is read as bf16 for
+// d_att and d_w. Its bound: xs read at 2 bytes a value.
+//
+// Its kernel (csc_items_bf16_kernel) is the float32 one's item per warp
+// with two changes that keep the bits: the rows' c are summed once w and
+// dz are staged, eight rows at a time in one transposing butterfly
+// (multi_sum: the same pairs as each row's own butterfly), where the
+// float32 kernel sums one row's when the row ends; and pairs of columns
+// round to bf16 in one conversion. It runs in blocks of 4 warps with a
+// register budget by form (72 with the logit term, 64 without), so that
+// neither spills much and 28 or 32 warps fit on each SM. Two designs
+// measured slower on the model's layouts (PERF.md): a persistent
+// walk that staged each warp's next item between its register batches
+// (its registers cost warps, and other warps already overlap an item's
+// dependent loads), and the d_att share's xs rows streamed behind the
+// cotangent rows through the same batches (its registers cost warps too).
 
 #include <cuda_runtime.h>
 
@@ -98,6 +111,7 @@ namespace {
 
 using kgwas::kBwdMaxEdges;
 using kgwas::kFull;
+using kgwas::kItemMaxRows;
 using kgwas::kMaxCols;
 using kgwas::multi_sum;
 using kgwas::row_dot;
@@ -135,15 +149,6 @@ struct Args {
   const __nv_bfloat16* xsb;  // [S, D]: the bf16 instance's table
 };
 
-// the table of the f32 (BF false) or the bf16 instance
-template <bool BF>
-__device__ __forceinline__ auto xs_table(const Args& a) {
-  if constexpr (BF)
-    return a.xsb;
-  else
-    return a.xs;
-}
-
 // the slot whose source rows hold row s
 __device__ __forceinline__ int slot_of(const Args& a, long long s) {
   int slot = 0;
@@ -153,12 +158,12 @@ __device__ __forceinline__ int slot_of(const Args& a, long long s) {
 
 // at D = 128, at most 64 registers a thread: 4 blocks, 32 warps, on each
 // SM (wider rows need more; with DW, 3 blocks)
-template <bool VEC, int NV, bool LOGITS, bool DW, bool BF>
+template <bool VEC, int NV, bool LOGITS, bool DW>
 __global__ void __launch_bounds__(kWarps * 32,
                                   VEC && NV == 1 ? (DW ? 3 : 4) : 1)
 csc_items_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
-  const auto xs = xs_table<BF>(a);
+  const float* xs = a.xs;
   constexpr int U = kgwas::rows_in_flight<VEC, NV>();
   __shared__ int s_row_w[kWarps][kBwdMaxEdges];
   __shared__ float s_w_w[kWarps][kBwdMaxEdges];
@@ -253,7 +258,7 @@ csc_items_kernel(const Args a) {
       const int beg = __shfl_sync(kFull, it.vbeg, k);
       const int cnt = __shfl_sync(kFull, it.cnt, k);
       for (int j = lane; j < cnt; j += 32)
-        c += BF ? kgwas::round_bf16(s_dz[beg + j]) : s_dz[beg + j];
+        c += s_dz[beg + j];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         c += __shfl_xor_sync(kFull, c, off);
@@ -264,7 +269,7 @@ csc_items_kernel(const Args a) {
       acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
       return;
     }
-    if (LOGITS && !BF) {
+    if (LOGITS) {
 #pragma unroll
       for (int q = 0; q < R::C; ++q) acc.v[q] = fmaf(c, att.v[q], acc.v[q]);
     }
@@ -291,22 +296,9 @@ csc_items_kernel(const Args a) {
                     lane, d);
         }
         const float wv = weighted ? s_w[vu] : 1.0f;
-        if (BF && LOGITS) {
-          // the formed row w_e g + dz_e att, rounded to bf16
-          const float dzv = s_dz[vu];
 #pragma unroll
-          for (int q = 0; q < R::C; ++q)
-            acc.v[q] += kgwas::round_bf16(__fadd_rn(
-                __fmul_rn(wv, x[u].v[q]), __fmul_rn(dzv, att.v[q])));
-        } else if (BF && weighted) {
-#pragma unroll
-          for (int q = 0; q < R::C; ++q)
-            acc.v[q] += kgwas::round_bf16(__fmul_rn(wv, x[u].v[q]));
-        } else {
-#pragma unroll
-          for (int q = 0; q < R::C; ++q)
-            acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
-        }
+        for (int q = 0; q < R::C; ++q)
+          acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
         if (DW) dw[u] = row_dot(x[u], xr);
       }
     }
@@ -373,6 +365,280 @@ csc_items_kernel(const Args a) {
     if (v + U < n_nz) add(xb, v + U);
   }
   part.store(a.partial + item * d, lane, d);
+}
+
+// ---- the bf16 instance
+//
+// One warp an item, as the float32 kernel, in blocks of 4 warps: its
+// rows' c are summed once w and dz are staged, eight rows at a time in
+// one transposing butterfly, and pairs of columns round to bf16 in one
+// conversion (see the note at the top).
+
+constexpr int kBf16Warps = 4;  // warps per block
+
+// A warp's item in shared memory.
+template <bool LOGITS, bool DW>
+struct Staged {
+  int row[kBwdMaxEdges];    // each entry's row of g, then the d_att rows
+  float w[kBwdMaxEdges];    // its edge's weight (first its edge, without DW)
+  float dz[LOGITS ? kBwdMaxEdges : 1];  // its edge's logit cotangent
+  int e[DW ? kBwdMaxEdges : 1];         // its edge (DW)
+  float c[LOGITS ? kItemMaxRows : 1];   // each row's c
+  unsigned char nz[LOGITS ? kItemMaxRows : 1];  // the rows with c != 0
+  unsigned char k[kBwdMaxEdges];        // each entry's row in the item
+};
+
+// c of each of the item's rows, the bf16-rounded dz summed in the float32
+// kernel's order (lane partials of every 32nd entry, then a butterfly):
+// eight rows at a time, their butterflies in one transposing multi_sum
+// (the same pairs, so the same bits); then the rows with c != 0 in order.
+// Returns how many.
+template <bool DW>
+__device__ __forceinline__ int stage_c(const kgwas::ItemRows& it,
+                                       Staged<true, DW>& st, int lane) {
+  constexpr int G = 8;
+  for (int k0 = 0; k0 < it.n_rows; k0 += G) {  // warp-uniform
+    float p[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int k = min(k0 + u, it.n_rows - 1);
+      const int beg = __shfl_sync(kFull, it.vbeg, k);
+      const int cnt = __shfl_sync(kFull, it.cnt, k);
+      p[u] = 0.0f;
+      for (int j = lane; j < cnt; j += 32)
+        p[u] += kgwas::round_bf16(st.dz[beg + j]);
+    }
+    const float t = multi_sum<G>(p, lane);
+    const int k = k0 + lane / (32 / G);
+    if (lane % (32 / G) == 0 && k < it.n_rows) st.c[k] = t;
+  }
+  __syncwarp();
+  const float my_c = lane < it.n_rows ? st.c[lane] : 0.0f;
+  const unsigned nz = __ballot_sync(kFull, my_c != 0.0f);
+  if (nz >> lane & 1)
+    st.nz[__popc(nz & ((1u << lane) - 1))] = static_cast<unsigned char>(lane);
+  __syncwarp();
+  return __popc(nz);
+}
+
+// each of a lane's columns rounded to the nearest bf16, a pair a
+// conversion (the same bits as one at a time; C is even)
+template <int C>
+__device__ __forceinline__ void round_bf16_cols(float (&t)[C]) {
+#pragma unroll
+  for (int q = 0; q < C; q += 2) {
+    const float2 r = __bfloat1622float2(
+        __float22bfloat162_rn(make_float2(t[q], t[q + 1])));
+    t[q] = r.x;
+    t[q + 1] = r.y;
+  }
+}
+
+// at D = 128, at most 72 registers a thread with the logit term (7 blocks,
+// 28 warps, on each SM), else 64 (8 blocks, 32 warps)
+template <bool VEC, int NV, bool LOGITS, bool DW>
+__global__ void __launch_bounds__(kBf16Warps * 32,
+                                  VEC && NV == 1 ? (LOGITS ? 7 : 8) : 1)
+csc_items_bf16_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int U = kgwas::rows_in_flight<VEC, NV>();
+  __shared__ Staged<LOGITS, DW> st_w[kBf16Warps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wi = static_cast<long long>(blockIdx.x) * kBf16Warps + warp;
+  if (wi >= a.n_items) return;  // whole warp exits together
+  const long long item = kgwas::item_of_warp(wi, a.n_items);
+  Staged<LOGITS, DW>& st = st_w[warp];
+  const int d = a.d;
+  const bool weighted = a.w != nullptr;
+
+  const kgwas::ItemRows it =
+      kgwas::item_rows(a.items[item], a.csc_offsets, a.n_src, 1, lane);
+  // each entry's cotangent row and edge (the item's entries follow each
+  // other in the CSC), loads issued four 32-entry batches at a time; the
+  // edge waits in w's place for w and dz (in its own array with DW)
+  const bool by_edge = LOGITS || weighted || DW;
+  int* s_e = DW ? st.e : reinterpret_cast<int*>(st.w);
+  const int first = kgwas::stage_row_keys(it, st.k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int row[4] = {0, 0, 0, 0};
+    int e[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        row[q] = a.csc_rows[first + v];
+        if (by_edge) e[q] = a.csc_perm[first + v];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        st.row[v] = row[q];
+        if (by_edge) s_e[v] = e[q];
+      }
+    }
+  }
+  __syncwarp();
+  // the first cotangent rows in flight while w and dz arrive by each
+  // entry's edge (each lane rewrites its own entries)
+  R xa[U], xb[U];
+  if (it.total > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.g, st.row, 0, it.total, lane, d);
+  if (LOGITS || weighted) {
+    for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+      float wq[4], dzq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = v0 + 32 * q + lane;
+        if (v < it.total) {
+          const int e = s_e[v];
+          wq[q] = weighted ? a.w[e] : 1.0f;
+          if (LOGITS) dzq[q] = a.dz[e];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = v0 + 32 * q + lane;
+        if (v < it.total) {
+          st.w[v] = wq[q];
+          if (LOGITS) st.dz[v] = dzq[q];
+        }
+      }
+    }
+    __syncwarp();
+  }
+  int n_nz = 0;
+  if constexpr (LOGITS) n_nz = stage_c(it, st, lane);
+  R att;  // the slot's attention row
+  if (LOGITS)
+    att.load(a.att + static_cast<size_t>(slot_of(a, it.unit0)) * d, lane, d);
+
+  int cur = -1;  // the row being summed
+  R acc;
+  acc.zero();
+  R xr;  // DW: the row's own xs[s]
+  auto finish_row = [&](int k) {
+    if (it.chunk) {
+      if (LOGITS && lane == 0) a.part_c[it.part] = st.c[0];
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+    } else {
+      acc.store(a.d_xs + (it.unit0 + k) * d, lane, d);
+    }
+  };
+  // sums batch x of U rows, entries v..v+U-1 (with DW, and each entry's
+  // g[row_i] . xs[s] to d_w)
+  auto take = [&](const R (&x)[U], int v) {
+    float dw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vu = v + u;
+      if (DW) dw[u] = 0.0f;
+      if (vu < it.total) {  // warp-uniform
+        const int k = st.k[vu];
+        if (k != cur) {
+          if (cur >= 0) finish_row(cur);
+          cur = k;
+          acc.zero();
+          if (DW)
+            xr.load(a.xsb + static_cast<size_t>(it.unit0 + k) * d, lane, d);
+        }
+        const float wv = weighted ? st.w[vu] : 1.0f;
+        if (LOGITS) {
+          // the formed row w_e g + dz_e att, rounded to bf16
+          const float dzv = st.dz[vu];
+          float t[R::C];
+#pragma unroll
+          for (int q = 0; q < R::C; ++q)
+            t[q] = __fadd_rn(__fmul_rn(wv, x[u].v[q]),
+                             __fmul_rn(dzv, att.v[q]));
+          round_bf16_cols(t);
+#pragma unroll
+          for (int q = 0; q < R::C; ++q) acc.v[q] += t[q];
+        } else if (weighted) {
+          float t[R::C];
+#pragma unroll
+          for (int q = 0; q < R::C; ++q) t[q] = __fmul_rn(wv, x[u].v[q]);
+          round_bf16_cols(t);
+#pragma unroll
+          for (int q = 0; q < R::C; ++q) acc.v[q] += t[q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < R::C; ++q)
+            acc.v[q] = fmaf(wv, x[u].v[q], acc.v[q]);
+        }
+        if (DW) dw[u] = kgwas::row_dot(x[u], xr);
+      }
+    }
+    if (DW) {
+      const float t = multi_sum<U>(dw, lane);
+      const int j = lane / (32 / U);
+      if (lane % (32 / U) == 0 && v + j < it.total) a.d_w[st.e[v + j]] = t;
+    }
+  };
+  // two batches in flight: one is summed while the other arrives
+  for (int v = 0; v < it.total; v += 2 * U) {
+    if (v + U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.g, st.row, v + U, it.total, lane,
+                                     d);
+    take(xa, v);
+    if (v + 2 * U < it.total)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.g, st.row, v + 2 * U, it.total,
+                                     lane, d);
+    if (v + U < it.total) take(xb, v + U);
+  }
+  if (cur >= 0) finish_row(cur);
+  if (!it.chunk) {  // the item's rows without edges: zeros
+    unsigned empty = __ballot_sync(kFull, lane < it.n_rows && it.cnt == 0);
+    R zero;
+    zero.zero();
+    for (; empty; empty &= empty - 1)
+      zero.store(a.d_xs + (it.unit0 + __ffs(empty) - 1) * d, lane, d);
+  }
+  if (!LOGITS) return;
+  // the item's share of d_att, the sum of c xs[s] over its rows with
+  // c != 0 in order: their xs rows, consecutive, gathered two batches of U
+  // at a time once its cotangent rows are summed
+  __syncwarp();  // the entries' rows are read
+  if (lane < n_nz) st.row[lane] = static_cast<int>(it.unit0) + st.nz[lane];
+  __syncwarp();
+  R share;
+  share.zero();
+  auto add = [&](const R (&x)[U], int v) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (v + u < n_nz) {  // warp-uniform
+        const float c = st.c[st.nz[v + u]];
+#pragma unroll
+        for (int q = 0; q < R::C; ++q)
+          share.v[q] = fmaf(c, x[u].v[q], share.v[q]);
+      }
+    }
+  };
+  if (n_nz > 0)
+    kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, st.row, 0, n_nz, lane, d);
+  for (int v = 0; v < n_nz; v += 2 * U) {
+    if (v + U < n_nz)
+      kgwas::gather_rows<VEC, NV, U>(xb, a.xsb, st.row, v + U, n_nz, lane,
+                                     d);
+    add(xa, v);
+    if (v + 2 * U < n_nz)
+      kgwas::gather_rows<VEC, NV, U>(xa, a.xsb, st.row, v + 2 * U, n_nz,
+                                     lane, d);
+    if (v + U < n_nz) add(xb, v + U);
+  }
+  share.store(a.partial + item * d, lane, d);
+}
+
+template <bool VEC, int NV, bool LOGITS, bool DW>
+cudaError_t launch_items_bf16(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kBf16Warps - 1) / kBf16Warps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks == 0) return cudaSuccess;
+  csc_items_bf16_kernel<VEC, NV, LOGITS, DW>
+      <<<static_cast<unsigned>(blocks), kBf16Warps * 32, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // One warp per source row cut into chunks: its parts added in part order,
@@ -461,8 +727,11 @@ cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
-  if (blocks > 0) {
-    csc_items_kernel<VEC, NV, LOGITS, DW, BF>
+  if (BF) {
+    const cudaError_t err = launch_items_bf16<VEC, NV, LOGITS, DW>(a, stream);
+    if (err != cudaSuccess) return err;
+  } else if (blocks > 0) {
+    csc_items_kernel<VEC, NV, LOGITS, DW>
         <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;

@@ -296,12 +296,12 @@ __host__ __device__ __forceinline__ int row_words_bf16(int d) {
 constexpr int kStagesBf16 = 2;
 
 // cp.async of group g's bf16 source rows (edges 8g .. 8g+7 of the item)
-// into stage g % kStagesBf16 of a ring of kGroup-row stages of rw words
-template <bool VEC, int NV>
+// into stage g % S of a ring of S kGroup-row stages of rw words
+template <bool VEC, int NV, int S = kStagesBf16>
 __device__ __forceinline__ void load_group_bf16(
     unsigned* ring, int rw, int g, int total, const int* s_src,
     const __nv_bfloat16* __restrict__ xs, int lane, int d) {
-  unsigned* stage = ring + (g % kStagesBf16) * kGroup * rw;
+  unsigned* stage = ring + (g % S) * kGroup * rw;
   const int n = min(kGroup, total - g * kGroup);
   if (VEC) {
     constexpr int P = 16 * NV;  // 16-byte pieces of a row

@@ -54,17 +54,29 @@
 // rate, measured alone by gather_probe.cu, is the floor the design aims at.
 //
 // The bf16 instance (kgwas_segment_softmax_spmm_fwd_bf16: xs bf16, logits
-// float32 or bf16, mult float32), compile-time flags BF and LB: the
-// float32 instance's arithmetic on bf16 operands, as the TPU kernel keeps
-// the softmax state and the output float32 (pallas_segment.py's out_shapes
-// and scratch). Each message row is read as bf16 and widened (exact), each
+// float32 or bf16, mult float32), compile-time flag LB: the float32
+// instance's arithmetic on bf16 operands, as the TPU kernel keeps the
+// softmax state and the output float32 (pallas_segment.py's out_shapes and
+// scratch). Each message row is read as bf16 and widened (exact), each
 // bf16 logit widened; the row max and sum, p_e, the products, the sums and
-// the division are float32, and out, row_max and row_sum are written in
-// float32. So the instance on (xs, logits) gives the float32 instance's
-// bits on (xs.float(), logits.float()) under the same schedule. Rows are
-// read at 8 bytes a lane at D = 128 (4 values), else a value a lane per 32
-// columns; the chunk combine is the float32 one. Its bound: xs read at 2
-// bytes a value, the gather half the float32 instance's bytes.
+// the division are float32, in the float32 kernel's order, and out,
+// row_max and row_sum are written in float32. So the instance on (xs,
+// logits) gives the float32 instance's bits on (xs.float(),
+// logits.float()) under the same schedule. Its bound: xs read at 2 bytes
+// a value, the gather half the float32 instance's bytes.
+//
+// Its design differs from the float32 one, whose one item per warp with
+// 8 rows in flight in registers left the instance no faster than the
+// float32 one on half the bytes. One warp still takes one item (blocks of
+// 4 warps), but it gathers the item's bf16 source rows through a cp.async
+// ring of kRingStages stages of kGroup rows in shared memory, 16 bytes a
+// lane, kept packed until a lane widens its columns at use: 16 rows in
+// flight a warp. Its arrays are sized by the schedule's largest item
+// (item_edges), so that at D = 128 ring and arrays leave 28 warps on each
+// SM. A persistent walk that staged each warp's next item while it summed
+// the current one measured slower on the model's schedules (PERF.md):
+// other warps already overlap an item's dependent loads. The chunk
+// combine is the float32 one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +90,7 @@ namespace {
 
 using kgwas::fast_exp;
 using kgwas::kEps;
+using kgwas::kGroup;
 using kgwas::kExpClamp;
 using kgwas::kFull;
 using kgwas::kBwdMaxEdges;
@@ -108,27 +121,11 @@ struct Args {
   int d;
   const __nv_bfloat16* xsb;      // [S, D]: the bf16 instance's table
   const __nv_bfloat16* logitsb;  // [E]: its bf16 logits (LB)
+  int item_edges;  // the bf16 instance: the most edges of an item, a
+                   // multiple of 4 (its staging buffers' length)
 };
 
-// the table of the float32 (BF false) or the bf16 instance
-template <bool BF>
-__device__ __forceinline__ auto xs_table(const Args& a) {
-  if constexpr (BF)
-    return a.xsb;
-  else
-    return a.xs;
-}
-
-// logit i, widened from bf16 when LB
-template <bool LB>
-__device__ __forceinline__ float logit(const Args& a, int i) {
-  if constexpr (LB)
-    return __bfloat162float(a.logitsb[i]);
-  else
-    return a.logits[i];
-}
-
-template <bool VEC, int NV, bool MULT, bool BF = false, bool LB = false>
+template <bool VEC, int NV, bool MULT>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_fwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -170,7 +167,7 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
       const int v = v0 + 32 * q + lane;
       if (v < it.total) {
         src[q] = a.src[first + v];
-        l[q] = logit<LB>(a, first + v);
+        l[q] = a.logits[first + v];
         if (MULT) mu[q] = a.mult[first + v];
       }
     }
@@ -189,8 +186,7 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
   // are formed
   R xa[U], xb[U];
   if (it.total > 0)
-    kgwas::gather_rows<VEC, NV, U>(xa, xs_table<BF>(a), s_src, 0, it.total,
-                                   lane, d);
+    kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_src, 0, it.total, lane, d);
   for (int base = 0; base < it.total; base += 32) {
     const int v = base + lane;
     const bool ok = v < it.total;
@@ -251,12 +247,12 @@ segment_softmax_spmm_fwd_kernel(const Args a) {
   // two batches in flight: one is summed while the other arrives
   for (int v = 0; v < it.total; v += 2 * U) {
     if (v + U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xb, xs_table<BF>(a), s_src, v + U,
-                                     it.total, lane, d);
+      kgwas::gather_rows<VEC, NV, U>(xb, a.xs, s_src, v + U, it.total,
+                                     lane, d);
     take(xa, v);
     if (v + 2 * U < it.total)
-      kgwas::gather_rows<VEC, NV, U>(xa, xs_table<BF>(a), s_src, v + 2 * U,
-                                     it.total, lane, d);
+      kgwas::gather_rows<VEC, NV, U>(xa, a.xs, s_src, v + 2 * U, it.total,
+                                     lane, d);
     if (v + U < it.total) take(xb, v + U);
   }
   if (cur >= 0) finish_row(cur);
@@ -294,18 +290,11 @@ segment_softmax_combine_kernel(const Args a) {
   }
 }
 
-template <bool VEC, int NV, bool MULT, bool BF, bool LB>
-cudaError_t launch_items(const Args& a, cudaStream_t stream) {
-  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+// the combine of the chunked rows, after the items
+template <bool VEC, int NV>
+cudaError_t launch_combine(const Args& a, cudaStream_t stream) {
   const long long cblocks = (a.n_split + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL || cblocks > 0x7fffffffLL)
-    return cudaErrorInvalidConfiguration;
-  if (blocks > 0) {
-    segment_softmax_spmm_fwd_kernel<VEC, NV, MULT, BF, LB>
-        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  if (cblocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (cblocks > 0) {
     segment_softmax_combine_kernel<VEC, NV>
         <<<static_cast<unsigned>(cblocks), kWarps * 32, 0, stream>>>(a);
@@ -314,19 +303,250 @@ cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <bool VEC, int NV, bool BF = false, bool LB = false>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.mult != nullptr ? launch_items<VEC, NV, true, BF, LB>(a, stream)
-                           : launch_items<VEC, NV, false, BF, LB>(a, stream);
+template <bool VEC, int NV, bool MULT>
+cudaError_t launch_items(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks > 0) {
+    segment_softmax_spmm_fwd_kernel<VEC, NV, MULT>
+        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_combine<VEC, NV>(a, stream);
 }
 
-// the bf16 instance's widths: 8-byte row loads at D = 128, else generic
+template <bool VEC, int NV>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  return a.mult != nullptr ? launch_items<VEC, NV, true>(a, stream)
+                           : launch_items<VEC, NV, false>(a, stream);
+}
+
+// ---- the bf16 instance: rows through a cp.async ring
+
+constexpr int kBf16Warps = 4;   // warps per block
+// ring stages of kGroup rows: 16 rows in flight a warp (2 and 4 stages
+// measured no faster: fewer rows, or fewer warps)
+constexpr int kRingStages = 3;
+
+// A warp's item in shared memory, E = the most edges of an item in the
+// schedule (a multiple of 4).
+struct Staged {
+  int* src;          // [E] each edge's source row
+  float* p;          // [E] its logit, then its weight p_e
+  float* mult;       // [E] its multiplier (MULT)
+  float* m;          // [kItemMaxRows] each row's max
+  unsigned char* k;  // [E] each edge's row in the item
+};
+
+// shared memory of one warp in 32-bit words: the ring (kRingStages stages
+// of kGroup rows of rw words), then the item's arrays for items of at most
+// e edges, rounded up to 16 bytes (the next warp's ring takes 16-byte
+// copies)
+__host__ __device__ constexpr int bf16_warp_words(int rw, int e, bool mult) {
+  return (kRingStages * kGroup * rw + (mult ? 3 : 2) * e + kItemMaxRows +
+          e / 4 + 3) / 4 * 4;
+}
+
+template <bool MULT>
+__device__ __forceinline__ Staged staged_at(unsigned* base, int e) {
+  Staged st;
+  st.src = reinterpret_cast<int*>(base);
+  st.p = reinterpret_cast<float*>(base + e);
+  st.mult = reinterpret_cast<float*>(base + 2 * e);
+  st.m = reinterpret_cast<float*>(base + (MULT ? 3 : 2) * e);
+  st.k = reinterpret_cast<unsigned char*>(st.m + kItemMaxRows);
+  return st;
+}
+
+// One warp per item: its edges staged (each edge's row, source row and
+// logit, widened from bf16 when LB, and multiplier; the loads of four
+// 32-edge batches issued before any is stored), the first S - 1 ring
+// groups of its source rows put in flight, each row's max and each edge's
+// weight taken while they land, then the rows summed in edge order as the
+// groups arrive. Each row's arithmetic is the float32 kernel's, in its
+// order. At D = 128 shared memory and registers hold 6 blocks of 4 warps
+// on each SM.
+template <bool VEC, int NV, bool MULT, bool LB>
+__global__ void __launch_bounds__(kBf16Warps * 32, VEC && NV == 1 ? 6 : 1)
+segment_softmax_spmm_fwd_bf16_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int S = kRingStages;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * kBf16Warps + warp;
+  if (w >= a.n_items) return;  // whole warp exits together
+  const int d = a.d;
+  const int rw = kgwas::row_words_bf16<VEC, NV>(d);
+  unsigned* ring =
+      reinterpret_cast<unsigned*>(smem) +
+      static_cast<size_t>(warp) * bf16_warp_words(rw, a.item_edges, MULT);
+  const Staged st = staged_at<MULT>(ring + S * kGroup * rw, a.item_edges);
+
+  const kgwas::ItemRows it = kgwas::item_rows(
+      a.items[kgwas::item_of_warp(w, a.n_items)], a.row_offsets, a.n_rows,
+      1, lane);
+  // a packed item's rows without edges: the plain version's NEG_BIG and 0
+  if (!it.chunk && lane < it.n_rows && it.cnt == 0) {
+    a.row_max[it.row] = kNegBig;
+    a.row_sum[it.row] = 0.0f;
+  }
+  if (lane < it.n_rows) st.m[lane] = kNegBig;
+  const int first = kgwas::stage_row_keys(it, st.k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int src[4] = {0, 0, 0, 0};
+    float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float mu[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        src[q] = a.src[first + v];
+        l[q] = LB ? __bfloat162float(a.logitsb[first + v])
+                  : a.logits[first + v];
+        if (MULT) mu[q] = a.mult[first + v];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        st.src[v] = src[q];
+        st.p[v] = l[q];
+        if (MULT) st.mult[v] = mu[q];
+      }
+    }
+  }
+  __syncwarp();
+
+  const int n_groups = (it.total + kGroup - 1) / kGroup;
+#pragma unroll
+  for (int g = 0; g < S - 1; ++g) {
+    if (g < n_groups)
+      kgwas::load_group_bf16<VEC, NV, S>(ring, rw, g, it.total, st.src,
+                                         a.xsb, lane, d);
+    kgwas::cp_async_commit();
+  }
+  // each row's max over its logits, then each edge's weight
+  for (int base = 0; base < it.total; base += 32) {
+    const int v = base + lane;
+    const bool ok = v < it.total;
+    kgwas::segmented_max(ok ? st.p[v] : kNegBig, ok ? st.k[v] : 255, st.m,
+                         lane);
+  }
+  for (int v = lane; v < it.total; v += 32)
+    st.p[v] = fast_exp(fminf(st.p[v] - st.m[st.k[v]], kExpClamp));
+  __syncwarp();
+
+  // group g of the ring made readable: the stage read last is free, so
+  // group g + S - 1 starts loading into it
+  auto next_group = [&](int g) {
+    __syncwarp();
+    if (g + S - 1 < n_groups)
+      kgwas::load_group_bf16<VEC, NV, S>(ring, rw, g + S - 1, it.total,
+                                         st.src, a.xsb, lane, d);
+    kgwas::cp_async_commit();
+    kgwas::cp_async_wait<S - 1>();  // group g has landed
+    __syncwarp();
+  };
+
+  // the rows in order, each row's edges in order, as the float32 kernel
+  // sums them
+  for (int k = 0; k < it.n_rows; ++k) {  // warp-uniform
+    const int cnt_k = __shfl_sync(kFull, it.cnt, k);
+    if (cnt_k == 0) continue;
+    float s = 0.0f;
+    R acc;
+    acc.zero();
+    const int v1 = __shfl_sync(kFull, it.vbeg, k) + cnt_k;
+    for (int v = v1 - cnt_k; v < v1;) {
+      if (v % kGroup == 0) next_group(v / kGroup);
+      const unsigned* stage = ring + ((v / kGroup) % S) * kGroup * rw;
+      const int run_end = min(v1, (v / kGroup + 1) * kGroup);
+      for (; v < run_end; ++v) {
+        const float p = st.p[v];
+        s += p;
+        const float pm = MULT ? p * st.mult[v] : p;
+        R x;
+        kgwas::load_ring_bf16<VEC, NV>(x, stage + (v % kGroup) * rw, lane,
+                                       d);
+#pragma unroll
+        for (int c = 0; c < R::C; ++c) acc.v[c] = fmaf(pm, x.v[c], acc.v[c]);
+      }
+    }
+    const float m = st.m[k];
+    if (it.chunk) {
+      if (lane == 0) {
+        a.part_m[it.part] = m;
+        a.part_s[it.part] = s;
+      }
+      acc.store(a.part_acc + static_cast<size_t>(it.part) * d, lane, d);
+      continue;
+    }
+    const long long row = it.unit0 + k;
+    if (lane == 0) {
+      a.row_max[row] = m;
+      a.row_sum[row] = s;
+    }
+    // division, not a multiply by the reciprocal: the same rounding as
+    // the plain version's acc / (sum + eps)
+#pragma unroll
+    for (int c = 0; c < R::C; ++c) acc.v[c] = acc.v[c] / (s + kEps);
+    acc.store(a.out + row * d, lane, d);
+  }
+  kgwas::cp_async_wait<0>();
+  if (!it.chunk) {  // the item's rows without edges: zeros
+    unsigned empty = __ballot_sync(kFull, lane < it.n_rows && it.cnt == 0);
+    R zero;
+    zero.zero();
+    for (; empty; empty &= empty - 1)
+      zero.store(a.out + (it.unit0 + __ffs(empty) - 1) * d, lane, d);
+  }
+}
+
+template <bool VEC, int NV, bool MULT, bool LB>
+cudaError_t launch_items_bf16(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kBf16Warps - 1) / kBf16Warps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks > 0) {
+    const int rw = kgwas::row_words_bf16<VEC, NV>(a.d);
+    const size_t smem = sizeof(unsigned) * kBf16Warps *
+                        bf16_warp_words(rw, a.item_edges, MULT);
+    auto kern = segment_softmax_spmm_fwd_bf16_kernel<VEC, NV, MULT, LB>;
+    cudaError_t err;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<static_cast<unsigned>(blocks), kBf16Warps * 32, smem, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return launch_combine<VEC, NV>(a, stream);
+}
+
+template <bool VEC, int NV, bool LB>
+cudaError_t launch_mult_bf16(const Args& a, cudaStream_t stream) {
+  return a.mult != nullptr ? launch_items_bf16<VEC, NV, true, LB>(a, stream)
+                           : launch_items_bf16<VEC, NV, false, LB>(a, stream);
+}
+
+// the bf16 instance's widths: 16-byte ring copies at D = 128 * NV, else
+// 4 bytes a lane
 template <bool LB>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  if (a.d == 128) return launch<true, 1, true, LB>(a, stream);
-  if (a.d >= 1 && a.d <= 32 * kMaxCols)
-    return launch<false, 1, true, LB>(a, stream);
-  return cudaErrorInvalidValue;
+  switch (a.d) {
+    case 128: return launch_mult_bf16<true, 1, LB>(a, stream);
+    case 256: return launch_mult_bf16<true, 2, LB>(a, stream);
+    case 384: return launch_mult_bf16<true, 3, LB>(a, stream);
+    case 512: return launch_mult_bf16<true, 4, LB>(a, stream);
+    default:
+      if (a.d >= 1 && a.d <= 32 * kMaxCols)
+        return launch_mult_bf16<false, 1, LB>(a, stream);
+      return cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(const void* xs, const void* src, const void* logits,
@@ -356,6 +576,7 @@ Args make_args(const void* xs, const void* src, const void* logits,
   a.d = d;
   a.xsb = nullptr;
   a.logitsb = nullptr;
+  a.item_edges = 0;
   return a;
 }
 
@@ -387,15 +608,20 @@ extern "C" int kgwas_segment_softmax_spmm_fwd(
   }
 }
 
-// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
-// aligned rows at D = 128; the wrapper checks), logits bf16 when
-// logits_bf16 != 0, else float32; every output float32.
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (16-byte
+// aligned rows at D = 128 * NV, else 4-byte; the wrapper checks), logits
+// bf16 when logits_bf16 != 0, else float32; every output float32;
+// item_edges the most edges of an item of the schedule (1 to
+// kBwdMaxEdges), which sizes each warp's arrays in shared memory.
 extern "C" int kgwas_segment_softmax_spmm_fwd_bf16(
     const void* xs, const void* src, const void* logits, const void* mult,
     const void* row_offsets, void* out, void* row_max, void* row_sum,
     const void* items, long long n_items, const void* split_units,
     const void* part_offsets, long long n_split, void* part_m, void* part_s,
-    void* part_acc, long long n_rows, int d, int logits_bf16, void* stream) {
+    void* part_acc, long long n_rows, int d, int logits_bf16, int item_edges,
+    void* stream) {
+  if (item_edges < 1 || item_edges > kBwdMaxEdges)
+    return cudaErrorInvalidValue;
   Args a = make_args(nullptr, src, logits_bf16 ? nullptr : logits, mult,
                      row_offsets, out, row_max, row_sum, items, n_items,
                      split_units, part_offsets, n_split, part_m, part_s,
@@ -403,6 +629,7 @@ extern "C" int kgwas_segment_softmax_spmm_fwd_bf16(
   a.xsb = static_cast<const __nv_bfloat16*>(xs);
   a.logitsb =
       logits_bf16 ? static_cast<const __nv_bfloat16*>(logits) : nullptr;
+  a.item_edges = (item_edges + 3) / 4 * 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return logits_bf16 ? launch_bf16<true>(a, s) : launch_bf16<false>(a, s);
 }

@@ -150,9 +150,10 @@ def segment_softmax_spmm_fwd(xs, src, logits, row_offsets, sched=None,
             sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
             sched.split_units.shape[0], part_m.data_ptr(), part_s.data_ptr(),
             part_acc.data_ptr(), n_rows, d)
-    if bf16:
+    if bf16:   # its walk stages items of at most this many edges
         err = library("segment_softmax_spmm_fwd_bf16")(
-            *args, int(logits.dtype == torch.bfloat16), stream)
+            *args, int(logits.dtype == torch.bfloat16),
+            max(sched.max_edges, sched.chunk_edges), stream)
     else:
         err = library("segment_softmax_spmm_fwd")(*args, stream)
     if err != 0:

@@ -53,6 +53,12 @@ the earlier checkout's. The model: a per-relation GAT step's gradients
 bitwise the same in two runs, and with remat bitwise those without, the
 dropout masks drawn from one CUDA generator seed.
 
+The bf16 instances of #6 and #8 on item streams of every shape (long hub
+rows, chunked trash rows and empty rows; fewer items than a block's
+warps; more items than the card holds warps), #8 in its four call forms:
+against their plain versions, #6 bitwise the f32 instance on the widened
+operands, and with KGWAS_PARENT_CSRC both bitwise the earlier checkout's.
+
 Outside the kernels: the host-streamed products (ops/streaming.py: pinned
 staging, a copy stream) against a float64 dense product, and the train
 state's asynchronous host copy (engine/checkpoint.host_train_state)
@@ -1448,8 +1454,8 @@ def test_bf16_hub_node_split_across_slots(mode, fold, max_edges,
 def test_merged_gat_bf16_bitwise_as_parent(mode, fold, d, max_edges,
                                            parent_ops, cuda_device, group):
     """#1 bf16 and #2 bf16 give the earlier checkout's bits (its kernels
-    through its own wrappers, which score every edge in the kernels) on
-    the same inputs and schedules."""
+    through its own wrappers, on its own score pass's a_src) on the same
+    inputs and schedules."""
     L, _ = group
     fold = len(L.rel_keys) if fold else 0
     n = L.n_rows_per_rel
@@ -1464,11 +1470,14 @@ def test_merged_gat_bf16_bitwise_as_parent(mode, fold, d, max_edges,
     args = (xs, src, ro, att, a_dst, n, fold, mode, 0.2, 0.7)
     a_src = gat_layer.merged_gat_a_src(xs, att, L.src_base)
     new = gat_layer.merged_gat_forward(*args, sched=sched, a_src=a_src)
-    old = parent_ops.gat_layer.merged_gat_forward(*args, sched=sched)
+    pg = parent_ops.gat_layer
+    # the earlier checkout's wrappers get the scores from its own pass
+    old_a_src = pg.merged_gat_a_src(xs, att, L.src_base)
+    old = pg.merged_gat_forward(*args, sched=sched, a_src=old_a_src)
     bargs = (xs, src, ro, att, a_dst, new[1], new[2], g, n, fold, mode, 0.2,
              0.7)
     new_b = gat_layer.merged_gat_bwd(*bargs, sched=bsched, a_src=a_src)
-    old_b = parent_ops.gat_layer.merged_gat_bwd(*bargs, sched=bsched)
+    old_b = pg.merged_gat_bwd(*bargs, sched=bsched, a_src=old_a_src)
     torch.cuda.synchronize()
     for a, b in zip(new + new_b, old + old_b):
         assert torch.equal(a, b)
@@ -1698,6 +1707,179 @@ def test_segment_softmax_f32_instances_bitwise_as_parent(
     torch.cuda.synchronize()
     for a, b in zip(new, old):
         assert torch.equal(a, b)
+
+
+# ---- the bf16 kernels #6 and #8 on item streams of every shape
+#
+# #6 bf16 gathers its rows through a cp.async ring and #8 bf16 takes its
+# rows' c in transposing butterflies; every row keeps its order of
+# additions, so #6 bf16 stays bitwise the float32 instance on the widened
+# operands, and both stay bitwise the earlier checkout's kernels: on a
+# stream with long hub rows, chunked trash rows and empty rows, one with
+# fewer items than a block's warps, and one with many items (more than the
+# card holds warps at once).
+
+def _short_row_stream(n_rows, n_src, seed, d=D):
+    """A relation stream of n_rows rows of 0-3 edges into n_src source
+    rows (packed items of 32 rows), in _long_row_stream's form."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 4, n_rows)
+    ro = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(deg, out=ro[1:])
+    src = rng.integers(0, n_src, ro[-1])
+    logits = (rng.standard_normal(ro[-1]) * 1.5).astype(np.float32)
+    xs = (rng.standard_normal((n_src, d)) * 0.1).astype(np.float32)
+    return src.astype(np.int32), ro.astype(np.int32), logits, xs, []
+
+
+ITEM_STREAMS = {
+    "long": lambda: _long_row_stream(),
+    "few": lambda: _short_row_stream(40, 64, 41),
+    "many": lambda: _short_row_stream(400_000, 400_000, 42),
+}
+
+
+def _csc_of(src, ro, n_src, device):
+    """The one-slot CSC layout of a relation stream (src, row_offsets),
+    with its CSC sum's fields."""
+    deg = np.diff(ro)
+    dst = np.repeat(np.arange(len(deg)), deg)
+    perm = np.argsort(src, kind="stable")
+    off = np.zeros(n_src + 1, dtype=np.int64)
+    np.cumsum(np.bincount(src, minlength=n_src), out=off[1:])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)  # noqa: E731
+    return SimpleNamespace(src=t(src), row_offsets=t(ro), dst=t(dst),
+                           csc_perm=t(perm), csc_offsets=t(off),
+                           src_base=(0, n_src), n_rows_per_rel=len(deg),
+                           **segment.csc_fields(dst, perm, off, len(deg),
+                                                (0, n_src), 0, device))
+
+
+def _stream_fwd_case(stream, logits, mult, device):
+    src, ro, lg, xs, long_rows = ITEM_STREAMS[stream]()
+    rng = np.random.default_rng(44)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    lg_t = t(lg)
+    if logits == "bf16":
+        lg_t = lg_t.to(torch.bfloat16)
+    args = (t(xs).to(torch.bfloat16), t(src), lg_t, t(ro))
+    mu = t(_mult(rng, len(src))) if mult else None
+    return args, schedule.row_schedule(ro).to(device), mu, long_rows
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("logits", ["f32", "bf16"])
+@pytest.mark.parametrize("stream", sorted(ITEM_STREAMS))
+def test_bf16_segment_softmax_item_streams(stream, logits, mult,
+                                           cuda_device):
+    """#6 bf16 on the item streams: two runs the same bits, bitwise the
+    float32 instance on the widened operands, and within the
+    kernel-vs-plain tolerances of the plain version."""
+    args, sched, mu, long_rows = _stream_fwd_case(stream, logits, mult,
+                                                cuda_device)
+    assert sched.items.shape[0] > 0
+    got = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_fwd(
+        *a, sched=sched, mult=mu), *args)
+    wide = segment_softmax.segment_softmax_spmm_fwd(
+        args[0].float(), args[1], args[2].float(), args[3], sched=sched,
+        mult=mu)
+    want = segment_softmax.segment_softmax_spmm_fwd_plain(*args, mult=mu)
+    for a, b, c in zip(got, wide, want):
+        assert torch.equal(a, b)
+        _close_rows(a, c, long_rows)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("logits", ["f32", "bf16"])
+@pytest.mark.parametrize("stream", sorted(ITEM_STREAMS))
+def test_bf16_segment_softmax_streams_bitwise_as_parent(stream, logits, mult,
+                                                     parent_ops,
+                                                     cuda_device):
+    """#6 bf16 gives the earlier checkout's bits on the item streams."""
+    args, sched, mu, _ = _stream_fwd_case(stream, logits, mult, cuda_device)
+    new = segment_softmax.segment_softmax_spmm_fwd(*args, sched=sched,
+                                                   mult=mu)
+    old = parent_ops.segment_softmax.segment_softmax_spmm_fwd(
+        *args, sched=sched, mult=mu)
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
+
+
+def _stream_csc_case(stream, form, device):
+    """#8 bf16's call on the CSC of an item stream: (args, edge_grad)."""
+    src, ro, _, xs, _ = ITEM_STREAMS[stream]()
+    lay = _csc_of(src, ro, xs.shape[0], device)
+    rng = np.random.default_rng(45)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)  # noqa: E731
+    e, n = len(src), len(ro) - 1
+    g = t(rng.standard_normal((n, D)))
+    w = None if form == "unweighted" else t(rng.random(e))
+    logits = form == "logits"
+    dz = t(rng.standard_normal(e) * 0.3) if logits else None
+    att = t(rng.standard_normal((1, D)) * 0.2) if logits else None
+    return (g, w, dz, t(xs).to(torch.bfloat16), att, lay), form == "d_w"
+
+
+CSC_FORMS = ["logits", "weighted", "unweighted", "d_w"]
+
+
+@pytest.mark.parametrize("form", CSC_FORMS)
+@pytest.mark.parametrize("stream", sorted(ITEM_STREAMS))
+def test_bf16_csc_segment_sum_item_streams(stream, form, cuda_device):
+    """#8 bf16 on the CSC of the item streams, in its four call forms
+    (the logit term with fold 0, weighted, unweighted, with d_w): two
+    runs the same bits, within the bf16 rule of the plain version (d_w
+    within the float32 backward tolerance)."""
+    args, eg = _stream_csc_case(stream, form, cuda_device)
+    before = segment.bf16_launches
+    got = _repeat_equal(lambda *a: segment.csc_segment_sum(
+        *a, edge_grad=eg), *args)
+    want = segment.csc_segment_sum_plain(*args, edge_grad=eg)
+    assert segment.bf16_launches == before + 2
+    _bf16_grad_close(got[0], want[0])
+    if form == "logits":
+        _bf16_grad_close(got[1], want[1])
+    if eg:
+        _close_grad(got[2], want[2])
+
+
+@pytest.mark.parametrize("form", CSC_FORMS)
+@pytest.mark.parametrize("stream", sorted(ITEM_STREAMS))
+def test_bf16_csc_segment_sum_streams_bitwise_as_parent(stream, form,
+                                                     parent_ops,
+                                                     cuda_device):
+    """#8 bf16 gives the earlier checkout's bits on every output, with
+    and without the logit term, weighted and unweighted."""
+    args, eg = _stream_csc_case(stream, form, cuda_device)
+    new = segment.csc_segment_sum(*args, edge_grad=eg)
+    old = parent_ops.segment.csc_segment_sum(*args, edge_grad=eg)
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_bf16_csc_segment_sum_logit_path_bitwise_as_parent(
+        fold, parent_ops, cuda_device, group):
+    """#8 bf16 on the merged GAT layer's call (w, dz, att, with and
+    without the fold) gives the earlier checkout's bits on every source
+    row and on d_att."""
+    L, _ = group
+    R = len(L.rel_keys)
+    fold = R if fold else 0
+    DL = _merged_layout(L, fold, cuda_device)
+    xs, att, _, g = _bwd_inputs(L, fold, D, cuda_device)
+    rng = np.random.default_rng(46)
+    e = DL.src.shape[0]
+    w = torch.from_numpy(rng.random(e, dtype=np.float32)).to(cuda_device)
+    dz = torch.from_numpy(rng.standard_normal(e).astype(np.float32)).to(
+        cuda_device)
+    args = (g, w, dz, xs.to(torch.bfloat16), att, DL, fold)
+    new = segment.csc_segment_sum(*args)
+    old = parent_ops.segment.csc_segment_sum(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
 
 
 # ------------------------------------------------------ scanned dispatch

@@ -177,7 +177,8 @@ def test_bench_runs_with_heads(monkeypatch, capsys):
     for k, v in BENCH_ENV.items():
         monkeypatch.setenv(k, v)
     monkeypatch.setenv("BENCH_HEADS", "2")
-    monkeypatch.setenv("BENCH_STEPS", "2")
+    # 8 steps: a 6-step slope, whose sign is not noise on a loaded host
+    monkeypatch.setenv("BENCH_STEPS", "8")
     calls = []
     fwd = gat_layer.merged_gat_forward
     monkeypatch.setattr(gat_layer, "merged_gat_forward",
@@ -186,7 +187,7 @@ def test_bench_runs_with_heads(monkeypatch, capsys):
     rec = json.loads(capsys.readouterr().out.strip())
     assert math.isfinite(rec["value"]) and rec["value"] > 0
     # the warm-up, then max(steps // 4, 1) and steps timed steps
-    assert len(calls) == 2 * 3 * (1 + 1 + 2)
+    assert len(calls) == 2 * 3 * (1 + 2 + 8)
 
 
 @pytest.mark.parametrize("env,item", [
