@@ -146,8 +146,10 @@ PyTorch version:
      #6 / #7 on a bf16 table in one forward and one step held against its
      plain version (the float64 rule) and bitwise the float32 instance on
      the widened operands; GAT max's launches timed (ms, device ms, plain
-     ms, bound at 2-byte rows, bf16 gather floor, the float32 instance on
-     the widened values)
+     ms, bound at 2-byte rows, #7's with the saved out on its chunked rows
+     only, bf16 gather floor, the float32 instance on the widened values);
+     every #10 bf16 launch of the GCN and SAGE runs' forward and step run
+     twice (the same bits) and held against its plain version
  13. the bf16 quality gate (scripts/exp_stream_gate.py's KG and model):
      f32, stream_dtype, compute_dtype and f32 with TF32 matmuls trained
      30 epochs; KGWAS_P's Spearman and top-50 overlap against f32 (a
@@ -202,10 +204,10 @@ With KGWAS_PARENT_CSRC set to an earlier checkout's
 kgwas_tpu_torch/ops/csrc, phases 1, 4, 5d and 6c also build that
 checkout's kernels and time them on the same launches: its merged GAT
 kernels (this checkout's C interface), and its segment kernels through its
-own wrappers, its segment_softmax_spmm_bwd also without its read of the
-saved output; 5d (GAT sum) and 6c (GAT-max, SAGE) also time the train
+own wrappers; 5d (GAT sum) and 6c (GAT-max, SAGE) also time the train
 step, and 6c (SAGE, GCN) the forward, with its segment kernels in place
-of this checkout's, alternating.
+of this checkout's, alternating; phase 12 holds every bf16 kernel's
+launches bit for bit against that checkout's and times them in turns.
 
 Prints the bench's JSON lines (phases 8 and 15c) on earlier lines, and at the end
 the kernel table as one JSON line, then the card's name and power limit,
@@ -325,6 +327,14 @@ KERNEL_LAUNCH = {
     "segment_softmax_spmm_fwd_bf16_kernel": (128, 4 * 4 * (3 * 8 * 64
                                                           + 320)),
     "csc_items_bf16_kernel": (128, 0),
+    # #7 and #10 bf16: a ring of 2 stages of 8 256-byte rows and their
+    # items' arrays (the relation schedules' 128 edges, without the
+    # multiplier: src, p, m, each row's lse and dot_r, the keys; the CSR
+    # schedule's 128, the unweighted sum: src), segment_softmax_spmm_bwd.cu
+    # and csr_segment_sum.cu bf16_warp_words
+    "segment_softmax_spmm_bwd_bf16_kernel": (128, 4 * 4 * (2 * 8 * 64
+                                                          + 480)),
+    "csr_segment_sum_bf16_kernel": (128, 4 * 4 * (2 * 8 * 64 + 128)),
 }
 # template arguments of the entries reported: D = 128 (softmax mode, with
 # and without the logit term, the segment kernels' multiplier and d_w, the
@@ -382,12 +392,10 @@ class ParentKernels:
     built by its own ops/build.py), so their host-paced times carry that
     checkout's wrapper cost; seg_fwd, seg_bwd, csc and csr take this
     checkout's wrapper arguments, and pass sched on where the earlier
-    wrapper takes one. seg_bwd_no_out runs the earlier
-    segment_softmax_spmm_bwd with its read of the saved output dropped
-    (dot_r = 0: a timing, not a result), where its source has the one line
-    OUT_LINE that reads it."""
+    wrapper takes one; seg_fwd_bf16, seg_bwd_bf16, csc_bf16 and csr_bf16
+    pass every argument on (the earlier wrappers launch their bf16
+    instances on a bf16 table)."""
 
-    OUT_LINE = "ov.load(a.out + o * a.d, lane, a.d);"
     SEGMENT = ("segment_softmax_spmm_fwd", "segment_softmax_spmm_bwd",
                "csc_segment_sum", "csr_segment_sum")
 
@@ -421,19 +429,6 @@ class ParentKernels:
         self.pbuild._loaded["merged_gat_a_src_bf16"] = build.build_source(
             self.csrc / entry[0], "parent_merged_gat_fwd", entry[1], entry[2])
         build.build_log.update(logs)
-        # the earlier backward without its read of the saved output
-        text = (self.csrc / "segment_softmax_spmm_bwd.cu").read_text()
-        self._bwd_no_out = None
-        if text.count(self.OUT_LINE) == 1:
-            patched = (build.build_dir() / "parent_bwd_no_out"
-                       / "segment_softmax_spmm_bwd_no_out.cu")
-            patched.parent.mkdir(parents=True, exist_ok=True)
-            for header in self.csrc.glob("*.cuh"):
-                (patched.parent / header.name).write_text(header.read_text())
-            patched.write_text(text.replace(self.OUT_LINE, "ov.zero();"))
-            entry = self.pbuild.KERNELS["segment_softmax_spmm_bwd"]
-            self._bwd_no_out = build.build_source(
-                patched, "parent_bwd_no_out", entry[1], entry[2])
 
     def build_logs(self):
         """{name: build record} of the earlier segment kernels."""
@@ -479,9 +474,17 @@ class ParentKernels:
         with this checkout's wrapper arguments."""
         return self.psoftmax.segment_softmax_spmm_fwd(*args, **kwargs)
 
+    def seg_bwd_bf16(self, *args, **kwargs):
+        """The earlier #7 bf16 (a bf16 table) the same way."""
+        return self.psoftmax.segment_softmax_spmm_bwd(*args, **kwargs)
+
     def csc_bf16(self, *args, **kwargs):
         """The earlier #8 bf16 (a bf16 table) the same way."""
         return self.psegment.csc_segment_sum(*args, **kwargs)
+
+    def csr_bf16(self, *args, **kwargs):
+        """The earlier #10 bf16 (a bf16 table) the same way."""
+        return self.psegment.csr_segment_sum(*args, **kwargs)
 
     @staticmethod
     @functools.lru_cache(maxsize=None)
@@ -511,19 +514,6 @@ class ParentKernels:
         self._without(mult=mult)
         return self._call(self.psoftmax.segment_softmax_spmm_bwd, args[:8],
                           sched)
-
-    def seg_bwd_no_out(self, *args, sched=None, mult=None):
-        """seg_bwd with the earlier kernel's out read dropped, or None when
-        its source has no such line."""
-        if self._bwd_no_out is None:
-            return None
-        loaded = self.pbuild._loaded
-        old = loaded.get("segment_softmax_spmm_bwd")
-        loaded["segment_softmax_spmm_bwd"] = self._bwd_no_out
-        try:
-            return self.seg_bwd(*args, sched=sched, mult=mult)
-        finally:
-            loaded["segment_softmax_spmm_bwd"] = old
 
     def csc(self, g, w, dz, xs, att, layout, fold=0, edge_grad=False):
         self._without(edge_grad=edge_grad)
@@ -1486,13 +1476,30 @@ def kernel_bound(name, args, out, kwargs=None):
     d = xs.shape[1]
     e = int(ro[-1])
     n_rows = ro.numel() - 1
-    words = (xs.numel() + src.numel() + ro.numel() + logits.numel()
-             + (e if mult else 0))
     if name == "segment_softmax_spmm_fwd":   # out, row_max, row_sum
+        words = (xs.numel() + src.numel() + ro.numel() + logits.numel()
+                 + (e if mult else 0))
         return bound_ms(words + n_rows * d + 2 * n_rows, 2 * d * e)
-    # the backward reads row_max, row_sum, out and g, writes w and d_logits
-    return bound_ms(words + 2 * n_rows + 2 * n_rows * d + 2 * e,
-                    2 * d * (e + n_rows))
+    nb = softmax_bwd_bytes(*args[:8], sched=kwargs.get("sched"),
+                           mult=kwargs.get("mult"))
+    return bound_ms(nb / 4, 2 * d * (e + n_rows))
+
+
+def softmax_bwd_bytes(xs, src, logits, ro, row_max, row_sum, out, g,
+                      sched=None, mult=None):
+    """The bytes one launch of #7 (segment_softmax_spmm_bwd) must move,
+    each array at its own width: xs, src, logits (and mult), row_offsets,
+    row_max, row_sum and g read once, w and d_logits (float32 [E]) written
+    once, and the saved out read only on the rows the kernel reads it, the
+    schedule's chunked rows (sched.split_units; the schedule the wrapper
+    builds when sched is None): a packed row's dot_r comes from its own
+    edges."""
+    if sched is None:
+        from kgwas_tpu_torch.ops.schedule import row_schedule
+        sched = row_schedule(ro)
+    n_out = sched.split_units.numel() * out.shape[1] * out.element_size()
+    return (nbytes(xs, src, logits, ro, row_max, row_sum, g, mult)
+            + 2 * 4 * src.numel() + n_out)
 
 
 def time_launches(name, calls, fn, plain_fn, library=None):
@@ -1994,8 +2001,7 @@ def segment_launches(cfg_name, kernel, calls, host_layouts, dev_layouts, cg,
       probe (#10): gather_probe.cu over the launch's index stream from its
         table, its best rows in flight: the gather without the writes;
       with KGWAS_PARENT_CSRC, parent and parent_no_trash: the earlier
-        kernel through its own wrapper, and for #7 parent_no_out: without
-        its read of the saved output (dot_r = 0, a timing only).
+        kernel through its own wrapper.
 
     Logs each launch and returns the totals {form: [ms, device ms]}."""
     from kgwas_tpu_torch.ops import build, schedule, segment, segment_softmax
@@ -2068,10 +2074,6 @@ def segment_launches(cfg_name, kernel, calls, host_layouts, dev_layouts, cg,
         if parent:
             forms["parent"] = lambda a=args, k=kwargs: pfn(*a, **k)  # noqa: E731
             forms["parent_no_trash"] = lambda: pfn(*nt_args, **nt_kw)  # noqa: B023, E731
-            if (kernel == "segment_softmax_spmm_bwd"
-                    and parent.seg_bwd_no_out(*args, **kwargs) is not None):
-                forms["parent_no_out"] = (
-                    lambda a=args, k=kwargs: parent.seg_bwd_no_out(*a, **k))  # noqa: E731
         ms = {k: (cuda_ms(f, reps), graph_ms(f, reps))
               for k, f in forms.items()}
         for k, (h, d) in ms.items():
@@ -4280,8 +4282,9 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
     (merged_gat_a_src_bf16, a forward's first launch, also timed alone),
     #2 bf16 on the forward's scores, as the layer runs them; with parent
     (KGWAS_PARENT_CSRC) the earlier checkout's #1 and #2 bf16, which score
-    every edge themselves, and its #8 bf16 are timed in turns with them
-    (this, earlier, earlier, this) and their outputs compared bit for bit.
+    every edge themselves, and its #8 and #10 bf16 are timed in turns with
+    them (this, earlier, earlier, this) and their outputs compared bit for
+    bit (#10 in its three forms).
     #8 bf16's library call: index_add_ of the materialised message
     cotangent, each row rounded to bf16 as the kernel rounds it (held in
     float32, so the sums are the kernel's function). Returns {kernel: row
@@ -4308,7 +4311,8 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
     earlier_seg = parent is not None
     for k, e in (("merged_gat_fwd_bf16", earlier),
                  ("merged_gat_bwd_bf16", earlier),
-                 ("csc_segment_sum_bf16", earlier_seg)):
+                 ("csc_segment_sum_bf16", earlier_seg),
+                 ("csr_segment_sum_bf16", earlier_seg)):
         rows[k].update(parent_ms=0.0, parent_device_ms=0.0) if e \
             else rows[k].update(parent_ms=None, parent_device_ms=None)
     not_bitwise = []   # (kernel, group, output) off the earlier bits
@@ -4479,6 +4483,11 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
             if not torch.equal(got, got2):
                 raise AssertionError(f"csr_segment_sum_bf16 {t}: two runs "
                                      "differ")
+            if earlier_seg:
+                same_bits("csr_segment_sum_bf16", t,
+                          (f"out ({'unweighted' if wk is None else wk.dtype})",),
+                          (got,), (parent.csr_bf16(*args,
+                                                   sched=DL.row_schedule),))
             rtrash = np.zeros(L.n_rows_total, dtype=bool)
             rtrash[cg.num_nodes[t]::n] = True
             err, o = bf16_rows_check(got, want, rtrash,
@@ -4495,7 +4504,10 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
                           xs32, DL.src, DL.row_offsets, None,
                           sched=DL.row_schedule),
                       bf16_bound(nbytes(xs, DL.src, DL.row_offsets, got),
-                                 2 * d * e))
+                                 2 * d * e),
+                      functools.partial(parent.csr_bf16, *args,
+                                        sched=DL.row_schedule)
+                      if earlier_seg else None)
                 lib = sparse_mm_bf16(*args) if lib_ok else None
                 if lib is None:
                     lib_ok = False
@@ -4529,8 +4541,8 @@ def phase_bf16_kernels(kt, cg, device, card, floors16, parent=None):
             f"values off the f32 tolerance (bf16 rounding neighbours)")
     note = ""
     if earlier or earlier_seg:   # each exception stays held by the bf16 rule
-        note = ("; #1 / #2 / #8 bf16 bitwise the earlier checkout's on "
-                "every launch" if not not_bitwise else
+        note = ("; #1 / #2 / #8 / #10 bf16 bitwise the earlier checkout's "
+                "on every launch" if not not_bitwise else
                 f"; NOT bitwise the earlier checkout's on {not_bitwise}")
     del dls
     torch.cuda.empty_cache()
@@ -4552,9 +4564,11 @@ def relation_bf16_launches(calls_f, calls_b, calls_c, timing,
     output written once at its own width; operations at the bf16 peak) and
     the float32 instance's ms on the widened operands, over the first
     n_timed_f forward launches (one forward's) and every backward launch.
-    With parent (KGWAS_PARENT_CSRC), the earlier checkout's #6 and #8 bf16
-    on each launch, bit for bit and, with timing, in turns (this, earlier,
-    earlier, this). Returns ({kernel: worst abs err}, {kernel: totals},
+    With parent (KGWAS_PARENT_CSRC), the earlier checkout's #6, #7 and #8
+    bf16 on each launch, bit for bit and, with timing, in turns (this,
+    earlier, earlier, this), each timed launch logged with its host issue
+    time. #7's bound counts the saved out only on the chunked rows
+    (softmax_bwd_bytes). Returns ({kernel: worst abs err}, {kernel: totals},
     [(kernel, launch) not bitwise the earlier checkout's]); #8's row is
     REL_CSC."""
     from kgwas_tpu_torch.ops import segment
@@ -4568,7 +4582,7 @@ def relation_bf16_launches(calls_f, calls_b, calls_c, timing,
              parent.seg_fwd_bf16 if earlier else None),
             ("segment_softmax_spmm_bwd_bf16", calls_b,
              ss.segment_softmax_spmm_bwd, ss.segment_softmax_spmm_bwd_plain,
-             None),
+             parent.seg_bwd_bf16 if earlier else None),
             (REL_CSC, calls_c, segment.csc_segment_sum,
              segment.csc_segment_sum_plain,
              parent.csc_bf16 if earlier else None)):
@@ -4634,7 +4648,12 @@ def relation_bf16_launches(calls_f, calls_b, calls_c, timing,
                 flops = 2 * d * (e if name == REL_BF16[0] else e + n_rows)
                 ins = tuple(a for a in args if torch.is_tensor(a)) + (
                     kwargs.get("mult"),)
-            b_ms, o_ms = bf16_bound(nbytes(*ins, *got), flops)
+            if name == REL_BF16[1]:   # out only on the chunked rows
+                nb = softmax_bwd_bytes(*args[:8], sched=kwargs.get("sched"),
+                                       mult=kwargs.get("mult"))
+            else:
+                nb = nbytes(*ins, *got)
+            b_ms, o_ms = bf16_bound(nb, flops)
             tot["bytes"] += b_ms
             tot["operations"] += o_ms
             tot["bound_ms"] += max(b_ms, o_ms)
@@ -4672,6 +4691,38 @@ def relation_bf16_launches(calls_f, calls_b, calls_c, timing,
     return worst, rows, not_bitwise
 
 
+def csr_bf16_launches(calls, parent=None):
+    """Phase 12's message-passing runs: every recorded launch of #10 on a
+    bf16 table (one forward and one step) run twice (the same bits) and
+    held against its plain version by the float64 rule and, with parent
+    (KGWAS_PARENT_CSRC), bit for bit against the earlier checkout's.
+    Returns (worst abs err, bf16 launches, [launch not bitwise the earlier
+    checkout's])."""
+    from kgwas_tpu_torch.ops import segment
+
+    worst, n, off_bits = 0.0, 0, []
+    for i, (args, kwargs) in enumerate(calls):
+        args = detached(args)
+        if args[0].dtype != torch.bfloat16:
+            continue
+        n += 1
+        got = segment.csr_segment_sum(*args, **kwargs)
+        if not torch.equal(got, segment.csr_segment_sum(*args, **kwargs)):
+            raise AssertionError(f"csr_segment_sum_bf16 launch {i}: two "
+                                 "runs differ")
+        worst = max(worst, grad_compare(
+            got, segment.csr_segment_sum_plain(*args),
+            segment.csr_segment_sum_plain(*as_double(args)),
+            f"csr_segment_sum_bf16 launch {i}"))
+        if parent is not None and not torch.equal(
+                got, parent.csr_bf16(*args, **kwargs)):
+            off_bits.append(i)
+    if not n:
+        raise AssertionError("csr_segment_sum_bf16: no launch on a bf16 "
+                             "table")
+    return worst, n, off_bits
+
+
 def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
     """Phase 12b-d: BF16_VARIANTS at full width through KGWAS
     (initialize_model with the dtype option, no_relu): predict_all with
@@ -4686,8 +4737,8 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
     also record #6 / #7 bf16 over one forward and one step, and #8 bf16
     after #7 in that step, each launch held against its plain version, #6
     and #7 bitwise the float32 instance on the widened operands
-    (relation_bf16_launches; REL_TIMED's timed; with parent, #6 and #8
-    bf16 bitwise and in turns with the earlier checkout's), their
+    (relation_bf16_launches; REL_TIMED's timed; with parent, #6, #7 and
+    #8 bf16 bitwise and in turns with the earlier checkout's), their
     forward / step ms beside phase 6c's float32 GAT max / min (no
     profile). Returns ({kernel: launches}, {kernel: worst abs err},
     {variant: (fwd ms, step ms, busy fwd, busy step)}, {kernel: the timed
@@ -4852,11 +4903,32 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
                         f"err against plain "
                         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             if parent is not None:
-                rel_note += ("; #6 / #8 bf16 bitwise the earlier checkout's "
-                             "on every launch" if not off_bits else
+                rel_note += ("; #6 / #7 / #8 bf16 bitwise the earlier "
+                             "checkout's on every launch" if not off_bits else
                              f"; NOT bitwise the earlier checkout's on "
                              f"{off_bits}")
             del rec_f, rec_b, rec_c
+        if layer_path(model.cfg, True) == "mp" and low:
+            # #10 bf16 launch by launch over a forward and a step
+            rec = Recorder(segment.csr_segment_sum)
+            model.load_state_dict(init)
+            opt = build_optimizer(model.parameters(), LR, 5e-4)
+            with swapped(segment, csr_segment_sum=rec):
+                run.predict_all()
+                train_step(model, opt, x, layouts, batches[0], y_node,
+                           w_node)
+            err, n_bf, off_bits = csr_bf16_launches(rec.calls, parent)
+            worst["csr_segment_sum_bf16"] = max(
+                worst["csr_segment_sum_bf16"], err)
+            rel_note = (f"; #10 bf16 on {n_bf} of {len(rec.calls)} launches "
+                        f"of a forward and a step: bitwise repeatable, max "
+                        f"abs err against plain {err:.3e}")
+            if parent is not None:
+                rel_note += ("; bitwise the earlier checkout's on every "
+                             "launch" if not off_bits else
+                             f"; NOT bitwise the earlier checkout's on "
+                             f"launches {off_bits}")
+            del rec
 
         model.load_state_dict(init)
         opt = build_optimizer(model.parameters(), LR, 5e-4)

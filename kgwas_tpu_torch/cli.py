@@ -9,11 +9,14 @@ predict, interpret, magma, classic-gwas, warm-cache and bench.
 
 The model runs on the CUDA card unless ``--device`` names another device
 (``--device cpu``); with no card and no ``--device`` a command raises
-before it loads any data. Flags of options not ported yet raise
-NotImplementedError naming their ROADMAP item, also before loading.
-``train --mesh N`` trains over N processes (one per device, started by
-``torchrun --nproc-per-node N -m kgwas_tpu_torch.cli train --mesh N``;
-NCCL on the cards, gloo with ``--device cpu``).
+before it loads any data. ``train --mesh N`` trains over N processes (one
+per device, started by ``torchrun --nproc-per-node N -m
+kgwas_tpu_torch.cli train --mesh N``; NCCL on the cards, gloo with
+``--device cpu``). Outside torchrun (no process group of N ranks) it
+raises ValueError before loading; on a configuration outside the merged
+GAT layer's gate (GAT max / min, SAGE, GCN, ...) ``KGWAS.train`` raises
+NotImplementedError naming ROADMAP item 10b (``parallel/shard.py``),
+after loading.
 ``train --watchdog-timeout T`` runs the same command again in a child
 process under the stall watchdog, as the JAX package's CLI does.
 ``main`` returns what the command made (the trained KGWAS, the

@@ -93,7 +93,7 @@ KERNELS = {
     "csr_segment_sum_bf16": (
         "csr_segment_sum.cu",
         "kgwas_csr_segment_sum_bf16",
-        [_P] * 6 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _P],
+        [_P] * 6 + [_I64, _P, _P, _I64, _P, _I64, _I32, _I32, _I32, _P],
     ),
     "segment_softmax_spmm_fwd_bf16": (
         "segment_softmax_spmm_fwd.cu",
@@ -104,7 +104,7 @@ KERNELS = {
     "segment_softmax_spmm_bwd_bf16": (
         "segment_softmax_spmm_bwd.cu",
         "kgwas_segment_softmax_spmm_bwd_bf16",
-        [_P] * 12 + [_I64, _I64, _I32, _I32, _P],
+        [_P] * 12 + [_I64, _I64, _I32, _I32, _I32, _P],
     ),
     # a measuring tool on no path of the package (chip_smoke.py)
     "gather_probe": (

@@ -22,9 +22,9 @@
 //
 // Inside an item the edges are taken in a virtual order, unit-major then
 // slot (row k = i * F + r of unit i, slot r), each row's edges in stream
-// order: the merged GAT kernels through a cp.async ring of kStages stages
-// of kGroup rows in shared memory, the segment kernels gathering
-// rows_in_flight rows into registers at a time.
+// order: the merged GAT kernels and the bf16 segment kernels through a
+// cp.async ring of kGroup-row stages in shared memory, the float32 segment
+// kernels gathering rows_in_flight rows into registers at a time.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -296,23 +296,31 @@ __host__ __device__ __forceinline__ int row_words_bf16(int d) {
 constexpr int kStagesBf16 = 2;
 
 // cp.async of group g's bf16 source rows (edges 8g .. 8g+7 of the item)
-// into stage g % S of a ring of S kGroup-row stages of rw words
+// into stage g % S of a ring of S kGroup-row stages of rw words; at
+// D = 128 * NV a lane's 4 * NV 16-byte pieces of the group unrolled, at
+// offsets known when compiling (a loop that divided and tested each piece
+// measured slower in #7 bf16, whose time goes to instructions)
 template <bool VEC, int NV, int S = kStagesBf16>
 __device__ __forceinline__ void load_group_bf16(
     unsigned* ring, int rw, int g, int total, const int* s_src,
     const __nv_bfloat16* __restrict__ xs, int lane, int d) {
-  unsigned* stage = ring + (g % S) * kGroup * rw;
   const int n = min(kGroup, total - g * kGroup);
   if (VEC) {
     constexpr int P = 16 * NV;  // 16-byte pieces of a row
-    for (int i = lane; i < n * P; i += 32) {
-      const int q = i / P, c = i - q * P;
-      const float* row = reinterpret_cast<const float*>(
-          xs + static_cast<size_t>(s_src[g * kGroup + q]) * d);
-      cp_async16(reinterpret_cast<float*>(stage + q * rw + 4 * c),
-                 row + 4 * c);
+    constexpr int W = 64 * NV;  // its words (rw)
+    unsigned* stage = ring + (g % S) * kGroup * W;
+    const int* src = s_src + g * kGroup;
+#pragma unroll
+    for (int j = 0; j < 4 * NV; ++j) {
+      const int i = lane + 32 * j, q = i / P, c = i % P;
+      if (q < n)
+        cp_async16(reinterpret_cast<float*>(stage + q * W + 4 * c),
+                   reinterpret_cast<const float*>(
+                       xs + static_cast<size_t>(src[q]) * (128 * NV)) +
+                       4 * c);
     }
   } else {
+    unsigned* stage = ring + (g % S) * kGroup * rw;
     for (int q = 0; q < n; ++q) {
       const float* row = reinterpret_cast<const float*>(
           xs + static_cast<size_t>(s_src[g * kGroup + q]) * d);
@@ -321,6 +329,74 @@ __device__ __forceinline__ void load_group_bf16(
     }
   }
 }
+
+// An item's bf16 source rows through a ring of S stages of kGroup rows
+// (segment_softmax_spmm_bwd.cu, csr_segment_sum.cu): group g, edges
+// 8g .. 8g+7 of the item, lands in stage g % S. start() puts groups
+// 0 .. S-1 in flight. The caller reads edges in order, at most one group
+// past the oldest group it has not read in full (done): ready(e) waits
+// until edge e's group has landed, row(e) is edge e's ring row, and
+// release(e), once every edge below e is read, refills the stage of a
+// group read in full with the group S later. Every call commits one
+// cp.async group, empty past the item's end, so that wait_group counts
+// the same groups in every warp. The walks of #1, #2 and #6 bf16
+// (merged_gat_fwd.cu, merged_gat_bwd.cu, segment_softmax_spmm_fwd.cu)
+// read each group whole before the next, so they keep their own simpler
+// step (refill the stage read last, then wait for the next group); #7
+// bf16's 8-edge batches straddle groups, which this ring allows.
+template <bool VEC, int NV, int S>
+struct EdgeRing {
+  unsigned* ring;
+  int rw;        // ring row length in 32-bit words
+  int total;     // edges of the item
+  int n_groups;
+  int done;      // groups read in full, their stages refilled
+  const int* s_src;
+  const __nv_bfloat16* xs;
+  int lane, d;
+
+  __device__ __forceinline__ EdgeRing(unsigned* ring_, int rw_, int total_,
+                                      const int* s_src_,
+                                      const __nv_bfloat16* xs_, int lane_,
+                                      int d_)
+      : ring(ring_), rw(VEC ? 64 * NV : rw_), total(total_),
+        n_groups((total_ + kGroup - 1) / kGroup), done(0), s_src(s_src_),
+        xs(xs_), lane(lane_), d(d_) {}
+
+  // cp.async of group g's rows into its stage (past the end: none)
+  __device__ __forceinline__ void fill(int g) {
+    if (g < n_groups)
+      load_group_bf16<VEC, NV, S>(ring, rw, g, total, s_src, xs, lane, d);
+  }
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int g = 0; g < S; ++g) {
+      fill(g);
+      cp_async_commit();
+    }
+  }
+  // groups 0 .. S + done - 1 are committed: edge e's group, done or the
+  // one after it, has landed once at most S - 1 or S - 2 are pending
+  __device__ __forceinline__ void ready(int e) {
+    if (e / kGroup == done)
+      cp_async_wait<S - 1>();
+    else
+      cp_async_wait<S - 2>();
+    __syncwarp();
+  }
+  __device__ __forceinline__ const unsigned* row(int e) const {
+    const unsigned u = static_cast<unsigned>(e);
+    return ring + (u / kGroup % S * kGroup + u % kGroup) * rw;
+  }
+  __device__ __forceinline__ void release(int e) {
+    if (e / kGroup > done) {  // warp-uniform
+      __syncwarp();           // every lane is done with its stage
+      fill(done + S);
+      cp_async_commit();
+      ++done;
+    }
+  }
+};
 
 // a lane's columns of a bf16 ring row, widened to float32
 template <bool VEC, int NV>

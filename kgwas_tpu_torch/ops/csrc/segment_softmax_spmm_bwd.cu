@@ -64,22 +64,45 @@
 // the same bits.
 //
 // The bf16 instance (kgwas_segment_softmax_spmm_bwd_bf16: xs bf16, logits
-// float32 or bf16; out, g, mult float32), compile-time flags BF and LB:
-// the float32 instance's arithmetic on widened operands (exact), as the
-// TPU kernel's body is float32 throughout (its dmsgs and dlogits
-// out_shapes). w and d_logits are written in float32. So it gives the
-// float32 instance's bits on the operands widened to float32, under the
-// same schedule. out is segment_softmax_spmm_fwd.cu's float32 output and g
-// its float32 cotangent: a packed row's dot_r is formed from its edges,
-// which equals out_r . g_r only for the forward's own out, so a rounded
-// (bf16) out is not taken. Rows are read at 8 bytes a lane at D = 128,
-// else a value a lane per 32 columns. Its bound: xs read at 2 bytes a
-// value.
+// float32 or bf16; out, g, mult float32), compile-time flag LB: the
+// float32 instance's arithmetic on widened operands (exact), as the TPU
+// kernel's body is float32 throughout (its dmsgs and dlogits out_shapes).
+// w and d_logits are written in float32. out is
+// segment_softmax_spmm_fwd.cu's float32 output and g its float32
+// cotangent: a packed row's dot_r is formed from its edges, which equals
+// out_r . g_r only for the forward's own out, so a rounded (bf16) out is
+// not taken. Its bound: xs read at 2 bytes a value.
+//
+// Its design differs from the float32 one, whose batches of 4 edges of one
+// row, two in flight in registers, left the instance 6% below the float32
+// one on half the bytes, and whose short batches (the SNP-side relations
+// hold 1-6 edges a row) re-read a row from device memory and re-read g_r
+// with every batch. One warp still takes one item (blocks of 4 warps), but
+// its bf16 source rows come through a cp.async ring of kRingStages stages
+// of kGroup rows in shared memory (gat_items.cuh EdgeRing), 16 bytes a
+// lane at D = 128 * NV, a lane's copies unrolled, fed by edge: every slot
+// carries a real row. A row's edges are taken in batches from the ring: 8
+// while more than 4 are left, else 4, a batch's slots past the row's end
+// adding 0, so that a short batch reads nothing more. g_r is read once per
+// row (evict first: it is read once), the next row's while this one's
+// batches are summed. Each m_e is the same lane dot over the same columns
+// as the float32 instance's, summed across the lanes by multi_sum, whose
+// total for an edge is the full butterfly over offsets 16, 8, 4, 2, 1 of
+// that edge's lane values whatever the batch's width or other edges: the
+// instance keeps the float32 instance's bits on the widened operands. The
+// item's arrays live in dynamic shared memory sized by the schedule's
+// largest item (item_edges), as segment_softmax_spmm_fwd.cu's bf16
+// instance sizes them. At D = 128, 56 registers (64 with the multiplier)
+// and 6 KB of shared memory a warp leave 36 warps on each SM. The kernel
+// is bound by the instructions an edge takes (PERF.md, the full-width
+// streams): more stages, or deeper loads of g, cost warps and were slower;
+// the unrolled ring fill and the 8-edge batches gained most.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "gat_items.cuh"
 #include "warp_rows.cuh"
@@ -91,6 +114,7 @@ using kgwas::kBwdMaxEdges;
 using kgwas::kEps;
 using kgwas::kExpClamp;
 using kgwas::kFull;
+using kgwas::kGroup;
 using kgwas::kItemMaxRows;
 using kgwas::kMaxCols;
 using kgwas::multi_sum;
@@ -118,27 +142,11 @@ struct Args {
   int d;
   const __nv_bfloat16* xsb;      // [S, D]: the bf16 instance's table
   const __nv_bfloat16* logitsb;  // [E]: its bf16 logits (LB)
+  int item_edges;  // the bf16 instance: the most edges of an item, a
+                   // multiple of 4 (its staging arrays' length)
 };
 
-// the table of the float32 (BF false) or the bf16 instance
-template <bool BF>
-__device__ __forceinline__ auto xs_table(const Args& a) {
-  if constexpr (BF)
-    return a.xsb;
-  else
-    return a.xs;
-}
-
-// logit i, widened from bf16 when LB
-template <bool LB>
-__device__ __forceinline__ float logit(const Args& a, int i) {
-  if constexpr (LB)
-    return __bfloat162float(a.logitsb[i]);
-  else
-    return a.logits[i];
-}
-
-template <bool VEC, int NV, bool MULT, bool BF = false, bool LB = false>
+template <bool VEC, int NV, bool MULT>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_softmax_spmm_bwd_kernel(const Args a) {
   using R = kgwas::Row<VEC, NV>;
@@ -203,7 +211,7 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
       const int v = v0 + 32 * q + lane;
       if (v < it.total) {
         src[q] = a.src[first + v];
-        l[q] = logit<LB>(a, first + v);
+        l[q] = a.logits[first + v];
         if (MULT) mu[q] = a.mult[first + v];
       }
     }
@@ -228,8 +236,7 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
     const int n = (e >> kCountShift) & 63;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      x[u].load(xs_table<BF>(a) +
-                    static_cast<size_t>(s_src[v + min(u, n - 1)]) * d,
+      x[u].load(a.xs + static_cast<size_t>(s_src[v + min(u, n - 1)]) * d,
                 lane, d);
     gr.load(a.g + (it.unit0 + k) * d, lane, d);
   };
@@ -289,29 +296,257 @@ segment_softmax_spmm_bwd_kernel(const Args a) {
   }
 }
 
-template <bool VEC, int NV, bool MULT, bool BF, bool LB>
+template <bool VEC, int NV, bool MULT>
 cudaError_t launch_items(const Args& a, cudaStream_t stream) {
   const long long blocks = (a.n_items + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (blocks == 0) return cudaSuccess;
-  segment_softmax_spmm_bwd_kernel<VEC, NV, MULT, BF, LB>
+  segment_softmax_spmm_bwd_kernel<VEC, NV, MULT>
       <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool VEC, int NV, bool BF = false, bool LB = false>
+template <bool VEC, int NV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.mult != nullptr ? launch_items<VEC, NV, true, BF, LB>(a, stream)
-                           : launch_items<VEC, NV, false, BF, LB>(a, stream);
+  return a.mult != nullptr ? launch_items<VEC, NV, true>(a, stream)
+                           : launch_items<VEC, NV, false>(a, stream);
 }
 
-// the bf16 instance's widths: 8-byte row loads at D = 128, else generic
+// ---- the bf16 instance: rows through a cp.async ring
+
+constexpr int kBf16Warps = 4;  // warps per block
+// ring stages of kGroup rows (3 and 4 stages cost warps an SM and
+// measured slower at full width, PERF.md)
+constexpr int kRingStages = 2;
+// edges of one row reduced together: kBatch, or 2 kBatch while more than
+// kBatch of the row are left
+constexpr int kBatch = 4;
+
+// A warp's item in shared memory, E = the most edges of an item in the
+// schedule (a multiple of 4).
+struct Staged {
+  int* src;          // [E] each edge's source row
+  float* p;          // [E] its logit, then its weight p_e
+  float* m;          // [E] m_e
+  float* mult;       // [E] its multiplier (MULT)
+  float* lse;        // [kItemMaxRows] each row's log-sum-exp
+  float* dot;        // [kItemMaxRows] each row's dot_r
+  unsigned char* k;  // [E] each edge's row in the item
+};
+
+// shared memory of one warp in 32-bit words: the ring (kRingStages stages
+// of kGroup rows of rw words), then the item's arrays for items of at most
+// e edges, rounded up to 16 bytes (the next warp's ring takes 16-byte
+// copies)
+__host__ __device__ constexpr int bf16_warp_words(int rw, int e, bool mult) {
+  return (kRingStages * kGroup * rw + (mult ? 4 : 3) * e + 2 * kItemMaxRows +
+          e / 4 + 3) / 4 * 4;
+}
+
+template <bool MULT>
+__device__ __forceinline__ Staged staged_at(unsigned* base, int e) {
+  Staged st;
+  st.src = reinterpret_cast<int*>(base);
+  st.p = reinterpret_cast<float*>(base + e);
+  st.m = reinterpret_cast<float*>(base + 2 * e);
+  st.mult = reinterpret_cast<float*>(base + 3 * e);
+  st.lse = reinterpret_cast<float*>(base + (MULT ? 4 : 3) * e);
+  st.dot = st.lse + kItemMaxRows;
+  st.k = reinterpret_cast<unsigned char*>(st.dot + kItemMaxRows);
+  return st;
+}
+
+// One warp per item: its edges staged (each edge's row, source row and
+// logit, widened from bf16 when LB, and multiplier), the ring's first S
+// groups put in flight, each edge's weight taken while they land, then the
+// rows with edges in order: row k's g_k (loaded while row k - 1 was
+// summed) against its edges in batches of kBatch from the ring, the next
+// row's g loaded meanwhile. Then dot_r, w_e and d_logit_e as the float32
+// kernel forms them.
+template <bool VEC, int NV, bool MULT, bool LB>
+__global__ void __launch_bounds__(kBf16Warps * 32, VEC && NV == 1 ? 6 : 1)
+segment_softmax_spmm_bwd_bf16_kernel(const Args a) {
+  using R = kgwas::Row<VEC, NV>;
+  constexpr int S = kRingStages;
+  constexpr int U = kBatch;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * kBf16Warps + warp;
+  if (w >= a.n_items) return;  // whole warp exits together
+  const int d = a.d;
+  const int rw = kgwas::row_words_bf16<VEC, NV>(d);
+  unsigned* ring =
+      reinterpret_cast<unsigned*>(smem) +
+      static_cast<size_t>(warp) * bf16_warp_words(rw, a.item_edges, MULT);
+  const Staged st = staged_at<MULT>(ring + S * kGroup * rw, a.item_edges);
+
+  const kgwas::ItemRows it = kgwas::item_rows(
+      a.items[kgwas::item_of_warp(w, a.n_items)], a.row_offsets, a.n_rows,
+      1, lane);
+  if (it.total == 0) return;  // rows without edges: nothing to write
+  if (lane < it.n_rows) {
+    st.lse[lane] = a.row_max[it.row] + logf(a.row_sum[it.row] + kEps);
+    st.dot[lane] = 0.0f;
+  }
+  const int first = kgwas::stage_row_keys(it, st.k, lane);
+  for (int v0 = 0; v0 < it.total; v0 += 4 * 32) {
+    int src[4] = {0, 0, 0, 0};
+    float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float mu[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        src[q] = a.src[first + v];
+        l[q] = LB ? __bfloat162float(a.logitsb[first + v])
+                  : a.logits[first + v];
+        if (MULT) mu[q] = a.mult[first + v];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = v0 + 32 * q + lane;
+      if (v < it.total) {
+        st.src[v] = src[q];
+        st.p[v] = l[q];
+        if (MULT) st.mult[v] = mu[q];
+      }
+    }
+  }
+  __syncwarp();
+
+  kgwas::EdgeRing<VEC, NV, S> ring_rows(ring, rw, it.total, st.src, a.xsb,
+                                        lane, d);
+  ring_rows.start();
+  // the rows with edges in order (a chunk: its one row)
+  unsigned rows = __ballot_sync(kFull, lane < it.n_rows && it.cnt > 0);
+  auto next_row = [&]() {  // -1 past the last
+    const int k = __ffs(rows) - 1;
+    rows &= rows - 1;
+    return k;
+  };
+  auto load_g = [&](R& g, int k) {  // read once: evict first
+    if (k >= 0) g.load_once(a.g + (it.unit0 + k) * d, lane, d);
+  };
+  // m_e of edges v .. v + n - 1 of one row (n <= UB) against its g: one
+  // batch of UB slots, the slots past n adding 0
+  auto batch = [&](auto width, int v, int n, const R& g) {
+    constexpr int UB = decltype(width)::value;
+    ring_rows.ready(v + n - 1);
+    float p[UB];
+#pragma unroll
+    for (int u = 0; u < UB; ++u) {
+      p[u] = 0.0f;
+      if (u < n) {
+        R x;
+        kgwas::load_ring_bf16<VEC, NV>(x, ring_rows.row(v + u), lane, d);
+        p[u] = row_dot(x, g);
+      }
+    }
+    const float m = multi_sum<UB>(p, lane);
+    const int j = lane / (32 / UB);
+    if (lane % (32 / UB) == 0 && j < n) st.m[v + j] = m;
+    ring_rows.release(v + n);
+  };
+  int k = next_row();
+  R gr;
+  load_g(gr, k);
+  if (it.chunk) {  // warp-uniform: a chunk's dot_r = out_r . g_r
+    R ov;
+    ov.load(a.out + it.row * d, lane, d);
+    float q = row_dot(ov, gr);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(kFull, q, off);
+    if (lane == 0) st.dot[0] = q;
+  }
+  // each edge's weight while the first groups arrive
+  for (int v = lane; v < it.total; v += 32)
+    st.p[v] = fast_exp(fminf(st.p[v] - st.lse[st.k[v]], kExpClamp));
+  for (;;) {  // warp-uniform; the next row's g loaded meanwhile
+    const int next = next_row();
+    R gn;
+    load_g(gn, next);
+    const int v0 = __shfl_sync(kFull, it.vbeg, k);
+    const int v1 = v0 + __shfl_sync(kFull, it.cnt, k);
+    for (int v = v0; v < v1;) {
+      const int n = v1 - v;
+      if (n > U) {
+        batch(std::integral_constant<int, 2 * U>(), v, min(n, 2 * U), gr);
+        v += 2 * U;
+      } else {
+        batch(std::integral_constant<int, U>(), v, min(n, U), gr);
+        v += U;
+      }
+    }
+    if (next < 0) break;
+    k = next;
+    gr = gn;
+  }
+  kgwas::cp_async_wait<0>();
+  __syncwarp();
+  if (!it.chunk) {  // dot_r = sum_e p_e (mult_e) m_e over each whole row
+    for (int base = 0; base < it.total; base += 32) {
+      const int v = base + lane;
+      const bool ok = v < it.total;
+      const float e = !ok    ? 0.0f
+                      : MULT ? st.p[v] * st.mult[v] * st.m[v]
+                             : st.p[v] * st.m[v];
+      kgwas::segmented_add(e, ok ? st.k[v] : 255, st.dot, lane);
+    }
+  }
+  for (int v = lane; v < it.total; v += 32) {
+    const float p = st.p[v];
+    if (MULT) {
+      const float mu = st.mult[v];
+      a.w[first + v] = p * mu;
+      a.d_logits[first + v] = p * (mu * st.m[v] - st.dot[st.k[v]]);
+    } else {
+      a.w[first + v] = p;
+      a.d_logits[first + v] = p * (st.m[v] - st.dot[st.k[v]]);
+    }
+  }
+}
+
+template <bool VEC, int NV, bool MULT, bool LB>
+cudaError_t launch_items_bf16(const Args& a, cudaStream_t stream) {
+  const long long blocks = (a.n_items + kBf16Warps - 1) / kBf16Warps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (blocks == 0) return cudaSuccess;
+  const int rw = kgwas::row_words_bf16<VEC, NV>(a.d);
+  const size_t smem = sizeof(unsigned) * kBf16Warps *
+                      bf16_warp_words(rw, a.item_edges, MULT);
+  auto kern = segment_softmax_spmm_bwd_bf16_kernel<VEC, NV, MULT, LB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<static_cast<unsigned>(blocks), kBf16Warps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool VEC, int NV, bool LB>
+cudaError_t launch_mult_bf16(const Args& a, cudaStream_t stream) {
+  return a.mult != nullptr ? launch_items_bf16<VEC, NV, true, LB>(a, stream)
+                           : launch_items_bf16<VEC, NV, false, LB>(a, stream);
+}
+
+// the bf16 instance's widths: 16-byte ring copies at D = 128 * NV (the
+// float32 instance's columns a lane), else 4 bytes a lane
 template <bool LB>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  if (a.d == 128) return launch<true, 1, true, LB>(a, stream);
-  if (a.d >= 1 && a.d <= 32 * kMaxCols)
-    return launch<false, 1, true, LB>(a, stream);
-  return cudaErrorInvalidValue;
+  switch (a.d) {
+    case 128: return launch_mult_bf16<true, 1, LB>(a, stream);
+    case 256: return launch_mult_bf16<true, 2, LB>(a, stream);
+    case 384: return launch_mult_bf16<true, 3, LB>(a, stream);
+    case 512: return launch_mult_bf16<true, 4, LB>(a, stream);
+    default:
+      if (a.d >= 1 && a.d <= 32 * kMaxCols)
+        return launch_mult_bf16<false, 1, LB>(a, stream);
+      return cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(const void* xs, const void* src, const void* logits,
@@ -336,6 +571,7 @@ Args make_args(const void* xs, const void* src, const void* logits,
   a.n_rows = n_rows;
   a.d = d;
   a.xsb = a.logitsb = nullptr;
+  a.item_edges = 0;
   return a;
 }
 
@@ -367,21 +603,26 @@ extern "C" int kgwas_segment_softmax_spmm_bwd(
   }
 }
 
-// The bf16 instance: the same arguments, xs a bf16 [S, D] table (8-byte
-// aligned rows at D = 128; the wrapper checks), logits bf16 when
-// logits_bf16 != 0, else float32; out, g, w and d_logits float32.
+// The bf16 instance: the same arguments, xs a bf16 [S, D] table (16-byte
+// aligned rows at D = 128 * NV, else 4-byte; the wrapper checks), logits
+// bf16 when logits_bf16 != 0, else float32; out, g, w and d_logits
+// float32; item_edges the most edges of an item of the schedule (1 to
+// kBwdMaxEdges), which sizes each warp's arrays in shared memory.
 extern "C" int kgwas_segment_softmax_spmm_bwd_bf16(
     const void* xs, const void* src, const void* logits, const void* mult,
     const void* row_offsets, const void* row_max, const void* row_sum,
     const void* out, const void* g, void* w, void* d_logits,
     const void* items, long long n_items, long long n_rows, int d,
-    int logits_bf16, void* stream) {
+    int logits_bf16, int item_edges, void* stream) {
+  if (item_edges < 1 || item_edges > kBwdMaxEdges)
+    return cudaErrorInvalidValue;
   Args a = make_args(nullptr, src, logits_bf16 ? nullptr : logits, mult,
                      row_offsets, row_max, row_sum, out, g, w, d_logits,
                      items, n_items, n_rows, d);
   a.xsb = static_cast<const __nv_bfloat16*>(xs);
   a.logitsb =
       logits_bf16 ? static_cast<const __nv_bfloat16*>(logits) : nullptr;
+  a.item_edges = (item_edges + 3) / 4 * 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return logits_bf16 ? launch_bf16<true>(a, s) : launch_bf16<false>(a, s);
 }

@@ -85,6 +85,46 @@ struct Row {
       }
     }
   }
+  // the same as load and store, for rows read or written once: the
+  // cache-streaming forms (evict first), which leave L2 to the tables a
+  // kernel gathers from
+  __device__ __forceinline__ void load_once(const float* row, int lane,
+                                            int d) {
+    if (VEC) {
+      const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const float4 q = __ldcs(p + k * 32 + lane);
+        v[4 * k] = q.x;
+        v[4 * k + 1] = q.y;
+        v[4 * k + 2] = q.z;
+        v[4 * k + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int col = lane + 32 * k;
+        v[k] = col < d ? __ldcs(row + col) : 0.0f;
+      }
+    }
+  }
+  __device__ __forceinline__ void store_once(float* row, int lane,
+                                             int d) const {
+    if (VEC) {
+      float4* p = reinterpret_cast<float4*>(row);
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        __stcs(p + k * 32 + lane,
+               make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                           v[4 * k + 3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int col = lane + 32 * k;
+        if (col < d) __stcs(row + col, v[k]);
+      }
+    }
+  }
   __device__ __forceinline__ void store(float* row, int lane, int d) const {
     if (VEC) {
       float4* p = reinterpret_cast<float4*>(row);

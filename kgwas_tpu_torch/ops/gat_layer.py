@@ -131,7 +131,7 @@ def check_cuda_args(device, bf16=(), **tensors):
     contiguous, int32 for the layout's index arrays, float32 or bfloat16
     for the value tables (``xs_all``, ``x``, and the names in ``bf16``,
     which a call takes in either: the relation wrappers' ``xs`` and
-    ``logits``; bf16 rows of an even width) and float32
+    ``logits``; bf16 rows of an even width, 4-byte aligned) and float32
     for the rest, feature rows at most 512 wide and 16-byte aligned when
     their width is a multiple of 128 (float4 rows)."""
     for name, t in tensors.items():
@@ -143,6 +143,9 @@ def check_cuda_args(device, bf16=(), **tensors):
             if t.dim() == 2 and t.shape[1] % 2:
                 raise ValueError(f"{name}: bf16 rows must have an even "
                                  f"width, got {t.shape[1]}")
+            if t.dim() == 2 and t.data_ptr() % 4:
+                raise ValueError(f"{name}: bf16 rows must be 4-byte "
+                                 "aligned")
         elif t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
@@ -254,11 +257,6 @@ def merged_gat_a_src_plain(xs_all, att, src_base):
     return a_src
 
 
-def _check_bf16_table(xs_all):
-    if xs_all.data_ptr() % 4:
-        raise ValueError("a bf16 xs_all must be 4-byte aligned")
-
-
 def merged_gat_a_src(xs_all, att, src_base):
     """The bf16 instances' scores per source row: a_src [S] float32 with
     a_src[s] = bf16(att[r]) . xs_all[s] for src_base[r] <= s <
@@ -278,7 +276,6 @@ def merged_gat_a_src(xs_all, att, src_base):
         raise ValueError(f"xs_all {tuple(xs_all.shape)} and att "
                          f"{tuple(att.shape)} do not match R={n_rel}")
     check_cuda_args(xs_all.device, xs_all=xs_all, att=att)
-    _check_bf16_table(xs_all)
     n_src = xs_all.shape[0]
     base = _check_src_base(src_base, n_rel, n_src)
     from .build import library
@@ -301,7 +298,6 @@ def merged_gat_a_src(xs_all, att, src_base):
 def _check_a_src(xs_all, a_src):
     """a_src for a bf16 instance's launch: merged_gat_a_src of xs_all,
     which a bf16 table on the card must be given."""
-    _check_bf16_table(xs_all)
     if a_src is None:
         raise ValueError("a bf16 xs_all on the card needs a_src "
                          "(merged_gat_a_src)")

@@ -358,9 +358,10 @@ def csr_segment_sum(x, src, row_offsets, w=None, sched=None):
             sched.split_units.data_ptr(), sched.part_offsets.data_ptr(),
             sched.split_units.shape[0], part_acc.data_ptr(), n_rows, d)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if bf16:
-        err = library("csr_segment_sum_bf16")(*args, int(round_products),
-                                              stream)
+    if bf16:   # its walk stages items of at most this many edges
+        err = library("csr_segment_sum_bf16")(
+            *args, int(round_products),
+            max(sched.max_edges, sched.chunk_edges), stream)
     else:
         err = library("csr_segment_sum")(*args, stream)
     if err != 0:

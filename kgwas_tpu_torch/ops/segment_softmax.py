@@ -235,9 +235,10 @@ def segment_softmax_spmm_bwd(xs, src, logits, row_offsets, row_max, row_sum,
             row_offsets.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
             out.data_ptr(), g.data_ptr(), w.data_ptr(), d_logits.data_ptr(),
             sched.items.data_ptr(), sched.items.shape[0], n_rows, d)
-    if bf16:
+    if bf16:   # its walk stages items of at most this many edges
         err = library("segment_softmax_spmm_bwd_bf16")(
-            *args, int(logits.dtype == torch.bfloat16), stream)
+            *args, int(logits.dtype == torch.bfloat16),
+            max(sched.max_edges, sched.chunk_edges), stream)
     else:
         err = library("segment_softmax_spmm_bwd")(*args, stream)
     if err != 0:

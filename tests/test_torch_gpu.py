@@ -53,11 +53,15 @@ the earlier checkout's. The model: a per-relation GAT step's gradients
 bitwise the same in two runs, and with remat bitwise those without, the
 dropout masks drawn from one CUDA generator seed.
 
-The bf16 instances of #6 and #8 on item streams of every shape (long hub
-rows, chunked trash rows and empty rows; fewer items than a block's
-warps; more items than the card holds warps), #8 in its four call forms:
-against their plain versions, #6 bitwise the f32 instance on the widened
-operands, and with KGWAS_PARENT_CSRC both bitwise the earlier checkout's.
+The bf16 instances of #6, #7, #8 and #10 on item streams of every shape
+(long hub rows, chunked trash rows and empty rows; fewer items than a
+block's warps; more items than the card holds warps; a schedule whose
+largest item, 13 edges, is no multiple of 8; #7 and #10 also at D =
+256, 384 and 512), #7 with float32 and bf16 logits, with and without the
+multiplier, #8 in its four call forms, #10 unweighted and with float32
+and bf16 weights: against their plain
+versions, #6 and #7 bitwise the f32 instances on the widened operands,
+and with KGWAS_PARENT_CSRC all four bitwise the earlier checkout's.
 
 Outside the kernels: the host-streamed products (ops/streaming.py: pinned
 staging, a copy stream) against a float64 dense product, and the train
@@ -1736,7 +1740,24 @@ ITEM_STREAMS = {
     "long": lambda: _long_row_stream(),
     "few": lambda: _short_row_stream(40, 64, 41),
     "many": lambda: _short_row_stream(400_000, 400_000, 42),
+    "odd": lambda: _long_row_stream(seed=12),
 }
+# the streams scheduled at other item sizes (max_edges = chunk_edges): a
+# largest item of 13 edges, no multiple of 8 (a warp's arrays then end
+# off a ring group, and the next warp's ring must stay 16-byte aligned)
+STREAM_EDGES = {"odd": 13}
+# #7 and #10 bf16 also on the long-row stream at the wider 16-byte widths:
+# a lane's ring copies are then NV 16-byte copies of a row, and at D = 384
+# and 512 a block's shared memory passes 48 KB
+WIDE_STREAMS = {f"long{d}": (lambda d=d: _long_row_stream(d=d))
+                for d in (256, 384, 512)}
+BF16_STREAMS = {**ITEM_STREAMS, **WIDE_STREAMS}
+
+
+def _stream_schedule(stream, ro, max_edges, chunk_edges, device):
+    k = STREAM_EDGES.get(stream)
+    return schedule.row_schedule(ro, k or max_edges, k or chunk_edges).to(
+        device)
 
 
 def _csc_of(src, ro, n_src, device):
@@ -1756,7 +1777,7 @@ def _csc_of(src, ro, n_src, device):
 
 
 def _stream_fwd_case(stream, logits, mult, device):
-    src, ro, lg, xs, long_rows = ITEM_STREAMS[stream]()
+    src, ro, lg, xs, long_rows = BF16_STREAMS[stream]()
     rng = np.random.default_rng(44)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     lg_t = t(lg)
@@ -1764,7 +1785,9 @@ def _stream_fwd_case(stream, logits, mult, device):
         lg_t = lg_t.to(torch.bfloat16)
     args = (t(xs).to(torch.bfloat16), t(src), lg_t, t(ro))
     mu = t(_mult(rng, len(src))) if mult else None
-    return args, schedule.row_schedule(ro).to(device), mu, long_rows
+    return args, _stream_schedule(stream, ro, schedule.ROW_MAX_EDGES,
+                                  schedule.ROW_CHUNK_EDGES, device), mu, \
+        long_rows
 
 
 @pytest.mark.parametrize("mult", [False, True])
@@ -1880,6 +1903,123 @@ def test_bf16_csc_segment_sum_logit_path_bitwise_as_parent(
     old = parent_ops.segment.csc_segment_sum(*args)
     torch.cuda.synchronize()
     assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+
+
+# ---- the bf16 kernels #7 and #10 on the item streams
+#
+# Both gather their bf16 rows through a cp.async ring fed by edge. #7
+# bf16 keeps each m_e's lane dot and butterfly, so it stays bitwise the
+# float32 instance on the widened operands; #10 bf16 keeps each column's
+# chain in stream order. Both stay bitwise the earlier checkout's.
+
+def _stream_bwd_case(stream, logits, mult, device):
+    """#7 bf16's call on an item stream: the forward's outputs (#6 bf16)
+    and a cotangent g, (args, sched, mult, long rows)."""
+    args, sched, mu, long_rows = _stream_fwd_case(stream, logits, mult,
+                                                  device)
+    out, row_max, row_sum = segment_softmax.segment_softmax_spmm_fwd(
+        *args, sched=sched, mult=mu)
+    rng = np.random.default_rng(47)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(device)
+    return args + (row_max, row_sum, out, g), sched, mu, long_rows
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("logits", ["f32", "bf16"])
+@pytest.mark.parametrize("stream", sorted(BF16_STREAMS))
+def test_bf16_segment_softmax_bwd_item_streams(stream, logits, mult,
+                                               cuda_device):
+    """#7 bf16 on the item streams: two runs the same bits, bitwise the
+    float32 instance on the widened operands, and within the backward
+    kernels' tolerance (the float64 rule) of the plain version."""
+    bargs, sched, mu, _ = _stream_bwd_case(stream, logits, mult,
+                                           cuda_device)
+    before = segment_softmax.bf16_bwd_launches
+    got = _repeat_equal(lambda *a: segment_softmax.segment_softmax_spmm_bwd(
+        *a, sched=sched, mult=mu), *bargs)
+    assert segment_softmax.bf16_bwd_launches == before + 2
+    wide = segment_softmax.segment_softmax_spmm_bwd(*_as_float(bargs),
+                                                    sched=sched, mult=mu)
+    plain = segment_softmax.segment_softmax_spmm_bwd_plain(*bargs, mult=mu)
+    exact = segment_softmax.segment_softmax_spmm_bwd_plain(
+        *_as_double(bargs), mult=None if mu is None else mu.double())
+    for a, b, p, x in zip(got, wide, plain, exact):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, b)
+        _grad_rule(a, p, x)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("logits", ["f32", "bf16"])
+@pytest.mark.parametrize("stream", sorted(BF16_STREAMS))
+def test_bf16_segment_softmax_bwd_streams_bitwise_as_parent(
+        stream, logits, mult, parent_ops, cuda_device):
+    """#7 bf16 gives the earlier checkout's bits on the item streams. At
+    D = 256-512 the earlier bf16 instance took the generic column layout,
+    off its float32 instance's bits; there the new one gives the earlier
+    checkout's float32 instance's bits on the widened operands."""
+    bargs, sched, mu, _ = _stream_bwd_case(stream, logits, mult,
+                                           cuda_device)
+    new = segment_softmax.segment_softmax_spmm_bwd(*bargs, sched=sched,
+                                                   mult=mu)
+    old = parent_ops.segment_softmax.segment_softmax_spmm_bwd(
+        *(_as_float(bargs) if stream in WIDE_STREAMS else bargs),
+        sched=sched, mult=mu)
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
+
+
+CSR_FORMS = ["unweighted", "f32", "bf16"]
+
+
+def _stream_csr_case(stream, form, device):
+    """#10 bf16's call on an item stream: (args, sched, long rows); the
+    weights float32, or bf16 (each product rounded to bf16)."""
+    src, ro, _, xs, long_rows = BF16_STREAMS[stream]()
+    rng = np.random.default_rng(48)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    w = None
+    if form != "unweighted":
+        w = t(rng.random(len(src)).astype(np.float32))
+        if form == "bf16":
+            w = w.to(torch.bfloat16)
+    args = (t(xs).to(torch.bfloat16), t(src), t(ro), w)
+    return args, _stream_schedule(stream, ro, schedule.CSR_MAX_EDGES,
+                                  schedule.CSR_CHUNK_EDGES, device), \
+        long_rows
+
+
+@pytest.mark.parametrize("form", CSR_FORMS)
+@pytest.mark.parametrize("stream", sorted(BF16_STREAMS))
+def test_bf16_csr_segment_sum_item_streams(stream, form, cuda_device):
+    """#10 bf16 on the item streams, unweighted, with float32 weights and
+    with bf16 weights: two runs the same bits, rows without edges 0, and
+    within the float32 tolerances of the plain version (its long rows as
+    trash rows: sums of hundreds of terms in another order)."""
+    args, sched, long_rows = _stream_csr_case(stream, form, cuda_device)
+    before = segment.csr_bf16_launches
+    (got,) = _repeat_equal(lambda *a: (segment.csr_segment_sum(
+        *a, sched=sched),), *args)
+    assert segment.csr_bf16_launches == before + 2
+    empty = torch.diff(args[2]) == 0
+    assert (got[empty] == 0).all()
+    _close_rows(got, segment.csr_segment_sum_plain(*args), long_rows)
+
+
+@pytest.mark.parametrize("form", CSR_FORMS)
+@pytest.mark.parametrize("stream", sorted(BF16_STREAMS))
+def test_bf16_csr_segment_sum_streams_bitwise_as_parent(stream, form,
+                                                        parent_ops,
+                                                        cuda_device):
+    """#10 bf16 gives the earlier checkout's bits on the item streams, in
+    its three forms, chunked rows included."""
+    args, sched, _ = _stream_csr_case(stream, form, cuda_device)
+    new = segment.csr_segment_sum(*args, sched=sched)
+    old = parent_ops.segment.csr_segment_sum(*args, sched=sched)
+    torch.cuda.synchronize()
+    assert torch.equal(new, old)
 
 
 # ------------------------------------------------------ scanned dispatch

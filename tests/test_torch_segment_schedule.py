@@ -558,3 +558,59 @@ def test_csr_split_and_combine_matches_segment_sum_edges(world, dst_t,
                                atol=1e-5)
     np.testing.assert_allclose(got.numpy()[trash], want[trash], rtol=1e-4,
                                atol=1e-5)
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repository root's card script) as a module: its
+    helpers import torch and the port only, and nothing runs at import."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_softmax_bwd_bound_reads_out_on_chunked_rows_only(dtype):
+    """#7's bound (chip_smoke.softmax_bwd_bytes, which phase 6's
+    kernel_bound and phase 12's relation runs both call) on a stream with
+    a hub row cut into chunks and packed rows: the saved out counts
+    len(split_units) * D * 4 bytes (the kernel reads it on the chunked
+    rows only: a packed row's dot_r comes from its edges), g counts
+    n_rows * D * 4, every other array once at its own width, w and
+    d_logits 4 bytes an edge each; with sched=None, the schedule the
+    wrapper builds."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(50)
+    n_rows, n_src = 64, 96
+    deg = rng.integers(0, 6, n_rows)
+    deg[17] = 3 * S.ROW_CHUNK_EDGES + 5   # the hub: four chunks
+    ro = np.zeros(n_rows + 1, dtype=np.int32)
+    np.cumsum(deg, out=ro[1:])
+    e = int(ro[-1])
+    sched = S.row_schedule(ro)
+    assert sched.split_units.tolist() == [17]
+    assert (sched.items[:, 2] < 0).sum() > 1   # packed items too
+    xs = torch.from_numpy(rng.standard_normal((n_src, D)).astype(
+        np.float32)).to(dtype)
+    src = torch.from_numpy(rng.integers(0, n_src, e).astype(np.int32))
+    logits = torch.from_numpy(rng.standard_normal(e).astype(np.float32))
+    stats = [torch.from_numpy(rng.random(n_rows).astype(np.float32))
+             for _ in range(2)]
+    out, g = (torch.from_numpy(rng.standard_normal((n_rows, D)).astype(
+        np.float32)) for _ in range(2))
+    args = (xs, src, logits, torch.from_numpy(ro), *stats, out, g)
+    others = (xs.numel() * xs.element_size() + 4 * (2 * e + n_rows + 1)
+              + 4 * 2 * n_rows)
+    want = (others + len(sched.split_units) * D * 4 + n_rows * D * 4
+            + 2 * 4 * e)
+    assert cs.softmax_bwd_bytes(*args, sched=sched) == want
+    assert cs.softmax_bwd_bytes(*args) == want
+    mult = torch.ones(e)
+    assert cs.softmax_bwd_bytes(*args, sched=sched, mult=mult) == \
+        want + 4 * e
+    # out whole would be n_rows rows: the bound counted 63 rows too many
+    assert want < others + 2 * n_rows * D * 4 + 2 * 4 * e
