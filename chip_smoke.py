@@ -134,8 +134,10 @@ PyTorch version:
      neighbour), bitwise repeatable, with ms, device ms, plain ms, bound
      (2-byte rows), bf16 gather floor, the f32 instance on the same
      values and, for #10, torch.sparse.mm in bf16 where the card's
-     PyTorch takes it; (b)-(d) GAT sum under f32, stream_dtype and
-     compute_dtype, and GCN, SAGE and sigmoid GAT max under compute_dtype:
+     PyTorch takes it; (b)-(d) GAT sum under stream_dtype and
+     compute_dtype (beside the f32 GAT sum's forward and step ms; its
+     checks are phase 5's), and GCN, SAGE and sigmoid GAT max under
+     compute_dtype:
      predict_all and KGWAS.train over three batches with every layer
      kernel counted from 0 just before (the bf16 instances where the
      table is bf16), against the plain ops, two kernel runs bitwise,
@@ -149,19 +151,29 @@ PyTorch version:
      ms, bound at 2-byte rows, #7's with the saved out on its chunked rows
      only, bf16 gather floor, the float32 instance on the widened values);
      every #10 bf16 launch of the GCN and SAGE runs' forward and step run
-     twice (the same bits) and held against its plain version
+     twice (the same bits) and held against its plain version. The kernel
+     table's epoch_launches are a full-width epoch's step count times one
+     train_step's bf16 launches (each of the three steps counted). The
+     runs of a phase on the full-width graph share one device state per
+     layer path (shared_state)
  13. the bf16 quality gate (scripts/exp_stream_gate.py's KG and model):
      f32, stream_dtype, compute_dtype and f32 with TF32 matmuls trained
      30 epochs; KGWAS_P's Spearman and top-50 overlap against f32 (a
      finding: only a crash or a non-finite KGWAS_P fails the phase)
  14. multi-device training (kgwas_tpu_torch/parallel) on the one card:
-     KGWAS.train(mesh=1) at full width in a one-rank NCCL process group
-     (launches counted from 0 just before, losses against the
-     single-device run's), the all-gather and reduce-scatter ms at world
-     size 1, a train step over the mesh beside one on the device alone; the per-rank layouts of 2 and 4 ranks (the Gene and SNP
-     groups whose tiles split) through #1, #2 and #8 in this process, the
-     ranks' rows and summed gradients against the unsharded layer. Two
-     ranks over NCCL need two cards: not run here
+     (a) KGWAS.train(mesh=1) at full width in a one-rank NCCL process
+     group for GAT sum (merged), GAT max (per relation), SAGE sum ('mp')
+     and GAT max under stream_dtype (launches counted from 0 just before,
+     losses against the same steps on the device alone), the all-gather and
+     reduce-scatter ms at world size 1, a train step over the mesh beside
+     one on the device alone; (b) the blocks of 2, 3 and 4 ranks in this
+     process: every relation stream of the Gene and SNP groups through #6,
+     #7 and #8 (f32, and bf16: #6 / #7 bitwise the f32 instance on the
+     widened values), the 'mp' Gene and SNP streams through #10 and #8,
+     the merged Gene and SNP groups through #1, #2 and #8; the ranks' rows
+     and summed gradients against the unsharded kernels, each kernel
+     launched once a rank. Two ranks over NCCL need two cards: not run
+     here
  15. scanned dispatch (KGWAS.train(scan_steps=8): each full block of 8
      steps one replay of a CUDA graph of 8 captured steps,
      engine/loop.TrainScan): (a) full-width GAT sum over 3 blocks and a
@@ -631,23 +643,34 @@ def trash_mask(n_rows, n_per_rel, n_real):
     return mask
 
 
+def row_rtol(mask, like):
+    """Each row's rtol, float64 on like's device: TRASH_RTOL on the rows
+    mask (a host array) marks, RTOL elsewhere."""
+    rtol = torch.full((len(mask),), RTOL, dtype=torch.float64,
+                      device=like.device)
+    rtol[torch.from_numpy(np.asarray(mask, dtype=bool)).to(like.device)] = (
+        TRASH_RTOL)
+    return rtol
+
+
 def compare(got, want, mask, what):
     """(max abs err, max rel err); raises over the stated tolerance. mask
-    marks the trash rows."""
-    g = got.detach().double().cpu().numpy()
-    w = want.detach().double().cpu().numpy()
-    err = np.abs(g - w)
-    rtol = np.where(mask, TRASH_RTOL, RTOL)
-    if err.ndim > 1:
+    marks the trash rows. In float64 on the tensors' device (the host's
+    numpy took most of a check's time at full width)."""
+    g, w = got.detach().double(), want.detach().double()
+    err = (g - w).abs()
+    rtol = row_rtol(mask, w)
+    if err.dim() > 1:
         rtol = rtol[:, None]
-    bad = err > ATOL + rtol * np.abs(w)
-    if bad.any():
+    bad = err > ATOL + rtol * w.abs()
+    if bool(bad.any()):
         raise AssertionError(
             f"{what}: {int(bad.sum())} values over tolerance, max abs err "
-            f"{err.max():.3e}")
-    if not err.size:
+            f"{float(err.max()):.3e}")
+    if not err.numel():
         return 0.0, 0.0
-    return float(err.max()), float((err / np.maximum(np.abs(w), 1e-30)).max())
+    return (float(err.max()),
+            float((err / w.abs().clamp_min(1e-30)).max()))
 
 
 def layer_bound(xs_all, src, row_offsets, att, a_dst, out):
@@ -1573,6 +1596,7 @@ def phase_variants(kt, data, cg, device, card, worst_small, parent=None):
         # Pearson, and KGWAS.train then keeps the initial state
         run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
                              no_relu=True, **kw)
+        shared_state(run)
         init = copy.deepcopy(run.model.state_dict())
         run.predict_all()   # device state, allocator warm-up
         torch.cuda.synchronize()
@@ -2933,6 +2957,31 @@ def model_counts(zero=False):
         segment_softmax.bwd_launches, segment.csr_launches, segment.launches)))
 
 
+# the device states (compiled graph, node features, device layouts) built
+# so far, by compiled graph, device and layer paths: a layout never
+# changes, so the runs on one graph share their set-up
+SHARED_STATE = {}
+
+
+def shared_state(run):
+    """Gives run the device state an earlier run on the same compiled graph,
+    device and layer paths built (KGWAS._device_state), or keeps run's for
+    the runs after it; a run with streamed features keeps its own."""
+    from kgwas_tpu_torch.models import layer_paths
+
+    if run.stream_features:
+        return
+    key = (id(run.data.compile()), str(run.device),
+           layer_paths(run.model_cfg))
+    if key in SHARED_STATE:
+        run._graph, run._x_host = SHARED_STATE[key], {}
+    else:
+        t0 = time.perf_counter()
+        SHARED_STATE[key] = run._device_state()
+        log(f"  device state of the paths {key[2]} built in "
+            f"{time.perf_counter() - t0:.1f} s, kept for the runs after")
+
+
 def path_launches(model, layouts, training):
     """(per forward, per backward) launches of each layer kernel on the
     model's layer path: one per head and live group (merged), per head and
@@ -3050,6 +3099,7 @@ def phase_models(kt, data, cg, device, card, floors):
         run = kt.KGWAS(data_v, exp_name="chip_smoke_models", seed=SEED)
         run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
                              no_relu=True, **kw)
+        shared_state(run)
         model = run.model
         init = copy.deepcopy(model.state_dict())
         run.predict_all()          # device state, allocator warm-up
@@ -3228,6 +3278,7 @@ def phase_models(kt, data, cg, device, card, floors):
             ref = kt.KGWAS(data_v, exp_name="chip_smoke_models", seed=SEED)
             ref.initialize_model(gnn_num_layers=LAYERS,
                                  gnn_hidden_dim=HIDDEN, no_relu=True)
+            shared_state(ref)
             keys = ref.model.state_dict().keys()
             ref.model.load_state_dict({k: v for k, v in
                                        model.state_dict().items()
@@ -4113,7 +4164,6 @@ BF16_OFF_ROWS, BF16_RTOL = 1e-3, 1e-2
 # package's port tests' bound (tests/test_torch_bf16_model.py)
 BF16_PRED_RTOL, BF16_PRED_ATOL, BF16_LOSS_RTOL = 1e-2, 1e-3, 1e-2
 BF16_VARIANTS = {
-    "GAT-sum f32": {},
     "GAT-sum stream": dict(stream_dtype="bfloat16"),
     "GAT-sum compute": dict(compute_dtype="bfloat16"),
     "GCN compute": dict(gnn_backbone="GCN", compute_dtype="bfloat16"),
@@ -4128,10 +4178,11 @@ BF16_VARIANTS = {
     "GAT-sum edge_dim stream": dict(edge_dim=4, stream_dtype="bfloat16"),
     "GAT-sum edge_dim compute": dict(edge_dim=4, compute_dtype="bfloat16"),
 }
-# the runs whose bf16 launches are counted over a full-width epoch of
-# train_steps: #1, #2 and #8 bf16 (and the score pass) under each dtype
-# option; #6, #7 and #8 bf16 under stream_dtype; #10 and #8 bf16 under
-# compute_dtype
+# the runs whose bf16 launches over a full-width epoch of train_steps the
+# kernel table reports (the epoch's step count times one step's launches,
+# each of CMP_STEPS steps held to the first's): #1, #2 and #8 bf16 (and the
+# score pass) under each dtype option; #6, #7 and #8 bf16 under
+# stream_dtype; #10 and #8 bf16 under compute_dtype
 EPOCH_VARIANTS = ("GAT-sum stream", "GAT-sum compute", "GAT-max stream",
                   "SAGE compute")
 # the relation runs whose #6 / #7 launches are timed (the kernel table's
@@ -4183,33 +4234,31 @@ def bf16_rows_check(got, want, trash, what):
     """Rows of a forward output: at most BF16_OFF_ROWS of them outside the
     f32 tolerances (trash rows at TRASH_RTOL), every one within
     BF16_RTOL. Returns (max abs err, rows off)."""
-    g = got.detach().double().cpu().numpy().reshape(len(trash), -1)
-    w = want.detach().double().cpu().numpy().reshape(len(trash), -1)
-    err = np.abs(g - w)
-    rtol = np.where(trash, TRASH_RTOL, RTOL)[:, None]
-    off = (err > ATOL + rtol * np.abs(w)).any(axis=1)
-    if off.sum() > max(1, BF16_OFF_ROWS * len(off)) or (
-            err > 1e-4 + BF16_RTOL * np.abs(w)).any():
-        raise AssertionError(f"{what}: {int(off.sum())} of {len(off)} rows "
-                             f"off, max abs err {err.max():.3e}")
-    return float(err.max()), int(off.sum())
+    g = got.detach().double().reshape(len(trash), -1)
+    w = want.detach().double().reshape(len(trash), -1)
+    err = (g - w).abs()
+    rtol = row_rtol(trash, w)[:, None]
+    off = int((err > ATOL + rtol * w.abs()).any(dim=1).sum())
+    if off > max(1, BF16_OFF_ROWS * len(trash)) or bool(
+            (err > 1e-4 + BF16_RTOL * w.abs()).any()):
+        raise AssertionError(f"{what}: {off} of {len(trash)} rows off, max "
+                             f"abs err {float(err.max()):.3e}")
+    return float(err.max()), off
 
 
 def bf16_grad_check(got, want, what, rtol=1e-4):
     """A gradient: at most 1 value in 10^4 outside rtol with an absolute
     floor of 1e-5 of the largest value, each within 2^-8 of its row's
     largest |value|. Returns (max abs err, values off)."""
-    g = got.detach().double().cpu().numpy()
-    w = want.detach().double().cpu().numpy()
-    err = np.abs(g - w)
-    off = err > 1e-5 * np.abs(w).max() + rtol * np.abs(w)
-    scale = (np.abs(w).max() if w.ndim == 1
-             else np.abs(w).max(axis=1, keepdims=True))
-    if off.sum() > max(1, off.size // 10 ** 4) or (
-            err > 2.0 ** -8 * scale + 1e-6).any():
-        raise AssertionError(f"{what}: {int(off.sum())} of {off.size} "
-                             f"values off, max abs err {err.max():.3e}")
-    return float(err.max()), int(off.sum())
+    g, w = got.detach().double(), want.detach().double()
+    err, a = (g - w).abs(), w.abs()
+    off = int((err > 1e-5 * a.max() + rtol * a).sum())
+    scale = a.max() if w.dim() == 1 else a.amax(dim=1, keepdim=True)
+    if off > max(1, err.numel() // 10 ** 4) or bool(
+            (err > 2.0 ** -8 * scale + 1e-6).any()):
+        raise AssertionError(f"{what}: {off} of {err.numel()} values off, "
+                             f"max abs err {float(err.max()):.3e}")
+    return float(err.max()), off
 
 
 def gather_floors_bf16(cg, layouts, rates16, rates32):
@@ -4742,8 +4791,10 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
     forward / step ms beside phase 6c's float32 GAT max / min (no
     profile). Returns ({kernel: launches}, {kernel: worst abs err},
     {variant: (fwd ms, step ms, busy fwd, busy step)}, {kernel: the timed
-    relation run's row}, {variant: {kernel: bf16 launches counted over a
-    full-width epoch of train_steps}}, the last for EPOCH_VARIANTS only)."""
+    relation run's row}, {variant: {kernel: bf16 launches of a full-width
+    epoch of train_steps: its step count times one step's, each of the
+    CMP_STEPS steps launching the first's}}, the last for EPOCH_VARIANTS
+    only)."""
     from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
     from kgwas_tpu_torch.engine.optim import build_optimizer
     from kgwas_tpu_torch.models.hetero_gnn import layer_path
@@ -4757,11 +4808,29 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
     launches = dict.fromkeys(BF16_KERNELS, 0)
     worst = dict.fromkeys(BF16_KERNELS, 0.0)
     times, rel_rows = {}, {}
-    # the batches of one full-width epoch: EPOCH_VARIANTS count their bf16
+    # the f32 GAT sum's forward and step ms, the bf16 runs' baseline (its
+    # checks are phase 5's, on the same configuration)
+    base = kt.KGWAS(data_v, exp_name="chip_smoke_bf16", seed=SEED)
+    base.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                          no_relu=True)
+    shared_state(base)
+    _, x, layouts = base._device_state()
+    y_node, w_node = base._labels(cg)
+    opt = build_optimizer(base.model.parameters(), LR, 5e-4)
+    cycle = itertools.cycle(batches)
+    times["GAT-sum f32"] = (
+        step_times(base.predict_all, n=6),
+        step_times(lambda: train_step(base.model, opt, x, layouts,
+                                      next(cycle), y_node, w_node), n=6),
+        float("nan"), float("nan"))
+    log(f"  phase 12 GAT-sum f32 [{card}]: forward "
+        f"{times['GAT-sum f32'][0]:.3f} ms, train step "
+        f"{times['GAT-sum f32'][1]:.3f} ms (the baseline)")
+    del base, opt, x, layouts
+    # the steps of one full-width epoch: EPOCH_VARIANTS report their bf16
     # launches over that many train_steps
-    epoch_idx = epoch_batches(np.asarray(data.train_mask), BATCH, False,
-                              None)
-    n_epoch = len(epoch_idx)
+    n_epoch = len(epoch_batches(np.asarray(data.train_mask), BATCH, False,
+                                None))
     epoch = {}
     for name, kw in BF16_VARIANTS.items():
         t0 = time.perf_counter()
@@ -4769,6 +4838,7 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
         run = kt.KGWAS(data_v, exp_name="chip_smoke_bf16", seed=SEED)
         run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
                              no_relu=True, **kw)
+        shared_state(run)
         model = run.model
         init = copy.deepcopy(model.state_dict())
         run.predict_all()
@@ -4821,19 +4891,33 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
         if steps != CMP_STEPS:
             raise AssertionError(f"{name}: KGWAS.train took {steps} steps")
 
-        def steps_from_init(ctx):
+        def steps_from_init(ctx, per_step=None):
+            """CMP_STEPS train_steps from init under ctx; per_step: a list
+            that receives each step's bf16 launches."""
             model.load_state_dict(init)
             opt = build_optimizer(model.parameters(), LR, 5e-4)
+            ls = []
             with ctx:
-                ls = [train_step(model, opt, x, layouts, b, y_node, w_node)
-                      for b in batches]
+                for b in batches:
+                    before = bf16_counts()
+                    ls.append(train_step(model, opt, x, layouts, b, y_node,
+                                         w_node))
+                    if per_step is not None:
+                        after = bf16_counts()
+                        per_step.append({k: after[k] - before[k]
+                                         for k in after
+                                         if after[k] - before[k]})
             return (torch.stack(ls).cpu().numpy(),
                     {k: v.detach().clone()
                      for k, v in model.state_dict().items()})
 
         bf16_counts(zero=True)
-        loss_k, par_k = steps_from_init(contextlib.nullcontext())
+        one_step = []
+        loss_k, par_k = steps_from_init(contextlib.nullcontext(), one_step)
         in_steps = {k: v for k, v in bf16_counts().items() if v}
+        if any(c != one_step[0] for c in one_step):
+            raise AssertionError(f"{name}: the {CMP_STEPS} train_steps "
+                                 f"launched {one_step}")
         loss_k2, par_k2 = steps_from_init(contextlib.nullcontext())
         if not (np.array_equal(loss_k, loss_k2) and all(
                 torch.equal(par_k[k], par_k2[k]) for k in par_k)):
@@ -4850,27 +4934,10 @@ def phase_bf16_models(kt, data, cg, device, card, floors16, parent=None):
         del par_k2, par_p
         epoch_note = ""
         if name in EPOCH_VARIANTS:   # a full-width epoch of train_steps
-            model.load_state_dict(init)
-            opt = build_optimizer(model.parameters(), LR, 5e-4)
-            ep_batches = [torch.from_numpy(b).to(device) for b in epoch_idx]
-            te = time.perf_counter()
-            bf16_counts(zero=True)
-            ep_loss = torch.stack([train_step(model, opt, x, layouts, b,
-                                              y_node, w_node)
-                                   for b in ep_batches])
-            epoch[name] = {k: v for k, v in bf16_counts().items() if v}
-            if not torch.isfinite(ep_loss).all():
-                raise AssertionError(f"{name}: a non-finite loss in the "
-                                     "epoch")
-            if epoch[name] != {k: v // CMP_STEPS * n_epoch
-                               for k, v in in_steps.items()}:
-                raise AssertionError(f"{name}: {n_epoch} steps launched "
-                                     f"{epoch[name]}, {CMP_STEPS} launched "
-                                     f"{in_steps}")
-            epoch_note = (f"; bf16 launches counted over {n_epoch} "
-                          f"train_steps {epoch[name]} "
-                          f"({time.perf_counter() - te:.1f} s)")
-            del ep_batches, ep_loss
+            epoch[name] = {k: v * n_epoch for k, v in one_step[0].items()}
+            epoch_note = (f"; bf16 launches of a {n_epoch}-step epoch of "
+                          f"train_steps {epoch[name]} ({n_epoch} x one "
+                          f"step's, each of {CMP_STEPS} steps counted)")
 
         rel = (model.cfg.gnn_backbone == "GAT" and not model.cfg.sigmoid_gat
                and layer_path(model.cfg, True) == "relations")
@@ -5060,7 +5127,15 @@ def phase_gate(kt, card, tmp):
 # ---------------------------------------------------------------------------
 
 # rank counts whose per-rank layouts run through the kernels in one process
-MESH_SHARDS = (2, 4)
+MESH_SHARDS = (2, 3, 4)
+# (a) KGWAS.train(mesh=1) over NCCL: the merged GAT layer, the per-relation
+# path (f32 and under stream_dtype) and the 'mp' path
+MESH_VARIANTS = {
+    "GAT-sum": {},
+    "GAT-max": dict(gnn_aggr="max"),
+    "SAGE-sum": dict(gnn_backbone="SAGE"),
+    "GAT-max stream": dict(gnn_aggr="max", stream_dtype="bfloat16"),
+}
 
 
 def free_port():
@@ -5071,102 +5146,202 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def phase_mesh(kt, data, cg, device, card):
-    """Phase 14. The card's machine has one GPU, so no run of two ranks
-    over NCCL is possible here. (a) KGWAS.train(mesh=1) at full width (GAT
-    sum, CMP_STEPS batches) in a process group of one rank over NCCL
-    (tcp://localhost): the sharded path, its halo all-gathers and
-    reduce-scatters through NCCL; its launches counted from 0 just before
-    (per step and forward, as path_launches), its losses against the
-    single-device train from the same weights (LOSS_RTOL); the all-gather
-    and reduce-scatter ms at world size 1 on the SNP group's source table,
-    and a train step over the mesh beside one on the device alone (in
-    turns, twice each).
-    (b) Each rank's layout for MESH_SHARDS ranks (build_device_layouts of
-    the Gene and SNP groups, random tables) through #1, #2 and #8 in this
-    process (no process group: each rank given the whole table, its d_xs
-    summed), the ranks' rows assembled, against the unsharded layer (fold
-    0): rows at RTOL / TRASH_RTOL; d_xs, d_att and d_a_dst against the
-    float64 plain layer within the backward rule or twice the unsharded
-    kernels' own error (d_att and d_a_dst are sums that cancel, and the
-    ranks' schedules pack items otherwise). Returns {kernel: launches} of
-    (a)."""
-    import torch.distributed as dist
-    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
-    from kgwas_tpu_torch.engine.optim import build_optimizer
-    from kgwas_tpu_torch.graph import build_merged_layouts
-    from kgwas_tpu_torch.kgwas import TILE_ROWS
+def grad_rule(what, got, unsharded, plain, exact):
+    """The summed gradients of the ranks against float64: within the
+    backward rule (GRAD_ERR_RATIO times the float32 plain version's error)
+    or twice the unsharded kernels' own error, plus GRAD_FLOOR of the
+    largest value. Returns the log text."""
+    errs = []
+    for name, a, u, p, x in zip(what[1], got, unsharded, plain, exact):
+        e_s, e_u, e_p = (float((v.double() - x).abs().max())
+                         for v in (a, u, p))
+        limit = (max(GRAD_ERR_RATIO * e_p, 2 * e_u)
+                 + GRAD_FLOOR * float(x.abs().max()))
+        if e_s > limit:
+            raise AssertionError(
+                f"{what[0]} {name}: max abs err against float64 {e_s:.3e}, "
+                f"the unsharded kernels' {e_u:.3e}, the plain version's "
+                f"{e_p:.3e}")
+        errs.append(f"{name} {e_s:.3e} (unsharded {e_u:.3e}, plain "
+                    f"{e_p:.3e})")
+    return ", ".join(errs)
+
+
+def launched(before, kernels, n, what):
+    """The kernels' launches since before (all_counts), each exactly n: one
+    a rank with rows (at full width, every rank)."""
+    after = all_counts()
+    got = {k: after[k] - before[k] for k in kernels}
+    if set(got.values()) != {n}:
+        raise AssertionError(f"{what}: launched {got}, {n} each expected")
+
+
+def mesh_relations(cg, host, device, card, gen):
+    """Phase 14b, the per-relation path: each relation stream of the live
+    groups (Gene and SNP) split into MESH_SHARDS ranks' blocks
+    (relation_shard.relation_rank_stream, no process group), random xs and
+    logits that bf16 holds exactly, each rank's #6, #7 and #8 on its rows,
+    f32 and bf16, against the unsharded kernels on the whole stream (one
+    plain and one float64 reference for both). Returns the checks made."""
+    from kgwas_tpu_torch.models import device_layouts
+    from kgwas_tpu_torch.ops import segment_softmax as ss
+    from kgwas_tpu_torch.parallel.relation_shard import relation_rank_stream
+
+    d, checked = HIDDEN, 0
+    kernels = {torch.float32: ("segment_softmax_spmm_fwd",
+                               "segment_softmax_spmm_bwd", "csc_segment_sum"),
+               torch.bfloat16: ("segment_softmax_spmm_fwd_bf16",
+                                "segment_softmax_spmm_bwd_bf16",
+                                "csc_segment_sum_bf16")}
+    for t in ("Gene", "SNP"):
+        streams = device_layouts({t: host[t]}, device, cg,
+                                 "relations")[t].relations
+        for rk, RL in zip(host[t].rel_keys, streams):
+            r = cg.relations[rk]
+            n, n_src = RL.n_rows_per_rel, RL.src_base[-1]
+            # values bf16 holds exactly: the f32 and the bf16 instances
+            # share the plain and float64 references
+            xw = (torch.randn(n_src, d, device=device, generator=gen)
+                  * 0.5).bfloat16().float()
+            lw = torch.randn(RL.src.shape[0], device=device,
+                             generator=gen).bfloat16().float()
+            g = torch.randn(n, d, device=device, generator=gen)
+            trash = trash_mask(n, n, cg.num_nodes[r.dst_type])
+            blocks = {k: [relation_rank_stream(r, cg, k, i, device)
+                          for i in range(k)] for k in MESH_SHARDS}
+            out_p, mp, sp = ss.segment_softmax_spmm_fwd_plain(
+                xw, RL.src, lw, RL.row_offsets)
+            plain = ss.segment_softmax_spmm_backward_plain(
+                xw, lw, mp, sp, out_p, g, RL)
+            o64, m64, s64 = ss.segment_softmax_spmm_fwd_plain(
+                xw.double(), RL.src, lw.double(), RL.row_offsets)
+            exact = ss.segment_softmax_spmm_backward_plain(
+                xw.double(), lw.double(), m64, s64, o64, g.double(), RL)
+            del out_p, mp, sp, o64, m64, s64
+            for dt in (torch.float32, torch.bfloat16):
+                xv, lv = xw.to(dt), lw.to(dt)
+                out_u, mx, sm = ss.segment_softmax_spmm_fwd(
+                    xv, RL.src, lv, RL.row_offsets, sched=RL.row_schedule)
+                unsharded = ss.segment_softmax_spmm_backward(
+                    xv, lv, mx, sm, out_u, g, RL)
+                for k, ranks in blocks.items():
+                    what = f"phase 14b {rk} {str(dt)[6:]} x{k}"
+                    # the rank's forward and backward (#7, then #8 over
+                    # its CSC); d_xs summed, d_logits in edge order
+                    outs, d_xs, d_lg, before = [], 0.0, [], all_counts()
+                    ranks = [rs for rs in ranks if not rs.empty]
+                    for rs in ranks:
+                        (r0, r1), (e0, e1) = rs.rows, rs.edges
+                        lay, lr = rs.layout, lv[e0:e1].contiguous()
+                        out, mx_r, sm_r = ss.segment_softmax_spmm_fwd(
+                            xv, lay.src, lr, lay.row_offsets,
+                            sched=lay.row_schedule)
+                        dx, dl = ss.segment_softmax_spmm_backward(
+                            xv, lr, mx_r, sm_r, out, g[r0:r1], lay)
+                        outs.append(out)
+                        d_xs = d_xs + dx
+                        d_lg.append(dl)
+                    launched(before, kernels[dt], len(ranks), what)
+                    compare(torch.cat(outs), out_u, trash, what + " rows")
+                    errs = grad_rule((what, ("d_xs", "d_logits")),
+                                     (d_xs, torch.cat(d_lg)), unsharded,
+                                     plain, exact)
+                    if dt == torch.bfloat16:
+                        # #6 and #7 bf16 on a rank's rows: the float32
+                        # instance on the widened values, bit for bit
+                        rs = ranks[-1]
+                        (r0, r1), (e0, e1) = rs.rows, rs.edges
+                        lay = rs.layout
+                        fb = [ss.segment_softmax_spmm_fwd(
+                            x_, lay.src, l_[e0:e1].contiguous(),
+                            lay.row_offsets, sched=lay.row_schedule)
+                            for x_, l_ in ((xv, lv), (xw, lw))]
+                        bb = [ss.segment_softmax_spmm_bwd(
+                            x_, lay.src, l_[e0:e1].contiguous(),
+                            lay.row_offsets, *f_[1:], f_[0], g[r0:r1],
+                            sched=lay.row_schedule)
+                            for x_, l_, f_ in ((xv, lv, fb[0]),
+                                               (xw, lw, fb[1]))]
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip(fb[0] + bb[0], fb[1] + bb[1])):
+                            raise AssertionError(
+                                f"{what}: #6 / #7 bf16 on rank {k - 1}'s "
+                                "rows differ from the float32 instance on "
+                                "the widened values")
+                    log(f"  {what} [{card}]: {k} ranks' rows ("
+                        + ", ".join(str(rs.rows[1] - rs.rows[0])
+                                    for rs in ranks)
+                        + f") through #6, #7, #8, one launch each a rank; "
+                        f"rows within RTOL; max abs err against float64: "
+                        f"{errs}")
+                    checked += 1
+            del xw, lw, g, blocks, plain, exact
+    return checked
+
+
+def mesh_mp(cg, host, device, card, gen):
+    """Phase 14b, the 'mp' path: the SNP and Gene merged layouts' R * N rows
+    split into MESH_SHARDS ranks' blocks (relation_shard.mp_rank_stream),
+    each rank's #10 (weighted by the symmetric norm) and #8 on its rows,
+    against the unsharded kernels. Returns the streams checked."""
+    from kgwas_tpu_torch.models import device_layouts
+    from kgwas_tpu_torch.ops import segment
+    from kgwas_tpu_torch.parallel.relation_shard import mp_rank_stream
+
+    checked = 0
+    for t in ("Gene", "SNP"):
+        L = host[t]
+        DL = device_layouts({t: L}, device, None, "mp")[t]
+        xs = torch.randn(L.n_src_total, HIDDEN, device=device,
+                         generator=gen)
+        g = torch.randn(L.n_rows_total, HIDDEN, device=device, generator=gen)
+        out_u = segment.CSRSegmentSum.apply(xs, DL.sym_e, DL)
+        unsharded = segment.csc_segment_sum(g, DL.sym_e, None, xs, None, DL)
+        plain = segment.csc_segment_sum_plain(g, DL.sym_e, None, xs, None,
+                                              DL)
+        exact = segment.csc_segment_sum_plain(
+            g.double(), DL.sym_e.double(), None, xs.double(), None, DL)
+        trash = trash_mask(L.n_rows_total, L.n_rows_per_rel,
+                           cg.num_nodes[t])
+        for k in MESH_SHARDS:
+            what = f"phase 14b {t} 'mp' x{k}"
+            ranks = [rs for rs in (mp_rank_stream(L, k, i, device)
+                                   for i in range(k)) if not rs.empty]
+            xl = xs.detach().clone().requires_grad_()
+            outs, before = [], all_counts()
+            for rs in ranks:
+                r0, r1 = rs.rows
+                out = segment.CSRSegmentSum.apply(xl, rs.layout.sym_e,
+                                                  rs.layout)
+                out.backward(g[r0:r1])
+                outs.append(out.detach())
+            launched(before, ("csr_segment_sum", "csc_segment_sum"),
+                     len(ranks), what)
+            compare(torch.cat(outs), out_u, trash, what + " rows")
+            errs = grad_rule((what, ("d_xs",)), (xl.grad,), unsharded[:1],
+                             plain[:1], exact[:1])
+            log(f"  {what} [{card}]: {k} ranks' rows ("
+                + ", ".join(str(rs.rows[1] - rs.rows[0]) for rs in ranks)
+                + f") through #10, #8, one launch each a rank; rows within "
+                f"RTOL; max abs err against float64: {errs}")
+            checked += 1
+        del xs, g, out_u, DL
+    return checked
+
+
+def mesh_merged(cg, host, device, card, gen):
+    """Phase 14b, the merged GAT layer: each rank's layout of MESH_SHARDS
+    ranks (build_device_layouts of the Gene and SNP groups, random tables)
+    through #1, #2 and #8 in this process (no process group: each rank
+    given the whole table, its d_xs summed), the ranks' rows assembled,
+    against the unsharded layer (fold 0): rows at RTOL / TRASH_RTOL; d_xs,
+    d_att and d_a_dst by grad_rule (d_att and d_a_dst are sums that
+    cancel, and the ranks' schedules pack items otherwise). Returns the
+    layouts checked."""
     from kgwas_tpu_torch.models import device_layouts
     from kgwas_tpu_torch.ops import gat_layer, segment
     from kgwas_tpu_torch.parallel import merged_shard
-    from kgwas_tpu_torch.parallel.mesh import (gather_rows, init_distributed,
-                                               make_mesh, reduce_scatter_rows)
-    from kgwas_tpu_torch.parallel.shard import sharded_train_step
 
-    t0 = time.perf_counter()
-    data_v = copy.copy(data)
-    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
-    n_batches = len(epoch_batches(data_v.train_mask, BATCH, False, None))
-    init_distributed("nccl", f"tcp://localhost:{free_port()}", 1, 0)
-    try:
-        mesh = make_mesh(1)
-        run = kt.KGWAS(data_v, exp_name="chip_smoke_mesh", seed=SEED)
-        run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
-                             no_relu=True)
-        init = copy.deepcopy(run.model.state_dict())
-        model_counts(zero=True)
-        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
-                  mesh=mesh, scan_steps=0)
-        counts = model_counts()
-        _, _, layouts = run._device_state()
-        f_train, b_train = path_launches(run.model, layouts, True)
-        f_eval, _ = path_launches(run.model, layouts, False)
-        want = add_counts((n_batches, f_train), (n_batches, b_train),
-                          (2, f_eval))
-        if counts != want:
-            raise AssertionError(f"KGWAS.train(mesh=1) launched {counts}, "
-                                 f"expected {want}")
-        lm = np.asarray(run.epoch_losses[0])
-        run.model.load_state_dict(init)
-        run.train(batch_size=BATCH, epoch=1, lr=LR, save_best_model=False,
-                  scan_steps=0)
-        ls = np.asarray(run.epoch_losses[0])
-        np.testing.assert_allclose(lm, ls, rtol=LOSS_RTOL)
-        # a train step over the mesh beside one on the single device, in
-        # turns, from the trained state
-        _, x, layouts = run._device_state()
-        y_node, w_node = run._labels(cg)
-        shard = run._sharded_run(mesh, cg, x)
-        opt = build_optimizer(run.model.parameters(), LR, 5e-4)
-        cyc = itertools.cycle([torch.from_numpy(b).to(device) for b in
-                               epoch_batches(data_v.train_mask, BATCH,
-                                             False, None)])
-        step_ms = {"mesh": [], "one": []}
-        for _ in range(2):
-            step_ms["mesh"].append(step_times(lambda: sharded_train_step(
-                run.model, opt, shard, layouts, next(cyc), y_node, w_node),
-                n=6))
-            step_ms["one"].append(step_times(lambda: train_step(
-                run.model, opt, x, layouts, next(cyc), y_node, w_node), n=6))
-        sn = run.layouts["SNP"]
-        xs = torch.randn(sn.n_src_total, HIDDEN, device=device,
-                         generator=torch.Generator(device=device).manual_seed(
-                             SEED + 14))
-        g_ms = cuda_ms(lambda: gather_rows(xs, mesh.data_group), 10)
-        r_ms = cuda_ms(lambda: reduce_scatter_rows(xs, mesh.data_group), 10)
-        log(f"  phase 14a [{card}]: KGWAS.train(mesh=1) over NCCL, "
-            f"{n_batches} steps, launches {counts}; losses {lm.tolist()} "
-            f"against the single-device run's {ls.tolist()}; all-gather "
-            f"{g_ms:.4f} ms, reduce-scatter {r_ms:.4f} ms of the SNP "
-            f"group's [{sn.n_src_total}, {HIDDEN}] table at world size 1; "
-            f"train step over the mesh {step_ms['mesh']} ms, on the device "
-            f"alone {step_ms['one']} ms (median of 6, in turns)")
-        del run, init, xs, x, layouts, shard, opt
-    finally:
-        dist.destroy_process_group()
-
-    host = build_merged_layouts(cg, tile_rows=TILE_ROWS)
-    gen = torch.Generator(device=device).manual_seed(SEED + 14)
     checked = 0
     for t in ("Gene", "SNP"):
         L = host[t]
@@ -5185,16 +5360,12 @@ def phase_mesh(kt, data, cg, device, card):
         plain_b = gat_layer.merged_gat_backward_plain(*bw)
         exact_b = gat_layer.merged_gat_backward_plain(*as_double(bw[:6]),
                                                       *bw[6:])
-        trash = np.zeros(L.n_rows_total, dtype=bool)
-        trash[cg.num_nodes[t]::n] = True
+        trash = trash_mask(L.n_rows_total, n, cg.num_nodes[t])
         for n_dev in MESH_SHARDS:
-            if (L.n_rows_total // merged_shard.TILE) % n_dev:
-                log(f"  phase 14b {t}: {L.n_rows_total // merged_shard.TILE}"
-                    f" row tiles do not split over {n_dev} ranks")
-                continue
+            what = f"phase 14b {t} merged x{n_dev}"
             dls = merged_shard.build_device_layouts(L, n_dev)
             outs, grads = [], [0.0, 0.0, 0.0]
-            before = model_counts()
+            before = all_counts()
             for i in range(n_dev):
                 shard = merged_shard.RankShard(L, dls, i, device)
                 leaves = [v.detach().clone().requires_grad_()
@@ -5206,42 +5377,163 @@ def phase_mesh(kt, data, cg, device, card):
                 outs.append(out.detach())
                 for k, v in enumerate(leaves):
                     grads[k] = grads[k] + v.grad
-            after = model_counts()
-            launched = {k: after[k] - before[k] for k in
-                        ("merged_gat_fwd", "merged_gat_bwd",
-                         "csc_segment_sum")}
-            if set(launched.values()) != {n_dev}:
-                raise AssertionError(f"phase 14b {t} x{n_dev}: launched "
-                                     f"{launched}")
-            compare(torch.cat(outs), want, trash,
-                    f"phase 14b {t} x{n_dev} rows")
-            errs = []
-            for what, a, u, p, x in zip(("d_xs", "d_att", "d_a_dst"), grads,
-                                        want_b, plain_b, exact_b):
-                e_s, e_u, e_p = (float((v.double() - x).abs().max())
-                                 for v in (a, u, p))
-                limit = (max(GRAD_ERR_RATIO * e_p, 2 * e_u)
-                         + GRAD_FLOOR * float(x.abs().max()))
-                if e_s > limit:
-                    raise AssertionError(
-                        f"phase 14b {t} x{n_dev} {what}: max abs err against "
-                        f"float64 {e_s:.3e}, the unsharded kernels' "
-                        f"{e_u:.3e}, the plain version's {e_p:.3e}")
-                errs.append(f"{what} {e_s:.3e} (unsharded {e_u:.3e}, plain "
-                            f"{e_p:.3e})")
-            log(f"  phase 14b {t} x{n_dev} [{card}]: {n_dev} ranks' rows "
-                f"({dls.rows_per_dev} each, {dls.e_dev} padded edges) through "
-                f"#1, #2, #8 against the unsharded layer; max abs err "
-                f"against float64: " + ", ".join(errs))
+            launched(before, ("merged_gat_fwd", "merged_gat_bwd",
+                              "csc_segment_sum"),
+                     sum(b > a for a, b in zip(dls.row_bounds,
+                                               dls.row_bounds[1:])), what)
+            compare(torch.cat(outs), want, trash, what + " rows")
+            errs = grad_rule((what, ("d_xs", "d_att", "d_a_dst")), grads,
+                             want_b, plain_b, exact_b)
+            log(f"  {what} [{card}]: {n_dev} ranks' rows ("
+                + ", ".join(str(b - a) for a, b in zip(dls.row_bounds,
+                                                        dls.row_bounds[1:]))
+                + f", {dls.e_dev} padded edges) through #1, #2, #8 against "
+                f"the unsharded layer; max abs err against float64: {errs}")
             checked += 1
         del xs, att, ad, g, want, want_b, plain_b, exact_b, DL
         torch.cuda.empty_cache()
-    if checked == 0:
-        raise AssertionError("phase 14b: no group split over the ranks")
-    log(f"phase 14 ok [{card}]: mesh=1 over NCCL trained like one device; "
-        f"{checked} sharded layouts matched the unsharded layer; "
-        f"{time.perf_counter() - t0:.1f} s")
-    return counts
+    return checked
+
+
+def phase_mesh(kt, data, cg, device, card):
+    """Phase 14. The card's machine has one GPU, so no run of two ranks
+    over NCCL is possible here. (a) KGWAS.train(mesh=1) at full width
+    (MESH_VARIANTS, CMP_STEPS batches each) in a process group of one rank
+    over NCCL (tcp://localhost): the sharded path of each (the merged GAT
+    layer; the per-relation GAT layer, f32 and under stream_dtype; the
+    'mp' SAGE layer), its halo all-gathers and reduce-scatters through
+    NCCL; its launches counted from 0 just before (per step and forward,
+    as path_launches; a bf16 instance counted in its family), its losses
+    against the same train_steps on the device alone from the same
+    weights (LOSS_RTOL);
+    the all-gather and reduce-scatter ms at world size 1 on the SNP
+    group's source table, the all-gather of the per-relation path's SNP
+    rows, and a GAT-sum train step over the mesh beside one on the device
+    alone (in turns, twice each).
+    (b) Each rank's blocks for MESH_SHARDS ranks through the kernels in
+    this process: the GAT-max relation streams (mesh_relations), the 'mp'
+    streams (mesh_mp), the merged GAT layouts (mesh_merged). Returns
+    ({f32 kernel: launches}, {bf16 kernel: launches}) of (a)."""
+    import torch.distributed as dist
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.graph import build_merged_layouts
+    from kgwas_tpu_torch.kgwas import TILE_ROWS
+    from kgwas_tpu_torch.parallel.mesh import (all_gather_rows, gather_rows,
+                                               init_distributed, make_mesh,
+                                               reduce_scatter_rows)
+    from kgwas_tpu_torch.parallel.shard import sharded_train_step
+
+    t0 = time.perf_counter()
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:CMP_STEPS * BATCH]
+    n_batches = len(epoch_batches(data_v.train_mask, BATCH, False, None))
+    init_distributed("nccl", f"tcp://localhost:{free_port()}", 1, 0)
+    total = dict.fromkeys(MODEL_KERNELS + BF16_KERNELS, 0)
+    try:
+        mesh = make_mesh(1)
+        for name, kw in MESH_VARIANTS.items():
+            tv = time.perf_counter()
+            run = kt.KGWAS(data_v, exp_name="chip_smoke_mesh", seed=SEED)
+            run.initialize_model(gnn_num_layers=LAYERS,
+                                 gnn_hidden_dim=HIDDEN, no_relu=True, **kw)
+            shared_state(run)
+            init = copy.deepcopy(run.model.state_dict())
+            all_counts(zero=True)
+            run.train(batch_size=BATCH, epoch=1, lr=LR,
+                      save_best_model=False, mesh=mesh, scan_steps=0)
+            got = all_counts()
+            counts = family_totals(got)
+            bf = {k: got[k] for k in BF16_KERNELS if got[k]}
+            _, _, layouts = run._device_state()
+            f_train, b_train = path_launches(run.model, layouts, True)
+            f_eval, _ = path_launches(run.model, layouts, False)
+            want = add_counts((n_batches, f_train), (n_batches, b_train),
+                              (2, f_eval))
+            if counts != want or bool(bf) != ("stream_dtype" in kw):
+                raise AssertionError(f"{name}: KGWAS.train(mesh=1) "
+                                     f"launched {got}, expected the "
+                                     f"families {want}")
+            total = {k: total[k] + got[k] for k in total}
+            lm = np.asarray(run.epoch_losses[0])
+            # the same steps on the device alone, from the same weights
+            run.model.load_state_dict(init)
+            _, x, layouts = run._device_state()
+            y_node, w_node = run._labels(cg)
+            opt = build_optimizer(run.model.parameters(), LR, 5e-4)
+            ls = torch.stack([train_step(run.model, opt, x, layouts,
+                                         torch.from_numpy(b).to(device),
+                                         y_node, w_node)
+                              for b in epoch_batches(data_v.train_mask,
+                                                     BATCH, False, None)])
+            ls = ls.cpu().numpy()
+            np.testing.assert_allclose(lm, ls, rtol=LOSS_RTOL)
+            note = ""
+            if name == "GAT-sum":
+                # a train step over the mesh beside one on the single
+                # device, in turns, from the trained state
+                shard = run._sharded_run(mesh, cg, x)
+                cyc = itertools.cycle([torch.from_numpy(b).to(device)
+                                       for b in epoch_batches(
+                                           data_v.train_mask, BATCH, False,
+                                           None)])
+                step_ms = {"mesh": [], "one": []}
+                for _ in range(2):
+                    step_ms["mesh"].append(step_times(
+                        lambda: sharded_train_step(
+                            run.model, opt, shard, layouts, next(cyc),
+                            y_node, w_node), n=6))
+                    step_ms["one"].append(step_times(lambda: train_step(
+                        run.model, opt, x, layouts, next(cyc), y_node,
+                        w_node), n=6))
+                sn = run.layouts["SNP"]
+                xs = torch.randn(sn.n_src_total, HIDDEN, device=device,
+                                 generator=torch.Generator(
+                                     device=device).manual_seed(SEED + 14))
+                g_ms = cuda_ms(lambda: gather_rows(xs, mesh.data_group), 10)
+                r_ms = cuda_ms(lambda: reduce_scatter_rows(
+                    xs, mesh.data_group), 10)
+                note = (f"; all-gather {g_ms:.4f} ms, reduce-scatter "
+                        f"{r_ms:.4f} ms of the SNP group's "
+                        f"[{sn.n_src_total}, {HIDDEN}] table at world size "
+                        f"1; train step over the mesh {step_ms['mesh']} ms, "
+                        f"on the device alone {step_ms['one']} ms (median "
+                        f"of 6, in turns)")
+                del xs, shard
+            elif name == "GAT-max":
+                # the per-relation path's gather of a destination type's
+                # rows, once per type and layer
+                rows = torch.randn(cg.padded_nodes["SNP"], HIDDEN,
+                                   device=device, generator=torch.Generator(
+                                       device=device).manual_seed(SEED + 14))
+                a_ms = cuda_ms(lambda: all_gather_rows(
+                    rows, mesh.data_group, [rows.shape[0]]), 10)
+                note = (f"; all-gather of the SNP rows [{rows.shape[0]}, "
+                        f"{HIDDEN}] at world size 1 {a_ms:.4f} ms")
+                del rows
+            log(f"  phase 14a {name} [{card}]: KGWAS.train(mesh=1) over "
+                f"NCCL, {n_batches} steps, launches {got}; losses "
+                f"{lm.tolist()} against the single-device steps' "
+                f"{ls.tolist()}{note}; {time.perf_counter() - tv:.1f} s")
+            del run, init, x, layouts, opt
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    host = build_merged_layouts(cg, tile_rows=TILE_ROWS)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    tb = time.perf_counter()
+    n_rel = mesh_relations(cg, host, device, card, gen)
+    n_mp = mesh_mp(cg, host, device, card, gen)
+    n_merged = mesh_merged(cg, host, device, card, gen)
+    log(f"phase 14 ok [{card}]: mesh=1 over NCCL trained like one device "
+        f"({', '.join(MESH_VARIANTS)}); {n_rel} relation-stream, {n_mp} "
+        f"'mp' and {n_merged} merged splits over {MESH_SHARDS} ranks "
+        f"matched the unsharded kernels "
+        f"({time.perf_counter() - tb:.1f} s); {time.perf_counter() - t0:.1f}"
+        f" s")
+    return ({k: total[k] for k in MODEL_KERNELS},
+            {k: total[k] for k in BF16_KERNELS})
 
 
 # ---- phase 15: scanned dispatch, blocks of SCAN_S steps as CUDA graphs
@@ -5326,6 +5618,7 @@ def phase_scan(kt, data, device, card, bench0, tmp):
         run = kt.KGWAS(data_v, exp_name="chip_smoke_scan", seed=SEED)
         run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
                              no_relu=True)
+        shared_state(run)
         if init is None:
             init = copy.deepcopy(run.model.state_dict())
         run.model.load_state_dict(init)
@@ -5423,6 +5716,7 @@ def phase_scan(kt, data, device, card, bench0, tmp):
         run = kt.KGWAS(data_v, exp_name="chip_smoke_scan", seed=SEED)
         run.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
                              no_relu=True, **kw)
+        shared_state(run)
         model = run.model
         cg_, x, layouts = run._device_state()
         y_node, w_node = run._labels(cg_)
@@ -5638,9 +5932,11 @@ def main():
     bf16_rows.update(rel_rows)
     timed_phase("13", phase_gate, kt, card, tmp)
 
-    # ---- phase 14: multi-device training (mesh=1 over NCCL, the sharded
-    # layouts of 2 and 4 ranks through the kernels)
-    mesh_launches = timed_phase("14", phase_mesh, kt, data, cg, device, card)
+    # ---- phase 14: multi-device training (mesh=1 over NCCL on every layer
+    # path, the blocks of 2, 3 and 4 ranks through the kernels)
+    mesh_launches, mesh_bf16 = timed_phase("14", phase_mesh, kt, data, cg,
+                                           device, card)
+    bf16_launches = {k: v + mesh_bf16[k] for k, v in bf16_launches.items()}
 
     # ---- phase 15: scanned dispatch (CUDA graphs of blocks of steps)
     scan_launches = timed_phase("15", phase_scan, kt, data, device, card,

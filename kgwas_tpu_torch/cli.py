@@ -12,11 +12,11 @@ The model runs on the CUDA card unless ``--device`` names another device
 before it loads any data. ``train --mesh N`` trains over N processes (one
 per device, started by ``torchrun --nproc-per-node N -m
 kgwas_tpu_torch.cli train --mesh N``; NCCL on the cards, gloo with
-``--device cpu``). Outside torchrun (no process group of N ranks) it
-raises ValueError before loading; on a configuration outside the merged
-GAT layer's gate (GAT max / min, SAGE, GCN, ...) ``KGWAS.train`` raises
-NotImplementedError naming ROADMAP item 10b (``parallel/shard.py``),
-after loading.
+``--device cpu``). Every ``--backbone``, ``--aggr`` and ``--dtype`` trains
+so: each rank runs the layer kernels on its block of each layer's rows,
+contiguous blocks of row tiles that need not be equal
+(``parallel/shard.py``). Outside torchrun (no process group of N ranks)
+it raises ValueError before loading.
 ``train --watchdog-timeout T`` runs the same command again in a child
 process under the stall watchdog, as the JAX package's CLI does.
 ``main`` returns what the command made (the trained KGWAS, the
@@ -283,7 +283,9 @@ def main(argv=None):
     t.add_argument("--watchdog-restarts", type=int, default=2)
     t.add_argument("--mesh", type=int, default=0,
                    help="ranks on the mesh's 'data' axis (0 = single "
-                        "device); run one process per rank with torchrun")
+                        "device): every layer's rows split over them, for "
+                        "every backbone, aggr and dtype; run one process "
+                        "per rank with torchrun")
     t.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict", help="per-SNP predictions from a checkpoint")

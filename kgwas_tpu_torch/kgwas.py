@@ -39,6 +39,19 @@ from .stats.calibration import finalize_predictions
 from .utils import compute_metrics, print_sys, read_table, write_table
 
 TILE_ROWS = 512
+
+
+def merged_layouts(cg) -> dict:
+    """The compiled graph's merged layouts (build_merged_layouts with
+    TILE_ROWS), built at the first call and kept on the graph: a compiled
+    graph never changes, so the models initialised on it share them."""
+    cached = getattr(cg, "_merged_layouts", None)
+    if cached is None:
+        cached = cg._merged_layouts = build_merged_layouts(
+            cg, tile_rows=TILE_ROWS)
+    return cached
+
+
 _SEMANTIC_KEYS = ("negative_slope", "dropout", "sigmoid_gat", "temperature",
                   "out_channels", "edge_dim", "pheno_condition")
 # the JAX package's execution knobs (kgwas_tpu/config.py ModelConfig): how
@@ -140,7 +153,7 @@ class KGWAS:
                                                 "remat": remat, **dtypes})
         check_supported(self.model_cfg)
         cg = self.data.compile()
-        self.layouts = build_merged_layouts(cg, tile_rows=TILE_ROWS)
+        self.layouts = merged_layouts(cg)
         rel_types = {k: (r.src_type, r.rel, r.dst_type)
                      for k, r in cg.relations.items()}
         self.model = HeteroGNN(
@@ -202,7 +215,8 @@ class KGWAS:
 
     def _live_layouts(self):
         """The merged layouts of the destination groups the model's
-        forward runs (HeteroGNN.live_groups): the ones a mesh splits."""
+        forward runs (HeteroGNN.live_groups), on every layer path: the
+        ones a mesh splits."""
         live = set().union(*self.model.live_groups(self.layouts)[0])
         return {t: L for t, L in self.layouts.items() if t in live}
 
@@ -217,7 +231,7 @@ class KGWAS:
         if cached is None or cached[0] is not mesh or cached[1] is not x:
             self._shard = (mesh, x, ShardedRun(
                 self._live_layouts(), x, mesh, self.device, cg.padded_nodes,
-                self._x_host))
+                self._x_host, cg))
         return self._shard[2]
 
     def _device_state(self):
@@ -338,12 +352,13 @@ class KGWAS:
         mesh: training over the ranks of a torch.distributed process group
         (one process per device, each calling train): an int (ranks on the
         'data' axis), a dict of axis sizes, a MeshConfig or a Mesh, which
-        must match the world size (_resolve_mesh). The merged GAT layer's
-        rows and edges split over the 'data' axis and feature tables at
-        least 1024 wide over the 'model' axis (parallel/shard.py); other
-        configurations raise NotImplementedError (ROADMAP Queue 1 item
-        10b). Every rank returns the same table; rank 0 alone writes the
-        checkpoints, model.npz and pred.csv."""
+        must match the world size (_resolve_mesh). Every configuration
+        trains: each layer's rows and edges split over the 'data' axis in
+        contiguous blocks of row tiles, which need not be equal (the merged
+        GAT layer, the per-relation layers, the 'mp' layer), and feature
+        tables at least 1024 wide over the 'model' axis
+        (parallel/shard.py). Every rank returns the same table; rank 0
+        alone writes the checkpoints, model.npz and pred.csv."""
         from .engine.watchdog import touch_heartbeat
 
         mesh = self._resolve_mesh(mesh)
@@ -355,12 +370,9 @@ class KGWAS:
 
         cg, x, layouts = self._device_state()
         if mesh is not None:
-            from .parallel.shard import (broadcast_state, select_kernel_path,
-                                         sharded_forward, sharded_train_step)
+            from .parallel.shard import (broadcast_state, sharded_forward,
+                                         sharded_train_step)
 
-            for training in (True, False):
-                select_kernel_path(self.model_cfg, self._live_layouts(),
-                                   mesh, training)
             shard = self._sharded_run(mesh, cg, x)
         y_node, w_node = self._labels(cg)
         y_host = y_node.cpu().numpy()

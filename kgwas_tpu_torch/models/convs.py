@@ -184,10 +184,29 @@ def edge_logits(conv: GATConv, edge_attr, n_edges: int, cdt=torch.float32):
             * conv.att_edge[0].to(cdt)).sum(-1)
 
 
+def source_table(h_src, weight, cdt, rank=None):
+    """A relation's source table: h_src @ weight^T (h_src itself with
+    weight None). rank: the RankStream of a layer over the mesh
+    (parallel/relation_shard.py), whose source() projects its rows and
+    all-gathers them."""
+    def rows(lo, hi):
+        hs = h_src if (lo, hi) == (0, None) else h_src[lo:hi]
+        return hs if weight is None else matmul(hs, weight.T, cdt)
+
+    return rows(0, None) if rank is None else rank.source(rows)
+
+
+def _no_rows(xs):
+    """The [0, D] float32 output of a rank without rows of a stream: still
+    a function of the gathered table, whose backward (the reduce-scatter)
+    every rank runs."""
+    return xs[:0].to(torch.float32)
+
+
 def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
                  temperature: float, mode: str = "softmax", keep=None,
                  edge_attr=None, cdt=torch.float32, sdt=None,
-                 f32_logits=False):
+                 f32_logits=False, rank=None):
     """One relation's GAT layer, one pass per head: the head's projections
     (each its own contiguous [N, C] product), the per-edge logits
     leaky_relu(a_src[src] + a_dst[dst] (+ the edge_attr term)) / temperature
@@ -206,7 +225,15 @@ def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
     compute dtype; sdt: the stream dtype the messages are rounded to
     (None: none), and the logits with them unless f32_logits (apply_gat's
     stream_dtype and stream_f32_logits). The softmax mode's output is
-    float32 (#6 on bf16 messages computes in float32)."""
+    float32 (#6 on bf16 messages computes in float32). rank: over the mesh,
+    the rank's RankStream (parallel/relation_shard.py): layout is its
+    block, h_dst, keep and edge_attr its rows and edges, and the output
+    its rows."""
+    if rank is not None and rank.empty:
+        outs = [_no_rows(source_table(
+            h_src, conv.head_rows(conv.lin_src.weight, h), cdt, rank))
+            for h in range(conv.heads)]
+        return torch.cat(outs, dim=-1) + conv.bias.to(cdt)
     n_edges = layout.src.shape[0]
     e_term = edge_logits(conv, edge_attr, n_edges, cdt)
     if mode == "sigmoid":
@@ -214,10 +241,13 @@ def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
                  < layout.rel_num_edges[0])
     outs = []
     for h in range(conv.heads):
-        xs = matmul(h_src, conv.head_rows(conv.lin_src.weight, h).T, cdt)
+        xs = source_table(h_src, conv.head_rows(conv.lin_src.weight, h), cdt,
+                          rank)
         # homogeneous relations: lin_src projects the destination end too
-        xd = xs if conv.lin_dst is None else matmul(
-            h_dst, conv.head_rows(conv.lin_dst.weight, h).T, cdt)
+        if conv.lin_dst is not None:
+            xd = matmul(h_dst, conv.head_rows(conv.lin_dst.weight, h).T, cdt)
+        else:
+            xd = xs if rank is None else xs[rank.rows[0]:rank.rows[1]]
         xs_logit = xs
         if sdt is not None:
             xs = xs.to(sdt)
@@ -240,26 +270,41 @@ def gat_relation(conv: GATConv, h_src, h_dst, layout, negative_slope: float,
     return out + conv.bias.to(cdt)
 
 
-def sage_relation(conv: SAGEConv, h_src, h_dst, layout, cdt=torch.float32):
+def _csr_sum(xs, w, layout, rank):
+    """CSRSegmentSum over the layout, or a rank's empty block's output."""
+    if rank is not None and rank.empty:
+        return _no_rows(xs)
+    return CSRSegmentSum.apply(xs, w, layout)
+
+
+def sage_relation(conv: SAGEConv, h_src, h_dst, layout, cdt=torch.float32,
+                  rank=None):
     """One relation's SAGE layer (apply_sage): the CSR segment sum (#10;
     backward #8) of the source rows over the relation's stream, times
-    1/deg over its real edges (layout.inv_deg), then lin_l + lin_r(h_dst)."""
-    summed = CSRSegmentSum.apply(h_src, None, layout) * layout.inv_deg[:, None]
+    1/deg over its real edges (layout.inv_deg), then lin_l + lin_r(h_dst).
+    rank: as gat_relation's."""
+    xs = source_table(h_src, None, cdt, rank)
+    summed = _csr_sum(xs, None, layout, rank)
+    if summed.shape[0]:
+        summed = summed * layout.inv_deg[:, None]
     return (linear(summed.to(h_src.dtype), conv.lin_l, cdt)
             + linear(h_dst, conv.lin_r, cdt))
 
 
-def gcn_relation(conv: GCNConv, h_src, layout, cdt=torch.float32):
+def gcn_relation(conv: GCNConv, h_src, layout, cdt=torch.float32, rank=None):
     """One relation's GCN layer (apply_gcn): lin(h_src) summed with the
     symmetric norm of the relation's real edges (layout.sym_e, 0 on pad
-    edges; in the messages' dtype), plus bias."""
-    xp = matmul(h_src, conv.lin.weight.T, cdt)
-    summed = CSRSegmentSum.apply(xp, layout.sym_e.to(xp.dtype), layout)
+    edges; in the messages' dtype), plus bias. rank: as gat_relation's."""
+    xp = source_table(h_src, conv.lin.weight, cdt, rank)
+    summed = _csr_sum(xp, None if layout is None else
+                      layout.sym_e.to(xp.dtype), layout, rank)
     return summed.to(xp.dtype) + conv.bias.to(cdt)
 
 
-def sgc_relation(conv: SGConv, h_src, layout, cdt=torch.float32):
+def sgc_relation(conv: SGConv, h_src, layout, cdt=torch.float32, rank=None):
     """One relation's SGC layer (apply_sgc, K=1): lin of the symmetric-
-    normalised sum of the source rows."""
-    summed = CSRSegmentSum.apply(h_src, layout.sym_e.to(h_src.dtype), layout)
+    normalised sum of the source rows. rank: as gat_relation's."""
+    xs = source_table(h_src, None, cdt, rank)
+    summed = _csr_sum(xs, None if layout is None else
+                      layout.sym_e.to(xs.dtype), layout, rank)
     return linear(summed.to(h_src.dtype), conv.lin, cdt)

@@ -124,6 +124,11 @@ def layer_paths(cfg: ModelConfig) -> tuple:
     return tuple(sorted({layer_path(cfg, False), layer_path(cfg, True)}))
 
 
+def _head_src_weight(conv, hh: int):
+    """Head hh's rows of a GAT relation's lin_src weight."""
+    return conv.head_rows(conv.lin_src.weight, hh)
+
+
 def aggregate(outs, aggr: str):
     """The cross-relation aggregation (the JAX package's _aggregate). amax
     and amin split the gradient evenly among tied relations, as
@@ -368,10 +373,11 @@ class HeteroGNN(nn.Module):
         sdt = torch_dtype(self.cfg.stream_dtype)
         return None if sdt in (None, self.compute_dtype) else sdt
 
-    def source_rows(self, h, L, convs, hh: int, cdt, lo: int = 0, hi=None):
-        """Rows lo..hi (all by default) of a destination group's projected
-        source table for head hh: slot s's block of the concatenated source
-        space is h[src_type] @ W_src^T of its relation."""
+    def source_rows(self, h, L, convs, weight, cdt, lo: int = 0, hi=None):
+        """Rows lo..hi (all by default) of a destination group's source
+        table: slot s's block of the concatenated source space is
+        h[src_type] @ weight(conv)^T of its relation (h[src_type] itself
+        where weight gives None)."""
         hi = L.src_base[-1] if hi is None else hi
         parts = []
         for s, c in enumerate(convs):
@@ -381,8 +387,11 @@ class HeteroGNN(nn.Module):
                 hs = h[L.src_types[s]]
                 if (a, b) != (b0, b1):
                     hs = hs[a - b0:b - b0]
-                parts.append(matmul(hs, c.head_rows(c.lin_src.weight, hh).T,
-                                    cdt))
+                w = weight(c)
+                parts.append(hs if w is None else matmul(hs, w.T, cdt))
+        if not parts:   # a rank without source rows of the group
+            hs, w = h[L.src_types[0]][:0], weight(convs[0])
+            return hs if w is None else matmul(hs, w.T, cdt)
         return torch.cat(parts)
 
     def merged_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
@@ -421,6 +430,7 @@ class HeteroGNN(nn.Module):
                     and merged_fns is None else 0)
             heads, head_alphas = [], []
             for hh in range(n_heads):
+                w_src = functools.partial(_head_src_weight, hh=hh)
                 att = torch.stack([c.att_src[0, hh].to(cdt)
                                    for c in convs])                 # [R, D]
                 # a_dst = (h @ W_dst) . att_dst == h @ (W_dst^T att_dst):
@@ -430,7 +440,7 @@ class HeteroGNN(nn.Module):
                 a_dst_all = matmul(h[dst_t], v, cdt).T.reshape(-1)
                 if merged_fns is not None:
                     fn = merged_fns[dst_t]
-                    xs_local = self.source_rows(h, L, convs, hh, cdt,
+                    xs_local = self.source_rows(h, L, convs, w_src, cdt,
                                                 *fn.x_range)
                     out_dtype = xs_local.dtype
                     heads.append(fn(xs_local, att.float().contiguous(),
@@ -438,7 +448,7 @@ class HeteroGNN(nn.Module):
                                     cfg.negative_slope, cfg.temperature,
                                     sdt))
                     continue
-                xs_all = self.source_rows(h, L, convs, hh, cdt)
+                xs_all = self.source_rows(h, L, convs, w_src, cdt)
                 out_dtype = xs_all.dtype
                 att = att.to(torch.float32)
                 a_dst_all = a_dst_all.to(torch.float32)
@@ -495,14 +505,19 @@ class HeteroGNN(nn.Module):
     def relation_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
                        layouts: Dict[str, DeviceLayout],
                        keep: Optional[dict] = None,
-                       edge_attr: Optional[dict] = None):
+                       edge_attr: Optional[dict] = None,
+                       rank_fns: Optional[dict] = None):
         """One hetero layer per relation (the per-relation loop of
         apply_hetero_layer): GAT (convs.gat_relation, each head one launch
         of the per-relation kernels), SAGE, GCN or SGC
         (convs.sage_relation, ...; one launch of #10 per relation), each
         relation's bias added before the aggregation over relations. keep:
         relkey -> the dropout multiplier [E, H] (draw_keep); edge_attr:
-        relkey -> edge features [E, edge_dim]."""
+        relkey -> edge features [E, edge_dim]. rank_fns: dst type -> the
+        group's relation streams on this rank of a mesh's 'data' axis
+        (parallel/relation_shard.RankRelations): each relation runs on the
+        rank's rows (its block of keep and edge_attr), the aggregation
+        too, and the rows are all-gathered once per destination type."""
         cfg = self.cfg
         bb = cfg.gnn_backbone
         mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
@@ -513,32 +528,48 @@ class HeteroGNN(nn.Module):
                 raise ValueError(
                     f"layout {dst_t!r} has no per-relation streams: build it "
                     "with device_layouts(..., cg, path='relations')")
+            part = None if rank_fns is None else rank_fns[dst_t]
+            # GCN and SGC read no destination row
+            h_dst = h.get(dst_t)
+            if part is not None and h_dst is not None:
+                h_dst = h_dst[part.rows[0]:part.rows[1]]
             outs = []
-            for rk, RL in zip(L.rel_keys, L.relations):
+            for s, (rk, RL) in enumerate(zip(L.rel_keys, L.relations)):
                 conv, h_src = layer.convs[rk], h[RL.src_types[0]]
+                rank = None if part is None else part.streams[s]
+                lay = RL if rank is None else rank.layout
                 if bb == "GAT":
+                    k = None if keep is None else keep[rk]
+                    ea = None if edge_attr is None else edge_attr.get(rk)
+                    if rank is not None:   # the rank's edges
+                        e0, e1 = rank.edges
+                        k = None if k is None else k[e0:e1]
+                        ea = None if ea is None else ea[e0:e1]
                     outs.append(gat_relation(
-                        conv, h_src, h[dst_t], RL, cfg.negative_slope,
-                        cfg.temperature, mode,
-                        None if keep is None else keep[rk],
-                        None if edge_attr is None else edge_attr.get(rk),
-                        cdt, torch_dtype(cfg.stream_dtype),
-                        cfg.stream_f32_logits))
+                        conv, h_src, h_dst, lay, cfg.negative_slope,
+                        cfg.temperature, mode, k, ea, cdt,
+                        torch_dtype(cfg.stream_dtype), cfg.stream_f32_logits,
+                        rank))
                 elif bb == "SAGE":
-                    outs.append(sage_relation(conv, h_src, h[dst_t], RL,
-                                              cdt))
+                    outs.append(sage_relation(conv, h_src, h_dst, lay, cdt,
+                                              rank))
                 elif bb == "GCN":
-                    outs.append(gcn_relation(conv, h_src, RL, cdt))
+                    outs.append(gcn_relation(conv, h_src, lay, cdt, rank))
                 else:
-                    outs.append(sgc_relation(conv, h_src, RL, cdt))
-            out[dst_t] = aggregate(outs, cfg.gnn_aggr)
+                    outs.append(sgc_relation(conv, h_src, lay, cdt, rank))
+            agg = aggregate(outs, cfg.gnn_aggr)
+            out[dst_t] = agg if part is None else part.gather(agg)
         return out
 
     def mp_layer(self, layer: HeteroConv, h: Dict[str, torch.Tensor],
-                 layouts: Dict[str, DeviceLayout]):
+                 layouts: Dict[str, DeviceLayout],
+                 rank_fns: Optional[dict] = None):
         """One SAGE / GCN / SGC hetero layer, one launch of the CSR segment
         sum per destination group over its merged stream (the JAX
-        package's apply_merged_mp_layer)."""
+        package's apply_merged_mp_layer). rank_fns: dst type -> the
+        group's RankStream on this rank of a mesh's 'data' axis
+        (parallel/relation_shard.py): the sum runs on the rank's rows of
+        the merged stream and is all-gathered before the dense maps."""
         cfg = self.cfg
         bb = cfg.gnn_backbone
         cdt = self.compute_dtype
@@ -549,17 +580,24 @@ class HeteroGNN(nn.Module):
                     f"layout {dst_t!r} has no degree norms: build it with "
                     "device_layouts(..., path='mp')")
             convs = [layer.convs[rk] for rk in L.rel_keys]
-            if bb == "GCN":
-                # GCN projects before the aggregation: one table per slot
-                xs_all = torch.cat([matmul(h[t], c.lin.weight.T, cdt)
-                                    for t, c in zip(L.src_types, convs)])
+            # GCN projects before the aggregation, one table per slot; SAGE
+            # and SGC aggregate the hidden rows themselves
+            weight = ((lambda c: c.lin.weight) if bb == "GCN"
+                      else (lambda c: None))
+            table = functools.partial(self.source_rows, h, L, convs, weight,
+                                      cdt)
+            rank = None if rank_fns is None else rank_fns[dst_t]
+            xs_all, RL = ((table(), L) if rank is None else
+                          (rank.source(table), rank.layout))
+            if RL is None:   # a rank without rows of the stream
+                summed = xs_all[:0].to(torch.float32)
             else:
-                # SAGE and SGC aggregate the hidden rows themselves
-                xs_all = torch.cat([h[t] for t in L.src_types])
-            summed = CSRSegmentSum.apply(
-                xs_all, None if bb == "SAGE" else L.sym_e, L)
-            if bb == "SAGE":
-                summed = summed * L.inv_deg[:, None]                # mean
+                summed = CSRSegmentSum.apply(
+                    xs_all, None if bb == "SAGE" else RL.sym_e, RL)
+                if bb == "SAGE":
+                    summed = summed * RL.inv_deg[:, None]           # mean
+            if rank is not None:
+                summed = rank.gather(summed)
             rel = summed.reshape(len(convs), L.n_rows_per_rel, -1)
             # the f32 sum promotes what follows, as in the JAX package
             if bb == "SAGE":
@@ -578,18 +616,20 @@ class HeteroGNN(nn.Module):
               layouts: Dict[str, DeviceLayout], training: bool = False,
               keep: Optional[dict] = None,
               edge_attr: Optional[dict] = None,
-              merged_fns: Optional[dict] = None):
+              mesh_fns: Optional[dict] = None):
         """One hetero layer on the configuration's path (layer_path), then
-        ReLU on every destination type."""
+        ReLU on every destination type. mesh_fns: path -> dst type -> the
+        path's layer over a mesh (parallel/shard.py ShardedRun.fns)."""
         path = layer_path(self.cfg, training)
+        fns = None if mesh_fns is None else mesh_fns[path]
         if path == "merged":
             out = self.merged_layer(layer, h, layouts, cdt=self.compute_dtype,
-                                    sdt=self.stream_dtype,
-                                    merged_fns=merged_fns)
+                                    sdt=self.stream_dtype, merged_fns=fns)
         elif path == "relations":
-            out = self.relation_layer(layer, h, layouts, keep, edge_attr)
+            out = self.relation_layer(layer, h, layouts, keep, edge_attr,
+                                      fns)
         else:
-            out = self.mp_layer(layer, h, layouts)
+            out = self.mp_layer(layer, h, layouts, fns)
         return {t: torch.relu(v) for t, v in out.items()}
 
     def draw_keep(self, layouts: Dict[str, DeviceLayout],
@@ -664,7 +704,7 @@ class HeteroGNN(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None,
                 edge_attr: Optional[dict] = None,
                 h1_override: Optional[Dict[str, torch.Tensor]] = None,
-                merged_fns: Optional[dict] = None) -> torch.Tensor:
+                mesh_fns: Optional[dict] = None) -> torch.Tensor:
         """Full-graph forward (apply_hetero_gnn). Returns pred [N_snp_pad,
         out_channels]. training: the layer path of a training step
         (layer_path), and with dropout_gen (the counterpart of
@@ -678,8 +718,9 @@ class HeteroGNN(nn.Module):
         With remat each layer runs under torch.utils.checkpoint when
         gradients are on (its recompute launches the forward kernels
         again). The features, the parameters and h1_override are cast to
-        the compute dtype; the prediction is float32. merged_fns: the
-        merged layer over a mesh (merged_layer; parallel/shard.py)."""
+        the compute dtype; the prediction is float32. mesh_fns: path -> the
+        layers over a mesh (layer; parallel/shard.py), on every path and
+        the remat one alike."""
         cfg = self.cfg
         cdt = self.compute_dtype
         groups, encoded = self.live_groups(layouts)
@@ -702,11 +743,11 @@ class HeteroGNN(nn.Module):
             if cfg.remat and torch.is_grad_enabled():
                 h = torch.utils.checkpoint.checkpoint(
                     self.layer, layer, h, lay, training, keep, edge_attr,
-                    merged_fns, use_reentrant=False,
+                    mesh_fns, use_reentrant=False,
                     preserve_rng_state=False)
             else:
                 h = self.layer(layer, h, lay, training, keep, edge_attr,
-                               merged_fns)
+                               mesh_fns)
         logits = linear(h["SNP"], self.lin, cdt)
         pred = logits if cfg.no_relu else torch.relu(logits)
         return pred.to(torch.float32)

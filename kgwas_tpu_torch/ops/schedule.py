@@ -121,11 +121,19 @@ def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=128,
         raise ValueError(f"breaks {breaks} outside 0..{n_units}")
     stops = np.unique(np.asarray(breaks + [n_units], dtype=np.int64))
     stops = stops[stops > 0]
+    # for each unit u: the most units from u whose entries fit (a long unit
+    # never fits), and the next stop after u; an item from u ends at the
+    # least of them and u + max_units
+    first = np.arange(n_units, dtype=np.int64)
+    fits = (np.searchsorted(cum, cum[:-1] + max_edges, side="right")
+            - 1).tolist()
+    nxt = stops[np.searchsorted(stops, first, side="right")].tolist()
+    long = (unit_deg > max_edges).tolist()
     items, units, split_units, part_offsets = [], [], [], [0]
     n_parts = 0
     u = 0
     while u < n_units:
-        if unit_deg[u] > max_edges:
+        if long[u]:
             split_units.append(u)
             for r in range(f):
                 row = r * n + u if fold else u
@@ -137,10 +145,7 @@ def schedule(row_offsets, n_rows_per_rel, fold=0, max_edges=128,
                 part_offsets.append(n_parts)
             u += 1
             continue
-        # the most units from u whose entries fit: a long unit never fits
-        end = int(np.searchsorted(cum, cum[u] + max_edges, side="right")) - 1
-        end = min(end, u + max_units,
-                  int(stops[np.searchsorted(stops, u, side="right")]))
+        end = min(fits[u], u + max_units, nxt[u])
         items.append((u, end, -1, -1))
         units.append(u)
         u = end

@@ -4,19 +4,24 @@ layer's kernels on its rows.
 Counterpart of ``kgwas_tpu/parallel/merged_shard.py``:
 
   * the merged row space of a destination group (R * N rows, slot-major)
-    is split contiguously across the ranks of the 'data' axis: rank i owns
-    rows [i * rows_per_dev, (i + 1) * rows_per_dev) with exactly the edges
-    that target them (``build_device_layouts``, the JAX package's static
-    numpy layouts, array for array);
-  * forward: the projected source table ``xs_all`` is row-sharded (rank i
-    holds rows [i * S / n, (i + 1) * S / n) of the concatenated source
-    space); the rank all-gathers it (the halo exchange) and runs the merged
-    GAT forward kernel (#1, ``merged_gat_fwd.cu``) over its rows with its
-    own schedule;
+    is split contiguously across the ranks of the 'data' axis by whole row
+    tiles: rank i owns tiles [floor(i * T / n), floor((i + 1) * T / n)) of
+    the T tiles, with exactly the edges that target them
+    (``build_device_layouts``; where the tiles divide evenly, the JAX
+    package's static numpy layouts, array for array);
+  * forward: the projected source table ``xs_all`` is row-sharded the same
+    way (rank i holds rows [floor(i * S / n), floor((i + 1) * S / n)) of
+    the concatenated source space); the rank all-gathers it (the halo
+    exchange) and runs the merged GAT forward kernel (#1,
+    ``merged_gat_fwd.cu``) over its rows with its own schedule;
   * backward: the edge kernel (#2, ``merged_gat_bwd.cu``), then the CSC
     segment sum (#8, ``csc_segment_sum.cu``) over the rank's CSC against
     the full source space, then the reduce-scatter of ``d_xs`` (the
     all-gather's transpose) hands each rank the sum for its rows.
+
+Blocks of unequal sizes go through the collectives padded to the largest
+(``mesh.gather_rows``). A rank whose block holds no row tile launches no
+kernel and takes part in the collectives alone.
 
 The layer returns the rank's rows of the unfolded [R * N, D] output, as
 the JAX package's shard_map'd layer does; the caller all-gathers them and
@@ -35,7 +40,8 @@ import torch
 from ..graph.merged_layout import MergedDstLayout
 from ..ops import gat_layer, segment
 from ..ops.gat_layer import BWD_CHUNK_EDGES
-from .mesh import Mesh, all_gather_rows, gather_rows, reduce_scatter_rows
+from .mesh import (Mesh, all_gather_rows, gather_rows, reduce_scatter_rows,
+                   split_bounds)
 
 # the JAX package's row tile and edge block (pallas_segment.BN, BE): rows
 # split by whole tiles, per-rank edge arrays padded to a block multiple
@@ -49,7 +55,7 @@ class DeviceMergedLayout:
     device), as the JAX package builds them."""
 
     n_dev: int
-    rows_per_dev: int            # rows owned per device
+    rows_per_dev: int            # rows of the largest block
     e_dev: int                   # padded edges per device (common)
     src: np.ndarray              # int32 [n_dev, e_dev] (full src space ids)
     dst_local: np.ndarray        # int32 [n_dev, e_dev] (device-local rows)
@@ -60,21 +66,30 @@ class DeviceMergedLayout:
     csc_offsets: np.ndarray      # int32 [n_dev, n_src_total + 1]
     n_src_total: int
     n_rows_total: int
+    # rank d owns rows row_bounds[d]..[d + 1] and projects source rows
+    # src_bounds[d]..[d + 1] (split_bounds; equal blocks where they divide)
+    row_bounds: tuple = ()
+    src_bounds: tuple = ()
 
 
 def build_device_layouts(L: MergedDstLayout, n_dev: int) -> DeviceMergedLayout:
-    """Rank d's rows, edges (padded to e_dev: pad edges read source row 0
-    and target row rows_per_dev) and CSC over the full source space (pad
-    entries keyed to the last source row, so they sort last)."""
-    n_tiles = L.n_rows_total // TILE
-    if n_tiles % n_dev:
-        raise ValueError(f"{n_tiles} row tiles do not split over {n_dev}")
-    tpd = n_tiles // n_dev
-    rows_per_dev = L.n_rows_total // n_dev
+    """Rank d's rows (its block of row tiles, split_bounds), edges (padded
+    to e_dev: pad edges read source row 0 and target row rows_per_dev, the
+    largest block's row count) and CSC over the full source space (pad
+    entries keyed to the last source row, so they sort last). A rank with
+    fewer tiles than the largest block repeats its last tile start and
+    slot in tile_starts and tile2rel."""
+    n_tiles = -(-L.n_rows_total // TILE)
+    tiles = split_bounds(n_tiles, n_dev)
+    tpd = max(b - a for a, b in zip(tiles, tiles[1:]))
+    row_bounds = np.minimum(np.asarray(tiles, np.int64) * TILE,
+                            L.n_rows_total)
+    rows_per_dev = min(tpd * TILE, L.n_rows_total)
     starts = L.row_offsets[::TILE]
-    starts = np.concatenate([starts, L.row_offsets[-1:]])  # [n_tiles + 1]
+    starts = np.concatenate([starts[:n_tiles],
+                             L.row_offsets[-1:]])       # [n_tiles + 1]
 
-    per_dev_edges = [int(starts[(d + 1) * tpd] - starts[d * tpd])
+    per_dev_edges = [int(starts[tiles[d + 1]] - starts[tiles[d]])
                      for d in range(n_dev)]
     e_dev = max(max(per_dev_edges), BE)
     e_dev = ((e_dev + BE - 1) // BE) * BE
@@ -88,12 +103,17 @@ def build_device_layouts(L: MergedDstLayout, n_dev: int) -> DeviceMergedLayout:
     csc_offsets = np.zeros((n_dev, L.n_src_total + 1), dtype=np.int32)
 
     for d in range(n_dev):
-        lo, hi = int(starts[d * tpd]), int(starts[(d + 1) * tpd])
+        t0, t1 = tiles[d], tiles[d + 1]
+        lo, hi = int(starts[t0]), int(starts[t1])
         e = hi - lo
         src[d, :e] = L.src[lo:hi]
-        dst_local[d, :e] = L.dst[lo:hi] - d * rows_per_dev
-        tile_starts[d] = starts[d * tpd:(d + 1) * tpd + 1] - lo
-        tile2rel[d] = L.tile2rel[d * tpd:(d + 1) * tpd]
+        dst_local[d, :e] = L.dst[lo:hi] - row_bounds[d]
+        ts = starts[t0:t1 + 1] - lo
+        tile_starts[d, :len(ts)] = ts
+        tile_starts[d, len(ts):] = ts[-1]
+        if t1 > t0:
+            tile2rel[d, :t1 - t0] = L.tile2rel[t0:t1]
+            tile2rel[d, t1 - t0:] = L.tile2rel[t1 - 1]
         key = np.full(e_dev, L.n_src_total - 1, dtype=np.int64)
         key[:e] = src[d, :e]
         perm = np.argsort(key, kind="stable").astype(np.int32)
@@ -107,22 +127,9 @@ def build_device_layouts(L: MergedDstLayout, n_dev: int) -> DeviceMergedLayout:
         n_dev=n_dev, rows_per_dev=rows_per_dev, e_dev=e_dev, src=src,
         dst_local=dst_local, tile_starts=tile_starts, tile2rel=tile2rel,
         csc_perm=csc_perm, csc_ids=csc_ids, csc_offsets=csc_offsets,
-        n_src_total=L.n_src_total, n_rows_total=L.n_rows_total)
-
-
-def sharded_merged_eligible(layouts: dict, mesh: Mesh) -> bool:
-    """True when every merged destination layout splits evenly over the
-    mesh's 'data' axis: row tiles and source rows divisible by its size.
-    The JAX package also refuses a 'model' axis of more than one device
-    (its fused kernels own the full feature dim); in the port the 'model'
-    axis shards only the first encoder product, whose partials are summed
-    before the layers (shard.py), so the kernels own the full width and a
-    'model' axis is taken."""
-    if not layouts:
-        return False
-    n_dev = mesh.shape["data"]
-    return all((L.n_rows_total // TILE) % n_dev == 0
-               and L.n_src_total % n_dev == 0 for L in layouts.values())
+        n_src_total=L.n_src_total, n_rows_total=L.n_rows_total,
+        row_bounds=tuple(int(r) for r in row_bounds),
+        src_bounds=tuple(split_bounds(L.n_src_total, n_dev)))
 
 
 class RankShard:
@@ -138,12 +145,19 @@ class RankShard:
     def __init__(self, L: MergedDstLayout, DL: DeviceMergedLayout, i: int,
                  device):
         n = L.n_rows_per_rel
-        rpd = DL.rows_per_dev
-        lo = i * rpd
-        self.s_lo, self.s_hi = lo // n, -(-(lo + rpd) // n)
-        self.off = lo - self.s_lo * n
+        lo = DL.row_bounds[i]
+        rpd = DL.row_bounds[i + 1] - lo
         self.rows_per_dev, self.n_rows_per_rel = rpd, n
         self.row0 = lo                     # first owned row, R * N space
+        self.n_rel = len(L.rel_keys)
+        self.x_lo, self.x_hi = DL.src_bounds[i], DL.src_bounds[i + 1]
+        # every rank's rows and source rows: the collectives' blocks
+        self.row_sizes = tuple(np.diff(DL.row_bounds).tolist())
+        self.x_sizes = tuple(np.diff(DL.src_bounds).tolist())
+        if rpd == 0:                       # no row tile: no kernel runs
+            return
+        self.s_lo, self.s_hi = lo // n, -(-(lo + rpd) // n)
+        self.off = lo - self.s_lo * n
         e = int(DL.tile_starts[i, -1])     # the rank's real edges
         src = DL.src[i, :e]
         rows = DL.dst_local[i, :e] + self.off
@@ -172,9 +186,10 @@ class RankShard:
             csc_offsets=put(off_src),
             **segment.csc_fields(grow, perm, off_src, n, L.src_base, 0,
                                  device))
-        x_rows = L.n_src_total // DL.n_dev
-        self.x_lo, self.x_hi = i * x_rows, (i + 1) * x_rows
-        self.n_rel = len(L.rel_keys)
+
+    @property
+    def empty(self) -> bool:
+        return self.rows_per_dev == 0
 
 
 @dataclass
@@ -206,9 +221,14 @@ class ShardedMergedGAT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs_local, att, a_dst_all, shard, group, mode,
                 negative_slope, temperature, stream_dtype=None):
-        xs_all = gather_rows(xs_local, group)
+        xs_all = gather_rows(xs_local, group, shard.x_sizes)
         if stream_dtype is not None:
             xs_all = xs_all.to(stream_dtype)
+        ctx.shard, ctx.group = shard, group
+        ctx.xs_dtype = xs_local.dtype
+        if shard.empty:   # the backward's reduce-scatter still runs
+            ctx.shape = xs_all.shape
+            return xs_all.new_zeros(0, xs_all.shape[1], dtype=torch.float32)
         n = shard.n_rows_per_rel
         att_loc = att[shard.s_lo:shard.s_hi].contiguous()
         a_dst = a_dst_all[shard.s_lo * n:shard.s_hi * n].contiguous()
@@ -221,15 +241,18 @@ class ShardedMergedGAT(torch.autograd.Function):
             xs_all, shard.src, shard.row_offsets, att_loc, a_dst, n, 0, mode,
             negative_slope, temperature, sched=shard.sched, a_src=a_src)
         ctx.save_for_backward(xs_all, att, a_dst, row_max, row_sum, a_src)
-        ctx.shard, ctx.group = shard, group
         ctx.options = (mode, negative_slope, temperature)
-        ctx.xs_dtype = xs_local.dtype
         return out[shard.off:shard.off + shard.rows_per_dev]
 
     @staticmethod
     def backward(ctx, g):
-        xs_all, att, a_dst, row_max, row_sum, a_src = ctx.saved_tensors
         s = ctx.shard
+        if s.empty:
+            d_xs = reduce_scatter_rows(g.new_zeros(ctx.shape), ctx.group,
+                                       s.x_sizes)
+            return (d_xs.to(ctx.xs_dtype), None, None, None, None, None,
+                    None, None, None)
+        xs_all, att, a_dst, row_max, row_sum, a_src = ctx.saved_tensors
         n = s.n_rows_per_rel
         mode, slope, temp = ctx.options
         # the cotangent in the group's R * N row space, the rank's rows set
@@ -242,7 +265,7 @@ class ShardedMergedGAT(torch.autograd.Function):
             sched=s.bwd_sched, a_src=a_src)
         d_xs_all, d_att = segment.csc_segment_sum(g_all, w, dz, xs_all, att,
                                                   s.csc, 0)
-        d_xs = reduce_scatter_rows(d_xs_all, ctx.group)
+        d_xs = reduce_scatter_rows(d_xs_all, ctx.group, s.x_sizes)
         d_a_dst_all = a_dst.new_zeros(s.n_rel * n)
         d_a_dst_all[s.s_lo * n:s.s_hi * n] = d_a_dst
         return (d_xs.to(ctx.xs_dtype), d_att, d_a_dst_all, None, None, None,
@@ -267,7 +290,8 @@ class ShardedMergedGroup:
         own = ShardedMergedGAT.apply(
             xs_local, att, a_dst_all, self.shard, self.mesh.data_group, mode,
             negative_slope, temperature, stream_dtype)
-        return all_gather_rows(own, self.mesh.data_group)
+        return all_gather_rows(own, self.mesh.data_group,
+                               self.shard.row_sizes)
 
 
 def make_sharded_merged_fns(layouts: dict, mesh: Mesh, device) -> dict:

@@ -7,15 +7,17 @@ PyTorch does (``torchrun``, or processes started by the caller), so a mesh
 is the ranks of the initialised default process group: NCCL for CUDA
 tensors, gloo for CPU tensors. Rank r sits at (r // model, r % model) of a
 (data, model) grid, the JAX package's ``devices.reshape(data, model)``.
-The 'data' axis partitions the merged GAT layer's rows and edges
-(``merged_shard.py``), the 'model' axis the columns of wide feature tables
+The 'data' axis partitions the layers' rows and edges (``merged_shard.py``,
+``relation_shard.py``) in contiguous blocks (``split_bounds``) that need
+not be equal, the 'model' axis the columns of wide feature tables
 (``shard.py``).
 
 The collectives with their gradients: ``all_gather_rows`` (backward: the
 reduce-scatter of the cotangent) and ``all_reduce_sum`` (backward: the
-all-reduce of the cotangent), each over one axis's group. A mesh of one
-rank without a process group (``make_mesh(1)`` in a plain process) has no
-groups, and its collectives are the identity.
+all-reduce of the cotangent), each over one axis's group; blocks of
+unequal sizes go padded to the largest. A mesh of one rank without a
+process group (``make_mesh(1)`` in a plain process) has no groups, and its
+collectives are the identity.
 """
 from __future__ import annotations
 
@@ -137,12 +139,35 @@ def _nccl(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
-def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """The group's x stacked along dim 0, in rank order (no gradient)."""
+def split_bounds(total: int, parts: int) -> list:
+    """Contiguous blocks of total units over parts: block i is [b[i],
+    b[i + 1]) with b[i] = floor(i * total / parts), so the blocks differ
+    by at most one unit and an even split gives equal ones."""
+    return [i * total // parts for i in range(parts + 1)]
+
+
+def _sizes(sizes, n):
+    if sizes is not None and len(sizes) != n:
+        raise ValueError(f"{len(sizes)} block sizes for {n} ranks")
+    return None if sizes is None or len(set(sizes)) == 1 else list(sizes)
+
+
+def gather_rows(x: torch.Tensor, group, sizes=None) -> torch.Tensor:
+    """The group's x stacked along dim 0, in rank order (no gradient).
+    sizes: every rank's row count where they differ (rank i's x has
+    sizes[i] rows): each x is padded to the largest and the pad rows are
+    dropped after the gather."""
     if group is None:
         return x
     n = dist.get_world_size(group)
+    sizes = _sizes(sizes, n)
     x = x.contiguous()
+    if sizes is not None:
+        m = max(sizes)
+        pad = x.new_zeros((m,) + tuple(x.shape[1:]))
+        pad[:x.shape[0]] = x
+        full = gather_rows(pad, group)
+        return torch.cat([full[i * m:i * m + k] for i, k in enumerate(sizes)])
     if _nccl(group):
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(out, x, group=group)
@@ -152,11 +177,25 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's block of dim 0 of the group's sum of x (no gradient)."""
+def reduce_scatter_rows(x: torch.Tensor, group, sizes=None) -> torch.Tensor:
+    """This rank's block of dim 0 of the group's sum of x (no gradient).
+    sizes: every rank's block where they differ: each block is padded to
+    the largest with zero rows before the reduce-scatter, and the pad rows
+    of the result are dropped."""
     if group is None:
         return x
     n = dist.get_world_size(group)
+    sizes = _sizes(sizes, n)
+    if sizes is not None:
+        if x.shape[0] != sum(sizes):
+            raise ValueError(f"{x.shape[0]} rows for blocks {sizes}")
+        m = max(sizes)
+        pad = x.new_zeros((n * m,) + tuple(x.shape[1:]))
+        at = 0
+        for i, k in enumerate(sizes):
+            pad[i * m:i * m + k] = x[at:at + k]
+            at += k
+        return reduce_scatter_rows(pad, group)[:sizes[dist.get_rank(group)]]
     if x.shape[0] % n:
         raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks")
     x = x.contiguous()
@@ -180,13 +219,13 @@ class AllGatherRows(torch.autograd.Function):
     cotangent, each rank's block of it."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return gather_rows(x, group)
+    def forward(ctx, x, group, sizes=None):
+        ctx.group, ctx.sizes = group, sizes
+        return gather_rows(x, group, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_rows(g, ctx.group), None
+        return reduce_scatter_rows(g, ctx.group, ctx.sizes), None, None
 
 
 class AllReduceSum(torch.autograd.Function):
@@ -203,8 +242,8 @@ class AllReduceSum(torch.autograd.Function):
         return sum_over(g.clone(), ctx.group), None
 
 
-def all_gather_rows(x, group):
-    return AllGatherRows.apply(x, group)
+def all_gather_rows(x, group, sizes=None):
+    return AllGatherRows.apply(x, group, sizes)
 
 
 def all_reduce_sum(x, group):

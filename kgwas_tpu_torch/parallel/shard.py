@@ -11,10 +11,13 @@ features and the graph, and runs:
     columns by the first encoder layer's matching weight columns, and the
     partial products are summed over the axis (``all_reduce_sum``, whose
     gradient is the sum of the cotangents) before the bias;
-  * per layer, the merged GAT layer over the 'data' axis
-    (``merged_shard.py``: the rank's rows of the source table projected
-    and all-gathered, #1 / #2 / #8 on the rank's rows and edges, the output
-    rows all-gathered and summed over relations);
+  * per layer, the layer of the forward's path over the 'data' axis
+    (``select_kernel_path``): the merged GAT layer (``merged_shard.py``:
+    the rank's rows of the source table projected and all-gathered, #1 /
+    #2 / #8 on the rank's rows and edges, the output rows all-gathered and
+    summed over relations), the per-relation layers and the 'mp' layer
+    (``relation_shard.py``: #6 / #7, or #10, on the rank's rows of each
+    stream, #8 over its CSC, the rows all-gathered);
   * the head, and the seed-batch loss, which equals the single-process
     loss (every rank computes it from the same gathered predictions);
     feature tables streamed from the host (engine/streamed.py) stream the
@@ -27,10 +30,11 @@ gradients are summed over the mesh once per step, packed into one buffer
 per dtype in the parameters' order, and every rank runs the same Adam
 update.
 
-Configurations outside the merged gate (the per-relation and 'mp' paths,
-sigmoid GAT, layouts that do not split over the 'data' axis) run on the
-JAX package's GSPMD-partitioned XLA ops; the port has no counterpart yet,
-and raises ``NotImplementedError`` naming ROADMAP Queue 1 item 10b.
+Every configuration runs: where the JAX package falls back from its
+merged shard_map kernels to GSPMD-partitioned XLA ops (the per-relation
+and 'mp' paths, sigmoid GAT, layouts that do not divide by the 'data'
+axis), the port runs its kernels on each rank's rows, in blocks that need
+not be equal.
 """
 from __future__ import annotations
 
@@ -42,29 +46,30 @@ from ..engine.loop import batch_loss, fill_dead_grads
 from ..models.hetero_gnn import encoder_for, layer_path
 from ..models.precision import matmul
 from ..ops.streaming import COL_CHUNK, StreamedLinear
-from .merged_shard import make_sharded_merged_fns, sharded_merged_eligible
-from .mesh import Mesh, all_gather_rows, all_reduce_sum
+from .merged_shard import make_sharded_merged_fns
+from .mesh import Mesh, all_gather_rows, all_reduce_sum, split_bounds
+from .relation_shard import make_mp_fns, make_relation_fns
 
 TP_FEATURE_DIM_THRESHOLD = 1024  # column-shard a feature table this wide
-ITEM_10B = ("ROADMAP.md Queue 1 item 10b (the row partition on the "
-            "per-relation and 'mp' paths)")
 
 
-def select_kernel_path(cfg, layouts: dict, mesh: Mesh, training: bool):
-    """The JAX package's _select_kernel_path: the sharded merged GAT
-    kernels when the model's layer path is the merged one (GAT, sum or
-    mean, softmax; in training without dropout or edge_dim) and every
-    layout given splits over the 'data' axis (KGWAS.train gives the
-    groups the forward runs: the JAX package's jit drops the others).
-    Else raises NotImplementedError (item 10b)."""
-    if (cfg.gnn_backbone == "GAT" and not cfg.sigmoid_gat
-            and layer_path(cfg, training) == "merged"
-            and sharded_merged_eligible(layouts, mesh)):
-        return
-    raise NotImplementedError(
-        "under a mesh the port runs the merged GAT layer only (GAT, sum or "
-        "mean, softmax, layouts that split over the 'data' axis); this "
-        f"configuration is not ported yet: {ITEM_10B}")
+def select_kernel_path(cfg, layouts: dict, mesh: Mesh, training: bool,
+                       cg=None, device="cpu"):
+    """The JAX package's _select_kernel_path: (the forward's layer path,
+    dst type -> that path's layer over the mesh's 'data' axis) for the
+    merged layouts given (KGWAS.train gives the groups the forward runs:
+    the JAX package's jit drops the others). 'merged' (GAT, sum or mean,
+    softmax or sigmoid): merged_shard.ShardedMergedGroup; 'relations':
+    relation_shard.RankRelations, from the compiled graph cg's relation
+    streams; 'mp': the merged layouts' relation_shard.RankStream."""
+    path = layer_path(cfg, training)
+    if path == "merged":
+        return path, make_sharded_merged_fns(layouts, mesh, device)
+    if path == "relations":
+        if cg is None:
+            raise ValueError("the per-relation path needs the compiled graph")
+        return path, make_relation_fns(layouts, cg, mesh, device)
+    return path, make_mp_fns(layouts, mesh, device)
 
 
 def tp_columns(width: int, mesh: Mesh):
@@ -76,14 +81,18 @@ def tp_columns(width: int, mesh: Mesh):
 
 class ShardedRun:
     """What a rank keeps for the sharded step and forward of one model on
-    one mesh: the merged layers' per-rank layouts (built once), the node
-    features (a column-sharded table as this rank's columns, a placeholder
-    in its place), and the streamed types' host tables."""
+    one mesh: each layer path's per-rank layouts, built once at the path's
+    first forward (fns: path -> dst type -> the layer over the mesh;
+    select_kernel_path), the node features (a column-sharded table as
+    this rank's columns, a placeholder in its place), and the streamed
+    types' host tables. cg: the compiled graph, which the per-relation
+    path needs."""
 
     def __init__(self, host_layouts: dict, x: dict, mesh: Mesh, device,
-                 padded_nodes: dict, x_host=None):
+                 padded_nodes: dict, x_host=None, cg=None):
         self.mesh = mesh
-        self.fns = make_sharded_merged_fns(host_layouts, mesh, device)
+        self.host_layouts, self.cg, self.device = host_layouts, cg, device
+        self.fns = {}
         self.padded_nodes = dict(padded_nodes)
         self.x_host = dict(x_host or {})
         self.x, self.x_cols = {}, {}
@@ -109,23 +118,27 @@ class ShardedRun:
         for t, xh in self.x_host.items():
             fc1 = getattr(model, encoder_for(t)).FC_hidden
             w, b = fc1.weight.to(torch.float32), fc1.bias.to(torch.float32)
-            n_pad = self.padded_nodes[t]
-            if n_pad % self.mesh.data:
-                raise ValueError(f"{t}: {n_pad} rows do not split over "
-                                 f"{self.mesh.data} ranks")
-            rows = n_pad // self.mesh.data
-            lo = self.mesh.data_rank * rows
-            real = xh[lo:lo + rows]
-            mine = (StreamedLinear.apply(w, b, real, rows, COL_CHUNK)
-                    if len(real) else b.unsqueeze(0).expand(rows, -1))
-            out[t] = all_gather_rows(mine, self.mesh.data_group)
+            bounds = split_bounds(self.padded_nodes[t], self.mesh.data)
+            lo, hi = bounds[self.mesh.data_rank:self.mesh.data_rank + 2]
+            real = xh[lo:hi]
+            mine = (StreamedLinear.apply(w, b, real, hi - lo, COL_CHUNK)
+                    if len(real) else b.unsqueeze(0).expand(hi - lo, -1))
+            out[t] = all_gather_rows(mine, self.mesh.data_group,
+                                     np.diff(bounds).tolist())
         return out
 
     def forward(self, model, layouts: dict, training: bool = False):
         """Full-graph predictions [N_snp_pad, out_channels], the same on
         every rank."""
+        path = layer_path(model.cfg, training)
+        if path not in self.fns:
+            # kept for the forwards after: never built as inference tensors
+            with torch.inference_mode(False):
+                self.fns[path] = select_kernel_path(
+                    model.cfg, self.host_layouts, self.mesh, training,
+                    self.cg, self.device)[1]
         return model(self.x, layouts, training=training,
-                     h1_override=self.h1(model), merged_fns=self.fns)
+                     h1_override=self.h1(model), mesh_fns=self.fns)
 
 
 def sum_grads(model, mesh: Mesh):

@@ -2277,3 +2277,171 @@ def test_bf16_adam_on_the_card_bitwise_the_host_stepped_one(cuda_device):
         opt.step()
     for pa, pb in zip(a, b):
         assert torch.equal(pa.view(torch.int16), pb.view(torch.int16))
+
+
+# ------------------------------------ the mesh's rank blocks (relation_shard)
+
+def _single_stream(src, row_offsets, key, n_src, device, sched_args=()):
+    """A stream of its own on the card, built from its host arrays as
+    device_layouts builds a relation's: src, row_offsets, each edge's source
+    row as the CSC gives it (key), the rows' schedule and the CSC fields."""
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        a, dtype=np.int32)).to(device)
+    n_rows = len(row_offsets) - 1
+    dst = np.repeat(np.arange(n_rows), np.diff(row_offsets))
+    perm = np.argsort(key, kind="stable")
+    off = np.zeros(n_src + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=n_src), out=off[1:])
+    return SimpleNamespace(
+        src=put(src), row_offsets=put(row_offsets), dst=put(dst),
+        csc_perm=put(perm), csc_offsets=put(off), n_rows_per_rel=n_rows,
+        src_base=(0, n_src),
+        row_schedule=schedule.row_schedule(
+            np.asarray(row_offsets, np.int32), *sched_args).to(device),
+        **segment.csc_fields(dst, perm, off, n_rows, (0, n_src), 0, device))
+
+
+def _edge_keys(csc_perm, csc_ids):
+    key = np.empty(len(csc_perm), np.int64)
+    key[np.asarray(csc_perm, np.int64)] = csc_ids
+    return key
+
+
+def _equal(got, want):
+    for a, b in zip(got, want):
+        assert a is None and b is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_dev", [2, 3, 4])
+def test_rank_relation_blocks_bitwise_as_single_streams(n_dev, cuda_device,
+                                                        variant_world):
+    """#6, #7 and #8 on each rank's block of a relation stream
+    (relation_shard.relation_rank_stream; the SNP rows, 6 tiles, in blocks
+    that do not divide by 4) bitwise the same kernels on the block built as
+    a stream of its own; the ranks' rows against the unsharded kernel on
+    the whole stream within the tolerances above."""
+    from kgwas_tpu_torch.parallel.relation_shard import relation_rank_stream
+
+    cg, rel, _ = variant_world
+    rk = "Gene__rev_TSS__SNP"
+    r = cg.relations[rk]
+    L = rel[r.dst_type]
+    RL = L.relations[L.rel_keys.index(rk)]
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    xs = torch.randn(RL.src_base[-1], D, device=cuda_device, generator=gen)
+    lg = torch.randn(RL.src.shape[0], device=cuda_device, generator=gen)
+    g = torch.randn(RL.n_rows_per_rel, D, device=cuda_device, generator=gen)
+    want = segment_softmax.segment_softmax_spmm_fwd(
+        xs, RL.src, lg, RL.row_offsets, sched=RL.row_schedule)[0]
+    key = _edge_keys(r.csc_perm, r.csc_src_sorted)
+    ss, outs = segment_softmax, []
+    for i in range(n_dev):
+        rs = relation_rank_stream(r, cg, n_dev, i, cuda_device)
+        assert not rs.empty
+        (r0, r1), (e0, e1) = rs.rows, rs.edges
+        one = _single_stream(r.src[e0:e1], r.row_offsets[r0:r1 + 1] - e0,
+                             key[e0:e1], RL.src_base[-1], cuda_device)
+        lr = lg[e0:e1].contiguous()
+        before = (ss.launches, ss.bwd_launches, segment.launches)
+        got = [], []
+        for k, lay in enumerate((rs.layout, one)):
+            f = ss.segment_softmax_spmm_fwd(xs, lay.src, lr, lay.row_offsets,
+                                            sched=lay.row_schedule)
+            b = ss.segment_softmax_spmm_bwd(
+                xs, lay.src, lr, lay.row_offsets, f[1], f[2], f[0],
+                g[r0:r1], sched=lay.row_schedule)
+            c = segment.csc_segment_sum(g[r0:r1], b[0], None, xs, None, lay)
+            got[k].extend(f + b + c)
+        assert (ss.launches, ss.bwd_launches, segment.launches) == (
+            before[0] + 2, before[1] + 2, before[2] + 2)
+        _equal(got[0], got[1])
+        assert got[0][0].shape[0] == r1 - r0
+        outs.append(got[0][0])
+    _close(torch.cat(outs), want, RL.n_rows_per_rel, cg.num_nodes["SNP"])
+
+
+@pytest.mark.parametrize("n_dev", [2, 3, 4])
+def test_rank_mp_blocks_bitwise_as_single_streams(n_dev, cuda_device,
+                                                  variant_world):
+    """#10 (weighted by the symmetric norm) and #8 on each rank's block of
+    the SNP group's merged 'mp' stream (relation_shard.mp_rank_stream)
+    bitwise the same kernels on the block built as a stream of its own
+    (CSR_MAX_EDGES schedule); the ranks' rows against the unsharded #10
+    within the tolerances above."""
+    from kgwas_tpu_torch.graph import build_merged_layouts as bml
+    from kgwas_tpu_torch.parallel.relation_shard import mp_rank_stream
+
+    cg, _, mp = variant_world
+    L = bml(cg, tile_rows=512)["SNP"]
+    DL = mp["SNP"]
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    xs = torch.randn(L.n_src_total, D, device=cuda_device, generator=gen)
+    g = torch.randn(L.n_rows_total, D, device=cuda_device, generator=gen)
+    want = segment.csr_segment_sum(xs, DL.src, DL.row_offsets, DL.sym_e,
+                                   sched=DL.row_schedule)
+    key = _edge_keys(L.csc_perm, L.csc_ids)
+    outs = []
+    for i in range(n_dev):
+        rs = mp_rank_stream(L, n_dev, i, cuda_device)
+        (r0, r1), (e0, e1) = rs.rows, rs.edges
+        one = _single_stream(L.src[e0:e1], L.row_offsets[r0:r1 + 1] - e0,
+                             key[e0:e1], L.n_src_total, cuda_device,
+                             (schedule.CSR_MAX_EDGES,
+                              schedule.CSR_CHUNK_EDGES))
+        w = rs.layout.sym_e
+        before = (segment.csr_launches, segment.launches)
+        got = [], []
+        for k, lay in enumerate((rs.layout, one)):
+            got[k].append(segment.csr_segment_sum(
+                xs, lay.src, lay.row_offsets, w, sched=lay.row_schedule))
+            got[k].extend(segment.csc_segment_sum(g[r0:r1], w, None, xs,
+                                                  None, lay))
+        assert (segment.csr_launches, segment.launches) == (
+            before[0] + 2, before[1] + 2)
+        _equal(got[0], got[1])
+        outs.append(got[0][0])
+    _close(torch.cat(outs), want, L.n_rows_per_rel, cg.num_nodes["SNP"])
+
+
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid"])
+def test_sharded_merged_gat_uneven_blocks_match_unsharded(mode, cuda_device,
+                                                          variant_world):
+    """The merged GAT layer over the SNP group's row tiles in blocks that
+    differ (4 ranks, or 5 where 4 divide them; merged_shard.
+    ShardedMergedGAT, no process
+    group, each rank given the whole table): #1, #2 and #8 once a rank, the
+    ranks' rows against the unsharded layer (fold 0) within the tolerances
+    above, the summed d_xs at the backward kernels' bounds."""
+    from kgwas_tpu_torch.graph import build_merged_layouts as bml
+    from kgwas_tpu_torch.parallel import merged_shard
+
+    cg = variant_world[0]
+    L = bml(cg, tile_rows=512)["SNP"]
+    n_dev = 4 if (L.n_rows_total // 512) % 4 else 5
+    R, n = len(L.rel_keys), L.n_rows_per_rel
+    DL = _merged_layout(L, False, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    xs = torch.randn(L.n_src_total, D, device=cuda_device, generator=gen) * .1
+    att = torch.randn(R, D, device=cuda_device, generator=gen) * .2
+    ad = torch.randn(L.n_rows_total, device=cuda_device, generator=gen) * .5
+    g = torch.randn(L.n_rows_total, D, device=cuda_device, generator=gen)
+    leaf = xs.clone().requires_grad_()
+    want = gat_layer.MergedGATLayer.apply(leaf, att, ad, DL, 0, mode, 0.2,
+                                          1.0)
+    want.backward(g)
+    dls = merged_shard.build_device_layouts(L, n_dev)
+    assert len(set(np.diff(dls.row_bounds))) > 1
+    outs, d_xs = [], 0.0
+    before = (gat_layer.launches, gat_layer.bwd_launches, segment.launches)
+    for i in range(n_dev):
+        shard = merged_shard.RankShard(L, dls, i, cuda_device)
+        x = xs.clone().requires_grad_()
+        out = merged_shard.ShardedMergedGAT.apply(x, att, ad, shard, None,
+                                                  mode, 0.2, 1.0)
+        out.backward(g[shard.row0:shard.row0 + shard.rows_per_dev])
+        outs.append(out.detach())
+        d_xs = d_xs + x.grad
+    assert (gat_layer.launches, gat_layer.bwd_launches,
+            segment.launches) == tuple(b + n_dev for b in before)
+    _close(torch.cat(outs), want.detach(), n, cg.num_nodes["SNP"])
+    _close_grad(d_xs, leaf.grad)

@@ -4,9 +4,12 @@ package's ``kgwas_tpu/parallel`` and the single-process port.
 * ``build_device_layouts``: the per-rank static layouts equal the JAX
   package's array for array, for 2 ranks on ``step_world``'s KG and for 4
   on the same KG with 1,600 GO terms (the groups whose row tiles split;
-  both packages refuse the others).
+  the JAX package refuses the others, which the port splits in unequal
+  blocks of whole tiles that cover the rows and edges in order).
 * The eligibility gates, case for case with
-  ``tests/test_merged_shard.py::test_sharded_merged_eligibility_gates``.
+  ``tests/test_merged_shard.py::test_sharded_merged_eligibility_gates``:
+  the port's ``select_kernel_path`` takes every layout the JAX package
+  refuses.
 * Two ranks over gloo (processes started once for the module, a
   ``FileStore`` in a module temporary directory, each joined with its own
   timeout; each rank runs the two cases below in turn, with a share of
@@ -25,8 +28,9 @@ package's ``kgwas_tpu/parallel`` and the single-process port.
   1,024 wide column-sharded over them: the forward and one step's
   gradients against the single-process port.
 * ``mesh`` as an int, a dict, a MeshConfig; a size that does not match
-  the world size raises; a configuration outside the merged gate raises
-  naming ROADMAP item 10b.
+  the world size raises; configurations outside the JAX package's merged
+  gate (GAT max, dropout, SAGE, sigmoid GAT, GCN max, SGC mean) train
+  under ``mesh=1`` with the losses of ``mesh=None``.
 """
 import os
 import subprocess
@@ -46,7 +50,6 @@ from kgwas_tpu_torch.graph import (build_merged_layouts, compile_graph,
 from kgwas_tpu_torch.models import HeteroGNN, device_layouts, layer_paths
 from kgwas_tpu_torch.parallel import merged_shard
 from kgwas_tpu_torch.parallel.mesh import Mesh, make_mesh
-from kgwas_tpu_torch.parallel.shard import ITEM_10B
 from torch_threads import few_torch_threads  # noqa: F401,E402
 
 KG = dict(n_snp=300, n_gene=60, n_go=30, snp_dim=20, gene_dim=32, go_dim=16,
@@ -82,10 +85,17 @@ def test_build_device_layouts_equal_jax(n_dev, kg):
     split = 0
     for t, L in ports.items():
         if (L.n_rows_total // merged_shard.TILE) % n_dev:
-            with pytest.raises(ValueError, match="do not split"):
-                merged_shard.build_device_layouts(L, n_dev)
             with pytest.raises(AssertionError):
                 jbdl(jaxes[t], n_dev)
+            # the port splits it by whole tiles, unequal blocks
+            got = merged_shard.build_device_layouts(L, n_dev)
+            tiles = L.n_rows_total // merged_shard.TILE
+            assert got.row_bounds == tuple(
+                i * tiles // n_dev * merged_shard.TILE
+                for i in range(n_dev + 1)), t
+            edges = [got.src[d, :got.tile_starts[d, -1]]
+                     for d in range(n_dev)]
+            assert np.array_equal(np.concatenate(edges), L.src), t
             continue
         got = merged_shard.build_device_layouts(L, n_dev)
         want = jbdl(jaxes[t], n_dev)
@@ -102,26 +112,44 @@ def test_build_device_layouts_equal_jax(n_dev, kg):
 
 def test_sharded_merged_eligibility_gates():
     """JAX's cases: indivisible layouts (CC and MF one tile each over 8
-    ranks) fall back in both packages; a 'model' axis of 2 is refused by
-    the JAX package (its kernels own the feature dim) and taken by the
-    port (its 'model' axis shards only the first encoder product, summed
-    before the layers); both take the same layouts without it."""
+    ranks) fall back in the JAX package; a 'model' axis of 2 is refused by
+    the JAX package (its kernels own the feature dim); both take the same
+    layouts without it. The port's select_kernel_path gives the merged
+    layer over the mesh for every one of them: blocks that need not be
+    equal (ranks without rows where 8 ranks share 1 tile), and a 'model'
+    axis, which shards only the first encoder product, summed before the
+    layers."""
     from kgwas_tpu.parallel.merged_shard import sharded_merged_eligible
     from kgwas_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from kgwas_tpu_torch.parallel.shard import select_kernel_path
+
+    cfg = ModelConfig(gnn_hidden_dim=8)
+
+    def port_takes(layouts, data, model=1):
+        """Each rank's rows of each group; every group's rows covered."""
+        rows = []
+        for rank in range(data * model):
+            path, fns = select_kernel_path(
+                cfg, layouts, Mesh(data=data, model=model, rank=rank),
+                training=True)
+            assert path == "merged" and sorted(fns) == sorted(layouts)
+            rows.append({t: f.shard.rows_per_dev for t, f in fns.items()})
+        for t, L in layouts.items():
+            assert sum(r[t] for r in rows) == model * L.n_rows_total
+        return rows
 
     kg1 = dict(n_snp=100, n_gene=60, n_go=20, seed=72)
     L1 = build_merged_layouts(_compile(kg1), tile_rows=512)
-    assert not merged_shard.sharded_merged_eligible(L1, Mesh(data=8))
     assert not sharded_merged_eligible(_compile(kg1, jax=True).meta(),
                                        jmake_mesh(data=8, model=1))
+    assert any(0 in r.values() for r in port_takes(L1, 8))
     kg2 = dict(n_snp=1000, n_gene=800, n_go=1800, seed=71)
     L2 = build_merged_layouts(_compile(kg2), tile_rows=512)
     meta2 = _compile(kg2, jax=True).meta()
     assert not sharded_merged_eligible(meta2, jmake_mesh(data=4, model=2))
-    assert merged_shard.sharded_merged_eligible(L2, Mesh(data=4, model=2))
+    port_takes(L2, 4, 2)
     assert sharded_merged_eligible(meta2, jmake_mesh(data=4, model=1))
-    assert merged_shard.sharded_merged_eligible(L2, Mesh(data=4))
-    assert not merged_shard.sharded_merged_eligible({}, Mesh(data=1))
+    port_takes(L2, 4)
 
 
 # ----------------------------------------------------- two ranks over gloo
@@ -384,13 +412,30 @@ def test_mesh_forms_and_world_size(tmp_path):
 
 @pytest.mark.parametrize("kw", [{"gnn_aggr": "max"}, {"dropout": 0.1},
                                 {"gnn_backbone": "SAGE"},
-                                {"sigmoid_gat": True}],
-                         ids=["GAT-max", "dropout", "SAGE", "sigmoid"])
-def test_outside_merged_gate_raises_10b(tmp_path, kw):
+                                {"sigmoid_gat": True},
+                                {"gnn_backbone": "GCN", "gnn_aggr": "max"},
+                                {"gnn_backbone": "SGC", "gnn_aggr": "mean"}],
+                         ids=["GAT-max", "dropout", "SAGE", "sigmoid",
+                              "GCN-max", "SGC-mean"])
+def test_outside_merged_gate_trains_under_mesh_1(tmp_path, kw):
+    """The configurations outside the JAX package's merged gate train under
+    mesh=1 in one process with mesh=None's losses: bitwise on the
+    per-relation and 'mp' paths (the rank's block is the whole stream);
+    sigmoid GAT at rtol 1e-6 (over a mesh its merged layer sums the
+    relations after the kernel, which folds them on one device)."""
     run = _small_run(tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        run.train(batch_size=16, epoch=1, mesh=1)
-    assert "10b" in ITEM_10B
+    state = {k: v.clone() for k, v in run.model.state_dict().items()}
+    run.train(batch_size=16, epoch=1, lr=1e-3, save_best_model=False)
+    single = np.asarray(run.epoch_losses[0])
+    run.model.load_state_dict(state)
+    run.train(batch_size=16, epoch=1, lr=1e-3, save_best_model=False,
+              mesh=1)
+    meshed = np.asarray(run.epoch_losses[0])
+    assert run.mesh.shape == {"data": 1, "model": 1} and len(single) == 4
+    if kw.get("sigmoid_gat"):
+        np.testing.assert_allclose(meshed, single, rtol=1e-6)
+    else:
+        assert np.array_equal(meshed, single)
 
 
 def test_cli_mesh_under_torchrun(tmp_path):
