@@ -191,9 +191,27 @@ PyTorch version:
      epoch 2: bitwise the clean run. The other phases that count launches
      from KGWAS.train pass scan_steps=0; phase 9's CLI trains scanned and
      its count is the eager steps' and the capture's
+ 16. the full knowledge graph (after phase 11f, the earlier phases' device
+     state freed): scripts/exp_fullkg.py's 2,000,000 SNPs (200,000 genes,
+     117,647 terms per GO type, degree 6; 33,588,130 real edges), GAT sum
+     at hidden 128, 2 layers, float32: (a) each host step's seconds, and
+     compile and the merged layouts through the native ops
+     (kgwas_tpu_torch/native) and through their numpy versions, bitwise
+     equal; (b) predict_all (#1 counted from 0: once per live group and
+     layer) against the same forward through the plain ops, forward ms and
+     edge-traversals/s; (c) three train_steps with exact launches, the
+     eager step's ms (slope) and peak memory with a profile, a captured
+     block's scanned step ms and graph pool, then KGWAS.train(epoch=1) over
+     19 batches at its defaults (its launches, KGWAS_P in [0, 1], the
+     pred.csv's host seconds) and the epoch these imply; (d) the
+     dst-range sub-layouts under KGWAS_MERGED_MAX_EDGES=
+     "Gene:10000000,SNP:4000000" (Gene 2, SNP 4): predict_all against
+     (b)'s, three train_steps against (c)'s, the launches per sub-layout,
+     peak memory, forward and step ms beside the unsplit run's, the split's
+     host seconds
 
   Every phase's seconds are logged, and their list before the kernel
-  table. Phase 4 times one other max_edges (SWEEP_MAX_EDGES) beside the
+  table, with the script's wall time. Phase 4 times one other max_edges (SWEEP_MAX_EDGES) beside the
   default.
 
   Phase 5 also writes its KGWAS_P table with write_table and with the row
@@ -2958,27 +2976,29 @@ def model_counts(zero=False):
 
 
 # the device states (compiled graph, node features, device layouts) built
-# so far, by compiled graph, device and layer paths: a layout never
-# changes, so the runs on one graph share their set-up
+# so far, by compiled graph, merged layouts, device and layer paths: a
+# layout never changes, so the runs on one graph and its layouts share
+# their set-up (a run on the same graph's dst-range sub-layouts does not)
 SHARED_STATE = {}
 
 
 def shared_state(run):
     """Gives run the device state an earlier run on the same compiled graph,
-    device and layer paths built (KGWAS._device_state), or keeps run's for
-    the runs after it; a run with streamed features keeps its own."""
+    merged layouts, device and layer paths built (KGWAS._device_state), or
+    keeps run's for the runs after it; a run with streamed features keeps
+    its own."""
     from kgwas_tpu_torch.models import layer_paths
 
     if run.stream_features:
         return
-    key = (id(run.data.compile()), str(run.device),
+    key = (id(run.data.compile()), id(run.layouts), str(run.device),
            layer_paths(run.model_cfg))
     if key in SHARED_STATE:
         run._graph, run._x_host = SHARED_STATE[key], {}
     else:
         t0 = time.perf_counter()
         SHARED_STATE[key] = run._device_state()
-        log(f"  device state of the paths {key[2]} built in "
+        log(f"  device state of the paths {key[3]} built in "
             f"{time.perf_counter() - t0:.1f} s, kept for the runs after")
 
 
@@ -5583,6 +5603,35 @@ def slope_ms(call, n1, n2, steps_per_call):
     return (t2 - t1) / ((n2 - n1) * steps_per_call)
 
 
+def peak_mib(fn):
+    """(fn's result, the device memory it allocated at its peak above what
+    was allocated at its start, MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def captured_scan(model, opt, x, layouts, y_node, w_node, bm):
+    """A TrainScan of SCAN_S steps on layouts, its eager block run on the
+    batches bm and a block captured: (the scan, the capture's launches, its
+    peak MiB above its start, the graph pool's MiB)."""
+    from kgwas_tpu_torch.engine.loop import TrainScan
+
+    scan = TrainScan(model, opt, x, layouts, y_node, w_node, SCAN_S)
+    scan(bm)   # the eager block a capture follows
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # as the capture does first
+    reserved = torch.cuda.memory_reserved()
+    model_counts(zero=True)
+    _, capture_mb = peak_mib(lambda: scan.capture(BATCH))
+    block = model_counts()
+    pool_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+    return scan, block, capture_mb, pool_mb
+
+
 def phase_scan(kt, data, device, card, bench0, tmp):
     """Phase 15: KGWAS.train(scan_steps=SCAN_S), each full block one
     replay of a CUDA graph of SCAN_S captured steps (engine/loop.TrainScan).
@@ -5661,29 +5710,16 @@ def phase_scan(kt, data, device, card, bench0, tmp):
     bm = np.stack(epoch_batches(data_v.train_mask, BATCH, False,
                                 None)[:SCAN_S])
     bidx = torch.from_numpy(bm[0]).to(device)
-    scan = TrainScan(model, opt, x, layouts, y_node, w_node, SCAN_S)
-    scan(bm)   # the eager block a capture follows
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()   # as the capture does first
-    torch.cuda.reset_peak_memory_stats()
-    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    model_counts(zero=True)
-    scan.capture(BATCH)
-    block = model_counts()
-    capture_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    pool_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+    scan, block, capture_mb, pool_mb = captured_scan(
+        model, opt, x, layouts, y_node, w_node, bm)
     want = add_counts((SCAN_S, per_step))
     if block != want:
         raise AssertionError(f"(a) one captured block launched {block}, "
                              f"expected {want}")
     for k, v in block.items():
         launches[k] += v
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    train_step(model, opt, x, layouts, bidx, y_node, w_node)
-    torch.cuda.synchronize()
-    eager_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    _, eager_mb = peak_mib(lambda: train_step(model, opt, x, layouts, bidx,
+                                              y_node, w_node))
     graph_step = slope_ms(lambda: scan(bm), 2, 6, SCAN_S)
     eager_step = slope_ms(lambda: train_step(model, opt, x, layouts, bidx,
                                              y_node, w_node), 8, 24, 1)
@@ -5825,6 +5861,367 @@ def phase_scan(kt, data, device, card, bench0, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+# scripts/exp_fullkg.py's full knowledge graph, the reference's default
+# training scale (kgwas/kgwas.py:85-113): 2,000,000 SNPs, a tenth as many
+# genes, n_snp // 17 terms per GO type, degree 6; FULL_KG's other settings
+FULLKG = dict(n_snp=2_000_000, n_gene=200_000, n_go=2_000_000 // 17,
+              snp_dim=20, gene_dim=128, go_dim=128, avg_degree=6)
+# the JAX package's round-5 caps: Gene in 2 dst-range sub-layouts, SNP in 4
+FULLKG_SPLIT = "Gene:10000000,SNP:4000000"
+SPLIT_ENV = "KGWAS_MERGED_MAX_EDGES"
+# KGWAS.train's batches: the eager block, the captured block, a 3-step tail
+FULLKG_BATCHES = 2 * SCAN_S + 3
+FULLKG_FWD_REPS = 5
+
+
+def fields_equal(a, b, what):
+    """Raise unless two dataclasses (RelationShard, MergedDstLayout) hold
+    the same fields, arrays bitwise and of one dtype."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = (x.dtype == y.dtype and np.array_equal(x, y)
+                if isinstance(x, np.ndarray) else x == y)
+        if not same:
+            raise AssertionError(f"{what}.{f.name}: the native and numpy "
+                                 "paths differ")
+
+
+@contextlib.contextmanager
+def per_layout_launches(layouts, counts):
+    """The merged layer's three wrappers counting their calls by layout
+    key in counts[kernel][key] (the key of the device layout whose row
+    offsets a call is given), each call passed on unchanged."""
+    from kgwas_tpu_torch.ops import gat_layer, segment
+
+    key_of = {L.row_offsets.data_ptr(): t for t, L in layouts.items()}
+
+    def counting(name, fn, rows_of):
+        def wrapped(*args, **kwargs):
+            per = counts.setdefault(name, {})
+            k = key_of[rows_of(args).data_ptr()]
+            per[k] = per.get(k, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with swapped(gat_layer,
+                 merged_gat_forward=counting(
+                     "merged_gat_fwd", gat_layer.merged_gat_forward,
+                     lambda a: a[2]),
+                 merged_gat_bwd=counting(
+                     "merged_gat_bwd", gat_layer.merged_gat_bwd,
+                     lambda a: a[2])), \
+            swapped(segment, csc_segment_sum=counting(
+                "csc_segment_sum", segment.csc_segment_sum,
+                lambda a: a[5].row_offsets)):
+        yield
+
+
+def phase_fullkg(kt, card, tmp):
+    """Phase 16: the full knowledge graph (FULLKG: 2,000,000 SNPs), GAT sum
+    at hidden 128, 2 layers, float32. (a) The host steps' seconds; compile
+    and the merged layouts through the native ops and through their numpy
+    versions (shardops.plain), the arrays bitwise equal; each native op
+    against its numpy version on the largest relation. (b) Serving:
+    predict_all with #1 counted from 0 (once per live group and layer),
+    against the same forward through the plain ops (no_grad), forward ms
+    (median of 5 after 1 warm-up) and edge-traversals/s. (c) Training:
+    three train_steps from one initial state with exact launches and
+    finite losses, against the same steps through the plain ops (losses
+    LOSS_RTOL, parameters PARAM_ATOL); eager step ms by slope and its peak
+    memory; a captured
+    block of SCAN_S steps: the scanned step's ms by slope and the graph
+    pool; then KGWAS.train(epoch=1) over FULLKG_BATCHES batches at its
+    defaults (scan_steps=8) with its launches, KGWAS_P in [0, 1] and the
+    pred.csv write's host seconds; the epoch these imply. (d) The split
+    (FULLKG_SPLIT): predict_all against (b)'s, three train_steps against
+    (c)'s, the launches per sub-layout, peak memory, forward and step ms,
+    the split's host seconds. Returns the launches of the layer kernels."""
+    from kgwas_tpu_torch import kgwas as engine
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.graph import build_merged_layouts, compile_graph
+    from kgwas_tpu_torch.native import shardops
+
+    device = torch.device(DEVICE)
+    host = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        host[name] = time.perf_counter() - t0
+        return out
+
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the host steps
+    os.environ.pop(SPLIT_ENV, None)
+    data = timed("from_synthetic", kt.KGWAS_Data.from_synthetic, seed=SEED,
+                 data_path=str(tmp / "fullkg"), **FULLKG)
+    timed("load_synthetic_gwas", data.load_synthetic_gwas, seed=SEED)
+    timed("process_gwas_file", data.process_gwas_file)
+    timed("prepare_split", data.prepare_split)
+    cg = timed("compile", data.compile)
+    layouts = timed("merged layouts", engine.merged_layouts, cg)
+    with shardops.plain():
+        cg_np = timed("compile (numpy)", compile_graph, data.graph,
+                      edge_pad_multiple=512, node_pad_multiple=512)
+        layouts_np = timed("merged layouts (numpy)", build_merged_layouts,
+                           cg_np, tile_rows=engine.TILE_ROWS)
+    for k, r in cg.relations.items():
+        fields_equal(r, cg_np.relations[k], k)
+    if list(layouts) != list(layouts_np):
+        raise AssertionError("(a) the native and numpy layouts differ")
+    for t, L in layouts.items():
+        fields_equal(L, layouts_np[t], t)
+    del cg_np, layouts_np
+    # each native op against its numpy version on the largest relation
+    r = max(cg.relations.values(), key=lambda r: r.num_edges)
+    src_k, dst_k = r.src[:r.num_edges], r.dst[:r.num_edges]
+    n_dst = cg.padded_nodes[r.dst_type]
+    op_s = {}
+    for name, fn, args in (
+            ("stable_order", shardops.stable_order,
+             (src_k, cg.padded_nodes[r.src_type])),
+            ("csr_offsets", shardops.csr_offsets, (dst_k, n_dst)),
+            ("coalesce", shardops.coalesce, (src_k, dst_k, n_dst))):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        t1 = time.perf_counter()
+        with shardops.plain():
+            want = fn(*args)
+        op_s[name] = (t1 - t0, time.perf_counter() - t1)
+        pairs = zip(got, want) if name == "coalesce" else [(got, want)]
+        if not all(np.array_equal(a, b) for a, b in pairs):
+            raise AssertionError(f"(a) {name}: the native and numpy "
+                                 "results differ")
+    edges = cg.total_real_edges()
+    n_snp = cg.num_nodes["SNP"]
+    epoch_steps = len(data.train_mask) // BATCH
+    groups = ", ".join(f"{t} {len(L.src):,} edges x {len(L.rel_keys)} "
+                       f"slots" for t, L in layouts.items())
+    log(f"  phase 16a: {n_snp:,} SNPs, {edges:,} real edges in "
+        f"{len(cg.relations)} relations ({groups}); {epoch_steps} steps of "
+        f"{BATCH} an epoch; the native ops' arrays bitwise the numpy "
+        f"path's; on {r.key} ({r.num_edges:,} edges) native / numpy s: "
+        + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in op_s.items()))
+
+    # (b) serving
+    run = kt.KGWAS(data, exp_name="chip_smoke_fullkg", seed=SEED)
+    timed("initialize_model", run.initialize_model, gnn_num_layers=LAYERS,
+          gnn_hidden_dim=HIDDEN, no_relu=True)
+    model = run.model
+    init = copy.deepcopy(model.state_dict())
+    timed("device layouts", shared_state, run)
+    _, x, dl = run._device_state()
+    f_eval, _ = path_launches(model, dl, False)
+    model_counts(zero=True)
+    pred = run.predict_all()
+    counts = model_counts()
+    if counts != add_counts((1, f_eval)):
+        raise AssertionError(f"(b) predict_all launched {counts}, expected "
+                             f"{add_counts((1, f_eval))}")
+    add(counts)
+    if not np.isfinite(pred).all():
+        raise AssertionError("(b) predict_all is not finite")
+    with plain_ops(), torch.no_grad():
+        plain = run._forward(cg, x, dl)[:n_snp].cpu().numpy()
+    torch.cuda.empty_cache()
+    pred_err = float(np.abs(pred - plain).max())
+    np.testing.assert_allclose(pred, plain, rtol=PRED_RTOL, atol=PRED_ATOL,
+                               err_msg="(b) predict_all vs the plain ops")
+    del plain
+    fwd_ms = step_times(lambda: run._forward(cg, x, dl), FULLKG_FWD_REPS, 1)
+    log(f"  phase 16b [{card}]: predict_all launched "
+        f"{counts['merged_gat_fwd']} x #1 (the live groups of 2 layers), within rtol {PRED_RTOL} / atol"
+        f" {PRED_ATOL} of the plain ops (max abs err {pred_err:.3e}); "
+        f"forward {fwd_ms:.3f} ms (median of {FULLKG_FWD_REPS}), "
+        f"{edges * LAYERS / fwd_ms * 1e3:.4g} edge-traversals/s")
+
+    # (c) training
+    y_node, w_node = run._labels(cg)
+    host_batches = epoch_batches(np.asarray(data.train_mask), BATCH, False,
+                                 None)
+    batches = [torch.from_numpy(b).to(device)
+               for b in host_batches[:CMP_STEPS]]
+    f_train, b_train = path_launches(model, dl, True)
+    per_step = add_counts((1, f_train), (1, b_train))
+
+    def three_steps(m, lay, counts_of=None):
+        """CMP_STEPS train_steps of m on lay from init: (losses, the final
+        state on the host, the optimizer)."""
+        m.load_state_dict(init)
+        opt = build_optimizer(m.parameters(), LR, 5e-4)
+        model_counts(zero=True)
+        losses = [float(train_step(m, opt, x, lay, b, y_node, w_node))
+                  for b in batches]
+        got = model_counts()
+        want = add_counts((CMP_STEPS, per_step)) if counts_of is None else (
+            counts_of)
+        if got != want:
+            raise AssertionError(f"train_steps launched {got}, expected "
+                                 f"{want}")
+        add(got)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train_step losses {losses}")
+        return losses, to_host(m.state_dict()), opt
+
+    losses, params, opt = three_steps(model, dl)
+    # the same steps through the plain layer ops, which form every [E, D]
+    # row (the Gene group's backward holds about five of 9.1 GB at once)
+    model.load_state_dict(init)
+    popt = build_optimizer(model.parameters(), LR, 5e-4)
+    with plain_ops():
+        plosses, plain_mb = peak_mib(lambda: [float(train_step(
+            model, popt, x, dl, b, y_node, w_node)) for b in batches])
+    del popt
+    torch.cuda.empty_cache()
+    np.testing.assert_allclose(losses, plosses, rtol=LOSS_RTOL,
+                               err_msg="(c) train_steps vs the plain ops")
+    plain_par = max(float((v.float() - params[k].float()).abs().max())
+                    for k, v in to_host(model.state_dict()).items())
+    if plain_par > PARAM_ATOL:
+        raise AssertionError(f"(c) parameters after {CMP_STEPS} steps "
+                             f"{plain_par:.3e} from the plain ops', > "
+                             f"{PARAM_ATOL}")
+    b0 = batches[0]
+    _, step_mb = peak_mib(lambda: train_step(model, opt, x, dl, b0, y_node,
+                                             w_node))
+    step_ms = slope_ms(lambda: train_step(model, opt, x, dl, b0, y_node,
+                                          w_node), 2, 6, 1)
+    step_busy = profile_device(lambda: train_step(
+        model, opt, x, dl, b0, y_node, w_node), step_ms, "2M-SNP step", 2)
+    bm = np.stack(host_batches[:SCAN_S])
+    scan, block, _, pool_mb = captured_scan(model, opt, x, dl, y_node,
+                                            w_node, bm)
+    if block != add_counts((SCAN_S, per_step)):
+        raise AssertionError(f"(c) a captured block launched {block}")
+    add(block)
+    scan_ms = slope_ms(lambda: scan(bm), 1, 3, SCAN_S)
+    del scan, opt
+    torch.cuda.empty_cache()
+    log(f"  phase 16c [{card}]: {CMP_STEPS} train_steps launched "
+        f"{add_counts((CMP_STEPS, per_step))}, losses "
+        f"{[f'{v:.6g}' for v in losses]}, the plain ops' "
+        f"{[f'{v:.6g}' for v in plosses]} (rtol {LOSS_RTOL}), parameters "
+        f"{plain_par:.3e} apart (<= {PARAM_ATOL}; the plain steps' peak "
+        f"{plain_mb:.1f} MiB); step {step_ms:.3f} ms eager "
+        f"(slope), {scan_ms:.3f} ms scanned (slope, blocks of {SCAN_S}); "
+        f"the step's peak {step_mb:.1f} MiB above its start, the graph's "
+        f"pool {pool_mb:.1f} MiB")
+
+    data_v = copy.copy(data)
+    data_v.train_mask = np.asarray(data.train_mask)[:FULLKG_BATCHES * BATCH]
+    trainer = kt.KGWAS(data_v, exp_name="chip_smoke_fullkg", seed=SEED)
+    trainer.initialize_model(gnn_num_layers=LAYERS, gnn_hidden_dim=HIDDEN,
+                             no_relu=True)
+    shared_state(trainer)
+    trainer.model.load_state_dict(init)
+    model_counts(zero=True)
+    t0 = time.perf_counter()
+    table = trainer.train(batch_size=BATCH, epoch=1, lr=LR)
+    train_wall = time.perf_counter() - t0
+    counts = model_counts()
+    want = add_counts((scan_counted_steps(FULLKG_BATCHES), per_step),
+                      (2, f_eval))
+    if counts != want:
+        raise AssertionError(f"(c) KGWAS.train launched {counts}, expected "
+                             f"{want}")
+    add(counts)
+    sc = trainer.train_scan
+    if sc is None or (sc.captures, sc.replays) != (1, 1):
+        raise AssertionError(f"(c) captures / replays "
+                             f"{sc and (sc.captures, sc.replays)}")
+    p = np.asarray(table["KGWAS_P"])
+    if len(p) != n_snp or not (np.isfinite(p).all() and p.min() >= 0
+                               and p.max() <= 1):
+        raise AssertionError("(c) KGWAS_P is not finite in [0, 1]")
+    log(f"  phase 16c [{card}]: KGWAS.train over {FULLKG_BATCHES} batches "
+        f"(scan_steps={SCAN_S}: eager block, capture, "
+        f"{FULLKG_BATCHES - 2 * SCAN_S}-step tail) launched {counts}; {train_wall:.1f} s wall, of which "
+        f"{trainer.pred_csv_seconds:.2f} s the pred.csv (formatted once, "
+        f"copied); KGWAS_P over {len(p):,} SNPs in [{p.min():.3g}, "
+        f"{p.max():.3g}]; an epoch of {epoch_steps} steps implies "
+        f"{epoch_steps * step_ms / 1e3:.1f} s eager, "
+        f"{epoch_steps * scan_ms / 1e3:.1f} s scanned")
+    del trainer, table, data_v
+    torch.cuda.empty_cache()
+
+    # (d) the split
+    os.environ[SPLIT_ENV] = FULLKG_SPLIT
+    try:
+        split_layouts = timed("split layouts", engine.merged_layouts, cg)
+        split_run = kt.KGWAS(data, exp_name="chip_smoke_fullkg_split",
+                             seed=SEED)
+        split_run.initialize_model(gnn_num_layers=LAYERS,
+                                   gnn_hidden_dim=HIDDEN, no_relu=True)
+    finally:
+        del os.environ[SPLIT_ENV]
+    if split_run.layouts is not split_layouts:
+        raise AssertionError("(d) the run did not take the split layouts")
+    subs = sorted(t for t in split_layouts if "@" in t)
+    timed("split device layouts", shared_state, split_run)
+    sdl = split_run._device_state()[2]
+    smodel = split_run.model
+    smodel.load_state_dict(init)
+    sf_eval, _ = path_launches(smodel, sdl, False)
+    per_sub = {}
+    model_counts(zero=True)
+    with per_layout_launches(sdl, per_sub):
+        spred = split_run.predict_all()
+    counts = model_counts()
+    if counts != add_counts((1, sf_eval)):
+        raise AssertionError(f"(d) predict_all launched {counts}")
+    add(counts)
+    split_err = float(np.abs(spred - pred).max())
+    np.testing.assert_allclose(spred, pred, rtol=RTOL, atol=ATOL,
+                               err_msg="(d) split predict_all")
+    sf_train, sb_train = path_launches(smodel, sdl, True)
+    with per_layout_launches(sdl, per_sub):
+        slosses, sparams, sopt = three_steps(smodel, sdl, add_counts(
+            (CMP_STEPS, sf_train), (CMP_STEPS, sb_train)))
+    np.testing.assert_allclose(slosses, losses, rtol=LOSS_RTOL,
+                               err_msg="(d) split losses")
+    worst = max(float((sparams[k].float() - params[k].float()).abs().max())
+                for k in params)
+    if worst > PARAM_ATOL:
+        raise AssertionError(f"(d) split parameters {worst:.3e} from the "
+                             f"unsplit run's, > {PARAM_ATOL}")
+    _, split_mb = peak_mib(lambda: train_step(smodel, sopt, x, sdl, b0,
+                                              y_node, w_node))
+    split_step = slope_ms(lambda: train_step(smodel, sopt, x, sdl, b0,
+                                             y_node, w_node), 2, 6, 1)
+    split_busy = profile_device(lambda: train_step(
+        smodel, sopt, x, sdl, b0, y_node, w_node), split_step,
+        "2M-SNP split step", 2)
+    split_fwd = step_times(lambda: split_run._forward(cg, x, sdl),
+                           FULLKG_FWD_REPS, 1)
+    del sopt
+    same = "bitwise" if np.array_equal(spred, pred) else "not bitwise"
+    log(f"  phase 16d [{card}]: {SPLIT_ENV}={FULLKG_SPLIT}: {subs}; "
+        f"predict_all {same} the unsplit one (max abs diff {split_err:.3e}, rtol {RTOL} / atol "
+        f"{ATOL}); 3 steps' losses within rtol {LOSS_RTOL}, parameters "
+        f"{worst:.3e} apart (<= {PARAM_ATOL}); launches by layout "
+        f"(predict_all and 3 steps): {per_sub}")
+    log(f"  phase 16d [{card}]: split / unsplit: step peak {split_mb:.1f} / "
+        f"{step_mb:.1f} MiB, forward {split_fwd:.3f} / {fwd_ms:.3f} ms, step "
+        f"{split_step:.3f} / {step_ms:.3f} ms (slope); split host "
+        f"{host['split layouts']:.2f} s layouts + "
+        f"{host['split device layouts']:.2f} s device layouts; device busy "
+        f"a step {split_busy:.3f} / {step_busy:.3f} ms")
+    log("  phase 16 host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host.items()))
+    SHARED_STATE.clear()
+    del run, split_run, model, smodel, x, dl, sdl
+    torch.cuda.empty_cache()
+    return launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -5839,6 +6236,7 @@ def timed_phase(name, fn, *args):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5961,9 +6359,16 @@ def main():
                                (1, timed_phase("11d", phase_watchdog, card,
                                                tmp)))
     timed_phase("11f", phase_cohort, kt, card, tmp)
+
+    # ---- phase 16: the full knowledge graph (2M SNPs), split and unsplit
+    SHARED_STATE.clear()
+    torch.cuda.empty_cache()
+    long_launches = add_counts((1, long_launches), (1, timed_phase(
+        "16", phase_fullkg, kt, card, tmp)))
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in PHASE_SECONDS.items())
-        + f"; total {sum(PHASE_SECONDS.values()):.1f} s")
+        + f"; total {sum(PHASE_SECONDS.values()):.1f} s; wall "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     train_rows[0]["max_abs_err"] = max(train_rows[0]["max_abs_err"],
                                        worst_small_bwd)

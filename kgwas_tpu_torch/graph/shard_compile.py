@@ -1,8 +1,9 @@
 """Shard compiler: HeteroGraph -> static-shape, destination-sorted arrays.
 
-Counterpart of ``kgwas_tpu/graph/shard_compile.py`` (``compile_graph``), on
-numpy alone: a stable argsort by destination and bincount/cumsum CSR
-offsets, with no C++ extension.
+Counterpart of ``kgwas_tpu/graph/shard_compile.py`` (``compile_graph``): the
+stable sort by destination, the CSC's stable sort by source and the CSR
+offsets run through the port's native ops (``native/shardops.py``: a
+counting sort in C++), whose numpy versions give the same arrays.
 
 Layout per relation (src_type, rel, dst_type):
   * ``src`` int32 [E_pad]  -- source node indices, destination-sorted order
@@ -24,22 +25,12 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from ..native import shardops
 from .schema import EdgeType, HeteroGraph, edge_key
 
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def build_csr_offsets(sorted_dst: np.ndarray, num_rows: int) -> np.ndarray:
-    """CSR row offsets int64 [num_rows+1] from an ascending destination array."""
-    counts = np.bincount(np.asarray(sorted_dst, dtype=np.int64),
-                         minlength=num_rows)
-    if len(counts) > num_rows:
-        raise ValueError("dst index exceeds num_rows")
-    offsets = np.zeros(num_rows + 1, dtype=np.int64)
-    np.cumsum(counts, out=offsets[1:])
-    return offsets
 
 
 @dataclass
@@ -96,26 +87,29 @@ def compile_graph(
     for et in g.edge_types:
         src_t, rel, dst_t = et
         ei = np.asarray(g.edge_index[et])
+        if ei.dtype.kind not in "iu":
+            ei = ei.astype(np.int64)
         e = int(ei.shape[1])
         e_pad = max(round_up(e, edge_pad_multiple), edge_pad_multiple)
         trash = num_nodes[dst_t]
 
         # stable: keeps the input order within a destination
-        order = np.argsort(ei[1].astype(np.int64), kind="stable")
+        order = shardops.stable_order(ei[1], num_nodes[dst_t])
         src_arr = np.zeros(e_pad, dtype=np.int32)
         dst_arr = np.full(e_pad, trash, dtype=np.int32)
         src_arr[:e] = ei[0].astype(np.int64)[order]
         dst_arr[:e] = ei[1].astype(np.int64)[order]
 
-        row_offsets = build_csr_offsets(
+        row_offsets = shardops.csr_offsets(
             dst_arr, padded_nodes[dst_t]).astype(np.int32)
         # CSC: stable-sort edge positions by source (pads keyed to the
         # source-side trash row so they cluster at the tail)
         src_key = src_arr.astype(np.int64)
         src_key[e:] = num_nodes[src_t]
-        csc_perm = np.argsort(src_key, kind="stable").astype(np.int32)
+        csc_perm = shardops.stable_order(
+            src_key, num_nodes[src_t] + 1).astype(np.int32)
         csc_src_sorted = src_key[csc_perm].astype(np.int32)
-        csc_offsets = build_csr_offsets(
+        csc_offsets = shardops.csr_offsets(
             csc_src_sorted, padded_nodes[src_t]).astype(np.int32)
 
         relations[edge_key(et)] = RelationShard(

@@ -19,25 +19,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..native import shardops
 from .schema import HeteroGraph
 
 REV_PREFIX = "rev_"
 
 
 def coalesce(edge_index: np.ndarray, num_src: int, num_dst: int) -> np.ndarray:
-    """Sort edges by (dst-major is PyG's layout? PyG coalesce sorts by row=src,
-    then col=dst) and remove duplicates. Returns int64 [2, E']."""
+    """Sort edges as PyG's coalesce does (by row = src, then col = dst) and
+    remove duplicates (native/shardops.coalesce). Returns int64 [2, E']."""
     if edge_index.shape[1] == 0:
         return edge_index.astype(np.int64)
-    src = edge_index[0].astype(np.int64)
-    dst = edge_index[1].astype(np.int64)
-    key = src * int(num_dst) + dst
-    order = np.argsort(key, kind="stable")
-    key_sorted = key[order]
-    keep = np.ones(len(key_sorted), dtype=bool)
-    keep[1:] = key_sorted[1:] != key_sorted[:-1]
-    sel = order[keep]
-    return np.stack([src[sel], dst[sel]])
+    return np.stack(shardops.coalesce(edge_index[0], edge_index[1], num_dst))
 
 
 def to_undirected(g: HeteroGraph) -> HeteroGraph:

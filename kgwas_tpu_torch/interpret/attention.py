@@ -6,7 +6,10 @@ kgwas/utils.py:437-494, get_network_weight). The interpretation forward is
 mode over every destination group of every layer, with the reference's two
 quirks kept: the raw (pre-softmax) weight weights the messages, and no
 ReLU runs between layers. The table is a column table (``dict[str,
-np.ndarray]``).
+np.ndarray]``). Under dst-range sub-layouts (``KGWAS_MERGED_MAX_EDGES``)
+the forward runs on the sub-layouts and joins each relation's weights
+from them in node order, which is the relation's own edge order, so the
+tables are those of the unsplit layouts.
 """
 from __future__ import annotations
 

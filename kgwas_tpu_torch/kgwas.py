@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import copy
 import os
+import shutil
 import time
 from typing import Optional
 
@@ -32,7 +33,7 @@ from .engine.loop import (TrainScan, epoch_batches, forward,
 from .engine.optim import build_optimizer
 from .engine.profiling import ThroughputMeter, profile_trace
 from .engine.streamed import strip_streamed_features, train_step_streamed
-from .graph.merged_layout import build_merged_layouts
+from .graph.merged_layout import build_merged_layouts, max_edges_setting
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
                                  layer_paths)
 from .stats.calibration import finalize_predictions
@@ -43,13 +44,18 @@ TILE_ROWS = 512
 
 def merged_layouts(cg) -> dict:
     """The compiled graph's merged layouts (build_merged_layouts with
-    TILE_ROWS), built at the first call and kept on the graph: a compiled
-    graph never changes, so the models initialised on it share them."""
+    TILE_ROWS), built at the first call under each KGWAS_MERGED_MAX_EDGES
+    setting and kept on the graph: a compiled graph never changes, so the
+    models initialised on it under one setting share them, and a model
+    initialised under another gets that setting's split."""
+    spec = max_edges_setting()
     cached = getattr(cg, "_merged_layouts", None)
     if cached is None:
-        cached = cg._merged_layouts = build_merged_layouts(
-            cg, tile_rows=TILE_ROWS)
-    return cached
+        cached = cg._merged_layouts = {}
+    if spec not in cached:
+        cached[spec] = build_merged_layouts(cg, tile_rows=TILE_ROWS,
+                                            max_edges=spec)
+    return cached[spec]
 
 
 _SEMANTIC_KEYS = ("negative_slope", "dropout", "sigmoid_gat", "temperature",
@@ -308,7 +314,9 @@ class KGWAS:
         and the best state by ascending val Pearson (from -1000) is kept.
         The best state is saved in the JAX package's checkpoint format,
         scores the test SNPs and gives KGWAS_P; ``predict_all()`` then
-        serves it. Returns the KGWAS_P table, also written as pred.csv.
+        serves it. Returns the KGWAS_P table, also written as pred.csv
+        (formatted once, then copied into the checkpoint directory;
+        pred_csv_seconds: the host seconds of both).
 
         scan_steps=S > 1 runs the epoch in blocks of S steps while at least
         S remain, as the JAX package's lax.scan of S steps does, on one
@@ -614,10 +622,13 @@ class KGWAS:
                                    "new_experiments")
             os.makedirs(out_dir, exist_ok=True)
             out_csv = os.path.join(out_dir, save_name + "_pred.csv")
+            t0 = time.perf_counter()
             write_table(table, out_csv)
             print_sys("KGWAS prediction and p-values saved to " + out_csv)
             if save_best_model:
-                write_table(table, os.path.join(model_dir, "pred.csv"))
+                # the same bytes: formatted once, copied
+                shutil.copyfile(out_csv, os.path.join(model_dir, "pred.csv"))
+            self.pred_csv_seconds = time.perf_counter() - t0
         self.kgwas_res = table
         return table
 

@@ -44,6 +44,17 @@ biases (``apply_merged_gat_layer``). The per-relation softmax GAT runs #6
 and #7 on bf16 messages (and bf16 logits under the compute dtype) and
 keeps each relation's output float32.
 
+Dst-range sub-layouts (``graph/merged_layout.split_merged_layout``, with
+``KGWAS_MERGED_MAX_EDGES``): the layouts of one destination type may be
+several, ``"<type>@<k>"``, each over the nodes ``node_base ..
+node_base + n_rows_per_rel`` of ``base_type``. ``device_layouts`` joins
+them into one ``ops/split.SplitGroup``, which the layer paths run as they
+run one layout (``layout_groups``): the group's source table and a_dst are
+projected once per head, ``SplitMergedGAT`` and ``SplitCSRSum`` launch the
+kernels per sub-layout and join the rows (the table's gradient summed in
+one buffer), and the per-relation path runs the group's relation streams
+once.
+
 ``HeteroGNN.collect_attention`` is the interpretation forward (the JAX
 package's ``apply_collect_attention``): every destination group of every
 layer through the merged GAT forward in its raw mode, no ReLU between
@@ -56,7 +67,7 @@ state_dict loads a reference ``model.pt`` as it is: ``snp_feat_mlp.*``,
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -73,6 +84,8 @@ from ..ops.segment_ref import leaky_relu
 from ..ops.schedule import (CSR_CHUNK_EDGES, CSR_MAX_EDGES, Schedule,
                             row_schedule)
 from ..ops.segment import CSRSegmentSum, csc_fields
+from ..ops.split import (SplitCall, SplitCSRSum, SplitGroup, SplitMergedGAT,
+                         base_groups, join_slots, split_slots)
 from .convs import (gat_relation, gcn_relation, make_conv, sage_relation,
                     sgc_relation)
 from .init import torch_linear_bias, torch_linear_weight
@@ -200,15 +213,48 @@ class DeviceLayout:
     csc_schedule: Optional[Schedule] = None
     csc_rows: Optional[torch.Tensor] = None
     csc_fold: bool = False
+    # a dst-range sub-layout: the nodes node_base .. node_base +
+    # n_rows_per_rel of base_type (None: a whole group), and the SplitGroup
+    # of its type's sub-layouts
+    base_type: Optional[str] = None
+    node_base: int = 0
+    group: Optional[SplitGroup] = field(default=None, repr=False,
+                                        compare=False)
 
 
-def degree_norms(src, dst, n_src: int, n_dst: int, n_edges: int):
+def layout_groups(layouts) -> dict:
+    """Destination type -> what the layer paths run for it: its layout, or
+    the SplitGroup of its dst-range sub-layouts (device_layouts)."""
+    return {L.base_type or t: L if L.group is None else L.group
+            for t, L in layouts.items()}
+
+
+def split_group(subs) -> SplitGroup:
+    """The SplitGroup of one type's device sub-layouts [(key, layout)] in
+    node order, with the 'mp' path's norms joined where they have them;
+    each sub-layout keeps it as its group."""
+    parts = tuple(L for _, L in subs)
+    n_rel = len(parts[0].rel_keys)
+    mp = parts[0].inv_deg is not None
+    group = SplitGroup(
+        tuple(t for t, _ in subs), parts,
+        inv_deg=join_slots([L.inv_deg for L in parts], n_rel) if mp else None,
+        sym_e=torch.cat([L.sym_e for L in parts]) if mp else None)
+    for L in parts:
+        L.group = group
+    return group
+
+
+def degree_norms(src, dst, n_src: int, n_dst: int, n_edges: int,
+                 deg_src=None):
     """(inv_deg [n_dst], sym_e [n_edges]) float32 over the edges (src, dst)
     (numpy): the static, degree-only norms of the SAGE mean and the
     GCN/SGC symmetric norm (the JAX package's _merged_mp_norms, _sym_norm);
-    sym_e is 0 past the given edges."""
+    sym_e is 0 past the given edges. deg_src: the source degrees [n_src]
+    where they count more edges than these (a sub-layout's parent's)."""
     deg_dst = np.bincount(dst, minlength=n_dst).astype(np.float32)
-    deg_src = np.bincount(src, minlength=n_src).astype(np.float32)
+    if deg_src is None:
+        deg_src = np.bincount(src, minlength=n_src).astype(np.float32)
     inv_deg = np.where(deg_dst > 0, 1.0 / np.maximum(deg_dst, 1.0), 0.0)
     dinv_dst = np.where(deg_dst > 0,
                         1.0 / np.sqrt(np.maximum(deg_dst, 1.0)), 0.0)
@@ -221,9 +267,11 @@ def degree_norms(src, dst, n_src: int, n_dst: int, n_edges: int):
 
 def merged_mp_norms(L):
     """degree_norms of a merged layout. Pad edges sit on trash rows and
-    trash source rows, so the whole stream gives the real rows' degrees."""
+    trash source rows, so the whole stream gives the real rows' degrees;
+    a dst-range sub-layout takes its parent's source degrees
+    (parent_src_deg), as the JAX package's _merged_mp_norms does."""
     return degree_norms(L.src, L.dst, L.n_src_total, L.n_rows_total,
-                        len(L.src))
+                        len(L.src), L.parent_src_deg)
 
 
 def relation_norms(r, n_src: int, n_dst: int):
@@ -246,13 +294,15 @@ def device_layouts(layouts, device, cg=None, path="merged"
     source row 0, and its CSC, which sends their cotangents to the source
     trash row, as the JAX package does) with its rows' schedule (which the
     segment softmax kernels and the CSR segment sum take alike) and its
-    degree norms over its real edges (relation_norms). Every stream whose
+    degree norms over its real edges (relation_norms), built once per
+    relation and shared by a group's sub-layouts. Every stream whose
     backward runs the CSC segment sum carries its fields
     (segment.csc_fields): the merged ones on 'merged' (with the fold) and
     'mp', the relation streams on 'relations'. On 'merged' each stream's
     slots are checked to read only their own source rows
     (gat_layer.check_src_owner), as the bf16 instances' per-row scores
-    need. All are built once: a layout never changes."""
+    need. A type's dst-range sub-layouts are joined into their SplitGroup
+    (split_group). All are built once: a layout never changes."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -276,6 +326,7 @@ def device_layouts(layouts, device, cg=None, path="merged"
             **csc_fields(r.dst, r.csc_perm, r.csc_offsets, n, (0, n_src), 0,
                          device))
 
+    streams = {}   # relkey -> its relation stream, one per relation
     out = {}
     for t, L in layouts.items():
         extra = {}
@@ -291,7 +342,10 @@ def device_layouts(layouts, device, cg=None, path="merged"
                              L.row_offsets, CSR_MAX_EDGES,
                              CSR_CHUNK_EDGES).to(device))
         if "relations" in paths:
-            extra["relations"] = [relation(rk) for rk in L.rel_keys]
+            for rk in L.rel_keys:
+                if rk not in streams:
+                    streams[rk] = relation(rk)
+            extra["relations"] = [streams[rk] for rk in L.rel_keys]
         if "merged" in paths:
             check_src_owner(L.src, L.row_offsets, L.n_rows_per_rel,
                             L.src_base)
@@ -313,8 +367,13 @@ def device_layouts(layouts, device, cg=None, path="merged"
             csc_offsets=put(L.csc_offsets),
             edge_base=tuple(int(b) for b in L.edge_base),
             rel_num_edges=tuple(int(e) for e in L.rel_num_edges),
+            base_type=L.base_type,
+            node_base=int(L.node_base),
             **extra,
         )
+    for subs in base_groups(out).values():
+        if subs[0][1].base_type is not None:
+            split_group(subs)
     return out
 
 
@@ -331,6 +390,26 @@ def fold_schedule(L: DeviceLayout, fold: int = 0):
         L.gat_schedule = sched
     else:
         L.gat_fold0_schedule = sched
+
+
+def mp_segment_sum(xs_all, L, rank, mean: bool):
+    """The 'mp' layer's sum [R*N, D] over layout L's merged stream, each
+    edge weighted by sym_e (mean: unweighted, times inv_deg), on the rank's
+    rows of a mesh's 'data' axis all-gathered (rank: its RankStream, a
+    split group's a SplitCall of them; None: the whole stream)."""
+    if isinstance(rank, SplitCall):
+        return join_slots([mp_segment_sum(xs_all, P, r, mean)
+                           for P, r in zip(L.parts, rank.parts)],
+                          len(L.rel_keys))
+    RL = L if rank is None else rank.layout
+    if RL is None:   # a rank without rows of the stream
+        summed = xs_all[:0].to(torch.float32)
+    else:
+        op = SplitCSRSum if isinstance(RL, SplitGroup) else CSRSegmentSum
+        summed = op.apply(xs_all, None if mean else RL.sym_e, RL)
+        if mean:
+            summed = summed * RL.inv_deg[:, None]
+    return summed if rank is None else rank.gather(summed)
 
 
 class HeteroGNN(nn.Module):
@@ -399,7 +478,8 @@ class HeteroGNN(nn.Module):
                      alphas: Optional[dict] = None, cdt=torch.float32,
                      sdt=None, merged_fns: Optional[dict] = None):
         """One hetero GAT layer, per head one kernel launch per destination
-        group (the JAX package's loop over heads in apply_merged_gat_layer:
+        group (per sub-layout of a split group: SplitMergedGAT; the JAX
+        package's loop over heads in apply_merged_gat_layer:
         each head's slice of lin_src and lin_dst @ att_dst, at D = hidden),
         the heads concatenated. mode: the kernel's weights, by default the
         model's ('softmax', or 'sigmoid' with sigmoid_gat); the
@@ -414,7 +494,8 @@ class HeteroGNN(nn.Module):
         passes float32 and rounds the table's values instead (its raw
         weights multiply the messages in float32, as the JAX package's
         per-relation collect path does). merged_fns: dst type -> the group's
-        layer over a mesh (parallel/merged_shard.ShardedMergedGroup), which
+        layer over a mesh (parallel/merged_shard.ShardedMergedGroup, a
+        split group's a SplitCall of its sub-layouts'), which
         projects its rank's rows of the source table (x_lo..x_hi) and
         returns the unfolded [R*N, D] output, summed over relations here
         (the JAX package's merged_kernel_fns)."""
@@ -423,7 +504,9 @@ class HeteroGNN(nn.Module):
             mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
         n_heads = cfg.gat_num_head
         out = {}
-        for dst_t, L in layouts.items():
+        for dst_t, L in layout_groups(layouts).items():
+            gat = SplitMergedGAT if isinstance(L, SplitGroup) else (
+                MergedGATLayer)
             convs = [layer.convs[rk] for rk in L.rel_keys]
             n_rel = len(convs)
             fold = (n_rel if cfg.gnn_aggr in ("sum", "mean")
@@ -458,7 +541,7 @@ class HeteroGNN(nn.Module):
                             cfg.stream_dtype)).to(xs_all.dtype)
                     head_alphas.append(self.edge_weights(L, xs_all, att,
                                                          a_dst_all, mode))
-                heads.append(MergedGATLayer.apply(
+                heads.append(gat.apply(
                     xs_all, att.contiguous(), a_dst_all.contiguous(), L,
                     fold, mode, cfg.negative_slope, cfg.temperature, sdt))
             if alphas is not None:
@@ -486,8 +569,15 @@ class HeteroGNN(nn.Module):
         own order, for one head: the logit leaky_relu(a_src[src] +
         a_dst[dst]) in the raw mode, sigmoid(logit / temperature) in the
         sigmoid mode (the JAX package's apply_gat alpha with
-        raw_attention)."""
+        raw_attention). A split group's: its sub-layouts' on their rows
+        of a_dst_all, joined in node order, the relation's own order."""
         cfg = self.cfg
+        if isinstance(L, SplitGroup):
+            parts = [self.edge_weights(P, xs_all, att, a, mode)
+                     for P, a in zip(L.parts, split_slots(
+                         a_dst_all, L.sizes, len(L.rel_keys)))]
+            return {rk: torch.cat([p[rk] for p in parts])
+                    for rk in L.rel_keys}
         a_src_all = torch.cat([
             (xs_all[L.src_base[s]:L.src_base[s + 1]] * att[s]).sum(-1)
             for s in range(len(L.rel_keys))])
@@ -517,13 +607,14 @@ class HeteroGNN(nn.Module):
         group's relation streams on this rank of a mesh's 'data' axis
         (parallel/relation_shard.RankRelations): each relation runs on the
         rank's rows (its block of keep and edge_attr), the aggregation
-        too, and the rows are all-gathered once per destination type."""
+        too, and the rows are all-gathered once per destination type. A
+        split group runs its relation streams once."""
         cfg = self.cfg
         bb = cfg.gnn_backbone
         mode = "sigmoid" if cfg.sigmoid_gat else "softmax"
         cdt = self.compute_dtype
         out = {}
-        for dst_t, L in layouts.items():
+        for dst_t, L in layout_groups(layouts).items():
             if L.relations is None:
                 raise ValueError(
                     f"layout {dst_t!r} has no per-relation streams: build it "
@@ -565,16 +656,18 @@ class HeteroGNN(nn.Module):
                  layouts: Dict[str, DeviceLayout],
                  rank_fns: Optional[dict] = None):
         """One SAGE / GCN / SGC hetero layer, one launch of the CSR segment
-        sum per destination group over its merged stream (the JAX
-        package's apply_merged_mp_layer). rank_fns: dst type -> the
-        group's RankStream on this rank of a mesh's 'data' axis
-        (parallel/relation_shard.py): the sum runs on the rank's rows of
-        the merged stream and is all-gathered before the dense maps."""
+        sum per destination group (per sub-layout of a split group) over
+        its merged stream (the JAX package's apply_merged_mp_layer; the sum:
+        mp_segment_sum). rank_fns: dst type -> the group's RankStream on
+        this rank of a mesh's 'data' axis (a split group's: a SplitCall of
+        its sub-layouts'; parallel/relation_shard.py): the sum runs on the
+        rank's rows of the merged stream and is all-gathered before the
+        dense maps."""
         cfg = self.cfg
         bb = cfg.gnn_backbone
         cdt = self.compute_dtype
         out = {}
-        for dst_t, L in layouts.items():
+        for dst_t, L in layout_groups(layouts).items():
             if L.inv_deg is None:
                 raise ValueError(
                     f"layout {dst_t!r} has no degree norms: build it with "
@@ -587,17 +680,8 @@ class HeteroGNN(nn.Module):
             table = functools.partial(self.source_rows, h, L, convs, weight,
                                       cdt)
             rank = None if rank_fns is None else rank_fns[dst_t]
-            xs_all, RL = ((table(), L) if rank is None else
-                          (rank.source(table), rank.layout))
-            if RL is None:   # a rank without rows of the stream
-                summed = xs_all[:0].to(torch.float32)
-            else:
-                summed = CSRSegmentSum.apply(
-                    xs_all, None if bb == "SAGE" else RL.sym_e, RL)
-                if bb == "SAGE":
-                    summed = summed * RL.inv_deg[:, None]           # mean
-            if rank is not None:
-                summed = rank.gather(summed)
+            xs_all = table() if rank is None else rank.source(table)
+            summed = mp_segment_sum(xs_all, L, rank, bb == "SAGE")
             rel = summed.reshape(len(convs), L.n_rows_per_rel, -1)
             # the f32 sum promotes what follows, as in the JAX package
             if bb == "SAGE":
@@ -641,7 +725,7 @@ class HeteroGNN(nn.Module):
         numbers)."""
         p = self.cfg.dropout
         out = {}
-        for L in layouts.values():
+        for L in layout_groups(layouts).values():
             for rk, RL in zip(L.rel_keys, L.relations):
                 u = torch.rand((RL.src.shape[0], self.cfg.gat_num_head),
                                generator=gen, device=gen.device)
@@ -656,14 +740,17 @@ class HeteroGNN(nn.Module):
         next layer reads: their source types and, where the layer reads the
         destination's own row (GAT's a_dst, SAGE's lin_r; not GCN or SGC),
         their own. The JAX package's jit drops the other groups as dead
-        code."""
+        code. A split group's sub-layouts are live together."""
         reads_dst = self.cfg.gnn_backbone in ("GAT", "SAGE")
         need = {"SNP"}
         per_layer = []
         for _ in self.convs:
-            live = [t for t in layouts if t in need]
+            # a sub-layout counts as its base type
+            live = [t for t, L in layouts.items()
+                    if (L.base_type or t) in need]
             per_layer.append(live)
-            need = set(live) if reads_dst else set()
+            need = ({layouts[t].base_type or t for t in live} if reads_dst
+                    else set())
             need = need.union(*(layouts[t].src_types for t in live))
         return per_layer[::-1], need
 
@@ -675,9 +762,10 @@ class HeteroGNN(nn.Module):
         group through merged_layer in the raw mode (sigmoid with
         sigmoid_gat), each head, with NO ReLU between layers and no head.
         Returns, per layer, relkey -> the weight of each real edge and head
-        [E, H] in the relation's own order (edge_weights), the keys in
-        sorted order. SAGE, GCN and SGC have no attention: one empty dict
-        per layer, as the JAX package returns. No compute cast, as in
+        [E, H] in the relation's own order (edge_weights; a split group's
+        sub-layouts' joined in node order), the keys in sorted order.
+        SAGE, GCN and SGC have no attention: one empty dict per layer, as
+        the JAX package returns. No compute cast, as in
         apply_collect_attention: it runs in float32 (bf16 parameters
         promoted), the stream dtype rounding the table's values."""
         cfg = self.cfg

@@ -8,6 +8,9 @@ A library whose hash is already there is reused. ``build_all`` starts one
 nvcc per source, all at once. A source may export several entry points
 (the f32 and bf16 instances of a kernel): each is a name of ``KERNELS``,
 and the names of one source share its library and its build.
+
+``build_host`` builds a host C++ source with a C interface (``native/``)
+the same way, with the host compiler (``$CXX``, else ``c++``).
 """
 from __future__ import annotations
 
@@ -230,18 +233,49 @@ def build_source(source, name, entry, argtypes):
     if out.exists():
         _log_build(name, out, 0.0, None)
     else:
-        build_dir().mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)
-        _log_build(name, out, time.perf_counter() - t0,
-                   proc.stdout + proc.stderr)
+        text = _compile_once([_nvcc(), *NVCC_FLAGS], source, out)
+        _log_build(name, out, time.perf_counter() - t0, text)
     return _entry(out, entry, argtypes)
+
+
+def _compile_once(cmd, source, out) -> str:
+    """Runs cmd + [-o tmp, source] and renames tmp to out (so that
+    processes building the same library at once each finish with a whole
+    one); raises with the compiler's output where it fails, else returns
+    that output."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(cmd[0]).name} failed for {source}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+# the host compiler of the port's C++ sources (native/) and its flags
+HOST_CXX = os.environ.get("CXX", "c++")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+
+def build_host(source, name) -> ctypes.CDLL:
+    """The loaded library of a host C++ source with a C interface, compiled
+    with HOST_CXX into build_dir() under a hash of the source and the
+    flags (reused where it is there). Raises where the compiler is missing
+    or fails, with its output: there is no other route."""
+    source = Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join((HOST_CXX,) + HOST_FLAGS).encode())
+    out = build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        cxx = shutil.which(HOST_CXX)
+        if cxx is None:
+            raise RuntimeError(f"host C++ compiler {HOST_CXX!r} not found "
+                               f"(set CXX) to build {source}")
+        _compile_once([cxx, *HOST_FLAGS], source, out)
+    return ctypes.CDLL(str(out))
 
 
 def ptxas_entries(text: str):

@@ -40,6 +40,7 @@ import torch
 from ..graph.merged_layout import MergedDstLayout
 from ..ops import gat_layer, segment
 from ..ops.gat_layer import BWD_CHUNK_EDGES
+from ..ops.split import SplitCall, base_groups
 from .mesh import (Mesh, all_gather_rows, gather_rows, reduce_scatter_rows,
                    split_bounds)
 
@@ -295,8 +296,15 @@ class ShardedMergedGroup:
 
 
 def make_sharded_merged_fns(layouts: dict, mesh: Mesh, device) -> dict:
-    """dst_type -> ShardedMergedGroup for every merged layout (the JAX
-    package's make_sharded_merged_kernel_fns): the static per-rank layouts
-    and schedules, built once per mesh."""
-    return {t: ShardedMergedGroup(L, mesh, device)
-            for t, L in layouts.items()}
+    """dst type -> ShardedMergedGroup for every merged layout (the JAX
+    package's make_sharded_merged_kernel_fns, which builds one per entry of
+    meta["merged"]), a split group's dst-range sub-layouts' rows each
+    sharded like any layout's and joined by a SplitCall: the static
+    per-rank layouts and schedules, built once per mesh."""
+    out = {}
+    for t, subs in base_groups(layouts).items():
+        fns = [ShardedMergedGroup(L, mesh, device) for _, L in subs]
+        out[t] = fns[0] if subs[0][1].base_type is None else SplitCall(
+            fns, [L.n_rows_per_rel for _, L in subs],
+            len(subs[0][1].rel_keys))
+    return out

@@ -45,6 +45,7 @@ import torch
 from ..models.hetero_gnn import DeviceLayout, merged_mp_norms, relation_norms
 from ..ops.schedule import CSR_CHUNK_EDGES, CSR_MAX_EDGES, row_schedule
 from ..ops.segment import csc_fields
+from ..ops.split import SplitCall, base_groups
 from .merged_shard import TILE
 from .mesh import Mesh, all_gather_rows, split_bounds
 
@@ -183,13 +184,23 @@ class RankRelations:
 
 
 def make_relation_fns(layouts: dict, cg, mesh: Mesh, device) -> dict:
-    """dst_type -> RankRelations for every merged layout given: the rank's
+    """dst_type -> RankRelations for every destination type of the merged
+    layouts given (a split group's sub-layouts share one): the rank's
     blocks of the relation streams, built once per mesh."""
-    return {t: RankRelations(L, cg, mesh, device) for t, L in layouts.items()}
+    return {t: RankRelations(subs[0][1], cg, mesh, device)
+            for t, subs in base_groups(layouts).items()}
 
 
 def make_mp_fns(layouts: dict, mesh: Mesh, device) -> dict:
-    """dst_type -> the rank's RankStream of each merged layout for the 'mp'
-    path (HeteroGNN.mp_layer's rank_fns), built once per mesh."""
-    return {t: mp_rank_stream(L, mesh.data, mesh.data_rank, device,
-                              mesh.data_group) for t, L in layouts.items()}
+    """dst type -> the rank's RankStream of each merged layout for the 'mp'
+    path (HeteroGNN.mp_layer's rank_fns), a split group's dst-range
+    sub-layouts' rows each blocked like any layout's and held in node order
+    by a SplitCall; built once per mesh."""
+    out = {}
+    for t, subs in base_groups(layouts).items():
+        ranks = [mp_rank_stream(L, mesh.data, mesh.data_rank, device,
+                                mesh.data_group) for _, L in subs]
+        out[t] = ranks[0] if subs[0][1].base_type is None else SplitCall(
+            ranks, [L.n_rows_per_rel for _, L in subs],
+            len(subs[0][1].rel_keys))
+    return out

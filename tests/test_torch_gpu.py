@@ -68,6 +68,13 @@ staging, a copy stream) against a float64 dense product, and the train
 state's asynchronous host copy (engine/checkpoint.host_train_state)
 against an in-place update issued after it.
 
+Dst-range sub-layouts (KGWAS_MERGED_MAX_EDGES, on the 20k-SNP KG with
+Gene in 2 and SNP in 4): #1 (fold R and 0), #2, #8 and #10 on every
+sub-layout's stream against their plain versions, two runs the same bits;
+GAT, SAGE and GCN forwards and one step's gradients on the sub-layouts
+against the unsplit layouts, one launch per live sub-layout and layer,
+two split runs bitwise.
+
 Scanned dispatch (engine/loop.TrainScan): a replayed CUDA graph of S
 steps bitwise the same S steps eager (losses, parameters, Adam's state)
 for GAT sum, GAT max and GCN on the 20k-SNP KG; the graph captured again
@@ -2445,3 +2452,150 @@ def test_sharded_merged_gat_uneven_blocks_match_unsharded(mode, cuda_device,
             segment.launches) == tuple(b + n_dev for b in before)
     _close(torch.cat(outs), want.detach(), n, cg.num_nodes["SNP"])
     _close_grad(d_xs, leaf.grad)
+
+
+# ------------------- dst-range sub-layouts (KGWAS_MERGED_MAX_EDGES)
+
+# Gene in 2 sub-layouts, SNP in 4, on the 20k-SNP KG
+SPLIT_CAP = "Gene:100000,SNP:30000"
+
+
+@pytest.fixture(scope="module")
+def split_world(cuda_device):
+    g = make_synthetic_kg(n_snp=20_000, n_gene=2_000, n_go=1_200, seed=0)
+    cg = compile_graph(g, edge_pad_multiple=512, node_pad_multiple=512)
+    whole = build_merged_layouts(cg, tile_rows=512)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KGWAS_MERGED_MAX_EDGES", SPLIT_CAP)
+        split = build_merged_layouts(cg, tile_rows=512)
+    subs = {t: L for t, L in split.items() if L.base_type is not None}
+    assert sorted(subs) == ["Gene@0", "Gene@1", "SNP@0", "SNP@1", "SNP@2",
+                            "SNP@3"]
+    return cg, whole, split, subs
+
+
+def _sub_trash_mask(L, n_real, n_out):
+    """The rows of a sub-layout's output of n_out rows (N, or R * N: one
+    block of N a slot) that are its group's trash row, where the
+    sub-layout holds it."""
+    mask = np.zeros(n_out, dtype=bool)
+    local = n_real - L.node_base
+    if 0 <= local < L.n_rows_per_rel:
+        mask[local::L.n_rows_per_rel] = True
+    return mask
+
+
+def test_layer_kernels_on_every_sub_layout_match_plain(cuda_device,
+                                                       split_world):
+    """#1 (fold R and 0), #2 and #8 (the merged layer's backward) and #10
+    (the 'mp' forward, with and without weights) on each sub-layout's
+    stream, which reads the whole group's source table: two runs the same
+    bits, against the plain versions (forward rtol 1e-5, atol 1e-5, the
+    trash row rtol 1e-4; gradients as above; #10 by the float64 rule)."""
+    cg, _, split, subs = split_world
+    dls = device_layouts(split, cuda_device, cg, ("merged", "mp"))
+    rng = np.random.default_rng(31)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    for key, L in subs.items():
+        DL, R = dls[key], len(L.rel_keys)
+        n_real = cg.num_nodes[L.base_type]
+        xs = t((rng.standard_normal((L.n_src_total, D)) * 0.1
+                ).astype(np.float32))
+        att = t((rng.standard_normal((R, D)) * 0.2).astype(np.float32))
+        a_dst = t((rng.standard_normal(L.n_rows_total) * 0.5
+                   ).astype(np.float32))
+        for fold in (R, 0):
+            args = (xs, DL.src, DL.row_offsets, att, a_dst,
+                    L.n_rows_per_rel, fold, "softmax", 0.2, 1.0)
+            sched = gat_layer.layout_schedule(DL, fold)
+            before = gat_layer.launches
+            got = _repeat_equal(lambda *a: gat_layer.merged_gat_forward(
+                *a, sched=sched), *args)
+            assert gat_layer.launches == before + 2
+            want = gat_layer.merged_gat_forward_plain(*args)
+            for g_, w_ in zip(got, want):
+                g_, w_ = g_.cpu().numpy(), w_.cpu().numpy()
+                mask = _sub_trash_mask(L, n_real, len(g_))
+                np.testing.assert_allclose(g_[~mask], w_[~mask], rtol=1e-5,
+                                           atol=1e-5, err_msg=key)
+                np.testing.assert_allclose(g_[mask], w_[mask], rtol=1e-4,
+                                           atol=1e-5, err_msg=key)
+        _, row_max, row_sum = gat_layer.merged_gat_forward(
+            xs, DL.src, DL.row_offsets, att, a_dst, L.n_rows_per_rel, R,
+            "softmax", 0.2, 1.0, sched=DL.gat_schedule)
+        g = t(rng.standard_normal((L.n_rows_per_rel, D)).astype(np.float32))
+        bargs = (xs, DL.src, DL.row_offsets, att, a_dst, row_max, row_sum, g,
+                 L.n_rows_per_rel, R, "softmax", 0.2, 1.0)
+        before = (gat_layer.bwd_launches, segment.launches)
+        edge = _repeat_equal(lambda *a: gat_layer.merged_gat_bwd(
+            *a, sched=DL.gat_bwd_schedule), *bargs)
+        sums = _repeat_equal(lambda: segment.csc_segment_sum(
+            g, edge[0], edge[1], xs, att, DL, R))
+        assert (gat_layer.bwd_launches, segment.launches) == (
+            before[0] + 2, before[1] + 2)
+        for got_, want_ in zip(edge + sums,
+                               gat_layer.merged_gat_bwd_plain(*bargs)
+                               + segment.csc_segment_sum_plain(
+                                   g, edge[0], edge[1], xs, att, DL, R)):
+            _close_grad(got_, want_)
+        for weighted in (False, True):
+            cargs = (xs, DL.src, DL.row_offsets,
+                     DL.sym_e if weighted else None)
+            before = segment.csr_launches
+            (got_,) = _repeat_equal(lambda *a: (segment.csr_segment_sum(
+                *a, sched=DL.row_schedule),), *cargs)
+            assert segment.csr_launches == before + 2
+            _grad_rule(got_, segment.csr_segment_sum_plain(*cargs),
+                       segment.csr_segment_sum_plain(*_as_double(cargs)))
+
+
+@pytest.mark.parametrize("backbone", ["GAT", "SAGE", "GCN"])
+def test_split_forward_and_step_match_unsplit(backbone, cuda_device,
+                                              split_world):
+    """The model's forward and one step's gradients on the sub-layouts
+    against the unsplit layouts (forward rtol 1e-5, atol 1e-5; gradients
+    at rtol 1e-4 with a floor of 1e-5 of each array's largest entry and
+    1e-8 of the largest gradient: att_dst's cancels to noise), #1 / #10
+    launched once per live sub-layout and layer; two split runs bitwise."""
+    cg, whole, split, _ = split_world
+    cfg = ModelConfig(gnn_hidden_dim=D, gnn_num_layers=2, no_relu=True,
+                      gnn_backbone=backbone)
+    rel_types = {k: (r.src_type, r.rel, r.dst_type)
+                 for k, r in cg.relations.items()}
+    dims = [cg.node_x[t].shape[1] for t in ("SNP", "Gene",
+                                              "BiologicalProcess")]
+    x = {t: torch.from_numpy(v).to(cuda_device) for t, v in cg.node_x.items()}
+    n = cg.num_nodes["SNP"]
+    batch = torch.arange(0, n, 37, device=cuda_device)[:512]
+    y = torch.rand(cg.padded_nodes["SNP"], device=cuda_device)
+
+    def run(layouts):
+        model = HeteroGNN(cfg, rel_types, *dims, seed=0).to(cuda_device)
+        dl = device_layouts(layouts, cuda_device, cg, layer_paths(cfg))
+        counts = (gat_layer.launches, segment.csr_launches)
+        pred = model(x, dl, training=True)
+        launched = (gat_layer.launches - counts[0],
+                    segment.csr_launches - counts[1])
+        ((pred[batch, 0] - y[batch]) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad for k, p in model.named_parameters()
+                 if p.grad is not None}
+        live = model.live_groups(dl)[0]
+        return pred.detach(), grads, launched, sum(len(g) for g in live)
+
+    want, wgrads, _, _ = run(whole)
+    got, grads, launched, n_live = run(split)
+    again, grads2, _, _ = run(split)
+    assert n_live == (10 if backbone != "GCN" else 6)   # 6 + 4; GCN: 2 + 4
+    assert launched == ((n_live, 0) if backbone == "GAT" else (0, n_live))
+    assert torch.equal(got, again)
+    assert all(torch.equal(grads[k], grads2[k]) for k in grads)
+    np.testing.assert_allclose(got[:n].cpu().numpy(), want[:n].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert sorted(grads) == sorted(wgrads)
+    top = max(float(v.abs().max()) for v in wgrads.values())
+    for k, v in wgrads.items():
+        w_ = v.cpu().numpy()
+        np.testing.assert_allclose(
+            grads[k].cpu().numpy(), w_, rtol=1e-4,
+            atol=1e-5 * np.abs(w_).max() + 1e-8 * top, err_msg=k)
