@@ -209,9 +209,33 @@ PyTorch version:
      (b)'s, three train_steps against (c)'s, the launches per sub-layout,
      peak memory, forward and step ms beside the unsplit run's, the split's
      host seconds
+ 17. the experiment scripts (kgwas_tpu_torch/scripts, kgwas_tpu_torch/
+     demo), last: (a) the calibration protocol through run_calibration's
+     own functions on its 50,000-SNP KG (5,000 genes, 2,941 terms per GO
+     type, seed 0), GAT sum at hidden 128, 2 layers, batch 512, 10
+     epochs, float32: 2 null seeds and 1 causal seed into a fresh
+     directory, each with #1, #2 and #8 counted from 0 just before it
+     (the epochs' steps under scan_steps=8 and the forwards they imply);
+     every JSON holds the JAX runner's keys, its GWAS side equals a
+     recount from the seed's sumstats draw alone, its pred.csv's KGWAS_P
+     is finite in [0, 1]; a second call on the directory trains and
+     writes nothing; summarize_calibration on it; null seed 1's path
+     against the plain ops at its shapes (its draw, the protocol's model
+     with no_relu): predict_all, and CMP_STEPS train_steps from one state
+     through the kernels and through the plain ops; each seed's host split,
+     seeds per hour, and the null seeds' KGWAS loci beside their GWAS loci
+     (a finding). (b) run_sweep.main in subsample mode on the 50,000-SNP
+     synthetic KG, trait 1 at sample sizes 12,500 and 50,000, seed 1, 2
+     epochs of the default 10 (the cut), then summarize_subsample, with
+     the same checks of the keys and the GWAS side; (c)
+     demo.kgwas_101.main(["--synthetic", ...]) to its checkpoint reload,
+     the reloaded model serving the trained one's predictions bitwise
 
   Every phase's seconds are logged, and their list before the kernel
-  table, with the script's wall time. Phase 4 times one other max_edges (SWEEP_MAX_EDGES) beside the
+  table, with the script's wall time. From phase 6b-c to phase 11e,
+  KGWAS.train writes only pred.csv's header (pred_csv_header_only): those
+  phases check kernels and layer paths, and phases 5, 9, 16 and 17 write
+  and check the whole file. Phase 4 times one other max_edges (SWEEP_MAX_EDGES) beside the
   default.
 
   Phase 5 also writes its KGWAS_P table with write_table and with the row
@@ -1041,6 +1065,23 @@ class Recorder:
         if self.keep_outputs:
             self.outputs.append(out)
         return out
+
+
+@contextlib.contextmanager
+def pred_csv_header_only():
+    """KGWAS.train writes pred.csv's header line alone: for the runs of
+    the phases that check kernels and layer paths (6b-c to 11e), whose
+    200,000 rows' text costs 5-6 s a run on the card's host. Phases 5, 9,
+    16 and 17 write and check the whole file."""
+    from kgwas_tpu_torch import kgwas
+
+    write = kgwas.write_table
+
+    def header(table, path, sep="\t"):
+        write({k: v[:0] for k, v in table.items()}, path, sep)
+
+    with swapped(kgwas, write_table=header):
+        yield
 
 
 def write_table_by_rows(table, path, sep="\t"):
@@ -5573,16 +5614,16 @@ SCAN_VARIANTS = {
 SCAN_FAULT = 10
 
 
-def scan_counted_steps(steps, scan=SCAN_S):
-    """The steps of one epoch of KGWAS.train(scan_steps=scan) whose
-    launches the wrappers count: the run's first block runs eagerly, the
-    graph of the second is captured (its launches counted once, at
-    capture), the later blocks replay it uncounted, the tail runs
-    eagerly."""
+def scan_counted_steps(steps, epochs=1, scan=SCAN_S):
+    """The steps of KGWAS.train(scan_steps=scan) over epochs epochs of
+    steps steps whose launches the wrappers count: the run's first block
+    runs eagerly, the graph of the second is captured (its launches counted
+    once, at capture), the later blocks replay it uncounted, each epoch's
+    tail runs eagerly."""
     if scan <= 1:
-        return steps
+        return steps * epochs
     blocks, tail = divmod(steps, scan)
-    return min(blocks, 2) * scan + tail
+    return min(blocks * epochs, 2) * scan + tail * epochs
 
 
 def slope_ms(call, n1, n2, steps_per_call):
@@ -6222,6 +6263,304 @@ def phase_fullkg(kt, card, tmp):
     return launches
 
 
+# phase 17: the calibration protocol's settings
+# (scripts/run_calibration.py:80-85), its seeds cut to 2 null and 1 causal
+CALIB = dict(n_snp=50_000, hidden=128, batch_size=512, epochs=10)
+CALIB_NULL_SEEDS, CALIB_CAUSAL_SEEDS = 2, 1
+CALIB_KEYS = {"arm", "seed", "gwas_hits", "kgwas_hits", "gwas_loci",
+              "kgwas_loci", "scale_factor", "wall_s"}
+CAUSAL_KEYS = CALIB_KEYS | {"gwas_true_pos", "gwas_false_pos",
+                            "kgwas_true_pos", "kgwas_false_pos", "n_causal"}
+# trait 1 at two sample sizes, seed 1, 2 epochs of run_sweep's 10
+SWEEP = dict(n_snp=50_000, sizes=(12_500, 50_000), epochs=2)
+SWEEP_KEYS = {"job", "gwas_hits_5e8", "kgwas_hits_5e8", "test_metrics",
+              "scale_factor", "gwas_loci", "kgwas_loci", "n_causal",
+              "gwas_causal_recovered", "kgwas_causal_recovered"}
+T_P = 5e-8   # the scripts' threshold (kgwas_tpu_torch/scripts/loci.py)
+
+
+def recount_leads(chrom, pos, p):
+    """The independent loci below T_P counted apart from stats/clumps.py:
+    with singleton clumps, a chromosome's hits sorted by cM (POS / 1e6)
+    start a new locus where the gap to the previous is 0.1 cM or more;
+    a locus's lead is its smallest cM. Sorted (chrom, cM) pairs."""
+    hit = p < T_P
+    leads = []
+    for c in np.unique(chrom[hit]):
+        cm = np.sort(pos[hit & (chrom == c)] / 1e6)
+        new = np.concatenate([[True], np.diff(cm) >= 0.1])
+        leads += [(int(c), float(v)) for v in cm[new]]
+    return sorted(leads)
+
+
+def calib_against_plain(kt, data, seed, card):
+    """The calibration path's kernels held against their plain versions at
+    the shapes it gives them: null seed seed's draw prepared as run_seed
+    prepares it on the 50,000-SNP KG, its model at the protocol's widths
+    (no_relu, as phases 6 and 16, so that a head dead at its start leaves
+    no layer gradient at 0); predict_all (#1) against the same forward
+    through the plain ops (PRED_RTOL / PRED_ATOL), then CMP_STEPS
+    train_steps (#1, #2, #8) at the protocol's batch, learning rate and
+    weight decay from one initial state through the kernels and through
+    the plain ops (losses LOSS_RTOL, parameters PARAM_ATOL), each with
+    exact launches. These launches are a comparison's: not added to the
+    kernel line's."""
+    from kgwas_tpu_torch.engine.loop import epoch_batches, train_step
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.scripts import run_calibration
+
+    run_calibration.prepare_seed(data, CALIB["n_snp"], 0, seed)
+    run = kt.KGWAS(data, exp_name=f"calib_null_{seed}_plain", seed=seed,
+                   device=DEVICE)
+    run.initialize_model(gnn_num_layers=2, gnn_hidden_dim=CALIB["hidden"],
+                         no_relu=True)
+    model = run.model
+    init = copy.deepcopy(model.state_dict())
+    cg, x, dl = run._device_state()
+    n_snp = cg.num_nodes["SNP"]
+    f_eval, _ = path_launches(model, dl, False)
+    model_counts(zero=True)
+    pred = run.predict_all()
+    counts = model_counts()
+    if counts != add_counts((1, f_eval)):
+        raise AssertionError(f"(a) predict_all launched {counts}, expected "
+                             f"{add_counts((1, f_eval))}")
+    with plain_ops(), torch.no_grad():
+        plain = run._forward(cg, x, dl)[:n_snp].cpu().numpy()
+    if not np.isfinite(pred).all() or not np.abs(plain).max() > 0:
+        raise AssertionError("(a) predict_all not finite, or the plain "
+                             "forward 0 everywhere")
+    pred_err = float(np.abs(pred - plain).max())
+    np.testing.assert_allclose(pred, plain, rtol=PRED_RTOL, atol=PRED_ATOL,
+                               err_msg="(a) predict_all vs the plain ops")
+
+    y_node, w_node = run._labels(cg)
+    batches = [torch.from_numpy(b).to(DEVICE) for b in epoch_batches(
+        np.asarray(data.train_mask), CALIB["batch_size"], False,
+        None)[:CMP_STEPS]]
+    f_train, b_train = path_launches(model, dl, True)
+    want = add_counts((CMP_STEPS, f_train), (CMP_STEPS, b_train))
+
+    def steps(ctx):
+        model.load_state_dict(init)
+        opt = build_optimizer(model.parameters(), LR, 5e-4)
+        model_counts(zero=True)
+        with ctx:
+            losses = [float(train_step(model, opt, x, dl, b, y_node,
+                                       w_node)) for b in batches]
+        return losses, to_host(model.state_dict()), model_counts()
+
+    losses, params, counts = steps(contextlib.nullcontext())
+    if counts != want:
+        raise AssertionError(f"(a) train_steps launched {counts}, expected "
+                             f"{want}")
+    plosses, pparams, _ = steps(plain_ops())
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"(a) train_step losses {losses}")
+    np.testing.assert_allclose(losses, plosses, rtol=LOSS_RTOL,
+                               err_msg="(a) train_steps vs the plain ops")
+    par_err = max(float((params[k].float() - v.float()).abs().max())
+                  for k, v in pparams.items())
+    moved = max(float((params[k].float() - v.float().cpu()).abs().max())
+                for k, v in init.items())
+    if par_err > PARAM_ATOL or moved == 0:
+        raise AssertionError(f"(a) parameters after {CMP_STEPS} steps "
+                             f"{par_err:.3e} from the plain ops' (> "
+                             f"{PARAM_ATOL}), or moved {moved:.3e}")
+    log(f"  phase 17a [{card}]: null seed {seed}'s path against the plain "
+        f"ops: predict_all ({add_counts((1, f_eval))['merged_gat_fwd']} x "
+        f"#1) max abs err {pred_err:.3e} (rtol {PRED_RTOL} / atol "
+        f"{PRED_ATOL}); {CMP_STEPS} train_steps of {CALIB['batch_size']} "
+        f"launched {({k: counts[k] for k in LONG_KERNELS})}, losses "
+        f"{[f'{v:.6g}' for v in losses]}, the "
+        f"plain ops' {[f'{v:.6g}' for v in plosses]} (rtol {LOSS_RTOL}), "
+        f"parameters {par_err:.3e} apart (<= {PARAM_ATOL}), moved "
+        f"{moved:.3e} from the start")
+    del run, model
+    torch.cuda.empty_cache()
+
+
+def phase_experiments(kt, card, tmp):
+    """Phase 17: the calibration runner, the sweep and its summary, and
+    the kgwas_101 demo on the card (module docstring, item 17). Returns
+    the launches of #1, #2 and #8 it counted."""
+    import shutil
+
+    from kgwas_tpu_torch.demo import kgwas_101
+    from kgwas_tpu_torch.graph.synthetic import (
+        make_synthetic_subsample_sumstats, make_synthetic_sumstats)
+    from kgwas_tpu_torch.scripts import (run_calibration, run_sweep,
+                                         summarize_calibration,
+                                         summarize_subsample)
+    from kgwas_tpu_torch.utils import read_table
+
+    cpu = DEVICE == "cpu"
+    root = tmp / "experiments"
+    shutil.rmtree(root, ignore_errors=True)
+    launches = dict.fromkeys(LONG_KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the calibration protocol, one directory of JSONs
+    out_dir = root / "calib"
+    out_dir.mkdir(parents=True)
+    args = SimpleNamespace(cpu=cpu, **CALIB)
+    t0 = time.perf_counter()
+    data = run_calibration.calibration_kg(CALIB["n_snp"], str(out_dir))
+    cg = data.compile()
+    kg_s = time.perf_counter() - t0
+    log(f"  phase 17a [{card}]: the calibration KG ({CALIB['n_snp']:,} "
+        f"SNPs, {len(data.idx2id['Gene']):,} genes, "
+        f"{len(data.idx2id['BiologicalProcess']):,} terms per GO type): "
+        f"{cg.total_real_edges():,} real edges in {len(cg.relations)} "
+        f"relations, built and compiled in {kg_s:.2f} s")
+    jobs = run_calibration.seed_jobs(CALIB_NULL_SEEDS, CALIB_CAUSAL_SEEDS)
+    seeds = []
+    for arm, seed in jobs:
+        long_counts(zero=True)
+        (done,) = run_calibration.run_seeds(data, [(arm, seed)], args,
+                                            str(out_dir))
+        counts = long_counts()
+        steps = len(data.train_mask) // CALIB["batch_size"]
+        expect_launches(counts, 3,
+                        scan_counted_steps(steps, CALIB["epochs"]),
+                        CALIB["epochs"] + 1, f"(a) {arm} seed {seed}")
+        add(counts)
+        out, split = done[2], done[3]
+        want = CAUSAL_KEYS if arm == "causal" else CALIB_KEYS
+        if set(out) != want:
+            raise AssertionError(f"(a) {arm} seed {seed}: keys "
+                                 f"{sorted(out)}, expected {sorted(want)}")
+        n_causal = 0 if arm == "null" else CALIB["n_snp"] // 20
+        ss, causal = make_synthetic_sumstats(
+            CALIB["n_snp"], n_causal=n_causal, seed=seed + 10_000,
+            return_causal=True)
+        p = np.asarray(ss["P"])
+        hits = set(np.asarray(ss["SNP"])[p < T_P].tolist())
+        recount = {"gwas_hits": int((p < T_P).sum()),
+                   "gwas_loci": len(recount_leads(
+                       np.asarray(ss["CHR"]), np.asarray(ss["POS"]), p))}
+        if arm == "causal":
+            causal_ids = {f"rs{i}" for i in causal}
+            recount.update(gwas_true_pos=len(hits & causal_ids),
+                           gwas_false_pos=len(hits - causal_ids),
+                           n_causal=n_causal)
+        got = {k: out[k] for k in recount}
+        if got != recount:
+            raise AssertionError(f"(a) {arm} seed {seed}: GWAS side {got}, "
+                                 f"the draw's recount {recount}")
+        kp = np.asarray(read_table(
+            str(out_dir / "kg" / "model_pred" / "new_experiments"
+                / f"calib_{arm}_{seed}_pred.csv"), sep=None)["KGWAS_P"],
+            dtype=np.float64)
+        if len(kp) != CALIB["n_snp"] or not (
+                np.isfinite(kp).all() and kp.min() >= 0 and kp.max() <= 1):
+            raise AssertionError(f"(a) {arm} seed {seed}: pred.csv's KGWAS_P "
+                                 "not finite in [0, 1] on every SNP")
+        seeds.append((arm, seed, out, split, steps))
+        log(f"  phase 17a [{card}]: {arm} seed {seed}: {out['wall_s']} s "
+            f"wall; host split {run_calibration.split_text(split)}; "
+            f"{steps} steps an epoch, launches {counts}; GWAS hits / loci "
+            f"{out['gwas_hits']} / {out['gwas_loci']}, KGWAS "
+            f"{out['kgwas_hits']} / {out['kgwas_loci']}")
+    files = {f.name: f.stat().st_mtime_ns for f in out_dir.glob("*.json")}
+    long_counts(zero=True)
+    again = run_calibration.run_seeds(data, jobs, args, str(out_dir))
+    if again or any(long_counts().values()) or files != {
+            f.name: f.stat().st_mtime_ns for f in out_dir.glob("*.json")}:
+        raise AssertionError("(a) the resumed call trained or wrote")
+    log(f"  phase 17a: the resumed call on the directory ran no seed and "
+        f"launched nothing; summarize_calibration:\n"
+        + summarize_calibration.summary(str(out_dir)).rstrip())
+    calib_against_plain(kt, data, jobs[0][1], card)
+    walls = [out["wall_s"] for _, _, out, _, _ in seeds]
+    mean, later = statistics.mean(walls), statistics.mean(walls[1:])
+    parts = {k: statistics.mean(sp[k] for _, _, _, sp, _ in seeds[1:])
+             for k in seeds[0][3]}
+    log(f"  phase 17a [{card}]: calibration seed {mean:.2f} s wall (mean "
+        f"of {len(walls)}: {walls}), {3600 / mean:.1f} seeds per hour; "
+        f"after the first seed (its one-time set-up) {later:.2f} s, "
+        f"{3600 / later:.1f} seeds per hour, mean "
+        "split " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()))
+    log(f"  phase 17a finding [{card}]: the null seeds' KGWAS loci / GWAS "
+        "loci: " + ", ".join(f"seed {seed} {out['kgwas_loci']} / "
+                             f"{out['gwas_loci']}" for arm, seed, out, _, _
+                             in seeds if arm == "null"))
+    del data, cg
+
+    # (b) the sweep, 2 epochs of the default 10, and its summary
+    sweep_dir = root / "sweep"
+    job_s = []
+    real_run_job = run_sweep.run_job
+
+    def timed_job(job, a):
+        t = time.perf_counter()
+        out = real_run_job(job, a)
+        job_s.append(time.perf_counter() - t)
+        return out
+
+    argv = ["--mode", "subsample", "--synthetic-n-snp", str(SWEEP["n_snp"]),
+            "--phenos", "1", "--sample-sizes", *map(str, SWEEP["sizes"]),
+            "--seed-start", "1", "--seed-end", "2",
+            "--epochs", str(SWEEP["epochs"])]
+    long_counts(zero=True)
+    with swapped(run_sweep, run_job=timed_job):
+        run_sweep.main(argv + ["--data-path", str(root / "sweep_kg"),
+                               "--out-dir", str(sweep_dir)]
+                       + (["--cpu"] if cpu else []))
+    counts = long_counts()
+    add(counts)
+    files = sorted(sweep_dir.glob("*.json"),
+                   key=lambda f: int(f.name.split("_")[2]))
+    if [f.name for f in files] != [f"subsample_1_{n}_1.json"
+                                   for n in SWEEP["sizes"]]:
+        raise AssertionError(f"(b) JSONs {[f.name for f in files]}")
+    for f, n in zip(files, SWEEP["sizes"]):
+        out = json.loads(f.read_text())
+        if set(out) != SWEEP_KEYS:
+            raise AssertionError(f"(b) {f.name}: keys {sorted(out)}")
+        ss, causal = make_synthetic_subsample_sumstats(
+            SWEEP["n_snp"], 1, n, 1, return_causal=True)
+        p = np.asarray(ss["P"])
+        recount = {"gwas_hits_5e8": int((p < T_P).sum()),
+                   "gwas_loci": recount_leads(np.asarray(ss["CHR"]),
+                                              np.asarray(ss["POS"]), p),
+                   "n_causal": len(causal),
+                   "gwas_causal_recovered": int((p[causal] < T_P).sum())}
+        got = {k: out[k] for k in recount}
+        got["gwas_loci"] = [tuple(x) for x in got["gwas_loci"]]
+        if got != recount:
+            raise AssertionError(f"(b) {f.name}: GWAS side differs from "
+                                 "the draw's recount")
+    log(f"  phase 17b [{card}]: run_sweep {' '.join(argv)}: jobs "
+        f"{[f'{s:.2f}' for s in job_s]} s, launches {counts}; "
+        "summarize_subsample:\n" + summarize_subsample.summary(
+            str(sweep_dir), 50_000).rstrip())
+
+    # (c) the first demo, to its checkpoint reload
+    long_counts(zero=True)
+    t0 = time.perf_counter()
+    run, run2 = kgwas_101.main(["--synthetic", "--data-path",
+                                str(root / "demo") + "/"]
+                               + (["--cpu"] if cpu else []))
+    demo_s = time.perf_counter() - t0
+    if not np.array_equal(run2.predict_all(), run.predict_all()):
+        raise AssertionError("(c) the reloaded checkpoint serves other "
+                             "predictions")
+    counts = long_counts()
+    add(counts)
+    if not all(counts.values()):
+        raise AssertionError(f"(c) kgwas_101 launched {counts}")
+    log(f"  phase 17c [{card}]: demo.kgwas_101 --synthetic in {demo_s:.2f} "
+        f"s to its reload, launches {counts} (both predict_all included)")
+    log(f"phase 17 ok [{card}]: launches {launches}")
+    del run, run2
+    torch.cuda.empty_cache()
+    return launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -6305,6 +6644,9 @@ def main():
 
     # ---- phase 6: the model variants
     worst_variants = timed_phase("6a", phase_variant_kernels, kt, device, tmp)
+    # from here to phase 11e, KGWAS.train writes pred.csv's header alone
+    header_only = contextlib.ExitStack()
+    header_only.enter_context(pred_csv_header_only())
     variant_rows = timed_phase("6b-c", phase_variants, kt, data, cg, device,
                                card, worst_variants, parent)
 
@@ -6346,6 +6688,7 @@ def main():
         (1, timed_phase("11b", phase_checkpoint, kt, data, card)),
         (1, timed_phase("11e", phase_streamed, kt, data, cg, device, card)),
         (1, mesh_launches), (1, scan_launches))
+    header_only.close()
     del data, cg
     torch.cuda.empty_cache()
 
@@ -6365,6 +6708,12 @@ def main():
     torch.cuda.empty_cache()
     long_launches = add_counts((1, long_launches), (1, timed_phase(
         "16", phase_fullkg, kt, card, tmp)))
+    SHARED_STATE.clear()
+    torch.cuda.empty_cache()
+
+    # ---- phase 17: the experiment scripts (calibration, sweep, demo)
+    long_launches = add_counts((1, long_launches), (1, timed_phase(
+        "17", phase_experiments, kt, card, tmp)))
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in PHASE_SECONDS.items())
         + f"; total {sum(PHASE_SECONDS.values()):.1f} s; wall "

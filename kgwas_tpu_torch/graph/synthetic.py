@@ -72,9 +72,12 @@ def make_synthetic_sumstats(
     n_causal: Optional[int] = None,
     sample_size: int = 10000,
     seed: int = 0,
-) -> dict:
+    return_causal: bool = False,
+):
     """fastGWA-shaped sumstats over the synthetic SNP set, as a column table
-    with columns CHR, SNP, POS, A1, A2, N, AF1, BETA, SE, P."""
+    with columns CHR, SNP, POS, A1, A2, N, AF1, BETA, SE, P. n_causal=0
+    gives a pure null (z ~ N(0, 1) for every SNP). return_causal=True also
+    returns the sorted causal indices, for the causal arm's power count."""
     from scipy.stats import norm
 
     rng = np.random.default_rng(seed + 1)
@@ -86,7 +89,7 @@ def make_synthetic_sumstats(
     se = np.full(n_snp, 0.01)
     beta = z * se
     p = np.clip(2.0 * norm.sf(np.abs(z)), 1e-300, 1.0)
-    return {
+    table = {
         "CHR": rng.integers(1, 23, size=n_snp),
         "SNP": np.array([f"rs{i}" for i in range(n_snp)], dtype=object),
         "POS": np.sort(rng.integers(1, 2_000_000, size=n_snp)),
@@ -98,6 +101,9 @@ def make_synthetic_sumstats(
         "SE": se,
         "P": p,
     }
+    if return_causal:
+        return table, np.sort(causal_idx)
+    return table
 
 
 def make_synthetic_ld_scores(n_snp: int, seed: int = 0):

@@ -366,9 +366,15 @@ class KGWAS:
         GAT layer, the per-relation layers, the 'mp' layer), and feature
         tables at least 1024 wide over the 'model' axis
         (parallel/shard.py). Every rank returns the same table; rank 0
-        alone writes the checkpoints, model.npz and pred.csv."""
+        alone writes the checkpoints, model.npz and pred.csv.
+
+        train_seconds: the run's host seconds in three parts, "setup" (the
+        device state, labels, optimizer), "epochs" (the steps and the
+        epoch-end forwards) and "tail" (the best state's test forward,
+        the metrics, KGWAS_P, the saves and pred.csv)."""
         from .engine.watchdog import touch_heartbeat
 
+        t_start = time.perf_counter()
         mesh = self._resolve_mesh(mesh)
         self.mesh = mesh
         writer = mesh is None or mesh.rank == 0
@@ -501,6 +507,7 @@ class KGWAS:
 
             snap = host_snap(0)
 
+        t_epochs = time.perf_counter()
         ep = 0
         while ep < epoch:
             try:
@@ -598,6 +605,7 @@ class KGWAS:
                     torch.cuda.synchronize(self.device)
                 self.recovery_seconds.append(time.perf_counter() - t0)
 
+        t_tail = time.perf_counter()
         if checkpointer:
             checkpointer.close()
         self.params = copy.deepcopy(model.state_dict())
@@ -630,6 +638,9 @@ class KGWAS:
                 shutil.copyfile(out_csv, os.path.join(model_dir, "pred.csv"))
             self.pred_csv_seconds = time.perf_counter() - t0
         self.kgwas_res = table
+        self.train_seconds = {"setup": t_epochs - t_start,
+                              "epochs": t_tail - t_epochs,
+                              "tail": time.perf_counter() - t_tail}
         return table
 
     # -------------------------------------------------------------- inference

@@ -273,6 +273,25 @@ def sort_order(col) -> np.ndarray:
     return np.concatenate([present, idx[na]])
 
 
+def head_text(table: dict, n: int = 10, columns=None) -> str:
+    """The first n rows of a column table as aligned text, each row's
+    number first (what printing pandas' ``df[columns].head(n)`` shows);
+    floats at 6 significant digits."""
+    columns = list(table) if columns is None else list(columns)
+    rows = min(n, n_rows(table))
+
+    def cell(v):
+        return f"{v:.6g}" if isinstance(v, (float, np.floating)) else str(v)
+
+    cols = [[""] + [str(i) for i in range(rows)]]
+    for c in columns:
+        cols.append([str(c)] + [cell(v) for v in
+                                np.asarray(table[c])[:rows].tolist()])
+    widths = [max(map(len, col)) for col in cols]
+    return "\n".join("  ".join(col[r].rjust(w) for col, w in zip(cols, widths))
+                     for r in range(rows + 1))
+
+
 def unique_in_order(col) -> list:
     """pandas' ``Series.unique()``: each value once, in order of first
     appearance."""

@@ -2599,3 +2599,38 @@ def test_split_forward_and_step_match_unsplit(backbone, cuda_device,
         np.testing.assert_allclose(
             grads[k].cpu().numpy(), w_, rtol=1e-4,
             atol=1e-5 * np.abs(w_).max() + 1e-8 * top, err_msg=k)
+
+
+# ------------------------------------------------- the calibration protocol
+
+def test_calibration_seed_launches(cuda_device, tmp_path):
+    """One causal seed of the calibration protocol
+    (scripts/run_calibration.run_seed) at 2,000 SNPs, GAT sum at hidden
+    128, batch 64, 2 epochs, through the kernels: #1, #2 and #8 launched
+    as the epochs and forwards imply with KGWAS.train's scan_steps=8 (the
+    run's first block eager, the second captured and counted once, the
+    later blocks replayed uncounted, each epoch's tail eager), 3 a
+    forward or step (the live groups), and the JAX runner's keys."""
+    from kgwas_tpu_torch.scripts import run_calibration
+
+    args = SimpleNamespace(n_snp=2000, hidden=D, batch_size=64, epochs=2,
+                           cpu=False)
+    data = run_calibration.calibration_kg(2000, str(tmp_path))
+    gat_layer.launches = gat_layer.bwd_launches = segment.launches = 0
+    out = run_calibration.run_seed(data, {}, "causal", 1, args)
+    counts = (gat_layer.launches, gat_layer.bwd_launches, segment.launches)
+    steps = len(data.train_mask) // args.batch_size
+    assert steps > 8 and steps % 8
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    counted = chip_smoke.scan_counted_steps(steps, args.epochs)
+    # a step's forward and backward, each epoch's forward, the test's
+    assert counts == (3 * (counted + args.epochs + 1), 3 * counted,
+                      3 * counted)
+    assert set(out) == {"arm", "seed", "gwas_hits", "kgwas_hits",
+                        "gwas_loci", "kgwas_loci", "scale_factor",
+                        "gwas_true_pos", "gwas_false_pos", "kgwas_true_pos",
+                        "kgwas_false_pos", "n_causal", "wall_s"}
+    assert 0 <= out["kgwas_hits"] <= 2000 and out["n_causal"] == 100

@@ -67,7 +67,12 @@ def test_scan_covers_every_module_of_the_package():
                 "interpret/attention.py", "interpret/network.py",
                 "stats/labels.py", "utils.py", "cohort/ukbb.py",
                 "engine/resilience.py", "engine/watchdog.py",
-                "engine/streamed.py", "ops/streaming.py"):
+                "engine/streamed.py", "ops/streaming.py",
+                "scripts/loci.py", "scripts/run_calibration.py",
+                "scripts/run_sweep.py", "scripts/summarize_calibration.py",
+                "scripts/summarize_subsample.py", "demo/kgwas_101.py",
+                "demo/kgwas_simulation.py", "demo/kgwas_subsampling.py",
+                "demo/disease_critical_network.py", "demo/run_magma.py"):
         assert f"kgwas_tpu_torch/{mod}" in scanned, mod
 
 
