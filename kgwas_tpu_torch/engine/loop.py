@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def batch_loss(pred, batch_idx, y_node, w_node):
     p = pred[:, 0][batch_idx]
@@ -100,6 +102,7 @@ class TrainScan:
                        self.w_node)
             for b in batch_mat])
 
+    @span("kgwas.scan.capture")
     def capture(self, batch: int):
         """Captures S copies of train_step on a static int64 [S, batch]
         batch buffer."""
@@ -128,19 +131,21 @@ class TrainScan:
             raise ValueError(f"{len(batch_mat)} batches for a scan of "
                              f"{self.steps} steps")
         if self.y_node.device.type != "cuda" or not self.warm:
-            losses = self._eager(batch_mat)
+            with span("kgwas.scan.eager"):
+                losses = self._eager(batch_mat)
             self.warm = True
             return losses
         src = (batch_mat if isinstance(batch_mat, torch.Tensor)
                else torch.from_numpy(np.ascontiguousarray(batch_mat)))
         if self.graph is None:
             self.capture(src.shape[1])
-        if src.device.type == "cpu":
-            src = src.pin_memory()
-        self.batch.copy_(src, non_blocking=True)
-        self.graph.replay()
-        self.replays += 1
-        return self.losses.clone()
+        with span("kgwas.scan.replay"):
+            if src.device.type == "cpu":
+                src = src.pin_memory()
+            self.batch.copy_(src, non_blocking=True)
+            self.graph.replay()
+            self.replays += 1
+            return self.losses.clone()
 
 
 def forward(model, x, layouts):

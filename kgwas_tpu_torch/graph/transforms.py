@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..engine.profiling import span
 from ..native import shardops
 from .schema import HeteroGraph
 
@@ -62,6 +63,7 @@ def add_self_loops(g: HeteroGraph) -> HeteroGraph:
     return g
 
 
+@span("kgwas.data.transforms")
 def standard_kg_transforms(g: HeteroGraph) -> HeteroGraph:
     """The exact transform pipeline of reference kgwas/kgwas_data.py:271-272."""
     return add_self_loops(to_undirected(g))

@@ -16,7 +16,6 @@ from __future__ import annotations
 import copy
 import os
 import shutil
-import time
 from typing import Optional
 
 import numpy as np
@@ -31,7 +30,8 @@ from .engine.checkpoint import (host_train_state, latest_train_state,
 from .engine.loop import (TrainScan, epoch_batches, forward,
                           forward_streamed, train_step)
 from .engine.optim import build_optimizer
-from .engine.profiling import ThroughputMeter, profile_trace
+from .engine.profiling import (ThroughputMeter, profile_trace, span,
+                               span_seconds, span_totals)
 from .engine.streamed import strip_streamed_features, train_step_streamed
 from .graph.merged_layout import build_merged_layouts, max_edges_setting
 from .models.hetero_gnn import (HeteroGNN, check_supported, device_layouts,
@@ -53,8 +53,9 @@ def merged_layouts(cg) -> dict:
     if cached is None:
         cached = cg._merged_layouts = {}
     if spec not in cached:
-        cached[spec] = build_merged_layouts(cg, tile_rows=TILE_ROWS,
-                                            max_edges=spec)
+        with span("kgwas.layouts.merged"):
+            cached[spec] = build_merged_layouts(cg, tile_rows=TILE_ROWS,
+                                                max_edges=spec)
     return cached[spec]
 
 
@@ -113,6 +114,7 @@ class KGWAS:
 
     # ------------------------------------------------------------------ model
 
+    @span("kgwas.model.init")
     def initialize_model(
         self,
         gnn_num_layers: int = 2,
@@ -250,24 +252,28 @@ class KGWAS:
         rows) with [N_pad, 1] placeholders on the device."""
         if self._graph is None:
             cg = self.data.compile()
-            streamed = self.stream_features
-            self._x_host = {t: cg.node_x[t][: cg.num_nodes[t]]
-                            for t in streamed}
-            x = {t: (None if t in streamed else torch.from_numpy(
-                     np.ascontiguousarray(v)).to(self.device))
-                 for t, v in cg.node_x.items()}
-            x = strip_streamed_features(x, streamed, cg.padded_nodes,
-                                        self.device)
-            self._graph = (cg, x, device_layouts(
-                self.layouts, self.device, cg, layer_paths(self.model_cfg)))
+            with span("kgwas.layouts.device"):
+                streamed = self.stream_features
+                self._x_host = {t: cg.node_x[t][: cg.num_nodes[t]]
+                                for t in streamed}
+                x = {t: (None if t in streamed else torch.from_numpy(
+                         np.ascontiguousarray(v)).to(self.device))
+                     for t, v in cg.node_x.items()}
+                x = strip_streamed_features(x, streamed, cg.padded_nodes,
+                                            self.device)
+                self._graph = (cg, x, device_layouts(
+                    self.layouts, self.device, cg,
+                    layer_paths(self.model_cfg)))
         return self._graph
 
     def _forward(self, cg, x, layouts):
-        """Full-graph predictions [N_snp_pad] of the model's state."""
-        if self.stream_features:
-            return forward_streamed(self.model, x, layouts, self._x_host,
-                                    cg.padded_nodes)
-        return forward(self.model, x, layouts)
+        """Full-graph predictions [N_snp_pad] of the model's state, as
+        enqueued (not synchronised)."""
+        with span("kgwas.forward"):
+            if self.stream_features:
+                return forward_streamed(self.model, x, layouts,
+                                        self._x_host, cg.padded_nodes)
+            return forward(self.model, x, layouts)
 
     def _labels(self, cg):
         """(y_node, w_node) [N_snp_pad] on the device: the split's labels
@@ -285,6 +291,7 @@ class KGWAS:
 
     # --------------------------------------------------------------- training
 
+    @span("kgwas.train")
     def train(
         self,
         batch_size: int = 512,
@@ -316,7 +323,8 @@ class KGWAS:
         scores the test SNPs and gives KGWAS_P; ``predict_all()`` then
         serves it. Returns the KGWAS_P table, also written as pred.csv
         (formatted once, then copied into the checkpoint directory;
-        pred_csv_seconds: the host seconds of both).
+        pred_csv_seconds: the host seconds of both, its kgwas.tail.pred_csv
+        span).
 
         scan_steps=S > 1 runs the epoch in blocks of S steps while at least
         S remain, as the JAX package's lax.scan of S steps does, on one
@@ -368,146 +376,156 @@ class KGWAS:
         (parallel/shard.py). Every rank returns the same table; rank 0
         alone writes the checkpoints, model.npz and pred.csv.
 
-        train_seconds: the run's host seconds in three parts, "setup" (the
-        device state, labels, optimizer), "epochs" (the steps and the
-        epoch-end forwards) and "tail" (the best state's test forward,
-        the metrics, KGWAS_P, the saves and pred.csv)."""
+        train_seconds: the run's host seconds in three parts, read from
+        its spans (engine/profiling.span): "setup" (kgwas.train.setup: the
+        device state, labels, optimizer), "epochs" (kgwas.train.epoch and
+        kgwas.train.eval: the steps and the epoch-end forwards) and "tail"
+        (kgwas.train.tail: the best state's test forward, the metrics,
+        KGWAS_P, the saves and pred.csv)."""
         from .engine.watchdog import touch_heartbeat
 
-        t_start = time.perf_counter()
-        mesh = self._resolve_mesh(mesh)
-        self.mesh = mesh
-        writer = mesh is None or mesh.rank == 0
-        if save_name is None:
-            save_name = self.exp_name
-        self.save_name = save_name
+        since = span_totals()
+        with span("kgwas.train.setup"):
+            mesh = self._resolve_mesh(mesh)
+            self.mesh = mesh
+            writer = mesh is None or mesh.rank == 0
+            if save_name is None:
+                save_name = self.exp_name
+            self.save_name = save_name
 
-        cg, x, layouts = self._device_state()
-        if mesh is not None:
-            from .parallel.shard import (broadcast_state, sharded_forward,
-                                         sharded_train_step)
-
-            shard = self._sharded_run(mesh, cg, x)
-        y_node, w_node = self._labels(cg)
-        y_host = y_node.cpu().numpy()
-        train_ids = np.asarray(self.data.train_mask)
-        val_ids = np.asarray(self.data.val_mask)
-        test_ids = np.asarray(self.data.test_mask)
-
-        model = self.model
-        model.train()
-        optimizer = build_optimizer(model.parameters(), lr, weight_decay)
-        self.optimizer = optimizer
-        ckpt_dir = os.path.join(self.data_path, "model", save_name,
-                                "train_state")
-        checkpointer = (make_async_checkpointer()
-                        if checkpoint_every and writer else None)
-        if resume:
-            latest = latest_train_state(ckpt_dir)
-            if latest:
-                print_sys(f"Resuming train state from {latest}")
-                model_state, opt_state = restore_train_state(latest)
-                model.load_state_dict(model_state)
-                optimizer.load_state_dict(opt_state)
-        if mesh is not None:
-            broadcast_state(model, mesh)
-        best_state = copy.deepcopy(model.state_dict())
-        min_val = -1000.0
-        best_epoch = 0
-        shuffle_rng = np.random.default_rng(self.seed)
-        edges_per_step = cg.total_real_edges() * self.model_cfg.gnn_num_layers
-        meter = ThroughputMeter(edges_per_step, log_path=metrics_log)
-
-        def step(b):
-            bidx = torch.from_numpy(b).to(self.device)
+            cg, x, layouts = self._device_state()
             if mesh is not None:
-                return sharded_train_step(model, optimizer, shard, layouts,
-                                          bidx, y_node, w_node)
-            if self.stream_features:
-                return train_step_streamed(
-                    model, optimizer, x, layouts, self._x_host,
-                    cg.padded_nodes, bidx, y_node, w_node)
-            return train_step(model, optimizer, x, layouts, bidx, y_node,
-                              w_node)
+                from .parallel.shard import (broadcast_state, sharded_forward,
+                                             sharded_train_step)
 
-        # the JAX package's gate (kgwas_tpu/kgwas.py:381)
-        scan_s = (scan_steps if mesh is None and not self.stream_features
-                  and scan_steps and scan_steps > 1 else 1)
+                shard = self._sharded_run(mesh, cg, x)
+            y_node, w_node = self._labels(cg)
+            y_host = y_node.cpu().numpy()
+            train_ids = np.asarray(self.data.train_mask)
+            val_ids = np.asarray(self.data.val_mask)
+            test_ids = np.asarray(self.data.test_mask)
 
-        def make_scan():
-            """The run's scanned steps over the current device state."""
-            if scan_s == 1:
-                return None
-            return TrainScan(model, optimizer, x, layouts, y_node, w_node,
-                             scan_s, before_capture=(
-                                 checkpointer.wait_until_finished
-                                 if checkpointer else None))
-
-        scan = make_scan()
-        self.train_scan = scan
-
-        def forward_all():
+            model = self.model
+            model.train()
+            optimizer = build_optimizer(model.parameters(), lr, weight_decay)
+            self.optimizer = optimizer
+            ckpt_dir = os.path.join(self.data_path, "model", save_name,
+                                    "train_state")
+            checkpointer = (make_async_checkpointer()
+                            if checkpoint_every and writer else None)
+            if resume:
+                latest = latest_train_state(ckpt_dir)
+                if latest:
+                    print_sys(f"Resuming train state from {latest}")
+                    model_state, opt_state = restore_train_state(latest)
+                    model.load_state_dict(model_state)
+                    optimizer.load_state_dict(opt_state)
             if mesh is not None:
-                return sharded_forward(model, shard, layouts)
-            return self._forward(cg, x, layouts)
+                broadcast_state(model, mesh)
+            best_state = copy.deepcopy(model.state_dict())
+            min_val = -1000.0
+            best_epoch = 0
+            shuffle_rng = np.random.default_rng(self.seed)
+            edges_per_step = (cg.total_real_edges()
+                              * self.model_cfg.gnn_num_layers)
+            meter = ThroughputMeter(edges_per_step, log_path=metrics_log)
 
-        print_sys("Start Training...")
-        self.train_history = []
-        self.epoch_losses = []
-        self.restart_count = 0
-        # host seconds of each epoch-end snapshot, and of each recovery
-        # (from the failure to the restored state, without the backoff)
-        self.snapshot_seconds = []
-        self.recovery_seconds = []
-        global_step = 0
-        fault_hook = getattr(self, "_fault_hook", None)
+            def step(b):
+                bidx = torch.from_numpy(b).to(self.device)
+                if mesh is not None:
+                    return sharded_train_step(model, optimizer, shard,
+                                              layouts, bidx, y_node, w_node)
+                if self.stream_features:
+                    return train_step_streamed(
+                        model, optimizer, x, layouts, self._x_host,
+                        cg.padded_nodes, bidx, y_node, w_node)
+                return train_step(model, optimizer, x, layouts, bidx, y_node,
+                                  w_node)
 
-        def after_block(blk_losses, start, ep):
-            """The side work of the steps just run (the JAX package's
-            _after_block): meter ticks, a save where the block crosses a
-            multiple of checkpoint_every, wandb, the log_interval prints,
-            the heartbeat."""
-            nonlocal global_step
-            n = blk_losses.shape[0]
-            for _ in range(n):
-                meter.step()
-            g0 = global_step
-            global_step += n
-            if checkpointer and (global_step // checkpoint_every
-                                 > g0 // checkpoint_every):
-                save_train_state_async(
-                    checkpointer, ckpt_dir, global_step,
-                    model.state_dict(), optimizer.state_dict())
-            if self.wandb:
-                for lv in blk_losses.tolist():
-                    self.wandb.log({"training_loss": float(lv)})
-            for k in range(n):
-                st = start + k
-                if st % log_interval == 0 and st >= log_interval:
-                    print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
-                              f"Loss: {float(blk_losses[k]):.4f}")
-            touch_heartbeat(heartbeat_path)
+            # the JAX package's gate (kgwas_tpu/kgwas.py:381)
+            scan_s = (scan_steps if mesh is None and not self.stream_features
+                      and scan_steps and scan_steps > 1 else 1)
 
-        if max_restarts:
-            from .engine.resilience import (RetryPolicy,
-                                            is_transient_backend_error,
-                                            sleep_backoff)
+            def make_scan():
+                """The run's scanned steps over the current device state."""
+                if scan_s == 1:
+                    return None
+                return TrainScan(model, optimizer, x, layouts, y_node, w_node,
+                                 scan_s, before_capture=(
+                                     checkpointer.wait_until_finished
+                                     if checkpointer else None))
 
-            policy = RetryPolicy(max_restarts=max_restarts)
+            scan = make_scan()
+            self.train_scan = scan
 
-            def host_snap(ep):
-                t0 = time.perf_counter()
-                state = host_train_state(model.state_dict(),
-                                         optimizer.state_dict()).result()
-                best = host_train_state(best_state, {}).result()
-                self.snapshot_seconds.append(time.perf_counter() - t0)
-                return {**state, "best": best["model"], "min_val": min_val,
-                        "best_epoch": best_epoch, "ep": ep,
-                        "global_step": global_step}
+            def forward_all():
+                if mesh is not None:
+                    pred = sharded_forward(model, shard, layouts)
+                else:
+                    pred = self._forward(cg, x, layouts)
+                with span("kgwas.to_host"):
+                    return pred.cpu().numpy()
 
-            snap = host_snap(0)
+            print_sys("Start Training...")
+            self.train_history = []
+            self.epoch_losses = []
+            self.restart_count = 0
+            # host seconds of each epoch-end snapshot, and of each recovery
+            # (from the failure to the restored state, without the
+            # backoff): their spans' seconds
+            self.snapshot_seconds = []
+            self.recovery_seconds = []
+            global_step = 0
+            fault_hook = getattr(self, "_fault_hook", None)
 
-        t_epochs = time.perf_counter()
+            def after_block(blk_losses, start, ep):
+                """The side work of the steps just run (the JAX package's
+                _after_block): meter ticks, a save where the block crosses
+                a multiple of checkpoint_every, wandb, the log_interval
+                prints, the heartbeat."""
+                nonlocal global_step
+                n = blk_losses.shape[0]
+                for _ in range(n):
+                    meter.step()
+                g0 = global_step
+                global_step += n
+                if checkpointer and (global_step // checkpoint_every
+                                     > g0 // checkpoint_every):
+                    save_train_state_async(
+                        checkpointer, ckpt_dir, global_step,
+                        model.state_dict(), optimizer.state_dict())
+                if self.wandb:
+                    for lv in blk_losses.tolist():
+                        self.wandb.log({"training_loss": float(lv)})
+                for k in range(n):
+                    st = start + k
+                    if st % log_interval == 0 and st >= log_interval:
+                        print_sys(f"Epoch {ep + 1} Step {st + 1} Train "
+                                  f"Loss: {float(blk_losses[k]):.4f}")
+                touch_heartbeat(heartbeat_path)
+
+            if max_restarts:
+                from .engine.resilience import (RetryPolicy,
+                                                is_transient_backend_error,
+                                                sleep_backoff)
+
+                policy = RetryPolicy(max_restarts=max_restarts)
+
+                def host_snap(ep):
+                    before = span_totals()
+                    with span("kgwas.train.snapshot"):
+                        state = host_train_state(
+                            model.state_dict(),
+                            optimizer.state_dict()).result()
+                        best = host_train_state(best_state, {}).result()
+                    self.snapshot_seconds.append(
+                        span_seconds(before, "kgwas.train.snapshot"))
+                    return {**state, "best": best["model"],
+                            "min_val": min_val, "best_epoch": best_epoch,
+                            "ep": ep, "global_step": global_step}
+
+                snap = host_snap(0)
+
         ep = 0
         while ep < epoch:
             try:
@@ -516,7 +534,8 @@ class KGWAS:
                 self.epoch_losses = self.epoch_losses[:ep]
                 meter.start_epoch()
                 losses = []
-                with profile_trace(profile_dir if ep == 0 else None):
+                with profile_trace(profile_dir if ep == 0 else None), \
+                        span("kgwas.train.epoch"):
                     step0 = 0
                     while step0 < len(batches):
                         n_blk = (scan_s if scan is not None
@@ -533,36 +552,39 @@ class KGWAS:
                     self.epoch_losses.append(
                         torch.cat(losses).cpu().tolist() if losses else [])
 
-                # the epoch-end forward makes no step heartbeats
-                touch_heartbeat(heartbeat_path)
-                pred_all = forward_all().cpu().numpy()
-                touch_heartbeat(heartbeat_path)
-                # reference quirk: the val loader drops its tail past a
-                # batch_size multiple; with fewer val SNPs than a batch the
-                # whole set is scored
-                n_val_eval = (len(val_ids) // batch_size) * batch_size
-                val_eval_ids = val_ids[:n_val_eval] if n_val_eval else val_ids
-                val_metrics = compute_metrics({"pred": pred_all[val_eval_ids],
-                                               "truth": y_host[val_eval_ids]})
-                rec = meter.end_epoch(ep + 1, extra={
-                    "loss": (self.epoch_losses[-1][-1] if losses
-                             else float("nan")),
-                    **{f"val_{k}": v for k, v in val_metrics.items()},
-                })
-                print_sys(
-                    f"Epoch {ep + 1}: Validation MSE: "
-                    f"{val_metrics['mse']:.4f} Validation Pearson: "
-                    f"{val_metrics['pearsonr']:.4f}. ({rec['steps']} steps, "
-                    f"{rec['epoch_time_s']:.2f}s, "
-                    f"{rec['edges_per_sec']:.3g} edge-traversals/s)")
-                self.train_history.append(rec)
-                if self.wandb:
-                    for k, v in val_metrics.items():
-                        self.wandb.log({"val_" + k: v})
-                if val_metrics["pearsonr"] > min_val:
-                    min_val = val_metrics["pearsonr"]
-                    best_state = copy.deepcopy(model.state_dict())
-                    best_epoch = ep
+                with span("kgwas.train.eval"):
+                    # the epoch-end forward makes no step heartbeats
+                    touch_heartbeat(heartbeat_path)
+                    pred_all = forward_all()
+                    touch_heartbeat(heartbeat_path)
+                    # reference quirk: the val loader drops its tail past a
+                    # batch_size multiple; with fewer val SNPs than a batch
+                    # the whole set is scored
+                    n_val_eval = (len(val_ids) // batch_size) * batch_size
+                    val_eval_ids = (val_ids[:n_val_eval] if n_val_eval
+                                    else val_ids)
+                    val_metrics = compute_metrics(
+                        {"pred": pred_all[val_eval_ids],
+                         "truth": y_host[val_eval_ids]})
+                    rec = meter.end_epoch(ep + 1, extra={
+                        "loss": (self.epoch_losses[-1][-1] if losses
+                                 else float("nan")),
+                        **{f"val_{k}": v for k, v in val_metrics.items()},
+                    })
+                    print_sys(
+                        f"Epoch {ep + 1}: Validation MSE: "
+                        f"{val_metrics['mse']:.4f} Validation Pearson: "
+                        f"{val_metrics['pearsonr']:.4f}. ({rec['steps']} "
+                        f"steps, {rec['epoch_time_s']:.2f}s, "
+                        f"{rec['edges_per_sec']:.3g} edge-traversals/s)")
+                    self.train_history.append(rec)
+                    if self.wandb:
+                        for k, v in val_metrics.items():
+                            self.wandb.log({"val_" + k: v})
+                    if val_metrics["pearsonr"] > min_val:
+                        min_val = val_metrics["pearsonr"]
+                        best_state = copy.deepcopy(model.state_dict())
+                        best_epoch = ep
                 ep += 1
                 if max_restarts:
                     snap = host_snap(ep)
@@ -578,73 +600,83 @@ class KGWAS:
                     f"{self.restart_count}/{max_restarts} from epoch "
                     f"{snap['ep'] + 1}")
                 sleep_backoff(policy, self.restart_count)
-                t0 = time.perf_counter()
-                # upload everything again, as the JAX package does after a
-                # backend restart
-                self._graph = None
-                cg, x, layouts = self._device_state()
-                if mesh is not None:
-                    shard = self._sharded_run(mesh, cg, x)
-                y_node, w_node = self._labels(cg)
-                model.load_state_dict(snap["model"])
-                # the optimizer keeps host tensors it is given as they are:
-                # a copy, so the steps after it leave the snapshot intact
-                optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
-                # new features, layouts, labels and optimizer state: the
-                # graph is captured again after an eager block
-                scan = make_scan()
-                self.train_scan = scan
-                best_state = {k: v.to(self.device, copy=True)
-                              for k, v in snap["best"].items()}
-                min_val = snap["min_val"]
-                best_epoch = snap["best_epoch"]
-                ep = snap["ep"]
-                global_step = snap["global_step"]
-                self.train_history = self.train_history[:ep]
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.recovery_seconds.append(time.perf_counter() - t0)
+                before = span_totals()
+                with span("kgwas.train.recovery"):
+                    # upload everything again, as the JAX package does
+                    # after a backend restart
+                    self._graph = None
+                    cg, x, layouts = self._device_state()
+                    if mesh is not None:
+                        shard = self._sharded_run(mesh, cg, x)
+                    y_node, w_node = self._labels(cg)
+                    model.load_state_dict(snap["model"])
+                    # the optimizer keeps host tensors it is given as they
+                    # are: a copy, so the steps after it leave the snapshot
+                    # intact
+                    optimizer.load_state_dict(
+                        copy.deepcopy(snap["optimizer"]))
+                    # new features, layouts, labels and optimizer state:
+                    # the graph is captured again after an eager block
+                    scan = make_scan()
+                    self.train_scan = scan
+                    best_state = {k: v.to(self.device, copy=True)
+                                  for k, v in snap["best"].items()}
+                    min_val = snap["min_val"]
+                    best_epoch = snap["best_epoch"]
+                    ep = snap["ep"]
+                    global_step = snap["global_step"]
+                    self.train_history = self.train_history[:ep]
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                self.recovery_seconds.append(
+                    span_seconds(before, "kgwas.train.recovery"))
 
-        t_tail = time.perf_counter()
-        if checkpointer:
-            checkpointer.close()
-        self.params = copy.deepcopy(model.state_dict())
-        model.load_state_dict(best_state)
-        self.best_params = best_state
-        self.best_epoch = best_epoch
-        model_dir = os.path.join(self.data_path, "model", save_name)
-        if save_best_model and writer:
-            print_sys("Saving models to " + model_dir)
-            save_model(best_state, self.config, model_dir)
+        with span("kgwas.train.tail"):
+            if checkpointer:
+                checkpointer.close()
+            self.params = copy.deepcopy(model.state_dict())
+            model.load_state_dict(best_state)
+            self.best_params = best_state
+            self.best_epoch = best_epoch
+            model_dir = os.path.join(self.data_path, "model", save_name)
+            if save_best_model and writer:
+                print_sys("Saving models to " + model_dir)
+                save_model(best_state, self.config, model_dir)
 
-        pred_all = forward_all().cpu().numpy()
-        self.test_metrics = compute_metrics(
-            {"pred": pred_all[test_ids], "truth": y_host[test_ids]})
-        if self.wandb:
-            for k, v in self.test_metrics.items():
-                self.wandb.log({"test_" + k: v})
-        table, self.scale_factor = finalize_predictions(
-            self.data.lr_uni, pred_all[np.asarray(self.data.all_mask)])
-        if writer:
-            out_dir = os.path.join(self.data_path, "model_pred",
-                                   "new_experiments")
-            os.makedirs(out_dir, exist_ok=True)
-            out_csv = os.path.join(out_dir, save_name + "_pred.csv")
-            t0 = time.perf_counter()
-            write_table(table, out_csv)
-            print_sys("KGWAS prediction and p-values saved to " + out_csv)
-            if save_best_model:
-                # the same bytes: formatted once, copied
-                shutil.copyfile(out_csv, os.path.join(model_dir, "pred.csv"))
-            self.pred_csv_seconds = time.perf_counter() - t0
-        self.kgwas_res = table
-        self.train_seconds = {"setup": t_epochs - t_start,
-                              "epochs": t_tail - t_epochs,
-                              "tail": time.perf_counter() - t_tail}
+            pred_all = forward_all()
+            self.test_metrics = compute_metrics(
+                {"pred": pred_all[test_ids], "truth": y_host[test_ids]})
+            if self.wandb:
+                for k, v in self.test_metrics.items():
+                    self.wandb.log({"test_" + k: v})
+            table, self.scale_factor = finalize_predictions(
+                self.data.lr_uni, pred_all[np.asarray(self.data.all_mask)])
+            if writer:
+                out_dir = os.path.join(self.data_path, "model_pred",
+                                       "new_experiments")
+                os.makedirs(out_dir, exist_ok=True)
+                out_csv = os.path.join(out_dir, save_name + "_pred.csv")
+                with span("kgwas.tail.pred_csv"):
+                    write_table(table, out_csv)
+                    print_sys("KGWAS prediction and p-values saved to "
+                              + out_csv)
+                    if save_best_model:
+                        # the same bytes: formatted once, copied
+                        shutil.copyfile(out_csv,
+                                        os.path.join(model_dir, "pred.csv"))
+                self.pred_csv_seconds = span_seconds(since,
+                                                     "kgwas.tail.pred_csv")
+            self.kgwas_res = table
+        self.train_seconds = {
+            "setup": span_seconds(since, "kgwas.train.setup"),
+            "epochs": span_seconds(since, "kgwas.train.epoch",
+                                   "kgwas.train.eval"),
+            "tail": span_seconds(since, "kgwas.train.tail")}
         return table
 
     # -------------------------------------------------------------- inference
 
+    @span("kgwas.predict_all")
     def predict_all(self, params=None) -> np.ndarray:
         """Per-SNP predictions [n_snp] for every KG SNP (one full-graph
         forward; the first output channel, as the JAX package returns it).
@@ -655,7 +687,8 @@ class KGWAS:
             self.model.load_state_dict(params)
         cg, x, layouts = self._device_state()
         pred = self._forward(cg, x, layouts)
-        return pred[: cg.num_nodes["SNP"]].cpu().numpy()
+        with span("kgwas.to_host"):
+            return pred[: cg.num_nodes["SNP"]].cpu().numpy()
 
     # ------------------------------------------------------------------ magma
 

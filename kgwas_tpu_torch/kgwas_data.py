@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from .engine.profiling import span
 from .graph.schema import HeteroGraph
 from .graph.shard_compile import CompiledGraph, compile_graph
 from .graph.synthetic import (
@@ -326,6 +327,7 @@ class KGWAS_Data:
             n_snp, seed=seed)
         return self
 
+    @span("kgwas.data.load_gwas")
     def load_synthetic_gwas(self, seed: int = 42):
         if not self._synthetic:
             raise ValueError("only valid for from_synthetic data")
@@ -339,6 +341,7 @@ class KGWAS_Data:
 
     # -- GWAS sumstats loaders ----------------------------------------------
 
+    @span("kgwas.data.load_gwas")
     def load_external_gwas(self, path=None, seed=42, example_file=False):
         """A sumstats file of any delimiter (sniffed) with CHR, SNP, P and N
         columns; the rows whose SNP is in the KG are kept, in file order.
@@ -375,6 +378,7 @@ class KGWAS_Data:
         self.pheno = "EXTERNAL"
         self.seed = seed
 
+    @span("kgwas.data.load_gwas")
     def load_simulation_gwas(self, simulation_type, seed):
         """The simulation sumstats of the bundle's simulation_gwas/."""
         print_sys("Using simulation data....")
@@ -401,6 +405,7 @@ class KGWAS_Data:
         self.seed = seed
         self.pheno = "simulation"
 
+    @span("kgwas.data.load_gwas")
     def load_full_gwas(self, pheno, seed=42):
         """A full-cohort GWAS: an scDRS trait's column of the scDRS sumstats
         (its rows without a value dropped), or the trait's fastGWA file."""
@@ -433,6 +438,7 @@ class KGWAS_Data:
             self.lr_uni = rename(lr_uni, _GWAS_RENAME)
             self.sample_size = 387113
 
+    @span("kgwas.data.load_gwas")
     def load_gwas_subsample(self, pheno, sample_size, seed):
         """A subsampled-cohort GWAS: fastGWA above 3000 samples, else PLINK
         (logistic for the binary traits), whose columns keep PLINK's
@@ -455,6 +461,7 @@ class KGWAS_Data:
         self.lr_uni = lr_uni
         self.seed = seed
 
+    @span("kgwas.data.load_gwas")
     def load_synthetic_gwas_subsample(self, pheno_seed, sample_size, seed,
                                       ref_n=50_000):
         """Synthetic counterpart of load_gwas_subsample: the trait's
@@ -484,6 +491,7 @@ class KGWAS_Data:
                            "ldscores_from_data.csv")]
         return tuple(read_table(p, sep=",") for p in paths)
 
+    @span("kgwas.data.process_gwas_file")
     def process_gwas_file(self, label: str = "chi"):
         """LDSC weights and the regression label of every sumstats row.
         Adds the columns ld_score, w_ld_score (the data LD score plus 1),
@@ -549,6 +557,7 @@ class KGWAS_Data:
         self.y = y
         self.lr_uni = lr_uni
 
+    @span("kgwas.data.prepare_split")
     def prepare_split(self, test_set_fraction_data: float = 0.05):
         """The JAX package's double split with the run seed: test off all
         SNPs, then val off the remaining train ids, each as scikit-learn's
@@ -578,11 +587,12 @@ class KGWAS_Data:
         """Static-shape compiled graph; node rows padded to a multiple of
         512, the merged layout's tile."""
         if self.compiled is None or force:
-            self.compiled = compile_graph(
-                self.graph,
-                edge_pad_multiple=edge_pad_multiple,
-                node_pad_multiple=node_pad_multiple,
-            )
+            with span("kgwas.data.compile"):
+                self.compiled = compile_graph(
+                    self.graph,
+                    edge_pad_multiple=edge_pad_multiple,
+                    node_pad_multiple=node_pad_multiple,
+                )
         return self.compiled
 
     def get_pheno_list(self):

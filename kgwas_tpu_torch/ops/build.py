@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..engine.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -207,8 +209,9 @@ def library(name: str):
     """The loaded ctypes entry point of one kernel, built if needed."""
     fn = _loaded.get(name)
     if fn is None:
-        build_all([name])
-        fn = _entry(_lib_path(name), KERNELS[name][1], KERNELS[name][2])
+        with span("kgwas.ops.load"):
+            build_all([name])
+            fn = _entry(_lib_path(name), KERNELS[name][1], KERNELS[name][2])
         _loaded[name] = fn
     return fn
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..engine.profiling import span
 from ..stats.clumps import build_clumps, get_meta_clumps
 from ..utils import sort_order
 
@@ -28,6 +29,7 @@ def _ranked_hits(res: dict, p_col: str, t_p: float) -> np.ndarray:
     return np.asarray(res["ID"])[hit][sort_order(p[hit])]
 
 
+@span("kgwas.loci")
 def count_loci(res: dict, p_col: str, sumstats: dict, t_p: float = T_P):
     """The number of independent loci (mega-clumps) of res's hits, the map
     (CHR, SNP, POS) read from the raw sumstats table."""

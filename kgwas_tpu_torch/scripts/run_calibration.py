@@ -32,6 +32,7 @@ import time
 
 import numpy as np
 
+from ..engine.profiling import span, span_seconds, span_totals
 from ..graph.synthetic import make_synthetic_sumstats
 from ..kgwas import KGWAS, resolve_device
 from ..kgwas_data import KGWAS_Data
@@ -48,6 +49,7 @@ def calibration_kg(n_snp: int, out_dir: str) -> KGWAS_Data:
         data_path=os.path.join(out_dir, "kg"))
 
 
+@span("kgwas.calibration.prepare_seed")
 def prepare_seed(data, n_snp, n_causal, seed, **sumstats_kw):
     """The seed's sumstats draw (seed + 10_000) on the fixed KG, through
     process_gwas_file and prepare_split: (sumstats, causal_idx)."""
@@ -65,19 +67,19 @@ def run_seed(data, base_sumstats_kw, arm, seed, args, split=None):
     """One seed of one arm on the fixed KG: its result dict with the JAX
     runner's keys and wall_s. split: a dict that receives the seed's host
     seconds by part (SPLIT_KEYS): the draw with process_gwas_file and
-    prepare_split; model init in two parts ("model": KGWAS and
-    initialize_model; "device_state": train's set-up); the epochs; the
-    tail, and pred.csv's share of it."""
+    prepare_split; model init in two parts ("model": initialize_model;
+    "device_state": train's set-up); the epochs; the tail, and pred.csv's
+    share of it: each its spans' seconds (engine/profiling.span), read
+    from the span table; wall_s is the seed's own clock."""
     t0 = time.perf_counter()
+    since = span_totals()
     n_causal = 0 if arm == "null" else args.n_snp // 20
     sumstats, causal_idx = prepare_seed(data, args.n_snp, n_causal, seed,
                                         **base_sumstats_kw)
-    t_init = time.perf_counter()
 
     run = KGWAS(data, exp_name=f"calib_{arm}_{seed}", seed=seed,
                 device="cpu" if args.cpu else None)
     run.initialize_model(gnn_num_layers=2, gnn_hidden_dim=args.hidden)
-    t_train = time.perf_counter()
     res = run.train(batch_size=args.batch_size, epoch=args.epochs,
                     save_best_model=False)
 
@@ -100,11 +102,14 @@ def run_seed(data, base_sumstats_kw, arm, seed, args, split=None):
         out["n_causal"] = int(n_causal)
     out["wall_s"] = round(time.perf_counter() - t0, 1)
     if split is not None:
-        sec = run.train_seconds
-        split.update(data=t_init - t0,
-                     model=t_train - t_init, device_state=sec["setup"],
-                     epochs=sec["epochs"], tail=sec["tail"],
-                     pred_csv=getattr(run, "pred_csv_seconds", 0.0))
+        split.update(
+            data=span_seconds(since, "kgwas.calibration.prepare_seed"),
+            model=span_seconds(since, "kgwas.model.init"),
+            device_state=span_seconds(since, "kgwas.train.setup"),
+            epochs=span_seconds(since, "kgwas.train.epoch",
+                                "kgwas.train.eval"),
+            tail=span_seconds(since, "kgwas.train.tail"),
+            pred_csv=span_seconds(since, "kgwas.tail.pred_csv"))
     return out
 
 

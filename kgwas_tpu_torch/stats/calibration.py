@@ -1,6 +1,7 @@
 """Storey-Tibshirani binned FDR reweighting + scale-factor calibration.
 
-Counterpart of ``kgwas_tpu/stats/calibration.py`` on numpy and scipy alone.
+Counterpart of ``kgwas_tpu/stats/calibration.py`` on numpy and scipy alone
+(``finalize_predictions`` runs in the port's span kgwas.tail.calibration).
 A table is a column table, ``dict[str, np.ndarray]``. The pandas semantics
 the JAX version relies on are written out here:
 
@@ -18,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 from scipy import interpolate
+
+from ..engine.profiling import span
 
 
 def find_closest_x(df_pred, lower_bound=0, upper_bound=200, tolerance=0.01):
@@ -139,6 +142,7 @@ def storey_tibshirani_integrate(gwas_data, column="pred", num_bins=100):
     return p_weighted
 
 
+@span("kgwas.tail.calibration")
 def finalize_predictions(lr_uni, pred):
     """The KGWAS tail: attach per-SNP predictions, run the 500-bin
     Storey-Tibshirani reweighting on |pred|, calibrate with the

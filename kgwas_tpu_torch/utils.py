@@ -14,6 +14,8 @@ import sys
 
 import numpy as np
 
+from .engine.profiling import span
+
 
 def print_sys(s):
     """stderr logging."""
@@ -150,6 +152,7 @@ def write_columns(cols: list, path: str, sep: str = "\t", names=None):
         f.write("".join(line + "\n" for line in lines))
 
 
+@span("kgwas.tail.write_table")
 def write_table(table: dict, path: str, sep: str = "\t"):
     """Write a column table as text with a header line, columns in order,
     as pandas' ``to_csv(path, sep=sep, index=False)`` writes it

@@ -81,7 +81,9 @@ for GAT sum, GAT max and GCN on the 20k-SNP KG; the graph captured again
 after load_state_dict (the resume path) replays the restored state; a
 step that synchronises with the host cannot be captured and raises (in a
 child process); the capturable Bf16Adam bitwise the host-stepped one it
-replaced.
+replaced. TrainScan's spans (the eager block, the capture, each replay)
+under torch.profiler on the card: as often in the trace as in the span
+table, and none inside the capture.
 """
 import dataclasses
 import importlib
@@ -2161,6 +2163,52 @@ def copy_state(obj):
     if isinstance(obj, list):
         return [copy_state(v) for v in obj]
     return obj
+
+
+def test_scan_spans_on_the_card(cuda_device, scan_world):
+    """TrainScan's spans (engine/profiling.span) under torch.profiler on
+    the card: the eager block, the capture and each replay once a call,
+    as often in the trace as in the span table, each annotation holding
+    the table's seconds; no span opens inside the capture; with no
+    profiler the replays still count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kgwas_tpu_torch.engine.loop import TrainScan
+    from kgwas_tpu_torch.engine.optim import build_optimizer
+    from kgwas_tpu_torch.engine.profiling import reset_spans, span_totals
+
+    world = scan_world
+    model, layouts = _scan_model(world, cuda_device)
+    opt = build_optimizer(model.parameters(), SCAN_LR, 5e-4)
+    scan = TrainScan(model, opt, world.x, layouts, world.y, world.w, SCAN_S)
+    b = world.batches
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(4):
+            scan(b[k * SCAN_S:(k + 1) * SCAN_S])
+        torch.cuda.synchronize()
+    totals = span_totals()
+    names = ("kgwas.scan.eager", "kgwas.scan.capture", "kgwas.scan.replay")
+    assert [totals[n].count for n in names] == [1, 1, 3]
+    ann = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.name().startswith("kgwas.")
+                and e.device_type() == torch.autograd.DeviceType.CPU):
+            ann.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert sorted(ann) == sorted(names)
+    for n in names:
+        assert len(ann[n]) == totals[n].count
+        annotated = sum(e - s for s, e in ann[n]) / 1e9
+        assert 0 <= annotated - totals[n].total_s < 2e-3 * totals[n].count
+    (c0, c1), = ann["kgwas.scan.capture"]
+    assert all(e <= c0 or s >= c1 for n in names if n != "kgwas.scan.capture"
+               for s, e in ann[n])
+    scan(b[:SCAN_S])
+    torch.cuda.synchronize()
+    assert span_totals()["kgwas.scan.replay"].count == 4
+    reset_spans()
 
 
 HOST_SYNC_CAPTURE = """
